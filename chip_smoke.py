@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tggcn_torch's stage-1 serving path on one CUDA card and check it.
+"""Drive tggcn_torch's stage-1 serving and training paths on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -10,33 +10,53 @@ exit and the phase's name if the phase hangs:
   build    the CUDA kernels from tggcn_torch/csrc, with nvcc
   k1       the frame-BiGRU kernel (gru_sequence) against its plain PyTorch
            version at the MPHOI shape T=167, S=6, R=32, h=512
+  k2       the frame-BiGRU backward kernel (gru_sequence_bwd) against its
+           plain version at the same shape, on the same upstream gradient
   k3       the segment-scan kernel (segment_scan_dot) against its plain
            version at T=167, B=8, H=2, O=4, h=512, with random commit
            decisions and masked objects (one batch row has none)
+  k4       the segment-scan backward kernel (segment_scan_dot_bwd) against
+           its plain version on K3's inputs and random upstream gradients
   forward  the 2G-GCN stage-1 forward at the full MPHOI width (hidden 512,
            gcn_node 26, input (2152, 2048), B=8, T=167, 2 humans, 4
            objects) on 3 seeded requests through select_model: finite
-           outputs, both kernels launched, and agreement with the plain
-           path on the card (apply(..., use_kernels=False), which must
-           launch no kernel)
+           outputs, K1 and K3 launched, and agreement with the plain path
+           on the card (apply(..., use_kernels=False), which must launch
+           no kernel)
+  train    the stage-1 train step (forward with train=True, the MPHOI loss
+           bundle, backward through K2 and K4, Adam, BatchNorm write-back)
+           at the same width: one step on the kernel route and one on the
+           plain route from the same weights, compared loss by loss, leaf
+           by leaf (gradients and updated weights); then 3 timed steps on
+           the kernel route, each of which must launch K1-K4
   small    the same model at hidden 24 on the card against the plain path
            on the CPU
 
-The model and requests are tggcn_torch.models.stage1's: the stage-1
-configuration with the human segmentation imposed (as the stage-1 feeder
-does) and the 'st' decision rule for the objects. Weights are random from a
-fixed torch.Generator; inputs come from numpy with --seed.
+The model, requests and batches are tggcn_torch.models.stage1's: the
+stage-1 configuration with the human segmentation imposed (as the stage-1
+feeder does) and the configured 'gs' decision rule for the objects, whose
+Gumbel noise is drawn once per request or batch and handed to both routes.
+Weights are random from a fixed torch.Generator; inputs come from numpy
+with --seed.
 
-Tolerances: each kernel agrees with its plain version within 1e-4 absolute
-(the states lie in (-1, 1); the kernels sum float32 products in another
-order than cuBLAS). Whole forwards agree within rtol 1e-4, atol 1e-4. A hard
-object decision whose soft value lies within 1e-4 of the threshold may
-round the other way in the two paths; such a flip is counted and its batch
-row left out of the comparison, at most one row per request. Any other flip,
-or a second row with flips, fails the run.
+Tolerances: each forward kernel agrees with its plain version within 1e-4
+absolute (the states lie in (-1, 1); the kernels sum float32 products in
+another order than cuBLAS); each backward kernel within 1e-4 of the largest
+value of each output (the carried gradient sums over the sequence). Whole
+forwards agree within rtol 1e-4, atol 1e-4; train-step losses within rtol
+1e-4, each gradient leaf within 1e-3 of its largest value (or of a
+millionth of the model's largest gradient, where a leaf's gradient is
+rounding noise: the softmax makes the GeoGCN s2 bias's exactly 0), each weight
+within one learning rate (Adam's first step moves a weight by lr g / (|g| +
+eps), which saturates at lr, so a gradient within rounding of zero may step
+either way). A hard object decision whose soft value lies within 1e-4 of
+the threshold may round the other way in the two routes; such a flip is
+counted and its batch row left out of the comparison (the train step is
+then run again on both routes without that row), at most one row per
+request or batch. Any other flip, or a second row with flips, fails the run.
 
 The second-to-last line is a JSON object with each kernel's launches on
-the forward phase, error, times and bound; the last line is
+the timed train steps, error, times and bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -58,12 +78,22 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 KERNEL_ATOL = 1e-4
+KERNEL_GRAD_RTOL = 1e-4
 FORWARD_RTOL = FORWARD_ATOL = 1e-4
+LOSS_RTOL = 1e-4
+LEAF_GRAD_RTOL = 1e-3
+GRAD_FLOOR = 1e-6
 MARGINAL = 1e-4
 REQUESTS = 3
+TRAIN_STEPS = 3
+NO_LIBRARY = {
+    "gru": "no single PyTorch call computes it: cuDNN's GRU (torch._VF.gru) recomputes the "
+           "input projection from x and takes one weight set per call, and its backward is "
+           "no call of its own",
+    "scan": "no PyTorch call runs the gated message-passing step or its backward"}
 
-PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k3": 240,
-                 "forward": 300, "small": 180}
+PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k4": 300,
+                 "forward": 300, "train": 420, "small": 180}
 
 
 @contextlib.contextmanager
@@ -142,6 +172,42 @@ def run_k1(torch, dev, shape):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
+def check_grads(name, got, want):
+    """(max abs error, max error relative to each output's largest value)."""
+    err = rel = 0.0
+    for g, w in zip(got, want):
+        e = max_err(g, w)
+        err, rel = max(err, e), max(rel, e / (float(w.abs().max()) or 1.0))
+        if not bool(g.isfinite().all()):
+            raise AssertionError(f"{name}: the kernel's output is not finite")
+    if not rel <= KERNEL_GRAD_RTOL:
+        raise AssertionError(f"{name}: kernel and plain version differ by {rel:.3e} of the "
+                             f"largest gradient (limit {KERNEL_GRAD_RTOL})")
+    return err, rel
+
+
+def run_k2(torch, dev, shape):
+    from tggcn_torch.ops.gru_sequence import (gru_sequence_bwd, gru_sequence_bwd_plain,
+                                              gru_sequence_plain, previous_states)
+
+    t, s, r, h = shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    gi, w_hh, b_hh, h0 = k1_inputs(torch, dev, gen, t, s, r, h)
+    nr = s // 2
+    hprev = previous_states(gru_sequence_plain(gi, w_hh, b_hh, h0, nr), h0, nr)
+    g = torch.randn((t, s, r, h), generator=gen, device=dev)
+    got = gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, nr)
+    want = gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, nr)
+    err, rel = check_grads("gru_sequence_bwd", got, want)
+    ms = cuda_ms(torch, lambda: gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, nr), 5)
+    plain_ms = cuda_ms(torch, lambda: gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, nr), 3)
+    # The recompute of gh and the carry product dgh @ W_hh^T: two products a step.
+    bound_ms, by = bound(nbytes(gi, hprev, g, w_hh, b_hh, *got), 4.0 * t * s * r * h * 3 * h)
+    return dict(name="gru_sequence_bwd", route="cuda", source="tggcn_torch/csrc/gru_sequence_bwd.cu",
+                replaces="tggcn/ops/gru_pallas.py:167", max_abs_err=err, max_rel_err=rel, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
 def k3_inputs(torch, dev, gen, t, b, nh, no, h):
     def u(*shape, bound):
         return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound).contiguous()
@@ -188,13 +254,51 @@ def run_k3(torch, dev, shape):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
-def compare_forward(torch, got, want, what):
-    """Max abs difference of two (outputs, aux) results of one request, the
-    number of marginal object-decision flips and the number of batch rows
-    left out of the comparison for them (at most one)."""
-    (out_g, aux_g), (out_w, aux_w) = got, want
-    hard_g, soft_g = (x.cpu() for x in aux_g["object_decisions"])
-    hard_w, soft_w = (x.cpu() for x in aux_w["object_decisions"])
+def k4_flops(t, b, nh, no, h):
+    e = nh + no
+    per_dir_step = 2 * (b * e * 3 * h * 3 * h                  # recomputed gates (as K3)
+                        + 2 * b * e * e * h                    # recomputed scores, mixing
+                        + b * e * 3 * h * 2 * h                # dmsgs = dgi @ w_msg^T
+                        + b * e * 5 * h * h                    # carry: dgh, dpre products
+                        + 4 * b * e * e * h)                   # attention backward
+    return 2.0 * t * per_dir_step
+
+
+def run_k4(torch, dev, shape):
+    from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, previous_states, segment_scan_dot_bwd,
+                                              segment_scan_dot_bwd_plain, segment_scan_dot_plain)
+
+    t, b, nh, no, h = shape
+    gen = torch.Generator(device=dev).manual_seed(5)
+    args = k3_inputs(torch, dev, gen, t, b, nh, no, h)
+    scale = 1.0 / math.sqrt(h)
+    out_h, out_o, _, m_h, m_o = segment_scan_dot_plain(**args, scale=scale)
+    h0_h, h0_o = args.pop("h0_h"), args.pop("h0_o")
+    del args["b_from"]
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    args.update(hprev_h=previous_states(out_h, h0_h), hprev_o=previous_states(out_o, h0_o),
+                m_h=m_h, m_o=m_o, g_h=randn(2, t, b, nh, h), g_o=randn(2, t, b, no, h),
+                g_att=randn(2, t, b, nh, no))
+    got = segment_scan_dot_bwd(**args, scale=scale)
+    want = segment_scan_dot_bwd_plain(**args, scale=scale)
+    err, rel = check_grads("segment_scan_dot_bwd", [got[k] for k in BWD_OUTPUTS],
+                           [want[k] for k in BWD_OUTPUTS])
+    ms = cuda_ms(torch, lambda: segment_scan_dot_bwd(**args, scale=scale), 5)
+    plain_ms = cuda_ms(torch, lambda: segment_scan_dot_bwd_plain(**args, scale=scale), 2)
+    bound_ms, by = bound(nbytes(*args.values(), *got.values()), k4_flops(t, b, nh, no, h))
+    return dict(name="segment_scan_dot_bwd", route="cuda",
+                source="tggcn_torch/csrc/segment_scan_bwd.cu",
+                replaces="tggcn/ops/segment_scan_pallas.py:546", max_abs_err=err,
+                max_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=None)
+
+
+def decision_rows(torch, aux_g, aux_w, what):
+    """Batch rows whose object decisions agree in both runs (a bool mask),
+    the number of marginal flips and the number of rows left out (at most
+    one); any flip away from the threshold fails."""
+    hard_g, soft_g = (x.detach().cpu() for x in aux_g["object_decisions"])
+    hard_w, soft_w = (x.detach().cpu() for x in aux_w["object_decisions"])
     flips = hard_g != hard_w
     if flips.any():
         margin = torch.maximum((soft_g[flips] - 0.5).abs(), (soft_w[flips] - 0.5).abs())
@@ -204,6 +308,15 @@ def compare_forward(torch, got, want, what):
     dropped = int((~rows).sum())
     if dropped > 1:
         raise AssertionError(f"{what}: {dropped} batch rows have flipped decisions")
+    return rows, int(flips.sum()), dropped
+
+
+def compare_forward(torch, got, want, what):
+    """Max abs difference of two (outputs, aux) results of one request, the
+    number of marginal object-decision flips and the number of batch rows
+    left out of the comparison for them (at most one)."""
+    (out_g, aux_g), (out_w, aux_w) = got, want
+    rows, flips, dropped = decision_rows(torch, aux_g, aux_w, what)
     err = 0.0
     for i, (g, w) in enumerate(zip(out_g, out_w)):
         g, w = g.cpu()[rows], w.cpu()[rows]
@@ -212,53 +325,168 @@ def compare_forward(torch, got, want, what):
         if g.shape != w.shape or not torch.allclose(g, w, rtol=FORWARD_RTOL, atol=FORWARD_ATOL):
             raise AssertionError(f"{what}: output {i} differs by {max_err(g, w):.3e}")
         err = max(err, max_err(g, w))
-    return err, int(flips.sum()), dropped
+    return err, flips, dropped
+
+
+def kernel_wrappers():
+    """The wrapper of each kernel, by name; each counts its launches."""
+    from tggcn_torch.ops.gru_sequence import gru_sequence, gru_sequence_bwd
+    from tggcn_torch.ops.segment_scan import segment_scan_dot, segment_scan_dot_bwd
+
+    return {"gru_sequence": gru_sequence, "gru_sequence_bwd": gru_sequence_bwd,
+            "segment_scan_dot": segment_scan_dot, "segment_scan_dot_bwd": segment_scan_dot_bwd}
+
+
+def reset_launches():
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches():
+    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
 
 
 def run_forward(torch, dev, size, seed):
     from tggcn_torch.models import stage1
     from tggcn_torch.models.registry import select_model
-    from tggcn_torch.ops.gru_sequence import gru_sequence
-    from tggcn_torch.ops.segment_scan import segment_scan_dot
 
     b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
     model = select_model("2G-GCN", device=dev, **stage1.MODEL_KWARGS)
     params = model.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(seed)
     batches = [stage1.make_request(rng, b, t, nh, no) for _ in range(REQUESTS)]
+    # The objects' Gumbel noise of each request, handed to both routes.
+    noises = [{"object": rng.gumbel(size=(b, t, no, 2)).astype(np.float32)}
+              for _ in range(REQUESTS)]
 
-    model.apply(params, **batches[0])           # warm-up: cuBLAS, library loads
+    model.apply(params, noise=noises[0], **batches[0])   # warm-up: cuBLAS, library loads
     torch.cuda.synchronize(dev)
-    gru_sequence.launches = segment_scan_dot.launches = 0
+    reset_launches()
     results, times = [], []
-    for batch in batches:
+    for batch, noise in zip(batches, noises):
         start = time.perf_counter()
-        out = model.apply(params, **batch)
+        out = model.apply(params, noise=noise, **batch)
         torch.cuda.synchronize(dev)
         times.append((time.perf_counter() - start) * 1e3)
         results.append(out)
-    launches = {"gru_sequence": gru_sequence.launches,
-                "segment_scan_dot": segment_scan_dot.launches}
-    if min(launches.values()) < REQUESTS:
+    launches = read_launches()
+    if min(launches["gru_sequence"], launches["segment_scan_dot"]) < REQUESTS:
         raise AssertionError(f"the forward did not go through every kernel: {launches}")
 
     want_shapes = [(b, t, nh), (b, t, nh)] + [(b, 13, t, nh)] * 4
     plain_times, err, flips, dropped = [], 0.0, 0, 0
-    for i, (batch, got) in enumerate(zip(batches, results)):
+    for i, (batch, noise, got) in enumerate(zip(batches, noises, results)):
         if [tuple(o.shape) for o in got[0]] != want_shapes:
             raise AssertionError(f"request {i}: output shapes {[o.shape for o in got[0]]}")
         start = time.perf_counter()
-        want = model.apply(params, use_kernels=False, **batch)
+        want = model.apply(params, use_kernels=False, noise=noise, **batch)
         torch.cuda.synchronize(dev)
         plain_times.append((time.perf_counter() - start) * 1e3)
         e, f, d = compare_forward(torch, got, want, f"request {i}")
         err, flips, dropped = max(err, e), flips + f, dropped + d
-    after = {"gru_sequence": gru_sequence.launches,
-             "segment_scan_dot": segment_scan_dot.launches}
+    after = read_launches()
     if after != launches:
         raise AssertionError(f"the plain path launched kernels: {launches} -> {after}")
     return dict(ms=statistics.median(times), plain_ms=statistics.median(plain_times),
                 max_abs_err=err, flips=flips, dropped_rows=dropped, launches=launches)
+
+
+def tensor_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in tensor_leaves(sub, f"{path}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in tensor_leaves(sub, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def run_train(torch, dev, size, seed):
+    """One train step on each route from the same weights, compared; then
+    TRAIN_STEPS timed steps on the kernel route."""
+    from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
+    from tggcn_torch.models import stage1
+    from tggcn_torch.models.registry import select_model
+    from tggcn_torch.nn.distributions import gumbel_noise
+    from tggcn_torch.train.loop import make_train_step, trainable_parameters
+    from tggcn_torch.train.losses import select_loss
+
+    b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
+    model = select_model("2G-GCN", device=dev, **stage1.MODEL_KWARGS)
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage1.FEEDER_KWARGS)
+    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
+    data, targets = fetch(stage1.make_batch(np.random.default_rng(seed), b, t, nh, no))
+    data = [torch.as_tensor(x, device=dev) for x in data]          # resident, as bench.py
+    targets = [torch.as_tensor(y, device=dev) for y in targets]
+    noise = gumbel_noise((b, t, no, 2), torch.Generator(device=dev).manual_seed(seed))
+
+    def first_step(use_kernels, rows):
+        trainable = {"model": model.init(torch.Generator().manual_seed(0))}
+        optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage1.TRAIN["lr"])
+        step = make_train_step(model, feeder, criterion, optimizer,
+                               clip_gradient_at=stage1.TRAIN["clip"], use_kernels=use_kernels)
+        batch = ([x[rows] for x in data], [y[rows] for y in targets], {"object": noise[rows]})
+        reset_launches()
+        losses, _, aux = step(trainable, *batch[:2], noise=batch[2])
+        torch.cuda.synchronize(dev)
+        return dict(trainable=trainable, step=step, batch=batch, losses=losses, aux=aux,
+                    launches=read_launches())
+
+    rows = torch.ones(b, dtype=torch.bool, device=dev)
+    kern, plain = first_step(True, rows), first_step(False, rows)
+    keep, flips, dropped = decision_rows(torch, kern["aux"], plain["aux"], "train step")
+    if dropped:                          # run both again without the flipped row
+        rows = keep.to(dev)
+        kern, plain = first_step(True, rows), first_step(False, rows)
+        decision_rows(torch, kern["aux"], plain["aux"], "train step without the flipped row")
+    if any(plain["launches"].values()):
+        raise AssertionError(f"the plain route launched kernels: {plain['launches']}")
+    if min(kern["launches"].values()) < 1:
+        raise AssertionError(f"the train step did not go through every kernel: "
+                             f"{kern['launches']}")
+    loss_err = max_err(kern["losses"], plain["losses"])
+    if (not bool(kern["losses"].isfinite().all())
+            or not torch.allclose(kern["losses"], plain["losses"], rtol=LOSS_RTOL, atol=0)):
+        raise AssertionError(f"train step losses differ: {kern['losses'].tolist()} against "
+                             f"{plain['losses'].tolist()}")
+    got, want = tensor_leaves(kern["trainable"]), tensor_leaves(plain["trainable"])
+    floor = GRAD_FLOOR * max(float(w.grad.abs().max()) for w in want.values()
+                             if w.grad is not None)
+    rels, weight_err = {}, 0.0
+    for key, w in want.items():
+        g = got[key]
+        weight_err = max(weight_err, max_err(g.detach(), w.detach()))
+        if w.grad is not None:
+            finite = bool(g.grad.isfinite().all())
+            rels[key] = (max_err(g.grad, w.grad) / max(float(w.grad.abs().max()), floor)
+                         if finite else math.inf)
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
+    print("train step: largest gradient differences (share of each leaf's largest): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst), flush=True)
+    if not worst[0][1] <= LEAF_GRAD_RTOL:
+        raise AssertionError(f"gradients differ beyond {LEAF_GRAD_RTOL}: "
+                             f"{[k for k, v in rels.items() if not v <= LEAF_GRAD_RTOL]}")
+    grad_rel = worst[0][1]
+    if not weight_err <= stage1.TRAIN["lr"]:
+        raise AssertionError(f"updated weights differ by {weight_err:.3e} "
+                             f"(limit one learning rate, {stage1.TRAIN['lr']})")
+
+    times = []
+    reset_launches()
+    for _ in range(TRAIN_STEPS):
+        start = time.perf_counter()
+        losses, _, _ = kern["step"](kern["trainable"], *kern["batch"][:2], noise=kern["batch"][2])
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - start) * 1e3)
+        if not bool(losses.isfinite().all()):
+            raise AssertionError(f"train step losses are not finite: {losses.tolist()}")
+    launches = read_launches()
+    if min(launches.values()) < TRAIN_STEPS:
+        raise AssertionError(f"a timed train step missed a kernel: {launches}")
+    return dict(ms=statistics.median(times), losses=kern["losses"].tolist(), loss_err=loss_err,
+                grad_rel=grad_rel, weight_err=weight_err, flips=flips, dropped_rows=dropped,
+                launches=launches)
 
 
 def run_small(torch, dev, seed):
@@ -270,12 +498,15 @@ def run_small(torch, dev, seed):
     kwargs = dict(stage1.MODEL_KWARGS, hidden_size=24)
     card = select_model("2G-GCN", device=dev, **kwargs)
     cpu = select_model("2G-GCN", device="cpu", **kwargs)
-    batch = stage1.make_request(np.random.default_rng(seed), *size.values())
-    batch.pop("human_segmentation")             # decisions by the 'st' rule for everyone
+    rng = np.random.default_rng(seed)
+    batch = stage1.make_request(rng, *size.values())
+    batch.pop("human_segmentation")             # decisions by the 'gs' rule for everyone
+    noise = {who: rng.gumbel(size=(size["b"], size["t"], size[n], 2)).astype(np.float32)
+             for who, n in (("human", "humans"), ("object", "objects"))}
     # Both inits draw the same numbers: init_tggcn draws on the generator's
     # device (the CPU) and the model moves them to its own.
-    got = card.apply(card.init(torch.Generator().manual_seed(3)), **batch)
-    want = cpu.apply(cpu.init(torch.Generator().manual_seed(3)), **batch)
+    got = card.apply(card.init(torch.Generator().manual_seed(3)), noise=noise, **batch)
+    want = cpu.apply(cpu.init(torch.Generator().manual_seed(3)), noise=noise, **batch)
     return compare_forward(torch, got, want, "hidden-24 card vs CPU")
 
 
@@ -309,30 +540,42 @@ def main(argv=None):
             log = _build.library_path(name).with_suffix(".log")
             if log.exists():
                 print(log.read_text().strip(), flush=True)
-    with phase("k1"):
-        shape, hidden = stage1.SHAPE, stage1.MODEL_KWARGS["hidden_size"]
-        k1 = run_k1(torch, dev, (shape["t"], 6, shape["b"] * shape["objects"], hidden))
-        print(f"k1 {json.dumps(k1)}", flush=True)
-    with phase("k3"):
-        k3 = run_k3(torch, dev, (*(shape[k] for k in ("t", "b", "humans", "objects")), hidden))
-        print(f"k3 {json.dumps(k3)}", flush=True)
+    shape, hidden = stage1.SHAPE, stage1.MODEL_KWARGS["hidden_size"]
+    gru_shape = (shape["t"], 6, shape["b"] * shape["objects"], hidden)
+    scan_shape = (*(shape[k] for k in ("t", "b", "humans", "objects")), hidden)
+    kernels = []
+    for name, run, at in (("k1", run_k1, gru_shape), ("k2", run_k2, gru_shape),
+                          ("k3", run_k3, scan_shape), ("k4", run_k4, scan_shape)):
+        with phase(name):
+            kernels.append(run(torch, dev, at))
+            print(f"{name} {json.dumps(kernels[-1])}", flush=True)
     with phase("forward"):
         fwd = run_forward(torch, dev, shape, args.seed)
         print(f"forward ms per request {fwd['ms']:.3f} (plain path {fwd['plain_ms']:.3f}), "
               f"max abs err vs plain {fwd['max_abs_err']:.3e}, marginal decision flips "
               f"{fwd['flips']} (batch rows left out {fwd['dropped_rows']}), launches "
               f"{json.dumps(fwd['launches'])} over {REQUESTS} requests", flush=True)
-        for k in (k1, k3):
-            per_request = fwd["launches"][k["name"]] / REQUESTS
-            print(f"kernel {k['name']}: kernel_ms {k['ms']:.3f} plain_ms {k['plain_ms']:.3f} "
-                  f"bound_ms {k['bound_ms']:.3f} ({k['bound_by']}) launches per request "
-                  f"{per_request:g}", flush=True)
+    with phase("train"):
+        train = run_train(torch, dev, shape, args.seed)
+        print(f"train step ms {train['ms']:.3f} (median of {TRAIN_STEPS} on the kernel route), "
+              f"losses {json.dumps(train['losses'])}, kernel vs plain route: losses "
+              f"{train['loss_err']:.3e}, gradients {train['grad_rel']:.3e} of each leaf's "
+              f"largest, weights {train['weight_err']:.3e}; marginal decision flips "
+              f"{train['flips']} (batch rows left out {train['dropped_rows']}); launches "
+              f"{json.dumps(train['launches'])} over {TRAIN_STEPS} steps", flush=True)
+    for k in kernels:
+        k["launches"] = train["launches"][k["name"]]
+        print(f"kernel {k['name']}: kernel_ms {k['ms']:.3f} plain_ms {k['plain_ms']:.3f} "
+              f"bound_ms {k['bound_ms']:.3f} ({k['bound_by']}) launches per train step "
+              f"{k['launches'] / TRAIN_STEPS:g}, per request "
+              f"{fwd['launches'][k['name']] / REQUESTS:g}; library_ms none: "
+              f"{NO_LIBRARY['gru' if k['name'].startswith('gru') else 'scan']}",
+              flush=True)
     with phase("small"):
         err, flips, dropped = run_small(torch, dev, args.seed)
         print(f"hidden-24 card vs CPU: max abs err {err:.3e}, marginal flips {flips} "
               f"(batch rows left out {dropped})", flush=True)
 
-    kernels = [{**k, "launches": fwd["launches"][k["name"]]} for k in (k1, k3)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))

@@ -4,7 +4,11 @@ Run on a host with an NVIDIA Hopper card and nvcc:
     python -m pytest tests/test_torch_cuda.py -q
 Skipped where there is no CUDA device. The kernels build at first use.
 Tolerance 1e-5 absolute at these small shapes (float32 sums in another
-order than cuBLAS).
+order than cuBLAS); the backward kernels 1e-5 relative to the largest
+gradient of each output (their carries add up over the sequence); a whole
+train step on the kernel route against the plain route: losses rtol 1e-5,
+each gradient leaf 1e-4 of its largest value (or of a millionth of the
+model's largest gradient, where the leaf's gradient is analytically 0).
 """
 
 import math
@@ -13,8 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from tggcn_torch.ops.gru_sequence import gru_sequence, gru_sequence_plain
-from tggcn_torch.ops.segment_scan import segment_scan_dot, segment_scan_dot_plain
+from tggcn_torch.ops.gru_sequence import (gru_sequence, gru_sequence_bwd,
+                                          gru_sequence_bwd_plain, gru_sequence_plain,
+                                          previous_states)
+from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, previous_states as seg_previous,
+                                          segment_scan_dot, segment_scan_dot_bwd,
+                                          segment_scan_dot_bwd_plain, segment_scan_dot_plain)
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-5
@@ -41,8 +49,51 @@ def test_gru_sequence_kernel(cuda, h):
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
 
+def _close_rel(got, want, what):
+    scale = float(want.abs().max()) or 1.0
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * scale, f"{what}: {err:.3e} against a largest value of {scale:.3e}"
+
+
+@pytest.mark.parametrize("h", [8, 24, 132])
+def test_gru_sequence_bwd_kernel(cuda, h):
+    rng = np.random.default_rng(h + 1)
+    t, s, r = 9, 4, 20
+    gi, w_hh, b_hh, h0, g = [torch.tensor(a, dtype=torch.float32, device=cuda) for a in (
+        rng.normal(size=(t, s, r, 3 * h)), rng.uniform(-0.3, 0.3, size=(s, h, 3 * h)),
+        rng.uniform(-0.3, 0.3, size=(s, 3 * h)), rng.normal(size=(s, r, h)),
+        rng.normal(size=(t, s, r, h)))]
+    hprev = previous_states(gru_sequence_plain(gi, w_hh, b_hh, h0, 2), h0, 2)
+    before = gru_sequence_bwd.launches
+    got = gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, num_reverse=2)
+    assert gru_sequence_bwd.launches == before + 1
+    want = gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, num_reverse=2)
+    for name, g_, w_ in zip(("dgi", "dgh", "dh0"), got, want):
+        _close_rel(g_, w_, name)
+
+
 @pytest.mark.parametrize("nh,no,h", [(2, 4, 8), (1, 3, 24), (3, 5, 36)])
-def test_segment_scan_kernel(cuda, nh, no, h):
+def test_segment_scan_bwd_kernel(cuda, nh, no, h):
+    args = _segment_args(cuda, nh, no, h)
+    rng = np.random.default_rng(nh + h)
+    t, b = args["gi_h"].shape[1:3]
+    out_h, out_o, _, m_h, m_o = segment_scan_dot_plain(**args, scale=1 / math.sqrt(h))
+    up = [torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
+          for shape in ((2, t, b, nh, h), (2, t, b, no, h), (2, t, b, nh, no))]
+    bwd_args = {k: v for k, v in args.items() if not k.startswith(("h0", "b_from"))}
+    streamed = dict(hprev_h=seg_previous(out_h, args["h0_h"]),
+                    hprev_o=seg_previous(out_o, args["h0_o"]), m_h=m_h, m_o=m_o,
+                    g_h=up[0], g_o=up[1], g_att=up[2])
+    before = segment_scan_dot_bwd.launches
+    got = segment_scan_dot_bwd(**bwd_args, **streamed, scale=1 / math.sqrt(h))
+    assert segment_scan_dot_bwd.launches == before + 1
+    want = segment_scan_dot_bwd_plain(**bwd_args, **streamed, scale=1 / math.sqrt(h))
+    for name in BWD_OUTPUTS:
+        assert torch.isfinite(got[name]).all(), name
+        _close_rel(got[name], want[name], name)
+
+
+def _segment_args(cuda, nh, no, h):
     rng = np.random.default_rng(nh * 100 + h)
     t, b = 7, 5
     w = lambda *shape: rng.uniform(-1 / math.sqrt(h), 1 / math.sqrt(h), size=shape)
@@ -55,8 +106,48 @@ def test_segment_scan_kernel(cuda, nh, no, h):
         w_msg_o=w(2, 2 * h, 3 * h), w_hh_h=w(2, h, 3 * h), w_hh_o=w(2, h, 3 * h),
         b_hh_h=w(2, 3 * h), b_hh_o=w(2, 3 * h), obj_mask=mask,
         h0_h=rng.normal(size=(2, b, nh, h)), h0_o=rng.normal(size=(2, b, no, h)))
-    args = {k: torch.tensor(np.asarray(v, np.float32), device=cuda) for k, v in arrays.items()}
+    return {k: torch.tensor(np.asarray(v, np.float32), device=cuda) for k, v in arrays.items()}
+
+
+@pytest.mark.parametrize("nh,no,h", [(2, 4, 8), (1, 3, 24), (3, 5, 36)])
+def test_segment_scan_kernel(cuda, nh, no, h):
+    args = _segment_args(cuda, nh, no, h)
     got = segment_scan_dot(**args, scale=1 / math.sqrt(h))
     want = segment_scan_dot_plain(**args, scale=1 / math.sqrt(h))
+    assert len(got) == len(want) == 5
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=ATOL)
+
+
+def test_train_step_kernel_route(cuda):
+    """One stage-1 train step at hidden 24 on the kernel route (K1-K4 each
+    launched once) against the plain route from the same weights and noise."""
+    from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
+    from tggcn_torch.models import stage1
+    from tggcn_torch.models.registry import select_model
+    from tggcn_torch.train.loop import make_train_step, model_parameters, trainable_parameters
+    from tggcn_torch.train.losses import select_loss
+
+    model = select_model("2G-GCN", device=cuda, **dict(stage1.MODEL_KWARGS, hidden_size=24))
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage1.FEEDER_KWARGS)
+    rng = np.random.default_rng(8)
+    data, targets = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")(
+        stage1.make_batch(rng, 2, 6, 2, 3))
+    noise = {"object": rng.gumbel(size=(2, 6, 3, 2)).astype(np.float32)}
+    wrappers = [gru_sequence, gru_sequence_bwd, segment_scan_dot, segment_scan_dot_bwd]
+    results = []
+    for use_kernels in (True, False):
+        trainable = {"model": model.init(torch.Generator().manual_seed(9))}
+        optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage1.TRAIN["lr"])
+        step = make_train_step(model, feeder, criterion, optimizer, use_kernels=use_kernels)
+        before = [w.launches for w in wrappers]
+        losses, _, _ = step(trainable, data, targets, noise=noise)
+        launched = [w.launches - b for w, b in zip(wrappers, before)]
+        assert launched == ([1] * 4 if use_kernels else [0] * 4)
+        results.append((losses, [p.grad for p in model_parameters(trainable["model"])]))
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads_p)
+    for g_k, g_p in zip(grads_k, grads_p):
+        assert float((g_k - g_p).abs().max()) <= 1e-4 * max(float(g_p.abs().max()), floor)

@@ -4,7 +4,10 @@
 * tggcn_torch imports with jax made unimportable.
 * Entry points run on CUDA unless asked for the CPU, and raise without it.
 * A kernel wrapper runs its plain version only for CPU tensors; for any
-  other device it launches its kernel or raises.
+  other device it launches its kernel or raises. Outside its autograd
+  Function, on tensors that require grad, it raises.
+* The plain route (use_kernels=False) calls no kernel wrapper, forward or
+  backward.
 * Configurations outside the slice raise NotImplementedError.
 * chip_smoke.py fails, printing no result, without a CUDA device.
 """
@@ -21,7 +24,9 @@ import pytest
 import torch
 
 from tggcn_torch.models.registry import select_model
-from tggcn_torch.models.tggcn import TGGCNConfig, check_slice
+from tggcn_torch.models.tggcn import TGGCNConfig, apply_tggcn, check_slice
+import tggcn_torch.ops.gru_sequence as gru_ops
+import tggcn_torch.ops.segment_scan as scan_ops
 from tggcn_torch.ops import _build
 from tggcn_torch.ops.gru_sequence import gru_sequence
 from tggcn_torch.ops.segment_scan import segment_scan_dot
@@ -29,6 +34,8 @@ from tggcn_torch.runtime import resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tggcn_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+KERNEL_WRAPPERS = [(gru_ops, "gru_sequence"), (gru_ops, "gru_sequence_bwd"),
+                   (scan_ops, "segment_scan_dot"), (scan_ops, "segment_scan_dot_bwd")]
 STAGE1 = dict(input_size=(2152, 2048), num_classes=(13, None), hidden_size=8,
               message_segment=True, message_type="v2", message_granularity="v1",
               message_aggregation="att", attention_style="v3",
@@ -54,6 +61,8 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['tggcn'] = None\n"
             "import tggcn_torch.models.registry, tggcn_torch.compat.weights\n"
             "import tggcn_torch.ops.gru_sequence, tggcn_torch.ops.segment_scan\n"
+            "import tggcn_torch.train.loop, tggcn_torch.train.losses\n"
+            "import tggcn_torch.data.feeders\n"
             "print('ok')")
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
@@ -122,7 +131,8 @@ def test_library_path_follows_sources():
 @pytest.mark.parametrize("change", [
     {"message_type": "relational"}, {"message_granularity": "specific"},
     {"message_aggregation": "mp"}, {"attention_style": "v1"}, {"attention_style": "v4"},
-    {"discrete_optimization_strategy": "gs"}, {"object_segment_update_strategy": "sah"},
+    {"gs_noise": "frame_indexed"}, {"filter_discrete_updates": True},
+    {"object_segment_update_strategy": "sah"},
     {"add_time_position": True}, {"compute_dtype": "bfloat16"}, {"message_segment": False},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_outside_the_slice_raises(change):
@@ -131,14 +141,18 @@ def test_outside_the_slice_raises(change):
 
 
 def test_training_and_distances_raise():
+    """Training is in the slice in float32; a bfloat16 train call and
+    distance-based attention raise."""
     model = select_model("2G-GCN", device="cpu", **STAGE1)
     params = model.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     batch = dict(x_human=rng.normal(size=(1, 2, 2, 2152)).astype(np.float32),
                  x_objects=rng.normal(size=(1, 2, 2, 2048)).astype(np.float32),
                  objects_mask=np.ones((1, 2), np.float32))
-    with pytest.raises(NotImplementedError):
-        model.apply(params, train=True, **batch)
+    bf16 = TGGCNConfig.from_kwargs(**STAGE1, compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        apply_tggcn(params, bf16, train=True,
+                    **{k: torch.tensor(v) for k, v in batch.items()})
     with pytest.raises(NotImplementedError):
         model.apply(params, human_object_distances=np.ones((1, 2, 2, 2), np.float32), **batch)
 
@@ -182,8 +196,8 @@ def test_plain_route_calls_no_kernel_wrapper(monkeypatch):
     """apply(..., use_kernels=False) reaches the kernels' plain versions
     directly, however the wrappers are bound, and computes what the
     wrapper route computes."""
-    import tggcn_torch.models.tggcn as model_mod
-    import tggcn_torch.nn.gru as gru_mod
+    import tggcn_torch.ops.gru_sequence as gru_mod
+    import tggcn_torch.ops.segment_scan as scan_mod
     from tggcn_torch.models import stage1
 
     model = select_model("2G-GCN", device="cpu", **dict(stage1.MODEL_KWARGS, hidden_size=8))
@@ -194,8 +208,8 @@ def test_plain_route_calls_no_kernel_wrapper(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a kernel wrapper was called on the plain route")
 
-    monkeypatch.setattr(gru_mod, "gru_sequence", refuse)
-    monkeypatch.setattr(model_mod, "segment_scan_dot", refuse)
+    for mod, name in KERNEL_WRAPPERS:
+        monkeypatch.setattr(mod, name, refuse)
     got, _ = model.apply(params, use_kernels=False, **batch)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
@@ -231,3 +245,75 @@ def test_chip_smoke_drops_at_most_one_row(flipped_rows, margin, dropped):
     else:
         err, flips, n = chip_smoke.compare_forward(torch, got, want, "request")
         assert (err, flips, n) == (0.0, len(flipped_rows), dropped)
+
+
+def _seg_args(requires_grad):
+    t, b, nh, no, h = 2, 1, 1, 2, 4
+    shapes = dict(gi_h=(2, t, b, nh, 3 * h), gi_o=(2, t, b, no, 3 * h), u_h=(t, b, nh),
+                  u_o=(t, b, no), w_from=(4, h, h), b_from=(4, h), w_msg_h=(2, 2 * h, 3 * h),
+                  w_msg_o=(2, 2 * h, 3 * h), w_hh_h=(2, h, 3 * h), w_hh_o=(2, h, 3 * h),
+                  b_hh_h=(2, 3 * h), b_hh_o=(2, 3 * h), obj_mask=(b, no))
+    args = {k: torch.zeros(v, requires_grad=requires_grad and k == "w_from")
+            for k, v in shapes.items()}
+    streamed = dict(hprev_h=torch.zeros(2, t, b, nh, h), hprev_o=torch.zeros(2, t, b, no, h),
+                    m_h=torch.zeros(2, t, b, nh, 2 * h), m_o=torch.zeros(2, t, b, no, 2 * h),
+                    g_h=torch.zeros(2, t, b, nh, h), g_o=torch.zeros(2, t, b, no, h),
+                    g_att=torch.zeros(2, t, b, nh, no))
+    h0 = dict(h0_h=torch.zeros(2, b, nh, h), h0_o=torch.zeros(2, b, no, h))
+    return args, streamed, h0
+
+
+@pytest.mark.parametrize("wrapper", [name for _, name in KERNEL_WRAPPERS])
+def test_wrapper_outside_its_function_raises(wrapper):
+    """A kernel wrapper given a tensor that requires grad, with grad mode on,
+    raises instead of returning an output without autograd history; under
+    no_grad, and through the autograd Function, it runs."""
+    gi, w_hh, b_hh, h0 = _gru_args("cpu")
+    hprev = g = torch.zeros(gi.shape[:-1] + (gi.shape[-1] // 3,))
+    seg, streamed, seg_h0 = _seg_args(requires_grad=True)
+    calls = {"gru_sequence": lambda: gru_ops.gru_sequence(gi, w_hh, b_hh, h0),
+             "gru_sequence_bwd": lambda: gru_ops.gru_sequence_bwd(gi, hprev, g, w_hh, b_hh),
+             "segment_scan_dot": lambda: scan_ops.segment_scan_dot(**seg, **seg_h0, scale=1.0),
+             "segment_scan_dot_bwd": lambda: scan_ops.segment_scan_dot_bwd(
+                 **{k: v for k, v in seg.items() if k != "b_from"}, **streamed, scale=1.0)}
+    w_hh.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="autograd Function"):
+        calls[wrapper]()
+    with torch.no_grad():
+        calls[wrapper]()
+    out = gru_ops.gru_sequence_autograd(gi, w_hh, b_hh, h0)
+    out.sum().backward()
+    assert w_hh.grad is not None
+    h_h, _, _ = scan_ops.segment_scan_dot_autograd(**seg, **seg_h0, scale=1.0)
+    h_h.sum().backward()
+    assert seg["w_from"].grad is not None
+
+
+def test_plain_train_step_launches_nothing(monkeypatch):
+    """A train step on the plain route (use_kernels=False) reaches no kernel
+    wrapper, forward or backward, and moves no launch counter."""
+    from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
+    from tggcn_torch.models import stage1
+    from tggcn_torch.train.loop import make_train_step, trainable_parameters
+    from tggcn_torch.train.losses import select_loss
+
+    model = select_model("2G-GCN", device="cpu", **dict(stage1.MODEL_KWARGS, hidden_size=8))
+    trainable = {"model": model.init(torch.Generator().manual_seed(0))}
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
+    optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage1.TRAIN["lr"])
+    step = make_train_step(model, select_model_data_feeder("2G-GCN", "multiple",
+                                                           **stage1.FEEDER_KWARGS),
+                           criterion, optimizer, use_kernels=False)
+    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
+    data, targets = fetch(stage1.make_batch(np.random.default_rng(0), 2, 4, 2, 3))
+    counts = [getattr(mod, name).launches for mod, name in KERNEL_WRAPPERS]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel wrapper was called on the plain route")
+
+    for mod, name in KERNEL_WRAPPERS:
+        monkeypatch.setattr(mod, name, refuse)
+    losses, _, _ = step(trainable, data, targets)
+    assert torch.isfinite(losses).all()
+    monkeypatch.undo()
+    assert [getattr(mod, name).launches for mod, name in KERNEL_WRAPPERS] == counts

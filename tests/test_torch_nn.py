@@ -1,4 +1,5 @@
-"""The port's plain layers against their tggcn counterparts on the CPU.
+"""The port's plain layers against their tggcn counterparts on the CPU,
+forward and, for the decision estimators, backward.
 
 Same inputs and weights (numpy, from a seed; JAX weights carried over with
 params_from_numpy) into both. Tolerance rtol 1e-5, atol 1e-6: both sides
@@ -135,8 +136,56 @@ def test_reorder_hidden_states():
 
 
 def test_straight_through_decisions():
-    x = torch.tensor([0.2, 0.5, 0.50001, 0.9])
+    """Hard thresholds forward; the straight-through gradient is the identity."""
+    x = torch.tensor([0.2, 0.5, 0.50001, 0.9], requires_grad=True)
     hard, soft = discrete_estimator(x, "st", threshold=0.5)
     assert hard.tolist() == [0.0, 0.0, 1.0, 1.0] and soft is x
-    with pytest.raises(NotImplementedError):
+    (hard * torch.tensor([1.0, 2.0, 3.0, 4.0])).sum().backward()
+    assert x.grad.tolist() == [1.0, 2.0, 3.0, 4.0]
+    with pytest.raises(ValueError, match="noise or a generator"):
         discrete_estimator(x, "gs")
+
+
+def test_gumbel_sigmoid_matches_jax():
+    """'gs' with the noise JAX drew: hard, soft and the gradient of a
+    weighted sum of both agree with jax.grad."""
+    from tggcn.nn.distributions import discrete_estimator as jax_estimator
+
+    rng = np.random.default_rng(5)
+    p = rng.uniform(0.05, 0.95, size=(2, 6, 3, 1)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    noise = np.asarray(jax.random.gumbel(key, (2, 6, 3, 2), dtype=jnp.float32))
+    w_hard, w_soft = (rng.normal(size=p.shape).astype(np.float32) for _ in range(2))
+
+    def jax_obj(x):
+        hard, soft = jax_estimator(x, "gs", threshold=0.5, key=key)
+        return jnp.sum(hard * w_hard + soft * w_soft), (hard, soft)
+
+    (_, (want_hard, want_soft)), want_grad = jax.value_and_grad(jax_obj, has_aux=True)(p)
+    x = torch.tensor(p, requires_grad=True)
+    hard, soft = discrete_estimator(x, "gs", threshold=0.5, noise=torch.tensor(noise))
+    (hard * torch.tensor(w_hard) + soft * torch.tensor(w_soft)).sum().backward()
+    np.testing.assert_array_equal(hard.detach().numpy(), np.asarray(want_hard))
+    close(soft.detach(), want_soft)
+    close(x.grad, want_grad)
+    # Drawn from a generator instead: hard decisions are 0/1 and the draw is seeded.
+    gen = lambda: torch.Generator().manual_seed(3)
+    h1, s1 = discrete_estimator(x.detach(), "gs", generator=gen())
+    h2, s2 = discrete_estimator(x.detach(), "gs", generator=gen())
+    assert torch.equal(h1, h2) and torch.equal(s1, s2)
+    assert set(h1.unique().tolist()) <= {0.0, 1.0}
+
+
+def test_batchnorm_training_matches_jax():
+    """Training statistics: batch-normalised output (biased variance) and the
+    running state moved toward the batch mean and unbiased variance."""
+    rng = np.random.default_rng(6)
+    bn = {"params": {"scale": rng.normal(size=(5, 4)), "bias": rng.normal(size=(5, 4))},
+          "state": {"mean": rng.normal(size=(5, 4)), "var": rng.uniform(0.5, 2, size=(5, 4))}}
+    x = (rng.normal(size=(2, 3, 5, 4)) * 3 + 1).astype(np.float32)
+    want, want_state = jax_batchnorm(jax.tree_util.tree_map(jnp.float32, bn), x, (0, 1),
+                                     train=True)
+    got, state = apply_batchnorm(params_from_numpy(bn), torch.tensor(x), (0, 1), train=True)
+    close(got, want)
+    for k in ("mean", "var"):
+        close(state[k], want_state[k])

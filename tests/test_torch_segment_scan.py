@@ -1,22 +1,31 @@
-"""K3 of the port: the plain version of tggcn_torch's segment_scan_dot
-against the JAX Pallas segment kernel (mode 'dot') run in interpret mode,
-one direction at a time.
+"""K3 and K4 of the port: the plain versions of tggcn_torch's
+segment_scan_dot and its backward against the JAX Pallas segment kernel
+(mode 'dot') and its hand-written custom VJP (``_seg_dir``), run in
+interpret mode, one direction at a time.
 
 Random commit decisions (so the (1 - u) h_prev branch runs), a partly
 masked object row and a row with every object masked; with one human the
-h2h attention row is fully masked too. Tolerance rtol 1e-5, atol 1e-6.
+h2h attention row is fully masked too. Tolerance rtol 1e-5, atol 1e-6 for
+the forward; rtol 1e-4, atol 1e-5 for the gradients, whose carry sums over
+the sequence (tests/test_segment_scan_pallas.py holds the Pallas backward
+to rtol 2e-4). The float64 gradcheck uses torch's default tolerances.
 """
 
 import math
 
+import jax
 import numpy as np
 import pytest
 import torch
 
-from tggcn.ops.segment_scan_pallas import _seg_dir_pallas
-from tggcn_torch.ops.segment_scan import segment_scan_dot
+from tggcn.ops.segment_scan_pallas import _seg_dir, _seg_dir_pallas
+from tggcn_torch.ops.segment_scan import segment_scan_dot, segment_scan_dot_autograd
 
 RTOL, ATOL = 1e-5, 1e-6
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+# The differentiable inputs, in segment_scan_dot's order (obj_mask is not one).
+DIFFERENTIABLE = ("gi_h", "gi_o", "u_h", "u_o", "w_from", "b_from", "w_msg_h", "w_msg_o",
+                  "w_hh_h", "w_hh_o", "b_hh_h", "b_hh_o", "h0_h", "h0_o")
 
 
 def _inputs(t, b, nh, no, h, seed):
@@ -44,7 +53,7 @@ def test_segment_scan_matches_pallas(nh, style):
     t, b, no, h = 6, 3, 3, 8
     a = _inputs(t, b, nh, no, h, seed=nh)
     scale = 1.0 / math.sqrt(h) if style == "v3" else 1.0
-    got_h, got_o, got_att = segment_scan_dot(**{k: torch.tensor(v) for k, v in a.items()},
+    got_h, got_o, got_att, _, _ = segment_scan_dot(**{k: torch.tensor(v) for k, v in a.items()},
                                              scale=scale)
     for d, reverse in ((0, False), (1, True)):
         want_h, want_o, want_att = _seg_dir_pallas(
@@ -60,3 +69,71 @@ def test_segment_scan_matches_pallas(nh, style):
     # The batch row with every object masked attends to no object.
     assert not got_att[:, :, -1].any()
     assert torch.isfinite(got_h).all() and torch.isfinite(got_o).all()
+
+
+def _jax_vjp(a, nh, no, scale, g_h, g_o, g_att):
+    """Gradients of both directions through _seg_dir's Pallas VJP, summed
+    into the port's layout (direction-stacked leaves, shared u and w_from)."""
+    want = {k: np.zeros_like(a[k]) for k in DIFFERENTIABLE}
+    for d, reverse in ((0, False), (1, True)):
+        args = [a["gi_h"][d], a["gi_o"][d], a["u_h"], a["u_o"], a["w_from"], a["b_from"],
+                a["w_msg_h"][d], a["w_msg_o"][d], a["w_hh_h"][d], a["w_hh_o"][d],
+                a["b_hh_h"][d], a["b_hh_o"][d], 1.0 - np.eye(nh, dtype=np.float32),
+                a["obj_mask"], 1.0 - np.eye(no, dtype=np.float32), a["h0_h"][d], a["h0_o"][d]]
+        _, vjp = jax.vjp(lambda *x: _seg_dir(scale, reverse, True, False, *x), *args)
+        grads = [np.asarray(x) for x in vjp((g_h[d], g_o[d], g_att[d]))]
+        for k, i in (("gi_h", 0), ("gi_o", 1), ("w_msg_h", 6), ("w_msg_o", 7), ("w_hh_h", 8),
+                     ("w_hh_o", 9), ("b_hh_h", 10), ("b_hh_o", 11), ("h0_h", 15),
+                     ("h0_o", 16)):
+            want[k][d] = grads[i]
+        for k, i in (("u_h", 2), ("u_o", 3), ("w_from", 4), ("b_from", 5)):
+            want[k] += grads[i]
+    return want
+
+
+@pytest.mark.parametrize("nh,g_att_zero", [(2, False), (1, False), (2, True)],
+                         ids=["two_humans", "one_human", "no_attention_gradient"])
+def test_segment_scan_backward_matches_pallas(nh, g_att_zero):
+    """Every gradient of the scan through the autograd Function (K4's plain
+    version) against jax.vjp of the Pallas custom VJP, with soft commit
+    decisions u in (0, 1), a nonzero gradient on the attention output (or
+    none at all), a partly and a fully masked object row, and one human."""
+    t, b, no, h = 5, 3, 3, 8
+    a = _inputs(t, b, nh, no, h, seed=10 + nh)
+    rng = np.random.default_rng(20 + nh)
+    a["u_h"] = rng.uniform(size=a["u_h"].shape).astype(np.float32)
+    a["u_o"] = rng.uniform(size=a["u_o"].shape).astype(np.float32)
+    scale = 1.0 / math.sqrt(h)
+    g_h = rng.normal(size=(2, t, b, nh, h)).astype(np.float32)
+    g_o = rng.normal(size=(2, t, b, no, h)).astype(np.float32)
+    g_att = rng.normal(size=(2, t, b, nh, no)).astype(np.float32) * (0.0 if g_att_zero else 1.0)
+    want = _jax_vjp(a, nh, no, scale, g_h, g_o, g_att)
+    leaves = {k: torch.tensor(v, requires_grad=k in DIFFERENTIABLE) for k, v in a.items()}
+    out_h, out_o, att = segment_scan_dot_autograd(**leaves, scale=scale)
+    if g_att_zero:
+        torch.autograd.backward([out_h, out_o], [torch.tensor(g_h), torch.tensor(g_o)])
+    else:
+        torch.autograd.backward([out_h, out_o, att],
+                                [torch.tensor(g_h), torch.tensor(g_o), torch.tensor(g_att)])
+    for k in DIFFERENTIABLE:
+        got = leaves[k].grad.numpy()
+        assert np.isfinite(got).all(), k
+        np.testing.assert_allclose(got, want[k], rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=k)
+
+
+def test_segment_scan_backward_gradcheck():
+    """The plain backward against finite differences of the plain forward in
+    float64, with a fully masked object row and soft commit decisions."""
+    t, b, nh, no, h = 3, 2, 2, 2, 4
+    a = _inputs(t, b, nh, no, h, seed=30)
+    rng = np.random.default_rng(31)
+    a["u_h"] = rng.uniform(size=a["u_h"].shape)
+    a["u_o"] = rng.uniform(size=a["u_o"].shape)
+    leaves = {k: torch.tensor(v, dtype=torch.float64, requires_grad=k in DIFFERENTIABLE)
+              for k, v in a.items()}
+    names = list(leaves)
+
+    def run(*xs):
+        return segment_scan_dot_autograd(**dict(zip(names, xs)), scale=0.5)
+
+    assert torch.autograd.gradcheck(run, [leaves[k] for k in names])

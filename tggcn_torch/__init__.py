@@ -8,7 +8,10 @@ of it (nor JAX). Layout mirrors it:
     tggcn_torch.nn       plain PyTorch layers (MLP, GRU, GeoGCN, messages)
     tggcn_torch.ops      hand-written CUDA kernels, their ctypes wrappers and
                          their plain PyTorch versions
-    tggcn_torch.models   the 2G-GCN forward and the model registry
+    tggcn_torch.models   the 2G-GCN model (forward and training) and the
+                         model registry
+    tggcn_torch.train    losses, multi-task weighting and the train step
+    tggcn_torch.data     the 2G-GCN batch feeder, fetcher and padding
     tggcn_torch.compat   weight bridges (JAX pytrees, reference state dicts)
 
 Kernels build at first use (``tggcn_torch.ops._build``), never on import.

@@ -2,7 +2,7 @@
 
 The port's parameter trees have the keys of ``tggcn``'s (``params[
 "human_bd_rnn"]["fwd"]["w_hh"]``, ...), so carrying a JAX tree over is a
-map of its leaves (``params_from_numpy``). ``tggcn_params_from_torch_state_dict``
+map of its leaves (``params_from_numpy``, and back: ``params_to_numpy``). ``tggcn_params_from_torch_state_dict``
 is a copy, free of JAX, of ``tggcn/compat/torch_weights.py``'s loader for
 reference-named state dicts (the ``weight::`` blocks of the golden fixtures
 and reference checkpoints).
@@ -24,6 +24,16 @@ def params_from_numpy(tree, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
+
+
+def params_to_numpy(tree):
+    """The inverse of params_from_numpy: a tree of tensors -> the same tree
+    of float32 numpy arrays on the host."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    return tree.detach().to("cpu", torch.float32).numpy()
 
 
 def _t(a):

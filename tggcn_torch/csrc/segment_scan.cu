@@ -9,7 +9,11 @@
 //
 //   A  proj:  m_e = relu(h_src @ w_from[e] + b_from[e]) for the four edges
 //             e = hh, ho (from the human states), oh, oo (from the objects);
-//             blocks own 32 rows x 16 columns of one (direction, edge).
+//             blocks own 32 rows x 16 columns of one (direction, edge). The
+//             messages of every step are kept (m_h = [hh | ho] per human,
+//             m_o = [oh | oo] per object): the backward (K4) takes them as
+//             they were, instead of recomputing them on the far side of a
+//             ReLU kink.
 //   M  mix:   per (batch, direction, column slice): scaled dot scores
 //             between the carried states, the masked softmax over senders
 //             (1 - eye on h2h, the object mask on o2h, both on o2o, finite
@@ -59,12 +63,18 @@ __device__ __forceinline__ const float* prev_state(const float* h0, const float*
   return out + ((size_t)s.d * T + tp) * rows * H;
 }
 
+// Edge e's message row `row` at the step's (d, t): m_h holds the edges
+// hh | ho of each human, m_o the edges oh | oo of each object.
+__device__ __forceinline__ size_t msg_at(Step s, int T, int rows, int row, int e, int H) {
+  return (((size_t)s.d * T + s.t) * rows + row) * 2 * H + (size_t)(e & 1) * H;
+}
+
 __global__ void __launch_bounds__(kThreads)
 proj_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
             const float* __restrict__ out_h, const float* __restrict__ out_o,
             const float* __restrict__ w_from, const float* __restrict__ b_from,
-            float* __restrict__ msg, int T, int B, int NH, int NO, int H,
-            int row_tiles, int step) {
+            float* __restrict__ m_h, float* __restrict__ m_o, int T, int B, int NH, int NO,
+            int H, int row_tiles, int step) {
   const Step s = step_of(step, T);
   const int e = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kTileRows;
@@ -73,7 +83,7 @@ proj_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
   if (row0 >= rows) return;
   const float* x = e < 2 ? prev_state(h0_h, out_h, s, step, T, B * NH, H)
                          : prev_state(h0_o, out_o, s, step, T, B * NO, H);
-  const int max_rows = B * (NH > NO ? NH : NO);
+  float* m = e < 2 ? m_h : m_o;
 
   extern __shared__ __align__(16) unsigned char smem[];
   float acc[4][4][1] = {};
@@ -86,7 +96,7 @@ proj_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
     const int row = row0 + r, col = col0 + c;
     if (row >= rows || col >= H) continue;
     const float v = reduce_partials<1>(smem, 0, r, c) + b_from[(size_t)e * H + col];
-    msg[(((size_t)s.d * 4 + e) * max_rows + row) * H + col] = fmaxf(v, 0.f);
+    m[msg_at(s, T, rows, row, e, H) + col] = fmaxf(v, 0.f);
   }
 }
 
@@ -111,15 +121,14 @@ __device__ void masked_softmax_row(float* a, int first, int n, Mask mask) {
 __global__ void __launch_bounds__(kThreads)
 mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
            const float* __restrict__ out_h, const float* __restrict__ out_o,
-           const float* __restrict__ obj_mask, const float* __restrict__ msg,
-           float* __restrict__ mix_h, float* __restrict__ mix_o,
+           const float* __restrict__ obj_mask, const float* __restrict__ m_h,
+           const float* __restrict__ m_o, float* __restrict__ mix_h, float* __restrict__ mix_o,
            float* __restrict__ att, int T, int B, int NH, int NO, int H,
            float scale, int step) {
   const Step s = step_of(step, T);
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * kMixColumns;
   const int E = NH + NO;
-  const int max_rows = B * (NH > NO ? NH : NO);
   const float* hh = prev_state(h0_h, out_h, s, step, T, B * NH, H) + (size_t)b * NH * H;
   const float* ho = prev_state(h0_o, out_o, s, step, T, B * NO, H) + (size_t)b * NO * H;
 
@@ -160,9 +169,8 @@ mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
       att[((((size_t)s.d * T + s.t) * B + b) * NH + n) * NO + o] = a[n][NH + o];
     }
   }
-  // Edge e's message rows of direction d: msg[d][e][row][:].
   auto m_row = [&](int e, int row) {
-    return msg + (((size_t)s.d * 4 + e) * max_rows + row) * H;
+    return e < 2 ? m_h + msg_at(s, T, B * NH, row, e, H) : m_o + msg_at(s, T, B * NO, row, e, H);
   };
   const int width = min(kMixColumns, 2 * H - c0);
   for (int i = tid; i < E * width; i += kThreads) {
@@ -240,7 +248,7 @@ extern "C" int tggcn_segment_scan_dot_f32(
     const float* w_msg_o, const float* w_hh_h, const float* w_hh_o,
     const float* b_hh_h, const float* b_hh_o, const float* obj_mask,
     const float* h0_h, const float* h0_o, float* out_h, float* out_o,
-    float* att, float* msg, float* mix_h, float* mix_o, int T, int B, int NH,
+    float* att, float* m_h, float* m_o, float* mix_h, float* mix_o, int T, int B, int NH,
     int NO, int H, float scale, void* stream_ptr) {
   const size_t states_bytes = (size_t)(NH + NO) * H * sizeof(float);
   if (NH + NO > kMaxEntities || H % 4 != 0 || states_bytes > 48 * 1024)
@@ -261,10 +269,10 @@ extern "C" int tggcn_segment_scan_dot_f32(
   const dim3 grid_b(col_tiles, 2 * row_tiles, 2);
   for (int step = 0; step < T; ++step) {
     proj_kernel<<<grid_a, kThreads, smem_a, stream>>>(h0_h, h0_o, out_h, out_o, w_from,
-                                                 b_from, msg, T, B, NH, NO, H,
+                                                 b_from, m_h, m_o, T, B, NH, NO, H,
                                                  row_tiles, step);
     mix_kernel<<<grid_m, kThreads, states_bytes, stream>>>(
-        h0_h, h0_o, out_h, out_o, obj_mask, msg, mix_h, mix_o, att, T, B, NH, NO, H,
+        h0_h, h0_o, out_h, out_o, obj_mask, m_h, m_o, mix_h, mix_o, att, T, B, NH, NO, H,
         scale, step);
     cell_kernel<<<grid_b, kThreads, smem_b, stream>>>(
         gi_h, gi_o, u_h, u_o, mix_h, mix_o, w_msg_h, w_msg_o, w_hh_h, w_hh_o,

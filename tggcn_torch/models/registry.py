@@ -1,8 +1,9 @@
 """Model registry: name -> (config, init, apply) on a device.
 
 Counterpart of ``tggcn/models/registry.py:64-69``. ``init(generator)`` makes
-random parameters; ``apply(params, **batch)`` runs the forward on the
-model's device, moving numpy or tensor inputs there. The device is CUDA
+random parameters; ``apply(params, train=..., generator=..., noise=...,
+**batch)`` runs the forward on the model's device, moving numpy or tensor
+inputs there. The device is CUDA
 unless the caller passes ``device="cpu"``.
 """
 
@@ -32,7 +33,7 @@ class ModelDef:
 def select_model(model_name: str, device=None, **model_kwargs) -> ModelDef:
     if model_name != "2G-GCN":
         raise NotImplementedError(
-            f"model {model_name!r}: the stage-1 forward slice of tggcn_torch "
+            f"model {model_name!r}: the stage-1 slice of tggcn_torch "
             "serves '2G-GCN' only")
     dev = resolve_device(device)
     cfg = TGGCNConfig.from_kwargs(**model_kwargs)
@@ -42,13 +43,19 @@ def select_model(model_name: str, device=None, **model_kwargs) -> ModelDef:
         params = init_tggcn(generator, cfg)
         return _to(params, dev)
 
-    @torch.no_grad()
-    def apply(params, **batch):
+    def apply(params, train: bool = False, generator=None, noise=None, **batch):
+        """Serving (train=False) runs under torch.no_grad(); training keeps
+        the autograd graph and returns the new BatchNorm state in aux."""
         batch = {k: (None if v is None else
                      torch.as_tensor(v, dtype=torch.float32, device=dev))
                  if k in _BATCH_TENSORS else v
                  for k, v in batch.items()}
-        return apply_tggcn(params, cfg, **batch)
+        if noise is not None:
+            noise = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                     for k, v in noise.items() if v is not None}
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            return apply_tggcn(params, cfg, train=train, generator=generator, noise=noise,
+                               **batch)
 
     return ModelDef(model_name, cfg, dev, init, apply)
 

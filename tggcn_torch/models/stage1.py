@@ -1,11 +1,13 @@
-"""The stage-1 MPHOI serving configuration of the port, and its requests.
+"""The stage-1 MPHOI configuration of the port, its requests and its batches.
 
 The model is ``conf/models/2G-GCN_stage1.yaml`` with ``conf/data/mphoi.yaml``
-(hidden 512, gcn_node 26, input (2152, 2048)); one request is one batch of
-the ``bench.py`` MPHOI shape: B=8 clips of T=167 frames, 2 humans, 4
-objects. The stage-1 feeder imposes the human segmentation (all ones). The
-objects' decisions use the 'st' threshold: the configured 'gs' rule needs
-Gumbel noise, which the port does not carry yet.
+(hidden 512, gcn_node 26, input (2152, 2048)) and its configured 'gs'
+decision rule; one request or batch has the ``bench.py`` MPHOI shape: B=8
+clips of T=167 frames, 2 humans, 4 objects. The stage-1 feeder imposes the
+human segmentation (all ones), so only the objects draw Gumbel noise.
+``TRAIN`` is the yaml's optimisation and misc blocks: Adam at lr 1e-4, no
+clipping, and loss weights that leave only the segment-level recognition
+and anticipation losses on (the same weights as ``bench.py``'s empty misc).
 """
 
 import numpy as np
@@ -19,8 +21,20 @@ MODEL_KWARGS = dict(
     message_geometry_to_objects=True, message_geometry_to_human=False,
     message_segment=True, message_type="v2", message_granularity="v1",
     message_aggregation="att", attention_style="v3",
-    discrete_optimization_strategy="st", object_segment_update_strategy="ind",
+    discrete_optimization_strategy="gs", object_segment_update_strategy="ind",
     discrete_networks_num_layers=1, update_segment_threshold=0.5, bias=True)
+
+TRAIN = dict(
+    lr=1e-4, clip=0.0,
+    misc={"anticipation_loss_weight": 1.0,
+          "budget_loss": {"add": False, "human_weight": 1.0, "object_weight": 1.0},
+          "first_level_loss_weight": 0.0, "impose_segmentation_pattern": 1,
+          "input_human_segmentation": False, "input_object_segmentation": False,
+          "make_attention_distance_based": False, "multi_task_loss_learner": False,
+          "segmentation_loss": {"add": False, "pretrain": False, "sigma": 0.0,
+                                "weight": 1.0}})
+
+FEEDER_KWARGS = dict(dataset_name="mphoi", impose_segmentation_pattern=1)
 
 
 def make_request(rng: np.random.Generator, b: int, t: int, humans: int, objects: int) -> dict:
@@ -34,3 +48,19 @@ def make_request(rng: np.random.Generator, b: int, t: int, humans: int, objects:
         objects_mask=mask,
         human_segmentation=np.ones((b, t, humans), np.float32),
         steps_per_example=np.full((b,), float(t), np.float32))
+
+
+def make_batch(rng: np.random.Generator, b: int, t: int, humans: int, objects: int) -> list:
+    """One training batch as ``bench.py`` builds it: the 8 inputs of the
+    2G-GCN fetcher, then the six MPHOI targets (segmentation twice, then
+    sub-activity labels for the frame and segment heads)."""
+    x_human = rng.normal(size=(b, t, humans, 2152)).astype(np.float32)
+    x_objects = rng.normal(size=(b, t, objects, 2048)).astype(np.float32)
+    mask = np.ones((b, objects), dtype=np.float32)
+    steps = np.full((b,), float(t), dtype=np.float32)
+    x_hseg = np.ones((b, t, humans), dtype=np.float32)
+    dummy = np.zeros((b, 1, 1, 1), dtype=np.float32)
+    y_seg = rng.integers(0, 2, size=(b, t, humans)).astype(np.float32)
+    y_rec = rng.integers(0, 13, size=(b, t, humans)).astype(np.int64)
+    return [x_human, x_objects, mask, x_hseg, dummy, dummy, dummy, steps,
+            y_seg, y_seg, y_rec, y_rec, y_rec, y_rec]

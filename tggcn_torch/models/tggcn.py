@@ -1,16 +1,18 @@
-"""TGGCN — the 2G-GCN two-level recurrent HOI model, forward in PyTorch.
+"""TGGCN — the 2G-GCN two-level recurrent HOI model in PyTorch.
 
-Counterpart of ``tggcn/models/tggcn.py:52-808, 834-1046``. This slice serves
-the stage-1 configuration (``conf/models/2G-GCN_stage1.yaml``) forward only,
-in float32: non-relational generic messages on all four entity edges plus
-geometry edges, (scaled) dot attention, independent object decisions, and
-decisions either imposed (stage-1 feeders impose the human segmentation)
-or taken by the straight-through threshold. A configuration outside the
-slice raises NotImplementedError; it never takes another path silently.
+Counterpart of ``tggcn/models/tggcn.py:52-808, 834-1046``. The port covers
+the stage-1 configuration (``conf/models/2G-GCN_stage1.yaml``), forward and
+training, in float32: non-relational generic messages on all four entity
+edges plus geometry edges, (scaled) dot attention, independent object
+decisions, and decisions either imposed (stage-1 feeders impose the human
+segmentation) or taken by the straight-through ('st') or Gumbel-sigmoid
+('gs') estimator. A configuration outside the slice raises
+NotImplementedError; it never takes another path silently.
 
-The frame-level BiGRU runs through the ``gru_sequence`` kernel (K1) and the
-segment scan through the ``segment_scan_dot`` kernel (K3); on the CPU both
-take their plain PyTorch versions.
+The frame-level BiGRU runs through K1 forward and K2 backward
+(``gru_sequence_autograd``), the segment scan through K3 forward and K4
+backward (``segment_scan_dot_autograd``); on the CPU they take their plain
+PyTorch versions.
 """
 
 import math
@@ -25,9 +27,9 @@ from tggcn_torch.nn.gru import init_bigru, init_gru_cell, run_multi_bigru
 from tggcn_torch.nn.messages import compute_message_features
 from tggcn_torch.nn.mlp import apply_mlp, init_mlp
 from tggcn_torch.nn.temporal import reorder_hidden_states
-from tggcn_torch.ops.segment_scan import segment_scan_dot, segment_scan_dot_plain
+from tggcn_torch.ops.segment_scan import segment_scan_dot_autograd
 
-SLICE = "the stage-1 2G-GCN forward slice of tggcn_torch"
+SLICE = "the stage-1 2G-GCN slice of tggcn_torch"
 
 
 @dataclass(frozen=True)
@@ -70,6 +72,10 @@ class TGGCNConfig:
     # node features and is not weight-compatible with 'reference'.
     geometry_flatten: str = "reference"
     compute_dtype: str = "float32"
+    # 'batched' draws the Gumbel noise of a whole clip at once;
+    # 'frame_indexed' (window-independent noise for streaming) is outside
+    # the slice.
+    gs_noise: str = "batched"
 
     @classmethod
     def from_kwargs(cls, **kwargs):
@@ -117,9 +123,10 @@ def check_slice(cfg: TGGCNConfig) -> None:
          "a segment level without all four entity edges")
     need(cfg.object_segment_update_strategy in {"ind", "independent"},
          f"object_segment_update_strategy={cfg.object_segment_update_strategy!r}")
-    need(cfg.discrete_optimization_strategy in {"st", "straight-through"},
-         f"discrete_optimization_strategy={cfg.discrete_optimization_strategy!r} "
-         "(impose the segmentation or use 'st')")
+    need(cfg.discrete_optimization_strategy in {"st", "straight-through",
+                                                "gs", "gumbel-sigmoid"},
+         f"discrete_optimization_strategy={cfg.discrete_optimization_strategy!r}")
+    need(cfg.gs_noise == "batched", f"gs_noise={cfg.gs_noise!r}")
     need(not (cfg.add_time_position or cfg.add_segment_length),
          "time-position and segment-length features")
     need(not (cfg.filter_discrete_updates or cfg.cat_level_states or cfg.share_level_mlps),
@@ -219,18 +226,23 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
                 human_human_distances=None, human_object_distances=None,
                 object_object_distances=None, steps_per_example=None,
                 train: bool = False, inspect_model: bool = False,
-                use_kernels: bool = True):
-    """Forward pass (eval). Returns (outputs list, aux dict), laid out as
+                use_kernels: bool = True, noise: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None):
+    """Forward pass. Returns (outputs list, aux dict), laid out as
     ``tggcn.models.tggcn.apply_tggcn``'s.
 
-    aux holds 'bn_state' (unchanged in eval), 'object_decisions' (hard, soft)
-    (B, T, O) and, with inspect_model, 'attention_scores' [frame,
-    segment-fwd, segment-bwd] each (B, H, T, O). use_kernels=False runs
-    the kernels' plain PyTorch versions on any device, as a reference.
+    aux holds 'bn_state' (the updated BatchNorm statistics when train, else
+    unchanged), 'object_decisions' (hard, soft) (B, T, O) and, with
+    inspect_model, 'attention_scores' [frame, segment-fwd, segment-bwd]
+    each (B, H, T, O). use_kernels=False runs the kernels' plain PyTorch
+    versions, forward and backward, on any device, as a reference.
+
+    The 'gs' decisions take their Gumbel noise from ``noise`` ({'human':
+    (B, T, H, 2), 'object': (B, T, O, 2)}) where it has an entry, else draw
+    it from ``generator`` (default: seed 0 on the inputs' device), which is
+    split into a human and an object source as JAX splits its key.
     """
     check_slice(cfg)
-    if train:
-        raise NotImplementedError(f"training is outside {SLICE}")
     if any(d is not None for d in (human_human_distances, human_object_distances,
                                    object_object_distances)):
         raise NotImplementedError(f"distance-based attention is outside {SLICE}")
@@ -248,7 +260,8 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
             f"width {vw} (expected gcn_node={vw // 4}; use 19 for CAD-120, "
             f"30 for Bimanual, 26 for MPHOI).")
     x_geometry = x_geometry.reshape(b, t, vw // 4, 4)
-    geo_out, bn_state = apply_geo_gcn(params["geometry_embedding_gcn"], x_geometry)
+    geo_out, bn_state = apply_geo_gcn(params["geometry_embedding_gcn"], x_geometry,
+                                      train=train)
     if cfg.geometry_flatten == "per_frame":
         geo_flat = geo_out.reshape(b, t, 1, geo_out.shape[-1] * (vw // 4))
     else:
@@ -290,7 +303,21 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     m_oo, _ = frame_msg("o2o", obj, obj, obj_mask_bt[:, :, None, :], exclude_self=True)
 
     # --- Decisions (vectorised over B, T, E) -------------------------------
-    def decide(name, features, imposed):
+    noise, sources = noise or {}, {}
+    gumbel = cfg.discrete_optimization_strategy in {"gs", "gumbel-sigmoid"}
+
+    def source(who):
+        """The noise source of `who`, drawn only where noise is missing."""
+        if not gumbel or noise.get(who) is not None:
+            return None
+        if not sources:
+            gen = generator or torch.Generator(device=x_human.device).manual_seed(0)
+            seeds = torch.randint(2 ** 62, (2,), generator=gen, device=gen.device).tolist()
+            sources.update((k, torch.Generator(device=gen.device).manual_seed(v))
+                           for k, v in zip(("human", "object"), seeds))
+        return sources[who]
+
+    def decide(name, features, imposed, who):
         if imposed is not None:
             u = imposed.to(x_hum_emb.dtype)
             return u, u
@@ -298,15 +325,16 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
                            activations=["relu"] * (cfg.discrete_networks_num_layers - 1)
                            + ["sigmoid"])
         hard, soft = discrete_estimator(u_soft, strategy=cfg.discrete_optimization_strategy,
-                                        threshold=cfg.update_segment_threshold)
+                                        threshold=cfg.update_segment_threshold,
+                                        noise=noise.get(who), generator=source(who))
         hard = hard[..., 0].clone()
         hard[:, -1, :] = 1.0      # forced commit at the final step (reference :701-702)
         return hard, soft[..., 0]
 
     u_h, u_h_soft = decide("update_human_segment_mlp",
-                           [x_hum_emb, h_hf, m_hh, m_oh, m_sh], human_segmentation)
+                           [x_hum_emb, h_hf, m_hh, m_oh, m_sh], human_segmentation, "human")
     u_o, u_o_soft = decide("update_object_segment_mlp",
-                           [x_obj_emb, h_of, m_ho, m_oo, m_so], objects_segmentation)
+                           [x_obj_emb, h_of, m_ho, m_oo, m_so], objects_segmentation, "object")
 
     # --- Segment-level gated bidirectional scan ----------------------------
     x_hs = torch.cat([x for x in (h_hf, m_hh, m_oh, m_sh) if x is not None], dim=-1)
@@ -349,8 +377,8 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
 def _segment_scan_fast(params, cfg: TGGCNConfig, x_hs, x_os, u_h, u_o, objects_mask,
                        use_kernels: bool = True):
     """Gated bidirectional segment scan for non-relational generic messages
-    with (scaled) dot attention, both directions in one ``segment_scan_dot``
-    call. Returns (hx_hs (B,T,H,2h), hx_os (B,T,O,2h), att fwd, att bwd
+    with (scaled) dot attention, both directions in one
+    ``segment_scan_dot_autograd`` call. Returns (hx_hs (B,T,H,2h), hx_os (B,T,O,2h), att fwd, att bwd
     (B,T,H,O))."""
     b, t, num_humans, base_h = x_hs.shape
     num_objects, base_o = x_os.shape[2], x_os.shape[-1]
@@ -373,8 +401,7 @@ def _segment_scan_fast(params, cfg: TGGCNConfig, x_hs, x_os, u_h, u_o, objects_m
 
     edges = [msg_layer(e) for e in ("h2h", "h2o", "o2h", "o2o")]
     time_major = lambda u: u.permute(1, 0, 2).contiguous()      # (T, B, E)
-    scan = segment_scan_dot if use_kernels else segment_scan_dot_plain
-    h_h, h_o, att = scan(
+    h_h, h_o, att = segment_scan_dot_autograd(
         base_gates(cells_h, x_hs, base_h), base_gates(cells_o, x_os, base_o),
         time_major(u_h), time_major(u_o),
         torch.stack([w for w, _ in edges]), torch.stack([bb for _, bb in edges]),
@@ -384,7 +411,7 @@ def _segment_scan_fast(params, cfg: TGGCNConfig, x_hs, x_os, u_h, u_o, objects_m
         stack(cells_o, lambda c: c.get("b_hh", zeros3)),
         objects_mask.to(x_hs.dtype).contiguous(),
         x_hs.new_zeros((2, b, num_humans, h)), x_hs.new_zeros((2, b, num_objects, h)),
-        scale)
+        scale, use_kernels=use_kernels)
 
     def order(seq):                                            # (2, T, B, E, h) -> (B, T, E, 2h)
         return torch.cat([seq[0], seq[1]], dim=-1).permute(1, 0, 2, 3)

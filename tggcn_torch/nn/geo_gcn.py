@@ -26,9 +26,10 @@ def init_geo_gcn(generator, node_n: int, in_channels: int = 4,
     }
 
 
-def apply_geo_gcn(params: dict, x: torch.Tensor):
-    """x (batch, time, nodes, in_channels) -> ((batch, time, nodes, out), bn_state)."""
-    x, bn_state = apply_batchnorm(params["bn"], x, reduce_axes=(0, 1))
+def apply_geo_gcn(params: dict, x: torch.Tensor, train: bool = False):
+    """x (batch, time, nodes, in_channels) -> ((batch, time, nodes, out), bn_state);
+    train normalises with the batch statistics and updates the running ones."""
+    x, bn_state = apply_batchnorm(params["bn"], x, reduce_axes=(0, 1), train=train)
     h = torch.relu(apply_linear(params["embed1"], x))
     h = torch.relu(apply_linear(params["embed2"], h))            # (B, T, V, 64)
     s1 = apply_linear(params["s1"], h)                            # (B, T, V, 128)

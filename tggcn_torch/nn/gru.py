@@ -3,8 +3,9 @@
 Counterpart of ``tggcn/nn/gru.py:35-161``. Gate math follows torch's GRU:
 gate order r, z, n; ``n = tanh(i_n + r * (h W_hn + b_hn))``;
 ``h' = (1 - z) * n + z * h``. The input projection of the whole sequence is
-one large matmul outside the recurrence; the recurrence itself is the
-``gru_sequence`` kernel (``tggcn_torch/ops/gru_sequence.py``).
+one large matmul outside the recurrence; the recurrence itself runs
+through ``gru_sequence_autograd`` (``tggcn_torch/ops/gru_sequence.py``): the
+K1 kernel forward and the K2 kernel backward.
 """
 
 from typing import Optional, Sequence
@@ -12,7 +13,7 @@ from typing import Optional, Sequence
 import torch
 
 from tggcn_torch.nn.init import fan_in_uniform
-from tggcn_torch.ops.gru_sequence import gru_sequence, gru_sequence_plain
+from tggcn_torch.ops.gru_sequence import gru_sequence_autograd
 
 
 def init_gru_cell(generator, input_size: int, hidden_size: int,
@@ -47,8 +48,9 @@ def run_multi_bigru(params_list: Sequence[dict], xs_list: Sequence[torch.Tensor]
         params_list - per-stream ``{'fwd', 'bwd'}`` GRU params, equal width h.
         xs_list - per-stream inputs (B, T, E_i, F).
         h0_fwd_list - optional per-stream forward initial states (B, E_i, h).
-        use_kernels - False runs the plain PyTorch version of the recurrence
-            on any device (a reference for the kernel).
+        use_kernels - False runs the plain PyTorch versions of the
+            recurrence and its backward on any device (a reference for the
+            kernels).
     Returns:
         Per-stream outputs (B, T, E_i, 2h), forward then backward features.
     """
@@ -77,8 +79,8 @@ def run_multi_bigru(params_list: Sequence[dict], xs_list: Sequence[torch.Tensor]
     h0 = xs.new_zeros((2 * num_streams, r_max, hidden))
     if h0_fwd_list is not None:
         h0[:num_streams] = torch.stack([fold(h[:, None])[:, 0] for h in h0_fwd_list])
-    recurrence = gru_sequence if use_kernels else gru_sequence_plain
-    seq = recurrence(gi, w_hh, b_hh, h0, num_reverse=num_streams)  # (T, 2S, R, h)
+    seq = gru_sequence_autograd(gi, w_hh, b_hh, h0, num_reverse=num_streams,
+                                use_kernels=use_kernels)          # (T, 2S, R, h)
     out = torch.cat([seq[:, :num_streams], seq[:, num_streams:]], dim=-1)
 
     results = []

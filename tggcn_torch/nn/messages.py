@@ -13,7 +13,7 @@ import torch
 
 from tggcn_torch.nn.mlp import apply_mlp
 
-SLICE = "the stage-1 forward slice (non-relational generic messages, dot/scaled-dot attention)"
+SLICE = "the stage-1 slice (non-relational generic messages, dot/scaled-dot attention)"
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -19,10 +19,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("gru_sequence", "segment_scan")
+SOURCES = ("gru_sequence", "gru_sequence_bwd", "segment_scan", "segment_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 300
@@ -101,3 +103,14 @@ def check_launch(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise if a kernel wrapper is called, outside its autograd Function,
+    on tensors that need a gradient: a kernel's output carries no autograd
+    history, so the gradient would be dropped without a word."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f"{what} was called on tensors that require grad outside its "
+            "autograd Function; call its differentiable entry point instead")

@@ -1,4 +1,5 @@
-"""K1: the frame-level GRU over a whole sequence, S streams at once.
+"""K1 and K2: the frame-level GRU over a whole sequence, S streams at once,
+and its backward sweep.
 
 Replaces the TPU kernel ``tggcn/ops/gru_pallas.py::_fwd_kernel`` (launched
 at ``gru_pallas.py:147``). The CUDA kernel is ``csrc/gru_sequence.cu``: one
@@ -16,6 +17,18 @@ Layout (as the JAX kernel's):
   ->    (T, S, R, h)   the state sequence in natural time order
 The last ``num_reverse`` streams run backward in time (t = T-1 .. 0), so a
 BiGRU's two directions run in one call without flipping any tensor.
+
+K2 replaces ``gru_pallas.py::_bwd_kernel`` (launched at ``gru_pallas.py:167``):
+``csrc/gru_sequence_bwd.cu``, two launches per step (the gate backward with
+the recompute of gh from h_prev, then the carry product dgh @ W_hh^T). It
+emits dgi, dgh and dh0; dW_hh and db_hh are reduced outside as one product
+over h_prev x dgh, as the JAX custom VJP does (``gru_pallas.py:214-217``).
+
+``gru_sequence_autograd`` is the differentiable entry point: a
+``torch.autograd.Function`` that runs K1 forward and K2 backward (or, with
+``use_kernels=False`` or on the CPU, their plain versions). The wrappers
+``gru_sequence`` and ``gru_sequence_bwd`` refuse to run on tensors that
+require grad outside it.
 """
 
 import ctypes
@@ -73,6 +86,7 @@ def _check(gi, w_hh, b_hh, h0, num_reverse):
 def gru_sequence(gi, w_hh, b_hh, h0, num_reverse: int = 0):
     """The state sequence (T, S, R, h); CPU tensors take the plain version,
     CUDA tensors the kernel."""
+    _build.refuse_autograd("gru_sequence", gi, w_hh, b_hh, h0)
     if gi.device.type == "cpu":
         return gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse)
     if gi.device.type != "cuda":
@@ -95,3 +109,112 @@ def gru_sequence(gi, w_hh, b_hh, h0, num_reverse: int = 0):
 
 
 gru_sequence.launches = 0
+
+
+def previous_states(out, h0, num_reverse: int = 0):
+    """The state each step read, in natural time order (T, S, R, h): the
+    forward streams read the step before, the reverse streams the step after."""
+    nf = out.shape[1] - num_reverse
+    fwd = torch.cat([h0[None, :nf], out[:-1, :nf]])
+    rev = torch.cat([out[1:, nf:], h0[None, nf:]])
+    return torch.cat([fwd, rev], dim=1).contiguous()
+
+
+def gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, num_reverse: int = 0):
+    """Plain PyTorch version of K2: (dgi, dgh, dh0) by a Python loop that
+    visits time opposite to the forward."""
+    t, s = gi.shape[0], gi.shape[1]
+    nf = s - num_reverse
+    dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
+    w_t = w_hh.transpose(1, 2)
+    dh = hprev.new_zeros(hprev.shape[1:])
+    for i in range(t):
+        tf, tr = t - 1 - i, i
+
+        def at(x):
+            return torch.cat([x[tf, :nf], x[tr, nf:]])
+
+        gi_i, hp = at(gi), at(hprev)
+        dh = dh + at(g)
+        gh = torch.matmul(hp, w_hh) + b_hh[:, None]
+        i_r, i_z, i_n = gi_i.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        dtanh = dh * (1.0 - z) * (1.0 - n * n)
+        d_ir = dtanh * h_n * r * (1.0 - r)
+        d_iz = dh * (hp - n) * z * (1.0 - z)
+        dgi_i = torch.cat([d_ir, d_iz, dtanh], dim=-1)
+        dgh_i = torch.cat([d_ir, d_iz, dtanh * r], dim=-1)
+        dh = dh * z + torch.matmul(dgh_i, w_t)
+        dgi[tf, :nf], dgi[tr, nf:] = dgi_i[:nf], dgi_i[nf:]
+        dgh[tf, :nf], dgh[tr, nf:] = dgh_i[:nf], dgh_i[nf:]
+    return dgi, dgh, dh
+
+
+def gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, num_reverse: int = 0):
+    """(dgi (T, S, R, 3h), dgh (T, S, R, 3h), dh0 (S, R, h)) for the upstream
+    gradient g (T, S, R, h); CPU tensors take the plain version, CUDA
+    tensors the kernel."""
+    _build.refuse_autograd("gru_sequence_bwd", gi, hprev, g, w_hh, b_hh)
+    if gi.device.type == "cpu":
+        return gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, num_reverse)
+    if gi.device.type != "cuda":
+        raise ValueError(f"gru_sequence_bwd runs on CUDA or the CPU, not {gi.device}")
+    _check(gi, w_hh, b_hh, hprev[0], num_reverse)
+    for name, x in (("hprev", hprev), ("g", g)):
+        if (x.device != gi.device or x.dtype != torch.float32
+                or tuple(x.shape) != tuple(gi.shape[:-1]) + (gi.shape[-1] // 3,)
+                or not x.is_contiguous()):
+            raise ValueError(f"gru_sequence_bwd: {name} must be a contiguous float32 "
+                             f"(T, S, R, h) tensor on {gi.device}")
+    t, s, r, g3 = gi.shape
+    dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
+    carry = torch.zeros((s, r, g3 // 3), device=gi.device)      # ends as dh0
+    if t == 0:
+        return dgi, dgh, carry
+    dhz = torch.empty_like(carry)
+    w_t = w_hh.transpose(1, 2).contiguous()                     # (S, 3h, h)
+    fn = _build.load_library("gru_sequence_bwd").tggcn_gru_sequence_bwd_f32
+    fn.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    fn.restype = _I
+    with torch.cuda.device(gi.device):
+        stream = torch.cuda.current_stream(gi.device).cuda_stream
+        err = fn(gi.data_ptr(), hprev.data_ptr(), g.data_ptr(), w_hh.data_ptr(),
+                 w_t.data_ptr(), b_hh.data_ptr(), dgi.data_ptr(), dgh.data_ptr(),
+                 dhz.data_ptr(), carry.data_ptr(), t, s, r, g3 // 3, num_reverse, stream)
+    _build.check_launch(err, "gru_sequence_bwd")
+    gru_sequence_bwd.launches += 1
+    return dgi, dgh, carry
+
+
+gru_sequence_bwd.launches = 0
+
+
+class GRUSequence(torch.autograd.Function):
+    """K1 forward, K2 backward; the weight gradients reduced outside."""
+
+    @staticmethod
+    def forward(ctx, gi, w_hh, b_hh, h0, num_reverse, use_kernels):
+        run = gru_sequence if use_kernels else gru_sequence_plain
+        out = run(gi, w_hh, b_hh, h0, num_reverse)
+        ctx.save_for_backward(gi, w_hh, b_hh, h0, out)
+        ctx.num_reverse, ctx.use_kernels = num_reverse, use_kernels
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        gi, w_hh, b_hh, h0, out = ctx.saved_tensors
+        hprev = previous_states(out, h0, ctx.num_reverse)
+        run = gru_sequence_bwd if ctx.use_kernels else gru_sequence_bwd_plain
+        dgi, dgh, dh0 = run(gi, hprev, g.contiguous(), w_hh, b_hh, ctx.num_reverse)
+        dw = torch.einsum("tsrh,tsrg->shg", hprev, dgh)
+        return dgi, dw, dgh.sum(dim=(0, 2)), dh0, None, None
+
+
+def gru_sequence_autograd(gi, w_hh, b_hh, h0, num_reverse: int = 0,
+                          use_kernels: bool = True):
+    """The differentiable state sequence (T, S, R, h). use_kernels=False runs
+    the plain forward and backward on any device (the reference)."""
+    return GRUSequence.apply(gi, w_hh, b_hh, h0, num_reverse, use_kernels)

@@ -1,12 +1,26 @@
-"""K3: the bidirectional gated segment scan in 'dot' attention mode.
+"""K3 and K4: the bidirectional gated segment scan in 'dot' attention mode,
+and its backward sweep.
 
-Replaces the TPU kernel ``tggcn/ops/segment_scan_pallas.py::_make_kernel``
+K3 replaces the TPU kernel ``tggcn/ops/segment_scan_pallas.py::_make_kernel``
 (mode 'dot', launched by ``_seg_dir_pallas`` at ``segment_scan_pallas.py:268``).
 The CUDA kernel is ``csrc/segment_scan.cu``: per time step three launches
 (message projections, attention and mixing, GRU cells), both directions in
 each, and no block waits for another. It is bound by float32 FMAs on this
 card (about 92 GFLOP at the MPHOI shape T=167, B=8, H=2, O=4, h=512); see
 the source for the bound and the design.
+
+K4 replaces ``segment_scan_pallas.py::_make_bwd_kernel`` (launched by
+``_seg_dir_bwd_pallas`` at ``segment_scan_pallas.py:546``):
+``csrc/segment_scan_bwd.cu``, five launches per step. Where the TPU kernel
+recomputes the edge messages from h_prev, K4 takes the ones K3 computed
+and returned, so that the ReLU's derivative is the forward's; the
+attention, the mixing and the gates are recomputed. The weight and bias
+gradients are reduced outside, as ``segment_scan_pallas.py:620-663`` does.
+
+``segment_scan_dot_autograd`` is the differentiable entry point: a
+``torch.autograd.Function`` that runs K3 forward and K4 backward (or, with
+``use_kernels=False`` or on the CPU, their plain versions). The wrappers
+refuse to run on tensors that require grad outside it.
 
 Layout (time-major; direction 0 runs forward in time, direction 1 backward,
 both read and written in natural time order):
@@ -18,7 +32,9 @@ both read and written in natural time order):
   w_hh_h, w_hh_o (2, h, 3h), b_hh_h, b_hh_o (2, 3h)
   obj_mask (B, O)
   h0_h (2, B, H, h), h0_o (2, B, O, h)
-  -> h_h (2, T, B, H, h), h_o (2, T, B, O, h), att_oh (2, T, B, H, O)
+  -> h_h (2, T, B, H, h), h_o (2, T, B, O, h), att_oh (2, T, B, H, O), and
+     the edge messages each step read, m_h (2, T, B, H, 2h) = [h2h | h2o]
+     and m_o (2, T, B, O, 2h) = [o2h | o2o]
 """
 
 import ctypes
@@ -46,53 +62,65 @@ def _cell(gi_base, msgs, h_prev, u, w_msg, w_hh, b_hh):
     return u * h_new + (1.0 - u) * h_prev
 
 
+def _attention(h_h, h_o, obj_mask, scale):
+    """The four masked softmaxes of one step (a_hh, a_oh, a_ho, a_oo)."""
+    nh, no = h_h.shape[2], h_o.shape[2]
+    eye_h = torch.eye(nh, dtype=h_h.dtype, device=h_h.device)
+    eye_o = torch.eye(no, dtype=h_h.dtype, device=h_h.device)
+    mask_obj = obj_mask[None, :, None, :]                             # (1, B, 1, O)
+
+    def scores(recv, send):
+        return torch.einsum("dbnh,dbmh->dbnm", recv, send) * scale
+
+    return (masked_softmax(scores(h_h, h_h), (1.0 - eye_h)[None, None]),
+            masked_softmax(scores(h_h, h_o), mask_obj),
+            masked_softmax(scores(h_o, h_h), torch.ones_like(eye_h[:1])),
+            masked_softmax(scores(h_o, h_o), mask_obj * (1.0 - eye_o)[None, None]))
+
+
 def segment_scan_dot_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
                            w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
                            scale: float):
-    """Plain PyTorch version of the kernel: a Python loop over time, both
-    directions batched on the leading axis."""
-    t, nh, no = gi_h.shape[1], gi_h.shape[3], gi_o.shape[3]
-    eye_h = torch.eye(nh, dtype=gi_h.dtype, device=gi_h.device)
-    eye_o = torch.eye(no, dtype=gi_h.dtype, device=gi_h.device)
-    mask_obj = obj_mask[None, :, None, :]                             # (1, B, 1, O)
-    out_h = gi_h.new_empty(gi_h.shape[:-1] + (gi_h.shape[-1] // 3,))
-    out_o = gi_o.new_empty(gi_o.shape[:-1] + (gi_o.shape[-1] // 3,))
+    """Plain PyTorch version of K3: a Python loop over time, both directions
+    batched on the leading axis."""
+    t, no = gi_h.shape[1], gi_o.shape[3]
+    h = w_hh_h.shape[1]
+    out_h = gi_h.new_empty(gi_h.shape[:-1] + (h,))
+    out_o = gi_o.new_empty(gi_o.shape[:-1] + (h,))
     att = gi_h.new_empty(gi_h.shape[:-1] + (no,))
+    m_h = gi_h.new_empty(gi_h.shape[:-1] + (2 * h,))
+    m_o = gi_o.new_empty(gi_o.shape[:-1] + (2 * h,))
     h_h, h_o = h0_h, h0_o
 
     def proj(x, e):
         return torch.relu(torch.matmul(x, w_from[e]) + b_from[e])
 
-    def scores(recv, send):
-        return torch.einsum("dbnh,dbmh->dbnm", recv, send) * scale
-
     for i in range(t):
         ts = (i, t - 1 - i)                                           # per direction
         m_hh, m_ho, m_oh, m_oo = proj(h_h, 0), proj(h_h, 1), proj(h_o, 2), proj(h_o, 3)
-        a_hh = masked_softmax(scores(h_h, h_h), (1.0 - eye_h)[None, None])
-        a_oh = masked_softmax(scores(h_h, h_o), mask_obj)
-        a_ho = masked_softmax(scores(h_o, h_h), torch.ones_like(eye_h[:1]))
-        a_oo = masked_softmax(scores(h_o, h_o), mask_obj * (1.0 - eye_o)[None, None])
+        a_hh, a_oh, a_ho, a_oo = _attention(h_h, h_o, obj_mask, scale)
         msgs_h = torch.cat([a_hh @ m_hh, a_oh @ m_oh], dim=-1)        # (2, B, H, 2h)
         msgs_o = torch.cat([a_ho @ m_ho, a_oo @ m_oo], dim=-1)        # (2, B, O, 2h)
         gib_h = torch.stack([gi_h[d, ts[d]] for d in range(2)])
         gib_o = torch.stack([gi_o[d, ts[d]] for d in range(2)])
         uh = torch.stack([u_h[ts[d]] for d in range(2)])
         uo = torch.stack([u_o[ts[d]] for d in range(2)])
+        mh, mo = torch.cat([m_hh, m_ho], dim=-1), torch.cat([m_oh, m_oo], dim=-1)
         h_h = _cell(gib_h, msgs_h, h_h, uh, w_msg_h, w_hh_h, b_hh_h)
         h_o = _cell(gib_o, msgs_o, h_o, uo, w_msg_o, w_hh_o, b_hh_o)
         for d in range(2):
-            out_h[d, ts[d]] = h_h[d]
-            out_o[d, ts[d]] = h_o[d]
-            att[d, ts[d]] = a_oh[d]
-    return out_h, out_o, att
+            out_h[d, ts[d]], out_o[d, ts[d]], att[d, ts[d]] = h_h[d], h_o[d], a_oh[d]
+            m_h[d, ts[d]], m_o[d, ts[d]] = mh[d], mo[d]
+    return out_h, out_o, att, m_h, m_o
 
 
-def _check(args):
+def _check(what, args):
+    """Device, dtype, shape and contiguity of every tensor in args, and the
+    kernels' limits."""
     gi_h, gi_o = args["gi_h"], args["gi_o"]
     _, t, b, nh, g3 = gi_h.shape
     no, h = gi_o.shape[3], g3 // 3
-    want = {
+    shapes = {
         "gi_h": (2, t, b, nh, 3 * h), "gi_o": (2, t, b, no, 3 * h),
         "u_h": (t, b, nh), "u_o": (t, b, no),
         "w_from": (4, h, h), "b_from": (4, h),
@@ -100,58 +128,278 @@ def _check(args):
         "w_hh_h": (2, h, 3 * h), "w_hh_o": (2, h, 3 * h),
         "b_hh_h": (2, 3 * h), "b_hh_o": (2, 3 * h), "obj_mask": (b, no),
         "h0_h": (2, b, nh, h), "h0_o": (2, b, no, h),
+        "hprev_h": (2, t, b, nh, h), "hprev_o": (2, t, b, no, h),
+        "m_h": (2, t, b, nh, 2 * h), "m_o": (2, t, b, no, 2 * h),
+        "g_h": (2, t, b, nh, h), "g_o": (2, t, b, no, h), "g_att": (2, t, b, nh, no),
     }
-    for name, shape in want.items():
-        x = args[name]
+    for name, x in args.items():
         if x.device != gi_h.device or x.dtype != torch.float32:
-            raise ValueError(f"segment_scan_dot: {name} must be float32 on {gi_h.device}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"segment_scan_dot: {name} has shape {tuple(x.shape)}, want {shape}")
+            raise ValueError(f"{what}: {name} must be float32 on {gi_h.device}")
+        if tuple(x.shape) != shapes[name]:
+            raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, want {shapes[name]}")
         if not x.is_contiguous():
-            raise ValueError(f"segment_scan_dot: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
     if (g3 != 3 * h or h % 4 or nh < 1 or no < 1 or nh + no > MAX_ENTITIES
             or (nh + no) * h * 4 > 48 * 1024):
-        raise ValueError(f"segment_scan_dot: needs h % 4 == 0, 1 <= H, O, "
+        raise ValueError(f"{what}: needs h % 4 == 0, 1 <= H, O, "
                          f"H + O <= {MAX_ENTITIES} and (H + O) * h <= 12288")
 
 
 def segment_scan_dot(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
                      w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
                      scale: float):
-    """(h_h, h_o, att_oh) of both directions; CPU tensors take the plain
-    version, CUDA tensors the kernel."""
+    """(h_h, h_o, att_oh, m_h, m_o) of both directions; CPU tensors take the
+    plain version, CUDA tensors the kernel."""
     args = dict(gi_h=gi_h, gi_o=gi_o, u_h=u_h, u_o=u_o, w_from=w_from,
                 b_from=b_from, w_msg_h=w_msg_h, w_msg_o=w_msg_o, w_hh_h=w_hh_h,
                 w_hh_o=w_hh_o, b_hh_h=b_hh_h, b_hh_o=b_hh_o, obj_mask=obj_mask,
                 h0_h=h0_h, h0_o=h0_o)
+    _build.refuse_autograd("segment_scan_dot", *args.values())
     if gi_h.device.type == "cpu":
         return segment_scan_dot_plain(**args, scale=scale)
     if gi_h.device.type != "cuda":
         raise ValueError(f"segment_scan_dot runs on CUDA or the CPU, not {gi_h.device}")
-    _check(args)
+    _check("segment_scan_dot", args)
     _, t, b, nh, g3 = gi_h.shape
     no, h = gi_o.shape[3], g3 // 3
     dev = gi_h.device
-    out_h = torch.empty((2, t, b, nh, h), device=dev)
-    out_o = torch.empty((2, t, b, no, h), device=dev)
-    att = torch.empty((2, t, b, nh, no), device=dev)
-    if t == 0:
-        return out_h, out_o, att
-    msg = torch.empty((2, 4, b * max(nh, no), h), device=dev)
-    mix_h = torch.empty((2, b * nh, 2 * h), device=dev)
-    mix_o = torch.empty((2, b * no, 2 * h), device=dev)
-    fn = _build.load_library("segment_scan").tggcn_segment_scan_dot_f32
-    fn.argtypes = [_P] * 21 + [_I] * 5 + [ctypes.c_float, _P]
-    fn.restype = _I
-    ptrs = [x.data_ptr() for x in args.values()]
-    ptrs += [out_h.data_ptr(), out_o.data_ptr(), att.data_ptr(), msg.data_ptr(),
-             mix_h.data_ptr(), mix_o.data_ptr()]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*ptrs, t, b, nh, no, h, float(scale), stream)
-    _build.check_launch(err, "segment_scan_dot")
-    segment_scan_dot.launches += 1
-    return out_h, out_o, att
+    out = [torch.empty((2, t, b, nh, h), device=dev), torch.empty((2, t, b, no, h), device=dev),
+           torch.empty((2, t, b, nh, no), device=dev),
+           torch.empty((2, t, b, nh, 2 * h), device=dev),
+           torch.empty((2, t, b, no, 2 * h), device=dev)]
+    if t > 0:
+        mix_h = torch.empty((2, b * nh, 2 * h), device=dev)
+        mix_o = torch.empty((2, b * no, 2 * h), device=dev)
+        fn = _build.load_library("segment_scan").tggcn_segment_scan_dot_f32
+        fn.argtypes = [_P] * 22 + [_I] * 5 + [ctypes.c_float, _P]
+        fn.restype = _I
+        ptrs = [x.data_ptr() for x in (*args.values(), *out, mix_h, mix_o)]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(*ptrs, t, b, nh, no, h, float(scale), stream)
+        _build.check_launch(err, "segment_scan_dot")
+        segment_scan_dot.launches += 1
+    return tuple(out)
 
 
 segment_scan_dot.launches = 0
+
+
+def previous_states(out, h0):
+    """The state each step read (2, T, ...), in natural time order:
+    direction 0 read the step before, direction 1 the step after."""
+    return torch.stack([torch.cat([h0[0, None], out[0, :-1]]),
+                        torch.cat([out[1, 1:], h0[1, None]])]).contiguous()
+
+
+BWD_OUTPUTS = ("dgi_h", "dgi_o", "dgh_h", "dgh_o", "msgs_h", "msgs_o",
+               "dpre_h", "dpre_o", "du_h", "du_o", "dh0_h", "dh0_o")
+
+
+def segment_scan_dot_bwd_plain(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, g_o,
+                               g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h,
+                               b_hh_o, obj_mask, scale: float):
+    """Plain PyTorch version of K4: a Python loop that visits time opposite
+    to the forward, both directions batched on the leading axis, from the
+    states (hprev) and edge messages (m) each forward step read. Returns a
+    dict of BWD_OUTPUTS: per step dgi, dgh (2, T, B, E, 3h), the recomputed
+    mixed messages msgs and the message pre-ReLU gradients dpre (2, T, B, E,
+    2h; dpre_h holds the edges hh | ho, dpre_o oh | oo), du (2, T, B, E) per
+    direction, and dh0 (2, B, E, h)."""
+    h = w_hh_h.shape[1]
+    t = gi_h.shape[1]
+    out = {}
+    out.update(dgi_h=torch.empty_like(gi_h), dgi_o=torch.empty_like(gi_o),
+               dgh_h=torch.empty_like(gi_h), dgh_o=torch.empty_like(gi_o),
+               msgs_h=gi_h.new_empty(gi_h.shape[:-1] + (2 * h,)),
+               msgs_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,)),
+               dpre_h=gi_h.new_empty(gi_h.shape[:-1] + (2 * h,)),
+               dpre_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,)),
+               du_h=gi_h.new_empty(gi_h.shape[:-1]), du_o=gi_o.new_empty(gi_o.shape[:-1]))
+    dh_h, dh_o = hprev_h.new_zeros(hprev_h[:, 0].shape), hprev_o.new_zeros(hprev_o[:, 0].shape)
+
+    def cell_bwd(gib, msgs, hp, u, dH, w_msg, w_hh, b_hh):
+        gi = gib + torch.einsum("dbnf,dfk->dbnk", msgs, w_msg)
+        gh = torch.einsum("dbnh,dhk->dbnk", hp, w_hh) + b_hh[:, None, None]
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        h_new = (1.0 - z) * n + z * hp
+        du = torch.sum(dH * (h_new - hp), dim=-1)
+        dh_new = dH * u[..., None]
+        dtanh = dh_new * (1.0 - z) * (1.0 - n * n)
+        d_ir = dtanh * h_n * r * (1.0 - r)
+        d_iz = dh_new * (hp - n) * z * (1.0 - z)
+        dgi = torch.cat([d_ir, d_iz, dtanh], dim=-1)
+        dgh = torch.cat([d_ir, d_iz, dtanh * r], dim=-1)
+        dhp = (dH * (1.0 - u[..., None]) + dh_new * z
+               + torch.einsum("dbnk,dhk->dbnh", dgh, w_hh))
+        return dgi, dgh, du, dhp, torch.einsum("dbnk,dfk->dbnf", dgi, w_msg)
+
+    def att_bwd(a, m, dmg, recv, send, e, extra=None):
+        da = torch.einsum("dbrh,dbsh->dbrs", dmg, m)
+        if extra is not None:
+            da = da + extra
+        dm = torch.einsum("dbrs,dbrh->dbsh", a, dmg)
+        ds = a * (da - torch.sum(da * a, dim=-1, keepdim=True))
+        dpre = dm * (m > 0).to(dm.dtype)
+        dsend = scale * torch.einsum("dbrs,dbrh->dbsh", ds, recv)
+        dsend = dsend + torch.matmul(dpre, w_from[e].transpose(0, 1))
+        return scale * torch.einsum("dbrs,dbsh->dbrh", ds, send), dsend, dpre
+
+    for i in range(t):
+        ts = (t - 1 - i, i)                                           # per direction
+
+        def at(x):
+            return torch.stack([x[d, ts[d]] for d in range(2)])
+
+        hh, ho = at(hprev_h), at(hprev_o)
+        (m_hh, m_ho), (m_oh, m_oo) = at(m_h).chunk(2, dim=-1), at(m_o).chunk(2, dim=-1)
+        a_hh, a_oh, a_ho, a_oo = _attention(hh, ho, obj_mask, scale)
+        msgs_h = torch.cat([a_hh @ m_hh, a_oh @ m_oh], dim=-1)
+        msgs_o = torch.cat([a_ho @ m_ho, a_oo @ m_oo], dim=-1)
+        uh = torch.stack([u_h[ts[d]] for d in range(2)])
+        uo = torch.stack([u_o[ts[d]] for d in range(2)])
+        dgi_h, dgh_h, du_h, dhp_h, dmsgs_h = cell_bwd(
+            at(gi_h), msgs_h, hh, uh, dh_h + at(g_h), w_msg_h, w_hh_h, b_hh_h)
+        dgi_o, dgh_o, du_o, dhp_o, dmsgs_o = cell_bwd(
+            at(gi_o), msgs_o, ho, uo, dh_o + at(g_o), w_msg_o, w_hh_o, b_hh_o)
+        dr_hh, ds_hh, dp_hh = att_bwd(a_hh, m_hh, dmsgs_h[..., :h], hh, hh, 0)
+        dr_oh, ds_oh, dp_oh = att_bwd(a_oh, m_oh, dmsgs_h[..., h:], hh, ho, 2, at(g_att))
+        dr_ho, ds_ho, dp_ho = att_bwd(a_ho, m_ho, dmsgs_o[..., :h], ho, hh, 1)
+        dr_oo, ds_oo, dp_oo = att_bwd(a_oo, m_oo, dmsgs_o[..., h:], ho, ho, 3)
+        dh_h = dhp_h + dr_hh + ds_hh + dr_oh + ds_ho
+        dh_o = dhp_o + ds_oh + dr_ho + dr_oo + ds_oo
+        step = dict(dgi_h=dgi_h, dgi_o=dgi_o, dgh_h=dgh_h, dgh_o=dgh_o, msgs_h=msgs_h,
+                    msgs_o=msgs_o, dpre_h=torch.cat([dp_hh, dp_ho], dim=-1),
+                    dpre_o=torch.cat([dp_oh, dp_oo], dim=-1), du_h=du_h, du_o=du_o)
+        for k, v in step.items():
+            for d in range(2):
+                out[k][d, ts[d]] = v[d]
+    out.update(dh0_h=dh_h, dh0_o=dh_o)
+    return out
+
+
+def segment_scan_dot_weight_grads(hprev_h, hprev_o, grads):
+    """The weight and bias gradients, reduced outside the kernel as large
+    products over its per-step outputs (as ``segment_scan_pallas.py:620-663``
+    does): (dw_from, db_from, dw_msg_h, dw_msg_o, dw_hh_h, dw_hh_o, db_hh_h,
+    db_hh_o)."""
+    h = hprev_h.shape[-1]
+
+    def red(a, b):                                   # per direction (2, F, G)
+        return torch.einsum("dtbeh,dtbeg->dhg", a, b)
+
+    def both(a, b):                                  # summed over the directions
+        return torch.einsum("dtbeh,dtbeg->hg", a, b)
+
+    dpre_h, dpre_o = grads["dpre_h"], grads["dpre_o"]
+    parts = [(hprev_h, dpre_h[..., :h]), (hprev_h, dpre_h[..., h:]),
+             (hprev_o, dpre_o[..., :h]), (hprev_o, dpre_o[..., h:])]
+    return (torch.stack([both(x, dp) for x, dp in parts]),
+            torch.stack([dp.sum(dim=(0, 1, 2, 3)) for _, dp in parts]),
+            red(grads["msgs_h"], grads["dgi_h"]), red(grads["msgs_o"], grads["dgi_o"]),
+            red(hprev_h, grads["dgh_h"]), red(hprev_o, grads["dgh_o"]),
+            grads["dgh_h"].sum(dim=(1, 2, 3)), grads["dgh_o"].sum(dim=(1, 2, 3)))
+
+
+def segment_scan_dot_bwd(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, g_o, g_att,
+                         w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o,
+                         obj_mask, scale: float):
+    """The dict of BWD_OUTPUTS (see segment_scan_dot_bwd_plain) for the
+    upstream gradients g_h (2, T, B, H, h), g_o and g_att (2, T, B, H, O);
+    CPU tensors take the plain version, CUDA tensors the kernel."""
+    args = dict(gi_h=gi_h, gi_o=gi_o, u_h=u_h, u_o=u_o, hprev_h=hprev_h, hprev_o=hprev_o,
+                m_h=m_h, m_o=m_o, g_h=g_h, g_o=g_o, g_att=g_att, w_from=w_from,
+                w_msg_h=w_msg_h, w_msg_o=w_msg_o, w_hh_h=w_hh_h, w_hh_o=w_hh_o,
+                b_hh_h=b_hh_h, b_hh_o=b_hh_o, obj_mask=obj_mask)
+    _build.refuse_autograd("segment_scan_dot_bwd", *args.values())
+    if gi_h.device.type == "cpu":
+        return segment_scan_dot_bwd_plain(**args, scale=scale)
+    if gi_h.device.type != "cuda":
+        raise ValueError(f"segment_scan_dot_bwd runs on CUDA or the CPU, not {gi_h.device}")
+    _check("segment_scan_dot_bwd", args)
+    _, t, b, nh, g3 = gi_h.shape
+    no, h = gi_o.shape[3], g3 // 3
+    dev = gi_h.device
+    out = dict(dgi_h=torch.empty_like(gi_h), dgi_o=torch.empty_like(gi_o),
+               dgh_h=torch.empty_like(gi_h), dgh_o=torch.empty_like(gi_o),
+               msgs_h=torch.empty((2, t, b, nh, 2 * h), device=dev),
+               msgs_o=torch.empty((2, t, b, no, 2 * h), device=dev),
+               dpre_h=torch.empty((2, t, b, nh, 2 * h), device=dev),
+               dpre_o=torch.empty((2, t, b, no, 2 * h), device=dev),
+               du_h=torch.zeros((2, t, b, nh), device=dev),
+               du_o=torch.zeros((2, t, b, no), device=dev),
+               dh0_h=torch.zeros((2, b, nh, h), device=dev),    # the carries
+               dh0_o=torch.zeros((2, b, no, h), device=dev))
+    if t == 0:
+        return out
+    # Transposed weights, once per call: every product then reads a (K, N) weight.
+    w_t = lambda w: w.transpose(-1, -2).contiguous()
+    weights_t = [torch.cat([w_t(w_from[0]), w_t(w_from[1])]),
+                 torch.cat([w_t(w_from[2]), w_t(w_from[3])]),
+                 w_t(w_msg_h), w_t(w_msg_o), w_t(w_hh_h), w_t(w_hh_o)]
+    e = nh + no
+    scratch = [torch.empty((2, b, e, e), device=dev),                   # attention
+               torch.empty((2, b * nh, h), device=dev), torch.empty((2, b * no, h), device=dev),
+               torch.empty((2, b * nh, 2 * h), device=dev),
+               torch.empty((2, b * no, 2 * h), device=dev),
+               torch.empty((2, b * nh, h), device=dev), torch.empty((2, b * no, h), device=dev)]
+    ptrs = [x.data_ptr() for x in (gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h,
+                                   g_o, g_att, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
+                                   b_hh_h, b_hh_o, obj_mask, *weights_t)]
+    ptrs += [out[k].data_ptr() for k in BWD_OUTPUTS if not k.startswith("dh0")]
+    ptrs += [out["dh0_h"].data_ptr(), out["dh0_o"].data_ptr()]
+    ptrs += [x.data_ptr() for x in scratch]
+    fn = _build.load_library("segment_scan_bwd").tggcn_segment_scan_dot_bwd_f32
+    fn.argtypes = [_P] * len(ptrs) + [_I] * 5 + [ctypes.c_float, _P]
+    fn.restype = _I
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*ptrs, t, b, nh, no, h, float(scale), stream)
+    _build.check_launch(err, "segment_scan_dot_bwd")
+    segment_scan_dot_bwd.launches += 1
+    return out
+
+
+segment_scan_dot_bwd.launches = 0
+
+
+class SegmentScanDot(torch.autograd.Function):
+    """K3 forward, K4 backward; the weight gradients reduced outside."""
+
+    @staticmethod
+    def forward(ctx, scale, use_kernels, *args):
+        run = segment_scan_dot if use_kernels else segment_scan_dot_plain
+        out_h, out_o, att, m_h, m_o = run(*args, scale=scale)
+        ctx.save_for_backward(*args, out_h, out_o, m_h, m_o)
+        ctx.scale, ctx.use_kernels = scale, use_kernels
+        return out_h, out_o, att
+
+    @staticmethod
+    def backward(ctx, g_h, g_o, g_att):
+        (gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
+         b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, out_h, out_o, m_h, m_o) = ctx.saved_tensors
+        zeros = lambda like, g: torch.zeros_like(like) if g is None else g.contiguous()
+        g_h, g_o = zeros(out_h, g_h), zeros(out_o, g_o)
+        g_att = zeros(gi_h[..., :obj_mask.shape[1]], g_att)
+        hprev_h, hprev_o = previous_states(out_h, h0_h), previous_states(out_o, h0_o)
+        run = segment_scan_dot_bwd if ctx.use_kernels else segment_scan_dot_bwd_plain
+        grads = run(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, g_o, g_att,
+                    w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask,
+                    ctx.scale)
+        weights = segment_scan_dot_weight_grads(hprev_h, hprev_o, grads)
+        return (None, None, grads["dgi_h"], grads["dgi_o"], grads["du_h"].sum(0),
+                grads["du_o"].sum(0), *weights, None, grads["dh0_h"], grads["dh0_o"])
+
+
+def segment_scan_dot_autograd(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
+                              w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
+                              scale: float, use_kernels: bool = True):
+    """The differentiable scan (h_h, h_o, att_oh). use_kernels=False runs
+    the plain forward and backward on any device (the reference)."""
+    return SegmentScanDot.apply(scale, use_kernels, gi_h, gi_o, u_h, u_o, w_from, b_from,
+                                w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o,
+                                obj_mask, h0_h, h0_o)
