@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive tggcn_torch's stage-1 serving and training paths on one CUDA card.
+"""Drive tggcn_torch's stage-1 serving and training paths and its serving
+modes on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -17,6 +18,13 @@ exit and the phase's name if the phase hangs:
            decisions and masked objects (one batch row has none)
   k4       the segment-scan backward kernel (segment_scan_dot_bwd) against
            its plain version on K3's inputs and random upstream gradients
+  k5_v1, k5_v4, k5_ext
+           the segment-scan kernel in its other modes (segment_scan_v1,
+           _v4, _ext) against its plain version on K3's inputs and random
+           attention weights (v1, v4) or the inverse-distance weights of
+           seeded distances with exact zeros (ext)
+  k6       the fused GeoGCN kernel (geo_gcn_fused) against its plain
+           version over N = B * T = 1336 frames of V = 26 nodes
   forward  the 2G-GCN stage-1 forward at the full MPHOI width (hidden 512,
            gcn_node 26, input (2152, 2048), B=8, T=167, 2 humans, 4
            objects) on 3 seeded requests through select_model: finite
@@ -27,8 +35,17 @@ exit and the phase's name if the phase hangs:
            bundle, backward through K2 and K4, Adam, BatchNorm write-back)
            at the same width: one step on the kernel route and one on the
            plain route from the same weights, compared loss by loss, leaf
-           by leaf (gradients and updated weights); then 3 timed steps on
-           the kernel route, each of which must launch K1-K4
+           by leaf (gradients and updated weights); a second kernel-route
+           step from the same weights, batch and noise, whose gradients
+           must equal the first's bit for bit on every leaf; then 3 timed
+           steps on the kernel route, each of which must launch K1-K4
+  serve_modes
+           the forward phase for each of stage1.SERVE_VARIANTS at the same
+           width and shape: distance-based attention from seeded distances
+           with the GeoGCN kernel on (dist: K1, K5 ext, K6), concat (v1:
+           K1, K5 v1) and bilinear (v4: K1, K5 v4) attention, mean pooling
+           (mp: K1, K5 ext); each against its plain route, which must
+           launch nothing
   small    the same model at hidden 24 on the card against the plain path
            on the CPU
 
@@ -38,6 +55,12 @@ feeder does) and the configured 'gs' decision rule for the objects, whose
 Gumbel noise is drawn once per request or batch and handed to both routes.
 Weights are random from a fixed torch.Generator; inputs come from numpy
 with --seed.
+
+Times: a kernel's ms is the median of 5 calls timed by CUDA events behind a
+wait on the card (cuda_ms with spin), so that it is the card's time; a
+plain version's ms is the median of its calls timed by CUDA events alone,
+the host's time between its many small launches included; a request's or
+a train step's ms is the host's clock around it, ended by a synchronize.
 
 Tolerances: each forward kernel agrees with its plain version within 1e-4
 absolute (the states lie in (-1, 1); the kernels sum float32 products in
@@ -55,10 +78,10 @@ counted and its batch row left out of the comparison (the train step is
 then run again on both routes without that row), at most one row per
 request or batch. Any other flip, or a second row with flips, fails the run.
 
-The second-to-last line is a JSON object with each kernel's launches on
-the timed train steps, error, times and bound; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-and prints no result.
+The second-to-last line is a JSON object with each kernel's launches (K1-K4
+on the timed train steps, K5 and K6 on the serve_modes requests), error,
+times and bound; the last line is {"ok": true, "device": {...}}. Without a
+CUDA device the script exits 1 and prints no result.
 """
 
 import argparse
@@ -70,6 +93,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -84,16 +108,24 @@ LOSS_RTOL = 1e-4
 LEAF_GRAD_RTOL = 1e-3
 GRAD_FLOOR = 1e-6
 MARGINAL = 1e-4
+SPIN_CYCLES = 20_000_000         # about 10 ms at the H100's clock: longer than any wrapper's host time
 REQUESTS = 3
 TRAIN_STEPS = 3
 NO_LIBRARY = {
     "gru": "no single PyTorch call computes it: cuDNN's GRU (torch._VF.gru) recomputes the "
            "input projection from x and takes one weight set per call, and its backward is "
            "no call of its own",
-    "scan": "no PyTorch call runs the gated message-passing step or its backward"}
+    "scan": "no PyTorch call runs the gated message-passing step or its backward",
+    "geo": "no PyTorch call computes the GeoGCN chain (embeddings, similarity softmax, "
+           "(S h) W_out)"}
 
 PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k4": 300,
-                 "forward": 300, "train": 420, "small": 180}
+                 "k5_v1": 240, "k5_v4": 240, "k5_ext": 240, "k6": 120,
+                 "forward": 300, "train": 420, "serve_modes": 600, "small": 180}
+# The kernels of the train step, and of each serving mode's segment scan.
+TRAIN_KERNELS = ("gru_sequence", "gru_sequence_bwd", "segment_scan_dot", "segment_scan_dot_bwd")
+MODE_KERNEL = {"dist": "segment_scan_ext", "v1": "segment_scan_v1", "v4": "segment_scan_v4",
+               "mp": "segment_scan_ext"}
 
 
 @contextlib.contextmanager
@@ -111,12 +143,19 @@ def phase(name):
     print(f"phase {name} done in {time.perf_counter() - start:.3f} s", flush=True)
 
 
-def cuda_ms(torch, fn, reps):
-    """Median milliseconds of fn() on the card, by CUDA events, after one warm-up."""
+def cuda_ms(torch, fn, reps, spin=False):
+    """Median milliseconds of fn() on the card, by CUDA events, after one
+    warm-up. With spin the card first runs a wait of SPIN_CYCLES clock
+    cycles (torch.cuda._sleep), while which the host queues the events and
+    fn's launches: the events then time the card's work alone, without the
+    host's time between launches (a kernel's wrapper checks and allocates
+    in Python, which for a short kernel takes longer than the kernel)."""
     fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -164,7 +203,7 @@ def run_k1(torch, dev, shape):
     got = gru_sequence(gi, w_hh, b_hh, h0, num_reverse=num_reverse)
     want = gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse=num_reverse)
     err = check_kernel("gru_sequence", [got], [want])
-    ms = cuda_ms(torch, lambda: gru_sequence(gi, w_hh, b_hh, h0, num_reverse), 5)
+    ms = cuda_ms(torch, lambda: gru_sequence(gi, w_hh, b_hh, h0, num_reverse), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse), 3)
     bound_ms, by = bound(nbytes(gi, w_hh, b_hh, h0, got), 2.0 * t * s * r * h * 3 * h)
     return dict(name="gru_sequence", route="cuda", source="tggcn_torch/csrc/gru_sequence.cu",
@@ -199,7 +238,7 @@ def run_k2(torch, dev, shape):
     got = gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, nr)
     want = gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, nr)
     err, rel = check_grads("gru_sequence_bwd", got, want)
-    ms = cuda_ms(torch, lambda: gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, nr), 5)
+    ms = cuda_ms(torch, lambda: gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, nr), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, nr), 3)
     # The recompute of gh and the carry product dgh @ W_hh^T: two products a step.
     bound_ms, by = bound(nbytes(gi, hprev, g, w_hh, b_hh, *got), 4.0 * t * s * r * h * 3 * h)
@@ -245,7 +284,7 @@ def run_k3(torch, dev, shape):
     got = segment_scan_dot(**args, scale=scale)
     want = segment_scan_dot_plain(**args, scale=scale)
     err = check_kernel("segment_scan_dot", got, want)
-    ms = cuda_ms(torch, lambda: segment_scan_dot(**args, scale=scale), 5)
+    ms = cuda_ms(torch, lambda: segment_scan_dot(**args, scale=scale), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: segment_scan_dot_plain(**args, scale=scale), 3)
     bound_ms, by = bound(nbytes(*args.values(), *got), k3_flops(t, b, nh, no, h))
     return dict(name="segment_scan_dot", route="cuda",
@@ -283,7 +322,7 @@ def run_k4(torch, dev, shape):
     want = segment_scan_dot_bwd_plain(**args, scale=scale)
     err, rel = check_grads("segment_scan_dot_bwd", [got[k] for k in BWD_OUTPUTS],
                            [want[k] for k in BWD_OUTPUTS])
-    ms = cuda_ms(torch, lambda: segment_scan_dot_bwd(**args, scale=scale), 5)
+    ms = cuda_ms(torch, lambda: segment_scan_dot_bwd(**args, scale=scale), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: segment_scan_dot_bwd_plain(**args, scale=scale), 2)
     bound_ms, by = bound(nbytes(*args.values(), *got.values()), k4_flops(t, b, nh, no, h))
     return dict(name="segment_scan_dot_bwd", route="cuda",
@@ -291,6 +330,67 @@ def run_k4(torch, dev, shape):
                 replaces="tggcn/ops/segment_scan_pallas.py:546", max_abs_err=err,
                 max_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 library_ms=None)
+
+
+def k5_flops(mode, t, b, nh, no, h):
+    """K3's products, with the scores of the mode: v1 four dot products per
+    entity, v4 the bilinear products of each receiver's two edges and the
+    scores, ext none."""
+    e = nh + no
+    scores = {"v1": 4 * b * e * h, "v4": 2 * b * e * h * h + b * e * e * h, "ext": 0}[mode]
+    per_dir_step = 2 * ((2 * b * nh + 2 * b * no) * h * h + b * e * 3 * h * 3 * h
+                        + b * e * e * h + scores)
+    return 2.0 * t * per_dir_step
+
+
+def run_k5(mode, torch, dev, shape):
+    from tggcn_torch.models import stage1
+    from tggcn_torch.models.tggcn import external_att_weights
+    from tggcn_torch.ops import segment_scan as ops
+
+    t, b, nh, no, h = shape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    args = k3_inputs(torch, dev, gen, t, b, nh, no, h)
+    if mode == "ext":
+        dists = stage1.make_distances(np.random.default_rng(6), b, t, nh, no)
+        extra = dict(att_ext=external_att_weights(
+            False, [torch.as_tensor(d, device=dev) for d in dists.values()], args["obj_mask"],
+            t, nh))
+    else:
+        shape_w = (4, 2 * h) if mode == "v1" else (4, h, h)
+        u = lambda *sh: ((torch.rand(sh, generator=gen, device=dev) * 2 - 1) * h ** -0.5)
+        extra = dict(w_att=u(*shape_w).contiguous(), b_att=u(4).contiguous())
+    wrapper = getattr(ops, f"segment_scan_{mode}")
+    got = wrapper(**args, **extra)
+    want = ops.segment_scan_att_plain(mode, **args, **extra)
+    err = check_kernel(wrapper.__name__, got, want)
+    ms = cuda_ms(torch, lambda: wrapper(**args, **extra), 5, spin=True)
+    plain_ms = cuda_ms(torch, lambda: ops.segment_scan_att_plain(mode, **args, **extra), 2)
+    bound_ms, by = bound(nbytes(*args.values(), *extra.values(), *got),
+                         k5_flops(mode, t, b, nh, no, h))
+    return dict(name=wrapper.__name__, route="cuda", source="tggcn_torch/csrc/segment_scan.cu",
+                replaces="tggcn/ops/segment_scan_pallas.py:268", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
+def run_k6(torch, dev, shape):
+    from tggcn_torch.ops.geo_gcn import geo_gcn_fused, geo_gcn_plain
+
+    n, v = shape
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shapes = [(4, 64), (64,), (64, 64), (64,), (64, 128), (128,), (64, 128), (128,), (64, 128)]
+    weights = [((torch.rand(sh, generator=gen, device=dev) * 2 - 1) * sh[0] ** -0.5).contiguous()
+               for sh in shapes]
+    x = torch.randn((n, v, 4), generator=gen, device=dev)
+    got = geo_gcn_fused(x, *weights)
+    err = check_kernel("geo_gcn_fused", [got], [geo_gcn_plain(x, *weights)])
+    ms = cuda_ms(torch, lambda: geo_gcn_fused(x, *weights), 5, spin=True)
+    plain_ms = cuda_ms(torch, lambda: geo_gcn_plain(x, *weights), 5)
+    flops = 2.0 * n * v * (4 * 64 + 64 * 64 + 2 * 64 * 128 + v * 128 + v * 64 + 64 * 128)
+    bound_ms, by = bound(nbytes(x, *weights, got), flops)
+    return dict(name="geo_gcn_fused", route="cuda", source="tggcn_torch/csrc/geo_gcn.cu",
+                replaces="tggcn/ops/geo_gcn_pallas.py:100", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
 def decision_rows(torch, aux_g, aux_w, what):
@@ -330,11 +430,15 @@ def compare_forward(torch, got, want, what):
 
 def kernel_wrappers():
     """The wrapper of each kernel, by name; each counts its launches."""
+    from tggcn_torch.ops import segment_scan
+    from tggcn_torch.ops.geo_gcn import geo_gcn_fused
     from tggcn_torch.ops.gru_sequence import gru_sequence, gru_sequence_bwd
-    from tggcn_torch.ops.segment_scan import segment_scan_dot, segment_scan_dot_bwd
 
     return {"gru_sequence": gru_sequence, "gru_sequence_bwd": gru_sequence_bwd,
-            "segment_scan_dot": segment_scan_dot, "segment_scan_dot_bwd": segment_scan_dot_bwd}
+            **{name: getattr(segment_scan, name) for name in (
+                "segment_scan_dot", "segment_scan_dot_bwd", "segment_scan_v1",
+                "segment_scan_v4", "segment_scan_ext")},
+            "geo_gcn_fused": geo_gcn_fused}
 
 
 def reset_launches():
@@ -346,18 +450,28 @@ def read_launches():
     return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
 
 
-def run_forward(torch, dev, size, seed):
+def run_forward(torch, dev, size, seed, variant=None):
+    """REQUESTS served requests of the stage-1 model, or of one of
+    stage1.SERVE_VARIANTS, on the kernel route against the plain route;
+    each kernel of the route must launch once per request, and no other."""
     from tggcn_torch.models import stage1
     from tggcn_torch.models.registry import select_model
 
     b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
-    model = select_model("2G-GCN", device=dev, **stage1.MODEL_KWARGS)
+    change = stage1.SERVE_VARIANTS[variant] if variant else {}
+    model = select_model("2G-GCN", device=dev, **dict(stage1.MODEL_KWARGS, **change))
     params = model.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(seed)
     batches = [stage1.make_request(rng, b, t, nh, no) for _ in range(REQUESTS)]
+    if variant == "dist":
+        for batch in batches:
+            batch.update(stage1.make_distances(rng, b, t, nh, no))
     # The objects' Gumbel noise of each request, handed to both routes.
     noises = [{"object": rng.gumbel(size=(b, t, no, 2)).astype(np.float32)}
               for _ in range(REQUESTS)]
+    expected = {"gru_sequence", MODE_KERNEL[variant] if variant else "segment_scan_dot"}
+    if variant == "dist":
+        expected.add("geo_gcn_fused")
 
     model.apply(params, noise=noises[0], **batches[0])   # warm-up: cuBLAS, library loads
     torch.cuda.synchronize(dev)
@@ -370,8 +484,9 @@ def run_forward(torch, dev, size, seed):
         times.append((time.perf_counter() - start) * 1e3)
         results.append(out)
     launches = read_launches()
-    if min(launches["gru_sequence"], launches["segment_scan_dot"]) < REQUESTS:
-        raise AssertionError(f"the forward did not go through every kernel: {launches}")
+    if launches != {name: REQUESTS if name in expected else 0 for name in launches}:
+        raise AssertionError(f"the forward did not go through exactly the kernels "
+                             f"{sorted(expected)} once a request: {launches}")
 
     want_shapes = [(b, t, nh), (b, t, nh)] + [(b, 13, t, nh)] * 4
     plain_times, err, flips, dropped = [], 0.0, 0, 0
@@ -442,9 +557,18 @@ def run_train(torch, dev, size, seed):
         decision_rows(torch, kern["aux"], plain["aux"], "train step without the flipped row")
     if any(plain["launches"].values()):
         raise AssertionError(f"the plain route launched kernels: {plain['launches']}")
-    if min(kern["launches"].values()) < 1:
-        raise AssertionError(f"the train step did not go through every kernel: "
-                             f"{kern['launches']}")
+    again = first_step(True, rows)
+    grads = [(leaf.grad, tensor_leaves(again["trainable"])[key].grad)
+             for key, leaf in tensor_leaves(kern["trainable"]).items() if leaf.grad is not None]
+    unequal = sum(not torch.equal(a, b) for a, b in grads)
+    print(f"train step: two kernel-route steps from the same weights, batch and noise: "
+          f"{len(grads) - unequal} of {len(grads)} gradient leaves bitwise equal", flush=True)
+    if unequal:
+        raise AssertionError(f"{unequal} of {len(grads)} gradient leaves differ between two "
+                             "identical kernel-route steps")
+    if kern["launches"] != {k: int(k in TRAIN_KERNELS) for k in kern["launches"]}:
+        raise AssertionError(f"the train step did not go through exactly the kernels "
+                             f"{TRAIN_KERNELS} once: {kern['launches']}")
     loss_err = max_err(kern["losses"], plain["losses"])
     if (not bool(kern["losses"].isfinite().all())
             or not torch.allclose(kern["losses"], plain["losses"], rtol=LOSS_RTOL, atol=0)):
@@ -482,11 +606,11 @@ def run_train(torch, dev, size, seed):
         if not bool(losses.isfinite().all()):
             raise AssertionError(f"train step losses are not finite: {losses.tolist()}")
     launches = read_launches()
-    if min(launches.values()) < TRAIN_STEPS:
+    if launches != {k: TRAIN_STEPS * (k in TRAIN_KERNELS) for k in launches}:
         raise AssertionError(f"a timed train step missed a kernel: {launches}")
     return dict(ms=statistics.median(times), losses=kern["losses"].tolist(), loss_err=loss_err,
                 grad_rel=grad_rel, weight_err=weight_err, flips=flips, dropped_rows=dropped,
-                launches=launches)
+                launches=launches, equal_leaves=len(grads))
 
 
 def run_small(torch, dev, seed):
@@ -543,9 +667,14 @@ def main(argv=None):
     shape, hidden = stage1.SHAPE, stage1.MODEL_KWARGS["hidden_size"]
     gru_shape = (shape["t"], 6, shape["b"] * shape["objects"], hidden)
     scan_shape = (*(shape[k] for k in ("t", "b", "humans", "objects")), hidden)
+    geo_shape = (shape["b"] * shape["t"], stage1.MODEL_KWARGS["gcn_node"])
     kernels = []
     for name, run, at in (("k1", run_k1, gru_shape), ("k2", run_k2, gru_shape),
-                          ("k3", run_k3, scan_shape), ("k4", run_k4, scan_shape)):
+                          ("k3", run_k3, scan_shape), ("k4", run_k4, scan_shape),
+                          ("k5_v1", partial(run_k5, "v1"), scan_shape),
+                          ("k5_v4", partial(run_k5, "v4"), scan_shape),
+                          ("k5_ext", partial(run_k5, "ext"), scan_shape),
+                          ("k6", run_k6, geo_shape)):
         with phase(name):
             kernels.append(run(torch, dev, at))
             print(f"{name} {json.dumps(kernels[-1])}", flush=True)
@@ -562,15 +691,34 @@ def main(argv=None):
               f"{train['loss_err']:.3e}, gradients {train['grad_rel']:.3e} of each leaf's "
               f"largest, weights {train['weight_err']:.3e}; marginal decision flips "
               f"{train['flips']} (batch rows left out {train['dropped_rows']}); launches "
-              f"{json.dumps(train['launches'])} over {TRAIN_STEPS} steps", flush=True)
+              f"{json.dumps(train['launches'])} over {TRAIN_STEPS} steps; "
+              f"{train['equal_leaves']} gradient leaves bitwise equal in two kernel-route "
+              f"steps", flush=True)
+    with phase("serve_modes"):
+        served = {}
+        for variant in stage1.SERVE_VARIANTS:
+            served[variant] = run_forward(torch, dev, shape, args.seed, variant)
+            r = served[variant]
+            print(f"serve {variant}: ms per request {r['ms']:.3f} (plain path "
+                  f"{r['plain_ms']:.3f}), max abs err vs plain {r['max_abs_err']:.3e}, "
+                  f"marginal decision flips {r['flips']} (batch rows left out "
+                  f"{r['dropped_rows']}), launches {json.dumps(r['launches'])} over "
+                  f"{REQUESTS} requests", flush=True)
+    # K1-K4's launches are the train steps'; K5's and K6's the serving modes'.
     for k in kernels:
-        k["launches"] = train["launches"][k["name"]]
+        if k["name"] in TRAIN_KERNELS:
+            k["launches"] = train["launches"][k["name"]]
+            per = (f"per train step {k['launches'] / TRAIN_STEPS:g}, per stage-1 request "
+                   f"{fwd['launches'][k['name']] / REQUESTS:g}")
+        else:
+            k["launches"] = sum(r["launches"][k["name"]] for r in served.values())
+            per = "per request " + ", ".join(
+                f"{v} {r['launches'][k['name']] / REQUESTS:g}" for v, r in served.items())
+        kind = ("gru" if k["name"].startswith("gru") else
+                "geo" if k["name"].startswith("geo") else "scan")
         print(f"kernel {k['name']}: kernel_ms {k['ms']:.3f} plain_ms {k['plain_ms']:.3f} "
-              f"bound_ms {k['bound_ms']:.3f} ({k['bound_by']}) launches per train step "
-              f"{k['launches'] / TRAIN_STEPS:g}, per request "
-              f"{fwd['launches'][k['name']] / REQUESTS:g}; library_ms none: "
-              f"{NO_LIBRARY['gru' if k['name'].startswith('gru') else 'scan']}",
-              flush=True)
+              f"bound_ms {k['bound_ms']:.3f} ({k['bound_by']}) launches {per}; "
+              f"library_ms none: {NO_LIBRARY[kind]}", flush=True)
     with phase("small"):
         err, flips, dropped = run_small(torch, dev, args.seed)
         print(f"hidden-24 card vs CPU: max abs err {err:.3e}, marginal flips {flips} "

@@ -8,7 +8,9 @@
   Function, on tensors that require grad, it raises.
 * The plain route (use_kernels=False) calls no kernel wrapper, forward or
   backward.
-* Configurations outside the slice raise NotImplementedError.
+* Configurations outside the slice raise NotImplementedError; the K5
+  modes (v1, v4, mean pooling, distances) serve and refuse to train, and a
+  partial set of distance tensors raises.
 * chip_smoke.py fails, printing no result, without a CUDA device.
 """
 
@@ -25,6 +27,7 @@ import torch
 
 from tggcn_torch.models.registry import select_model
 from tggcn_torch.models.tggcn import TGGCNConfig, apply_tggcn, check_slice
+import tggcn_torch.ops.geo_gcn as geo_ops
 import tggcn_torch.ops.gru_sequence as gru_ops
 import tggcn_torch.ops.segment_scan as scan_ops
 from tggcn_torch.ops import _build
@@ -35,7 +38,9 @@ from tggcn_torch.runtime import resolve_device
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tggcn_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 KERNEL_WRAPPERS = [(gru_ops, "gru_sequence"), (gru_ops, "gru_sequence_bwd"),
-                   (scan_ops, "segment_scan_dot"), (scan_ops, "segment_scan_dot_bwd")]
+                   (scan_ops, "segment_scan_dot"), (scan_ops, "segment_scan_dot_bwd"),
+                   (scan_ops, "segment_scan_v1"), (scan_ops, "segment_scan_v4"),
+                   (scan_ops, "segment_scan_ext"), (geo_ops, "geo_gcn_fused")]
 STAGE1 = dict(input_size=(2152, 2048), num_classes=(13, None), hidden_size=8,
               message_segment=True, message_type="v2", message_granularity="v1",
               message_aggregation="att", attention_style="v3",
@@ -128,6 +133,20 @@ def test_library_path_follows_sources():
         assert (_build.CSRC_DIR / f"{name}.cu").exists()
 
 
+def _tiny_batch(humans=2, objects=2):
+    rng = np.random.default_rng(0)
+    return dict(x_human=rng.normal(size=(1, 2, humans, 2152)).astype(np.float32),
+                x_objects=rng.normal(size=(1, 2, objects, 2048)).astype(np.float32),
+                objects_mask=np.ones((1, objects), np.float32))
+
+
+def _distances():
+    """The three distance tensors of a _tiny_batch."""
+    from tggcn_torch.models import stage1
+
+    return stage1.make_distances(np.random.default_rng(1), 1, 2, 2, 2)
+
+
 @pytest.mark.parametrize("change", [
     {"message_type": "relational"}, {"message_granularity": "specific"},
     {"message_aggregation": "mp"}, {"attention_style": "v1"}, {"attention_style": "v4"},
@@ -136,25 +155,51 @@ def test_library_path_follows_sources():
     {"add_time_position": True}, {"compute_dtype": "bfloat16"}, {"message_segment": False},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_outside_the_slice_raises(change):
-    with pytest.raises(NotImplementedError, match="slice"):
-        check_slice(TGGCNConfig.from_kwargs(**{**STAGE1, **change}))
+    """Configurations outside the port raise. Mean pooling and v1/v4
+    attention (K5) serve on the CPU and raise on a train call; 'sah' (with
+    the one human it needs) serves."""
+    kwargs = {**STAGE1, **change}
+    if change not in ({"message_aggregation": "mp"}, {"attention_style": "v1"},
+                      {"attention_style": "v4"}, {"object_segment_update_strategy": "sah"}):
+        with pytest.raises(NotImplementedError, match="slice"):
+            check_slice(TGGCNConfig.from_kwargs(**kwargs))
+        return
+    model = select_model("2G-GCN", device="cpu", **kwargs)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = _tiny_batch(humans=1)
+    outputs, _ = model.apply(params, **batch)
+    assert all(bool(torch.isfinite(o).all()) for o in outputs)
+    if "object_segment_update_strategy" not in change:
+        with pytest.raises(NotImplementedError, match="slice"):
+            model.apply(params, train=True, **batch)
 
 
 def test_training_and_distances_raise():
-    """Training is in the slice in float32; a bfloat16 train call and
-    distance-based attention raise."""
+    """Training is in the slice in float32, but not a bfloat16 train call;
+    distance-based attention serves (K5 in 'ext' mode) and refuses to train."""
     model = select_model("2G-GCN", device="cpu", **STAGE1)
     params = model.init(torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(0)
-    batch = dict(x_human=rng.normal(size=(1, 2, 2, 2152)).astype(np.float32),
-                 x_objects=rng.normal(size=(1, 2, 2, 2048)).astype(np.float32),
-                 objects_mask=np.ones((1, 2), np.float32))
+    batch = _tiny_batch()
     bf16 = TGGCNConfig.from_kwargs(**STAGE1, compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="bfloat16"):
         apply_tggcn(params, bf16, train=True,
                     **{k: torch.tensor(v) for k, v in batch.items()})
-    with pytest.raises(NotImplementedError):
-        model.apply(params, human_object_distances=np.ones((1, 2, 2, 2), np.float32), **batch)
+    outputs, _ = model.apply(params, **batch, **_distances())
+    assert all(bool(torch.isfinite(o).all()) for o in outputs)
+    with pytest.raises(NotImplementedError, match="segment mode 'ext'"):
+        model.apply(params, train=True, **batch, **_distances())
+
+
+@pytest.mark.parametrize("given", ["human_object_distances",
+                                   "human_object_distances,object_object_distances"])
+def test_partial_distance_set_raises(given):
+    """JAX runs a partial set of distance tensors through its general XLA
+    scan, which the port does not have: serving with one raises."""
+    model = select_model("2G-GCN", device="cpu", **STAGE1)
+    params = model.init(torch.Generator().manual_seed(0))
+    dists = {k: v for k, v in _distances().items() if k in given.split(",")}
+    with pytest.raises(NotImplementedError, match="all three distance tensors"):
+        model.apply(params, **_tiny_batch(), **dists)
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
@@ -271,11 +316,22 @@ def test_wrapper_outside_its_function_raises(wrapper):
     gi, w_hh, b_hh, h0 = _gru_args("cpu")
     hprev = g = torch.zeros(gi.shape[:-1] + (gi.shape[-1] // 3,))
     seg, streamed, seg_h0 = _seg_args(requires_grad=True)
+    h, e = seg["w_hh_h"].shape[1], seg["gi_h"].shape[3] + seg["gi_o"].shape[3]
+    geo = [torch.zeros(3, 5, 4)] + [torch.zeros(s) for s in (
+        (4, 64), (64,), (64, 64), (64,), (64, 128), (128,), (64, 128), (128,), (64, 128))]
     calls = {"gru_sequence": lambda: gru_ops.gru_sequence(gi, w_hh, b_hh, h0),
              "gru_sequence_bwd": lambda: gru_ops.gru_sequence_bwd(gi, hprev, g, w_hh, b_hh),
              "segment_scan_dot": lambda: scan_ops.segment_scan_dot(**seg, **seg_h0, scale=1.0),
              "segment_scan_dot_bwd": lambda: scan_ops.segment_scan_dot_bwd(
-                 **{k: v for k, v in seg.items() if k != "b_from"}, **streamed, scale=1.0)}
+                 **{k: v for k, v in seg.items() if k != "b_from"}, **streamed, scale=1.0),
+             "segment_scan_v1": lambda: scan_ops.segment_scan_v1(
+                 **seg, **seg_h0, w_att=torch.zeros(4, 2 * h), b_att=torch.zeros(4)),
+             "segment_scan_v4": lambda: scan_ops.segment_scan_v4(
+                 **seg, **seg_h0, w_att=torch.zeros(4, h, h), b_att=torch.zeros(4)),
+             "segment_scan_ext": lambda: scan_ops.segment_scan_ext(
+                 **seg, **seg_h0, att_ext=torch.zeros(seg["u_h"].shape[:2] + (e, e))),
+             "geo_gcn_fused": lambda: geo_ops.geo_gcn_fused(*geo)}
+    geo[1].requires_grad_(True)
     w_hh.requires_grad_(True)
     with pytest.raises(RuntimeError, match="autograd Function"):
         calls[wrapper]()
@@ -287,6 +343,35 @@ def test_wrapper_outside_its_function_raises(wrapper):
     h_h, _, _ = scan_ops.segment_scan_dot_autograd(**seg, **seg_h0, scale=1.0)
     h_h.sum().backward()
     assert seg["w_from"].grad is not None
+    geo_ops.geo_gcn_fused_autograd(*geo).sum().backward()
+    assert geo[1].grad is not None
+
+
+@pytest.mark.parametrize("variant", ["dist", "mp", "v1", "v4"])
+def test_plain_serving_modes_call_no_kernel_wrapper(monkeypatch, variant):
+    """Serving each K5 variant (distances with the GeoGCN kernel on) with
+    use_kernels=False reaches no kernel wrapper and computes what the
+    wrapper route computes on the CPU."""
+    from tggcn_torch.models import stage1
+
+    model = select_model("2G-GCN", device="cpu", **dict(stage1.MODEL_KWARGS, hidden_size=8,
+                                                        **stage1.SERVE_VARIANTS[variant]))
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = dict(stage1.make_request(np.random.default_rng(0), b=1, t=2, humans=2, objects=2))
+    if variant == "dist":
+        batch.update(_distances())
+    want, _ = model.apply(params, **batch)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel wrapper was called on the plain route")
+
+    for mod, name in KERNEL_WRAPPERS:
+        monkeypatch.setattr(mod, name, refuse)
+    got, _ = model.apply(params, use_kernels=False, **batch)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(AssertionError, match="kernel wrapper"):
+        model.apply(params, **batch)
 
 
 def test_plain_train_step_launches_nothing(monkeypatch):

@@ -5,15 +5,16 @@
   over by params_from_numpy: human segmentation imposed (stage 1) and all
   decisions by the 'st' threshold. Tolerance rtol 1e-4, atol 1e-5: the
   recurrences add up float32 rounding over the sequence.
-* The reference fixture tests/golden/mphoi_st.npz through the port's own
-  state-dict loader, at rtol 2e-3, atol 2e-4 as tests/test_golden_tggcn.py
-  holds the JAX package.
+* The same for concat (v1) attention and mean pooling, served (K5's
+  plain version on the CPU).
+* The reference fixtures tests/golden/mphoi_st.npz and
+  mphoi_hidden128.npz through the port's own state-dict loader, at rtol
+  2e-3, atol 2e-4 as tests/test_golden_tggcn.py holds the JAX package.
 * The port's state-dict loader against tggcn.compat's on every forward
   fixture.
 """
 
 import glob
-import json
 import os
 
 import jax
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cuda import GOLDEN_DIR, read_fixture
 from tggcn.compat import tggcn_params_from_torch_state_dict as jax_from_state_dict
 from tggcn.models.tggcn import TGGCNConfig as JaxConfig
 from tggcn.models.tggcn import apply_tggcn as jax_apply
@@ -29,7 +31,6 @@ from tggcn_torch.compat.weights import params_from_numpy, tggcn_params_from_torc
 from tggcn_torch.models.registry import select_model
 from tggcn_torch.models.tggcn import TGGCNConfig, apply_tggcn, init_tggcn
 
-GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 FORWARD_FIXTURES = sorted(
     p for p in glob.glob(os.path.join(GOLDEN_DIR, "*.npz"))
     if not os.path.basename(p).startswith(("baseline_", "training_")))
@@ -79,6 +80,33 @@ def test_forward_matches_jax(stage1, imposed, style):
                                    err_msg=f"attention {i}")
 
 
+@pytest.mark.parametrize("change", [{"attention_style": "v1"}, {"message_aggregation": "mp"}],
+                         ids=["v1", "mp"])
+def test_forward_modes_match_jax(change):
+    """Served in a K5 mode, decisions by the 'st' threshold, one object row
+    partly and one fully masked."""
+    kwargs = dict(STAGE1, **change)
+    jax_cfg = JaxConfig.from_kwargs(**kwargs)
+    jax_params = jax_init(jax.random.PRNGKey(3), jax_cfg)
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params))
+    batch = _batch(seed=3)
+    # Mean pooling has no attention to inspect: JAX's inspect_model fails on
+    # its missing frame attention, and the port reports zeros.
+    attention = "message_aggregation" not in change
+    want, want_aux = jax_apply(jax_params, jax_cfg, train=False, inspect_model=attention,
+                               **batch)
+    got, aux = select_model("2G-GCN", device="cpu", **kwargs).apply(params, inspect_model=True,
+                                                                    **batch)
+    assert len(got) == len(want) == 6
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5,
+                                   err_msg=f"output {i}")
+    for i, g in enumerate(aux["attention_scores"]):
+        want_i = np.asarray(want_aux["attention_scores"][i]) if attention else np.zeros(g.shape)
+        np.testing.assert_allclose(g.numpy(), want_i, rtol=1e-4, atol=1e-5,
+                                   err_msg=f"attention {i}")
+
+
 def test_init_matches_jax_tree(stage1):
     jax_params, _ = stage1
     params = init_tggcn(torch.Generator().manual_seed(0), TGGCNConfig.from_kwargs(**STAGE1))
@@ -86,29 +114,29 @@ def test_init_matches_jax_tree(stage1):
     assert shapes(params) == shapes(jax_params)
 
 
-def _fixture(path):
-    data = np.load(path)
-    inputs, outputs, weights, attention = {}, {}, {}, {}
-    for key in data.files:
-        kind, _, name = key.partition("::")
-        if kind == "input":
-            inputs[name] = data[key]
-        elif kind == "output":
-            outputs[int(name)] = data[key]
-        elif kind == "weight":
-            weights[name] = data[key]
-        elif kind == "attention":
-            attention[int(name)] = data[key]
-    kwargs = json.loads(bytes(data["meta::model_kwargs"]).decode())
-    return (inputs, [outputs[i] for i in sorted(outputs)], weights, kwargs,
-            [attention[i] for i in sorted(attention)])
+@pytest.mark.parametrize("change", [
+    {"attention_style": "v1"}, {"attention_style": "v4"}, {"message_aggregation": "mp"},
+    {"object_segment_update_strategy": "sah"}, {"object_segment_update_strategy": "coh"}],
+    ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_init_modes_match_jax_tree(change):
+    """The parameter tree of each serving configuration: the attention
+    layers of v1 (MLP) and v4 (bilinear), none under mean pooling, no
+    object decision MLP under 'sah'."""
+    kwargs = dict(STAGE1, **change)
+    jax_params = jax_init(jax.random.PRNGKey(0), JaxConfig.from_kwargs(**kwargs))
+    params = init_tggcn(torch.Generator().manual_seed(0), TGGCNConfig.from_kwargs(**kwargs))
+    shapes = lambda tree: jax.tree_util.tree_map(lambda a: tuple(a.shape), tree)
+    assert shapes(params) == shapes(jax_params)
 
 
-@pytest.mark.skipif(not os.path.exists(os.path.join(GOLDEN_DIR, "mphoi_st.npz")),
-                    reason="golden fixtures not generated")
-def test_golden_mphoi_st():
-    inputs, ref_outputs, weights, kwargs, ref_attention = _fixture(
-        os.path.join(GOLDEN_DIR, "mphoi_st.npz"))
+@pytest.mark.parametrize("name", ["mphoi_st", "mphoi_hidden128"])
+def test_golden_mphoi_st(name):
+    """mphoi_st and its hidden-128 twin, whose hard decisions flip under
+    reduced-precision matmuls."""
+    path = os.path.join(GOLDEN_DIR, f"{name}.npz")
+    if not os.path.exists(path):
+        pytest.skip("golden fixtures not generated")
+    inputs, ref_outputs, weights, kwargs, ref_attention = read_fixture(path)
     cfg = TGGCNConfig.from_kwargs(**kwargs)
     params = tggcn_params_from_torch_state_dict(weights, cfg)
     with torch.no_grad():
@@ -127,7 +155,7 @@ def test_golden_mphoi_st():
 @pytest.mark.parametrize("path", FORWARD_FIXTURES,
                          ids=[os.path.basename(p)[:-4] for p in FORWARD_FIXTURES])
 def test_state_dict_loader_matches_jax(path):
-    _, _, weights, kwargs, _ = _fixture(path)
+    _, _, weights, kwargs, _ = read_fixture(path)
     want = jax_from_state_dict(weights, JaxConfig.from_kwargs(**kwargs))
     got = tggcn_params_from_torch_state_dict(weights, TGGCNConfig.from_kwargs(**kwargs))
     flat_want, tree_want = jax.tree_util.tree_flatten(want)

@@ -1,5 +1,5 @@
 """The port's plain layers against their tggcn counterparts on the CPU,
-forward and, for the decision estimators, backward.
+forward and, for the decision estimators and the fused GeoGCN, backward.
 
 Same inputs and weights (numpy, from a seed; JAX weights carried over with
 params_from_numpy) into both. Tolerance rtol 1e-5, atol 1e-6: both sides
@@ -16,17 +16,22 @@ from tggcn.nn import messages as jax_messages
 from tggcn.nn.batchnorm import apply_batchnorm as jax_batchnorm
 from tggcn.nn.geo_gcn import apply_geo_gcn as jax_geo_gcn
 from tggcn.nn.geo_gcn import init_geo_gcn as jax_init_geo_gcn
+from tggcn.nn.mlp import apply_bilinear as jax_apply_bilinear
 from tggcn.nn.mlp import apply_mlp as jax_apply_mlp
+from tggcn.nn.mlp import init_bilinear as jax_init_bilinear
 from tggcn.nn.mlp import init_mlp as jax_init_mlp
 from tggcn.nn.temporal import reorder_hidden_states as jax_reorder
+from tggcn.ops.geo_gcn_pallas import geo_gcn_fused as jax_geo_gcn_fused
+from tggcn.ops.geo_gcn_pallas import geo_gcn_reference
 from tggcn_torch.compat.weights import params_from_numpy
 from tggcn_torch.nn.batchnorm import apply_batchnorm
 from tggcn_torch.nn.distributions import discrete_estimator
 from tggcn_torch.nn.geo_gcn import apply_geo_gcn, init_geo_gcn
 from tggcn_torch.nn.init import fan_in_uniform
 from tggcn_torch.nn.messages import compute_message_features, masked_softmax
-from tggcn_torch.nn.mlp import apply_mlp
+from tggcn_torch.nn.mlp import apply_bilinear, apply_mlp, init_bilinear
 from tggcn_torch.nn.temporal import reorder_hidden_states
+from tggcn_torch.ops.geo_gcn import geo_gcn_fused_autograd, geo_gcn_plain
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -135,6 +140,25 @@ def test_reorder_hidden_states():
     close(reorder_hidden_states(torch.tensor(h), torch.tensor(u)), jax_reorder(h, u))
 
 
+def test_reorder_hidden_states_gradient():
+    """The reorder's fixed-order backward against autograd of torch.gather:
+    each state's gradient is the sum over the frames that read it."""
+    rng = np.random.default_rng(11)
+    h = torch.tensor(rng.normal(size=(4, 9, 5)).astype(np.float32), requires_grad=True)
+    u = (rng.uniform(size=(4, 9)) > 0.6).astype(np.float32)
+    u[1] = 0.0            # no end frame
+    u[2, -1] = 1.0        # every frame in a segment
+    u[3] = 1.0            # every frame its own segment
+    g = torch.tensor(rng.normal(size=(4, 9, 5)).astype(np.float32))
+    (got,) = torch.autograd.grad(reorder_hidden_states(h, torch.tensor(u)), h, g)
+    want = torch.zeros_like(h)
+    for b in range(4):
+        for t in range(9):
+            ends = [k for k in range(t, 9) if u[b, k]]
+            want[b, ends[0] if ends else t] += g[b, t]
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
 def test_straight_through_decisions():
     """Hard thresholds forward; the straight-through gradient is the identity."""
     x = torch.tensor([0.2, 0.5, 0.50001, 0.9], requires_grad=True)
@@ -189,3 +213,98 @@ def test_batchnorm_training_matches_jax():
     close(got, want)
     for k in ("mean", "var"):
         close(state[k], want_state[k])
+
+
+def test_bilinear():
+    params = jax_init_bilinear(jax.random.PRNGKey(8), 6, 5, 3)
+    rng = np.random.default_rng(8)
+    x1 = rng.normal(size=(2, 4, 6)).astype(np.float32)
+    x2 = rng.normal(size=(2, 4, 5)).astype(np.float32)
+    close(apply_bilinear(params_from_numpy(_np(params)), torch.tensor(x1), torch.tensor(x2)),
+          jax_apply_bilinear(params, x1, x2))
+    torch_params = init_bilinear(torch.Generator().manual_seed(0), 6, 5, 3)
+    assert jax.tree_util.tree_map(lambda a: tuple(a.shape), torch_params) == \
+        jax.tree_util.tree_map(lambda a: tuple(a.shape), params)
+
+
+@pytest.mark.parametrize("kind", ["v1", "v4", "mp", "distances"])
+@pytest.mark.parametrize("edge", ["self_excluded", "masked_senders"])
+def test_messages_modes(kind, edge):
+    """Generic messages with concat (v1) or bilinear (v4) attention, mean
+    pooling, or inverse-distance attention with exact zero distances; one
+    receiver row has no unmasked sender (and, with distances, one has every
+    distance zero), and must get a zero message and zero weights."""
+    rng = np.random.default_rng(9)
+    f, b, t, n = 6, 2, 3, 4
+    key_m, key_a = jax.random.split(jax.random.PRNGKey(9))
+    params = {"msg": jax_init_mlp(key_m, [f, 5])}
+    if kind == "v1":
+        params["att"] = jax_init_mlp(key_a, [2 * f, 1])
+    elif kind == "v4":
+        params["att"] = jax_init_bilinear(key_a, f, f, 1)
+    recv = rng.normal(size=(b, t, n, f)).astype(np.float32)
+    if edge == "self_excluded":
+        send, mask, exclude = recv, None, True
+    else:
+        send = rng.normal(size=(b, t, 3, f)).astype(np.float32)
+        mask = np.array([[1, 0, 1], [0, 0, 0]], np.float32)[:, None, None, :]
+        exclude = False
+    dists = None
+    if kind == "distances":
+        dists = rng.uniform(0.2, 2.0, size=(b, t, n, send.shape[2])).astype(np.float32)
+        dists[rng.uniform(size=dists.shape) < 0.25] = 0.0
+        dists[0, 1, 2] = 0.0
+    kw = dict(message_type="v2", message_granularity="v1",
+              message_aggregation="mp" if kind == "mp" else "att",
+              attention_style=kind if kind in ("v1", "v4") else "v3")
+    want_msg, want_att = jax_messages.compute_message_features(
+        params, recv, send, mask, exclude_self=exclude, distances=dists, **kw)
+    tensor = lambda x: None if x is None else torch.tensor(x)
+    got_msg, got_att = compute_message_features(
+        params_from_numpy(_np(params)), tensor(recv), tensor(send), tensor(mask),
+        exclude_self=exclude, distances=tensor(dists), **kw)
+    close(got_msg, want_msg)
+    if kind == "mp":
+        assert got_att is None and want_att is None
+    else:
+        close(got_att, want_att)
+        assert torch.isfinite(got_att).all()
+    if edge == "masked_senders":
+        assert torch.equal(got_msg[1], torch.zeros_like(got_msg[1]))
+    if kind == "distances":
+        assert torch.equal(got_att[0, 1, 2], torch.zeros_like(got_att[0, 1, 2]))
+
+
+@pytest.mark.parametrize("v", [19, 26, 30])
+def test_geo_gcn_fused_plain(v):
+    """K6's plain version against the Pallas kernel (interpret mode) and
+    geo_gcn_reference over N = 21 frames (not a multiple of the TPU tile of
+    16), and the gradient of its autograd Function against autograd of the
+    plain version."""
+    params = jax_init_geo_gcn(jax.random.PRNGKey(v), v)
+    weights = [params[name][key] for name in ("embed1", "embed2", "s1", "s2")
+               for key in ("w", "b")] + [params["weight"]]
+    x = np.random.default_rng(v).normal(size=(21, v, 4)).astype(np.float32)
+    ours = [torch.tensor(np.asarray(w)) for w in weights]
+    got = geo_gcn_plain(torch.tensor(x), *ours)
+    np.testing.assert_allclose(got.numpy(), np.asarray(geo_gcn_reference(x, *weights)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jax_geo_gcn_fused(x, *weights, 16, True)),
+                               rtol=1e-5, atol=1e-5)
+    leaves = [t.clone().requires_grad_(True) for t in (torch.tensor(x), *ours)]
+    g = torch.tensor(np.random.default_rng(v + 1).normal(size=got.shape).astype(np.float32))
+    grads = torch.autograd.grad(geo_gcn_fused_autograd(*leaves), leaves, g)
+    want = torch.autograd.grad(geo_gcn_plain(*leaves), leaves, g)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_geo_gcn_fused_route_matches_jax():
+    """apply_geo_gcn with the fused route (use_pallas_geo_gcn) against
+    JAX's apply_geo_gcn."""
+    params = jax_init_geo_gcn(jax.random.PRNGKey(12), 26)
+    x = np.random.default_rng(12).normal(size=(2, 3, 26, 4)).astype(np.float32)
+    want, _ = jax_geo_gcn(params, x, train=False)
+    got, _ = apply_geo_gcn(params_from_numpy(_np(params)), torch.tensor(x), fused=True)
+    close(got, want)

@@ -27,12 +27,28 @@
 // A and B use the pipelined, register-tiled product of tile_gemm.cuh, so
 // each weight is read once per step while there are at most 32 rows.
 //
+// K5, the same scan in the other attention modes of _make_kernel, is the
+// same three phases with the mode a template parameter of A and M (the
+// 'dot' instantiation is K3 as above):
+//   v1   M scores relu(recv . wa[e][:h] + send . wa[e][h:] + b_att[e]): four
+//        dot products per entity over the carried states in shared memory.
+//   v4   A also computes tmp_e = recv @ W_e for the two score edges of each
+//        receiver (96 more rows of depth h at the MPHOI shape); M scores
+//        relu(tmp_e . send + b_att[e]).
+//   ext  M reads step t of the weights computed outside (mean pooling or
+//        inverse distances), already softmaxed, and scores nothing.
+// w_att and b_att are in score order, by receiver then sender: hh, oh, ho,
+// oo (segment_scan_pallas.py:729), unlike w_from's hh, ho, oh, oo. K5 is
+// forward only, so it keeps no per-step messages: each step's sit in one
+// buffer per direction.
+//
 // Bound on an H100: float32 FMAs. Per step and direction at the MPHOI shape
 // (B=8, H=2, O=4, h=512) the matmuls do 2*(96*h*h + 48*3h*3h) = 277 MFLOP
 // (four projections over 16+16+32+32 rows; 48 cell rows of depth 3h), so
 // 92 GFLOP for both directions over T=167, against 67 TFLOP/s.
 // The weights (40 MB for both directions) stay in the 50 MB L2 and are read
-// from it every step; HBM has to carry only gi in and the states out.
+// from it every step; HBM has to carry only gi in and the states out. v1 and
+// ext do about the same work; v4 adds 2 * 96 * h * h * 2 * T = 17 GFLOP.
 
 #include "tile_gemm.cuh"
 
@@ -43,6 +59,9 @@ using namespace tggcn;
 constexpr int kMaxEntities = 16;
 constexpr int kMixColumns = 128;   // mix columns (of 2h) per mix block
 constexpr int kWarps = kThreads / 32;
+
+// Attention modes: the codes of tggcn_segment_scan_att_f32's `mode`.
+constexpr int kDot = 0, kV1 = 1, kV4 = 2, kExt = 3;
 
 struct Step {
   int d, t;   // direction and the time it processes at this step
@@ -64,28 +83,61 @@ __device__ __forceinline__ const float* prev_state(const float* h0, const float*
 }
 
 // Edge e's message row `row` at the step's (d, t): m_h holds the edges
-// hh | ho of each human, m_o the edges oh | oo of each object.
+// hh | ho of each human, m_o the edges oh | oo of each object. K3 keeps
+// every step's (for K4); K5 one step's per direction.
+template <int Mode>
 __device__ __forceinline__ size_t msg_at(Step s, int T, int rows, int row, int e, int H) {
-  return (((size_t)s.d * T + s.t) * rows + row) * 2 * H + (size_t)(e & 1) * H;
+  const size_t slot = Mode == kDot ? (size_t)s.d * T + s.t : (size_t)s.d;
+  return (slot * rows + row) * 2 * H + (size_t)(e & 1) * H;
 }
 
+// Blocks own 32 rows x 16 columns of one (direction, edge): edges 0-3 are
+// the messages (hh, ho, oh, oo); in v4, edges 4-7 are tmp = recv @ W_att of
+// the score edges hh, oh (receivers humans, into tmp_h) and ho, oo
+// (receivers objects, into tmp_o), laid out (2, rows, sender group, h).
+template <int Mode>
 __global__ void __launch_bounds__(kThreads)
 proj_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
             const float* __restrict__ out_h, const float* __restrict__ out_o,
             const float* __restrict__ w_from, const float* __restrict__ b_from,
-            float* __restrict__ m_h, float* __restrict__ m_o, int T, int B, int NH, int NO,
+            float* __restrict__ m_h, float* __restrict__ m_o,
+            const float* __restrict__ w_att, float* __restrict__ tmp_h,
+            float* __restrict__ tmp_o, int T, int B, int NH, int NO,
             int H, int row_tiles, int step) {
   const Step s = step_of(step, T);
   const int e = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kTileRows;
   const int col0 = blockIdx.x * kTileUnits;
+  extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (Mode == kV4) {
+    if (e >= 4) {
+      const int se = e - 4;
+      const int rows = se < 2 ? B * NH : B * NO;
+      if (row0 >= rows) return;
+      const float* x = se < 2 ? prev_state(h0_h, out_h, s, step, T, B * NH, H)
+                              : prev_state(h0_o, out_o, s, step, T, B * NO, H);
+      float acc[4][4][1] = {};
+      const Operand op = {x, H, w_att + (size_t)se * H * H, H, 0, H};
+      accumulate<1, 1, 1>(op, op, rows, H, row0, col0, smem, acc);
+      store_partials<1>(smem, acc);
+      __syncthreads();
+      float* tmp = se < 2 ? tmp_h : tmp_o;
+      for (int i = 0; i < kEpiloguePairs; ++i) {
+        const int p = threadIdx.x + i * kThreads, r = p / kTileUnits, c = p % kTileUnits;
+        const int row = row0 + r, col = col0 + c;
+        if (row >= rows || col >= H) continue;
+        tmp[(((size_t)s.d * rows + row) * 2 + (se & 1)) * H + col] =
+            reduce_partials<1>(smem, 0, r, c);
+      }
+      return;
+    }
+  }
   const int rows = e < 2 ? B * NH : B * NO;
   if (row0 >= rows) return;
   const float* x = e < 2 ? prev_state(h0_h, out_h, s, step, T, B * NH, H)
                          : prev_state(h0_o, out_o, s, step, T, B * NO, H);
   float* m = e < 2 ? m_h : m_o;
 
-  extern __shared__ __align__(16) unsigned char smem[];
   float acc[4][4][1] = {};
   const Operand op = {x, H, w_from + (size_t)e * H * H, H, 0, H};
   accumulate<1, 1, 1>(op, op, rows, H, row0, col0, smem, acc);
@@ -96,7 +148,7 @@ proj_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
     const int row = row0 + r, col = col0 + c;
     if (row >= rows || col >= H) continue;
     const float v = reduce_partials<1>(smem, 0, r, c) + b_from[(size_t)e * H + col];
-    m[msg_at(s, T, rows, row, e, H) + col] = fmaxf(v, 0.f);
+    m[msg_at<Mode>(s, T, rows, row, e, H) + col] = fmaxf(v, 0.f);
   }
 }
 
@@ -117,12 +169,23 @@ __device__ void masked_softmax_row(float* a, int first, int n, Mask mask) {
   for (int m = 0; m < n; ++m) a[first + m] /= den;
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Per (batch, column slice, direction): the scores of the mode, the masked
+// softmax (ext: the weights as given), att_oh and the mixed messages.
 // Dynamic shared memory: the (NH + NO) carried states of the block's batch.
+template <int Mode>
 __global__ void __launch_bounds__(kThreads)
 mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
            const float* __restrict__ out_h, const float* __restrict__ out_o,
            const float* __restrict__ obj_mask, const float* __restrict__ m_h,
-           const float* __restrict__ m_o, float* __restrict__ mix_h, float* __restrict__ mix_o,
+           const float* __restrict__ m_o, const float* __restrict__ w_att,
+           const float* __restrict__ b_att, const float* __restrict__ tmp_h,
+           const float* __restrict__ tmp_o, const float* __restrict__ att_ext,
+           float* __restrict__ mix_h, float* __restrict__ mix_o,
            float* __restrict__ att, int T, int B, int NH, int NO, int H,
            float scale, int step) {
   const Step s = step_of(step, T);
@@ -136,22 +199,59 @@ mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
   float* states = reinterpret_cast<float*>(states4);       // (E, H)
   __shared__ float a[kMaxEntities][kMaxEntities];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  for (int i = tid; i < E * H / 4; i += kThreads) {
-    const int n = (4 * i) / H, k = (4 * i) % H;
-    const float* src = n < NH ? hh + (size_t)n * H : ho + (size_t)(n - NH) * H;
-    states4[i] = *reinterpret_cast<const float4*>(src + k);
+  if constexpr (Mode != kExt) {
+    for (int i = tid; i < E * H / 4; i += kThreads) {
+      const int n = (4 * i) / H, k = (4 * i) % H;
+      const float* src = n < NH ? hh + (size_t)n * H : ho + (size_t)(n - NH) * H;
+      states4[i] = *reinterpret_cast<const float4*>(src + k);
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int p = warp; p < E * E; p += kWarps) {
-    const int n = p / E, m = p % E;
-    float dot = 0.f;
-    for (int k = lane; k < H; k += 32) dot = fmaf(states[n * H + k], states[m * H + k], dot);
-    for (int off = 16; off > 0; off /= 2) dot += __shfl_down_sync(0xffffffffu, dot, off);
-    if (lane == 0) a[n][m] = dot * scale;
+  if constexpr (Mode == kDot) {
+    for (int p = warp; p < E * E; p += kWarps) {
+      const int n = p / E, m = p % E;
+      float dot = 0.f;
+      for (int k = lane; k < H; k += 32) dot = fmaf(states[n * H + k], states[m * H + k], dot);
+      for (int off = 16; off > 0; off /= 2) dot += __shfl_down_sync(0xffffffffu, dot, off);
+      if (lane == 0) a[n][m] = dot * scale;
+    }
+  } else if constexpr (Mode == kV1) {
+    // proj[n][g]: n as the receiver of senders of group g (0 humans, 1
+    // objects), the first half of wa; proj[n][2 + g]: n as the sender to
+    // receivers of group g, the second half. Score edge = 2 g_recv + g_send.
+    __shared__ float proj[kMaxEntities][4];
+    for (int p = warp; p < 4 * E; p += kWarps) {
+      const int n = p / 4, j = p % 4, gn = n < NH ? 0 : 1;
+      const float* w = j < 2 ? w_att + (size_t)(2 * gn + j) * 2 * H
+                             : w_att + (size_t)(2 * (j - 2) + gn) * 2 * H + H;
+      float dot = 0.f;
+      for (int k = lane; k < H; k += 32) dot = fmaf(states[n * H + k], w[k], dot);
+      dot = warp_sum(dot);
+      if (lane == 0) proj[n][j] = dot;
+    }
+    __syncthreads();
+    for (int i = tid; i < E * E; i += kThreads) {
+      const int n = i / E, m = i % E, gn = n < NH ? 0 : 1, gm = m < NH ? 0 : 1;
+      a[n][m] = fmaxf(proj[n][gm] + proj[m][2 + gn] + b_att[2 * gn + gm], 0.f);
+    }
+  } else if constexpr (Mode == kV4) {
+    for (int p = warp; p < E * E; p += kWarps) {
+      const int n = p / E, m = p % E, gn = n < NH ? 0 : 1, gm = m < NH ? 0 : 1;
+      const float* tr = gn == 0
+          ? tmp_h + (((size_t)s.d * B * NH + b * NH + n) * 2 + gm) * H
+          : tmp_o + (((size_t)s.d * B * NO + b * NO + n - NH) * 2 + gm) * H;
+      float dot = 0.f;
+      for (int k = lane; k < H; k += 32) dot = fmaf(tr[k], states[m * H + k], dot);
+      dot = warp_sum(dot);
+      if (lane == 0) a[n][m] = fmaxf(dot + b_att[2 * gn + gm], 0.f);
+    }
+  } else {
+    for (int i = tid; i < E * E; i += kThreads)
+      a[i / E][i % E] = att_ext[(((size_t)s.t * B + b) * E + i / E) * E + i % E];
   }
   __syncthreads();
   const float* om = obj_mask + (size_t)b * NO;
-  if (tid < E) {
+  if (Mode != kExt && tid < E) {
     const int n = tid;
     if (n < NH) {
       masked_softmax_row(a[n], 0, NH, [&](int m) { return m == n ? 0.f : 1.f; });
@@ -170,7 +270,8 @@ mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
     }
   }
   auto m_row = [&](int e, int row) {
-    return e < 2 ? m_h + msg_at(s, T, B * NH, row, e, H) : m_o + msg_at(s, T, B * NO, row, e, H);
+    return e < 2 ? m_h + msg_at<Mode>(s, T, B * NH, row, e, H)
+                 : m_o + msg_at<Mode>(s, T, B * NO, row, e, H);
   };
   const int width = min(kMixColumns, 2 * H - c0);
   for (int i = tid; i < E * width; i += kThreads) {
@@ -237,25 +338,22 @@ cell_kernel(const float* __restrict__ gi_h, const float* __restrict__ gi_o,
   }
 }
 
-}  // namespace
-
 // Runs the whole scan, both directions: per step the launches A, M, B on
 // `stream`, in order. Returns the first CUDA error of a launch, else 0.
-// H % 4 == 0, NH + NO <= 16 and (NH + NO) * H * 4 bytes <= 48 KB.
-extern "C" int tggcn_segment_scan_dot_f32(
-    const float* gi_h, const float* gi_o, const float* u_h, const float* u_o,
-    const float* w_from, const float* b_from, const float* w_msg_h,
-    const float* w_msg_o, const float* w_hh_h, const float* w_hh_o,
-    const float* b_hh_h, const float* b_hh_o, const float* obj_mask,
-    const float* h0_h, const float* h0_o, float* out_h, float* out_o,
-    float* att, float* m_h, float* m_o, float* mix_h, float* mix_o, int T, int B, int NH,
-    int NO, int H, float scale, void* stream_ptr) {
+template <int Mode>
+int run_scan(const float* gi_h, const float* gi_o, const float* u_h, const float* u_o,
+             const float* w_from, const float* b_from, const float* w_msg_h,
+             const float* w_msg_o, const float* w_hh_h, const float* w_hh_o,
+             const float* b_hh_h, const float* b_hh_o, const float* obj_mask,
+             const float* h0_h, const float* h0_o, const float* w_att, const float* b_att,
+             const float* att_ext, float* out_h, float* out_o, float* att, float* m_h,
+             float* m_o, float* tmp_h, float* tmp_o, float* mix_h, float* mix_o, int T, int B,
+             int NH, int NO, int H, float scale, cudaStream_t stream) {
   const size_t states_bytes = (size_t)(NH + NO) * H * sizeof(float);
   if (NH + NO > kMaxEntities || H % 4 != 0 || states_bytes > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const size_t smem_a = smem_bytes<1, 1>(), smem_b = smem_bytes<3, 4>();
-  cudaError_t err = cudaFuncSetAttribute(proj_kernel,
+  cudaError_t err = cudaFuncSetAttribute(proj_kernel<Mode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -264,16 +362,16 @@ extern "C" int tggcn_segment_scan_dot_f32(
   const int max_rows = B * (NH > NO ? NH : NO);
   const int row_tiles = (max_rows + kTileRows - 1) / kTileRows;
   const int col_tiles = (H + kTileUnits - 1) / kTileUnits;
-  const dim3 grid_a(col_tiles, 4 * row_tiles, 2);
+  const dim3 grid_a(col_tiles, (Mode == kV4 ? 8 : 4) * row_tiles, 2);
   const dim3 grid_m(B, (2 * H + kMixColumns - 1) / kMixColumns, 2);
   const dim3 grid_b(col_tiles, 2 * row_tiles, 2);
   for (int step = 0; step < T; ++step) {
-    proj_kernel<<<grid_a, kThreads, smem_a, stream>>>(h0_h, h0_o, out_h, out_o, w_from,
-                                                 b_from, m_h, m_o, T, B, NH, NO, H,
-                                                 row_tiles, step);
-    mix_kernel<<<grid_m, kThreads, states_bytes, stream>>>(
-        h0_h, h0_o, out_h, out_o, obj_mask, m_h, m_o, mix_h, mix_o, att, T, B, NH, NO, H,
-        scale, step);
+    proj_kernel<Mode><<<grid_a, kThreads, smem_a, stream>>>(
+        h0_h, h0_o, out_h, out_o, w_from, b_from, m_h, m_o, w_att, tmp_h, tmp_o, T, B, NH,
+        NO, H, row_tiles, step);
+    mix_kernel<Mode><<<grid_m, kThreads, states_bytes, stream>>>(
+        h0_h, h0_o, out_h, out_o, obj_mask, m_h, m_o, w_att, b_att, tmp_h, tmp_o, att_ext,
+        mix_h, mix_o, att, T, B, NH, NO, H, scale, step);
     cell_kernel<<<grid_b, kThreads, smem_b, stream>>>(
         gi_h, gi_o, u_h, u_o, mix_h, mix_o, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
         b_hh_h, b_hh_o, h0_h, h0_o, out_h, out_o, T, B, NH, NO, H, row_tiles, step);
@@ -281,4 +379,52 @@ extern "C" int tggcn_segment_scan_dot_f32(
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K3: the scan in 'dot' mode; m_h and m_o keep every step's edge messages
+// (2, T, B * NH or NO, 2H). H % 4 == 0, NH + NO <= 16 and (NH + NO) * H * 4
+// bytes <= 48 KB.
+extern "C" int tggcn_segment_scan_dot_f32(
+    const float* gi_h, const float* gi_o, const float* u_h, const float* u_o,
+    const float* w_from, const float* b_from, const float* w_msg_h,
+    const float* w_msg_o, const float* w_hh_h, const float* w_hh_o,
+    const float* b_hh_h, const float* b_hh_o, const float* obj_mask,
+    const float* h0_h, const float* h0_o, float* out_h, float* out_o,
+    float* att, float* m_h, float* m_o, float* mix_h, float* mix_o, int T, int B, int NH,
+    int NO, int H, float scale, void* stream_ptr) {
+  return run_scan<kDot>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
+                        w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, nullptr, nullptr,
+                        nullptr, out_h, out_o, att, m_h, m_o, nullptr, nullptr, mix_h, mix_o,
+                        T, B, NH, NO, H, scale, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// K5: the scan in mode 1 'v1' (w_att (4, 2H), b_att (4)), 2 'v4' (w_att
+// (4, H, H), b_att (4); tmp_h (2, B * NH, 2, H) and tmp_o (2, B * NO, 2, H)
+// scratch) or 3 'ext' (att_ext (T, B, E, E), E = NH + NO: row n < NH holds
+// [a_hh | a_oh] of human n, row NH + o [a_ho | a_oo] of object o). m_h and
+// m_o hold one step's messages, (2, B * NH or NO, 2H). Unused pointers may be
+// null. The limits are K3's.
+extern "C" int tggcn_segment_scan_att_f32(
+    int mode, const float* gi_h, const float* gi_o, const float* u_h, const float* u_o,
+    const float* w_from, const float* b_from, const float* w_msg_h,
+    const float* w_msg_o, const float* w_hh_h, const float* w_hh_o,
+    const float* b_hh_h, const float* b_hh_o, const float* obj_mask,
+    const float* h0_h, const float* h0_o, const float* w_att, const float* b_att,
+    const float* att_ext, float* out_h, float* out_o, float* att, float* m_h, float* m_o,
+    float* tmp_h, float* tmp_o, float* mix_h, float* mix_o, int T, int B, int NH, int NO,
+    int H, void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+#define TGGCN_RUN_SCAN(M)                                                                 \
+  run_scan<M>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,      \
+              b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, w_att, b_att, att_ext, out_h, out_o,   \
+              att, m_h, m_o, tmp_h, tmp_o, mix_h, mix_o, T, B, NH, NO, H, 1.f, stream)
+  switch (mode) {
+    case kV1: return TGGCN_RUN_SCAN(kV1);
+    case kV4: return TGGCN_RUN_SCAN(kV4);
+    case kExt: return TGGCN_RUN_SCAN(kExt);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TGGCN_RUN_SCAN
 }

@@ -21,7 +21,8 @@
 //              by 7% of its largest value against the plain version).
 //   C  cell:   recompute gi = gi_base + msgs @ w_msg, gh = h_prev @ w_hh +
 //              b_hh and the gates; dH = carry + g; du = sum(dH (h_new -
-//              h_prev)); dh_new = dH u; dgi, dgh; dhz = dH (1 - u) + dh_new z.
+//              h_prev)), one partial per block (du_part); dh_new = dH u; dgi,
+//              dgh; dhz = dH (1 - u) + dh_new z.
 //   D  dmsgs:  dmsgs = dgi @ w_msg^T (contract 3h).
 //   A  att:    per (batch, direction, column slice): da = dmsgs . m (plus
 //              g_att on the o2h block), ds = a (da - sum(da a)) per softmax
@@ -30,6 +31,8 @@
 //              dmsgs, masked by the ReLU into dpre (an output).
 //   R  carry:  carry = dhz + attc + dgh @ w_hh^T + dpre @ [w_from^T of the
 //              two edges the cell's states send].
+// After the sweep one launch adds each row's du partials in block order:
+// no atomics, so a call gives the same bits on every run.
 // C, D and R use the pipelined, register-tiled product of tile_gemm.cuh;
 // the transposed weights (w_msg^T, w_hh^T, w_from^T) come from the caller,
 // transposed once per call, so that every product reads a (K, N) weight.
@@ -164,7 +167,7 @@ segb_mix(const float* __restrict__ hprev_h, const float* __restrict__ hprev_o,
 
 struct CellArgs {
   const float *gi, *u, *hprev, *g, *msgs, *w_msg, *w_hh, *b_hh, *carry;
-  float *dgi, *dgh, *du, *dhz;
+  float *dgi, *dgh, *du_part, *dhz;
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -221,12 +224,27 @@ segb_cell(CellArgs hum, CellArgs obj, int T, int B, int NH, int NO, int H, int r
       c.dgh[g3 + 2 * H + unit] = dtanh * rg;
       c.dhz[hs] = dH * (1.f - u) + dh_new * zg;
     }
-    // The 16 units of a tile row sit in 16 neighbouring lanes: add them up,
-    // then one atomic per row and block (du is zero on entry).
+    // The 16 units of a tile row sit in 16 neighbouring lanes: add them up
+    // in a fixed order, then one partial per row and block; du_sum adds the
+    // blocks' partials after the sweep, so du is the same on every run.
     for (int off = kTileUnits / 2; off > 0; off /= 2)
       du += __shfl_xor_sync(0xffffffffu, du, off, kTileUnits);
-    if (cc == 0 && row < rows) atomicAdd(c.du + ((size_t)s.d * T + s.t) * rows + row, du);
+    if (cc == 0 && row < rows)
+      c.du_part[(((size_t)s.d * T + s.t) * rows + row) * gridDim.x + blockIdx.x] = du;
   }
+}
+
+// du[i] = the sum, in block order, of the `parts` partials of row i.
+__global__ void __launch_bounds__(kThreads)
+du_sum(const float* __restrict__ part_h, const float* __restrict__ part_o,
+       float* __restrict__ du_h, float* __restrict__ du_o, int n_h, int n_o, int parts) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool human = i < n_h;
+  if (i >= n_h + n_o) return;
+  const float* p = human ? part_h + (size_t)i * parts : part_o + (size_t)(i - n_h) * parts;
+  float v = 0.f;
+  for (int q = 0; q < parts; ++q) v += p[q];
+  (human ? du_h : du_o)[human ? i : i - n_h] = v;
 }
 
 // dmsgs = dgi @ w_msg^T for both cells; blocks own 32 rows x 16 of 2h columns.
@@ -381,9 +399,10 @@ segb_carry(CarryArgs hum, CarryArgs obj, int T, int B, int NH, int NO, int H, in
 }  // namespace
 
 // Runs the whole backward sweep, both directions: per step the launches M,
-// C, D, A, R on `stream`, in order. du_h, du_o, carry_h and carry_o must
-// hold zeros on entry; the carries hold dh0 on return. Returns the first
-// CUDA error of a launch, else 0. H % 4 == 0, NH + NO <= 16 and
+// C, D, A, R on `stream`, in order, then du_sum. carry_h and carry_o must
+// hold zeros on entry; the carries hold dh0 on return. du_part_h and
+// du_part_o take (2, T, B * NH or NO, ceil(H / 16)) partials. Returns the
+// first CUDA error of a launch, else 0. H % 4 == 0, NH + NO <= 16 and
 // (NH + NO) * H * 4 bytes <= 48 KB.
 extern "C" int tggcn_segment_scan_dot_bwd_f32(
     const float* gi_h, const float* gi_o, const float* u_h, const float* u_o,
@@ -394,7 +413,8 @@ extern "C" int tggcn_segment_scan_dot_bwd_f32(
     const float* w_from_t_o, const float* w_msg_t_h, const float* w_msg_t_o,
     const float* w_hh_t_h, const float* w_hh_t_o, float* dgi_h, float* dgi_o,
     float* dgh_h, float* dgh_o, float* msgs_h, float* msgs_o, float* dpre_h,
-    float* dpre_o, float* du_h, float* du_o, float* carry_h, float* carry_o, float* atts,
+    float* dpre_o, float* du_h, float* du_o, float* du_part_h, float* du_part_o,
+    float* carry_h, float* carry_o, float* atts,
     float* dhz_h, float* dhz_o, float* dmsgs_h, float* dmsgs_o, float* attc_h, float* attc_o, int T, int B, int NH, int NO, int H, float scale,
     void* stream_ptr) {
   const size_t states_bytes = (size_t)(NH + NO) * H * sizeof(float);
@@ -420,9 +440,9 @@ extern "C" int tggcn_segment_scan_dot_bwd_f32(
   const dim3 grid_d(2 * col_tiles, 2 * row_tiles, 2);
   const dim3 grid_a(B, (H + kSliceColumns - 1) / kSliceColumns, 2);
   const CellArgs cell_h = {gi_h, u_h, hprev_h, g_h, msgs_h, w_msg_h, w_hh_h, b_hh_h,
-                           carry_h, dgi_h, dgh_h, du_h, dhz_h};
+                           carry_h, dgi_h, dgh_h, du_part_h, dhz_h};
   const CellArgs cell_o = {gi_o, u_o, hprev_o, g_o, msgs_o, w_msg_o, w_hh_o, b_hh_o,
-                           carry_o, dgi_o, dgh_o, du_o, dhz_o};
+                           carry_o, dgi_o, dgh_o, du_part_o, dhz_o};
   const AttArgs att = {hprev_h, hprev_o, g_att, m_h, m_o, atts, dmsgs_h, dmsgs_o,
                        dpre_h, dpre_o, attc_h, attc_o};
   const CarryArgs carry_args_h = {dgh_h, w_hh_t_h, dpre_h, w_from_t_h, dhz_h, attc_h, carry_h};
@@ -442,5 +462,8 @@ extern "C" int tggcn_segment_scan_dot_bwd_f32(
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const int n_h = 2 * T * B * NH, n_o = 2 * T * B * NO;
+  du_sum<<<(n_h + n_o + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      du_part_h, du_part_o, du_h, du_o, n_h, n_o, col_tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,6 +8,12 @@ human segmentation (all ones), so only the objects draw Gumbel noise.
 ``TRAIN`` is the yaml's optimisation and misc blocks: Adam at lr 1e-4, no
 clipping, and loss weights that leave only the segment-level recognition
 and anticipation losses on (the same weights as ``bench.py``'s empty misc).
+
+``SERVE_VARIANTS`` are the changes to the yaml that serve the model through
+K5 (the set ``tools/bench_segment_modes.py`` times at this shape): distance-
+based attention with the GeoGCN kernel on (``dist``, which needs
+``make_distances``), concat (``v1``) or bilinear (``v4``) attention, and
+mean pooling (``mp``).
 """
 
 import numpy as np
@@ -35,6 +41,9 @@ TRAIN = dict(
                                 "weight": 1.0}})
 
 FEEDER_KWARGS = dict(dataset_name="mphoi", impose_segmentation_pattern=1)
+
+SERVE_VARIANTS = {"dist": dict(use_pallas_geo_gcn=True), "v1": dict(attention_style="v1"),
+                  "v4": dict(attention_style="v4"), "mp": dict(message_aggregation="mp")}
 
 
 def make_request(rng: np.random.Generator, b: int, t: int, humans: int, objects: int) -> dict:
@@ -64,3 +73,16 @@ def make_batch(rng: np.random.Generator, b: int, t: int, humans: int, objects: i
     y_rec = rng.integers(0, 13, size=(b, t, humans)).astype(np.int64)
     return [x_human, x_objects, mask, x_hseg, dummy, dummy, dummy, steps,
             y_seg, y_seg, y_rec, y_rec, y_rec, y_rec]
+
+
+def make_distances(rng: np.random.Generator, b: int, t: int, humans: int, objects: int) -> dict:
+    """Random positive distances of one request, as the MPHOI feeder passes
+    them with make_attention_distance_based: (B, T, H, H), (B, T, H, O),
+    (B, T, O, O), about a fifth of them exactly 0, which distance-based
+    attention masks."""
+    def d(r, s):
+        return np.where(rng.uniform(size=(b, t, r, s)) < 0.2, 0.0,
+                        rng.uniform(0.1, 3.0, size=(b, t, r, s))).astype(np.float32)
+    return dict(human_human_distances=d(humans, humans),
+                human_object_distances=d(humans, objects),
+                object_object_distances=d(objects, objects))

@@ -1,18 +1,25 @@
 """TGGCN — the 2G-GCN two-level recurrent HOI model in PyTorch.
 
-Counterpart of ``tggcn/models/tggcn.py:52-808, 834-1046``. The port covers
-the stage-1 configuration (``conf/models/2G-GCN_stage1.yaml``), forward and
-training, in float32: non-relational generic messages on all four entity
-edges plus geometry edges, (scaled) dot attention, independent object
-decisions, and decisions either imposed (stage-1 feeders impose the human
+Counterpart of ``tggcn/models/tggcn.py:52-808, 819-1046``. The port covers,
+in float32, non-relational generic messages on all four entity edges plus
+geometry edges, with decisions imposed (stage-1 feeders impose the human
 segmentation) or taken by the straight-through ('st') or Gumbel-sigmoid
-('gs') estimator. A configuration outside the slice raises
-NotImplementedError; it never takes another path silently.
+('gs') estimator, and 'ind', 'sah' or 'coh' object decisions:
+  * (scaled) dot attention (the stage-1 configuration,
+    ``conf/models/2G-GCN_stage1.yaml``), forward and training;
+  * concat (v1) and bilinear (v4) attention, mean pooling, and
+    inverse-distance attention from all three distance tensors: serving
+    only (train=False with grad disabled), as JAX's forward-only kernel
+    routing runs them (``tggcn/models/registry.py:45``).
+A configuration or call outside these raises NotImplementedError; it never
+takes another path silently.
 
 The frame-level BiGRU runs through K1 forward and K2 backward
-(``gru_sequence_autograd``), the segment scan through K3 forward and K4
-backward (``segment_scan_dot_autograd``); on the CPU they take their plain
-PyTorch versions.
+(``gru_sequence_autograd``); the segment scan through K3 forward and K4
+backward (``segment_scan_dot_autograd``) in 'dot' mode and through K5
+(``segment_scan_forward``) in the modes 'v1', 'v4' and 'ext'; with
+``use_pallas_geo_gcn`` the GeoGCN block through K6. On the CPU they take
+their plain PyTorch versions.
 """
 
 import math
@@ -24,21 +31,24 @@ import torch
 from tggcn_torch.nn.distributions import discrete_estimator
 from tggcn_torch.nn.geo_gcn import apply_geo_gcn, init_geo_gcn
 from tggcn_torch.nn.gru import init_bigru, init_gru_cell, run_multi_bigru
-from tggcn_torch.nn.messages import compute_message_features
-from tggcn_torch.nn.mlp import apply_mlp, init_mlp
+from tggcn_torch.nn.messages import compute_message_features, distance_based_attention_weights
+from tggcn_torch.nn.mlp import apply_mlp, init_bilinear, init_mlp
 from tggcn_torch.nn.temporal import reorder_hidden_states
-from tggcn_torch.ops.segment_scan import segment_scan_dot_autograd
+from tggcn_torch.ops.segment_scan import segment_scan_dot_autograd, segment_scan_forward
 
-SLICE = "the stage-1 2G-GCN slice of tggcn_torch"
+SLICE = "the 2G-GCN slice of tggcn_torch"
+DOT_STYLES = {"v2", "dot-product", "v3", "scaled_dot-product"}
 
 
 @dataclass(frozen=True)
 class TGGCNConfig:
     """The model fields of ``tggcn.models.tggcn.TGGCNConfig``, with its defaults.
 
-    ``from_kwargs`` drops the fields that only route tggcn to its TPU kernels
-    or tune its scans (``use_pallas_*``, ``scan_unroll``, ``remat_*``, ...),
-    as it drops any unknown key.
+    ``use_pallas_geo_gcn`` routes the GeoGCN block through K6, as it routes
+    tggcn's through its TPU kernel. ``from_kwargs`` drops the fields that
+    only route tggcn to its other TPU kernels or tune its scans
+    (``use_pallas_gru``, ``scan_unroll``, ``remat_*``, ...), as it drops any
+    unknown key: the port always runs K1-K5.
     """
     input_size: tuple
     num_classes: tuple
@@ -76,6 +86,7 @@ class TGGCNConfig:
     # 'frame_indexed' (window-independent noise for streaming) is outside
     # the slice.
     gs_noise: str = "batched"
+    use_pallas_geo_gcn: bool = False
 
     @classmethod
     def from_kwargs(cls, **kwargs):
@@ -114,14 +125,17 @@ def check_slice(cfg: TGGCNConfig) -> None:
 
     need(not cfg.relational and cfg.message_granularity in {"v1", "generic"},
          f"message_type={cfg.message_type!r}/granularity={cfg.message_granularity!r}")
-    need(cfg.attention, f"message_aggregation={cfg.message_aggregation!r}")
-    need(cfg.attention_style in {"v2", "dot-product", "v3", "scaled_dot-product"},
+    need(cfg.attention or cfg.message_aggregation in {"mp", "mean_pooling"},
+         f"message_aggregation={cfg.message_aggregation!r}")
+    need(not cfg.attention
+         or cfg.attention_style in DOT_STYLES | {"v1", "concat", "v4", "general"},
          f"attention_style={cfg.attention_style!r}")
     need(cfg.message_segment and cfg.message_humans_to_human
          and cfg.message_objects_to_human and cfg.message_human_to_objects
          and cfg.message_objects_to_object,
          "a segment level without all four entity edges")
-    need(cfg.object_segment_update_strategy in {"ind", "independent"},
+    need(cfg.object_segment_update_strategy in {"ind", "independent", "sah", "same_as_human",
+                                                "coh", "conditional_on_human"},
          f"object_segment_update_strategy={cfg.object_segment_update_strategy!r}")
     need(cfg.discrete_optimization_strategy in {"st", "straight-through",
                                                 "gs", "gumbel-sigmoid"},
@@ -175,9 +189,19 @@ def init_tggcn(generator: torch.Generator, cfg: TGGCNConfig) -> dict:
         "object_segment_rnn_fcell": init_gru_cell(g, _object_segment_input_size(cfg), h, bias),
         "object_segment_rnn_bcell": init_gru_cell(g, _object_segment_input_size(cfg), h, bias),
     }
-    # Message bundles: generic frame messages read [x, h] (2h); the
-    # attention MLP exists in the reference for every attention style,
-    # even where the dot styles never read it.
+    # Message bundles: generic frame messages read [x, h] (2h), segment
+    # messages the state (h). Under attention the reference has an
+    # attention layer for every style, even where the dot styles never read
+    # it: a bilinear layer for v4, else an MLP over the [receiver, sender]
+    # pair.
+    def bundle(width):
+        out = {"msg": init_mlp(g, [width, h], bias)}
+        if cfg.attention:
+            out["att"] = (init_bilinear(g, width, width, 1, bias)
+                          if cfg.attention_style in {"v4", "general"}
+                          else init_mlp(g, [2 * width, 1], bias))
+        return out
+
     for flag, name in [
         (cfg.message_humans_to_human, "h2h"),
         (cfg.message_human_to_objects, "h2o"),
@@ -188,16 +212,16 @@ def init_tggcn(generator: torch.Generator, cfg: TGGCNConfig) -> dict:
     ]:
         if not flag:
             continue
-        params[name] = {"frame": {"msg": init_mlp(g, [2 * h, h], bias),
-                                  "att": init_mlp(g, [4 * h, 1], bias)}}
+        params[name] = {"frame": bundle(2 * h)}
         if name not in ("s2h", "s2o"):
-            params[name]["segment"] = {"msg": init_mlp(g, [h, h], bias),
-                                       "att": init_mlp(g, [2 * h, 1], bias)}
+            params[name]["segment"] = bundle(h)
     num_hidden = cfg.discrete_networks_num_layers - 1
     upd_h_in = 4 * h + (h if cfg.message_geometry_to_human else 0)
     params["update_human_segment_mlp"] = init_mlp(g, [upd_h_in] + [h] * num_hidden + [1], bias)
-    upd_o_in = 4 * h + (h if cfg.message_geometry_to_objects else 0)
-    params["update_object_segment_mlp"] = init_mlp(g, [upd_o_in] + [h] * num_hidden + [1], bias)
+    if cfg.object_segment_update_strategy not in {"same_as_human", "sah"}:
+        upd_o_in = 4 * h + (h if cfg.message_geometry_to_objects else 0)
+        params["update_object_segment_mlp"] = init_mlp(g, [upd_o_in] + [h] * num_hidden + [1],
+                                                       bias)
     for head, width in [("human_recognition_mlp", num_subactivities),
                         ("human_prediction_mlp", num_subactivities),
                         ("object_recognition_mlp", num_affordances),
@@ -234,8 +258,9 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     aux holds 'bn_state' (the updated BatchNorm statistics when train, else
     unchanged), 'object_decisions' (hard, soft) (B, T, O) and, with
     inspect_model, 'attention_scores' [frame, segment-fwd, segment-bwd]
-    each (B, H, T, O). use_kernels=False runs the kernels' plain PyTorch
-    versions, forward and backward, on any device, as a reference.
+    each (B, H, T, O) (zeros under mean pooling). use_kernels=False runs the
+    kernels' plain PyTorch versions, forward and backward, on any device, as
+    a reference.
 
     The 'gs' decisions take their Gumbel noise from ``noise`` ({'human':
     (B, T, H, 2), 'object': (B, T, O, 2)}) where it has an entry, else draw
@@ -243,9 +268,12 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     split into a human and an object source as JAX splits its key.
     """
     check_slice(cfg)
-    if any(d is not None for d in (human_human_distances, human_object_distances,
-                                   object_object_distances)):
-        raise NotImplementedError(f"distance-based attention is outside {SLICE}")
+    dists3 = (human_human_distances, human_object_distances, object_object_distances)
+    mode = segment_mode(cfg, dists3)
+    if mode != "dot" and (train or torch.is_grad_enabled()):
+        raise NotImplementedError(
+            f"training (or serving with grad enabled) in segment mode {mode!r} is outside "
+            f"{SLICE}: K5 is forward only")
     del steps_per_example   # read only by time/segment-length features
     b, t, num_humans = x_human.shape[0], x_human.shape[1], x_human.shape[2]
     num_objects = x_objects.shape[2]
@@ -261,7 +289,8 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
             f"30 for Bimanual, 26 for MPHOI).")
     x_geometry = x_geometry.reshape(b, t, vw // 4, 4)
     geo_out, bn_state = apply_geo_gcn(params["geometry_embedding_gcn"], x_geometry,
-                                      train=train)
+                                      train=train, fused=cfg.use_pallas_geo_gcn,
+                                      use_kernels=use_kernels)
     if cfg.geometry_flatten == "per_frame":
         geo_flat = geo_out.reshape(b, t, 1, geo_out.shape[-1] * (vw // 4))
     else:
@@ -286,21 +315,26 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     mkw = cfg.message_kwargs()
     obj_mask_bt = objects_mask[:, None, :]                      # (B, 1, O)
 
-    def frame_msg(name, receivers, senders, mask, exclude_self=False):
+    def frame_msg(name, receivers, senders, mask, exclude_self=False, dists=None):
         return compute_message_features(params[name]["frame"],
                                         torch.cat(receivers, dim=-1),
                                         torch.cat(senders, dim=-1), mask,
-                                        exclude_self=exclude_self, **mkw)
+                                        exclude_self=exclude_self, distances=dists, **mkw)
 
+    # Distance-based attention (all three tensors or none, segment_mode):
+    # objects receive from the humans along the swapped (B, T, O, H) tensor.
+    hh_d, ho_d, oo_d = dists3
+    oh_d = None if ho_d is None else ho_d.transpose(2, 3)
     hum, obj, geo = [x_hum_emb, h_hf], [x_obj_emb, h_of], [x_geo_emb, h_sf]
-    m_hh, _ = frame_msg("h2h", hum, hum, None, exclude_self=True)
-    m_oh, att_frame = frame_msg("o2h", hum, obj, obj_mask_bt[:, :, None, :])
+    m_hh, _ = frame_msg("h2h", hum, hum, None, exclude_self=True, dists=hh_d)
+    m_oh, att_frame = frame_msg("o2h", hum, obj, obj_mask_bt[:, :, None, :], dists=ho_d)
     m_sh = frame_msg("s2h", hum, geo, None)[0] if cfg.message_geometry_to_human else None
-    m_ho = frame_msg("h2o", obj, hum, None)[0] * objects_mask[:, None, :, None]
+    m_ho = frame_msg("h2o", obj, hum, None, dists=oh_d)[0] * objects_mask[:, None, :, None]
     m_so = None
     if cfg.message_geometry_to_objects:
         m_so = frame_msg("s2o", obj, geo, None)[0] * objects_mask[:, None, :, None]
-    m_oo, _ = frame_msg("o2o", obj, obj, obj_mask_bt[:, :, None, :], exclude_self=True)
+    m_oo, _ = frame_msg("o2o", obj, obj, obj_mask_bt[:, :, None, :], exclude_self=True,
+                        dists=oo_d)
 
     # --- Decisions (vectorised over B, T, E) -------------------------------
     noise, sources = noise or {}, {}
@@ -317,7 +351,9 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
                            for k, v in zip(("human", "object"), seeds))
         return sources[who]
 
-    def decide(name, features, imposed, who):
+    def decide(name, features, imposed, who, gate=None):
+        """(hard, soft) decisions; a 'coh' gate multiplies the hard ones
+        before the forced commit at the final step (reference :701-702)."""
         if imposed is not None:
             u = imposed.to(x_hum_emb.dtype)
             return u, u
@@ -327,20 +363,30 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
         hard, soft = discrete_estimator(u_soft, strategy=cfg.discrete_optimization_strategy,
                                         threshold=cfg.update_segment_threshold,
                                         noise=noise.get(who), generator=source(who))
-        hard = hard[..., 0].clone()
-        hard[:, -1, :] = 1.0      # forced commit at the final step (reference :701-702)
+        hard = hard[..., 0]
+        hard = hard * gate if gate is not None else hard.clone()
+        hard[:, -1, :] = 1.0
         return hard, soft[..., 0]
 
     u_h, u_h_soft = decide("update_human_segment_mlp",
                            [x_hum_emb, h_hf, m_hh, m_oh, m_sh], human_segmentation, "human")
-    u_o, u_o_soft = decide("update_object_segment_mlp",
-                           [x_obj_emb, h_of, m_ho, m_oo, m_so], objects_segmentation, "object")
+    # The human decision conditions the object decision only with one human
+    # (reference models.py:741-742): 'sah' copies it, 'coh' gates by it.
+    strategy = cfg.object_segment_update_strategy
+    if (num_humans == 1 and objects_segmentation is None
+            and strategy in {"same_as_human", "sah"}):
+        u_o = u_h.expand(b, t, num_objects)
+        u_o_soft = u_h_soft.expand(b, t, num_objects)
+    else:
+        gate = u_h if num_humans == 1 and strategy in {"conditional_on_human", "coh"} else None
+        u_o, u_o_soft = decide("update_object_segment_mlp", [x_obj_emb, h_of, m_ho, m_oo, m_so],
+                               objects_segmentation, "object", gate)
 
     # --- Segment-level gated bidirectional scan ----------------------------
     x_hs = torch.cat([x for x in (h_hf, m_hh, m_oh, m_sh) if x is not None], dim=-1)
     x_os = torch.cat([x for x in (h_of, m_ho, m_so, m_oo) if x is not None], dim=-1)
     hx_hs, hx_os, att_seg_f, att_seg_b = _segment_scan_fast(
-        params, cfg, x_hs, x_os, u_h, u_o, objects_mask, use_kernels)
+        params, cfg, mode, x_hs, x_os, u_h, u_o, objects_mask, dists3, use_kernels)
 
     # --- Reorder: every frame labelled with its segment's final state ------
     hx = torch.cat([hx_hs, hx_os], dim=2)                     # (B, T, H+O, 2h)
@@ -368,22 +414,93 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
 
     aux = {"bn_state": bn_state, "object_decisions": (u_o, u_o_soft)}
     if inspect_model:
-        # (B, T, H, O) -> (B, H, T, O), as the reference stacks them.
+        # (B, T, H, O) -> (B, H, T, O), as the reference stacks them. Mean
+        # pooling has no frame attention: zeros, as for its segment level.
+        if att_frame is None:
+            att_frame = torch.zeros_like(att_seg_f)
         aux["attention_scores"] = [a.permute(0, 2, 1, 3)
                                    for a in (att_frame, att_seg_f, att_seg_b)]
     return outputs, aux
 
 
-def _segment_scan_fast(params, cfg: TGGCNConfig, x_hs, x_os, u_h, u_o, objects_mask,
-                       use_kernels: bool = True):
-    """Gated bidirectional segment scan for non-relational generic messages
-    with (scaled) dot attention, both directions in one
-    ``segment_scan_dot_autograd`` call. Returns (hx_hs (B,T,H,2h), hx_os (B,T,O,2h), att fwd, att bwd
-    (B,T,H,O))."""
+def segment_mode(cfg: TGGCNConfig, dists3) -> str:
+    """The segment scan's attention mode (``segment_scan_pallas.py:694``
+    ``pallas_segment_mode``): 'ext' for mean pooling or distance-based
+    attention, else 'dot', 'v1' or 'v4' by attention style. A partial set of
+    distance tensors, which JAX runs through its general XLA scan, raises."""
+    if cfg.message_aggregation in {"mp", "mean_pooling"}:
+        return "ext"
+    given = [d is not None for d in dists3]
+    if any(given):
+        if not all(given):
+            raise NotImplementedError(
+                f"distance-based attention without all three distance tensors is outside "
+                f"{SLICE}")
+        return "ext"
+    if cfg.attention_style in DOT_STYLES:
+        return "dot"
+    return "v1" if cfg.attention_style in {"v1", "concat"} else "v4"
+
+
+def collect_att(params, mode: str):
+    """The segment attention parameters of 'v1' ((4, 2h) weights) or 'v4'
+    ((4, h, h)), and their biases (4,), in the score order hh, oh, ho, oo
+    (``segment_scan_pallas.py:729`` ``_collect_att``)."""
+    ws, bs = [], []
+    for edge in ("h2h", "o2h", "h2o", "o2o"):
+        att = params[edge]["segment"]["att"]
+        if mode == "v1":
+            layer = att["layers"][0]
+            w, b = layer["w"][:, 0], layer.get("b")
+        else:
+            w, b = att["w"][0], att.get("b")
+        ws.append(w)
+        bs.append(w.new_zeros(()) if b is None else b[0])
+    return torch.stack(ws).contiguous(), torch.stack(bs).contiguous()
+
+
+def external_att_weights(mean_pooling: bool, dists3, objects_mask, t: int, nh: int):
+    """The state-independent segment attention weights of 'ext' mode
+    (``segment_scan_pallas.py:750`` ``_external_att_weights``), time-major
+    and packed as (T, B, E, E), E = H + O: row n < H holds [a_hh | a_oh] of
+    human n, row H + o [a_ho | a_oo] of object o. Mean pooling takes uniform
+    weights over the unmasked senders, distance-based attention the
+    inverse-distance softmax of the (B, T, R, S) distances dists3."""
+    b, no = objects_mask.shape
+    dtype, dev = objects_mask.dtype, objects_mask.device
+    mask_hh = (1.0 - torch.eye(nh, dtype=dtype, device=dev))[None, None]   # (1, 1, H, H)
+    mask_oh = objects_mask[None, :, None, :]                               # (1, B, 1, O)
+    mask_ho = torch.ones((1, 1, 1, nh), dtype=dtype, device=dev)
+    mask_oo = mask_oh * (1.0 - torch.eye(no, dtype=dtype, device=dev))[None, None]
+    if mean_pooling:
+        def weights(mask, r, s):
+            full = torch.broadcast_to(mask, (1, b, r, s))
+            return torch.broadcast_to(full / torch.clamp(full.sum(-1, keepdim=True), min=1.0),
+                                      (t, b, r, s))
+        parts = (weights(mask_hh, nh, nh), weights(mask_oh, nh, no),
+                 weights(mask_ho, no, nh), weights(mask_oo, no, no))
+    else:
+        hh_d, ho_d, oo_d = (d.transpose(0, 1) for d in dists3)            # (T, B, R, S)
+
+        def weights(d, mask):
+            return distance_based_attention_weights(d, torch.broadcast_to(mask, d.shape))
+        parts = (weights(hh_d, mask_hh), weights(ho_d, mask_oh),
+                 weights(ho_d.transpose(-1, -2), mask_ho), weights(oo_d, mask_oo))
+    a_hh, a_oh, a_ho, a_oo = parts
+    return torch.cat([torch.cat([a_hh, a_oh], dim=-1),
+                      torch.cat([a_ho, a_oo], dim=-1)], dim=-2).contiguous()
+
+
+def _segment_scan_fast(params, cfg: TGGCNConfig, mode: str, x_hs, x_os, u_h, u_o,
+                       objects_mask, dists3, use_kernels: bool = True):
+    """Gated bidirectional segment scan for non-relational generic messages,
+    both directions in one call: through ``segment_scan_dot_autograd`` in
+    'dot' mode, else through the forward-only ``segment_scan_forward``.
+    Returns (hx_hs (B,T,H,2h), hx_os (B,T,O,2h), att fwd, att bwd (B,T,H,O));
+    mean pooling records zeros for the attention, as JAX does."""
     b, t, num_humans, base_h = x_hs.shape
     num_objects, base_o = x_os.shape[2], x_os.shape[-1]
     h = cfg.hidden_size
-    scale = 1.0 / math.sqrt(h) if cfg.attention_style in {"v3", "scaled_dot-product"} else 1.0
     cells_h = [params["human_segment_rnn_fcell"], params["human_segment_rnn_bcell"]]
     cells_o = [params["object_segment_rnn_fcell"], params["object_segment_rnn_bcell"]]
     zeros3 = x_hs.new_zeros(3 * h)
@@ -401,17 +518,29 @@ def _segment_scan_fast(params, cfg: TGGCNConfig, x_hs, x_os, u_h, u_o, objects_m
 
     edges = [msg_layer(e) for e in ("h2h", "h2o", "o2h", "o2o")]
     time_major = lambda u: u.permute(1, 0, 2).contiguous()      # (T, B, E)
-    h_h, h_o, att = segment_scan_dot_autograd(
-        base_gates(cells_h, x_hs, base_h), base_gates(cells_o, x_os, base_o),
-        time_major(u_h), time_major(u_o),
-        torch.stack([w for w, _ in edges]), torch.stack([bb for _, bb in edges]),
-        stack(cells_h, lambda c: c["w_ih"][base_h:]), stack(cells_o, lambda c: c["w_ih"][base_o:]),
-        stack(cells_h, lambda c: c["w_hh"]), stack(cells_o, lambda c: c["w_hh"]),
-        stack(cells_h, lambda c: c.get("b_hh", zeros3)),
-        stack(cells_o, lambda c: c.get("b_hh", zeros3)),
-        objects_mask.to(x_hs.dtype).contiguous(),
-        x_hs.new_zeros((2, b, num_humans, h)), x_hs.new_zeros((2, b, num_objects, h)),
-        scale, use_kernels=use_kernels)
+    obj_mask = objects_mask.to(x_hs.dtype).contiguous()
+    mean_pooling = cfg.message_aggregation in {"mp", "mean_pooling"}
+    args = (base_gates(cells_h, x_hs, base_h), base_gates(cells_o, x_os, base_o),
+            time_major(u_h), time_major(u_o),
+            torch.stack([w for w, _ in edges]), torch.stack([bb for _, bb in edges]),
+            stack(cells_h, lambda c: c["w_ih"][base_h:]), stack(cells_o, lambda c: c["w_ih"][base_o:]),
+            stack(cells_h, lambda c: c["w_hh"]), stack(cells_o, lambda c: c["w_hh"]),
+            stack(cells_h, lambda c: c.get("b_hh", zeros3)),
+            stack(cells_o, lambda c: c.get("b_hh", zeros3)), obj_mask,
+            x_hs.new_zeros((2, b, num_humans, h)), x_hs.new_zeros((2, b, num_objects, h)))
+    if mode == "dot":
+        scale = 1.0 / math.sqrt(h) if cfg.attention_style in {"v3", "scaled_dot-product"} else 1.0
+        h_h, h_o, att = segment_scan_dot_autograd(*args, scale, use_kernels=use_kernels)
+    else:
+        if mode == "ext":
+            extra = dict(att_ext=external_att_weights(mean_pooling, dists3, obj_mask, t,
+                                                      num_humans))
+        else:
+            w_att, b_att = collect_att(params, mode)
+            extra = dict(w_att=w_att, b_att=b_att)
+        h_h, h_o, att = segment_scan_forward(mode, *args, use_kernels=use_kernels, **extra)
+        if mean_pooling:
+            att = torch.zeros_like(att)
 
     def order(seq):                                            # (2, T, B, E, h) -> (B, T, E, 2h)
         return torch.cat([seq[0], seq[1]], dim=-1).permute(1, 0, 2, 3)

@@ -2,16 +2,17 @@
 
 BatchNorm over (node, channel), two embeddings 4 -> 64 -> 64, a similarity
 adjacency softmax((h W1)(h W2)^T) per (batch, time) with 64 -> 128
-projections, then S @ h @ W. Plain PyTorch here: the fused TPU kernel of
-this block (``tggcn/ops/geo_gcn_pallas.py``) is off in the configuration
-this slice serves.
+projections, then S @ h @ W. Everything after the BatchNorm is
+``tggcn_torch.ops.geo_gcn.geo_gcn_plain``; with ``fused`` (the
+``use_pallas_geo_gcn`` knob) it runs through the fused kernel K6 instead.
 """
 
 import torch
 
 from tggcn_torch.nn.batchnorm import apply_batchnorm, init_batchnorm
 from tggcn_torch.nn.init import fan_in_uniform
-from tggcn_torch.nn.mlp import apply_linear, init_linear
+from tggcn_torch.nn.mlp import init_linear
+from tggcn_torch.ops.geo_gcn import geo_gcn_fused_autograd, geo_gcn_plain
 
 
 def init_geo_gcn(generator, node_n: int, in_channels: int = 4,
@@ -26,15 +27,17 @@ def init_geo_gcn(generator, node_n: int, in_channels: int = 4,
     }
 
 
-def apply_geo_gcn(params: dict, x: torch.Tensor, train: bool = False):
+def apply_geo_gcn(params: dict, x: torch.Tensor, train: bool = False, fused: bool = False,
+                  use_kernels: bool = True):
     """x (batch, time, nodes, in_channels) -> ((batch, time, nodes, out), bn_state);
-    train normalises with the batch statistics and updates the running ones."""
+    train normalises with the batch statistics and updates the running ones.
+    fused runs the block after the BatchNorm through K6 (its plain version
+    with use_kernels=False or on the CPU)."""
     x, bn_state = apply_batchnorm(params["bn"], x, reduce_axes=(0, 1), train=train)
-    h = torch.relu(apply_linear(params["embed1"], x))
-    h = torch.relu(apply_linear(params["embed2"], h))            # (B, T, V, 64)
-    s1 = apply_linear(params["s1"], h)                            # (B, T, V, 128)
-    s2 = apply_linear(params["s2"], h)
-    scores = torch.einsum("btvc,btwc->btvw", s1, s2)
-    adjacency = torch.softmax(scores, dim=-1)                     # (B, T, V, V)
-    out = torch.einsum("btvw,btwc->btvc", adjacency, h)
-    return out @ params["weight"], bn_state
+    weights = [params[name][key] for name in ("embed1", "embed2", "s1", "s2")
+               for key in ("w", "b")] + [params["weight"]]
+    if not fused:
+        return geo_gcn_plain(x, *weights), bn_state
+    b, t, v, c = x.shape
+    out = geo_gcn_fused_autograd(x.reshape(b * t, v, c), *weights, use_kernels=use_kernels)
+    return out.reshape(b, t, v, -1), bn_state

@@ -1,6 +1,6 @@
-"""Linear layers and MLPs with name-based activations.
+"""Linear layers, MLPs with name-based activations, and bilinear layers.
 
-Counterpart of ``tggcn/nn/mlp.py:18-85``. Weights are stored as (in, out),
+Counterpart of ``tggcn/nn/mlp.py:18-100``. Weights are stored as (in, out),
 as in the JAX pytree, so ``x @ w`` reads the same leaves.
 """
 
@@ -63,3 +63,20 @@ def apply_mlp(params: dict, x: torch.Tensor,
     for layer, activation in zip(layers, activations):
         x = pick_activation(activation)(apply_linear(layer, x))
     return x
+
+
+def init_bilinear(generator, in1: int, in2: int, out: int, bias: bool = True) -> dict:
+    """Bilinear layer y = x1^T A x2 + b (torch nn.Bilinear semantics), with
+    A stored as (out, in1, in2)."""
+    params = {"w": fan_in_uniform(generator, (out, in1, in2), in1)}
+    if bias:
+        params["b"] = fan_in_uniform(generator, (out,), in1)
+    return params
+
+
+def apply_bilinear(params: dict, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """x1 (..., in1), x2 (..., in2) -> (..., out)."""
+    y = torch.einsum("...i,oij,...j->...o", x1, params["w"], x2)
+    if "b" in params:
+        y = y + params["b"]
+    return y

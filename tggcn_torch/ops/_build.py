@@ -24,7 +24,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("gru_sequence", "gru_sequence_bwd", "segment_scan", "segment_scan_bwd")
+SOURCES = ("gru_sequence", "gru_sequence_bwd", "segment_scan", "segment_scan_bwd", "geo_gcn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 300

@@ -1,5 +1,5 @@
-"""K3 and K4: the bidirectional gated segment scan in 'dot' attention mode,
-and its backward sweep.
+"""K3, K4 and K5: the bidirectional gated segment scan in 'dot' attention
+mode, its backward sweep, and the scan in the modes 'v1', 'v4' and 'ext'.
 
 K3 replaces the TPU kernel ``tggcn/ops/segment_scan_pallas.py::_make_kernel``
 (mode 'dot', launched by ``_seg_dir_pallas`` at ``segment_scan_pallas.py:268``).
@@ -20,7 +20,23 @@ gradients are reduced outside, as ``segment_scan_pallas.py:620-663`` does.
 ``segment_scan_dot_autograd`` is the differentiable entry point: a
 ``torch.autograd.Function`` that runs K3 forward and K4 backward (or, with
 ``use_kernels=False`` or on the CPU, their plain versions). The wrappers
-refuse to run on tensors that require grad outside it.
+refuse to run on tensors that require grad outside it. K4 adds its
+per-block partial sums in a fixed order, so its gradients are the same on
+every run.
+
+K5 replaces the same TPU kernel in its other modes (``_make_kernel``
+``scores_v1`` ``:123``, ``scores_v4`` ``:134``, the streamed weights of
+``:147-149``): the same ``csrc/segment_scan.cu``, with the mode a template
+parameter of the projection and mix phases. It is forward only (serving),
+as JAX's forward-only routing runs it; ``segment_scan_forward`` picks the
+wrapper of the mode (``segment_scan_v1``, ``segment_scan_v4``,
+``segment_scan_ext``) or, with ``use_kernels=False``, the plain version
+``segment_scan_att_plain``. Its extra inputs, in the score order hh, oh, ho,
+oo (receiver, then sender; w_from's order is hh, ho, oh, oo):
+  v1   w_att (4, 2h) (the receiver half, then the sender half), b_att (4)
+  v4   w_att (4, h, h), b_att (4)
+  ext  att_ext (T, B, E, E), E = H + O: row n < H holds [a_hh | a_oh] of
+       human n, row H + o [a_ho | a_oo] of object o, already softmaxed
 
 Layout (time-major; direction 0 runs forward in time, direction 1 backward,
 both read and written in natural time order):
@@ -62,34 +78,36 @@ def _cell(gi_base, msgs, h_prev, u, w_msg, w_hh, b_hh):
     return u * h_new + (1.0 - u) * h_prev
 
 
-def _attention(h_h, h_o, obj_mask, scale):
-    """The four masked softmaxes of one step (a_hh, a_oh, a_ho, a_oo)."""
+def _attention(h_h, h_o, obj_mask, scores):
+    """The four masked softmaxes of one step (a_hh, a_oh, a_ho, a_oo), from
+    scores(recv, send, e) of the score edges e = 0 hh, 1 oh, 2 ho, 3 oo."""
     nh, no = h_h.shape[2], h_o.shape[2]
     eye_h = torch.eye(nh, dtype=h_h.dtype, device=h_h.device)
     eye_o = torch.eye(no, dtype=h_h.dtype, device=h_h.device)
     mask_obj = obj_mask[None, :, None, :]                             # (1, B, 1, O)
-
-    def scores(recv, send):
-        return torch.einsum("dbnh,dbmh->dbnm", recv, send) * scale
-
-    return (masked_softmax(scores(h_h, h_h), (1.0 - eye_h)[None, None]),
-            masked_softmax(scores(h_h, h_o), mask_obj),
-            masked_softmax(scores(h_o, h_h), torch.ones_like(eye_h[:1])),
-            masked_softmax(scores(h_o, h_o), mask_obj * (1.0 - eye_o)[None, None]))
+    return (masked_softmax(scores(h_h, h_h, 0), (1.0 - eye_h)[None, None]),
+            masked_softmax(scores(h_h, h_o, 1), mask_obj),
+            masked_softmax(scores(h_o, h_h, 2), torch.ones_like(eye_h[:1])),
+            masked_softmax(scores(h_o, h_o, 3), mask_obj * (1.0 - eye_o)[None, None]))
 
 
-def segment_scan_dot_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
-                           w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
-                           scale: float):
-    """Plain PyTorch version of K3: a Python loop over time, both directions
-    batched on the leading axis."""
+def _dot_scores(scale):
+    return lambda recv, send, e: torch.einsum("dbnh,dbmh->dbnm", recv, send) * scale
+
+
+def _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
+                b_hh_h, b_hh_o, h0_h, h0_o, attention, keep_messages):
+    """The plain scan: a Python loop over time, both directions batched on
+    the leading axis; attention(h_h, h_o, ts) gives the step's four weights
+    from the carried states and the times ts each direction processes."""
     t, no = gi_h.shape[1], gi_o.shape[3]
     h = w_hh_h.shape[1]
     out_h = gi_h.new_empty(gi_h.shape[:-1] + (h,))
     out_o = gi_o.new_empty(gi_o.shape[:-1] + (h,))
     att = gi_h.new_empty(gi_h.shape[:-1] + (no,))
-    m_h = gi_h.new_empty(gi_h.shape[:-1] + (2 * h,))
-    m_o = gi_o.new_empty(gi_o.shape[:-1] + (2 * h,))
+    if keep_messages:
+        m_h = gi_h.new_empty(gi_h.shape[:-1] + (2 * h,))
+        m_o = gi_o.new_empty(gi_o.shape[:-1] + (2 * h,))
     h_h, h_o = h0_h, h0_o
 
     def proj(x, e):
@@ -98,23 +116,65 @@ def segment_scan_dot_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_
     for i in range(t):
         ts = (i, t - 1 - i)                                           # per direction
         m_hh, m_ho, m_oh, m_oo = proj(h_h, 0), proj(h_h, 1), proj(h_o, 2), proj(h_o, 3)
-        a_hh, a_oh, a_ho, a_oo = _attention(h_h, h_o, obj_mask, scale)
+        a_hh, a_oh, a_ho, a_oo = attention(h_h, h_o, ts)
         msgs_h = torch.cat([a_hh @ m_hh, a_oh @ m_oh], dim=-1)        # (2, B, H, 2h)
         msgs_o = torch.cat([a_ho @ m_ho, a_oo @ m_oo], dim=-1)        # (2, B, O, 2h)
         gib_h = torch.stack([gi_h[d, ts[d]] for d in range(2)])
         gib_o = torch.stack([gi_o[d, ts[d]] for d in range(2)])
         uh = torch.stack([u_h[ts[d]] for d in range(2)])
         uo = torch.stack([u_o[ts[d]] for d in range(2)])
-        mh, mo = torch.cat([m_hh, m_ho], dim=-1), torch.cat([m_oh, m_oo], dim=-1)
         h_h = _cell(gib_h, msgs_h, h_h, uh, w_msg_h, w_hh_h, b_hh_h)
         h_o = _cell(gib_o, msgs_o, h_o, uo, w_msg_o, w_hh_o, b_hh_o)
         for d in range(2):
             out_h[d, ts[d]], out_o[d, ts[d]], att[d, ts[d]] = h_h[d], h_o[d], a_oh[d]
-            m_h[d, ts[d]], m_o[d, ts[d]] = mh[d], mo[d]
-    return out_h, out_o, att, m_h, m_o
+            if keep_messages:
+                m_h[d, ts[d]] = torch.cat([m_hh[d], m_ho[d]], dim=-1)
+                m_o[d, ts[d]] = torch.cat([m_oh[d], m_oo[d]], dim=-1)
+    return (out_h, out_o, att, m_h, m_o) if keep_messages else (out_h, out_o, att)
 
 
-def _check(what, args):
+def segment_scan_dot_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
+                           w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
+                           scale: float):
+    """Plain PyTorch version of K3: (h_h, h_o, att_oh, m_h, m_o)."""
+    scores = _dot_scores(scale)
+    return _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
+                       w_hh_o, b_hh_h, b_hh_o, h0_h, h0_o,
+                       lambda h_h, h_o, ts: _attention(h_h, h_o, obj_mask, scores),
+                       keep_messages=True)
+
+
+MODES = ("v1", "v4", "ext")
+
+
+def segment_scan_att_plain(mode, gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
+                           w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
+                           w_att=None, b_att=None, att_ext=None):
+    """Plain PyTorch version of K5 in `mode`: (h_h, h_o, att_oh)."""
+    if mode not in MODES:
+        raise ValueError(f"segment scan mode {mode!r} is not one of {MODES}")
+    nh = gi_h.shape[3]
+    if mode == "ext":
+        def attention(h_h, h_o, ts):
+            a = torch.stack([att_ext[ts[d]] for d in range(2)])       # (2, B, E, E)
+            return a[..., :nh, :nh], a[..., :nh, nh:], a[..., nh:, :nh], a[..., nh:, nh:]
+    else:
+        h = w_hh_h.shape[1]
+        if mode == "v1":
+            def scores(recv, send, e):
+                q, k = recv @ w_att[e, :h], send @ w_att[e, h:]       # (2, B, R), (2, B, S)
+                return torch.relu(q[..., :, None] + k[..., None, :] + b_att[e])
+        else:
+            def scores(recv, send, e):
+                return torch.relu((recv @ w_att[e]) @ send.transpose(-1, -2) + b_att[e])
+
+        def attention(h_h, h_o, ts):
+            return _attention(h_h, h_o, obj_mask, scores)
+    return _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
+                       w_hh_o, b_hh_h, b_hh_o, h0_h, h0_o, attention, keep_messages=False)
+
+
+def _check(what, args, w_att_shape=None):
     """Device, dtype, shape and contiguity of every tensor in args, and the
     kernels' limits."""
     gi_h, gi_o = args["gi_h"], args["gi_o"]
@@ -131,6 +191,7 @@ def _check(what, args):
         "hprev_h": (2, t, b, nh, h), "hprev_o": (2, t, b, no, h),
         "m_h": (2, t, b, nh, 2 * h), "m_o": (2, t, b, no, 2 * h),
         "g_h": (2, t, b, nh, h), "g_o": (2, t, b, no, h), "g_att": (2, t, b, nh, no),
+        "w_att": w_att_shape, "b_att": (4,), "att_ext": (t, b, nh + no, nh + no),
     }
     for name, x in args.items():
         if x.device != gi_h.device or x.dtype != torch.float32:
@@ -183,6 +244,78 @@ def segment_scan_dot(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
 
 
 segment_scan_dot.launches = 0
+
+
+def _segment_scan_att(wrapper, mode, args, extra):
+    """K5 in `mode` for the tensors of args (K3's inputs) and extra (the
+    mode's); CPU tensors take the plain version. Counts its launch on
+    `wrapper`."""
+    _build.refuse_autograd(f"segment_scan_{mode}", *args.values(), *extra.values())
+    gi_h = args["gi_h"]
+    if gi_h.device.type == "cpu":
+        return segment_scan_att_plain(mode, **args, **extra)
+    if gi_h.device.type != "cuda":
+        raise ValueError(f"segment_scan_{mode} runs on CUDA or the CPU, not {gi_h.device}")
+    _, t, b, nh, g3 = gi_h.shape
+    no, h = args["gi_o"].shape[3], g3 // 3
+    _check(f"segment_scan_{mode}", {**args, **extra},
+           w_att_shape=(4, 2 * h) if mode == "v1" else (4, h, h))
+    dev = gi_h.device
+    out = [torch.empty((2, t, b, nh, h), device=dev), torch.empty((2, t, b, no, h), device=dev),
+           torch.empty((2, t, b, nh, no), device=dev)]
+    if t > 0:
+        scratch = [torch.empty((2, b * nh, 2 * h), device=dev),          # one step's messages
+                   torch.empty((2, b * no, 2 * h), device=dev)]
+        tmp = ([torch.empty((2, b * nh, 2, h), device=dev),
+                torch.empty((2, b * no, 2, h), device=dev)] if mode == "v4" else [None, None])
+        mix = [torch.empty((2, b * nh, 2 * h), device=dev),
+               torch.empty((2, b * no, 2 * h), device=dev)]
+        ptrs = [x.data_ptr() for x in args.values()]
+        ptrs += [extra[k].data_ptr() if k in extra else None
+                 for k in ("w_att", "b_att", "att_ext")]
+        ptrs += [x.data_ptr() if x is not None else None for x in (*out, *scratch, *tmp, *mix)]
+        fn = _build.load_library("segment_scan").tggcn_segment_scan_att_f32
+        fn.argtypes = [_I] + [_P] * 27 + [_I] * 5 + [_P]
+        fn.restype = _I
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(1 + MODES.index(mode), *ptrs, t, b, nh, no, h, stream)
+        _build.check_launch(err, f"segment_scan_{mode}")
+        wrapper.launches += 1
+    return tuple(out)
+
+
+def segment_scan_v1(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
+                    b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, w_att, b_att):
+    """K5 in mode 'v1' (concat-MLP scores): (h_h, h_o, att_oh)."""
+    args = {k: v for k, v in locals().items() if k not in ("w_att", "b_att")}
+    return _segment_scan_att(segment_scan_v1, "v1", args, dict(w_att=w_att, b_att=b_att))
+
+
+def segment_scan_v4(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
+                    b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, w_att, b_att):
+    """K5 in mode 'v4' (bilinear scores): (h_h, h_o, att_oh)."""
+    args = {k: v for k, v in locals().items() if k not in ("w_att", "b_att")}
+    return _segment_scan_att(segment_scan_v4, "v4", args, dict(w_att=w_att, b_att=b_att))
+
+
+def segment_scan_ext(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
+                     b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, att_ext):
+    """K5 in mode 'ext' (weights computed outside): (h_h, h_o, att_oh)."""
+    args = {k: v for k, v in locals().items() if k != "att_ext"}
+    return _segment_scan_att(segment_scan_ext, "ext", args, dict(att_ext=att_ext))
+
+
+segment_scan_v1.launches = segment_scan_v4.launches = segment_scan_ext.launches = 0
+
+
+def segment_scan_forward(mode, *args, use_kernels: bool = True, **extra):
+    """The forward-only scan of a K5 mode: its wrapper, or with
+    use_kernels=False its plain version on any device (the reference)."""
+    if not use_kernels:
+        return segment_scan_att_plain(mode, *args, **extra)
+    wrapper = {"v1": segment_scan_v1, "v4": segment_scan_v4, "ext": segment_scan_ext}[mode]
+    return wrapper(*args, **extra)
 
 
 def previous_states(out, h0):
@@ -257,7 +390,7 @@ def segment_scan_dot_bwd_plain(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o,
 
         hh, ho = at(hprev_h), at(hprev_o)
         (m_hh, m_ho), (m_oh, m_oo) = at(m_h).chunk(2, dim=-1), at(m_o).chunk(2, dim=-1)
-        a_hh, a_oh, a_ho, a_oo = _attention(hh, ho, obj_mask, scale)
+        a_hh, a_oh, a_ho, a_oo = _attention(hh, ho, obj_mask, _dot_scores(scale))
         msgs_h = torch.cat([a_hh @ m_hh, a_oh @ m_oh], dim=-1)
         msgs_o = torch.cat([a_ho @ m_ho, a_oo @ m_oo], dim=-1)
         uh = torch.stack([u_h[ts[d]] for d in range(2)])
@@ -330,8 +463,8 @@ def segment_scan_dot_bwd(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, 
                msgs_o=torch.empty((2, t, b, no, 2 * h), device=dev),
                dpre_h=torch.empty((2, t, b, nh, 2 * h), device=dev),
                dpre_o=torch.empty((2, t, b, no, 2 * h), device=dev),
-               du_h=torch.zeros((2, t, b, nh), device=dev),
-               du_o=torch.zeros((2, t, b, no), device=dev),
+               du_h=torch.empty((2, t, b, nh), device=dev),
+               du_o=torch.empty((2, t, b, no), device=dev),
                dh0_h=torch.zeros((2, b, nh, h), device=dev),    # the carries
                dh0_o=torch.zeros((2, b, no, h), device=dev))
     if t == 0:
@@ -342,6 +475,9 @@ def segment_scan_dot_bwd(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, 
                  torch.cat([w_t(w_from[2]), w_t(w_from[3])]),
                  w_t(w_msg_h), w_t(w_msg_o), w_t(w_hh_h), w_t(w_hh_o)]
     e = nh + no
+    col_tiles = -(-h // 16)                 # the cell phase's blocks per row
+    du_parts = [torch.empty((2, t, b * nh, col_tiles), device=dev),
+                torch.empty((2, t, b * no, col_tiles), device=dev)]
     scratch = [torch.empty((2, b, e, e), device=dev),                   # attention
                torch.empty((2, b * nh, h), device=dev), torch.empty((2, b * no, h), device=dev),
                torch.empty((2, b * nh, 2 * h), device=dev),
@@ -351,6 +487,7 @@ def segment_scan_dot_bwd(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, 
                                    g_o, g_att, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
                                    b_hh_h, b_hh_o, obj_mask, *weights_t)]
     ptrs += [out[k].data_ptr() for k in BWD_OUTPUTS if not k.startswith("dh0")]
+    ptrs += [x.data_ptr() for x in du_parts]
     ptrs += [out["dh0_h"].data_ptr(), out["dh0_o"].data_ptr()]
     ptrs += [x.data_ptr() for x in scratch]
     fn = _build.load_library("segment_scan_bwd").tggcn_segment_scan_dot_bwd_f32
