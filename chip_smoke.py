@@ -15,9 +15,15 @@ exit and the phase's name if the phase hangs:
            plain version at the same shape, on the same upstream gradient
   k3       the segment-scan kernel (segment_scan_dot) against its plain
            version at T=167, B=8, H=2, O=4, h=512, with random commit
-           decisions and masked objects (one batch row has none)
+           decisions and masked objects (one batch row has none): the
+           outputs and what it keeps for the backward, and the outputs of
+           the serving run that keeps nothing; then its device ms by kernel
+           name (torch.profiler)
   k4       the segment-scan backward kernel (segment_scan_dot_bwd) against
-           its plain version on K3's inputs and random upstream gradients
+           its plain version on K3's inputs, what the plain forward kept and
+           random upstream gradients; its device ms by kernel name, and its
+           bound beside the bound of the design that recomputed the gates,
+           scores and mixing
   k5_v1, k5_v4, k5_ext
            the segment-scan kernel in its other modes (segment_scan_v1,
            _v4, _ext) against its plain version on K3's inputs and random
@@ -38,7 +44,9 @@ exit and the phase's name if the phase hangs:
            by leaf (gradients and updated weights); a second kernel-route
            step from the same weights, batch and noise, whose gradients
            must equal the first's bit for bit on every leaf; then 3 timed
-           steps on the kernel route, each of which must launch K1-K4
+           steps on the kernel route, each of which must launch K1-K4, and
+           their peak device memory, with only that route's weights, Adam
+           state and batch alive before them
   serve_modes
            the forward phase for each of stage1.SERVE_VARIANTS at the same
            width and shape: distance-based attention from seeded distances
@@ -78,6 +86,13 @@ counted and its batch row left out of the comparison (the train step is
 then run again on both routes without that row), at most one row per
 request or batch. Any other flip, or a second row with flips, fails the run.
 
+Bounds: the bytes each kernel must move (inputs read once, outputs written
+once) over the HBM rate, or its arithmetic, whichever takes longer: the
+FLOPs of its float32 products at a third of the TF32 tensor-core rate (the
+3xTF32 split keeps float32 accuracy) and its other FLOPs at the float32 FMA
+rate. Each kernel's phase line also gives bound_fma_ms, the same work with
+the products on the FMA units.
+
 The second-to-last line is a JSON object with each kernel's launches (K1-K4
 on the timed train steps, K5 and K6 on the serve_modes requests), error,
 times and bound; the last line is {"ok": true, "device": {...}}. Without a
@@ -97,10 +112,14 @@ from functools import partial
 
 import numpy as np
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores (the port runs full float32).
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, float32
+# FLOP/s outside the tensor cores, and TF32 FLOP/s on them. A float32 product
+# at float32 accuracy takes three TF32 products (the 3xTF32 split of
+# tc_gemm.cuh), so the least time of a product's FLOPs is at a third of the
+# TF32 rate; the rest of the arithmetic (scores, mixing) is at the FMA rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+PRODUCT_FLOP_PER_S = 495e12 / 3
 KERNEL_ATOL = 1e-4
 KERNEL_GRAD_RTOL = 1e-4
 FORWARD_RTOL = FORWARD_ATOL = 1e-4
@@ -168,10 +187,22 @@ def nbytes(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def bound(byte_count, flops):
-    """(least ms on the card, what bounds it) from bytes and float32 FLOPs."""
-    t_bytes, t_ops = byte_count / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound(byte_count, product_flops, other_flops=0.0, product_rate=PRODUCT_FLOP_PER_S):
+    """(least ms on the card, what bounds it) from bytes, the FLOPs of
+    float32 products (at product_rate: 3xTF32 on the tensor cores unless
+    told otherwise) and the other float32 FLOPs (at the FMA rate)."""
+    t_bytes = byte_count / HBM_BYTES_PER_S
+    t_ops = product_flops / product_rate + other_flops / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bounds(byte_count, product_flops, other_flops=0.0):
+    """The kernel row's bound_ms and bound_by, and bound_fma_ms: the same
+    work with the products on the FMA units, the rule before the port's
+    products moved onto the tensor cores (kept as a note)."""
+    ms, by = bound(byte_count, product_flops, other_flops)
+    fma_ms, _ = bound(byte_count, product_flops, other_flops, product_rate=F32_FLOP_PER_S)
+    return dict(bound_ms=ms, bound_by=by, bound_fma_ms=fma_ms)
 
 
 def max_err(a, b):
@@ -205,10 +236,10 @@ def run_k1(torch, dev, shape):
     err = check_kernel("gru_sequence", [got], [want])
     ms = cuda_ms(torch, lambda: gru_sequence(gi, w_hh, b_hh, h0, num_reverse), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse), 3)
-    bound_ms, by = bound(nbytes(gi, w_hh, b_hh, h0, got), 2.0 * t * s * r * h * 3 * h)
     return dict(name="gru_sequence", route="cuda", source="tggcn_torch/csrc/gru_sequence.cu",
                 replaces="tggcn/ops/gru_pallas.py:147", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+                plain_ms=plain_ms, library_ms=None,
+                **bounds(nbytes(gi, w_hh, b_hh, h0, got), 2.0 * t * s * r * h * 3 * h))
 
 
 def check_grads(name, got, want):
@@ -241,116 +272,115 @@ def run_k2(torch, dev, shape):
     ms = cuda_ms(torch, lambda: gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, nr), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, nr), 3)
     # The recompute of gh and the carry product dgh @ W_hh^T: two products a step.
-    bound_ms, by = bound(nbytes(gi, hprev, g, w_hh, b_hh, *got), 4.0 * t * s * r * h * 3 * h)
     return dict(name="gru_sequence_bwd", route="cuda", source="tggcn_torch/csrc/gru_sequence_bwd.cu",
                 replaces="tggcn/ops/gru_pallas.py:167", max_abs_err=err, max_rel_err=rel, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
-
-
-def k3_inputs(torch, dev, gen, t, b, nh, no, h):
-    def u(*shape, bound):
-        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound).contiguous()
-    s = h ** -0.5
-    obj_mask = (torch.rand((b, no), generator=gen, device=dev) > 0.3).float()
-    obj_mask[0] = 0.0                  # a batch row with every object masked
-    obj_mask[1] = 1.0
-    commits = lambda e: (torch.rand((t, b, e), generator=gen, device=dev) > 0.5).float()
-    return dict(
-        gi_h=u(2, t, b, nh, 3 * h, bound=1.0), gi_o=u(2, t, b, no, 3 * h, bound=1.0),
-        u_h=commits(nh), u_o=commits(no),
-        w_from=u(4, h, h, bound=s), b_from=u(4, h, bound=s),
-        w_msg_h=u(2, 2 * h, 3 * h, bound=s), w_msg_o=u(2, 2 * h, 3 * h, bound=s),
-        w_hh_h=u(2, h, 3 * h, bound=s), w_hh_o=u(2, h, 3 * h, bound=s),
-        b_hh_h=u(2, 3 * h, bound=s), b_hh_o=u(2, 3 * h, bound=s),
-        obj_mask=obj_mask.contiguous(),
-        h0_h=u(2, b, nh, h, bound=1.0), h0_o=u(2, b, no, h, bound=1.0))
+                plain_ms=plain_ms, library_ms=None,
+                **bounds(nbytes(gi, hprev, g, w_hh, b_hh, *got), 4.0 * t * s * r * h * 3 * h))
 
 
 def k3_flops(t, b, nh, no, h):
+    """(FLOPs of the products: the four projections and the cells, depth
+    2h + h; FLOPs of the scores and mixing) over both directions."""
     e = nh + no
-    per_dir_step = 2 * ((2 * b * nh + 2 * b * no) * h * h      # four projections
-                        + b * e * 3 * h * 3 * h                # cells: depth 2h + h
-                        + 2 * b * e * e * h)                   # scores and mixing
-    return 2.0 * t * per_dir_step
+    products = 2 * ((2 * b * nh + 2 * b * no) * h * h + b * e * 3 * h * 3 * h)
+    return 2.0 * t * products, 2.0 * t * 2 * 2 * b * e * e * h
+
+
+def print_split(name, split):
+    """The per-phase line of a kernel: device ms per call by kernel name."""
+    print(f"{name} device ms by kernel: " + ", ".join(
+        f"{k} {v['ms']:.3f} ({v['launches']:g} launches)" for k, v in split.items()), flush=True)
 
 
 def run_k3(torch, dev, shape):
     from tggcn_torch.ops.segment_scan import segment_scan_dot, segment_scan_dot_plain
+    from tggcn_torch.profile_scan import device_ms_by_kernel, scan_inputs
 
     t, b, nh, no, h = shape
-    gen = torch.Generator(device=dev).manual_seed(2)
-    args = k3_inputs(torch, dev, gen, t, b, nh, no, h)
+    args = scan_inputs(dev, torch.Generator(device=dev).manual_seed(2), t, b, nh, no, h)
     scale = 1.0 / math.sqrt(h)
     got = segment_scan_dot(**args, scale=scale)
     want = segment_scan_dot_plain(**args, scale=scale)
     err = check_kernel("segment_scan_dot", got, want)
+    served = segment_scan_dot(**args, scale=scale, keep=False)
+    err = max(err, check_kernel("segment_scan_dot (serving)", served, want[:3]))
     ms = cuda_ms(torch, lambda: segment_scan_dot(**args, scale=scale), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: segment_scan_dot_plain(**args, scale=scale), 3)
-    bound_ms, by = bound(nbytes(*args.values(), *got), k3_flops(t, b, nh, no, h))
+    print_split("k3", device_ms_by_kernel(lambda: segment_scan_dot(**args, scale=scale), 1))
     return dict(name="segment_scan_dot", route="cuda",
                 source="tggcn_torch/csrc/segment_scan.cu",
                 replaces="tggcn/ops/segment_scan_pallas.py:268", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+                plain_ms=plain_ms, library_ms=None,
+                **bounds(nbytes(*args.values(), *got), *k3_flops(t, b, nh, no, h)))
 
 
 def k4_flops(t, b, nh, no, h):
+    """K4 reads the gates, attention and messages K3 kept: (FLOPs of the
+    products of phases D, dmsgs = dgi @ w_msg^T, and R, the dgh and dpre
+    products; FLOPs of the attention backward) over both directions."""
     e = nh + no
-    per_dir_step = 2 * (b * e * 3 * h * 3 * h                  # recomputed gates (as K3)
-                        + 2 * b * e * e * h                    # recomputed scores, mixing
-                        + b * e * 3 * h * 2 * h                # dmsgs = dgi @ w_msg^T
-                        + b * e * 5 * h * h                    # carry: dgh, dpre products
-                        + 4 * b * e * e * h)                   # attention backward
-    return 2.0 * t * per_dir_step
+    products = 2 * (b * e * 3 * h * 2 * h + b * e * 5 * h * h)
+    return 2.0 * t * products, 2.0 * t * 2 * 4 * b * e * e * h
+
+
+def k4_flops_recompute(t, b, nh, no, h):
+    """The work of the design before K3 kept its gates and attention: the
+    gate products and the scores and mixing recomputed each step."""
+    e = nh + no
+    products, other = k4_flops(t, b, nh, no, h)
+    return (products + 2.0 * t * 2 * b * e * 3 * h * 3 * h,
+            other + 2.0 * t * 2 * 2 * b * e * e * h)
 
 
 def run_k4(torch, dev, shape):
-    from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, previous_states, segment_scan_dot_bwd,
-                                              segment_scan_dot_bwd_plain, segment_scan_dot_plain)
+    from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, segment_scan_dot_bwd,
+                                              segment_scan_dot_bwd_plain)
+    from tggcn_torch.profile_scan import bwd_inputs, device_ms_by_kernel, scan_inputs
 
     t, b, nh, no, h = shape
     gen = torch.Generator(device=dev).manual_seed(5)
-    args = k3_inputs(torch, dev, gen, t, b, nh, no, h)
     scale = 1.0 / math.sqrt(h)
-    out_h, out_o, _, m_h, m_o = segment_scan_dot_plain(**args, scale=scale)
-    h0_h, h0_o = args.pop("h0_h"), args.pop("h0_o")
-    del args["b_from"]
-    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    args.update(hprev_h=previous_states(out_h, h0_h), hprev_o=previous_states(out_o, h0_o),
-                m_h=m_h, m_o=m_o, g_h=randn(2, t, b, nh, h), g_o=randn(2, t, b, no, h),
-                g_att=randn(2, t, b, nh, no))
+    args = bwd_inputs(scan_inputs(dev, gen, t, b, nh, no, h), gen, scale)
     got = segment_scan_dot_bwd(**args, scale=scale)
     want = segment_scan_dot_bwd_plain(**args, scale=scale)
     err, rel = check_grads("segment_scan_dot_bwd", [got[k] for k in BWD_OUTPUTS],
                            [want[k] for k in BWD_OUTPUTS])
     ms = cuda_ms(torch, lambda: segment_scan_dot_bwd(**args, scale=scale), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: segment_scan_dot_bwd_plain(**args, scale=scale), 2)
-    bound_ms, by = bound(nbytes(*args.values(), *got.values()), k4_flops(t, b, nh, no, h))
+    print_split("k4", device_ms_by_kernel(lambda: segment_scan_dot_bwd(**args, scale=scale), 1))
+    byte_count = nbytes(*args.values(), *got.values())
+    new = bounds(byte_count, *k4_flops(t, b, nh, no, h))
+    old = bounds(byte_count, *k4_flops_recompute(t, b, nh, no, h))
+    print(f"k4 bound {new['bound_ms']:.3f} ms ({new['bound_by']}; products as 3xTF32, "
+          f"{new['bound_fma_ms']:.3f} ms on the FMA units); with the gates, scores and mixing "
+          f"recomputed as before K3 kept them: {old['bound_ms']:.3f} ms ({old['bound_by']}; "
+          f"{old['bound_fma_ms']:.3f} ms on the FMA units)", flush=True)
     return dict(name="segment_scan_dot_bwd", route="cuda",
                 source="tggcn_torch/csrc/segment_scan_bwd.cu",
                 replaces="tggcn/ops/segment_scan_pallas.py:546", max_abs_err=err,
-                max_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                library_ms=None)
+                max_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=None, **new)
 
 
 def k5_flops(mode, t, b, nh, no, h):
-    """K3's products, with the scores of the mode: v1 four dot products per
-    entity, v4 the bilinear products of each receiver's two edges and the
-    scores, ext none."""
+    """K3's products and mixing, with the scores of the mode: v1 four dot
+    products per entity, v4 the bilinear products of each receiver's two
+    edges (a product of the projection phase) and the scores, ext none."""
     e = nh + no
-    scores = {"v1": 4 * b * e * h, "v4": 2 * b * e * h * h + b * e * e * h, "ext": 0}[mode]
-    per_dir_step = 2 * ((2 * b * nh + 2 * b * no) * h * h + b * e * 3 * h * 3 * h
-                        + b * e * e * h + scores)
-    return 2.0 * t * per_dir_step
+    products = 2 * ((2 * b * nh + 2 * b * no) * h * h + b * e * 3 * h * 3 * h
+                    + (2 * b * e * h * h if mode == "v4" else 0))
+    scores = {"v1": 4 * b * e * h, "v4": b * e * e * h, "ext": 0}[mode]
+    return 2.0 * t * products, 2.0 * t * 2 * (b * e * e * h + scores)
 
 
 def run_k5(mode, torch, dev, shape):
     from tggcn_torch.models import stage1
     from tggcn_torch.models.tggcn import external_att_weights
     from tggcn_torch.ops import segment_scan as ops
+    from tggcn_torch.profile_scan import scan_inputs
 
     t, b, nh, no, h = shape
     gen = torch.Generator(device=dev).manual_seed(6)
-    args = k3_inputs(torch, dev, gen, t, b, nh, no, h)
+    args = scan_inputs(dev, gen, t, b, nh, no, h)
     if mode == "ext":
         dists = stage1.make_distances(np.random.default_rng(6), b, t, nh, no)
         extra = dict(att_ext=external_att_weights(
@@ -366,11 +396,11 @@ def run_k5(mode, torch, dev, shape):
     err = check_kernel(wrapper.__name__, got, want)
     ms = cuda_ms(torch, lambda: wrapper(**args, **extra), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: ops.segment_scan_att_plain(mode, **args, **extra), 2)
-    bound_ms, by = bound(nbytes(*args.values(), *extra.values(), *got),
-                         k5_flops(mode, t, b, nh, no, h))
     return dict(name=wrapper.__name__, route="cuda", source="tggcn_torch/csrc/segment_scan.cu",
                 replaces="tggcn/ops/segment_scan_pallas.py:268", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+                plain_ms=plain_ms, library_ms=None,
+                **bounds(nbytes(*args.values(), *extra.values(), *got),
+                         *k5_flops(mode, t, b, nh, no, h)))
 
 
 def run_k6(torch, dev, shape):
@@ -387,10 +417,9 @@ def run_k6(torch, dev, shape):
     ms = cuda_ms(torch, lambda: geo_gcn_fused(x, *weights), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: geo_gcn_plain(x, *weights), 5)
     flops = 2.0 * n * v * (4 * 64 + 64 * 64 + 2 * 64 * 128 + v * 128 + v * 64 + 64 * 128)
-    bound_ms, by = bound(nbytes(x, *weights, got), flops)
     return dict(name="geo_gcn_fused", route="cuda", source="tggcn_torch/csrc/geo_gcn.cu",
                 replaces="tggcn/ops/geo_gcn_pallas.py:100", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+                plain_ms=plain_ms, library_ms=None, **bounds(nbytes(x, *weights, got), flops))
 
 
 def decision_rows(torch, aux_g, aux_w, what):
@@ -561,6 +590,7 @@ def run_train(torch, dev, size, seed):
     grads = [(leaf.grad, tensor_leaves(again["trainable"])[key].grad)
              for key, leaf in tensor_leaves(kern["trainable"]).items() if leaf.grad is not None]
     unequal = sum(not torch.equal(a, b) for a, b in grads)
+    equal_leaves = len(grads)
     print(f"train step: two kernel-route steps from the same weights, batch and noise: "
           f"{len(grads) - unequal} of {len(grads)} gradient leaves bitwise equal", flush=True)
     if unequal:
@@ -596,8 +626,13 @@ def run_train(torch, dev, size, seed):
         raise AssertionError(f"updated weights differ by {weight_err:.3e} "
                              f"(limit one learning rate, {stage1.TRAIN['lr']})")
 
+    # The timed steps' peak is the step's own: of the compared runs only the
+    # kernel route's weights, Adam state and batch stay alive.
+    del plain, again, grads, got, want, g, w
     times = []
     reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
     for _ in range(TRAIN_STEPS):
         start = time.perf_counter()
         losses, _, _ = kern["step"](kern["trainable"], *kern["batch"][:2], noise=kern["batch"][2])
@@ -610,7 +645,9 @@ def run_train(torch, dev, size, seed):
         raise AssertionError(f"a timed train step missed a kernel: {launches}")
     return dict(ms=statistics.median(times), losses=kern["losses"].tolist(), loss_err=loss_err,
                 grad_rel=grad_rel, weight_err=weight_err, flips=flips, dropped_rows=dropped,
-                launches=launches, equal_leaves=len(grads))
+                launches=launches, equal_leaves=equal_leaves,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                resident_gib=resident / 2 ** 30)
 
 
 def run_small(torch, dev, seed):
@@ -693,7 +730,10 @@ def main(argv=None):
               f"{train['flips']} (batch rows left out {train['dropped_rows']}); launches "
               f"{json.dumps(train['launches'])} over {TRAIN_STEPS} steps; "
               f"{train['equal_leaves']} gradient leaves bitwise equal in two kernel-route "
-              f"steps", flush=True)
+              f"steps; peak device memory {train['peak_gib']:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated over the timed steps, of which "
+              f"{train['resident_gib']:.3f} GiB of weights, Adam state and batch held between "
+              f"steps)", flush=True)
     with phase("serve_modes"):
         served = {}
         for variant in stage1.SERVE_VARIANTS:
@@ -717,7 +757,8 @@ def main(argv=None):
         kind = ("gru" if k["name"].startswith("gru") else
                 "geo" if k["name"].startswith("geo") else "scan")
         print(f"kernel {k['name']}: kernel_ms {k['ms']:.3f} plain_ms {k['plain_ms']:.3f} "
-              f"bound_ms {k['bound_ms']:.3f} ({k['bound_by']}) launches {per}; "
+              f"bound_ms {k['bound_ms']:.3f} ({k['bound_by']}; {k['bound_fma_ms']:.3f} with the "
+              f"products on the FMA units) launches {per}; "
               f"library_ms none: {NO_LIBRARY[kind]}", flush=True)
     with phase("small"):
         err, flips, dropped = run_small(torch, dev, args.seed)

@@ -28,7 +28,7 @@ from tggcn_torch.ops.geo_gcn import geo_gcn_fused, geo_gcn_fused_autograd, geo_g
 from tggcn_torch.ops.gru_sequence import (gru_sequence, gru_sequence_bwd,
                                           gru_sequence_bwd_plain, gru_sequence_plain,
                                           previous_states)
-from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, previous_states as seg_previous,
+from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, KEPT, previous_states as seg_previous,
                                           segment_scan_att_plain, segment_scan_dot,
                                           segment_scan_dot_bwd, segment_scan_dot_bwd_plain,
                                           segment_scan_dot_plain, segment_scan_ext,
@@ -103,12 +103,15 @@ def test_segment_scan_bwd_kernel(cuda, nh, no, h):
     args = _segment_args(cuda, nh, no, h)
     rng = np.random.default_rng(nh + h)
     t, b = args["gi_h"].shape[1:3]
-    out_h, out_o, _, m_h, m_o = segment_scan_dot_plain(**args, scale=1 / math.sqrt(h))
+    out_h, out_o, _, *kept = segment_scan_dot_plain(**args, scale=1 / math.sqrt(h))
+    kept = dict(zip(KEPT, kept))
     up = [torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
           for shape in ((2, t, b, nh, h), (2, t, b, no, h), (2, t, b, nh, no))]
-    bwd_args = {k: v for k, v in args.items() if not k.startswith(("h0", "b_from"))}
+    bwd_args = {k: args[k] for k in ("u_h", "u_o", "w_from", "w_msg_h", "w_msg_o", "w_hh_h",
+                                     "w_hh_o")}
     streamed = dict(hprev_h=seg_previous(out_h, args["h0_h"]),
-                    hprev_o=seg_previous(out_o, args["h0_o"]), m_h=m_h, m_o=m_o,
+                    hprev_o=seg_previous(out_o, args["h0_o"]),
+                    **{k: kept[k] for k in ("m_h", "m_o", "gates_h", "gates_o", "atts")},
                     g_h=up[0], g_o=up[1], g_att=up[2])
     before = segment_scan_dot_bwd.launches
     got = segment_scan_dot_bwd(**bwd_args, **streamed, scale=1 / math.sqrt(h))
@@ -140,8 +143,12 @@ def test_segment_scan_kernel(cuda, nh, no, h):
     args = _segment_args(cuda, nh, no, h)
     got = segment_scan_dot(**args, scale=1 / math.sqrt(h))
     want = segment_scan_dot_plain(**args, scale=1 / math.sqrt(h))
-    assert len(got) == len(want) == 5
+    assert len(got) == len(want) == 3 + len(KEPT)
     for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=0, atol=ATOL)
+    served = segment_scan_dot(**args, scale=1 / math.sqrt(h), keep=False)
+    assert len(served) == 3
+    for g, w_ in zip(served, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=ATOL)
 
 

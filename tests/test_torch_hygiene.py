@@ -133,6 +133,26 @@ def test_library_path_follows_sources():
         assert (_build.CSRC_DIR / f"{name}.cu").exists()
 
 
+INTER_BLOCK_WAITS = ("cudaLaunchCooperativeKernel", "cudaLaunchAttributeCooperative",
+                     "this_grid", "griddepcontrol", "cudaGridDependencySynchronize")
+
+
+@pytest.mark.parametrize("path", sorted(p.name for p in _build.CSRC_DIR.iterdir()
+                                        if p.suffix in (".cu", ".cuh")))
+def test_kernels_wait_on_no_other_block(path):
+    """No kernel source waits for another block (no cooperative launch, grid
+    sync or programmatic dependent launch: phase order comes from stream
+    order), and the segment scan's sources add with no atomics, so two
+    identical train steps give the same gradient bits."""
+    text = (_build.CSRC_DIR / path).read_text()
+    for word in INTER_BLOCK_WAITS:
+        assert word not in text, f"{path} uses {word}"
+    if path.startswith("segment_scan"):
+        assert "atomic" not in text.replace("no atomics", ""), f"{path} uses an atomic"
+        for ptx in ("atom.", "red.global", "red.shared"):
+            assert ptx not in text, f"{path} uses the PTX atomic {ptx}"
+
+
 def _tiny_batch(humans=2, objects=2):
     rng = np.random.default_rng(0)
     return dict(x_human=rng.normal(size=(1, 2, humans, 2152)).astype(np.float32),
@@ -302,10 +322,17 @@ def _seg_args(requires_grad):
             for k, v in shapes.items()}
     streamed = dict(hprev_h=torch.zeros(2, t, b, nh, h), hprev_o=torch.zeros(2, t, b, no, h),
                     m_h=torch.zeros(2, t, b, nh, 2 * h), m_o=torch.zeros(2, t, b, no, 2 * h),
+                    gates_h=torch.zeros(2, t, b, nh, 4 * h),
+                    gates_o=torch.zeros(2, t, b, no, 4 * h),
+                    atts=torch.zeros(2, t, b, nh + no, nh + no),
                     g_h=torch.zeros(2, t, b, nh, h), g_o=torch.zeros(2, t, b, no, h),
                     g_att=torch.zeros(2, t, b, nh, no))
     h0 = dict(h0_h=torch.zeros(2, b, nh, h), h0_o=torch.zeros(2, b, no, h))
     return args, streamed, h0
+
+
+# What K4 takes of the scan's inputs besides what K3 kept.
+BWD_WEIGHTS = ("u_h", "u_o", "w_from", "w_msg_h", "w_msg_o", "w_hh_h", "w_hh_o")
 
 
 @pytest.mark.parametrize("wrapper", [name for _, name in KERNEL_WRAPPERS])
@@ -323,7 +350,7 @@ def test_wrapper_outside_its_function_raises(wrapper):
              "gru_sequence_bwd": lambda: gru_ops.gru_sequence_bwd(gi, hprev, g, w_hh, b_hh),
              "segment_scan_dot": lambda: scan_ops.segment_scan_dot(**seg, **seg_h0, scale=1.0),
              "segment_scan_dot_bwd": lambda: scan_ops.segment_scan_dot_bwd(
-                 **{k: v for k, v in seg.items() if k != "b_from"}, **streamed, scale=1.0),
+                 **{k: v for k, v in seg.items() if k in BWD_WEIGHTS}, **streamed, scale=1.0),
              "segment_scan_v1": lambda: scan_ops.segment_scan_v1(
                  **seg, **seg_h0, w_att=torch.zeros(4, 2 * h), b_att=torch.zeros(4)),
              "segment_scan_v4": lambda: scan_ops.segment_scan_v4(

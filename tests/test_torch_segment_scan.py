@@ -30,8 +30,11 @@ from tggcn.ops.segment_scan_pallas import _external_att_weights, _seg_dir, _seg_
 from tggcn_torch.compat.weights import params_from_numpy
 from tggcn_torch.models.tggcn import (TGGCNConfig, _segment_scan_fast, external_att_weights,
                                       segment_mode)
-from tggcn_torch.ops.segment_scan import (segment_scan_att_plain, segment_scan_dot,
-                                          segment_scan_dot_autograd)
+from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, KEPT, _attention, _dot_scores,
+                                          previous_states, scan_buffers,
+                                          segment_scan_att_plain, segment_scan_dot,
+                                          segment_scan_dot_autograd, segment_scan_dot_bwd_plain,
+                                          segment_scan_dot_plain, segment_scan_dot_weight_grads)
 
 RTOL, ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
@@ -65,8 +68,8 @@ def test_segment_scan_matches_pallas(nh, style):
     t, b, no, h = 6, 3, 3, 8
     a = _inputs(t, b, nh, no, h, seed=nh)
     scale = 1.0 / math.sqrt(h) if style == "v3" else 1.0
-    got_h, got_o, got_att, _, _ = segment_scan_dot(**{k: torch.tensor(v) for k, v in a.items()},
-                                             scale=scale)
+    got_h, got_o, got_att, *_ = segment_scan_dot(**{k: torch.tensor(v) for k, v in a.items()},
+                                                 scale=scale)
     for d, reverse in ((0, False), (1, True)):
         want_h, want_o, want_att = _seg_dir_pallas(
             a["gi_h"][d], a["gi_o"][d], a["u_h"], a["u_o"], a["w_from"], a["b_from"],
@@ -248,3 +251,260 @@ def test_fast_scan_matches_jax(variant):
                                  tensor(x_os), tensor(u_h), tensor(u_o), tensor(mask), dists)
     for name, g, w in zip(("hx_hs", "hx_os", "att_fwd", "att_bwd"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def _bwd_recompute(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, g_o, g_att, w_from,
+                   w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, scale):
+    """The backward route K4 took before K3 kept its gates, mixed messages
+    and attention: every step recomputes the scores, the softmax, the mixing
+    and the gate products from h_prev and the kept edge messages. Returns
+    the same outputs as segment_scan_dot_bwd_plain, and the recomputed mixed
+    messages as msgs_h, msgs_o."""
+    h, t = w_hh_h.shape[1], gi_h.shape[1]
+    out = dict(dgi_h=torch.empty_like(gi_h), dgi_o=torch.empty_like(gi_o),
+               dgh_h=torch.empty_like(gi_h), dgh_o=torch.empty_like(gi_o),
+               msgs_h=gi_h.new_empty(gi_h.shape[:-1] + (2 * h,)),
+               msgs_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,)),
+               dpre_h=gi_h.new_empty(gi_h.shape[:-1] + (2 * h,)),
+               dpre_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,)),
+               du_h=gi_h.new_empty(gi_h.shape[:-1]), du_o=gi_o.new_empty(gi_o.shape[:-1]))
+    dh_h, dh_o = hprev_h.new_zeros(hprev_h[:, 0].shape), hprev_o.new_zeros(hprev_o[:, 0].shape)
+
+    def cell_bwd(gib, msgs, hp, u, dH, w_msg, w_hh, b_hh):
+        gi = gib + torch.einsum("dbnf,dfk->dbnk", msgs, w_msg)
+        gh = torch.einsum("dbnh,dhk->dbnk", hp, w_hh) + b_hh[:, None, None]
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        h_new = (1.0 - z) * n + z * hp
+        du = torch.sum(dH * (h_new - hp), dim=-1)
+        dh_new = dH * u[..., None]
+        dtanh = dh_new * (1.0 - z) * (1.0 - n * n)
+        d_ir = dtanh * h_n * r * (1.0 - r)
+        d_iz = dh_new * (hp - n) * z * (1.0 - z)
+        dgi = torch.cat([d_ir, d_iz, dtanh], dim=-1)
+        dgh = torch.cat([d_ir, d_iz, dtanh * r], dim=-1)
+        dhp = (dH * (1.0 - u[..., None]) + dh_new * z
+               + torch.einsum("dbnk,dhk->dbnh", dgh, w_hh))
+        return dgi, dgh, du, dhp, torch.einsum("dbnk,dfk->dbnf", dgi, w_msg)
+
+    def att_bwd(a, m, dmg, recv, send, e, extra=None):
+        da = torch.einsum("dbrh,dbsh->dbrs", dmg, m)
+        if extra is not None:
+            da = da + extra
+        dm = torch.einsum("dbrs,dbrh->dbsh", a, dmg)
+        ds = a * (da - torch.sum(da * a, dim=-1, keepdim=True))
+        dpre = dm * (m > 0).to(dm.dtype)
+        dsend = scale * torch.einsum("dbrs,dbrh->dbsh", ds, recv)
+        dsend = dsend + torch.matmul(dpre, w_from[e].transpose(0, 1))
+        return scale * torch.einsum("dbrs,dbsh->dbrh", ds, send), dsend, dpre
+
+    for i in range(t):
+        ts = (t - 1 - i, i)
+
+        def at(x):
+            return torch.stack([x[d, ts[d]] for d in range(2)])
+
+        hh, ho = at(hprev_h), at(hprev_o)
+        (m_hh, m_ho), (m_oh, m_oo) = at(m_h).chunk(2, dim=-1), at(m_o).chunk(2, dim=-1)
+        a_hh, a_oh, a_ho, a_oo = _attention(hh, ho, obj_mask, _dot_scores(scale))
+        msgs_h = torch.cat([a_hh @ m_hh, a_oh @ m_oh], dim=-1)
+        msgs_o = torch.cat([a_ho @ m_ho, a_oo @ m_oo], dim=-1)
+        uh = torch.stack([u_h[ts[d]] for d in range(2)])
+        uo = torch.stack([u_o[ts[d]] for d in range(2)])
+        dgi_h, dgh_h, du_h, dhp_h, dmsgs_h = cell_bwd(
+            at(gi_h), msgs_h, hh, uh, dh_h + at(g_h), w_msg_h, w_hh_h, b_hh_h)
+        dgi_o, dgh_o, du_o, dhp_o, dmsgs_o = cell_bwd(
+            at(gi_o), msgs_o, ho, uo, dh_o + at(g_o), w_msg_o, w_hh_o, b_hh_o)
+        dr_hh, ds_hh, dp_hh = att_bwd(a_hh, m_hh, dmsgs_h[..., :h], hh, hh, 0)
+        dr_oh, ds_oh, dp_oh = att_bwd(a_oh, m_oh, dmsgs_h[..., h:], hh, ho, 2, at(g_att))
+        dr_ho, ds_ho, dp_ho = att_bwd(a_ho, m_ho, dmsgs_o[..., :h], ho, hh, 1)
+        dr_oo, ds_oo, dp_oo = att_bwd(a_oo, m_oo, dmsgs_o[..., h:], ho, ho, 3)
+        dh_h = dhp_h + dr_hh + ds_hh + dr_oh + ds_ho
+        dh_o = dhp_o + ds_oh + dr_ho + dr_oo + ds_oo
+        step = dict(dgi_h=dgi_h, dgi_o=dgi_o, dgh_h=dgh_h, dgh_o=dgh_o, msgs_h=msgs_h,
+                    msgs_o=msgs_o, dpre_h=torch.cat([dp_hh, dp_ho], dim=-1),
+                    dpre_o=torch.cat([dp_oh, dp_oo], dim=-1), du_h=du_h, du_o=du_o)
+        for k, v in step.items():
+            for d in range(2):
+                out[k][d, ts[d]] = v[d]
+    out.update(dh0_h=dh_h, dh0_o=dh_o)
+    return out
+
+
+@pytest.mark.parametrize("nh", [2, 1], ids=["two_humans", "one_human"])
+def test_kept_backward_matches_recompute_route(nh):
+    """K4's plain version, which reads the gates, mixed messages and
+    attention K3 kept, against the route it replaces (recomputing them from
+    h_prev each step) and, through the autograd Function, against jax.vjp of
+    the Pallas custom VJP; soft commit decisions, a partly and a fully
+    masked object row, and with one human an empty h2h row."""
+    t, b, no, h = 5, 3, 3, 8
+    a = _inputs(t, b, nh, no, h, seed=60 + nh)
+    rng = np.random.default_rng(70 + nh)
+    a["u_h"] = rng.uniform(size=a["u_h"].shape).astype(np.float32)
+    a["u_o"] = rng.uniform(size=a["u_o"].shape).astype(np.float32)
+    scale = 1.0 / math.sqrt(h)
+    g = dict(g_h=rng.normal(size=(2, t, b, nh, h)).astype(np.float32),
+             g_o=rng.normal(size=(2, t, b, no, h)).astype(np.float32),
+             g_att=rng.normal(size=(2, t, b, nh, no)).astype(np.float32))
+    x = {k: torch.tensor(v) for k, v in {**a, **g}.items()}
+    out_h, out_o, _, *kept = segment_scan_dot_plain(
+        **{k: x[k] for k in a}, scale=scale)
+    kept = dict(zip(KEPT, kept))
+    hprev = dict(hprev_h=previous_states(out_h, x["h0_h"]),
+                 hprev_o=previous_states(out_o, x["h0_o"]))
+    weights = ("w_from", "w_msg_h", "w_msg_o", "w_hh_h", "w_hh_o")
+    got = segment_scan_dot_bwd_plain(
+        x["u_h"], x["u_o"], **hprev, **{k: kept[k] for k in ("m_h", "m_o", "gates_h",
+                                                                 "gates_o", "atts")},
+        g_h=x["g_h"], g_o=x["g_o"], g_att=x["g_att"], **{k: x[k] for k in weights},
+        scale=scale)
+    want = _bwd_recompute(
+        x["gi_h"], x["gi_o"], x["u_h"], x["u_o"], **hprev, m_h=kept["m_h"], m_o=kept["m_o"],
+        g_h=x["g_h"], g_o=x["g_o"], g_att=x["g_att"], **{k: x[k] for k in weights},
+        b_hh_h=x["b_hh_h"], b_hh_o=x["b_hh_o"], obj_mask=x["obj_mask"], scale=scale)
+    for k in BWD_OUTPUTS:
+        assert torch.isfinite(got[k]).all(), k
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=k)
+    for k in ("mix_h", "mix_o"):
+        np.testing.assert_allclose(kept[k].numpy(), want["msgs" + k[3:]].numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+    np.testing.assert_allclose(
+        torch.cat([t_.flatten() for t_ in segment_scan_dot_weight_grads(
+            *hprev.values(), kept["mix_h"], kept["mix_o"], got)]).numpy(),
+        torch.cat([t_.flatten() for t_ in _weight_grads_recompute(hprev, want)]).numpy(),
+        rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    jax_want = _jax_vjp(a, nh, no, scale, g["g_h"], g["g_o"], g["g_att"])
+    leaves = {k: torch.tensor(v, requires_grad=k in DIFFERENTIABLE) for k, v in a.items()}
+    outs = segment_scan_dot_autograd(**leaves, scale=scale)
+    torch.autograd.backward(list(outs), [x["g_h"], x["g_o"], x["g_att"]])
+    for k in DIFFERENTIABLE:
+        np.testing.assert_allclose(leaves[k].grad.numpy(), jax_want[k], rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=k)
+
+
+def _weight_grads_recompute(hprev, grads):
+    """The weight gradients as the recompute route reduced them, from its
+    own recomputed mixed messages."""
+    return segment_scan_dot_weight_grads(hprev["hprev_h"], hprev["hprev_o"], grads["msgs_h"],
+                                         grads["msgs_o"], grads)
+
+
+def _small_leaves(requires_grad):
+    a = _inputs(3, 2, 2, 2, 4, seed=80)
+    return {k: torch.tensor(v, requires_grad=requires_grad and k in DIFFERENTIABLE)
+            for k, v in a.items()}
+
+
+def test_scan_keeps_tensors_only_for_a_backward(monkeypatch):
+    """SegmentScanDot saves K3's kept tensors (messages, gates, mixed
+    messages, attention) when a gradient will be taken; under no_grad, or
+    when no input requires a gradient, the forward runs with keep=False and
+    returns no autograd history."""
+    import tggcn_torch.ops.segment_scan as scan_ops
+
+    calls = []
+    plain = scan_ops.segment_scan_dot_plain
+
+    def spy(*args, keep=True, **kwargs):
+        calls.append(keep)
+        return plain(*args, keep=keep, **kwargs)
+
+    monkeypatch.setattr(scan_ops, "segment_scan_dot_plain", spy)
+    leaves = _small_leaves(requires_grad=True)
+    out_h, _, _ = scan_ops.segment_scan_dot_autograd(**leaves, scale=0.5, use_kernels=False)
+    saved = out_h.grad_fn.saved_tensors
+    h = leaves["w_hh_h"].shape[1]
+    assert calls == [True]
+    assert len(saved) == len(DIFFERENTIABLE) + 1 + 2 + len(KEPT)
+    assert [tuple(x.shape[-1:]) for x in saved[-len(KEPT):]] == [
+        (2 * h,), (2 * h,), (4 * h,), (4 * h,), (2 * h,), (2 * h,), (4,)]
+    with torch.no_grad():
+        served = scan_ops.segment_scan_dot_autograd(**leaves, scale=0.5, use_kernels=False)
+    fixed = scan_ops.segment_scan_dot_autograd(**_small_leaves(requires_grad=False), scale=0.5,
+                                               use_kernels=False)
+    assert calls == [True, False, False]
+    for outs in (served, fixed):
+        assert len(outs) == 3 and all(x.grad_fn is None for x in outs)
+        torch.testing.assert_close(outs[0], out_h.detach(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("keep", [False, True], ids=["serving", "training"])
+def test_scan_buffers_hold_steps_only_when_kept(keep):
+    """What the K3 wrapper allocates: serving (keep=False) allocates no
+    per-step messages, gates or attention, only one step's edge and mixed
+    messages per direction, whatever the length; training keeps every
+    step's."""
+    t, b, nh, no, h = 7, 2, 2, 3, 8
+    (out, kept), (out_long, kept_long) = (scan_buffers(n, b, nh, no, h, keep, "cpu")
+                                          for n in (t, 10 * t))
+    assert [tuple(x.shape) for x in out] == [(2, t, b, nh, h), (2, t, b, no, h),
+                                             (2, t, b, nh, no)]
+    if keep:
+        assert sorted(kept) == sorted(KEPT)
+        assert tuple(kept["gates_o"].shape) == (2, t, b, no, 4 * h)
+        assert tuple(kept["atts"].shape) == (2, t, b, nh + no, nh + no)
+    else:
+        assert sorted(kept) == ["m_h", "m_o", "mix_h", "mix_o"]
+        assert {k: tuple(v.shape) for k, v in kept.items()} == {
+            k: tuple(v.shape) for k, v in kept_long.items()}
+        assert tuple(kept["m_o"].shape) == (2, b, no, 2 * h)
+
+
+def test_profile_inputs_drive_the_scan_and_its_backward():
+    """tggcn_torch.profile_scan's seeded inputs, which the card's profiler
+    and chip_smoke.py's scan phases use: K3's carry a fully masked object
+    row, and K4's are exactly segment_scan_dot_bwd's arguments, built from
+    what the forward keeps, at the forward's shapes."""
+    import inspect
+
+    from tggcn_torch.ops.segment_scan import segment_scan_dot_bwd
+    from tggcn_torch.profile_scan import bwd_inputs, scan_inputs
+
+    t, b, nh, no, h = 4, 3, 2, 3, 8
+    gen = torch.Generator().manual_seed(0)
+    fwd = scan_inputs(torch.device("cpu"), gen, t, b, nh, no, h)
+    assert not fwd["obj_mask"][0].any() and fwd["obj_mask"][1].all()
+    bwd = bwd_inputs(fwd, gen, 1.0 / math.sqrt(h))
+    assert list(bwd) == [k for k in inspect.signature(segment_scan_dot_bwd).parameters
+                         if k != "scale"]
+    out_h, out_o, att, *kept = segment_scan_dot(**fwd, scale=1.0 / math.sqrt(h))
+    for name, x in zip(KEPT, kept):
+        if name in bwd:
+            torch.testing.assert_close(bwd[name], x, rtol=0, atol=0)
+    assert (bwd["g_h"].shape, bwd["g_o"].shape, bwd["g_att"].shape) == (
+        out_h.shape, out_o.shape, att.shape)
+    grads = segment_scan_dot_bwd(**bwd, scale=1.0 / math.sqrt(h))
+    assert all(bool(grads[k].isfinite().all()) for k in BWD_OUTPUTS)
+
+
+def _tf32(x):
+    """x rounded to TF32 by clearing the low 13 bits of its float32 mantissa."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("depth", [1536, 2560])
+def test_split_tf32_product_keeps_float32_accuracy(depth):
+    """The tensor-core products of K3 and K4 (csrc/tc_gemm.cuh) split each
+    float32 operand into a TF32 part and a TF32 remainder and take three
+    products, lo hi + hi lo + hi hi, in float32. Emulated here at the scan's
+    depths (the cell's 2h + h and the carry's 3h + 2h at h = 512) on
+    operands of its scale (states in (-1, 1), weights ~ h^-1/2): the split
+    stays within 1e-5 of the float64 product, a tenth of the kernels' 1e-4
+    limits, while one TF32 product misses them."""
+    rng = np.random.default_rng(depth)
+    x = torch.tensor(rng.uniform(-1, 1, size=(32, depth)), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(-1, 1, size=(depth, 64)) / math.sqrt(512), dtype=torch.float32)
+    exact = x.double() @ w.double()
+    x_hi, w_hi = _tf32(x), _tf32(w)
+    x_lo, w_lo = _tf32(x - x_hi), _tf32(w - w_hi)
+    split = x_lo @ w_hi + x_hi @ w_lo + x_hi @ w_hi
+    single = x_hi @ w_hi
+    err = lambda y: float((y.double() - exact).abs().max())
+    assert err(split) < 1e-5
+    assert err(single) > 1e-4
+

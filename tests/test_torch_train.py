@@ -258,3 +258,36 @@ def test_training_trajectory_matches_reference(path):
     got = _flat(params_to_numpy(trainable["model"]))
     for k, w in want.items():
         np.testing.assert_allclose(got[k], w, rtol=0, atol=1e-3, err_msg=f"weight {k}")
+
+
+def test_scan_keeps_step_tensors_for_training_only(monkeypatch):
+    """The segment scan keeps its per-step messages, gates, mixed messages
+    and attention for a train step (whose backward reads them) and nothing
+    per step when serving under no_grad: the dot scan runs with keep=True
+    in the train step and keep=False in a served request, with the same
+    states."""
+    from tggcn_torch.models import stage1
+    import tggcn_torch.ops.segment_scan as scan_ops
+
+    keeps = []
+    plain = scan_ops.segment_scan_dot_plain
+
+    def spy(*args, keep=True, **kwargs):
+        keeps.append(keep)
+        return plain(*args, keep=keep, **kwargs)
+
+    monkeypatch.setattr(scan_ops, "segment_scan_dot_plain", spy)
+    model = select_model("2G-GCN", device="cpu", **dict(stage1.MODEL_KWARGS, hidden_size=8))
+    params = model.init(torch.Generator().manual_seed(0))
+    request = stage1.make_request(np.random.default_rng(0), b=1, t=3, humans=2, objects=2)
+    model.apply(params, **request)
+    assert keeps == [False]
+    trainable = {"model": params}
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
+    step = make_train_step(model, select_model_data_feeder("2G-GCN", "multiple",
+                                                           **stage1.FEEDER_KWARGS),
+                           criterion, torch.optim.Adam(trainable_parameters(trainable), lr=1e-3))
+    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
+    data, targets = fetch(stage1.make_batch(np.random.default_rng(1), 2, 3, 2, 2))
+    losses, _, _ = step(trainable, data, targets, generator=torch.Generator().manual_seed(2))
+    assert keeps == [False, True] and torch.isfinite(losses).all()

@@ -18,9 +18,10 @@
 // block fits an SM (for its shared memory), and the warps hide each other's
 // shared-memory latency.
 //
-// Bound on an H100: float32 FMAs. At the MPHOI shape (N = 8 * 167 = 1336
-// frames, V = 26) the chain does 1.76 MFLOP a frame, 2.4 GFLOP in all,
-// 35 us at 67 TFLOP/s; the 17.8 MB of output take 5 us at 3.35 TB/s.
+// Bound on an H100. At the MPHOI shape (N = 8 * 167 = 1336 frames, V = 26)
+// the chain does 1.76 MFLOP a frame, 2.4 GFLOP in all: 35 us of float32
+// FMAs at 67 TFLOP/s, as this kernel runs them, or 14 us as 3xTF32 on the
+// tensor cores, the bound chip_smoke.py holds it to; the 17.8 MB of output take 5 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 

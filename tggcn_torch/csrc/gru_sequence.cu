@@ -17,9 +17,10 @@
 // per (row, unit). Streams s >= S -
 // num_reverse run backward in time (the backward directions of a BiGRU).
 //
-// Bound on an H100: float32 FMAs (no tensor cores: the port keeps full
-// float32), 2*T*S*R*h*3h operations, 50 GFLOP at T=167, S=6, R=32, h=512,
-// against 67 TFLOP/s. W_hh (19 MB at that shape) is read once per step from
+// Bound on an H100: 2*T*S*R*h*3h operations, 50 GFLOP at T=167, S=6, R=32,
+// h=512: 0.75 ms of float32 FMAs at 67 TFLOP/s, as this kernel runs them,
+// or 0.31 ms as 3xTF32 on the tensor cores (float32 accuracy at a third of
+// 495 TFLOP/s), the bound chip_smoke.py holds it to. W_hh (19 MB at that shape) is read once per step from
 // L2, where it stays resident (50 MB); the bytes that must cross HBM
 // (gi in, h out, W_hh once) are about 280 MB.
 

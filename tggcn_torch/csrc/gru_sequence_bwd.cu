@@ -20,9 +20,10 @@
 // (S, 3h, h) so that tile_gemm.cuh reads it as it reads any (K, N) weight.
 // dW_hh and db_hh are reduced outside, as one product over h_prev x dgh.
 //
-// Bound on an H100: float32 FMAs, two products of 2*R*h*3h per stream and
-// step: 2*2*T*S*R*h*3h = 101 GFLOP at T=167, S=6, R=32, h=512, against 67
-// TFLOP/s. W_hh and its transpose (38 MB) stay in L2 and are read every
+// Bound on an H100: two products of 2*R*h*3h per stream and step:
+// 2*2*T*S*R*h*3h = 101 GFLOP at T=167, S=6, R=32, h=512, 1.5 ms of float32
+// FMAs at 67 TFLOP/s, as this kernel runs them, or 0.61 ms as 3xTF32 on the
+// tensor cores, the bound chip_smoke.py holds it to. W_hh and its transpose (38 MB) stay in L2 and are read every
 // step; HBM carries gi, h_prev and g in and dgi, dgh out (about 0.8 GB).
 
 #include "tile_gemm.cuh"

@@ -9,11 +9,8 @@
 //
 //   A  proj:  m_e = relu(h_src @ w_from[e] + b_from[e]) for the four edges
 //             e = hh, ho (from the human states), oh, oo (from the objects);
-//             blocks own 32 rows x 16 columns of one (direction, edge). The
-//             messages of every step are kept (m_h = [hh | ho] per human,
-//             m_o = [oh | oo] per object): the backward (K4) takes them as
-//             they were, instead of recomputing them on the far side of a
-//             ReLU kink.
+//             blocks own 32 columns of one (direction, edge) and up to 32
+//             rows.
 //   M  mix:   per (batch, direction, column slice): scaled dot scores
 //             between the carried states, the masked softmax over senders
 //             (1 - eye on h2h, the object mask on o2h, both on o2o, finite
@@ -22,10 +19,22 @@
 //             mix_o = [a_ho m_ho, a_oo m_oo].
 //   B  cell:  gi = gi_base + mix @ w_msg, gh = h_prev @ w_hh + b_hh, GRU
 //             gates r, z, n, h_new = (1 - z) n + z h_prev, and the commit
-//             h = u h_new + (1 - u) h_prev; blocks own 32 rows x 16 hidden
-//             units of one (direction, cell).
-// A and B use the pipelined, register-tiled product of tile_gemm.cuh, so
-// each weight is read once per step while there are at most 32 rows.
+//             h = u h_new + (1 - u) h_prev; blocks own 16 hidden units (their
+//             r, z and n columns) of one (direction, cell) and up to 32 rows.
+// A and B run their products on the tensor cores through tc_gemm.cuh
+// (mma.sync TF32 with the 3xTF32 split, float32 accumulation; weight
+// columns on the mma's M side, the step's 16 or 32 rows on its N side), so
+// each weight is read once per step.
+//
+// What the backward (K4) reads is kept when the caller asks (keep = 1, the
+// training forward): every step's edge messages m_h = [hh | ho] per human
+// and m_o = [oh | oo] per object (K4 takes the ReLU's derivative where the
+// forward was, instead of on the far side of a kink after a recompute), the
+// mixed messages mix_h, mix_o, the full softmaxed attention `atts` (E x E
+// per batch) and the gates [r | z | n | hn] of every cell row, hn = h_prev
+// @ w_hh_n + b_hh_n. K4 then needs no gate product and no attention. With
+// keep = 0 (serving), m and mix hold one step per direction and nothing
+// else is written.
 //
 // K5, the same scan in the other attention modes of _make_kernel, is the
 // same three phases with the mode a template parameter of A and M (the
@@ -39,26 +48,26 @@
 //        inverse distances), already softmaxed, and scores nothing.
 // w_att and b_att are in score order, by receiver then sender: hh, oh, ho,
 // oo (segment_scan_pallas.py:729), unlike w_from's hh, ho, oh, oo. K5 is
-// forward only, so it keeps no per-step messages: each step's sit in one
-// buffer per direction.
+// forward only: it runs with keep = 0.
 //
-// Bound on an H100: float32 FMAs. Per step and direction at the MPHOI shape
-// (B=8, H=2, O=4, h=512) the matmuls do 2*(96*h*h + 48*3h*3h) = 277 MFLOP
-// (four projections over 16+16+32+32 rows; 48 cell rows of depth 3h), so
-// 92 GFLOP for both directions over T=167, against 67 TFLOP/s.
-// The weights (40 MB for both directions) stay in the 50 MB L2 and are read
-// from it every step; HBM has to carry only gi in and the states out. v1 and
-// ext do about the same work; v4 adds 2 * 96 * h * h * 2 * T = 17 GFLOP.
+// Bound on an H100. Per step and direction at the MPHOI shape (B=8, H=2,
+// O=4, h=512) the matmuls do 2*(96*h*h + 48*3h*3h) = 277 MFLOP (four
+// projections over 16+16+32+32 rows; 48 cell rows of depth 3h), so 92 GFLOP
+// for both directions over T=167: 1.38 ms of float32 FMAs at 67 TFLOP/s,
+// 0.56 ms as 3xTF32 (three TF32 products each, 495 TFLOP/s). The weights
+// (46 MB a step for both directions) are read from L2 every step; HBM has to
+// carry gi in, the states out and, with keep, 263 MB of kept tensors (0.08
+// ms at 3.35 TB/s). v1 and ext do about the same work; v4 adds
+// 2 * 96 * h * h * 2 * T = 17 GFLOP.
 
-#include "tile_gemm.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-using namespace tggcn;
+using namespace tggcn::tc;
 
 constexpr int kMaxEntities = 16;
 constexpr int kMixColumns = 128;   // mix columns (of 2h) per mix block
-constexpr int kWarps = kThreads / 32;
 
 // Attention modes: the codes of tggcn_segment_scan_att_f32's `mode`.
 constexpr int kDot = 0, kV1 = 1, kV4 = 2, kExt = 3;
@@ -72,6 +81,8 @@ __device__ __forceinline__ Step step_of(int step, int T) {
   return {d, d == 0 ? step : T - 1 - step};
 }
 
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
+
 // The states this step reads: h0 at the first step, else the previous
 // step's output of the same direction. rows = B * entities.
 __device__ __forceinline__ const float* prev_state(const float* h0, const float* out,
@@ -82,18 +93,22 @@ __device__ __forceinline__ const float* prev_state(const float* h0, const float*
   return out + ((size_t)s.d * T + tp) * rows * H;
 }
 
-// Edge e's message row `row` at the step's (d, t): m_h holds the edges
-// hh | ho of each human, m_o the edges oh | oo of each object. K3 keeps
-// every step's (for K4); K5 one step's per direction.
-template <int Mode>
-__device__ __forceinline__ size_t msg_at(Step s, int T, int rows, int row, int e, int H) {
-  const size_t slot = Mode == kDot ? (size_t)s.d * T + s.t : (size_t)s.d;
-  return (slot * rows + row) * 2 * H + (size_t)(e & 1) * H;
+// The slot of a kept per-step tensor (m, mix, gates) at the step's (d, t):
+// every step's with keep, else one per direction.
+__device__ __forceinline__ size_t slot_of(Step s, int T, int keep) {
+  return keep ? (size_t)s.d * T + s.t : (size_t)s.d;
 }
 
-// Blocks own 32 rows x 16 columns of one (direction, edge): edges 0-3 are
-// the messages (hh, ho, oh, oo); in v4, edges 4-7 are tmp = recv @ W_att of
-// the score edges hh, oh (receivers humans, into tmp_h) and ho, oo
+// Edge e's message row `row`: m_h holds the edges hh | ho of each human,
+// m_o the edges oh | oo of each object.
+__device__ __forceinline__ size_t msg_at(Step s, int T, int keep, int rows, int row, int e,
+                                         int H) {
+  return (slot_of(s, T, keep) * rows + row) * 2 * H + (size_t)(e & 1) * H;
+}
+
+// Blocks own 32 columns of one (direction, edge) and up to 32 rows: edges
+// 0-3 are the messages (hh, ho, oh, oo); in v4, edges 4-7 are tmp = recv @
+// W_att of the score edges hh, oh (receivers humans, into tmp_h) and ho, oo
 // (receivers objects, into tmp_o), laid out (2, rows, sender group, h).
 template <int Mode>
 __global__ void __launch_bounds__(kThreads)
@@ -102,53 +117,39 @@ proj_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
             const float* __restrict__ w_from, const float* __restrict__ b_from,
             float* __restrict__ m_h, float* __restrict__ m_o,
             const float* __restrict__ w_att, float* __restrict__ tmp_h,
-            float* __restrict__ tmp_o, int T, int B, int NH, int NO,
+            float* __restrict__ tmp_o, int keep, int T, int B, int NH, int NO,
             int H, int row_tiles, int step) {
   const Step s = step_of(step, T);
   const int e = blockIdx.y / row_tiles;
-  const int row0 = (blockIdx.y % row_tiles) * kTileRows;
-  const int col0 = blockIdx.x * kTileUnits;
+  const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int col0 = blockIdx.x * 2 * kMTile;
+  const int group = (e < 4 ? e : e - 4) < 2 ? 0 : 1;          // the source: humans, objects
+  const int all_rows = B * (group == 0 ? NH : NO);
+  if (row0 >= all_rows) return;
+  const int rows = min(kMaxRows, all_rows - row0);
+  const float* x = (group == 0 ? prev_state(h0_h, out_h, s, step, T, all_rows, H)
+                               : prev_state(h0_o, out_o, s, step, T, all_rows, H))
+                   + (size_t)row0 * H;
+  const float* w = e < 4 ? w_from + (size_t)e * H * H : w_att + (size_t)(e - 4) * H * H;
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (Mode == kV4) {
-    if (e >= 4) {
-      const int se = e - 4;
-      const int rows = se < 2 ? B * NH : B * NO;
-      if (row0 >= rows) return;
-      const float* x = se < 2 ? prev_state(h0_h, out_h, s, step, T, B * NH, H)
-                              : prev_state(h0_o, out_o, s, step, T, B * NO, H);
-      float acc[4][4][1] = {};
-      const Operand op = {x, H, w_att + (size_t)se * H * H, H, 0, H};
-      accumulate<1, 1, 1>(op, op, rows, H, row0, col0, smem, acc);
-      store_partials<1>(smem, acc);
-      __syncthreads();
-      float* tmp = se < 2 ? tmp_h : tmp_o;
-      for (int i = 0; i < kEpiloguePairs; ++i) {
-        const int p = threadIdx.x + i * kThreads, r = p / kTileUnits, c = p % kTileUnits;
-        const int row = row0 + r, col = col0 + c;
-        if (row >= rows || col >= H) continue;
-        tmp[(((size_t)s.d * rows + row) * 2 + (se & 1)) * H + col] =
-            reduce_partials<1>(smem, 0, r, c);
-      }
-      return;
-    }
-  }
-  const int rows = e < 2 ? B * NH : B * NO;
-  if (row0 >= rows) return;
-  const float* x = e < 2 ? prev_state(h0_h, out_h, s, step, T, B * NH, H)
-                         : prev_state(h0_o, out_o, s, step, T, B * NO, H);
-  float* m = e < 2 ? m_h : m_o;
-
-  float acc[4][4][1] = {};
-  const Operand op = {x, H, w_from + (size_t)e * H * H, H, 0, H};
-  accumulate<1, 1, 1>(op, op, rows, H, row0, col0, smem, acc);
-  store_partials<1>(smem, acc);
+  float acc[2][kNTiles][4] = {};
+  const Operand op = {x, H, w, H, H};
+  const Tiles tiles = {{col0, col0 + kMTile, 0},
+                       {max(0, min(kMTile, H - col0)), max(0, min(kMTile, H - col0 - kMTile)), 0}};
+  accumulate<false, 2, 2, 1, TileSlots>(op, op, op, tiles, rows, smem, acc);
+  store_partials<2>(smem, acc);
   __syncthreads();
-  for (int i = 0; i < kEpiloguePairs; ++i) {
-    const int p = threadIdx.x + i * kThreads, r = p / kTileUnits, c = p % kTileUnits;
-    const int row = row0 + r, col = col0 + c;
-    if (row >= rows || col >= H) continue;
-    const float v = reduce_partials<1>(smem, 0, r, c) + b_from[(size_t)e * H + col];
-    m[msg_at<Mode>(s, T, rows, row, e, H) + col] = fmaxf(v, 0.f);
+  for (int p = threadIdx.x; p < 2 * kMTile * kMaxRows; p += kThreads) {
+    const int t = p / (kMTile * kMaxRows), c = p % kMTile, r = (p / kMTile) % kMaxRows;
+    const int row = row0 + r, col = col0 + t * kMTile + c;
+    if (r >= rows || col >= H) continue;
+    const float v = reduce<2>(smem, t, c, r);
+    if (e < 4) {
+      (e < 2 ? m_h : m_o)[msg_at(s, T, keep, all_rows, row, e, H) + col] =
+          fmaxf(v + b_from[(size_t)e * H + col], 0.f);
+    } else {
+      (group == 0 ? tmp_h : tmp_o)[(((size_t)s.d * all_rows + row) * 2 + (e & 1)) * H + col] = v;
+    }
   }
 }
 
@@ -175,7 +176,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Per (batch, column slice, direction): the scores of the mode, the masked
-// softmax (ext: the weights as given), att_oh and the mixed messages.
+// softmax (ext: the weights as given), att_oh (and, with keep, the whole
+// E x E attention) and the mixed messages.
 // Dynamic shared memory: the (NH + NO) carried states of the block's batch.
 template <int Mode>
 __global__ void __launch_bounds__(kThreads)
@@ -186,8 +188,8 @@ mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
            const float* __restrict__ b_att, const float* __restrict__ tmp_h,
            const float* __restrict__ tmp_o, const float* __restrict__ att_ext,
            float* __restrict__ mix_h, float* __restrict__ mix_o,
-           float* __restrict__ att, int T, int B, int NH, int NO, int H,
-           float scale, int step) {
+           float* __restrict__ att, float* __restrict__ atts, int keep, int T, int B,
+           int NH, int NO, int H, float scale, int step) {
   const Step s = step_of(step, T);
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * kMixColumns;
@@ -268,11 +270,16 @@ mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
       const int n = i / NO, o = i % NO;
       att[((((size_t)s.d * T + s.t) * B + b) * NH + n) * NO + o] = a[n][NH + o];
     }
+    if (keep) {
+      for (int i = tid; i < E * E; i += kThreads)
+        atts[((((size_t)s.d * T + s.t) * B + b) * E + i / E) * E + i % E] = a[i / E][i % E];
+    }
   }
   auto m_row = [&](int e, int row) {
-    return e < 2 ? m_h + msg_at<Mode>(s, T, B * NH, row, e, H)
-                 : m_o + msg_at<Mode>(s, T, B * NO, row, e, H);
+    return e < 2 ? m_h + msg_at(s, T, keep, B * NH, row, e, H)
+                 : m_o + msg_at(s, T, keep, B * NO, row, e, H);
   };
+  const size_t slot = slot_of(s, T, keep);
   const int width = min(kMixColumns, 2 * H - c0);
   for (int i = tid; i < E * width; i += kThreads) {
     const int n = i / width, k = c0 + i % width;
@@ -285,11 +292,19 @@ mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
         v = fmaf(a[n][NH + o], m_row(human ? 2 : 3, b * NO + o)[k - H], v);
     }
     if (human)
-      mix_h[((size_t)s.d * B * NH + b * NH + n) * 2 * H + k] = v;
+      mix_h[(slot * B * NH + b * NH + n) * 2 * H + k] = v;
     else
-      mix_o[((size_t)s.d * B * NO + b * NO + n - NH) * 2 * H + k] = v;
+      mix_o[(slot * B * NO + b * NO + n - NH) * 2 * H + k] = v;
   }
 }
+
+// Accumulator slots of the cell's product: tiles r, z, n of the input
+// operand (mix @ w_msg) add into slots 0, 1, 2, those of the recurrent
+// operand (h_prev @ w_hh) into 0, 1 and 3: the n gate keeps its two sides
+// apart.
+struct CellSlots {
+  __host__ __device__ static constexpr int slot(int p, int t) { return p == 1 && t == 2 ? 3 : t; }
+};
 
 __global__ void __launch_bounds__(kThreads)
 cell_kernel(const float* __restrict__ gi_h, const float* __restrict__ gi_o,
@@ -300,41 +315,54 @@ cell_kernel(const float* __restrict__ gi_h, const float* __restrict__ gi_o,
             const float* __restrict__ b_hh_h, const float* __restrict__ b_hh_o,
             const float* __restrict__ h0_h, const float* __restrict__ h0_o,
             float* __restrict__ out_h, float* __restrict__ out_o,
+            float* __restrict__ gates_h, float* __restrict__ gates_o, int keep,
             int T, int B, int NH, int NO, int H, int row_tiles, int step) {
   const Step s = step_of(step, T);
   const int cell = blockIdx.y / row_tiles;             // 0 humans, 1 objects
-  const int row0 = (blockIdx.y % row_tiles) * kTileRows;
-  const int unit0 = blockIdx.x * kTileUnits;
-  const int rows = B * (cell == 0 ? NH : NO);
-  if (row0 >= rows) return;
-  const float* mix = (cell == 0 ? mix_h : mix_o) + (size_t)s.d * rows * 2 * H;
+  const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int unit0 = blockIdx.x * kMTile;
+  const int all_rows = B * (cell == 0 ? NH : NO);
+  if (row0 >= all_rows) return;
+  const int rows = min(kMaxRows, all_rows - row0);
+  const size_t slot = slot_of(s, T, keep);
+  const float* mix = (cell == 0 ? mix_h : mix_o) + (slot * all_rows + row0) * 2 * H;
   const float* w_msg = (cell == 0 ? w_msg_h : w_msg_o) + (size_t)s.d * 2 * H * 3 * H;
   const float* w_hh = (cell == 0 ? w_hh_h : w_hh_o) + (size_t)s.d * H * 3 * H;
   const float* b_hh = (cell == 0 ? b_hh_h : b_hh_o) + (size_t)s.d * 3 * H;
-  const float* h_prev = cell == 0 ? prev_state(h0_h, out_h, s, step, T, rows, H)
-                                  : prev_state(h0_o, out_o, s, step, T, rows, H);
+  const float* h_prev = cell == 0 ? prev_state(h0_h, out_h, s, step, T, all_rows, H)
+                                  : prev_state(h0_o, out_o, s, step, T, all_rows, H);
 
-  // Slots: 0 r, 1 z (input and recurrent sides summed), 2 input n, 3 recurrent n.
   extern __shared__ __align__(16) unsigned char smem[];
-  float acc[4][4][4] = {};
-  const Operand in = {mix, 2 * H, w_msg, 3 * H, H, 2 * H}, rec = {h_prev, H, w_hh, 3 * H, H, H};
-  accumulate<3, 2, 4>(in, rec, rows, H, row0, unit0, smem, acc);
+  float acc[4][kNTiles][4] = {};
+  const Operand in = {mix, 2 * H, w_msg, 3 * H, 2 * H};
+  const Operand rec = {h_prev + (size_t)row0 * H, H, w_hh, 3 * H, H};
+  const int valid = min(kMTile, H - unit0);
+  const Tiles tiles = {{unit0, H + unit0, 2 * H + unit0}, {valid, valid, valid}};
+  accumulate<false, 3, 4, 2, CellSlots>(in, rec, rec, tiles, rows, smem, acc);
   store_partials<4>(smem, acc);
   __syncthreads();
-  for (int i = 0; i < kEpiloguePairs; ++i) {
-    const int p = threadIdx.x + i * kThreads, r = p / kTileUnits, c = p % kTileUnits;
+  float* gates = cell == 0 ? gates_h : gates_o;
+  for (int p = threadIdx.x; p < kMTile * kMaxRows; p += kThreads) {
+    const int c = p % kMTile, r = p / kMTile;
     const int row = row0 + r, unit = unit0 + c;
-    if (row >= rows || unit >= H) continue;
-    const float* g = (cell == 0 ? gi_h : gi_o) + (((size_t)s.d * T + s.t) * rows + row) * 3 * H;
-    const float rg = sigmoid_f(g[unit] + reduce_partials<4>(smem, 0, r, c) + b_hh[unit]);
-    const float zg = sigmoid_f(g[H + unit] + reduce_partials<4>(smem, 1, r, c) + b_hh[H + unit]);
-    const float ng = tanhf(g[2 * H + unit] + reduce_partials<4>(smem, 2, r, c)
-                           + rg * (reduce_partials<4>(smem, 3, r, c) + b_hh[2 * H + unit]));
+    if (r >= rows || unit >= H) continue;
+    const float* g = (cell == 0 ? gi_h : gi_o) + (((size_t)s.d * T + s.t) * all_rows + row) * 3 * H;
+    const float rg = sigmoid_f(g[unit] + reduce<4>(smem, 0, c, r) + b_hh[unit]);
+    const float zg = sigmoid_f(g[H + unit] + reduce<4>(smem, 1, c, r) + b_hh[H + unit]);
+    const float hn = reduce<4>(smem, 3, c, r) + b_hh[2 * H + unit];
+    const float ng = tanhf(g[2 * H + unit] + reduce<4>(smem, 2, c, r) + rg * hn);
     const float hp = h_prev[(size_t)row * H + unit];
     const float h_new = (1.f - zg) * ng + zg * hp;
-    const float u = (cell == 0 ? u_h : u_o)[(size_t)s.t * rows + row];
+    const float u = (cell == 0 ? u_h : u_o)[(size_t)s.t * all_rows + row];
     float* out = cell == 0 ? out_h : out_o;
-    out[(((size_t)s.d * T + s.t) * rows + row) * H + unit] = u * h_new + (1.f - u) * hp;
+    out[(((size_t)s.d * T + s.t) * all_rows + row) * H + unit] = u * h_new + (1.f - u) * hp;
+    if (keep) {
+      float* gr = gates + (slot * all_rows + row) * 4 * H + unit;
+      gr[0] = rg;
+      gr[H] = zg;
+      gr[2 * H] = ng;
+      gr[3 * H] = hn;
+    }
   }
 }
 
@@ -347,12 +375,13 @@ int run_scan(const float* gi_h, const float* gi_o, const float* u_h, const float
              const float* b_hh_h, const float* b_hh_o, const float* obj_mask,
              const float* h0_h, const float* h0_o, const float* w_att, const float* b_att,
              const float* att_ext, float* out_h, float* out_o, float* att, float* m_h,
-             float* m_o, float* tmp_h, float* tmp_o, float* mix_h, float* mix_o, int T, int B,
+             float* m_o, float* tmp_h, float* tmp_o, float* mix_h, float* mix_o,
+             float* gates_h, float* gates_o, float* atts, int keep, int T, int B,
              int NH, int NO, int H, float scale, cudaStream_t stream) {
   const size_t states_bytes = (size_t)(NH + NO) * H * sizeof(float);
   if (NH + NO > kMaxEntities || H % 4 != 0 || states_bytes > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem_a = smem_bytes<1, 1>(), smem_b = smem_bytes<3, 4>();
+  const size_t smem_a = smem_bytes<false, 2, 2>(), smem_b = smem_bytes<false, 3, 4>();
   cudaError_t err = cudaFuncSetAttribute(proj_kernel<Mode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err == cudaSuccess)
@@ -360,21 +389,21 @@ int run_scan(const float* gi_h, const float* gi_o, const float* u_h, const float
                                (int)smem_b);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int max_rows = B * (NH > NO ? NH : NO);
-  const int row_tiles = (max_rows + kTileRows - 1) / kTileRows;
-  const int col_tiles = (H + kTileUnits - 1) / kTileUnits;
-  const dim3 grid_a(col_tiles, (Mode == kV4 ? 8 : 4) * row_tiles, 2);
+  const int row_tiles = (max_rows + kMaxRows - 1) / kMaxRows;
+  const int col_tiles = (H + kMTile - 1) / kMTile;
+  const dim3 grid_a((H + 2 * kMTile - 1) / (2 * kMTile), (Mode == kV4 ? 8 : 4) * row_tiles, 2);
   const dim3 grid_m(B, (2 * H + kMixColumns - 1) / kMixColumns, 2);
   const dim3 grid_b(col_tiles, 2 * row_tiles, 2);
   for (int step = 0; step < T; ++step) {
     proj_kernel<Mode><<<grid_a, kThreads, smem_a, stream>>>(
-        h0_h, h0_o, out_h, out_o, w_from, b_from, m_h, m_o, w_att, tmp_h, tmp_o, T, B, NH,
-        NO, H, row_tiles, step);
+        h0_h, h0_o, out_h, out_o, w_from, b_from, m_h, m_o, w_att, tmp_h, tmp_o, keep, T, B,
+        NH, NO, H, row_tiles, step);
     mix_kernel<Mode><<<grid_m, kThreads, states_bytes, stream>>>(
         h0_h, h0_o, out_h, out_o, obj_mask, m_h, m_o, w_att, b_att, tmp_h, tmp_o, att_ext,
-        mix_h, mix_o, att, T, B, NH, NO, H, scale, step);
+        mix_h, mix_o, att, atts, keep, T, B, NH, NO, H, scale, step);
     cell_kernel<<<grid_b, kThreads, smem_b, stream>>>(
-        gi_h, gi_o, u_h, u_o, mix_h, mix_o, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
-        b_hh_h, b_hh_o, h0_h, h0_o, out_h, out_o, T, B, NH, NO, H, row_tiles, step);
+        gi_h, gi_o, u_h, u_o, mix_h, mix_o, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o,
+        h0_h, h0_o, out_h, out_o, gates_h, gates_o, keep, T, B, NH, NO, H, row_tiles, step);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -383,8 +412,11 @@ int run_scan(const float* gi_h, const float* gi_o, const float* u_h, const float
 
 }  // namespace
 
-// K3: the scan in 'dot' mode; m_h and m_o keep every step's edge messages
-// (2, T, B * NH or NO, 2H). H % 4 == 0, NH + NO <= 16 and (NH + NO) * H * 4
+// K3: the scan in 'dot' mode. With keep = 1, m_h, m_o (2, T, B * NH or NO,
+// 2H), mix_h, mix_o (the same shapes), gates_h, gates_o (2, T, B * NH or NO,
+// 4H: r, z, n, hn) and atts (2, T, B, E, E) keep every step's; with keep =
+// 0, m and mix hold one step per direction (2, B * NH or NO, 2H) and gates
+// and atts may be null. H % 4 == 0, NH + NO <= 16 and (NH + NO) * H * 4
 // bytes <= 48 KB.
 extern "C" int tggcn_segment_scan_dot_f32(
     const float* gi_h, const float* gi_o, const float* u_h, const float* u_o,
@@ -392,20 +424,22 @@ extern "C" int tggcn_segment_scan_dot_f32(
     const float* w_msg_o, const float* w_hh_h, const float* w_hh_o,
     const float* b_hh_h, const float* b_hh_o, const float* obj_mask,
     const float* h0_h, const float* h0_o, float* out_h, float* out_o,
-    float* att, float* m_h, float* m_o, float* mix_h, float* mix_o, int T, int B, int NH,
-    int NO, int H, float scale, void* stream_ptr) {
+    float* att, float* m_h, float* m_o, float* mix_h, float* mix_o, float* gates_h,
+    float* gates_o, float* atts, int keep, int T, int B, int NH, int NO, int H, float scale,
+    void* stream_ptr) {
   return run_scan<kDot>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
                         w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, nullptr, nullptr,
                         nullptr, out_h, out_o, att, m_h, m_o, nullptr, nullptr, mix_h, mix_o,
-                        T, B, NH, NO, H, scale, static_cast<cudaStream_t>(stream_ptr));
+                        gates_h, gates_o, atts, keep, T, B, NH, NO, H, scale,
+                        static_cast<cudaStream_t>(stream_ptr));
 }
 
 // K5: the scan in mode 1 'v1' (w_att (4, 2H), b_att (4)), 2 'v4' (w_att
 // (4, H, H), b_att (4); tmp_h (2, B * NH, 2, H) and tmp_o (2, B * NO, 2, H)
 // scratch) or 3 'ext' (att_ext (T, B, E, E), E = NH + NO: row n < NH holds
-// [a_hh | a_oh] of human n, row NH + o [a_ho | a_oo] of object o). m_h and
-// m_o hold one step's messages, (2, B * NH or NO, 2H). Unused pointers may be
-// null. The limits are K3's.
+// [a_hh | a_oh] of human n, row NH + o [a_ho | a_oo] of object o). m_h, m_o,
+// mix_h and mix_o hold one step's, (2, B * NH or NO, 2H). Unused pointers
+// may be null. The limits are K3's.
 extern "C" int tggcn_segment_scan_att_f32(
     int mode, const float* gi_h, const float* gi_o, const float* u_h, const float* u_o,
     const float* w_from, const float* b_from, const float* w_msg_h,
@@ -419,7 +453,8 @@ extern "C" int tggcn_segment_scan_att_f32(
 #define TGGCN_RUN_SCAN(M)                                                                 \
   run_scan<M>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,      \
               b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, w_att, b_att, att_ext, out_h, out_o,   \
-              att, m_h, m_o, tmp_h, tmp_o, mix_h, mix_o, T, B, NH, NO, H, 1.f, stream)
+              att, m_h, m_o, tmp_h, tmp_o, mix_h, mix_o, nullptr, nullptr, nullptr, 0, T, B, \
+              NH, NO, H, 1.f, stream)
   switch (mode) {
     case kV1: return TGGCN_RUN_SCAN(kV1);
     case kV4: return TGGCN_RUN_SCAN(kV4);

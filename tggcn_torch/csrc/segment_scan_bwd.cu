@@ -4,25 +4,26 @@
 // (launched by _seg_dir_bwd_pallas, segment_scan_pallas.py:546). The TPU
 // kernel walks time in reverse as its grid with every weight and the carry
 // dL/dh resident in VMEM, and recomputes the step from the streamed h_prev.
-// Here no block may wait for another, so each step is five launches whose
+// Here no block may wait for another, so each step is three launches whose
 // order on the stream orders the phases; both directions (d = 0 forward,
-// d = 1 backward in time) share each launch, and the carry lives in device
-// memory (carry_h, carry_o, which end as dh0). The step visits time
-// opposite to the forward: t = T-1 .. 0 for d = 0, 0 .. T-1 for d = 1.
+// d = 1 backward in time) share each launch. The step visits time opposite
+// to the forward: t = T-1 .. 0 for d = 0, 0 .. T-1 for d = 1.
 //
-//   M  mix:    recompute the scaled dot scores, the masked softmaxes (kept
-//              in `atts` for phase A) and the mixed messages msgs_h, msgs_o
-//              (an output: dW_msg is reduced from it outside). The edge
-//              messages m_e = relu(h_prev_src @ w_from[e] + b_from[e]) are
-//              not recomputed: K3 keeps them (m_h, m_o), so the ReLU's
-//              derivative is taken where the forward was. A recompute that
-//              sums in another order can land on the other side of the kink
-//              (at the MPHOI width on an H100 one such flip moved an output
-//              by 7% of its largest value against the plain version).
-//   C  cell:   recompute gi = gi_base + msgs @ w_msg, gh = h_prev @ w_hh +
-//              b_hh and the gates; dH = carry + g; du = sum(dH (h_new -
-//              h_prev)), one partial per block (du_part); dh_new = dH u; dgi,
-//              dgh; dhz = dH (1 - u) + dh_new z.
+// K3, run with keep, kept what the forward computed: the edge messages m
+// (so the ReLU's derivative is taken where the forward was), the softmaxed
+// attention `atts` and the gates [r | z | n | hn] of every cell row. So K4
+// recomputes nothing: no gate product, no scores, no softmax, no mixing.
+// Every value it differentiates through is the one the forward used (a
+// recompute summed in another order can land on the other side of the
+// ReLU's kink: at the MPHOI width on an H100 one such flip moved an output
+// by 7% of its largest value).
+//
+//   C  cell:   elementwise from the kept gates: dH = carry + g; du = sum(dH
+//              (h_new - h_prev)), one partial per block (du_part); dh_new =
+//              dH u; dgi, dgh; dhz = dH (1 - u) + dh_new z. It runs in R's
+//              epilogue of the step before (the carry never leaves the
+//              block that computed it); the first step has a launch of its
+//              own with a zero carry.
 //   D  dmsgs:  dmsgs = dgi @ w_msg^T (contract 3h).
 //   A  att:    per (batch, direction, column slice): da = dmsgs . m (plus
 //              g_att on the o2h block), ds = a (da - sum(da a)) per softmax
@@ -30,30 +31,34 @@
 //              score gradients of receivers and senders (attc) and dm = a^T
 //              dmsgs, masked by the ReLU into dpre (an output).
 //   R  carry:  carry = dhz + attc + dgh @ w_hh^T + dpre @ [w_from^T of the
-//              two edges the cell's states send].
+//              two edges the cell's states send]; then C of the next step,
+//              or dh0 after the last.
 // After the sweep one launch adds each row's du partials in block order:
 // no atomics, so a call gives the same bits on every run.
-// C, D and R use the pipelined, register-tiled product of tile_gemm.cuh;
-// the transposed weights (w_msg^T, w_hh^T, w_from^T) come from the caller,
-// transposed once per call, so that every product reads a (K, N) weight.
-// The weight and bias gradients are reduced outside, as large products
-// over the per-step outputs.
+// D and R run on the tensor cores through tc_gemm.cuh (mma.sync TF32 with
+// the 3xTF32 split, float32 accumulation), reading w_msg, w_hh and w_from as
+// they are stored (the products contract along the weights' columns). The
+// weight and bias gradients are reduced outside, as large products over
+// the per-step outputs and K3's kept mixed messages.
 //
-// Bound on an H100: float32 FMAs. Per step and direction at the MPHOI shape
-// (B=8, H=2, O=4, h=512) the products do 2*48*3h*3h for the recomputed
-// gates plus 2*48*(3h*2h + 5h*h) for D and R, 566 MFLOP, so 189 GFLOP for
-// both directions over T=167, against 67 TFLOP/s. The cell weights and
-// their transposes (68 MB) do not all fit the 50 MB L2.
+// Bound on an H100. Per step and direction at the MPHOI shape (B=8, H=2,
+// O=4, h=512) the products do 2*48*(3h*2h + 5h*h) = 277 MFLOP for D and R,
+// so 93 GFLOP for both directions over T=167 (1.39 ms of float32 FMAs at 67
+// TFLOP/s, 0.56 ms as 3xTF32 at 495 TFLOP/s). The weights D and R read (46
+// MB a step for both directions: w_msg 25 MB, w_hh 13 MB, w_from twice
+// 8 MB) about fill the 50 MB L2.
 
-#include "tile_gemm.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-using namespace tggcn;
+using namespace tggcn::tc;
 
 constexpr int kMaxEntities = 16;
-constexpr int kSliceColumns = 128;   // columns per mix / att block
-constexpr int kWarps = kThreads / 32;
+constexpr int kSliceColumns = 64;    // columns per att block
+// segb_att's dynamic shared memory may take what is left of the 227 KB a
+// block can have beside its 2 KB of static arrays.
+constexpr size_t kMaxAttSmem = 224 * 1024;
 
 struct Step {
   int d, t;
@@ -75,163 +80,75 @@ __device__ __forceinline__ size_t msg_at(Step s, int T, int rows, int row, int e
   return (((size_t)s.d * T + s.t) * rows + row) * 2 * H + (size_t)(e & 1) * H;
 }
 
-template <typename Mask>
-__device__ void masked_softmax_row(float* a, int first, int n, Mask mask) {
-  float mx = -1e30f;
-  for (int m = 0; m < n; ++m) mx = fmaxf(mx, mask(m) > 0.f ? a[first + m] : -1e30f);
-  float den = 0.f;
-  for (int m = 0; m < n; ++m) {
-    const float v = mask(m) > 0.f ? a[first + m] : -1e30f;
-    const float ev = expf(v - mx) * mask(m);
-    a[first + m] = ev;
-    den += ev;
-  }
-  den = fmaxf(den, 1e-30f);
-  for (int m = 0; m < n; ++m) a[first + m] /= den;
-}
-
 // Edge of the message that receiver n takes from sender m: 0 hh, 1 ho, 2 oh, 3 oo.
 __device__ __forceinline__ int edge_of(int n, int m, int NH) {
   return n < NH ? (m < NH ? 0 : 2) : (m < NH ? 1 : 3);
 }
 
-// Dynamic shared memory: the (NH + NO) states of the block's batch.
-__global__ void __launch_bounds__(kThreads)
-segb_mix(const float* __restrict__ hprev_h, const float* __restrict__ hprev_o,
-         const float* __restrict__ obj_mask, const float* __restrict__ m_h,
-         const float* __restrict__ m_o,
-         float* __restrict__ msgs_h, float* __restrict__ msgs_o, float* __restrict__ atts,
-         int T, int B, int NH, int NO, int H, float scale, int step) {
-  const Step s = step_of(step, T);
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * kSliceColumns;
-  const int E = NH + NO;
-  const float* hh = hprev_h + at(s, T, B * NH, b * NH, H);
-  const float* ho = hprev_o + at(s, T, B * NO, b * NO, H);
-
-  extern __shared__ float4 states4[];
-  float* states = reinterpret_cast<float*>(states4);       // (E, H)
-  __shared__ float a[kMaxEntities][kMaxEntities];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  for (int i = tid; i < E * H / 4; i += kThreads) {
-    const int n = (4 * i) / H, k = (4 * i) % H;
-    const float* src = n < NH ? hh + (size_t)n * H : ho + (size_t)(n - NH) * H;
-    states4[i] = *reinterpret_cast<const float4*>(src + k);
-  }
-  __syncthreads();
-  for (int p = warp; p < E * E; p += kWarps) {
-    const int n = p / E, m = p % E;
-    float dot = 0.f;
-    for (int k = lane; k < H; k += 32) dot = fmaf(states[n * H + k], states[m * H + k], dot);
-    for (int off = 16; off > 0; off /= 2) dot += __shfl_down_sync(0xffffffffu, dot, off);
-    if (lane == 0) a[n][m] = dot * scale;
-  }
-  __syncthreads();
-  const float* om = obj_mask + (size_t)b * NO;
-  if (tid < E) {
-    const int n = tid;
-    if (n < NH) {
-      masked_softmax_row(a[n], 0, NH, [&](int m) { return m == n ? 0.f : 1.f; });
-      masked_softmax_row(a[n], NH, NO, [&](int o) { return om[o]; });
-    } else {
-      const int o = n - NH;
-      masked_softmax_row(a[n], 0, NH, [&](int) { return 1.f; });
-      masked_softmax_row(a[n], NH, NO, [&](int p) { return p == o ? 0.f : om[p]; });
-    }
-  }
-  __syncthreads();
-  if (blockIdx.y == 0) {
-    for (int i = tid; i < E * E; i += kThreads)
-      atts[(((size_t)s.d * B + b) * E + i / E) * E + i % E] = a[i / E][i % E];
-  }
-  auto m_row = [&](int e, int row) {
-    return e < 2 ? m_h + msg_at(s, T, B * NH, row, e, H) : m_o + msg_at(s, T, B * NO, row, e, H);
-  };
-  const int width = min(kSliceColumns, 2 * H - c0);
-  for (int i = tid; i < E * width; i += kThreads) {
-    const int n = i / width, k = c0 + i % width;
-    const bool human = n < NH;
-    float v = 0.f;
-    if (k < H) {
-      for (int m = 0; m < NH; ++m) v = fmaf(a[n][m], m_row(human ? 0 : 1, b * NH + m)[k], v);
-    } else {
-      for (int o = 0; o < NO; ++o)
-        v = fmaf(a[n][NH + o], m_row(human ? 2 : 3, b * NO + o)[k - H], v);
-    }
-    if (human)
-      msgs_h[at(s, T, B * NH, b * NH + n, 2 * H) + k] = v;
-    else
-      msgs_o[at(s, T, B * NO, b * NO + n - NH, 2 * H) + k] = v;
-  }
-}
-
 struct CellArgs {
-  const float *gi, *u, *hprev, *g, *msgs, *w_msg, *w_hh, *b_hh, *carry;
+  const float *u, *hprev, *g, *gates;
   float *dgi, *dgh, *du_part, *dhz;
 };
 
-__global__ void __launch_bounds__(kThreads)
-segb_cell(CellArgs hum, CellArgs obj, int T, int B, int NH, int NO, int H, int row_tiles,
-          int step) {
-  const Step s = step_of(step, T);
-  const int cell = blockIdx.y / row_tiles;             // 0 humans, 1 objects
-  const int row0 = (blockIdx.y % row_tiles) * kTileRows;
-  const int unit0 = blockIdx.x * kTileUnits;
-  const int rows = B * (cell == 0 ? NH : NO);
-  if (row0 >= rows) return;
-  const CellArgs& c = cell == 0 ? hum : obj;
-  const float* msgs = c.msgs + at(s, T, rows, 0, 2 * H);
-  const float* hp = c.hprev + at(s, T, rows, 0, H);
-  const float* w_msg = c.w_msg + (size_t)s.d * 2 * H * 3 * H;
-  const float* w_hh = c.w_hh + (size_t)s.d * H * 3 * H;
-  const float* b_hh = c.b_hh + (size_t)s.d * 3 * H;
+// Phase C at (s, row, unit) from the carry dL/dh: writes dgi, dgh, dhz and
+// returns this unit's share of du.
+__device__ __forceinline__ float cell_bwd(const CellArgs& c, Step s, int T, int rows, int row,
+                                          int unit, int H, float carry) {
+  const float* gr = c.gates + at(s, T, rows, row, 4 * H);
+  const float rg = gr[unit], zg = gr[H + unit], ng = gr[2 * H + unit], hn = gr[3 * H + unit];
+  const size_t hi = at(s, T, rows, row, H) + unit;
+  const float hpv = c.hprev[hi];
+  const float dH = carry + c.g[hi];
+  const float u = c.u[(size_t)s.t * rows + row];
+  const float h_new = (1.f - zg) * ng + zg * hpv;
+  const float dh_new = dH * u;
+  const float dtanh = dh_new * (1.f - zg) * (1.f - ng * ng);
+  const float d_ir = dtanh * hn * rg * (1.f - rg);
+  const float d_iz = dh_new * (hpv - ng) * zg * (1.f - zg);
+  const size_t g3 = at(s, T, rows, row, 3 * H);
+  c.dgi[g3 + unit] = d_ir;
+  c.dgi[g3 + H + unit] = d_iz;
+  c.dgi[g3 + 2 * H + unit] = dtanh;
+  c.dgh[g3 + unit] = d_ir;
+  c.dgh[g3 + H + unit] = d_iz;
+  c.dgh[g3 + 2 * H + unit] = dtanh * rg;
+  c.dhz[((size_t)s.d * rows + row) * H + unit] = dH * (1.f - u) + dh_new * zg;
+  return dH * (h_new - hpv);
+}
 
-  // Slots: 0 r, 1 z (input and recurrent sides summed), 2 input n, 3 recurrent n.
-  extern __shared__ __align__(16) unsigned char smem[];
-  float acc[4][4][4] = {};
-  const Operand in = {msgs, 2 * H, w_msg, 3 * H, H, 2 * H}, rec = {hp, H, w_hh, 3 * H, H, H};
-  accumulate<3, 2, 4>(in, rec, rows, H, row0, unit0, smem, acc);
-  store_partials<4>(smem, acc);
+// du_s holds each (row, unit) share of the block's 32 x 16 tile: one
+// partial per row and block, added over the 16 units in order.
+__device__ __forceinline__ void store_du(const CellArgs& c, Step s, int T, int rows, int row0,
+                                         int nrows, const float (&du_s)[kMaxRows][kMTile + 1]) {
   __syncthreads();
-  for (int i = 0; i < kEpiloguePairs; ++i) {
-    const int p = threadIdx.x + i * kThreads, r = p / kTileUnits, cc = p % kTileUnits;
-    const int row = row0 + r, unit = unit0 + cc;
-    const bool valid = row < rows && unit < H;
-    float du = 0.f;
-    if (valid) {
-      const size_t g3 = at(s, T, rows, row, 3 * H);
-      const float* gr = c.gi + g3;
-      const float rg = sigmoid_f(gr[unit] + reduce_partials<4>(smem, 0, r, cc) + b_hh[unit]);
-      const float zg = sigmoid_f(gr[H + unit] + reduce_partials<4>(smem, 1, r, cc)
-                                 + b_hh[H + unit]);
-      const float hn = reduce_partials<4>(smem, 3, r, cc) + b_hh[2 * H + unit];
-      const float ng = tanhf(gr[2 * H + unit] + reduce_partials<4>(smem, 2, r, cc) + rg * hn);
-      const float hpv = hp[(size_t)row * H + unit];
-      const float h_new = (1.f - zg) * ng + zg * hpv;
-      const size_t hs = ((size_t)s.d * rows + row) * H + unit;
-      const float dH = c.carry[hs] + c.g[at(s, T, rows, row, H) + unit];
-      const float u = c.u[(size_t)s.t * rows + row];
-      du = dH * (h_new - hpv);
-      const float dh_new = dH * u;
-      const float dtanh = dh_new * (1.f - zg) * (1.f - ng * ng);
-      const float d_ir = dtanh * hn * rg * (1.f - rg);
-      const float d_iz = dh_new * (hpv - ng) * zg * (1.f - zg);
-      c.dgi[g3 + unit] = d_ir;
-      c.dgi[g3 + H + unit] = d_iz;
-      c.dgi[g3 + 2 * H + unit] = dtanh;
-      c.dgh[g3 + unit] = d_ir;
-      c.dgh[g3 + H + unit] = d_iz;
-      c.dgh[g3 + 2 * H + unit] = dtanh * rg;
-      c.dhz[hs] = dH * (1.f - u) + dh_new * zg;
-    }
-    // The 16 units of a tile row sit in 16 neighbouring lanes: add them up
-    // in a fixed order, then one partial per row and block; du_sum adds the
-    // blocks' partials after the sweep, so du is the same on every run.
-    for (int off = kTileUnits / 2; off > 0; off /= 2)
-      du += __shfl_xor_sync(0xffffffffu, du, off, kTileUnits);
-    if (cc == 0 && row < rows)
-      c.du_part[(((size_t)s.d * T + s.t) * rows + row) * gridDim.x + blockIdx.x] = du;
+  const int r = threadIdx.x;
+  if (r < nrows) {
+    float v = 0.f;
+    for (int k = 0; k < kMTile; ++k) v += du_s[r][k];
+    c.du_part[at(s, T, rows, row0 + r, gridDim.x) + blockIdx.x] = v;
   }
+}
+
+// Phase C of the first step (zero carry); blocks own 16 units of up to 32
+// rows of one (direction, cell), as R's.
+__global__ void __launch_bounds__(kThreads)
+segb_cell(CellArgs hum, CellArgs obj, int T, int B, int NH, int NO, int H, int row_tiles) {
+  const Step s = step_of(0, T);
+  const int cell = blockIdx.y / row_tiles;
+  const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int unit0 = blockIdx.x * kMTile;
+  const int all_rows = B * (cell == 0 ? NH : NO);
+  if (row0 >= all_rows) return;
+  const int nrows = min(kMaxRows, all_rows - row0);
+  const CellArgs& c = cell == 0 ? hum : obj;
+  __shared__ float du_s[kMaxRows][kMTile + 1];
+  for (int p = threadIdx.x; p < kMTile * kMaxRows; p += kThreads) {
+    const int cc = p % kMTile, r = p / kMTile;
+    const int unit = unit0 + cc;
+    du_s[r][cc] = r < nrows && unit < H ? cell_bwd(c, s, T, all_rows, row0 + r, unit, H, 0.f)
+                                        : 0.f;
+  }
+  store_du(c, s, T, all_rows, row0, nrows, du_s);
 }
 
 // du[i] = the sum, in block order, of the `parts` partials of row i.
@@ -247,33 +164,38 @@ du_sum(const float* __restrict__ part_h, const float* __restrict__ part_o,
   (human ? du_h : du_o)[human ? i : i - n_h] = v;
 }
 
-// dmsgs = dgi @ w_msg^T for both cells; blocks own 32 rows x 16 of 2h columns.
+// dmsgs = dgi @ w_msg^T for both cells; blocks own 32 of 2h columns and up
+// to 32 rows.
 __global__ void __launch_bounds__(kThreads)
 segb_dmsgs(const float* __restrict__ dgi_h, const float* __restrict__ dgi_o,
-           const float* __restrict__ w_msg_t_h, const float* __restrict__ w_msg_t_o,
+           const float* __restrict__ w_msg_h, const float* __restrict__ w_msg_o,
            float* __restrict__ dmsgs_h, float* __restrict__ dmsgs_o, int T, int B, int NH,
            int NO, int H, int row_tiles, int step) {
   const Step s = step_of(step, T);
   const int cell = blockIdx.y / row_tiles;
-  const int row0 = (blockIdx.y % row_tiles) * kTileRows;
-  const int col0 = blockIdx.x * kTileUnits;
-  const int rows = B * (cell == 0 ? NH : NO);
-  if (row0 >= rows) return;
-  const float* dgi = (cell == 0 ? dgi_h : dgi_o) + at(s, T, rows, 0, 3 * H);
-  const float* w_t = (cell == 0 ? w_msg_t_h : w_msg_t_o) + (size_t)s.d * 3 * H * 2 * H;
-  float* out = (cell == 0 ? dmsgs_h : dmsgs_o) + (size_t)s.d * rows * 2 * H;
+  const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int col0 = blockIdx.x * 2 * kMTile;
+  const int all_rows = B * (cell == 0 ? NH : NO);
+  if (row0 >= all_rows) return;
+  const int rows = min(kMaxRows, all_rows - row0);
+  const float* dgi = (cell == 0 ? dgi_h : dgi_o) + at(s, T, all_rows, row0, 3 * H);
+  const float* w = (cell == 0 ? w_msg_h : w_msg_o) + (size_t)s.d * 2 * H * 3 * H;
+  float* out = (cell == 0 ? dmsgs_h : dmsgs_o) + ((size_t)s.d * all_rows + row0) * 2 * H;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float acc[4][4][1] = {};
-  const Operand op = {dgi, 3 * H, w_t, 2 * H, 0, 3 * H};
-  accumulate<1, 1, 1>(op, op, rows, 2 * H, row0, col0, smem, acc);
-  store_partials<1>(smem, acc);
+  float acc[2][kNTiles][4] = {};
+  const Operand op = {dgi, 3 * H, w, 3 * H, 3 * H};
+  const Tiles tiles = {{col0, col0 + kMTile, 0},
+                       {max(0, min(kMTile, 2 * H - col0)),
+                        max(0, min(kMTile, 2 * H - col0 - kMTile)), 0}};
+  accumulate<true, 2, 2, 1, TileSlots>(op, op, op, tiles, rows, smem, acc);
+  store_partials<2>(smem, acc);
   __syncthreads();
-  for (int i = 0; i < kEpiloguePairs; ++i) {
-    const int p = threadIdx.x + i * kThreads, r = p / kTileUnits, c = p % kTileUnits;
-    const int row = row0 + r, col = col0 + c;
-    if (row >= rows || col >= 2 * H) continue;
-    out[(size_t)row * 2 * H + col] = reduce_partials<1>(smem, 0, r, c);
+  for (int p = threadIdx.x; p < 2 * kMTile * kMaxRows; p += kThreads) {
+    const int t = p / (kMTile * kMaxRows), c = p % kMTile, r = (p / kMTile) % kMaxRows;
+    const int col = col0 + t * kMTile + c;
+    if (r >= rows || col >= 2 * H) continue;
+    out[(size_t)r * 2 * H + col] = reduce<2>(smem, t, c, r);
   }
 }
 
@@ -283,7 +205,11 @@ struct AttArgs {
 };
 
 // Per (batch, column slice, direction): the backward through the attention,
-// the mixing and the ReLU of the message projections.
+// the mixing and the ReLU of the message projections. The batch's dmsgs and
+// message rows (full width, for da) and its states' column slice are staged
+// in shared memory with 16-byte loads first, so that the dot products and
+// the per-column sums read shared memory and not a chain of L2 loads.
+// Dynamic shared memory: att_smem_bytes(E, H).
 __global__ void __launch_bounds__(kThreads)
 segb_att(AttArgs x, int T, int B, int NH, int NO, int H, float scale, int step) {
   const Step s = step_of(step, T);
@@ -292,27 +218,36 @@ segb_att(AttArgs x, int T, int B, int NH, int NO, int H, float scale, int step) 
   const int E = NH + NO;
   __shared__ float a[kMaxEntities][kMaxEntities];
   __shared__ float ds[kMaxEntities][kMaxEntities];
+  extern __shared__ float4 staged4[];
+  float* dm_s = reinterpret_cast<float*>(staged4);        // (E, 2H): dmsgs of receiver n
+  float* m_s = dm_s + (size_t)E * 2 * H;                  // (E, 2H): messages sender n sends
+  float* st_s = m_s + (size_t)E * 2 * H;                  // (E, kSliceColumns): states
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  // dmsgs row of receiver n (2h wide), message row of edge e from sender m,
-  // state row of entity n.
-  auto dmg = [&](int n) {
-    return n < NH ? x.dmsgs_h + ((size_t)s.d * B * NH + b * NH + n) * 2 * H
-                  : x.dmsgs_o + ((size_t)s.d * B * NO + b * NO + n - NH) * 2 * H;
-  };
-  auto m_row = [&](int e, int m) {
-    return m < NH ? x.m_h + msg_at(s, T, B * NH, b * NH + m, e, H)
-                  : x.m_o + msg_at(s, T, B * NO, b * NO + m - NH, e, H);
-  };
-  auto state = [&](int n) {
-    return n < NH ? x.hprev_h + at(s, T, B * NH, b * NH + n, H)
-                  : x.hprev_o + at(s, T, B * NO, b * NO + n - NH, H);
-  };
+  const int width = min(kSliceColumns, H - c0);
+  for (int i = tid; i < E * 2 * H / 4; i += kThreads) {
+    const int n = (4 * i) / (2 * H), k = (4 * i) % (2 * H);
+    const float* dr = n < NH ? x.dmsgs_h + ((size_t)s.d * B * NH + b * NH + n) * 2 * H
+                             : x.dmsgs_o + ((size_t)s.d * B * NO + b * NO + n - NH) * 2 * H;
+    const float* mr = n < NH ? x.m_h + at(s, T, B * NH, b * NH + n, 2 * H)
+                             : x.m_o + at(s, T, B * NO, b * NO + n - NH, 2 * H);
+    staged4[i] = *reinterpret_cast<const float4*>(dr + k);
+    staged4[E * 2 * H / 4 + i] = *reinterpret_cast<const float4*>(mr + k);
+  }
+  for (int i = tid; i < E * width; i += kThreads) {
+    const int n = i / width, k = i % width;
+    st_s[n * kSliceColumns + k] = n < NH ? x.hprev_h[at(s, T, B * NH, b * NH + n, H) + c0 + k]
+                                         : x.hprev_o[at(s, T, B * NO, b * NO + n - NH, H) + c0 + k];
+  }
   for (int i = tid; i < E * E; i += kThreads)
-    a[i / E][i % E] = x.atts[(((size_t)s.d * B + b) * E + i / E) * E + i % E];
+    a[i / E][i % E] = x.atts[at(s, T, B, b, E * E) + i];
+  __syncthreads();
+  // Receiver n takes from sender m the edge whose half of m's message row
+  // is 0 for a human receiver (hh, oh) and H for an object (ho, oo); n's
+  // dmsgs row holds the human senders' half first.
   for (int p = warp; p < E * E; p += kWarps) {         // da, over the full width
     const int n = p / E, m = p % E;
-    const float* dr = dmg(n) + (m < NH ? 0 : H);
-    const float* mr = m_row(edge_of(n, m, NH), m);
+    const float* dr = dm_s + (size_t)n * 2 * H + (m < NH ? 0 : H);
+    const float* mr = m_s + (size_t)m * 2 * H + (n < NH ? 0 : H);
     float dot = 0.f;
     for (int k = lane; k < H; k += 32) dot = fmaf(dr[k], mr[k], dot);
     for (int off = 16; off > 0; off /= 2) dot += __shfl_down_sync(0xffffffffu, dot, off);
@@ -332,21 +267,19 @@ segb_att(AttArgs x, int T, int B, int NH, int NO, int H, float scale, int step) 
     }
   }
   __syncthreads();
-  const int width = min(kSliceColumns, H - c0);
   for (int i = tid; i < E * width; i += kThreads) {
-    const int j = i / width, k = c0 + i % width;
+    const int j = i / width, kk = i % width, k = c0 + kk;
     // Score gradients: j as receiver and as sender.
     float g = 0.f;
-    for (int m = 0; m < E; ++m) g = fmaf(ds[j][m] + ds[m][j], state(m)[k], g);
+    for (int m = 0; m < E; ++m) g = fmaf(ds[j][m] + ds[m][j], st_s[m * kSliceColumns + kk], g);
     // dm of the two edges j sends: to the humans (offset 0 of their dmsgs
     // for a human sender, H for an object sender) and to the objects.
     const int half = j < NH ? 0 : H;
     float dm_h = 0.f, dm_o = 0.f;
-    for (int n = 0; n < NH; ++n) dm_h = fmaf(a[n][j], dmg(n)[half + k], dm_h);
-    for (int n = NH; n < E; ++n) dm_o = fmaf(a[n][j], dmg(n)[half + k], dm_o);
-    const int e_h = edge_of(0, j, NH), e_o = edge_of(NH, j, NH);
-    dm_h = m_row(e_h, j)[k] > 0.f ? dm_h : 0.f;
-    dm_o = m_row(e_o, j)[k] > 0.f ? dm_o : 0.f;
+    for (int n = 0; n < NH; ++n) dm_h = fmaf(a[n][j], dm_s[(size_t)n * 2 * H + half + k], dm_h);
+    for (int n = NH; n < E; ++n) dm_o = fmaf(a[n][j], dm_s[(size_t)n * 2 * H + half + k], dm_o);
+    dm_h = m_s[(size_t)j * 2 * H + k] > 0.f ? dm_h : 0.f;
+    dm_o = m_s[(size_t)j * 2 * H + H + k] > 0.f ? dm_o : 0.f;
     if (j < NH) {
       const size_t o = at(s, T, B * NH, b * NH + j, 2 * H);
       x.dpre_h[o + k] = dm_h;                          // edge hh
@@ -361,103 +294,112 @@ segb_att(AttArgs x, int T, int B, int NH, int NO, int H, float scale, int step) 
   }
 }
 
+size_t att_smem_bytes(int E, int H) {
+  return ((size_t)E * 4 * H + (size_t)E * kSliceColumns) * sizeof(float);
+}
+
 struct CarryArgs {
-  const float *dgh, *w_hh_t, *dpre, *w_from_t, *dhz, *attc;
-  float* carry;
+  const float *dgh, *w_hh, *dpre, *w_from, *attc;   // w_from: the cell's first sent edge
+  float* dh0;
 };
 
-// carry = dhz + attc + dgh @ w_hh^T + dpre @ w_from^T (of the sent edges).
+// carry = dhz + attc + dgh @ w_hh^T + dpre @ w_from^T (of the sent edges),
+// then phase C of the next step from it (or dh0 = carry after the last).
 __global__ void __launch_bounds__(kThreads)
-segb_carry(CarryArgs hum, CarryArgs obj, int T, int B, int NH, int NO, int H, int row_tiles,
-           int step) {
+segb_carry(CarryArgs hum, CarryArgs obj, CellArgs cell_h, CellArgs cell_o, int T, int B, int NH,
+           int NO, int H, int row_tiles, int step) {
   const Step s = step_of(step, T);
   const int cell = blockIdx.y / row_tiles;
-  const int row0 = (blockIdx.y % row_tiles) * kTileRows;
-  const int unit0 = blockIdx.x * kTileUnits;
-  const int rows = B * (cell == 0 ? NH : NO);
-  if (row0 >= rows) return;
+  const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int unit0 = blockIdx.x * kMTile;
+  const int all_rows = B * (cell == 0 ? NH : NO);
+  if (row0 >= all_rows) return;
+  const int rows = min(kMaxRows, all_rows - row0);
   const CarryArgs& c = cell == 0 ? hum : obj;
+  const CellArgs& cb = cell == 0 ? cell_h : cell_o;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float acc[4][4][2] = {};
-  const Operand rec = {c.dgh + at(s, T, rows, 0, 3 * H), 3 * H,
-                       c.w_hh_t + (size_t)s.d * 3 * H * H, H, 0, 3 * H};
-  const Operand snd = {c.dpre + at(s, T, rows, 0, 2 * H), 2 * H, c.w_from_t, H, 0, 2 * H};
-  accumulate<1, 2, 2>(rec, snd, rows, H, row0, unit0, smem, acc);
-  store_partials<2>(smem, acc);
+  __shared__ float du_s[kMaxRows][kMTile + 1];
+  float acc[1][kNTiles][4] = {};
+  const float* dpre = c.dpre + at(s, T, all_rows, row0, 2 * H);
+  const Operand rec = {c.dgh + at(s, T, all_rows, row0, 3 * H), 3 * H,
+                       c.w_hh + (size_t)s.d * H * 3 * H, 3 * H, 3 * H};
+  const Operand snd0 = {dpre, 2 * H, c.w_from, H, H};
+  const Operand snd1 = {dpre + H, 2 * H, c.w_from + (size_t)H * H, H, H};
+  const Tiles tiles = {{unit0, 0, 0}, {min(kMTile, H - unit0), 0, 0}};
+  accumulate<true, 1, 1, 3, OneSlot>(rec, snd0, snd1, tiles, rows, smem, acc);
+  store_partials<1>(smem, acc);
   __syncthreads();
-  for (int i = 0; i < kEpiloguePairs; ++i) {
-    const int p = threadIdx.x + i * kThreads, r = p / kTileUnits, cc = p % kTileUnits;
+  const bool last = step + 1 == T;
+  const Step next = step_of(step + 1, T);
+  for (int p = threadIdx.x; p < kMTile * kMaxRows; p += kThreads) {
+    const int cc = p % kMTile, r = p / kMTile;
     const int row = row0 + r, unit = unit0 + cc;
-    if (row >= rows || unit >= H) continue;
-    const size_t hs = ((size_t)s.d * rows + row) * H + unit;
-    c.carry[hs] = c.dhz[hs] + c.attc[hs] + reduce_partials<2>(smem, 0, r, cc)
-                  + reduce_partials<2>(smem, 1, r, cc);
+    float du = 0.f;
+    if (r < rows && unit < H) {
+      const size_t hs = ((size_t)s.d * all_rows + row) * H + unit;
+      const float carry = cb.dhz[hs] + c.attc[hs] + reduce<1>(smem, 0, cc, r);
+      if (last)
+        c.dh0[hs] = carry;
+      else
+        du = cell_bwd(cb, next, T, all_rows, row, unit, H, carry);
+    }
+    du_s[r][cc] = du;
   }
+  if (!last) store_du(cb, next, T, all_rows, row0, rows, du_s);
 }
 
 }  // namespace
 
-// Runs the whole backward sweep, both directions: per step the launches M,
-// C, D, A, R on `stream`, in order, then du_sum. carry_h and carry_o must
-// hold zeros on entry; the carries hold dh0 on return. du_part_h and
-// du_part_o take (2, T, B * NH or NO, ceil(H / 16)) partials. Returns the
+// Runs the whole backward sweep, both directions: C of the first step, then
+// per step the launches D, A, R on `stream`, in order, then du_sum. gates
+// (2, T, B * NH or NO, 4H) and atts (2, T, B, E, E) are K3's kept tensors.
+// du_part_h and du_part_o take (2, T, B * NH or NO, ceil(H / 16)) partials;
+// dhz, dmsgs and attc are one step's scratch per direction. Returns the
 // first CUDA error of a launch, else 0. H % 4 == 0, NH + NO <= 16 and
-// (NH + NO) * H * 4 bytes <= 48 KB.
+// (NH + NO) * (4H + 64) * 4 bytes <= 224 KB.
 extern "C" int tggcn_segment_scan_dot_bwd_f32(
-    const float* gi_h, const float* gi_o, const float* u_h, const float* u_o,
-    const float* hprev_h, const float* hprev_o, const float* m_h, const float* m_o,
-    const float* g_h, const float* g_o, const float* g_att, const float* w_msg_h,
-    const float* w_msg_o, const float* w_hh_h, const float* w_hh_o, const float* b_hh_h,
-    const float* b_hh_o, const float* obj_mask, const float* w_from_t_h,
-    const float* w_from_t_o, const float* w_msg_t_h, const float* w_msg_t_o,
-    const float* w_hh_t_h, const float* w_hh_t_o, float* dgi_h, float* dgi_o,
-    float* dgh_h, float* dgh_o, float* msgs_h, float* msgs_o, float* dpre_h,
-    float* dpre_o, float* du_h, float* du_o, float* du_part_h, float* du_part_o,
-    float* carry_h, float* carry_o, float* atts,
-    float* dhz_h, float* dhz_o, float* dmsgs_h, float* dmsgs_o, float* attc_h, float* attc_o, int T, int B, int NH, int NO, int H, float scale,
-    void* stream_ptr) {
-  const size_t states_bytes = (size_t)(NH + NO) * H * sizeof(float);
-  if (NH + NO > kMaxEntities || H % 4 != 0 || states_bytes > 48 * 1024)
+    const float* u_h, const float* u_o, const float* hprev_h, const float* hprev_o,
+    const float* m_h, const float* m_o, const float* gates_h, const float* gates_o,
+    const float* atts, const float* g_h, const float* g_o, const float* g_att,
+    const float* w_from, const float* w_msg_h, const float* w_msg_o, const float* w_hh_h,
+    const float* w_hh_o, float* dgi_h, float* dgi_o, float* dgh_h, float* dgh_o,
+    float* dpre_h, float* dpre_o, float* du_h, float* du_o, float* dh0_h, float* dh0_o,
+    float* du_part_h, float* du_part_o, float* dhz_h, float* dhz_o, float* dmsgs_h,
+    float* dmsgs_o, float* attc_h, float* attc_o, int T, int B, int NH, int NO, int H,
+    float scale, void* stream_ptr) {
+  const size_t smem_a = att_smem_bytes(NH + NO, H);
+  if (NH + NO > kMaxEntities || H % 4 != 0 || T < 1 || smem_a > kMaxAttSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t smem_1 = smem_bytes<1, 1>(), smem_c = smem_bytes<3, 4>(),
-               smem_r = smem_bytes<1, 2>();
-  cudaError_t err = cudaFuncSetAttribute(segb_cell,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(segb_dmsgs, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_1);
+  const size_t smem_d = smem_bytes<true, 2, 2>(), smem_r = smem_bytes<true, 1, 1>();
+  cudaError_t err = cudaFuncSetAttribute(segb_dmsgs,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_d);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(segb_carry, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_r);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(segb_att, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_a);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int max_rows = B * (NH > NO ? NH : NO);
-  const int row_tiles = (max_rows + kTileRows - 1) / kTileRows;
-  const int col_tiles = (H + kTileUnits - 1) / kTileUnits;
-  const dim3 grid_m(B, (2 * H + kSliceColumns - 1) / kSliceColumns, 2);
+  const int row_tiles = (max_rows + kMaxRows - 1) / kMaxRows;
+  const int col_tiles = (H + kMTile - 1) / kMTile;
   const dim3 grid_c(col_tiles, 2 * row_tiles, 2);
-  const dim3 grid_d(2 * col_tiles, 2 * row_tiles, 2);
+  const dim3 grid_d((2 * H + 2 * kMTile - 1) / (2 * kMTile), 2 * row_tiles, 2);
   const dim3 grid_a(B, (H + kSliceColumns - 1) / kSliceColumns, 2);
-  const CellArgs cell_h = {gi_h, u_h, hprev_h, g_h, msgs_h, w_msg_h, w_hh_h, b_hh_h,
-                           carry_h, dgi_h, dgh_h, du_part_h, dhz_h};
-  const CellArgs cell_o = {gi_o, u_o, hprev_o, g_o, msgs_o, w_msg_o, w_hh_o, b_hh_o,
-                           carry_o, dgi_o, dgh_o, du_part_o, dhz_o};
+  const CellArgs cell_h = {u_h, hprev_h, g_h, gates_h, dgi_h, dgh_h, du_part_h, dhz_h};
+  const CellArgs cell_o = {u_o, hprev_o, g_o, gates_o, dgi_o, dgh_o, du_part_o, dhz_o};
   const AttArgs att = {hprev_h, hprev_o, g_att, m_h, m_o, atts, dmsgs_h, dmsgs_o,
                        dpre_h, dpre_o, attc_h, attc_o};
-  const CarryArgs carry_args_h = {dgh_h, w_hh_t_h, dpre_h, w_from_t_h, dhz_h, attc_h, carry_h};
-  const CarryArgs carry_args_o = {dgh_o, w_hh_t_o, dpre_o, w_from_t_o, dhz_o, attc_o, carry_o};
+  const CarryArgs carry_h = {dgh_h, w_hh_h, dpre_h, w_from, attc_h, dh0_h};
+  const CarryArgs carry_o = {dgh_o, w_hh_o, dpre_o, w_from + (size_t)2 * H * H, attc_o, dh0_o};
+  segb_cell<<<grid_c, kThreads, 0, stream>>>(cell_h, cell_o, T, B, NH, NO, H, row_tiles);
   for (int step = 0; step < T; ++step) {
-    segb_mix<<<grid_m, kThreads, states_bytes, stream>>>(hprev_h, hprev_o, obj_mask, m_h, m_o,
-                                                         msgs_h, msgs_o, atts, T, B, NH, NO,
-                                                         H, scale, step);
-    segb_cell<<<grid_c, kThreads, smem_c, stream>>>(cell_h, cell_o, T, B, NH, NO, H,
-                                                   row_tiles, step);
-    segb_dmsgs<<<grid_d, kThreads, smem_1, stream>>>(dgi_h, dgi_o, w_msg_t_h, w_msg_t_o,
-                                                    dmsgs_h, dmsgs_o, T, B, NH, NO, H,
-                                                    row_tiles, step);
-    segb_att<<<grid_a, kThreads, 0, stream>>>(att, T, B, NH, NO, H, scale, step);
-    segb_carry<<<grid_c, kThreads, smem_r, stream>>>(carry_args_h, carry_args_o, T, B, NH,
+    segb_dmsgs<<<grid_d, kThreads, smem_d, stream>>>(dgi_h, dgi_o, w_msg_h, w_msg_o, dmsgs_h,
+                                                    dmsgs_o, T, B, NH, NO, H, row_tiles, step);
+    segb_att<<<grid_a, kThreads, smem_a, stream>>>(att, T, B, NH, NO, H, scale, step);
+    segb_carry<<<grid_c, kThreads, smem_r, stream>>>(carry_h, carry_o, cell_h, cell_o, T, B, NH,
                                                     NO, H, row_tiles, step);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,0 +1,314 @@
+// A block-level float32 product on the tensor cores, for the segment scan's
+// kernels (segment_scan.cu, segment_scan_bwd.cu): mma.sync m16n8k8 in TF32
+// with the 3xTF32 split, float32 accumulation.
+//
+// Numbers. Each float32 operand x is split into a TF32 high part hi (x
+// with the low 13 bits of its mantissa cleared) and the remainder lo = x -
+// hi, which the tensor core reads as TF32 (its low 13 bits dropped); a
+// product is taken as lo_a hi_b + hi_a lo_b + hi_a hi_b (the small terms
+// first), summed in float32. The dropped lo_a lo_b term and lo's own
+// truncation are about 2^-20 of each product, so the result keeps
+// float32-level error (tests/test_torch_segment_scan.py emulates this
+// scheme on the CPU at the scan's depths). Plain single-pass TF32 (about
+// 2^-10 of each product) is not used anywhere.
+//
+// Shape ("swap AB"). The weight columns take the M side of the mma (16 per
+// tile) and the activation rows the N side (8 per tile), so a step's 16
+// human rows fill two n8 tiles and its 32 object rows four, and no tile
+// pads 16 rows to 32. A block of kThreads threads owns MT m16 tiles of
+// weight columns (each tile's 16 columns start anywhere: the r, z and n
+// gates of a GRU are three tiles H apart) and up to kMaxRows rows, over the
+// whole depth. The depth runs in chunks of kChunk, copied global -> shared
+// with cp.async through a ring of kStages buffers; each of the 16 warps
+// takes one k8 step of every chunk (split-K inside the block), and the
+// warps' partial sums are added in a fixed order at the end (reduce), so a
+// result has the same bits on every run.
+//
+// What bounds it on an H100 is not bytes and not the tensor cores' rate:
+// at the scan's shapes a block's time grows with its number of chunks and
+// hardly with its rows, whether its weights sit in L2 or not; a deeper ring
+// changed nothing, and with the copies or the products switched off in turn
+// each took about half the time, so the two do not overlap. What they share
+// (issue slots, the load/store pipe) is not measured yet (PERF.md). 16 warps
+// (four to a scheduler) and 128-deep chunks were faster than 8 warps and
+// 64-deep chunks; TMA copies of whole rows were slower than these cp.async
+// copies and were not kept.
+//
+// Layout. mma.sync takes its fragments from registers, loaded from shared
+// memory one scalar at a time, so either weight layout works and needs no
+// transposed copy: kColRows = false reads w[k][col] (a weight the product
+// contracts along its rows, K3's x @ W), kColRows = true reads w[col][k]
+// (contracting along its columns, K4's dy @ W^T). The shared-memory strides
+// make every fragment load conflict-free. (wgmma, at twice mma.sync's rate,
+// takes TF32 only K-major from shared memory, in a swizzled layout given by
+// matrix descriptors, so K3's weights would need a transposed copy; it is
+// the next step for these products.)
+//
+// Operands. Up to three operands (x_p, w_p) add into one set of
+// accumulators; Map::slot(p, t) names the accumulator slot of operand p's
+// tile t (or -1: the tile is skipped for that operand), so a GRU cell keeps
+// its input and recurrent n-gate sums apart and adds the r and z sums.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tggcn {
+namespace tc {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 8 * kWarps;      // depth per stage: one k8 step per warp
+constexpr int kStages = 4;
+constexpr int kMTile = 16;
+constexpr int kMaxRows = 32;            // rows per block: four n8 tiles
+constexpr int kNTiles = kMaxRows / 8;
+constexpr int kXStride = kChunk + 4;    // B fragments: bank 4 * row + k, distinct
+
+template <bool kColRows, int MT>
+struct Stage {
+  // kColRows: [weight column][k], stride kChunk + 4 (A fragments at bank
+  // 4 m + k); else [k][weight column], stride MT * 16 + 8 (at bank 8 k + m
+  // or 24 k + m).
+  static constexpr int kWRows = kColRows ? MT * kMTile : kChunk;
+  static constexpr int kWStride = kColRows ? kChunk + 4 : MT * kMTile + 8;
+  float w[kWRows][kWStride];
+  float x[kMaxRows][kXStride];
+};
+
+constexpr int kPartStride = kMaxRows + 1;
+
+template <int S>
+struct Partials {
+  float v[kWarps][S][kMTile][kPartStride];
+};
+
+template <bool kColRows, int MT, int S>
+constexpr size_t smem_bytes() {
+  return kStages * sizeof(Stage<kColRows, MT>) > sizeof(Partials<S>)
+             ? kStages * sizeof(Stage<kColRows, MT>)
+             : sizeof(Partials<S>);
+}
+
+// The block's weight columns: tile t starts at column col[t] of w (with
+// kColRows, at row col[t]), and its first valid[t] columns are real; the
+// others read as zero.
+struct Tiles {
+  int col[3];
+  int valid[3];
+};
+
+// One operand: x (rows, K) with row stride ldx, and the weight w with row
+// stride ldw. Rows >= rows and depths >= K read as zero. ldx, ldw, K and
+// the tiles' columns are multiples of 4 and the pointers 16-byte aligned.
+struct Operand {
+  const float* x;
+  int ldx;
+  const float* w;
+  int ldw;
+  int K;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const float* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;             // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x = hi + lo exactly: hi is x with the 13 low bits of its mantissa cleared
+// (a TF32 value), lo the float32 remainder, which the tensor core reads to
+// TF32 by dropping its own 13 low bits. One logic op and one add a value:
+// cvt.rna.tf32.f32, twice a value, cost more than the products it fed.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Field t of a tile array, by selects (a dynamic index would put the array
+// in local memory).
+__device__ __forceinline__ int pick(const int (&v)[3], int t) {
+  return t == 0 ? v[0] : (t == 1 ? v[1] : v[2]);
+}
+
+// Copies chunk k0 of an operand into a stage. Every thread issues the same
+// number of 16-byte copies at places fixed by its index, so the addressing
+// is a few integer operations a copy (it competes for issue slots with the
+// products).
+template <bool kColRows, int MT>
+__device__ __forceinline__ void load_chunk(Stage<kColRows, MT>& st, const Operand& op,
+                                           const Tiles& tiles, int rows, int k0) {
+  constexpr int kXCopies = kMaxRows * kChunk / 4 / kThreads;
+  constexpr int kWCopies = MT * kMTile * kChunk / 4 / kThreads;
+  static_assert(kXCopies * kThreads == kMaxRows * kChunk / 4, "x copies");
+  static_assert(kWCopies * kThreads == MT * kMTile * kChunk / 4, "w copies");
+#pragma unroll
+  for (int j = 0; j < kXCopies; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int r = i / (kChunk / 4), kk = (i % (kChunk / 4)) * 4;
+    const bool valid = r < rows && k0 + kk < op.K;
+    cp_async16(&st.x[r][kk], valid ? op.x + (size_t)r * op.ldx + k0 + kk : op.x, valid);
+  }
+#pragma unroll
+  for (int j = 0; j < kWCopies; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    if constexpr (kColRows) {
+      const int m = i / (kChunk / 4), kk = (i % (kChunk / 4)) * 4;
+      const int t = m / kMTile, mm = m % kMTile;
+      const bool valid = mm < pick(tiles.valid, t) && k0 + kk < op.K;
+      cp_async16(&st.w[m][kk],
+                 valid ? op.w + (size_t)(pick(tiles.col, t) + mm) * op.ldw + k0 + kk : op.w,
+                 valid);
+    } else {
+      const int kk = i / (MT * kMTile / 4), m = (i % (MT * kMTile / 4)) * 4;
+      const int t = m / kMTile, mm = m % kMTile;
+      const bool valid = mm < pick(tiles.valid, t) && k0 + kk < op.K;
+      cp_async16(&st.w[kk][m],
+                 valid ? op.w + (size_t)(k0 + kk) * op.ldw + pick(tiles.col, t) + mm : op.w,
+                 valid);
+    }
+  }
+}
+
+// This warp's k8 step of one staged chunk of operand P, into acc.
+template <bool kColRows, int MT, int S, int P, class Map>
+__device__ __forceinline__ void multiply_chunk(const Stage<kColRows, MT>& st, int ntiles,
+                                               float (&acc)[S][kNTiles][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4, kk = 8 * warp;
+  uint32_t bh[kNTiles][2], bl[kNTiles][2];
+#pragma unroll
+  for (int n = 0; n < kNTiles; ++n) {
+    if (n < ntiles) {
+      split(st.x[8 * n + g][kk + q], bh[n][0], bl[n][0]);
+      split(st.x[8 * n + g][kk + q + 4], bh[n][1], bl[n][1]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+    const int s = Map::slot(P, t);
+    if (s < 0) continue;
+    const int m = t * kMTile + g;
+    float av[4];
+    if constexpr (kColRows) {
+      av[0] = st.w[m][kk + q];
+      av[1] = st.w[m + 8][kk + q];
+      av[2] = st.w[m][kk + q + 4];
+      av[3] = st.w[m + 8][kk + q + 4];
+    } else {
+      av[0] = st.w[kk + q][m];
+      av[1] = st.w[kk + q][m + 8];
+      av[2] = st.w[kk + q + 4][m];
+      av[3] = st.w[kk + q + 4][m + 8];
+    }
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(av[i], ah[i], al[i]);
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n) {
+      if (n < ntiles) {
+        mma_tf32(acc[s][n], al, bh[n]);
+        mma_tf32(acc[s][n], ah, bl[n]);
+        mma_tf32(acc[s][n], ah, bh[n]);
+      }
+    }
+  }
+}
+
+// Accumulates the products of operands 0 .. NP-1 over their whole depths:
+// acc[slot][n][i] holds tile column g or g + 8 and row 8 n + 2 q (+1) in
+// the mma's C layout; store_partials and reduce read it back.
+// rows <= kMaxRows.
+template <bool kColRows, int MT, int S, int NP, class Map>
+__device__ __forceinline__ void accumulate(const Operand& a, const Operand& b, const Operand& c,
+                                           const Tiles& tiles, int rows, unsigned char* smem,
+                                           float (&acc)[S][kNTiles][4]) {
+  using St = Stage<kColRows, MT>;
+  St* buf = reinterpret_cast<St*>(smem);
+  const int ntiles = (rows + 7) / 8;
+  const int na = (a.K + kChunk - 1) / kChunk;
+  const int nb = NP > 1 ? (b.K + kChunk - 1) / kChunk : 0;
+  const int nc = NP > 2 ? (c.K + kChunk - 1) / kChunk : 0;
+  const int total = na + nb + nc;
+  auto prefetch = [&](int i) {
+    if (i < total) {
+      if (i < na)
+        load_chunk<kColRows, MT>(buf[i % kStages], a, tiles, rows, i * kChunk);
+      else if (i < na + nb)
+        load_chunk<kColRows, MT>(buf[i % kStages], b, tiles, rows, (i - na) * kChunk);
+      else
+        load_chunk<kColRows, MT>(buf[i % kStages], c, tiles, rows, (i - na - nb) * kChunk);
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < kStages - 1; ++i) prefetch(i);
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();                    // chunk i is in; chunk i - 1's buffer is free
+    prefetch(i + kStages - 1);
+    const St& st = buf[i % kStages];
+    if (i < na)
+      multiply_chunk<kColRows, MT, S, 0, Map>(st, ntiles, acc);
+    else if (NP > 1 && i < na + nb)
+      multiply_chunk<kColRows, MT, S, 1, Map>(st, ntiles, acc);
+    else if (NP > 2)
+      multiply_chunk<kColRows, MT, S, 2, Map>(st, ntiles, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                      // the ring is free for the partial sums
+}
+
+template <int S>
+__device__ __forceinline__ void store_partials(unsigned char* smem,
+                                               const float (&acc)[S][kNTiles][4]) {
+  Partials<S>& pt = *reinterpret_cast<Partials<S>*>(smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n) {
+      pt.v[warp][s][g][8 * n + 2 * q] = acc[s][n][0];
+      pt.v[warp][s][g][8 * n + 2 * q + 1] = acc[s][n][1];
+      pt.v[warp][s][g + 8][8 * n + 2 * q] = acc[s][n][2];
+      pt.v[warp][s][g + 8][8 * n + 2 * q + 1] = acc[s][n][3];
+    }
+}
+
+// Slot s at tile column m (0..15) and row r: the sum of the warps' parts,
+// in warp order.
+template <int S>
+__device__ __forceinline__ float reduce(const unsigned char* smem, int s, int m, int r) {
+  const Partials<S>& pt = *reinterpret_cast<const Partials<S>*>(smem);
+  float v = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) v += pt.v[w][s][m][r];
+  return v;
+}
+
+// One slot for every tile of every operand.
+struct OneSlot {
+  __host__ __device__ static constexpr int slot(int, int) { return 0; }
+};
+
+// Slot t for tile t of every operand.
+struct TileSlots {
+  __host__ __device__ static constexpr int slot(int, int t) { return t; }
+};
+
+}  // namespace tc
+}  // namespace tggcn

@@ -5,21 +5,24 @@ K3 replaces the TPU kernel ``tggcn/ops/segment_scan_pallas.py::_make_kernel``
 (mode 'dot', launched by ``_seg_dir_pallas`` at ``segment_scan_pallas.py:268``).
 The CUDA kernel is ``csrc/segment_scan.cu``: per time step three launches
 (message projections, attention and mixing, GRU cells), both directions in
-each, and no block waits for another. It is bound by float32 FMAs on this
-card (about 92 GFLOP at the MPHOI shape T=167, B=8, H=2, O=4, h=512); see
-the source for the bound and the design.
+each, and no block waits for another; the products run on the tensor cores
+in the 3xTF32 split (``csrc/tc_gemm.cuh``), at float32 accuracy. With keep
+(the training forward) it keeps what the backward reads (KEPT); without
+(serving), nothing per step. See the source for the bound and the design.
 
 K4 replaces ``segment_scan_pallas.py::_make_bwd_kernel`` (launched by
 ``_seg_dir_bwd_pallas`` at ``segment_scan_pallas.py:546``):
-``csrc/segment_scan_bwd.cu``, five launches per step. Where the TPU kernel
-recomputes the edge messages from h_prev, K4 takes the ones K3 computed
-and returned, so that the ReLU's derivative is the forward's; the
-attention, the mixing and the gates are recomputed. The weight and bias
-gradients are reduced outside, as ``segment_scan_pallas.py:620-663`` does.
+``csrc/segment_scan_bwd.cu``, three launches per step. Where the TPU kernel
+recomputes the step from h_prev, K4 reads what K3 kept: the edge messages
+(so the ReLU's derivative is the forward's), the gates and the attention;
+it recomputes no gate product, score or softmax. The weight gradients are
+reduced outside from its outputs and K3's kept mixed messages, as
+``segment_scan_pallas.py:620-663`` does.
 
 ``segment_scan_dot_autograd`` is the differentiable entry point: a
 ``torch.autograd.Function`` that runs K3 forward and K4 backward (or, with
-``use_kernels=False`` or on the CPU, their plain versions). The wrappers
+``use_kernels=False`` or on the CPU, their plain versions); when no gradient
+will be taken it runs the forward alone, keeping nothing. The wrappers
 refuse to run on tensors that require grad outside it. K4 adds its
 per-block partial sums in a fixed order, so its gradients are the same on
 every run.
@@ -49,8 +52,7 @@ both read and written in natural time order):
   obj_mask (B, O)
   h0_h (2, B, H, h), h0_o (2, B, O, h)
   -> h_h (2, T, B, H, h), h_o (2, T, B, O, h), att_oh (2, T, B, H, O), and
-     the edge messages each step read, m_h (2, T, B, H, 2h) = [h2h | h2o]
-     and m_o (2, T, B, O, 2h) = [o2h | o2o]
+     with keep the KEPT tensors
 """
 
 import ctypes
@@ -66,6 +68,8 @@ MAX_ENTITIES = 16
 
 
 def _cell(gi_base, msgs, h_prev, u, w_msg, w_hh, b_hh):
+    """The committed GRU cell: (h, gates), gates = [r | z | n | hn] with hn
+    the recurrent n pre-activation h_prev @ w_hh_n + b_hh_n."""
     gi = gi_base + torch.einsum("dbnf,dfk->dbnk", msgs, w_msg)
     gh = torch.einsum("dbnh,dhk->dbnk", h_prev, w_hh) + b_hh[:, None, None]
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
@@ -75,7 +79,7 @@ def _cell(gi_base, msgs, h_prev, u, w_msg, w_hh, b_hh):
     n = torch.tanh(i_n + r * h_n)
     h_new = (1.0 - z) * n + z * h_prev
     u = u[..., None]
-    return u * h_new + (1.0 - u) * h_prev
+    return u * h_new + (1.0 - u) * h_prev, torch.cat([r, z, n, h_n], dim=-1)
 
 
 def _attention(h_h, h_o, obj_mask, scores):
@@ -95,19 +99,35 @@ def _dot_scores(scale):
     return lambda recv, send, e: torch.einsum("dbnh,dbmh->dbnm", recv, send) * scale
 
 
+# What K3 keeps for the backward (K4) when asked to (keep=True), each
+# (2, T, B, E_group, width) but atts (2, T, B, E, E):
+#   m_h, m_o       the edge messages each step read, [h2h | h2o] and [o2h | o2o]
+#   gates_h, gates_o   the gates [r | z | n | hn] of every cell row (4h)
+#   mix_h, mix_o   the attention-mixed messages (2h)
+#   atts           the softmaxed attention: row n < H holds [a_hh | a_oh] of
+#                  human n, row H + o [a_ho | a_oo] of object o
+KEPT = ("m_h", "m_o", "gates_h", "gates_o", "mix_h", "mix_o", "atts")
+
+
 def _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
-                b_hh_h, b_hh_o, h0_h, h0_o, attention, keep_messages):
+                b_hh_h, b_hh_o, h0_h, h0_o, attention, keep):
     """The plain scan: a Python loop over time, both directions batched on
     the leading axis; attention(h_h, h_o, ts) gives the step's four weights
-    from the carried states and the times ts each direction processes."""
-    t, no = gi_h.shape[1], gi_o.shape[3]
+    from the carried states and the times ts each direction processes.
+    Returns (h_h, h_o, att_oh), followed with keep by the KEPT tensors."""
+    t, b, nh, no = gi_h.shape[1], gi_h.shape[2], gi_h.shape[3], gi_o.shape[3]
     h = w_hh_h.shape[1]
     out_h = gi_h.new_empty(gi_h.shape[:-1] + (h,))
     out_o = gi_o.new_empty(gi_o.shape[:-1] + (h,))
     att = gi_h.new_empty(gi_h.shape[:-1] + (no,))
-    if keep_messages:
-        m_h = gi_h.new_empty(gi_h.shape[:-1] + (2 * h,))
-        m_o = gi_o.new_empty(gi_o.shape[:-1] + (2 * h,))
+    if keep:
+        kept = dict(m_h=gi_h.new_empty(gi_h.shape[:-1] + (2 * h,)),
+                    m_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,)),
+                    gates_h=gi_h.new_empty(gi_h.shape[:-1] + (4 * h,)),
+                    gates_o=gi_o.new_empty(gi_o.shape[:-1] + (4 * h,)),
+                    mix_h=gi_h.new_empty(gi_h.shape[:-1] + (2 * h,)),
+                    mix_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,)),
+                    atts=gi_h.new_empty((2, t, b, nh + no, nh + no)))
     h_h, h_o = h0_h, h0_o
 
     def proj(x, e):
@@ -123,25 +143,30 @@ def _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, 
         gib_o = torch.stack([gi_o[d, ts[d]] for d in range(2)])
         uh = torch.stack([u_h[ts[d]] for d in range(2)])
         uo = torch.stack([u_o[ts[d]] for d in range(2)])
-        h_h = _cell(gib_h, msgs_h, h_h, uh, w_msg_h, w_hh_h, b_hh_h)
-        h_o = _cell(gib_o, msgs_o, h_o, uo, w_msg_o, w_hh_o, b_hh_o)
+        h_h, gates_h = _cell(gib_h, msgs_h, h_h, uh, w_msg_h, w_hh_h, b_hh_h)
+        h_o, gates_o = _cell(gib_o, msgs_o, h_o, uo, w_msg_o, w_hh_o, b_hh_o)
         for d in range(2):
             out_h[d, ts[d]], out_o[d, ts[d]], att[d, ts[d]] = h_h[d], h_o[d], a_oh[d]
-            if keep_messages:
-                m_h[d, ts[d]] = torch.cat([m_hh[d], m_ho[d]], dim=-1)
-                m_o[d, ts[d]] = torch.cat([m_oh[d], m_oo[d]], dim=-1)
-    return (out_h, out_o, att, m_h, m_o) if keep_messages else (out_h, out_o, att)
+        if keep:
+            step = dict(m_h=torch.cat([m_hh, m_ho], dim=-1), m_o=torch.cat([m_oh, m_oo], dim=-1),
+                        gates_h=gates_h, gates_o=gates_o, mix_h=msgs_h, mix_o=msgs_o,
+                        atts=torch.cat([torch.cat([a_hh, a_oh], dim=-1),
+                                        torch.cat([a_ho, a_oo], dim=-1)], dim=-2))
+            for k, v in step.items():
+                for d in range(2):
+                    kept[k][d, ts[d]] = v[d]
+    return (out_h, out_o, att) + (tuple(kept[k] for k in KEPT) if keep else ())
 
 
 def segment_scan_dot_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
                            w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
-                           scale: float):
-    """Plain PyTorch version of K3: (h_h, h_o, att_oh, m_h, m_o)."""
+                           scale: float, keep: bool = True):
+    """Plain PyTorch version of K3: (h_h, h_o, att_oh), followed with keep
+    by the KEPT tensors."""
     scores = _dot_scores(scale)
     return _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
                        w_hh_o, b_hh_h, b_hh_o, h0_h, h0_o,
-                       lambda h_h, h_o, ts: _attention(h_h, h_o, obj_mask, scores),
-                       keep_messages=True)
+                       lambda h_h, h_o, ts: _attention(h_h, h_o, obj_mask, scores), keep)
 
 
 MODES = ("v1", "v4", "ext")
@@ -171,15 +196,14 @@ def segment_scan_att_plain(mode, gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, 
         def attention(h_h, h_o, ts):
             return _attention(h_h, h_o, obj_mask, scores)
     return _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
-                       w_hh_o, b_hh_h, b_hh_o, h0_h, h0_o, attention, keep_messages=False)
+                       w_hh_o, b_hh_h, b_hh_o, h0_h, h0_o, attention, keep=False)
 
 
-def _check(what, args, w_att_shape=None):
+def _check(what, args, dims, w_att_shape=None):
     """Device, dtype, shape and contiguity of every tensor in args, and the
-    kernels' limits."""
-    gi_h, gi_o = args["gi_h"], args["gi_o"]
-    _, t, b, nh, g3 = gi_h.shape
-    no, h = gi_o.shape[3], g3 // 3
+    kernels' limits; dims = (T, B, H, O, h)."""
+    t, b, nh, no, h = dims
+    e = nh + no
     shapes = {
         "gi_h": (2, t, b, nh, 3 * h), "gi_o": (2, t, b, no, 3 * h),
         "u_h": (t, b, nh), "u_o": (t, b, no),
@@ -190,57 +214,81 @@ def _check(what, args, w_att_shape=None):
         "h0_h": (2, b, nh, h), "h0_o": (2, b, no, h),
         "hprev_h": (2, t, b, nh, h), "hprev_o": (2, t, b, no, h),
         "m_h": (2, t, b, nh, 2 * h), "m_o": (2, t, b, no, 2 * h),
+        "gates_h": (2, t, b, nh, 4 * h), "gates_o": (2, t, b, no, 4 * h),
+        "atts": (2, t, b, e, e),
         "g_h": (2, t, b, nh, h), "g_o": (2, t, b, no, h), "g_att": (2, t, b, nh, no),
-        "w_att": w_att_shape, "b_att": (4,), "att_ext": (t, b, nh + no, nh + no),
+        "w_att": w_att_shape, "b_att": (4,), "att_ext": (t, b, e, e),
     }
+    device = next(iter(args.values())).device
     for name, x in args.items():
-        if x.device != gi_h.device or x.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32 on {gi_h.device}")
+        if x.device != device or x.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be float32 on {device}")
         if tuple(x.shape) != shapes[name]:
             raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, want {shapes[name]}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if (g3 != 3 * h or h % 4 or nh < 1 or no < 1 or nh + no > MAX_ENTITIES
-            or (nh + no) * h * 4 > 48 * 1024):
+    if h % 4 or nh < 1 or no < 1 or e > MAX_ENTITIES or e * h * 4 > 48 * 1024:
         raise ValueError(f"{what}: needs h % 4 == 0, 1 <= H, O, "
                          f"H + O <= {MAX_ENTITIES} and (H + O) * h <= 12288")
 
 
+def _dims(gi_h, gi_o):
+    _, t, b, nh, g3 = gi_h.shape
+    if g3 % 3:
+        raise ValueError(f"gi_h's last dimension {g3} is not 3h")
+    return t, b, nh, gi_o.shape[3], g3 // 3
+
+
+def scan_buffers(t, b, nh, no, h, keep, device):
+    """What K3 (and K5, without keep) writes: its outputs (h_h, h_o,
+    att_oh); with keep the KEPT tensors, every step's; without, one step's
+    edge and mixed messages per direction, the kernel's scratch (serving
+    keeps nothing per step)."""
+    empty = lambda *shape: torch.empty(shape, device=device)
+    out = [empty(2, t, b, nh, h), empty(2, t, b, no, h), empty(2, t, b, nh, no)]
+    if keep:
+        kept = dict(m_h=empty(2, t, b, nh, 2 * h), m_o=empty(2, t, b, no, 2 * h),
+                    gates_h=empty(2, t, b, nh, 4 * h), gates_o=empty(2, t, b, no, 4 * h),
+                    mix_h=empty(2, t, b, nh, 2 * h), mix_o=empty(2, t, b, no, 2 * h),
+                    atts=empty(2, t, b, nh + no, nh + no))
+    else:
+        kept = dict(m_h=empty(2, b, nh, 2 * h), m_o=empty(2, b, no, 2 * h),
+                    mix_h=empty(2, b, nh, 2 * h), mix_o=empty(2, b, no, 2 * h))
+    return out, kept
+
+
 def segment_scan_dot(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
                      w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
-                     scale: float):
-    """(h_h, h_o, att_oh, m_h, m_o) of both directions; CPU tensors take the
-    plain version, CUDA tensors the kernel."""
+                     scale: float, keep: bool = True):
+    """(h_h, h_o, att_oh) of both directions, followed with keep by the
+    KEPT tensors; CPU tensors take the plain version, CUDA tensors the
+    kernel."""
     args = dict(gi_h=gi_h, gi_o=gi_o, u_h=u_h, u_o=u_o, w_from=w_from,
                 b_from=b_from, w_msg_h=w_msg_h, w_msg_o=w_msg_o, w_hh_h=w_hh_h,
                 w_hh_o=w_hh_o, b_hh_h=b_hh_h, b_hh_o=b_hh_o, obj_mask=obj_mask,
                 h0_h=h0_h, h0_o=h0_o)
     _build.refuse_autograd("segment_scan_dot", *args.values())
     if gi_h.device.type == "cpu":
-        return segment_scan_dot_plain(**args, scale=scale)
+        return segment_scan_dot_plain(**args, scale=scale, keep=keep)
     if gi_h.device.type != "cuda":
         raise ValueError(f"segment_scan_dot runs on CUDA or the CPU, not {gi_h.device}")
-    _check("segment_scan_dot", args)
-    _, t, b, nh, g3 = gi_h.shape
-    no, h = gi_o.shape[3], g3 // 3
-    dev = gi_h.device
-    out = [torch.empty((2, t, b, nh, h), device=dev), torch.empty((2, t, b, no, h), device=dev),
-           torch.empty((2, t, b, nh, no), device=dev),
-           torch.empty((2, t, b, nh, 2 * h), device=dev),
-           torch.empty((2, t, b, no, 2 * h), device=dev)]
+    dims = _dims(gi_h, gi_o)
+    _check("segment_scan_dot", args, dims)
+    t, b, nh, no, h = dims
+    out, kept = scan_buffers(*dims, keep, gi_h.device)
     if t > 0:
-        mix_h = torch.empty((2, b * nh, 2 * h), device=dev)
-        mix_o = torch.empty((2, b * no, 2 * h), device=dev)
         fn = _build.load_library("segment_scan").tggcn_segment_scan_dot_f32
-        fn.argtypes = [_P] * 22 + [_I] * 5 + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * 25 + [_I] * 6 + [ctypes.c_float, _P]
         fn.restype = _I
-        ptrs = [x.data_ptr() for x in (*args.values(), *out, mix_h, mix_o)]
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(*ptrs, t, b, nh, no, h, float(scale), stream)
+        ptrs = [x.data_ptr() for x in (*args.values(), *out)]
+        ptrs += [kept[k].data_ptr() if k in kept else None
+                 for k in ("m_h", "m_o", "mix_h", "mix_o", "gates_h", "gates_o", "atts")]
+        with torch.cuda.device(gi_h.device):
+            stream = torch.cuda.current_stream(gi_h.device).cuda_stream
+            err = fn(*ptrs, int(keep), t, b, nh, no, h, float(scale), stream)
         _build.check_launch(err, "segment_scan_dot")
         segment_scan_dot.launches += 1
-    return tuple(out)
+    return tuple(out) + (tuple(kept[k] for k in KEPT) if keep else ())
 
 
 segment_scan_dot.launches = 0
@@ -256,24 +304,21 @@ def _segment_scan_att(wrapper, mode, args, extra):
         return segment_scan_att_plain(mode, **args, **extra)
     if gi_h.device.type != "cuda":
         raise ValueError(f"segment_scan_{mode} runs on CUDA or the CPU, not {gi_h.device}")
-    _, t, b, nh, g3 = gi_h.shape
-    no, h = args["gi_o"].shape[3], g3 // 3
-    _check(f"segment_scan_{mode}", {**args, **extra},
+    dims = _dims(gi_h, args["gi_o"])
+    t, b, nh, no, h = dims
+    _check(f"segment_scan_{mode}", {**args, **extra}, dims,
            w_att_shape=(4, 2 * h) if mode == "v1" else (4, h, h))
     dev = gi_h.device
-    out = [torch.empty((2, t, b, nh, h), device=dev), torch.empty((2, t, b, no, h), device=dev),
-           torch.empty((2, t, b, nh, no), device=dev)]
+    out, scratch = scan_buffers(*dims, False, dev)
     if t > 0:
-        scratch = [torch.empty((2, b * nh, 2 * h), device=dev),          # one step's messages
-                   torch.empty((2, b * no, 2 * h), device=dev)]
         tmp = ([torch.empty((2, b * nh, 2, h), device=dev),
                 torch.empty((2, b * no, 2, h), device=dev)] if mode == "v4" else [None, None])
-        mix = [torch.empty((2, b * nh, 2 * h), device=dev),
-               torch.empty((2, b * no, 2 * h), device=dev)]
         ptrs = [x.data_ptr() for x in args.values()]
         ptrs += [extra[k].data_ptr() if k in extra else None
                  for k in ("w_att", "b_att", "att_ext")]
-        ptrs += [x.data_ptr() if x is not None else None for x in (*out, *scratch, *tmp, *mix)]
+        ptrs += [x.data_ptr() if x is not None else None
+                 for x in (*out, scratch["m_h"], scratch["m_o"], *tmp, scratch["mix_h"],
+                           scratch["mix_o"])]
         fn = _build.load_library("segment_scan").tggcn_segment_scan_att_f32
         fn.argtypes = [_I] + [_P] * 27 + [_I] * 5 + [_P]
         fn.restype = _I
@@ -325,45 +370,38 @@ def previous_states(out, h0):
                         torch.cat([out[1, 1:], h0[1, None]])]).contiguous()
 
 
-BWD_OUTPUTS = ("dgi_h", "dgi_o", "dgh_h", "dgh_o", "msgs_h", "msgs_o",
-               "dpre_h", "dpre_o", "du_h", "du_o", "dh0_h", "dh0_o")
+BWD_OUTPUTS = ("dgi_h", "dgi_o", "dgh_h", "dgh_o", "dpre_h", "dpre_o", "du_h", "du_o",
+               "dh0_h", "dh0_o")
 
 
-def segment_scan_dot_bwd_plain(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, g_o,
-                               g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h,
-                               b_hh_o, obj_mask, scale: float):
+def segment_scan_dot_bwd_plain(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o, atts,
+                               g_h, g_o, g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
+                               scale: float):
     """Plain PyTorch version of K4: a Python loop that visits time opposite
     to the forward, both directions batched on the leading axis, from the
-    states (hprev) and edge messages (m) each forward step read. Returns a
-    dict of BWD_OUTPUTS: per step dgi, dgh (2, T, B, E, 3h), the recomputed
-    mixed messages msgs and the message pre-ReLU gradients dpre (2, T, B, E,
-    2h; dpre_h holds the edges hh | ho, dpre_o oh | oo), du (2, T, B, E) per
-    direction, and dh0 (2, B, E, h)."""
+    states (hprev) each forward step read and what K3 kept of it (the edge
+    messages m, the gates and the attention atts; see KEPT): nothing is
+    recomputed. Returns a dict of BWD_OUTPUTS: per step dgi, dgh (2, T, B, E,
+    3h), the message pre-ReLU gradients dpre (2, T, B, E, 2h; dpre_h holds
+    the edges hh | ho, dpre_o oh | oo), du (2, T, B, E) per direction, and
+    dh0 (2, B, E, h)."""
     h = w_hh_h.shape[1]
-    t = gi_h.shape[1]
-    out = {}
-    out.update(dgi_h=torch.empty_like(gi_h), dgi_o=torch.empty_like(gi_o),
-               dgh_h=torch.empty_like(gi_h), dgh_o=torch.empty_like(gi_o),
-               msgs_h=gi_h.new_empty(gi_h.shape[:-1] + (2 * h,)),
-               msgs_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,)),
-               dpre_h=gi_h.new_empty(gi_h.shape[:-1] + (2 * h,)),
-               dpre_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,)),
-               du_h=gi_h.new_empty(gi_h.shape[:-1]), du_o=gi_o.new_empty(gi_o.shape[:-1]))
+    t, nh = hprev_h.shape[1], hprev_h.shape[3]
+    new = lambda like, width: like.new_empty(like.shape[:-1] + (width,))
+    out = dict(dgi_h=new(hprev_h, 3 * h), dgi_o=new(hprev_o, 3 * h),
+               dgh_h=new(hprev_h, 3 * h), dgh_o=new(hprev_o, 3 * h),
+               dpre_h=new(hprev_h, 2 * h), dpre_o=new(hprev_o, 2 * h),
+               du_h=hprev_h.new_empty(hprev_h.shape[:-1]),
+               du_o=hprev_o.new_empty(hprev_o.shape[:-1]))
     dh_h, dh_o = hprev_h.new_zeros(hprev_h[:, 0].shape), hprev_o.new_zeros(hprev_o[:, 0].shape)
 
-    def cell_bwd(gib, msgs, hp, u, dH, w_msg, w_hh, b_hh):
-        gi = gib + torch.einsum("dbnf,dfk->dbnk", msgs, w_msg)
-        gh = torch.einsum("dbnh,dhk->dbnk", hp, w_hh) + b_hh[:, None, None]
-        i_r, i_z, i_n = gi.chunk(3, dim=-1)
-        h_r, h_z, h_n = gh.chunk(3, dim=-1)
-        r = torch.sigmoid(i_r + h_r)
-        z = torch.sigmoid(i_z + h_z)
-        n = torch.tanh(i_n + r * h_n)
+    def cell_bwd(gates, hp, u, dH, w_msg, w_hh):
+        r, z, n, hn = gates.chunk(4, dim=-1)
         h_new = (1.0 - z) * n + z * hp
         du = torch.sum(dH * (h_new - hp), dim=-1)
         dh_new = dH * u[..., None]
         dtanh = dh_new * (1.0 - z) * (1.0 - n * n)
-        d_ir = dtanh * h_n * r * (1.0 - r)
+        d_ir = dtanh * hn * r * (1.0 - r)
         d_iz = dh_new * (hp - n) * z * (1.0 - z)
         dgi = torch.cat([d_ir, d_iz, dtanh], dim=-1)
         dgh = torch.cat([d_ir, d_iz, dtanh * r], dim=-1)
@@ -390,23 +428,22 @@ def segment_scan_dot_bwd_plain(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o,
 
         hh, ho = at(hprev_h), at(hprev_o)
         (m_hh, m_ho), (m_oh, m_oo) = at(m_h).chunk(2, dim=-1), at(m_o).chunk(2, dim=-1)
-        a_hh, a_oh, a_ho, a_oo = _attention(hh, ho, obj_mask, _dot_scores(scale))
-        msgs_h = torch.cat([a_hh @ m_hh, a_oh @ m_oh], dim=-1)
-        msgs_o = torch.cat([a_ho @ m_ho, a_oo @ m_oo], dim=-1)
+        groups = [nh, atts.shape[-1] - nh]
+        (a_hh, a_oh), (a_ho, a_oo) = (r.split(groups, dim=-1) for r in at(atts).split(groups, -2))
         uh = torch.stack([u_h[ts[d]] for d in range(2)])
         uo = torch.stack([u_o[ts[d]] for d in range(2)])
         dgi_h, dgh_h, du_h, dhp_h, dmsgs_h = cell_bwd(
-            at(gi_h), msgs_h, hh, uh, dh_h + at(g_h), w_msg_h, w_hh_h, b_hh_h)
+            at(gates_h), hh, uh, dh_h + at(g_h), w_msg_h, w_hh_h)
         dgi_o, dgh_o, du_o, dhp_o, dmsgs_o = cell_bwd(
-            at(gi_o), msgs_o, ho, uo, dh_o + at(g_o), w_msg_o, w_hh_o, b_hh_o)
+            at(gates_o), ho, uo, dh_o + at(g_o), w_msg_o, w_hh_o)
         dr_hh, ds_hh, dp_hh = att_bwd(a_hh, m_hh, dmsgs_h[..., :h], hh, hh, 0)
         dr_oh, ds_oh, dp_oh = att_bwd(a_oh, m_oh, dmsgs_h[..., h:], hh, ho, 2, at(g_att))
         dr_ho, ds_ho, dp_ho = att_bwd(a_ho, m_ho, dmsgs_o[..., :h], ho, hh, 1)
         dr_oo, ds_oo, dp_oo = att_bwd(a_oo, m_oo, dmsgs_o[..., h:], ho, ho, 3)
         dh_h = dhp_h + dr_hh + ds_hh + dr_oh + ds_ho
         dh_o = dhp_o + ds_oh + dr_ho + dr_oo + ds_oo
-        step = dict(dgi_h=dgi_h, dgi_o=dgi_o, dgh_h=dgh_h, dgh_o=dgh_o, msgs_h=msgs_h,
-                    msgs_o=msgs_o, dpre_h=torch.cat([dp_hh, dp_ho], dim=-1),
+        step = dict(dgi_h=dgi_h, dgi_o=dgi_o, dgh_h=dgh_h, dgh_o=dgh_o,
+                    dpre_h=torch.cat([dp_hh, dp_ho], dim=-1),
                     dpre_o=torch.cat([dp_oh, dp_oo], dim=-1), du_h=du_h, du_o=du_o)
         for k, v in step.items():
             for d in range(2):
@@ -415,11 +452,11 @@ def segment_scan_dot_bwd_plain(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o,
     return out
 
 
-def segment_scan_dot_weight_grads(hprev_h, hprev_o, grads):
+def segment_scan_dot_weight_grads(hprev_h, hprev_o, mix_h, mix_o, grads):
     """The weight and bias gradients, reduced outside the kernel as large
-    products over its per-step outputs (as ``segment_scan_pallas.py:620-663``
-    does): (dw_from, db_from, dw_msg_h, dw_msg_o, dw_hh_h, dw_hh_o, db_hh_h,
-    db_hh_o)."""
+    products over its per-step outputs and K3's kept mixed messages (as
+    ``segment_scan_pallas.py:620-663`` does): (dw_from, db_from, dw_msg_h,
+    dw_msg_o, dw_hh_h, dw_hh_o, db_hh_h, db_hh_o)."""
     h = hprev_h.shape[-1]
 
     def red(a, b):                                   # per direction (2, F, G)
@@ -433,63 +470,45 @@ def segment_scan_dot_weight_grads(hprev_h, hprev_o, grads):
              (hprev_o, dpre_o[..., :h]), (hprev_o, dpre_o[..., h:])]
     return (torch.stack([both(x, dp) for x, dp in parts]),
             torch.stack([dp.sum(dim=(0, 1, 2, 3)) for _, dp in parts]),
-            red(grads["msgs_h"], grads["dgi_h"]), red(grads["msgs_o"], grads["dgi_o"]),
+            red(mix_h, grads["dgi_h"]), red(mix_o, grads["dgi_o"]),
             red(hprev_h, grads["dgh_h"]), red(hprev_o, grads["dgh_o"]),
             grads["dgh_h"].sum(dim=(1, 2, 3)), grads["dgh_o"].sum(dim=(1, 2, 3)))
 
 
-def segment_scan_dot_bwd(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, g_o, g_att,
-                         w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o,
-                         obj_mask, scale: float):
+def segment_scan_dot_bwd(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o, atts,
+                         g_h, g_o, g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
+                         scale: float):
     """The dict of BWD_OUTPUTS (see segment_scan_dot_bwd_plain) for the
     upstream gradients g_h (2, T, B, H, h), g_o and g_att (2, T, B, H, O);
     CPU tensors take the plain version, CUDA tensors the kernel."""
-    args = dict(gi_h=gi_h, gi_o=gi_o, u_h=u_h, u_o=u_o, hprev_h=hprev_h, hprev_o=hprev_o,
-                m_h=m_h, m_o=m_o, g_h=g_h, g_o=g_o, g_att=g_att, w_from=w_from,
-                w_msg_h=w_msg_h, w_msg_o=w_msg_o, w_hh_h=w_hh_h, w_hh_o=w_hh_o,
-                b_hh_h=b_hh_h, b_hh_o=b_hh_o, obj_mask=obj_mask)
+    args = dict(u_h=u_h, u_o=u_o, hprev_h=hprev_h, hprev_o=hprev_o, m_h=m_h, m_o=m_o,
+                gates_h=gates_h, gates_o=gates_o, atts=atts, g_h=g_h, g_o=g_o, g_att=g_att,
+                w_from=w_from, w_msg_h=w_msg_h, w_msg_o=w_msg_o, w_hh_h=w_hh_h, w_hh_o=w_hh_o)
     _build.refuse_autograd("segment_scan_dot_bwd", *args.values())
-    if gi_h.device.type == "cpu":
+    if hprev_h.device.type == "cpu":
         return segment_scan_dot_bwd_plain(**args, scale=scale)
-    if gi_h.device.type != "cuda":
-        raise ValueError(f"segment_scan_dot_bwd runs on CUDA or the CPU, not {gi_h.device}")
-    _check("segment_scan_dot_bwd", args)
-    _, t, b, nh, g3 = gi_h.shape
-    no, h = gi_o.shape[3], g3 // 3
-    dev = gi_h.device
-    out = dict(dgi_h=torch.empty_like(gi_h), dgi_o=torch.empty_like(gi_o),
-               dgh_h=torch.empty_like(gi_h), dgh_o=torch.empty_like(gi_o),
-               msgs_h=torch.empty((2, t, b, nh, 2 * h), device=dev),
-               msgs_o=torch.empty((2, t, b, no, 2 * h), device=dev),
-               dpre_h=torch.empty((2, t, b, nh, 2 * h), device=dev),
-               dpre_o=torch.empty((2, t, b, no, 2 * h), device=dev),
-               du_h=torch.empty((2, t, b, nh), device=dev),
-               du_o=torch.empty((2, t, b, no), device=dev),
-               dh0_h=torch.zeros((2, b, nh, h), device=dev),    # the carries
-               dh0_o=torch.zeros((2, b, no, h), device=dev))
+    if hprev_h.device.type != "cuda":
+        raise ValueError(f"segment_scan_dot_bwd runs on CUDA or the CPU, not {hprev_h.device}")
+    _, t, b, nh, h = hprev_h.shape
+    no = hprev_o.shape[3]
+    _check("segment_scan_dot_bwd", args, (t, b, nh, no, h))
+    dev = hprev_h.device
+    empty = lambda *shape: torch.empty(shape, device=dev)
+    out = dict(dgi_h=empty(2, t, b, nh, 3 * h), dgi_o=empty(2, t, b, no, 3 * h),
+               dgh_h=empty(2, t, b, nh, 3 * h), dgh_o=empty(2, t, b, no, 3 * h),
+               dpre_h=empty(2, t, b, nh, 2 * h), dpre_o=empty(2, t, b, no, 2 * h),
+               du_h=empty(2, t, b, nh), du_o=empty(2, t, b, no),
+               dh0_h=empty(2, b, nh, h), dh0_o=empty(2, b, no, h))
     if t == 0:
+        out["dh0_h"].zero_()
+        out["dh0_o"].zero_()
         return out
-    # Transposed weights, once per call: every product then reads a (K, N) weight.
-    w_t = lambda w: w.transpose(-1, -2).contiguous()
-    weights_t = [torch.cat([w_t(w_from[0]), w_t(w_from[1])]),
-                 torch.cat([w_t(w_from[2]), w_t(w_from[3])]),
-                 w_t(w_msg_h), w_t(w_msg_o), w_t(w_hh_h), w_t(w_hh_o)]
-    e = nh + no
-    col_tiles = -(-h // 16)                 # the cell phase's blocks per row
-    du_parts = [torch.empty((2, t, b * nh, col_tiles), device=dev),
-                torch.empty((2, t, b * no, col_tiles), device=dev)]
-    scratch = [torch.empty((2, b, e, e), device=dev),                   # attention
-               torch.empty((2, b * nh, h), device=dev), torch.empty((2, b * no, h), device=dev),
-               torch.empty((2, b * nh, 2 * h), device=dev),
-               torch.empty((2, b * no, 2 * h), device=dev),
-               torch.empty((2, b * nh, h), device=dev), torch.empty((2, b * no, h), device=dev)]
-    ptrs = [x.data_ptr() for x in (gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h,
-                                   g_o, g_att, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
-                                   b_hh_h, b_hh_o, obj_mask, *weights_t)]
-    ptrs += [out[k].data_ptr() for k in BWD_OUTPUTS if not k.startswith("dh0")]
-    ptrs += [x.data_ptr() for x in du_parts]
-    ptrs += [out["dh0_h"].data_ptr(), out["dh0_o"].data_ptr()]
-    ptrs += [x.data_ptr() for x in scratch]
+    col_tiles = -(-h // 16)                 # the carry phase's blocks per row
+    scratch = [empty(2, t, b * nh, col_tiles), empty(2, t, b * no, col_tiles),   # du partials
+               empty(2, b * nh, h), empty(2, b * no, h),                         # dhz
+               empty(2, b * nh, 2 * h), empty(2, b * no, 2 * h),                 # dmsgs
+               empty(2, b * nh, h), empty(2, b * no, h)]                         # attc
+    ptrs = [x.data_ptr() for x in (*args.values(), *(out[k] for k in BWD_OUTPUTS), *scratch)]
     fn = _build.load_library("segment_scan_bwd").tggcn_segment_scan_dot_bwd_f32
     fn.argtypes = [_P] * len(ptrs) + [_I] * 5 + [ctypes.c_float, _P]
     fn.restype = _I
@@ -503,31 +522,34 @@ def segment_scan_dot_bwd(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, 
 
 segment_scan_dot_bwd.launches = 0
 
-
 class SegmentScanDot(torch.autograd.Function):
-    """K3 forward, K4 backward; the weight gradients reduced outside."""
+    """K3 forward, keeping what K4 reads; K4 backward; the weight gradients
+    reduced outside."""
 
     @staticmethod
     def forward(ctx, scale, use_kernels, *args):
         run = segment_scan_dot if use_kernels else segment_scan_dot_plain
-        out_h, out_o, att, m_h, m_o = run(*args, scale=scale)
-        ctx.save_for_backward(*args, out_h, out_o, m_h, m_o)
+        out_h, out_o, att, *kept = run(*args, scale=scale, keep=True)
+        ctx.save_for_backward(*args, out_h, out_o, *kept)
         ctx.scale, ctx.use_kernels = scale, use_kernels
         return out_h, out_o, att
 
     @staticmethod
     def backward(ctx, g_h, g_o, g_att):
+        saved = ctx.saved_tensors
         (gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
-         b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, out_h, out_o, m_h, m_o) = ctx.saved_tensors
+         b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, out_h, out_o) = saved[:17]
+        kept = dict(zip(KEPT, saved[17:]))
         zeros = lambda like, g: torch.zeros_like(like) if g is None else g.contiguous()
         g_h, g_o = zeros(out_h, g_h), zeros(out_o, g_o)
         g_att = zeros(gi_h[..., :obj_mask.shape[1]], g_att)
         hprev_h, hprev_o = previous_states(out_h, h0_h), previous_states(out_o, h0_o)
         run = segment_scan_dot_bwd if ctx.use_kernels else segment_scan_dot_bwd_plain
-        grads = run(gi_h, gi_o, u_h, u_o, hprev_h, hprev_o, m_h, m_o, g_h, g_o, g_att,
-                    w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask,
-                    ctx.scale)
-        weights = segment_scan_dot_weight_grads(hprev_h, hprev_o, grads)
+        grads = run(u_h, u_o, hprev_h, hprev_o, kept["m_h"], kept["m_o"], kept["gates_h"],
+                    kept["gates_o"], kept["atts"], g_h, g_o, g_att, w_from, w_msg_h, w_msg_o,
+                    w_hh_h, w_hh_o, ctx.scale)
+        weights = segment_scan_dot_weight_grads(hprev_h, hprev_o, kept["mix_h"], kept["mix_o"],
+                                                grads)
         return (None, None, grads["dgi_h"], grads["dgi_o"], grads["du_h"].sum(0),
                 grads["du_o"].sum(0), *weights, None, grads["dh0_h"], grads["dh0_o"])
 
@@ -536,7 +558,12 @@ def segment_scan_dot_autograd(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_m
                               w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
                               scale: float, use_kernels: bool = True):
     """The differentiable scan (h_h, h_o, att_oh). use_kernels=False runs
-    the plain forward and backward on any device (the reference)."""
-    return SegmentScanDot.apply(scale, use_kernels, gi_h, gi_o, u_h, u_o, w_from, b_from,
-                                w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o,
-                                obj_mask, h0_h, h0_o)
+    the plain forward and backward on any device (the reference). When no
+    gradient will be taken (grad disabled, or no input requires one) the
+    forward keeps nothing for a backward."""
+    args = (gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h,
+            b_hh_o, obj_mask, h0_h, h0_o)
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in args)):
+        run = segment_scan_dot if use_kernels else segment_scan_dot_plain
+        return run(*args, scale=scale, keep=False)
+    return SegmentScanDot.apply(scale, use_kernels, *args)
