@@ -10,9 +10,18 @@ exit and the phase's name if the phase hangs:
   device   the card's name and power limit (nvidia-smi)
   build    the CUDA kernels from tggcn_torch/csrc, with nvcc
   k1       the frame-BiGRU kernel (gru_sequence) against its plain PyTorch
-           version at the MPHOI shape T=167, S=6, R=32, h=512
+           version at the MPHOI shape T=167, S=6, R=32, h=512: the states
+           and the gates it keeps for the backward, and the states of the
+           serving run that keeps nothing; its device ms by kernel name
+           (torch.profiler); the library yardstick, cuDNN's GRU set up to
+           compute the same recurrence (tggcn_torch.profile_gru), against
+           the plain version and timed
   k2       the frame-BiGRU backward kernel (gru_sequence_bwd) against its
-           plain version at the same shape, on the same upstream gradient
+           plain version at the same shape, on the gates the plain forward
+           kept and a random upstream gradient; its device ms by kernel
+           name, its bound beside the bound of the design that recomputed
+           the gates, and the cuDNN GRU's forward and backward against the
+           plain version and timed
   k3       the segment-scan kernel (segment_scan_dot) against its plain
            version at T=167, B=8, H=2, O=4, h=512, with random commit
            decisions and masked objects (one batch row has none): the
@@ -93,6 +102,11 @@ FLOPs of its float32 products at a third of the TF32 tensor-core rate (the
 rate. Each kernel's phase line also gives bound_fma_ms, the same work with
 the products on the FMA units.
 
+Library: one PyTorch call that computes a kernel's function, timed beside
+it and used nowhere in the port. Only K1 and K2 have one, and it takes
+several calls (cuDNN's GRU, one per stream, with identity input weights):
+an upper bound on the library's time.
+
 The second-to-last line is a JSON object with each kernel's launches (K1-K4
 on the timed train steps, K5 and K6 on the serve_modes requests), error,
 times and bound; the last line is {"ok": true, "device": {...}}. Without a
@@ -130,10 +144,14 @@ MARGINAL = 1e-4
 SPIN_CYCLES = 20_000_000         # about 10 ms at the H100's clock: longer than any wrapper's host time
 REQUESTS = 3
 TRAIN_STEPS = 3
+LIBRARY = {
+    "gru_sequence": "cuDNN's GRU (torch.nn.GRU, TF32 off), one call per stream with identity "
+                    "input weights: an upper bound, since it also multiplies its input by the "
+                    "identity",
+    "gru_sequence_bwd": "cuDNN's GRU forward and backward (gradients of its inputs and "
+                        "initial states), one call per stream: an upper bound, since it "
+                        "includes the forward and the input products"}
 NO_LIBRARY = {
-    "gru": "no single PyTorch call computes it: cuDNN's GRU (torch._VF.gru) recomputes the "
-           "input projection from x and takes one weight set per call, and its backward is "
-           "no call of its own",
     "scan": "no PyTorch call runs the gated message-passing step or its backward",
     "geo": "no PyTorch call computes the GeoGCN chain (embeddings, similarity softmax, "
            "(S h) W_out)"}
@@ -217,29 +235,36 @@ def check_kernel(name, got, want):
     return err
 
 
-def k1_inputs(torch, dev, gen, t, s, r, h):
-    def u(*shape, bound):
-        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound).contiguous()
-    return (u(t, s, r, 3 * h, bound=1.0), u(s, h, 3 * h, bound=h ** -0.5),
-            u(s, 3 * h, bound=h ** -0.5), u(s, r, h, bound=1.0))
-
-
 def run_k1(torch, dev, shape):
     from tggcn_torch.ops.gru_sequence import gru_sequence, gru_sequence_plain
+    from tggcn_torch.profile_gru import (cudnn_grus, cudnn_inputs, cudnn_sequence,
+                                         cudnn_states, gru_inputs)
+    from tggcn_torch.profile_scan import device_ms_by_kernel
 
     t, s, r, h = shape
-    gen = torch.Generator(device=dev).manual_seed(1)
-    gi, w_hh, b_hh, h0 = k1_inputs(torch, dev, gen, t, s, r, h)
-    num_reverse = s // 2
-    got = gru_sequence(gi, w_hh, b_hh, h0, num_reverse=num_reverse)
-    want = gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse=num_reverse)
-    err = check_kernel("gru_sequence", [got], [want])
-    ms = cuda_ms(torch, lambda: gru_sequence(gi, w_hh, b_hh, h0, num_reverse), 5, spin=True)
-    plain_ms = cuda_ms(torch, lambda: gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse), 3)
+    args = gru_inputs(dev, torch.Generator(device=dev).manual_seed(1), t, s, r, h)
+    nr = s // 2
+    want, want_gates = gru_sequence_plain(*args, nr, keep=True)
+    got, gates = gru_sequence(*args, nr, keep=True)
+    served = gru_sequence(*args, nr)
+    err = check_kernel("gru_sequence", [got, gates, served], [want, want_gates, want])
+    grus = cudnn_grus(*args[1:3])
+    xs, h0s = cudnn_inputs(args[0], args[3], nr)
+    lib_err = max_err(cudnn_states(cudnn_sequence(grus, xs, h0s), nr), want)
+    if not lib_err <= KERNEL_ATOL:
+        raise AssertionError(f"the cuDNN GRU and the plain version differ by {lib_err:.3e}")
+    ms = cuda_ms(torch, lambda: gru_sequence(*args, nr, keep=True), 5, spin=True)
+    served_ms = cuda_ms(torch, lambda: gru_sequence(*args, nr), 5, spin=True)
+    plain_ms = cuda_ms(torch, lambda: gru_sequence_plain(*args, nr, keep=True), 3)
+    library_ms = cuda_ms(torch, lambda: cudnn_sequence(grus, xs, h0s), 5, spin=True)
+    print_split("k1", device_ms_by_kernel(lambda: gru_sequence(*args, nr, keep=True), 1))
+    print(f"k1 ms {ms:.3f} keeping the gates (a train step's call), {served_ms:.3f} keeping "
+          f"none (a request's); library: the cuDNN GRU in {s} calls {library_ms:.3f} ms, max "
+          f"abs err vs plain {lib_err:.3e}", flush=True)
     return dict(name="gru_sequence", route="cuda", source="tggcn_torch/csrc/gru_sequence.cu",
                 replaces="tggcn/ops/gru_pallas.py:147", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=None,
-                **bounds(nbytes(gi, w_hh, b_hh, h0, got), 2.0 * t * s * r * h * 3 * h))
+                served_ms=served_ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bounds(nbytes(*args, got, gates), 2.0 * t * s * r * h * 3 * h))
 
 
 def check_grads(name, got, want):
@@ -249,33 +274,61 @@ def check_grads(name, got, want):
         e = max_err(g, w)
         err, rel = max(err, e), max(rel, e / (float(w.abs().max()) or 1.0))
         if not bool(g.isfinite().all()):
-            raise AssertionError(f"{name}: the kernel's output is not finite")
+            raise AssertionError(f"{name}: the output is not finite")
     if not rel <= KERNEL_GRAD_RTOL:
-        raise AssertionError(f"{name}: kernel and plain version differ by {rel:.3e} of the "
+        raise AssertionError(f"{name} and the plain version differ by {rel:.3e} of the "
                              f"largest gradient (limit {KERNEL_GRAD_RTOL})")
     return err, rel
 
 
 def run_k2(torch, dev, shape):
-    from tggcn_torch.ops.gru_sequence import (gru_sequence_bwd, gru_sequence_bwd_plain,
-                                              gru_sequence_plain, previous_states)
+    from tggcn_torch.ops.gru_sequence import gru_sequence_bwd, gru_sequence_bwd_plain
+    from tggcn_torch.profile_gru import (cudnn_grus, cudnn_inputs, cudnn_sequence,
+                                         gru_bwd_inputs, gru_inputs)
+    from tggcn_torch.profile_scan import device_ms_by_kernel
 
     t, s, r, h = shape
     gen = torch.Generator(device=dev).manual_seed(4)
-    gi, w_hh, b_hh, h0 = k1_inputs(torch, dev, gen, t, s, r, h)
+    fwd = gru_inputs(dev, gen, t, s, r, h)
     nr = s // 2
-    hprev = previous_states(gru_sequence_plain(gi, w_hh, b_hh, h0, nr), h0, nr)
-    g = torch.randn((t, s, r, h), generator=gen, device=dev)
-    got = gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, nr)
-    want = gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, nr)
+    args = gru_bwd_inputs(*fwd, nr, gen)
+    got = gru_sequence_bwd(*args, nr)
+    want = gru_sequence_bwd_plain(*args, nr)
     err, rel = check_grads("gru_sequence_bwd", got, want)
-    ms = cuda_ms(torch, lambda: gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, nr), 5, spin=True)
-    plain_ms = cuda_ms(torch, lambda: gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, nr), 3)
-    # The recompute of gh and the carry product dgh @ W_hh^T: two products a step.
+    ms = cuda_ms(torch, lambda: gru_sequence_bwd(*args, nr), 5, spin=True)
+    plain_ms = cuda_ms(torch, lambda: gru_sequence_bwd_plain(*args, nr), 3)
+    print_split("k2", device_ms_by_kernel(lambda: gru_sequence_bwd(*args, nr), 1))
+
+    # The library's forward and backward: the cuDNN GRUs' gradients with
+    # respect to their inputs (gi, through identity input weights) and
+    # initial states, against the plain version's dgi and dh0.
+    grus = cudnn_grus(*fwd[1:3])
+    xs, h0s = cudnn_inputs(fwd[0], fwd[3], nr)
+    leaves = [x.requires_grad_(True) for x in xs + h0s]
+    gys = [args[2][:, i] if i < s - nr else args[2][:, i].flip(0) for i in range(s)]
+
+    def library():
+        with torch.enable_grad():
+            return torch.autograd.grad(cudnn_sequence(grus, xs, h0s), leaves, gys)
+
+    grads = library()
+    dgi = torch.stack([d if i < s - nr else d.flip(0) for i, d in enumerate(grads[:s])], dim=1)
+    _, lib_rel = check_grads("the cuDNN GRU's backward", [dgi, torch.cat(grads[s:])],
+                             [want[0], want[2]])
+    library_ms = cuda_ms(torch, library, 5, spin=True)
+    print(f"k2 library: the cuDNN GRU's forward and backward in {s} calls {library_ms:.3f} ms, "
+          f"max err vs plain {lib_rel:.3e} of the largest gradient", flush=True)
+    byte_count = nbytes(*args, *got)
+    new = bounds(byte_count, 2.0 * t * s * r * h * 3 * h)
+    # The design before K1 kept its gates: gh recomputed, two products a step.
+    old = bounds(byte_count - nbytes(args[3]) + nbytes(fwd[2]), 4.0 * t * s * r * h * 3 * h)
+    print(f"k2 bound {new['bound_ms']:.3f} ms ({new['bound_by']}; one product a step as "
+          f"3xTF32, {new['bound_fma_ms']:.3f} ms on the FMA units); with gh recomputed as "
+          f"before K1 kept its gates: {old['bound_ms']:.3f} ms ({old['bound_by']}; "
+          f"{old['bound_fma_ms']:.3f} ms on the FMA units)", flush=True)
     return dict(name="gru_sequence_bwd", route="cuda", source="tggcn_torch/csrc/gru_sequence_bwd.cu",
                 replaces="tggcn/ops/gru_pallas.py:167", max_abs_err=err, max_rel_err=rel, ms=ms,
-                plain_ms=plain_ms, library_ms=None,
-                **bounds(nbytes(gi, hprev, g, w_hh, b_hh, *got), 4.0 * t * s * r * h * 3 * h))
+                plain_ms=plain_ms, library_ms=library_ms, **new)
 
 
 def k3_flops(t, b, nh, no, h):
@@ -756,10 +809,11 @@ def main(argv=None):
                 f"{v} {r['launches'][k['name']] / REQUESTS:g}" for v, r in served.items())
         kind = ("gru" if k["name"].startswith("gru") else
                 "geo" if k["name"].startswith("geo") else "scan")
+        library = (f"library_ms {k['library_ms']:.3f}: {LIBRARY[k['name']]}"
+                   if k["library_ms"] is not None else f"library_ms none: {NO_LIBRARY[kind]}")
         print(f"kernel {k['name']}: kernel_ms {k['ms']:.3f} plain_ms {k['plain_ms']:.3f} "
               f"bound_ms {k['bound_ms']:.3f} ({k['bound_by']}; {k['bound_fma_ms']:.3f} with the "
-              f"products on the FMA units) launches {per}; "
-              f"library_ms none: {NO_LIBRARY[kind]}", flush=True)
+              f"products on the FMA units) launches {per}; {library}", flush=True)
     with phase("small"):
         err, flips, dropped = run_small(torch, dev, args.seed)
         print(f"hidden-24 card vs CPU: max abs err {err:.3e}, marginal flips {flips} "

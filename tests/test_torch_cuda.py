@@ -63,6 +63,8 @@ def cuda():
 
 @pytest.mark.parametrize("h", [8, 24, 132])
 def test_gru_sequence_kernel(cuda, h):
+    """K1 serving (nothing kept) and training (the gates kept) against its
+    plain version; one launch a call."""
     rng = np.random.default_rng(h)
     t, s, r = 9, 4, 20
     args = [torch.tensor(a, dtype=torch.float32, device=cuda) for a in (
@@ -70,9 +72,12 @@ def test_gru_sequence_kernel(cuda, h):
         rng.uniform(-0.3, 0.3, size=(s, 3 * h)), rng.normal(size=(s, r, h)))]
     before = gru_sequence.launches
     got = gru_sequence(*args, num_reverse=2)
-    assert gru_sequence.launches == before + 1
-    want = gru_sequence_plain(*args, num_reverse=2)
+    got_kept, gates = gru_sequence(*args, num_reverse=2, keep=True)
+    assert gru_sequence.launches == before + 2
+    want, want_gates = gru_sequence_plain(*args, num_reverse=2, keep=True)
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    torch.testing.assert_close(got_kept, want, rtol=0, atol=ATOL)
+    torch.testing.assert_close(gates, want_gates, rtol=0, atol=ATOL)
 
 
 def _close_rel(got, want, what):
@@ -83,18 +88,22 @@ def _close_rel(got, want, what):
 
 @pytest.mark.parametrize("h", [8, 24, 132])
 def test_gru_sequence_bwd_kernel(cuda, h):
+    """K2 from the gates the plain forward kept against its plain version;
+    one launch a call."""
     rng = np.random.default_rng(h + 1)
     t, s, r = 9, 4, 20
     gi, w_hh, b_hh, h0, g = [torch.tensor(a, dtype=torch.float32, device=cuda) for a in (
         rng.normal(size=(t, s, r, 3 * h)), rng.uniform(-0.3, 0.3, size=(s, h, 3 * h)),
         rng.uniform(-0.3, 0.3, size=(s, 3 * h)), rng.normal(size=(s, r, h)),
         rng.normal(size=(t, s, r, h)))]
-    hprev = previous_states(gru_sequence_plain(gi, w_hh, b_hh, h0, 2), h0, 2)
+    out, gates = gru_sequence_plain(gi, w_hh, b_hh, h0, 2, keep=True)
+    hprev = previous_states(out, h0, 2)
     before = gru_sequence_bwd.launches
-    got = gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, num_reverse=2)
+    got = gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse=2)
     assert gru_sequence_bwd.launches == before + 1
-    want = gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, num_reverse=2)
+    want = gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse=2)
     for name, g_, w_ in zip(("dgi", "dgh", "dh0"), got, want):
+        assert torch.isfinite(g_).all(), name
         _close_rel(g_, w_, name)
 
 

@@ -7,6 +7,13 @@ as tests/test_gru_pallas.py holds the Pallas kernel to the XLA scan; the
 gradients rtol 1e-4, atol 1e-5 (dL/dh is summed over the whole sequence;
 tests/test_gru_pallas.py holds the Pallas backward to rtol 2e-4). The float64
 gradcheck uses torch's default tolerances.
+
+K1 keeps its gates [r | z | hn] when a gradient will be taken, and K2 reads
+them instead of recomputing gh: the kept-gate backward is held to the
+recompute route it replaced (``_bwd_recompute``, kept here) and to jax.vjp,
+and the kept gates to the ones recomputed from the states. The cuDNN GRU
+that chip_smoke.py times beside K1 and K2 (``tggcn_torch.profile_gru``) is
+held to the plain versions on the CPU at the same tolerances.
 """
 
 import jax
@@ -14,13 +21,16 @@ import numpy as np
 import pytest
 import torch
 
+import tggcn_torch.ops.gru_sequence as gru_ops
 from tggcn.nn.gru import init_bigru
 from tggcn.ops.gru_pallas import gru_sequence as jax_gru_sequence
 from tggcn.ops.gru_pallas import run_multi_bigru_pallas
+from tggcn_torch import profile_gru
 from tggcn_torch.compat.weights import params_from_numpy
 from tggcn_torch.nn.gru import run_multi_bigru
-from tggcn_torch.ops.gru_sequence import (gru_sequence, gru_sequence_autograd,
-                                          gru_sequence_plain)
+from tggcn_torch.ops.gru_sequence import (KEPT, gru_sequence, gru_sequence_autograd,
+                                          gru_sequence_bwd, gru_sequence_bwd_plain,
+                                          gru_sequence_plain, previous_states)
 
 RTOL, ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
@@ -147,3 +157,197 @@ def test_multi_bigru_gradients_match_pallas(bigru_setup):
     for i, (tx, wx) in enumerate(zip(txs, want_x)):
         np.testing.assert_allclose(tx.grad.numpy(), np.asarray(wx), rtol=GRAD_RTOL,
                                    atol=GRAD_ATOL, err_msg=f"input {i}")
+
+
+DIRECTIONS = dict(argvalues=[0, 4, 2], ids=["forward", "reverse", "mixed"])
+
+
+def _torch_inputs(num_reverse, carried=True, seed=8):
+    """(gi, w_hh, b_hh, h0, g) over 4 streams, the last num_reverse reversed."""
+    gi, w_hh, b_hh, h0 = _inputs(s=4, seed=seed)
+    if not carried:
+        h0 = np.zeros_like(h0)
+    g = np.random.default_rng(seed + 1).normal(size=gi.shape[:-1] + (w_hh.shape[1],))
+    return [torch.tensor(np.asarray(x, np.float32)) for x in (gi, w_hh, b_hh, h0, g)]
+
+
+def _bwd_recompute(gi, hprev, g, w_hh, b_hh, num_reverse):
+    """K2's plain version before K1 kept its gates: (dgi, dgh, dh0), with gh
+    recomputed from h_prev at every step."""
+    t, s = gi.shape[0], gi.shape[1]
+    nf = s - num_reverse
+    dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
+    dh = hprev.new_zeros(hprev.shape[1:])
+    for i in range(t):
+        tf, tr = t - 1 - i, i
+        at = lambda x: torch.cat([x[tf, :nf], x[tr, nf:]])
+        gi_i, hp = at(gi), at(hprev)
+        dh = dh + at(g)
+        gh = torch.matmul(hp, w_hh) + b_hh[:, None]
+        i_r, i_z, i_n = gi_i.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        dtanh = dh * (1.0 - z) * (1.0 - n * n)
+        d_ir = dtanh * h_n * r * (1.0 - r)
+        d_iz = dh * (hp - n) * z * (1.0 - z)
+        dgi_i = torch.cat([d_ir, d_iz, dtanh], dim=-1)
+        dgh_i = torch.cat([d_ir, d_iz, dtanh * r], dim=-1)
+        dh = dh * z + torch.matmul(dgh_i, w_hh.transpose(1, 2))
+        dgi[tf, :nf], dgi[tr, nf:] = dgi_i[:nf], dgi_i[nf:]
+        dgh[tf, :nf], dgh[tr, nf:] = dgh_i[:nf], dgh_i[nf:]
+    return dgi, dgh, dh
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["zero_h0", "carried_h0"])
+@pytest.mark.parametrize("num_reverse", **DIRECTIONS)
+def test_kept_backward_matches_recompute_route(num_reverse, carried):
+    """K2's plain version on the gates the plain forward kept gives the
+    recompute route's dgi, dgh and dh0 (the wrapper on CPU tensors too)."""
+    gi, w_hh, b_hh, h0, g = _torch_inputs(num_reverse, carried)
+    out, gates = gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse, keep=True)
+    hprev = previous_states(out, h0, num_reverse)
+    want = _bwd_recompute(gi, hprev, g, w_hh, b_hh, num_reverse)
+    for run in (gru_sequence_bwd_plain, gru_sequence_bwd):
+        got = run(gi, hprev, g, gates, w_hh, num_reverse)
+        for name, a, b in zip(("dgi", "dgh", "dh0"), got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                       err_msg=f"{run.__name__} {name}")
+
+
+@pytest.mark.parametrize("num_reverse", **DIRECTIONS)
+def test_kept_gate_backward_matches_pallas(num_reverse):
+    """dgi, dh0 and the weight gradients reduced outside the kernel (h_prev x
+    dgh) from K2's plain version on the kept gates, with a carried h0,
+    against jax.vjp of the Pallas custom VJP."""
+    gi, w_hh, b_hh, h0, g = _torch_inputs(num_reverse, seed=10)
+    nf = 4 - num_reverse
+    a_gi, a_w, a_b, a_h0, a_g = (x.numpy() for x in (gi, w_hh, b_hh, h0, g))
+    parts = []
+    for lo, hi, reverse in ((0, nf, False), (nf, 4, True)):
+        if hi > lo:
+            parts.append(_jax_grads(a_gi[:, lo:hi], a_w[lo:hi], a_b[lo:hi], a_h0[lo:hi],
+                                    a_g[:, lo:hi], reverse))
+    want = [np.concatenate([p[i] for p in parts], axis=1 if i == 0 else 0) for i in range(4)]
+    out, gates = gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse, keep=True)
+    hprev = previous_states(out, h0, num_reverse)
+    dgi, dgh, dh0 = gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse)
+    got = [dgi, torch.einsum("tsrh,tsrg->shg", hprev, dgh), dgh.sum(dim=(0, 2)), dh0]
+    for name, a, w in zip(("dgi", "dW_hh", "db_hh", "dh0"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("num_reverse", **DIRECTIONS)
+def test_kept_gates_equal_recomputed(num_reverse):
+    """The gates K1 keeps, in KEPT's order, are r, z and hn = h_prev @ w_hh_n
+    + b_hh_n recomputed from the state each step read; keeping changes no
+    state."""
+    gi, w_hh, b_hh, h0, _ = _torch_inputs(num_reverse, seed=12)
+    out, gates = gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse, keep=True)
+    assert KEPT == ("r", "z", "hn") and gates.shape == gi.shape
+    torch.testing.assert_close(out, gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse),
+                               rtol=0, atol=0)
+    hprev = previous_states(out, h0, num_reverse)
+    gh = torch.einsum("tsrh,shg->tsrg", hprev, w_hh) + b_hh[None, :, None]
+    h = w_hh.shape[1]
+    want = dict(r=torch.sigmoid(gi[..., :h] + gh[..., :h]),
+                z=torch.sigmoid(gi[..., h:2 * h] + gh[..., h:2 * h]), hn=gh[..., 2 * h:])
+    for i, name in enumerate(KEPT):
+        torch.testing.assert_close(gates[..., i * h:(i + 1) * h], want[name], rtol=RTOL,
+                                   atol=ATOL, msg=name)
+    n = torch.tanh(gi[..., 2 * h:] + want["r"] * want["hn"])
+    torch.testing.assert_close(out, (1 - want["z"]) * n + want["z"] * hprev, rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "no_input_requires_grad", "gradient"])
+def test_function_keeps_gates_only_for_a_gradient(monkeypatch, mode):
+    """The forward keeps the gates only when a gradient will be taken (grad
+    enabled and an input requiring one); a served call keeps none."""
+    keeps = []
+    plain = gru_ops.gru_sequence_plain
+
+    def spy(*args, keep=False, **kwargs):
+        keeps.append(keep)
+        return plain(*args, keep=keep, **kwargs)
+
+    monkeypatch.setattr(gru_ops, "gru_sequence_plain", spy)
+    gi, w_hh, b_hh, h0, g = _torch_inputs(2, seed=14)
+    w_hh.requires_grad_(mode == "gradient")
+    if mode == "no_grad":
+        with torch.no_grad():
+            out = gru_sequence_autograd(gi, w_hh, b_hh, h0, 2, use_kernels=False)
+    else:
+        out = gru_sequence_autograd(gi, w_hh, b_hh, h0, 2, use_kernels=False)
+    assert keeps == [mode == "gradient"]
+    torch.testing.assert_close(out.detach(), plain(gi, w_hh.detach(), b_hh, h0, 2),
+                               rtol=0, atol=0)
+    if mode == "gradient":
+        out.backward(g)
+        assert w_hh.grad is not None and torch.isfinite(w_hh.grad).all()
+
+
+@pytest.mark.parametrize("num_reverse", **DIRECTIONS)
+def test_cudnn_yardstick_matches_plain(num_reverse):
+    """The library yardstick of chip_smoke.py's k1 and k2 phases: one
+    torch.nn.GRU per stream with identity input weights, fed gi, computes
+    K1's states, and its gradients with respect to its inputs and initial
+    states are K2's dgi and dh0 (here on the CPU, cuDNN's own on the card)."""
+    gi, w_hh, b_hh, h0, g = _torch_inputs(num_reverse, seed=16)
+    out, gates = gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse, keep=True)
+    grus = profile_gru.cudnn_grus(w_hh, b_hh)
+    xs, h0s = profile_gru.cudnn_inputs(gi, h0, num_reverse)
+    for x in xs + h0s:
+        x.requires_grad_(True)
+    ys = profile_gru.cudnn_sequence(grus, xs, h0s)
+    np.testing.assert_allclose(profile_gru.cudnn_states(ys, num_reverse).detach().numpy(),
+                               out.numpy(), rtol=RTOL, atol=ATOL)
+    nf = 4 - num_reverse
+    gys = [g[:, i] if i < nf else g[:, i].flip(0) for i in range(4)]
+    grads = torch.autograd.grad(ys, xs + h0s, gys)
+    dgi, _, dh0 = gru_sequence_bwd_plain(gi, previous_states(out, h0, num_reverse), g, gates,
+                                         w_hh, num_reverse)
+    got_dgi = torch.stack([d if i < nf else d.flip(0) for i, d in enumerate(grads[:4])], dim=1)
+    np.testing.assert_allclose(got_dgi.numpy(), dgi.numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(torch.cat(grads[4:]).numpy(), dh0.numpy(), rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+
+
+def test_profile_inputs_drive_k1_and_k2():
+    """profile_gru's seeded inputs, which chip_smoke.py's k1 and k2 phases
+    use, are K1's and K2's arguments: K2's are the states each step read and
+    the gates the plain forward kept, with an upstream gradient of the
+    states' shape."""
+    gen = torch.Generator().manual_seed(0)
+    fwd = profile_gru.gru_inputs("cpu", gen, 5, 4, 3, 8)
+    gi, w_hh, b_hh, h0 = fwd
+    assert [tuple(x.shape) for x in fwd] == [(5, 4, 3, 24), (4, 8, 24), (4, 24), (4, 3, 8)]
+    assert float(w_hh.abs().max()) <= 8 ** -0.5 and float(gi.abs().max()) <= 1.0
+    args = profile_gru.gru_bwd_inputs(*fwd, 2, gen)
+    out, gates = gru_sequence_plain(*fwd, 2, keep=True)
+    torch.testing.assert_close(args[1], previous_states(out, h0, 2), rtol=0, atol=0)
+    torch.testing.assert_close(args[3], gates, rtol=0, atol=0)
+    assert args[2].shape == out.shape and args[0] is gi and args[4] is w_hh
+    dgi, dgh, dh0 = gru_sequence_bwd(*args, 2)
+    assert dgi.shape == dgh.shape == gi.shape and dh0.shape == h0.shape
+
+
+@pytest.mark.parametrize("bad", ["gates_shape", "strided", "float64"])
+def test_bwd_wrapper_checks_its_inputs(bad):
+    """K2's wrapper refuses, before any launch, gates of the wrong shape, a
+    non-contiguous input and another dtype than float32 (checked here on
+    CPU tensors through the check the CUDA route runs)."""
+    gi, w_hh, b_hh, h0, g = _torch_inputs(2, seed=18)
+    t, s, r, g3 = gi.shape
+    h = g3 // 3
+    gates = torch.zeros_like(gi)
+    if bad == "gates_shape":
+        gates = gates[..., :2 * h]
+    elif bad == "strided":
+        gates = torch.zeros(t, s, r, 2 * g3)[..., ::2]
+    else:
+        gates = gates.double()
+    with pytest.raises(ValueError, match="gates"):
+        gru_ops._check("gru_sequence_bwd", gi.device,
+                       {"gi": (gi, (t, s, r, g3)), "gates": (gates, (t, s, r, g3))}, h, 2)

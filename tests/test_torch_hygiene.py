@@ -142,12 +142,13 @@ INTER_BLOCK_WAITS = ("cudaLaunchCooperativeKernel", "cudaLaunchAttributeCooperat
 def test_kernels_wait_on_no_other_block(path):
     """No kernel source waits for another block (no cooperative launch, grid
     sync or programmatic dependent launch: phase order comes from stream
-    order), and the segment scan's sources add with no atomics, so two
-    identical train steps give the same gradient bits."""
+    order), and the sources of the train step's kernels (the frame GRU's
+    and the segment scan's) add with no atomics, so two identical train
+    steps give the same gradient bits."""
     text = (_build.CSRC_DIR / path).read_text()
     for word in INTER_BLOCK_WAITS:
         assert word not in text, f"{path} uses {word}"
-    if path.startswith("segment_scan"):
+    if path.startswith(("segment_scan", "gru_sequence")):
         assert "atomic" not in text.replace("no atomics", ""), f"{path} uses an atomic"
         for ptx in ("atom.", "red.global", "red.shared"):
             assert ptx not in text, f"{path} uses the PTX atomic {ptx}"
@@ -342,12 +343,13 @@ def test_wrapper_outside_its_function_raises(wrapper):
     no_grad, and through the autograd Function, it runs."""
     gi, w_hh, b_hh, h0 = _gru_args("cpu")
     hprev = g = torch.zeros(gi.shape[:-1] + (gi.shape[-1] // 3,))
+    gates = torch.zeros_like(gi)
     seg, streamed, seg_h0 = _seg_args(requires_grad=True)
     h, e = seg["w_hh_h"].shape[1], seg["gi_h"].shape[3] + seg["gi_o"].shape[3]
     geo = [torch.zeros(3, 5, 4)] + [torch.zeros(s) for s in (
         (4, 64), (64,), (64, 64), (64,), (64, 128), (128,), (64, 128), (128,), (64, 128))]
     calls = {"gru_sequence": lambda: gru_ops.gru_sequence(gi, w_hh, b_hh, h0),
-             "gru_sequence_bwd": lambda: gru_ops.gru_sequence_bwd(gi, hprev, g, w_hh, b_hh),
+             "gru_sequence_bwd": lambda: gru_ops.gru_sequence_bwd(gi, hprev, g, gates, w_hh),
              "segment_scan_dot": lambda: scan_ops.segment_scan_dot(**seg, **seg_h0, scale=1.0),
              "segment_scan_dot_bwd": lambda: scan_ops.segment_scan_dot_bwd(
                  **{k: v for k, v in seg.items() if k in BWD_WEIGHTS}, **streamed, scale=1.0),

@@ -487,15 +487,15 @@ def _tf32(x):
     return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
-@pytest.mark.parametrize("depth", [1536, 2560])
+@pytest.mark.parametrize("depth", [512, 1536, 2560])
 def test_split_tf32_product_keeps_float32_accuracy(depth):
-    """The tensor-core products of K3 and K4 (csrc/tc_gemm.cuh) split each
+    """The tensor-core products of K1-K4 (csrc/tc_gemm.cuh) split each
     float32 operand into a TF32 part and a TF32 remainder and take three
-    products, lo hi + hi lo + hi hi, in float32. Emulated here at the scan's
-    depths (the cell's 2h + h and the carry's 3h + 2h at h = 512) on
-    operands of its scale (states in (-1, 1), weights ~ h^-1/2): the split
-    stays within 1e-5 of the float64 product, a tenth of the kernels' 1e-4
-    limits, while one TF32 product misses them."""
+    products, lo hi + hi lo + hi hi, in float32. Emulated here at the
+    kernels' depths at h = 512 (K1's h; K2's 3h and the scan cell's 2h + h;
+    K4's carry, 3h + 2h) on operands of their scale (states in (-1, 1),
+    weights ~ h^-1/2): the split stays within 1e-5 of the float64 product, a
+    tenth of the kernels' 1e-4 limits, while one TF32 product misses them."""
     rng = np.random.default_rng(depth)
     x = torch.tensor(rng.uniform(-1, 1, size=(32, depth)), dtype=torch.float32)
     w = torch.tensor(rng.uniform(-1, 1, size=(depth, 64)) / math.sqrt(512), dtype=torch.float32)

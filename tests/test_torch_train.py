@@ -291,3 +291,34 @@ def test_scan_keeps_step_tensors_for_training_only(monkeypatch):
     data, targets = fetch(stage1.make_batch(np.random.default_rng(1), 2, 3, 2, 2))
     losses, _, _ = step(trainable, data, targets, generator=torch.Generator().manual_seed(2))
     assert keeps == [False, True] and torch.isfinite(losses).all()
+
+
+def test_bigru_keeps_gates_for_training_only(monkeypatch):
+    """The frame BiGRU keeps its gates for a train step (whose backward, K2,
+    reads them) and none when serving under no_grad: the recurrence runs
+    with keep=True in the train step and keep=False in a served request."""
+    from tggcn_torch.models import stage1
+    import tggcn_torch.ops.gru_sequence as gru_ops
+
+    keeps = []
+    plain = gru_ops.gru_sequence_plain
+
+    def spy(*args, keep=False, **kwargs):
+        keeps.append(keep)
+        return plain(*args, keep=keep, **kwargs)
+
+    monkeypatch.setattr(gru_ops, "gru_sequence_plain", spy)
+    model = select_model("2G-GCN", device="cpu", **dict(stage1.MODEL_KWARGS, hidden_size=8))
+    params = model.init(torch.Generator().manual_seed(0))
+    request = stage1.make_request(np.random.default_rng(0), b=1, t=3, humans=2, objects=2)
+    model.apply(params, **request)
+    assert keeps == [False]
+    trainable = {"model": params}
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
+    step = make_train_step(model, select_model_data_feeder("2G-GCN", "multiple",
+                                                           **stage1.FEEDER_KWARGS),
+                           criterion, torch.optim.Adam(trainable_parameters(trainable), lr=1e-3))
+    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
+    data, targets = fetch(stage1.make_batch(np.random.default_rng(1), 2, 3, 2, 2))
+    losses, _, _ = step(trainable, data, targets, generator=torch.Generator().manual_seed(2))
+    assert keeps == [False, True] and torch.isfinite(losses).all()

@@ -1,6 +1,7 @@
-// A block-level float32 product on the tensor cores, for the segment scan's
-// kernels (segment_scan.cu, segment_scan_bwd.cu): mma.sync m16n8k8 in TF32
-// with the 3xTF32 split, float32 accumulation.
+// A block-level float32 product on the tensor cores, for the recurrent
+// kernels (gru_sequence.cu, gru_sequence_bwd.cu, segment_scan.cu,
+// segment_scan_bwd.cu): mma.sync m16n8k8 in TF32 with the 3xTF32 split,
+// float32 accumulation.
 //
 // Numbers. Each float32 operand x is split into a TF32 high part hi (x
 // with the low 13 bits of its mantissa cleared) and the remainder lo = x -
@@ -9,8 +10,16 @@
 // first), summed in float32. The dropped lo_a lo_b term and lo's own
 // truncation are about 2^-20 of each product, so the result keeps
 // float32-level error (tests/test_torch_segment_scan.py emulates this
-// scheme on the CPU at the scan's depths). Plain single-pass TF32 (about
-// 2^-10 of each product) is not used anywhere.
+// scheme on the CPU at the kernels' depths). Plain single-pass TF32 (about
+// 2^-10 of each product) is not used anywhere. The tensor core does not
+// round its float32 sums to nearest: carried through it at every step of
+// a product, a running sum drifts. With Round, the three products of each
+// k8 step start from a zero accumulator and their sum joins the running
+// sum by a float32 add; K1 takes it (its states feed every hard decision
+// of the model: without it a full-width train step's segment-level
+// gradients moved by 1.5e-3 of their largest against the plain route,
+// with it by 1.6e-4, as with cuBLAS; PERF.md). It costs K1 about 13%
+// of its time; K2-K5 do without.
 //
 // Shape ("swap AB"). The weight columns take the M side of the mma (16 per
 // tile) and the activation rows the N side (8 per tile), so a step's 16
@@ -19,10 +28,12 @@
 // weight columns (each tile's 16 columns start anywhere: the r, z and n
 // gates of a GRU are three tiles H apart) and up to kMaxRows rows, over the
 // whole depth. The depth runs in chunks of kChunk, copied global -> shared
-// with cp.async through a ring of kStages buffers; each of the 16 warps
-// takes one k8 step of every chunk (split-K inside the block), and the
-// warps' partial sums are added in a fixed order at the end (reduce), so a
-// result has the same bits on every run.
+// with cp.async through a ring of NS buffers (kStages unless the kernel
+// asks for fewer); each of the 16 warps takes one k8 step of every chunk
+// for all MT tiles (split-K inside the block), or, with MG warp groups,
+// MG k8 steps for its group's MT / MG tiles, and the warps' partial sums
+// are added in a fixed order at the end (reduce), so a result has the same
+// bits on every run.
 //
 // What bounds it on an H100 is not bytes and not the tensor cores' rate:
 // at the scan's shapes a block's time grows with its number of chunks and
@@ -38,7 +49,7 @@
 // memory one scalar at a time, so either weight layout works and needs no
 // transposed copy: kColRows = false reads w[k][col] (a weight the product
 // contracts along its rows, K3's x @ W), kColRows = true reads w[col][k]
-// (contracting along its columns, K4's dy @ W^T). The shared-memory strides
+// (contracting along its columns, K4's and K2's dy @ W^T). The shared-memory strides
 // make every fragment load conflict-free. (wgmma, at twice mma.sync's rate,
 // takes TF32 only K-major from shared memory, in a swizzled layout given by
 // matrix descriptors, so K3's weights would need a transposed copy; it is
@@ -78,24 +89,26 @@ struct Stage {
 
 constexpr int kPartStride = kMaxRows + 1;
 
+// The warps' partial sums: S slots per warp.
 template <int S>
 struct Partials {
   float v[kWarps][S][kMTile][kPartStride];
 };
 
-template <bool kColRows, int MT, int S>
+template <bool kColRows, int MT, int S, int NS = kStages>
 constexpr size_t smem_bytes() {
-  return kStages * sizeof(Stage<kColRows, MT>) > sizeof(Partials<S>)
-             ? kStages * sizeof(Stage<kColRows, MT>)
+  return NS * sizeof(Stage<kColRows, MT>) > sizeof(Partials<S>)
+             ? NS * sizeof(Stage<kColRows, MT>)
              : sizeof(Partials<S>);
 }
 
 // The block's weight columns: tile t starts at column col[t] of w (with
 // kColRows, at row col[t]), and its first valid[t] columns are real; the
 // others read as zero.
+constexpr int kMaxTiles = 6;
 struct Tiles {
-  int col[3];
-  int valid[3];
+  int col[kMaxTiles];
+  int valid[kMaxTiles];
 };
 
 // One operand: x (rows, K) with row stride ldx, and the weight w with row
@@ -139,10 +152,14 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Field t of a tile array, by selects (a dynamic index would put the array
-// in local memory).
-__device__ __forceinline__ int pick(const int (&v)[3], int t) {
-  return t == 0 ? v[0] : (t == 1 ? v[1] : v[2]);
+// Field t < MT of a tile array, by selects (a dynamic index would put the
+// array in local memory).
+template <int MT>
+__device__ __forceinline__ int pick(const int (&v)[kMaxTiles], int t) {
+  int x = v[0];
+#pragma unroll
+  for (int i = 1; i < MT; ++i) x = t == i ? v[i] : x;
+  return x;
 }
 
 // Copies chunk k0 of an operand into a stage. Every thread issues the same
@@ -169,61 +186,82 @@ __device__ __forceinline__ void load_chunk(Stage<kColRows, MT>& st, const Operan
     if constexpr (kColRows) {
       const int m = i / (kChunk / 4), kk = (i % (kChunk / 4)) * 4;
       const int t = m / kMTile, mm = m % kMTile;
-      const bool valid = mm < pick(tiles.valid, t) && k0 + kk < op.K;
+      const bool valid = mm < pick<MT>(tiles.valid, t) && k0 + kk < op.K;
       cp_async16(&st.w[m][kk],
-                 valid ? op.w + (size_t)(pick(tiles.col, t) + mm) * op.ldw + k0 + kk : op.w,
+                 valid ? op.w + (size_t)(pick<MT>(tiles.col, t) + mm) * op.ldw + k0 + kk : op.w,
                  valid);
     } else {
       const int kk = i / (MT * kMTile / 4), m = (i % (MT * kMTile / 4)) * 4;
       const int t = m / kMTile, mm = m % kMTile;
-      const bool valid = mm < pick(tiles.valid, t) && k0 + kk < op.K;
+      const bool valid = mm < pick<MT>(tiles.valid, t) && k0 + kk < op.K;
       cp_async16(&st.w[kk][m],
-                 valid ? op.w + (size_t)(k0 + kk) * op.ldw + pick(tiles.col, t) + mm : op.w,
+                 valid ? op.w + (size_t)(k0 + kk) * op.ldw + pick<MT>(tiles.col, t) + mm : op.w,
                  valid);
     }
   }
 }
 
-// This warp's k8 step of one staged chunk of operand P, into acc.
-template <bool kColRows, int MT, int S, int P, class Map>
+// This warp's share of one staged chunk of operand P, into acc. With MG =
+// 1 each warp takes one k8 step of the chunk for all MT tiles, into slot
+// Map::slot(P, t). With MG > 1 the warps form MG groups of kWarps / MG:
+// group g takes tiles g * MT / MG .. (g + 1) * MT / MG - 1, into its S =
+// MT / MG slots in tile order (Map is not read), and MG k8 steps of the
+// chunk, so a block can own more tiles than one thread's registers hold.
+// Round: see the note on numbers at the top.
+template <bool kColRows, int MT, int S, int P, class Map, int MG, bool Round>
 __device__ __forceinline__ void multiply_chunk(const Stage<kColRows, MT>& st, int ntiles,
                                                float (&acc)[S][kNTiles][4]) {
+  static_assert(MG == 1 || (MT % MG == 0 && S == MT / MG && kWarps % MG == 0), "groups");
+  constexpr int kGroupWarps = kWarps / MG, kGroupTiles = MT / MG;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4, kk = 8 * warp;
-  uint32_t bh[kNTiles][2], bl[kNTiles][2];
+  const int g = lane / 4, q = lane % 4, group = warp / kGroupWarps;
 #pragma unroll
-  for (int n = 0; n < kNTiles; ++n) {
-    if (n < ntiles) {
-      split(st.x[8 * n + g][kk + q], bh[n][0], bl[n][0]);
-      split(st.x[8 * n + g][kk + q + 4], bh[n][1], bl[n][1]);
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < MT; ++t) {
-    const int s = Map::slot(P, t);
-    if (s < 0) continue;
-    const int m = t * kMTile + g;
-    float av[4];
-    if constexpr (kColRows) {
-      av[0] = st.w[m][kk + q];
-      av[1] = st.w[m + 8][kk + q];
-      av[2] = st.w[m][kk + q + 4];
-      av[3] = st.w[m + 8][kk + q + 4];
-    } else {
-      av[0] = st.w[kk + q][m];
-      av[1] = st.w[kk + q][m + 8];
-      av[2] = st.w[kk + q + 4][m];
-      av[3] = st.w[kk + q + 4][m + 8];
-    }
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(av[i], ah[i], al[i]);
+  for (int j = 0; j < MG; ++j) {
+    const int kk = 8 * (warp % kGroupWarps + j * kGroupWarps);
+    uint32_t bh[kNTiles][2], bl[kNTiles][2];
 #pragma unroll
     for (int n = 0; n < kNTiles; ++n) {
       if (n < ntiles) {
-        mma_tf32(acc[s][n], al, bh[n]);
-        mma_tf32(acc[s][n], ah, bl[n]);
-        mma_tf32(acc[s][n], ah, bh[n]);
+        split(st.x[8 * n + g][kk + q], bh[n][0], bl[n][0]);
+        split(st.x[8 * n + g][kk + q + 4], bh[n][1], bl[n][1]);
+      }
+    }
+#pragma unroll
+    for (int lt = 0; lt < kGroupTiles; ++lt) {
+      const int s = MG > 1 ? lt : Map::slot(P, lt);
+      if (s < 0) continue;
+      const int m = (group * kGroupTiles + lt) * kMTile + g;
+      float av[4];
+      if constexpr (kColRows) {
+        av[0] = st.w[m][kk + q];
+        av[1] = st.w[m + 8][kk + q];
+        av[2] = st.w[m][kk + q + 4];
+        av[3] = st.w[m + 8][kk + q + 4];
+      } else {
+        av[0] = st.w[kk + q][m];
+        av[1] = st.w[kk + q][m + 8];
+        av[2] = st.w[kk + q + 4][m];
+        av[3] = st.w[kk + q + 4][m + 8];
+      }
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(av[i], ah[i], al[i]);
+#pragma unroll
+      for (int n = 0; n < kNTiles; ++n) {
+        if (n < ntiles) {
+          if constexpr (Round) {
+            float c[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(c, al, bh[n]);
+            mma_tf32(c, ah, bl[n]);
+            mma_tf32(c, ah, bh[n]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[s][n][i] += c[i];
+          } else {
+            mma_tf32(acc[s][n], al, bh[n]);
+            mma_tf32(acc[s][n], ah, bl[n]);
+            mma_tf32(acc[s][n], ah, bh[n]);
+          }
+        }
       }
     }
   }
@@ -231,12 +269,15 @@ __device__ __forceinline__ void multiply_chunk(const Stage<kColRows, MT>& st, in
 
 // Accumulates the products of operands 0 .. NP-1 over their whole depths:
 // acc[slot][n][i] holds tile column g or g + 8 and row 8 n + 2 q (+1) in
-// the mma's C layout; store_partials and reduce read it back.
-// rows <= kMaxRows.
-template <bool kColRows, int MT, int S, int NP, class Map>
+// the mma's C layout; store_partials and reduce read it back. NS is the
+// depth of the ring, MG the number of warp groups, Round the rounding of
+// each k8 step's sum (multiply_chunk). rows <= kMaxRows.
+template <bool kColRows, int MT, int S, int NP, class Map, int NS = kStages, int MG = 1,
+          bool Round = false>
 __device__ __forceinline__ void accumulate(const Operand& a, const Operand& b, const Operand& c,
                                            const Tiles& tiles, int rows, unsigned char* smem,
                                            float (&acc)[S][kNTiles][4]) {
+  static_assert(NS >= 2, "ring");
   using St = Stage<kColRows, MT>;
   St* buf = reinterpret_cast<St*>(smem);
   const int ntiles = (rows + 7) / 8;
@@ -247,26 +288,26 @@ __device__ __forceinline__ void accumulate(const Operand& a, const Operand& b, c
   auto prefetch = [&](int i) {
     if (i < total) {
       if (i < na)
-        load_chunk<kColRows, MT>(buf[i % kStages], a, tiles, rows, i * kChunk);
+        load_chunk<kColRows, MT>(buf[i % NS], a, tiles, rows, i * kChunk);
       else if (i < na + nb)
-        load_chunk<kColRows, MT>(buf[i % kStages], b, tiles, rows, (i - na) * kChunk);
+        load_chunk<kColRows, MT>(buf[i % NS], b, tiles, rows, (i - na) * kChunk);
       else
-        load_chunk<kColRows, MT>(buf[i % kStages], c, tiles, rows, (i - na - nb) * kChunk);
+        load_chunk<kColRows, MT>(buf[i % NS], c, tiles, rows, (i - na - nb) * kChunk);
     }
     cp_async_commit();
   };
-  for (int i = 0; i < kStages - 1; ++i) prefetch(i);
+  for (int i = 0; i < NS - 1; ++i) prefetch(i);
   for (int i = 0; i < total; ++i) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<NS - 2>();
     __syncthreads();                    // chunk i is in; chunk i - 1's buffer is free
-    prefetch(i + kStages - 1);
-    const St& st = buf[i % kStages];
+    prefetch(i + NS - 1);
+    const St& st = buf[i % NS];
     if (i < na)
-      multiply_chunk<kColRows, MT, S, 0, Map>(st, ntiles, acc);
+      multiply_chunk<kColRows, MT, S, 0, Map, MG, Round>(st, ntiles, acc);
     else if (NP > 1 && i < na + nb)
-      multiply_chunk<kColRows, MT, S, 1, Map>(st, ntiles, acc);
+      multiply_chunk<kColRows, MT, S, 1, Map, MG, Round>(st, ntiles, acc);
     else if (NP > 2)
-      multiply_chunk<kColRows, MT, S, 2, Map>(st, ntiles, acc);
+      multiply_chunk<kColRows, MT, S, 2, Map, MG, Round>(st, ntiles, acc);
   }
   cp_async_wait<0>();
   __syncthreads();                      // the ring is free for the partial sums
@@ -289,14 +330,16 @@ __device__ __forceinline__ void store_partials(unsigned char* smem,
     }
 }
 
-// Slot s at tile column m (0..15) and row r: the sum of the warps' parts,
-// in warp order.
-template <int S>
+// Slot s (of S * MG, the warps' S slots per group) at tile column m (0..15)
+// and row r: the sum of the parts of the warps that own it, in warp order.
+template <int S, int MG = 1>
 __device__ __forceinline__ float reduce(const unsigned char* smem, int s, int m, int r) {
   const Partials<S>& pt = *reinterpret_cast<const Partials<S>*>(smem);
+  constexpr int kGroupWarps = kWarps / MG;
+  const int w0 = MG > 1 ? s / S * kGroupWarps : 0, ls = MG > 1 ? s % S : s;
   float v = 0.f;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) v += pt.v[w][s][m][r];
+  for (int w = 0; w < kGroupWarps; ++w) v += pt.v[w0 + w][ls][m][r];
   return v;
 }
 

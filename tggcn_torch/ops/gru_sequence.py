@@ -4,31 +4,38 @@ and its backward sweep.
 Replaces the TPU kernel ``tggcn/ops/gru_pallas.py::_fwd_kernel`` (launched
 at ``gru_pallas.py:147``). The CUDA kernel is ``csrc/gru_sequence.cu``: one
 launch per time step whose blocks each own a tile of rows and hidden units
-of one stream, so no block waits for another; the launches' order on the
-stream carries the state. It is bound by float32 FMAs on this card (about
-50 GFLOP at the MPHOI shape T=167, S=6, R=32, h=512); see the source for
-the bound and the design.
+of one stream (their r, z and n gate columns), so no block waits for
+another; the launches' order on the stream carries the state. Its product
+runs on the tensor cores in the 3xTF32 split (``csrc/tc_gemm.cuh``), at
+float32 accuracy. With ``keep`` (a gradient will be taken) it also writes
+every step's gates (``KEPT``) for the backward; see the source for the
+bound and the design.
 
 Layout (as the JAX kernel's):
   gi    (T, S, R, 3h)  input-side gate pre-activations, x @ w_ih + b_ih
   w_hh  (S, h, 3h)     recurrent weights per stream
   b_hh  (S, 3h)        recurrent bias per stream
   h0    (S, R, h)      initial states
-  ->    (T, S, R, h)   the state sequence in natural time order
+  ->    (T, S, R, h)   the state sequence in natural time order, and with
+                       keep the gates (T, S, R, 3h)
 The last ``num_reverse`` streams run backward in time (t = T-1 .. 0), so a
 BiGRU's two directions run in one call without flipping any tensor.
 
 K2 replaces ``gru_pallas.py::_bwd_kernel`` (launched at ``gru_pallas.py:167``):
-``csrc/gru_sequence_bwd.cu``, two launches per step (the gate backward with
-the recompute of gh from h_prev, then the carry product dgh @ W_hh^T). It
-emits dgi, dgh and dh0; dW_hh and db_hh are reduced outside as one product
-over h_prev x dgh, as the JAX custom VJP does (``gru_pallas.py:214-217``).
+``csrc/gru_sequence_bwd.cu``. Where the TPU kernel recomputes the gates
+from h_prev, K2 reads the ones K1 kept: one launch per step takes the
+carry product dgh @ W_hh^T (W_hh read as stored) and, in its epilogue, the
+next step's gate backward; one elementwise launch starts the sweep (T + 1
+launches). It emits dgi, dgh and dh0; dW_hh and db_hh are reduced outside
+as one product over h_prev x dgh, as the JAX custom VJP does
+(``gru_pallas.py:214-217``).
 
 ``gru_sequence_autograd`` is the differentiable entry point: a
-``torch.autograd.Function`` that runs K1 forward and K2 backward (or, with
-``use_kernels=False`` or on the CPU, their plain versions). The wrappers
-``gru_sequence`` and ``gru_sequence_bwd`` refuse to run on tensors that
-require grad outside it.
+``torch.autograd.Function`` that runs K1 forward, keeping the gates, and
+K2 backward (or, with ``use_kernels=False`` or on the CPU, their plain
+versions); when no gradient will be taken it runs the forward alone,
+keeping nothing. The wrappers ``gru_sequence`` and ``gru_sequence_bwd``
+refuse to run on tensors that require grad outside it.
 """
 
 import ctypes
@@ -40,72 +47,91 @@ from tggcn_torch.ops import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+# What K1 keeps for its backward (K2) when asked to (keep=True): one
+# (T, S, R, 3h) tensor, each step's gates in this order, h wide each; hn is
+# the recurrent n pre-activation h_prev @ w_hh_n + b_hh_n. n itself is not
+# kept: K2 recomputes tanh(gi_n + r * hn) elementwise.
+KEPT = ("r", "z", "hn")
 
-def _gates(gi, h, w_hh, b_hh):
-    """One GRU step for stacked streams: gi (S, R, 3h), h (S, R, h)."""
+
+def _step(gi, h, w_hh, b_hh):
+    """One GRU step for stacked streams, gi (S, R, 3h), h (S, R, h): the new
+    state and the gates (r, z, hn)."""
     gh = torch.matmul(h, w_hh) + b_hh[:, None]
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r)
     z = torch.sigmoid(i_z + h_z)
     n = torch.tanh(i_n + r * h_n)
-    return (1.0 - z) * n + z * h
+    return (1.0 - z) * n + z * h, (r, z, h_n)
 
 
-def gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse: int = 0):
-    """Plain PyTorch version of the kernel: a Python loop over time."""
+def gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse: int = 0, keep: bool = False):
+    """Plain PyTorch version of K1: a Python loop over time. Returns the
+    states, and with keep also the gates (KEPT)."""
     t, s = gi.shape[0], gi.shape[1]
     nf = s - num_reverse
     out = gi.new_empty(gi.shape[:-1] + (gi.shape[-1] // 3,))
+    gates = torch.empty_like(gi) if keep else None
     h = h0
     for i in range(t):
         gi_i = torch.cat([gi[i, :nf], gi[t - 1 - i, nf:]])
-        h = _gates(gi_i, h, w_hh, b_hh)
+        h, kept = _step(gi_i, h, w_hh, b_hh)
         out[i, :nf] = h[:nf]
         out[t - 1 - i, nf:] = h[nf:]
-    return out
+        if keep:
+            kept = torch.cat(kept, dim=-1)
+            gates[i, :nf], gates[t - 1 - i, nf:] = kept[:nf], kept[nf:]
+    return (out, gates) if keep else out
 
 
-def _check(gi, w_hh, b_hh, h0, num_reverse):
-    t, s, r, g3 = gi.shape
-    h = g3 // 3
-    want = {"gi": (gi, (t, s, r, 3 * h)), "w_hh": (w_hh, (s, h, 3 * h)),
-            "b_hh": (b_hh, (s, 3 * h)), "h0": (h0, (s, r, h))}
-    for name, (x, shape) in want.items():
-        if x.device != gi.device or x.dtype != torch.float32:
-            raise ValueError(f"gru_sequence: {name} must be float32 on {gi.device}")
+def _check(what, device, tensors, h, num_reverse):
+    """tensors: {name: (tensor, shape)}; all float32, contiguous, on device."""
+    for name, (x, shape) in tensors.items():
+        if x.device != device or x.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be float32 on {device}")
         if tuple(x.shape) != shape:
-            raise ValueError(f"gru_sequence: {name} has shape {tuple(x.shape)}, want {shape}")
+            raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, want {shape}")
         if not x.is_contiguous():
-            raise ValueError(f"gru_sequence: {name} must be contiguous")
-    if g3 != 3 * h or h % 4 or not 0 <= num_reverse <= s:
-        raise ValueError("gru_sequence: needs a gate width 3h with h % 4 == 0 "
+            raise ValueError(f"{what}: {name} must be contiguous")
+    s = tensors["gi"][0].shape[1]
+    if h % 4 or not 0 <= num_reverse <= s:
+        raise ValueError(f"{what}: needs a gate width 3h with h % 4 == 0 "
                          "and 0 <= num_reverse <= S")
 
 
-def gru_sequence(gi, w_hh, b_hh, h0, num_reverse: int = 0):
-    """The state sequence (T, S, R, h); CPU tensors take the plain version,
-    CUDA tensors the kernel."""
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def gru_sequence(gi, w_hh, b_hh, h0, num_reverse: int = 0, keep: bool = False):
+    """The state sequence (T, S, R, h), and with keep the gates (T, S, R,
+    3h) of KEPT; CPU tensors take the plain version, CUDA tensors the
+    kernel."""
     _build.refuse_autograd("gru_sequence", gi, w_hh, b_hh, h0)
     if gi.device.type == "cpu":
-        return gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse)
+        return gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse, keep=keep)
     if gi.device.type != "cuda":
         raise ValueError(f"gru_sequence runs on CUDA or the CPU, not {gi.device}")
-    _check(gi, w_hh, b_hh, h0, num_reverse)
     t, s, r, g3 = gi.shape
-    out = torch.empty((t, s, r, g3 // 3), device=gi.device, dtype=gi.dtype)
+    h = g3 // 3
+    _check("gru_sequence", gi.device,
+           {"gi": (gi, (t, s, r, 3 * h)), "w_hh": (w_hh, (s, h, 3 * h)),
+            "b_hh": (b_hh, (s, 3 * h)), "h0": (h0, (s, r, h))}, h, num_reverse)
+    out = torch.empty((t, s, r, h), device=gi.device, dtype=gi.dtype)
+    gates = torch.empty_like(gi) if keep else None
     if t == 0:
-        return out
+        return (out, gates) if keep else out
     fn = _build.load_library("gru_sequence").tggcn_gru_sequence_f32
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     fn.restype = _I
     with torch.cuda.device(gi.device):
-        stream = torch.cuda.current_stream(gi.device).cuda_stream
         err = fn(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-                 out.data_ptr(), t, s, r, g3 // 3, num_reverse, stream)
+                 out.data_ptr(), gates.data_ptr() if keep else None, int(keep), t, s, r, h,
+                 num_reverse, _stream(gi.device))
     _build.check_launch(err, "gru_sequence")
     gru_sequence.launches += 1
-    return out
+    return (out, gates) if keep else out
 
 
 gru_sequence.launches = 0
@@ -120,9 +146,9 @@ def previous_states(out, h0, num_reverse: int = 0):
     return torch.cat([fwd, rev], dim=1).contiguous()
 
 
-def gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, num_reverse: int = 0):
-    """Plain PyTorch version of K2: (dgi, dgh, dh0) by a Python loop that
-    visits time opposite to the forward."""
+def gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse: int = 0):
+    """Plain PyTorch version of K2: (dgi, dgh, dh0) from the kept gates, by a
+    Python loop that visits time opposite to the forward."""
     t, s = gi.shape[0], gi.shape[1]
     nf = s - num_reverse
     dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
@@ -134,16 +160,12 @@ def gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, num_reverse: int = 0):
         def at(x):
             return torch.cat([x[tf, :nf], x[tr, nf:]])
 
-        gi_i, hp = at(gi), at(hprev)
+        hp = at(hprev)
+        r, z, hn = at(gates).chunk(3, dim=-1)
+        n = torch.tanh(at(gi).chunk(3, dim=-1)[2] + r * hn)
         dh = dh + at(g)
-        gh = torch.matmul(hp, w_hh) + b_hh[:, None]
-        i_r, i_z, i_n = gi_i.chunk(3, dim=-1)
-        h_r, h_z, h_n = gh.chunk(3, dim=-1)
-        r = torch.sigmoid(i_r + h_r)
-        z = torch.sigmoid(i_z + h_z)
-        n = torch.tanh(i_n + r * h_n)
         dtanh = dh * (1.0 - z) * (1.0 - n * n)
-        d_ir = dtanh * h_n * r * (1.0 - r)
+        d_ir = dtanh * hn * r * (1.0 - r)
         d_iz = dh * (hp - n) * z * (1.0 - z)
         dgi_i = torch.cat([d_ir, d_iz, dtanh], dim=-1)
         dgh_i = torch.cat([d_ir, d_iz, dtanh * r], dim=-1)
@@ -153,62 +175,60 @@ def gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, num_reverse: int = 0):
     return dgi, dgh, dh
 
 
-def gru_sequence_bwd(gi, hprev, g, w_hh, b_hh, num_reverse: int = 0):
+def gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse: int = 0):
     """(dgi (T, S, R, 3h), dgh (T, S, R, 3h), dh0 (S, R, h)) for the upstream
-    gradient g (T, S, R, h); CPU tensors take the plain version, CUDA
-    tensors the kernel."""
-    _build.refuse_autograd("gru_sequence_bwd", gi, hprev, g, w_hh, b_hh)
+    gradient g (T, S, R, h), from the states each step read (hprev) and the
+    gates K1 kept; CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    _build.refuse_autograd("gru_sequence_bwd", gi, hprev, g, gates, w_hh)
     if gi.device.type == "cpu":
-        return gru_sequence_bwd_plain(gi, hprev, g, w_hh, b_hh, num_reverse)
+        return gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse)
     if gi.device.type != "cuda":
         raise ValueError(f"gru_sequence_bwd runs on CUDA or the CPU, not {gi.device}")
-    _check(gi, w_hh, b_hh, hprev[0], num_reverse)
-    for name, x in (("hprev", hprev), ("g", g)):
-        if (x.device != gi.device or x.dtype != torch.float32
-                or tuple(x.shape) != tuple(gi.shape[:-1]) + (gi.shape[-1] // 3,)
-                or not x.is_contiguous()):
-            raise ValueError(f"gru_sequence_bwd: {name} must be a contiguous float32 "
-                             f"(T, S, R, h) tensor on {gi.device}")
     t, s, r, g3 = gi.shape
+    h = g3 // 3
+    _check("gru_sequence_bwd", gi.device,
+           {"gi": (gi, (t, s, r, 3 * h)), "hprev": (hprev, (t, s, r, h)),
+            "g": (g, (t, s, r, h)), "gates": (gates, (t, s, r, 3 * h)),
+            "w_hh": (w_hh, (s, h, 3 * h))}, h, num_reverse)
     dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
-    carry = torch.zeros((s, r, g3 // 3), device=gi.device)      # ends as dh0
+    dh0 = torch.zeros((s, r, h), device=gi.device)
     if t == 0:
-        return dgi, dgh, carry
-    dhz = torch.empty_like(carry)
-    w_t = w_hh.transpose(1, 2).contiguous()                     # (S, 3h, h)
+        return dgi, dgh, dh0
+    dhz = torch.empty_like(dh0)
     fn = _build.load_library("gru_sequence_bwd").tggcn_gru_sequence_bwd_f32
-    fn.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    fn.argtypes = [_P] * 9 + [_I] * 5 + [_P]
     fn.restype = _I
     with torch.cuda.device(gi.device):
-        stream = torch.cuda.current_stream(gi.device).cuda_stream
-        err = fn(gi.data_ptr(), hprev.data_ptr(), g.data_ptr(), w_hh.data_ptr(),
-                 w_t.data_ptr(), b_hh.data_ptr(), dgi.data_ptr(), dgh.data_ptr(),
-                 dhz.data_ptr(), carry.data_ptr(), t, s, r, g3 // 3, num_reverse, stream)
+        err = fn(gi.data_ptr(), hprev.data_ptr(), g.data_ptr(), gates.data_ptr(),
+                 w_hh.data_ptr(), dgi.data_ptr(), dgh.data_ptr(), dhz.data_ptr(),
+                 dh0.data_ptr(), t, s, r, h, num_reverse, _stream(gi.device))
     _build.check_launch(err, "gru_sequence_bwd")
     gru_sequence_bwd.launches += 1
-    return dgi, dgh, carry
+    return dgi, dgh, dh0
 
 
 gru_sequence_bwd.launches = 0
 
 
 class GRUSequence(torch.autograd.Function):
-    """K1 forward, K2 backward; the weight gradients reduced outside."""
+    """K1 forward, keeping the gates; K2 backward; the weight gradients
+    reduced outside."""
 
     @staticmethod
     def forward(ctx, gi, w_hh, b_hh, h0, num_reverse, use_kernels):
         run = gru_sequence if use_kernels else gru_sequence_plain
-        out = run(gi, w_hh, b_hh, h0, num_reverse)
-        ctx.save_for_backward(gi, w_hh, b_hh, h0, out)
+        out, gates = run(gi, w_hh, b_hh, h0, num_reverse, keep=True)
+        ctx.save_for_backward(gi, w_hh, h0, out, gates)
         ctx.num_reverse, ctx.use_kernels = num_reverse, use_kernels
         return out
 
     @staticmethod
     def backward(ctx, g):
-        gi, w_hh, b_hh, h0, out = ctx.saved_tensors
+        gi, w_hh, h0, out, gates = ctx.saved_tensors
         hprev = previous_states(out, h0, ctx.num_reverse)
         run = gru_sequence_bwd if ctx.use_kernels else gru_sequence_bwd_plain
-        dgi, dgh, dh0 = run(gi, hprev, g.contiguous(), w_hh, b_hh, ctx.num_reverse)
+        dgi, dgh, dh0 = run(gi, hprev, g.contiguous(), gates, w_hh, ctx.num_reverse)
         dw = torch.einsum("tsrh,tsrg->shg", hprev, dgh)
         return dgi, dw, dgh.sum(dim=(0, 2)), dh0, None, None
 
@@ -216,5 +236,11 @@ class GRUSequence(torch.autograd.Function):
 def gru_sequence_autograd(gi, w_hh, b_hh, h0, num_reverse: int = 0,
                           use_kernels: bool = True):
     """The differentiable state sequence (T, S, R, h). use_kernels=False runs
-    the plain forward and backward on any device (the reference)."""
-    return GRUSequence.apply(gi, w_hh, b_hh, h0, num_reverse, use_kernels)
+    the plain forward and backward on any device (the reference). When no
+    gradient will be taken (grad disabled, or no input requires one) the
+    forward keeps nothing for a backward."""
+    args = (gi, w_hh, b_hh, h0)
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in args)):
+        run = gru_sequence if use_kernels else gru_sequence_plain
+        return run(*args, num_reverse)
+    return GRUSequence.apply(*args, num_reverse, use_kernels)

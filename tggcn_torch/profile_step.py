@@ -1,0 +1,139 @@
+"""Time the stage-1 train step and the stage-1 request on the card, over
+more repetitions than chip_smoke.py takes, and split the train step's
+device time by kernel.
+
+    python -m tggcn_torch.profile_step [--steps N] [--requests N] [--seed N]
+
+Builds the stage-1 MPHOI model (``tggcn_torch.models.stage1``) at the full
+width on one CUDA card, with random weights and a seeded batch resident on
+the card, as chip_smoke.py's train phase does. Runs 2 warm-up train steps
+on the kernel route, then ``--steps`` timed steps (host clock, each ended
+by a synchronize), then 3 steps under ``torch.profiler``; then one warm-up
+request and ``--requests`` timed requests of the same shape (host->device
+copy included). Prints one JSON object: the card (name and power limit from
+nvidia-smi), the train step's and the request's wall ms (median and
+quartiles), the train step's device-busy ms and idle share, its device ms
+by group (K1-K4 by their kernel names, the rest as "other") and its
+largest kernels.
+
+It reads only entry points that earlier commits of the package also have,
+so a checkout of one can be timed the same way: from that checkout's root,
+``PYTHONPATH=. python <this file>`` (the checkout's own ``tggcn_torch`` is
+then the one imported). Needs a CUDA device.
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
+from tggcn_torch.models import stage1
+from tggcn_torch.models.registry import select_model
+from tggcn_torch.nn.distributions import gumbel_noise
+from tggcn_torch.profile_forward import _union_us
+from tggcn_torch.train.loop import make_train_step, trainable_parameters
+from tggcn_torch.train.losses import select_loss
+
+PROFILED_STEPS = 3
+# Kernel-name fragments of the train step's kernels (both designs' names).
+GROUPS = {"gru_step_kernel": "K1", "gru_bwd": "K2", "proj_kernel": "K3", "mix_kernel": "K3",
+          "cell_kernel": "K3", "segb_": "K4", "du_sum": "K4"}
+
+
+def group_of(name):
+    return next((g for key, g in GROUPS.items() if key in name), "other")
+
+
+def spread(times):
+    q = statistics.quantiles(times, n=4)
+    return dict(median=statistics.median(times), q1=q[0], q3=q[2], n=len(times))
+
+
+def timed(fn, reps):
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return times
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--requests", type=int, default=20)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: no CUDA device")
+    dev = torch.device("cuda", 0)
+    b, t, nh, no = (stage1.SHAPE[k] for k in ("b", "t", "humans", "objects"))
+
+    model = select_model("2G-GCN", device=dev, **stage1.MODEL_KWARGS)
+    trainable = {"model": model.init(torch.Generator().manual_seed(0))}
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage1.FEEDER_KWARGS)
+    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
+    data, targets = fetch(stage1.make_batch(np.random.default_rng(args.seed), b, t, nh, no))
+    data = [torch.as_tensor(x, device=dev) for x in data]
+    targets = [torch.as_tensor(y, device=dev) for y in targets]
+    noise = {"object": gumbel_noise((b, t, no, 2),
+                                    torch.Generator(device=dev).manual_seed(args.seed))}
+    optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage1.TRAIN["lr"])
+    step = make_train_step(model, feeder, criterion, optimizer,
+                           clip_gradient_at=stage1.TRAIN["clip"])
+    run_step = lambda: step(trainable, data, targets, noise=noise)
+
+    timed(run_step, 2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = timed(run_step, args.steps)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        wall = sum(timed(run_step, PROFILED_STEPS))
+    # Device events, without the ranges that user annotations (the
+    # optimizer's step) also mark on the device's timeline over the kernels.
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    per_name, per_group = defaultdict(float), defaultdict(float)
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        per_name[e.name] += us
+        per_group[group_of(e.name)] += us
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+
+    params = trainable["model"]
+    rng = np.random.default_rng(args.seed + 1)
+    requests = [stage1.make_request(rng, b, t, nh, no) for _ in range(args.requests + 1)]
+    with torch.no_grad():
+        model.apply(params, **requests[0])
+        torch.cuda.synchronize()
+        it = iter(requests[1:])
+        request_ms = timed(lambda: model.apply(params, **next(it)), args.requests)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=30).stdout.strip()
+    per_step = lambda us: us / 1e3 / PROFILED_STEPS
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    print(json.dumps({
+        "card": smi, "train_step_ms": spread(step_ms), "request_ms": spread(request_ms),
+        "train_step_peak_gib": peak_gib,
+        "profiled_steps": PROFILED_STEPS, "profiled_wall_ms_per_step": wall / PROFILED_STEPS,
+        "device_busy_ms_per_step": busy_ms / PROFILED_STEPS,
+        "device_idle_share": 1.0 - busy_ms / wall,
+        "kernel_launches_per_step": len(kernels) / PROFILED_STEPS,
+        "groups_ms_per_step": {k: per_step(v) for k, v in
+                               sorted(per_group.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_step": {k[:80]: per_step(v) for k, v in top}}))
+
+
+if __name__ == "__main__":
+    main()
