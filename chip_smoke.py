@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive tggcn_torch's stage-1 serving and training paths and its serving
-modes on one CUDA card.
+"""Drive tggcn_torch's stage-1 serving and training paths, in float32 and in
+bfloat16 (the dtype bench.py trains in), and its serving modes on one CUDA
+card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -40,12 +41,22 @@ exit and the phase's name if the phase hangs:
            seeded distances with exact zeros (ext)
   k6       the fused GeoGCN kernel (geo_gcn_fused) against its plain
            version over N = B * T = 1336 frames of V = 26 nodes
+  k1_bf16, k2_bf16, k3_bf16, k4_bf16
+           the bfloat16 variants of K1-K4 (the same wrappers, on bfloat16
+           inputs) against their plain bfloat16 versions at the same
+           shapes, as k1-k4, with the controls of each check (see
+           Tolerances); k1_bf16 and k2_bf16 time cuDNN's GRU in bfloat16
+           beside them
   forward  the 2G-GCN stage-1 forward at the full MPHOI width (hidden 512,
            gcn_node 26, input (2152, 2048), B=8, T=167, 2 humans, 4
            objects) on 3 seeded requests through select_model: finite
            outputs, K1 and K3 launched, and agreement with the plain path
            on the card (apply(..., use_kernels=False), which must launch
            no kernel)
+  forward_bf16
+           the same with compute_dtype bfloat16 (stage1.BENCH_DTYPE, the
+           dtype bench.py trains in): K1's and K3's bfloat16 variants
+           launched once a request; and the controls of the comparison
   train    the stage-1 train step (forward with train=True, the MPHOI loss
            bundle, backward through K2 and K4, Adam, BatchNorm write-back)
            at the same width: one step on the kernel route and one on the
@@ -56,6 +67,11 @@ exit and the phase's name if the phase hangs:
            steps on the kernel route, each of which must launch K1-K4, and
            their peak device memory, with only that route's weights, Adam
            state and batch alive before them
+  train_bf16
+           the same with compute_dtype bfloat16 (float32 masters and Adam
+           state): each timed step must launch the bfloat16 variants of
+           K1-K4; the controls of the gradient comparison (two more plain
+           steps)
   serve_modes
            the forward phase for each of stage1.SERVE_VARIANTS at the same
            width and shape: distance-based attention from seeded distances
@@ -79,7 +95,7 @@ plain version's ms is the median of its calls timed by CUDA events alone,
 the host's time between its many small launches included; a request's or
 a train step's ms is the host's clock around it, ended by a synchronize.
 
-Tolerances: each forward kernel agrees with its plain version within 1e-4
+Tolerances (float32): each forward kernel agrees with its plain version within 1e-4
 absolute (the states lie in (-1, 1); the kernels sum float32 products in
 another order than cuBLAS); each backward kernel within 1e-4 of the largest
 value of each output (the carried gradient sums over the sequence). Whole
@@ -95,21 +111,49 @@ counted and its batch row left out of the comparison (the train step is
 then run again on both routes without that row), at most one row per
 request or batch. Any other flip, or a second row with flips, fails the run.
 
+Tolerances (bfloat16; the values and the readings they were set from
+stand beside LIMITS_BF16): each bfloat16 forward kernel's outputs, and the
+float32 tensors it keeps, within one bfloat16 ulp at the scale of each
+tensor's largest value (kernel and plain version carry float32 state, but
+a float32 sum in another order can round a state to the neighbouring
+bfloat16, which the next step's products then read: an element-by-element
+ulp does not hold, and the phase line prints both); K2-bf16 within 5e-3
+and K4-bf16 within 1e-2 of each output's largest value; whole bfloat16
+forwards within 6e-4, with a decision marginal within 2^-7 of the
+threshold (two bfloat16 ulps above 0.5); the bfloat16 train step's losses
+within rtol 1e-2, each gradient leaf within 3.9e-2 of its largest; cuDNN's
+bfloat16 GRU, which rounds its carried state to bfloat16, within 5e-2 of
+the plain version. Beside these, each bfloat16 check runs two controls
+(check_controls) and fails unless its measure (LIMITS_BF16: for K1, K3 and
+K4 the norm of the difference over the norm, rel_l2) passes the plain
+route with float64 sums, a correct version whose sums differ as the
+kernels' do, and fails the plain route with its carried state and dL/dh
+rounded to bfloat16 every step, as JAX's XLA route carries them: the line
+"... carry rounded to bfloat16 ... (must fail)" shows that the check sees
+that fault. The weights after the bfloat16 step are not held apart: Adam's
+first step moves each by less than lr either way, and the gradient check
+bounds them.
+
 Bounds: the bytes each kernel must move (inputs read once, outputs written
 once) over the HBM rate, or its arithmetic, whichever takes longer: the
 FLOPs of its float32 products at a third of the TF32 tensor-core rate (the
-3xTF32 split keeps float32 accuracy) and its other FLOPs at the float32 FMA
-rate. Each kernel's phase line also gives bound_fma_ms, the same work with
-the products on the FMA units.
+3xTF32 split keeps float32 accuracy), of the bfloat16 variants' products
+at a third of the BF16 rate (K1, K2: a float32 state against bfloat16
+weights at float32 accuracy, fastest as three BF16 products on a
+three-part split of the state) or at the BF16 rate (K3, K4: bfloat16 x
+bfloat16), and its other FLOPs at the float32 FMA rate. Each kernel's
+phase line also gives bound_fma_ms, the same work with the products on the
+FMA units.
 
 Library: one PyTorch call that computes a kernel's function, timed beside
-it and used nowhere in the port. Only K1 and K2 have one, and it takes
-several calls (cuDNN's GRU, one per stream, with identity input weights):
-an upper bound on the library's time.
+it and used nowhere in the port. Only K1 and K2 (and their bfloat16
+variants) have one, and it takes several calls (cuDNN's GRU, one per
+stream, with identity input weights): an upper bound on the library's time.
 
 The second-to-last line is a JSON object with each kernel's launches (K1-K4
-on the timed train steps, K5 and K6 on the serve_modes requests), error,
-times and bound; the last line is {"ok": true, "device": {...}}. Without a
+on the timed train steps, their bfloat16 variants on the timed bfloat16
+train steps, K5 and K6 on the serve_modes requests), error, times and
+bound; the last line is {"ok": true, "device": {...}}. Without a
 CUDA device the script exits 1 and prints no result.
 """
 
@@ -126,21 +170,60 @@ from functools import partial
 
 import numpy as np
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, float32
-# FLOP/s outside the tensor cores, and TF32 FLOP/s on them. A float32 product
-# at float32 accuracy takes three TF32 products (the 3xTF32 split of
-# tc_gemm.cuh), so the least time of a product's FLOPs is at a third of the
-# TF32 rate; the rest of the arithmetic (scores, mixing) is at the FMA rate.
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s,
+# float32 FLOP/s outside the tensor cores, and TF32 (495 TFLOP/s) and BF16
+# (989 TFLOP/s) FLOP/s on them. A float32 product at float32 accuracy takes
+# three TF32 products (the 3xTF32 split of tc_gemm.cuh), so the least time
+# of a product's FLOPs is at a third of the TF32 rate; a bfloat16 x bfloat16
+# product (K3 and K4 in bfloat16) runs at the BF16 rate. A float32
+# activation against a bfloat16 weight (K1 and K2 in bfloat16) at float32
+# accuracy is fastest as three BF16 products, the activation split into
+# three bfloat16 parts against the exact weight: a third of the BF16 rate,
+# whatever split the kernel uses (K1 and K2 take two TF32 products, half
+# the TF32 rate, which is slower). The rest of the arithmetic (scores,
+# mixing) is at the FMA rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 PRODUCT_FLOP_PER_S = 495e12 / 3
+BF16_FLOP_PER_S = 989e12
+F32_BF16_FLOP_PER_S = BF16_FLOP_PER_S / 3
 KERNEL_ATOL = 1e-4
 KERNEL_GRAD_RTOL = 1e-4
+LIBRARY_BF16_ATOL = 5e-2            # cuDNN's GRU in bfloat16 rounds its carried state
+LIBRARY_BF16_GRAD_RTOL = 5e-2
 FORWARD_RTOL = FORWARD_ATOL = 1e-4
 LOSS_RTOL = 1e-4
 LEAF_GRAD_RTOL = 1e-3
+# bfloat16, each limit set between two readings on the card (H100 80GB
+# HBM3, 700 W; check_controls prints them every run): the plain route with
+# float64 sums, a correct version whose sums differ from the float32 plain
+# route's, below; the plain route with its carry rounded to bfloat16 every
+# step, as JAX's XLA route carries it, above. Kernel route, float64 sums,
+# rounded carry, as measured:
+#   K1 rel_l2 2.0e-5, 2.0e-5, 2.0e-3 (all 1 bfloat16 ulp of the largest)
+#   K2 max_share 3.47e-3, 1.81e-3, 7.25e-3; rel_l2 4.1e-5, 3.9e-5, 2.0e-3
+#   K3 rel_l2 1.78e-3, 1.82e-3, 2.79e-3 (all 0.5 ulp of the largest)
+#   K4 rel_l2 2.64e-3, 2.64e-3, 5.13e-3 (max_share 8.9e-3, 1.27e-2, 1.27e-2:
+#      a correct version with other sums lies 1.27e-2 away, so K4's 1e-2
+#      of each output's largest tells no rounded carry apart)
+#   request max_abs 3.8e-4, 3.9e-4, 8.9e-4
+#   train step gradients max_share 2.65e-2, 3.05e-2, 5.78e-2: 3.9e-2 is
+#      also the worst leaf of the JAX package's bfloat16 kernels against
+#      its XLA route (BASELINE.md)
+GRU_GRAD_RTOL_BF16 = 5e-3
+SCAN_GRAD_RTOL_BF16 = 1e-2
+LOSS_RTOL_BF16 = 1e-2
+LEAF_GRAD_RTOL_BF16 = 3.9e-2
+FORWARD_ATOL_BF16 = 6e-4
+# The measures (tensor_gaps, forward_gaps, grad_gaps) of each bfloat16
+# check that its controls test (check_controls).
+LIMITS_BF16 = {"k1": {"rel_l2": 2e-4}, "k2": {"max_share": GRU_GRAD_RTOL_BF16, "rel_l2": 4e-4},
+               "k3": {"rel_l2": 2.25e-3}, "k4": {"rel_l2": 3.7e-3},
+               "forward": {"max_abs": FORWARD_ATOL_BF16},
+               "train": {"max_share": LEAF_GRAD_RTOL_BF16}}
 GRAD_FLOOR = 1e-6
 MARGINAL = 1e-4
+MARGINAL_BF16 = 2.0 ** -7         # two bfloat16 ulps above 0.5: a soft decision in bfloat16
 SPIN_CYCLES = 20_000_000         # about 10 ms at the H100's clock: longer than any wrapper's host time
 REQUESTS = 3
 TRAIN_STEPS = 3
@@ -158,7 +241,9 @@ NO_LIBRARY = {
 
 PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k4": 300,
                  "k5_v1": 240, "k5_v4": 240, "k5_ext": 240, "k6": 120,
-                 "forward": 300, "train": 420, "serve_modes": 600, "small": 180}
+                 "k1_bf16": 180, "k2_bf16": 180, "k3_bf16": 240, "k4_bf16": 300,
+                 "forward": 300, "forward_bf16": 300, "train": 420, "train_bf16": 420,
+                 "serve_modes": 600, "small": 180}
 # The kernels of the train step, and of each serving mode's segment scan.
 TRAIN_KERNELS = ("gru_sequence", "gru_sequence_bwd", "segment_scan_dot", "segment_scan_dot_bwd")
 MODE_KERNEL = {"dist": "segment_scan_ext", "v1": "segment_scan_v1", "v4": "segment_scan_v4",
@@ -214,11 +299,11 @@ def bound(byte_count, product_flops, other_flops=0.0, product_rate=PRODUCT_FLOP_
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bounds(byte_count, product_flops, other_flops=0.0):
+def bounds(byte_count, product_flops, other_flops=0.0, product_rate=PRODUCT_FLOP_PER_S):
     """The kernel row's bound_ms and bound_by, and bound_fma_ms: the same
     work with the products on the FMA units, the rule before the port's
     products moved onto the tensor cores (kept as a note)."""
-    ms, by = bound(byte_count, product_flops, other_flops)
+    ms, by = bound(byte_count, product_flops, other_flops, product_rate)
     fma_ms, _ = bound(byte_count, product_flops, other_flops, product_rate=F32_FLOP_PER_S)
     return dict(bound_ms=ms, bound_by=by, bound_fma_ms=fma_ms)
 
@@ -235,39 +320,161 @@ def check_kernel(name, got, want):
     return err
 
 
-def run_k1(torch, dev, shape):
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at x > 0: 2^(floor(log2 x) - 7)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def check_kernel_bf16(torch, name, got, want):
+    """A bfloat16 forward kernel's outputs and the float32 tensors it keeps
+    against its plain version: each within one bfloat16 ulp at the scale of
+    its largest value. Prints and returns the max abs error; the line also
+    gives the largest error in those ulps and in ulps of each element
+    itself (over the elements of at least 2^-8 of their tensor's largest)."""
+    err = ulps = own = 0.0
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not bool(g.isfinite().all()):
+            raise AssertionError(f"{name}: an output is not finite or not {w.dtype}")
+        d, a = (g.double() - w.double()).abs(), w.double().abs()
+        top, e = float(a.max()), float(d.max())
+        err, ulps = max(err, e), max(ulps, e / (bf16_ulp(top) or 1.0))
+        big = a >= top * 2.0 ** -8
+        if bool(big.any()):
+            own = max(own, float((d[big] / torch.ldexp(torch.ones_like(a[big]),
+                                                       torch.frexp(a[big])[1] - 8)).max()))
+        if not e <= bf16_ulp(top):
+            raise AssertionError(f"{name}: kernel and plain version differ by {e:.3e}, more "
+                                 f"than one bfloat16 ulp of the largest value {top:.3e}")
+    print(f"{name}: kernel vs plain max abs err {err:.3e}, {ulps:.3f} bfloat16 ulps of each "
+          f"tensor's largest value (limit 1), {own:.3f} ulps of an element itself", flush=True)
+    return err, ulps
+
+
+@contextlib.contextmanager
+def control(kind):
+    """The plain route of K1-K4 made deliberately different, to read what a
+    bfloat16 check sees. 'sums': the plain versions sum in float64 and
+    round to bfloat16 at the same points, a correct version whose sums
+    differ from the float32 plain versions' as the kernels' do (a check
+    must pass it); 'carry': the plain versions round the carried state and
+    dL/dh to bfloat16 after every step, as JAX's XLA route does and the
+    kernels must not (a check must fail it)."""
+    from tggcn_torch.ops import _build, gru_sequence, segment_scan
+
+    saved = []
+
+    def patch(owner, name, value):
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    if kind == "sums":
+        patch(_build, "upcast", lambda x: x.double())
+        patch(_build, "rounding", lambda io: lambda x: x.to(io).double())
+    else:
+        for owner, name in ((gru_sequence, "gru_sequence_plain"),
+                            (gru_sequence, "gru_sequence_bwd_plain"),
+                            (segment_scan, "segment_scan_dot_plain"),
+                            (segment_scan, "segment_scan_dot_bwd_plain")):
+            patch(owner, name, partial(getattr(owner, name), round_carry=True))
+    try:
+        yield
+    finally:
+        for owner, name, value in reversed(saved):
+            setattr(owner, name, value)
+
+
+def tensor_gaps(got, want):
+    """How far the tensors got lie from want, each measure the largest over
+    the tensors: max_share, the largest difference as a share of the
+    tensor's largest value; ulps, the same in bfloat16 ulps of that value;
+    rel_l2, the norm of the difference over the tensor's norm."""
+    out = dict(max_share=0.0, ulps=0.0, rel_l2=0.0)
+    for g, w in zip(got, want):
+        d, w = g.double() - w.double(), w.double()
+        top, e = float(w.abs().max()), float(d.abs().max())
+        out["max_share"] = max(out["max_share"], e / (top or 1.0))
+        out["ulps"] = max(out["ulps"], e / (bf16_ulp(top) or 1.0))
+        out["rel_l2"] = max(out["rel_l2"], float(d.norm()) / (float(w.norm()) or 1.0))
+    return out
+
+
+def check_controls(name, gap, plain, got, want, limits):
+    """A bfloat16 check's two controls (see control) against the plain
+    route's outputs want: plain() reruns the plain route (reaching the
+    plain versions through their modules, where control patches them),
+    gap(got, want) gives the measures (tensor_gaps). Prints the kernel
+    route's (got) measures and the controls'; for each measure in limits,
+    the kernel route and the 'sums' control must lie within the limit and
+    the 'carry' control beyond it. Returns the measures."""
+    rows = {"kernel": gap(got, want)}
+    for kind in ("sums", "carry"):
+        with control(kind):
+            rows[kind] = gap(plain(), want)
+    for kind, row in rows.items():
+        print(f"{name} {kind} vs plain: " + ", ".join(f"{k} {v:.4g}" for k, v in row.items()),
+              flush=True)
+    for key, limit in limits.items():
+        kernel, sums, carry = (rows[kind][key] for kind in ("kernel", "sums", "carry"))
+        print(f"{name} {key}: kernel {kernel:.4g}, float64 sums {sums:.4g} (must pass), "
+              f"carry rounded to bfloat16 {carry:.4g} (must fail); limit {limit:g}", flush=True)
+        if not max(kernel, sums) <= limit < carry:
+            raise AssertionError(f"{name}: {key} limit {limit:g} does not lie between kernel "
+                                 f"{kernel:.4g} and float64 sums {sums:.4g} below and a "
+                                 f"rounded carry {carry:.4g} above")
+    return {f"{kind}_{k}": v for kind, row in rows.items() for k, v in row.items()}
+
+
+def run_k1(torch, dev, shape, dtype=None):
+    """K1 (or, with dtype bfloat16, K1's bfloat16 variant) against its
+    plain version, timed, with cuDNN's GRU in the same dtype."""
+    import tggcn_torch.ops.gru_sequence as gru_ops
     from tggcn_torch.ops.gru_sequence import gru_sequence, gru_sequence_plain
     from tggcn_torch.profile_gru import (cudnn_grus, cudnn_inputs, cudnn_sequence,
                                          cudnn_states, gru_inputs)
     from tggcn_torch.profile_scan import device_ms_by_kernel
 
+    bf16 = dtype == torch.bfloat16
+    tag = "k1_bf16" if bf16 else "k1"
     t, s, r, h = shape
     args = gru_inputs(dev, torch.Generator(device=dev).manual_seed(1), t, s, r, h)
+    if bf16:
+        args = tuple(x.to(dtype) for x in args)
     nr = s // 2
     want, want_gates = gru_sequence_plain(*args, nr, keep=True)
     got, gates = gru_sequence(*args, nr, keep=True)
     served = gru_sequence(*args, nr)
-    err = check_kernel("gru_sequence", [got, gates, served], [want, want_gates, want])
+    controls = {}
+    if bf16:
+        err, ulps = check_kernel_bf16(torch, "gru_sequence_bf16", [got, gates, served],
+                                      [want, want_gates, want])
+        controls = check_controls("gru_sequence_bf16", tensor_gaps,
+                                  lambda: gru_ops.gru_sequence_plain(*args, nr, keep=True),
+                                  [got, gates], [want, want_gates], LIMITS_BF16["k1"])
+    else:
+        err = check_kernel("gru_sequence", [got, gates, served], [want, want_gates, want])
     grus = cudnn_grus(*args[1:3])
     xs, h0s = cudnn_inputs(args[0], args[3], nr)
     lib_err = max_err(cudnn_states(cudnn_sequence(grus, xs, h0s), nr), want)
-    if not lib_err <= KERNEL_ATOL:
+    lib_limit = LIBRARY_BF16_ATOL if bf16 else KERNEL_ATOL
+    if not lib_err <= lib_limit:
         raise AssertionError(f"the cuDNN GRU and the plain version differ by {lib_err:.3e}")
     ms = cuda_ms(torch, lambda: gru_sequence(*args, nr, keep=True), 5, spin=True)
     served_ms = cuda_ms(torch, lambda: gru_sequence(*args, nr), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: gru_sequence_plain(*args, nr, keep=True), 3)
     library_ms = cuda_ms(torch, lambda: cudnn_sequence(grus, xs, h0s), 5, spin=True)
-    print_split("k1", device_ms_by_kernel(lambda: gru_sequence(*args, nr, keep=True), 1))
-    print(f"k1 ms {ms:.3f} keeping the gates (a train step's call), {served_ms:.3f} keeping "
+    print_split(tag, device_ms_by_kernel(lambda: gru_sequence(*args, nr, keep=True), 1))
+    print(f"{tag} ms {ms:.3f} keeping the gates (a train step's call), {served_ms:.3f} keeping "
           f"none (a request's); library: the cuDNN GRU in {s} calls {library_ms:.3f} ms, max "
           f"abs err vs plain {lib_err:.3e}", flush=True)
-    return dict(name="gru_sequence", route="cuda", source="tggcn_torch/csrc/gru_sequence.cu",
+    return dict(name="gru_sequence_bf16" if bf16 else "gru_sequence", route="cuda",
+                source="tggcn_torch/csrc/gru_sequence.cu",
                 replaces="tggcn/ops/gru_pallas.py:147", max_abs_err=err, ms=ms,
-                served_ms=served_ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bounds(nbytes(*args, got, gates), 2.0 * t * s * r * h * 3 * h))
+                served_ms=served_ms, plain_ms=plain_ms, library_ms=library_ms, **controls,
+                **bounds(nbytes(*args, got, gates), 2.0 * t * s * r * h * 3 * h,
+                         product_rate=F32_BF16_FLOP_PER_S if bf16 else PRODUCT_FLOP_PER_S))
 
 
-def check_grads(name, got, want):
+def check_grads(name, got, want, limit=KERNEL_GRAD_RTOL):
     """(max abs error, max error relative to each output's largest value)."""
     err = rel = 0.0
     for g, w in zip(got, want):
@@ -275,29 +482,42 @@ def check_grads(name, got, want):
         err, rel = max(err, e), max(rel, e / (float(w.abs().max()) or 1.0))
         if not bool(g.isfinite().all()):
             raise AssertionError(f"{name}: the output is not finite")
-    if not rel <= KERNEL_GRAD_RTOL:
+    if not rel <= limit:
         raise AssertionError(f"{name} and the plain version differ by {rel:.3e} of the "
-                             f"largest gradient (limit {KERNEL_GRAD_RTOL})")
+                             f"largest gradient (limit {limit})")
     return err, rel
 
 
-def run_k2(torch, dev, shape):
+def run_k2(torch, dev, shape, dtype=None):
+    """K2 (or its bfloat16 variant) against its plain version, timed, with
+    cuDNN's GRU forward and backward in the same dtype."""
+    import tggcn_torch.ops.gru_sequence as gru_ops
     from tggcn_torch.ops.gru_sequence import gru_sequence_bwd, gru_sequence_bwd_plain
     from tggcn_torch.profile_gru import (cudnn_grus, cudnn_inputs, cudnn_sequence,
                                          gru_bwd_inputs, gru_inputs)
     from tggcn_torch.profile_scan import device_ms_by_kernel
 
+    bf16 = dtype == torch.bfloat16
+    tag = "k2_bf16" if bf16 else "k2"
+    limit = GRU_GRAD_RTOL_BF16 if bf16 else KERNEL_GRAD_RTOL
     t, s, r, h = shape
     gen = torch.Generator(device=dev).manual_seed(4)
     fwd = gru_inputs(dev, gen, t, s, r, h)
+    if bf16:
+        fwd = tuple(x.to(dtype) for x in fwd)
     nr = s // 2
     args = gru_bwd_inputs(*fwd, nr, gen)
     got = gru_sequence_bwd(*args, nr)
     want = gru_sequence_bwd_plain(*args, nr)
-    err, rel = check_grads("gru_sequence_bwd", got, want)
+    err, rel = check_grads(f"gru_sequence_bwd{'_bf16' if bf16 else ''}", got, want, limit)
+    controls = {}
+    if bf16:
+        controls = check_controls("gru_sequence_bwd_bf16", tensor_gaps,
+                                  lambda: gru_ops.gru_sequence_bwd_plain(*args, nr), got, want,
+                                  LIMITS_BF16["k2"])
     ms = cuda_ms(torch, lambda: gru_sequence_bwd(*args, nr), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: gru_sequence_bwd_plain(*args, nr), 3)
-    print_split("k2", device_ms_by_kernel(lambda: gru_sequence_bwd(*args, nr), 1))
+    print_split(tag, device_ms_by_kernel(lambda: gru_sequence_bwd(*args, nr), 1))
 
     # The library's forward and backward: the cuDNN GRUs' gradients with
     # respect to their inputs (gi, through identity input weights) and
@@ -314,21 +534,25 @@ def run_k2(torch, dev, shape):
     grads = library()
     dgi = torch.stack([d if i < s - nr else d.flip(0) for i, d in enumerate(grads[:s])], dim=1)
     _, lib_rel = check_grads("the cuDNN GRU's backward", [dgi, torch.cat(grads[s:])],
-                             [want[0], want[2]])
+                             [want[0], want[2]],
+                             LIBRARY_BF16_GRAD_RTOL if bf16 else KERNEL_GRAD_RTOL)
     library_ms = cuda_ms(torch, library, 5, spin=True)
-    print(f"k2 library: the cuDNN GRU's forward and backward in {s} calls {library_ms:.3f} ms, "
-          f"max err vs plain {lib_rel:.3e} of the largest gradient", flush=True)
+    print(f"{tag} library: the cuDNN GRU's forward and backward in {s} calls {library_ms:.3f} "
+          f"ms, max err vs plain {lib_rel:.3e} of the largest gradient", flush=True)
     byte_count = nbytes(*args, *got)
-    new = bounds(byte_count, 2.0 * t * s * r * h * 3 * h)
+    rate = F32_BF16_FLOP_PER_S if bf16 else PRODUCT_FLOP_PER_S
+    new = bounds(byte_count, 2.0 * t * s * r * h * 3 * h, product_rate=rate)
     # The design before K1 kept its gates: gh recomputed, two products a step.
-    old = bounds(byte_count - nbytes(args[3]) + nbytes(fwd[2]), 4.0 * t * s * r * h * 3 * h)
-    print(f"k2 bound {new['bound_ms']:.3f} ms ({new['bound_by']}; one product a step as "
-          f"3xTF32, {new['bound_fma_ms']:.3f} ms on the FMA units); with gh recomputed as "
-          f"before K1 kept its gates: {old['bound_ms']:.3f} ms ({old['bound_by']}; "
-          f"{old['bound_fma_ms']:.3f} ms on the FMA units)", flush=True)
-    return dict(name="gru_sequence_bwd", route="cuda", source="tggcn_torch/csrc/gru_sequence_bwd.cu",
+    old = bounds(byte_count - nbytes(args[3]) + nbytes(fwd[2]), 4.0 * t * s * r * h * 3 * h,
+                 product_rate=rate)
+    print(f"{tag} bound {new['bound_ms']:.3f} ms ({new['bound_by']}; one product a step as "
+          f"{'three BF16 products' if bf16 else '3xTF32'}, {new['bound_fma_ms']:.3f} ms on the "
+          f"FMA units); with gh recomputed as before K1 kept its gates: {old['bound_ms']:.3f} "
+          f"ms ({old['bound_by']}; {old['bound_fma_ms']:.3f} ms on the FMA units)", flush=True)
+    return dict(name="gru_sequence_bwd_bf16" if bf16 else "gru_sequence_bwd", route="cuda",
+                source="tggcn_torch/csrc/gru_sequence_bwd.cu",
                 replaces="tggcn/ops/gru_pallas.py:167", max_abs_err=err, max_rel_err=rel, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, **new)
+                plain_ms=plain_ms, library_ms=library_ms, **controls, **new)
 
 
 def k3_flops(t, b, nh, no, h):
@@ -345,26 +569,41 @@ def print_split(name, split):
         f"{k} {v['ms']:.3f} ({v['launches']:g} launches)" for k, v in split.items()), flush=True)
 
 
-def run_k3(torch, dev, shape):
+def run_k3(torch, dev, shape, dtype=None):
+    """K3 (or its bfloat16 variant) against its plain version, timed."""
+    import tggcn_torch.ops.segment_scan as scan_ops
     from tggcn_torch.ops.segment_scan import segment_scan_dot, segment_scan_dot_plain
     from tggcn_torch.profile_scan import device_ms_by_kernel, scan_inputs
 
+    bf16 = dtype == torch.bfloat16
     t, b, nh, no, h = shape
     args = scan_inputs(dev, torch.Generator(device=dev).manual_seed(2), t, b, nh, no, h)
+    if bf16:
+        args = {k: v.to(dtype) for k, v in args.items()}
     scale = 1.0 / math.sqrt(h)
     got = segment_scan_dot(**args, scale=scale)
     want = segment_scan_dot_plain(**args, scale=scale)
-    err = check_kernel("segment_scan_dot", got, want)
     served = segment_scan_dot(**args, scale=scale, keep=False)
-    err = max(err, check_kernel("segment_scan_dot (serving)", served, want[:3]))
+    controls = {}
+    if bf16:
+        err, ulps = check_kernel_bf16(torch, "segment_scan_dot_bf16", list(got) + list(served),
+                                      list(want) + list(want[:3]))
+        controls = check_controls("segment_scan_dot_bf16", tensor_gaps,
+                                  lambda: scan_ops.segment_scan_dot_plain(**args, scale=scale),
+                                  got, want, LIMITS_BF16["k3"])
+    else:
+        err = check_kernel("segment_scan_dot", got, want)
+        err = max(err, check_kernel("segment_scan_dot (serving)", served, want[:3]))
     ms = cuda_ms(torch, lambda: segment_scan_dot(**args, scale=scale), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: segment_scan_dot_plain(**args, scale=scale), 3)
-    print_split("k3", device_ms_by_kernel(lambda: segment_scan_dot(**args, scale=scale), 1))
-    return dict(name="segment_scan_dot", route="cuda",
+    print_split("k3_bf16" if bf16 else "k3",
+                device_ms_by_kernel(lambda: segment_scan_dot(**args, scale=scale), 1))
+    return dict(name="segment_scan_dot_bf16" if bf16 else "segment_scan_dot", route="cuda",
                 source="tggcn_torch/csrc/segment_scan.cu",
                 replaces="tggcn/ops/segment_scan_pallas.py:268", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=None,
-                **bounds(nbytes(*args.values(), *got), *k3_flops(t, b, nh, no, h)))
+                plain_ms=plain_ms, library_ms=None, **controls,
+                **bounds(nbytes(*args.values(), *got), *k3_flops(t, b, nh, no, h),
+                         product_rate=BF16_FLOP_PER_S if bf16 else PRODUCT_FLOP_PER_S))
 
 
 def k4_flops(t, b, nh, no, h):
@@ -385,33 +624,50 @@ def k4_flops_recompute(t, b, nh, no, h):
             other + 2.0 * t * 2 * 2 * b * e * e * h)
 
 
-def run_k4(torch, dev, shape):
+def run_k4(torch, dev, shape, dtype=None):
+    """K4 (or its bfloat16 variant) against its plain version, timed."""
+    import tggcn_torch.ops.segment_scan as scan_ops
     from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, segment_scan_dot_bwd,
                                               segment_scan_dot_bwd_plain)
     from tggcn_torch.profile_scan import bwd_inputs, device_ms_by_kernel, scan_inputs
 
+    bf16 = dtype == torch.bfloat16
+    tag = "k4_bf16" if bf16 else "k4"
     t, b, nh, no, h = shape
     gen = torch.Generator(device=dev).manual_seed(5)
     scale = 1.0 / math.sqrt(h)
-    args = bwd_inputs(scan_inputs(dev, gen, t, b, nh, no, h), gen, scale)
+    fwd = scan_inputs(dev, gen, t, b, nh, no, h)
+    if bf16:
+        fwd = {k: v.to(dtype) for k, v in fwd.items()}
+    args = bwd_inputs(fwd, gen, scale)
     got = segment_scan_dot_bwd(**args, scale=scale)
     want = segment_scan_dot_bwd_plain(**args, scale=scale)
-    err, rel = check_grads("segment_scan_dot_bwd", [got[k] for k in BWD_OUTPUTS],
-                           [want[k] for k in BWD_OUTPUTS])
+    err, rel = check_grads(f"segment_scan_dot_bwd{'_bf16' if bf16 else ''}",
+                           [got[k] for k in BWD_OUTPUTS], [want[k] for k in BWD_OUTPUTS],
+                           SCAN_GRAD_RTOL_BF16 if bf16 else KERNEL_GRAD_RTOL)
+    controls = {}
+    if bf16:
+        controls = check_controls(
+            "segment_scan_dot_bwd_bf16", tensor_gaps,
+            lambda: [scan_ops.segment_scan_dot_bwd_plain(**args, scale=scale)[k]
+                     for k in BWD_OUTPUTS],
+            [got[k] for k in BWD_OUTPUTS], [want[k] for k in BWD_OUTPUTS], LIMITS_BF16["k4"])
     ms = cuda_ms(torch, lambda: segment_scan_dot_bwd(**args, scale=scale), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: segment_scan_dot_bwd_plain(**args, scale=scale), 2)
-    print_split("k4", device_ms_by_kernel(lambda: segment_scan_dot_bwd(**args, scale=scale), 1))
+    print_split(tag, device_ms_by_kernel(lambda: segment_scan_dot_bwd(**args, scale=scale), 1))
     byte_count = nbytes(*args.values(), *got.values())
-    new = bounds(byte_count, *k4_flops(t, b, nh, no, h))
-    old = bounds(byte_count, *k4_flops_recompute(t, b, nh, no, h))
-    print(f"k4 bound {new['bound_ms']:.3f} ms ({new['bound_by']}; products as 3xTF32, "
-          f"{new['bound_fma_ms']:.3f} ms on the FMA units); with the gates, scores and mixing "
-          f"recomputed as before K3 kept them: {old['bound_ms']:.3f} ms ({old['bound_by']}; "
-          f"{old['bound_fma_ms']:.3f} ms on the FMA units)", flush=True)
-    return dict(name="segment_scan_dot_bwd", route="cuda",
-                source="tggcn_torch/csrc/segment_scan_bwd.cu",
+    rate = BF16_FLOP_PER_S if bf16 else PRODUCT_FLOP_PER_S
+    new = bounds(byte_count, *k4_flops(t, b, nh, no, h), product_rate=rate)
+    old = bounds(byte_count, *k4_flops_recompute(t, b, nh, no, h), product_rate=rate)
+    print(f"{tag} bound {new['bound_ms']:.3f} ms ({new['bound_by']}; products as "
+          f"{'bfloat16' if bf16 else '3xTF32'}, {new['bound_fma_ms']:.3f} ms on the FMA units); "
+          f"with the gates, scores and mixing recomputed as before K3 kept them: "
+          f"{old['bound_ms']:.3f} ms ({old['bound_by']}; {old['bound_fma_ms']:.3f} ms on the "
+          f"FMA units)", flush=True)
+    return dict(name="segment_scan_dot_bwd_bf16" if bf16 else "segment_scan_dot_bwd",
+                route="cuda", source="tggcn_torch/csrc/segment_scan_bwd.cu",
                 replaces="tggcn/ops/segment_scan_pallas.py:546", max_abs_err=err,
-                max_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=None, **new)
+                max_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=None, **controls, **new)
 
 
 def k5_flops(mode, t, b, nh, no, h):
@@ -475,16 +731,16 @@ def run_k6(torch, dev, shape):
                 plain_ms=plain_ms, library_ms=None, **bounds(nbytes(x, *weights, got), flops))
 
 
-def decision_rows(torch, aux_g, aux_w, what):
+def decision_rows(torch, aux_g, aux_w, what, marginal=MARGINAL):
     """Batch rows whose object decisions agree in both runs (a bool mask),
     the number of marginal flips and the number of rows left out (at most
-    one); any flip away from the threshold fails."""
+    one); any flip away from the threshold (by marginal or more) fails."""
     hard_g, soft_g = (x.detach().cpu() for x in aux_g["object_decisions"])
     hard_w, soft_w = (x.detach().cpu() for x in aux_w["object_decisions"])
     flips = hard_g != hard_w
     if flips.any():
         margin = torch.maximum((soft_g[flips] - 0.5).abs(), (soft_w[flips] - 0.5).abs())
-        if float(margin.max()) >= MARGINAL:
+        if float(margin.max()) >= marginal:
             raise AssertionError(f"{what}: object decisions differ away from the threshold")
     rows = ~flips.flatten(1).any(dim=1)
     dropped = int((~rows).sum())
@@ -493,55 +749,87 @@ def decision_rows(torch, aux_g, aux_w, what):
     return rows, int(flips.sum()), dropped
 
 
-def compare_forward(torch, got, want, what):
+def forward_gaps(torch, got, want):
+    """tensor_gaps of the outputs of requests got against want, with
+    max_abs, the largest absolute difference, over the batch rows whose
+    object decisions agree (as compare_forward in bfloat16); every
+    measure inf if a decision flipped away from the threshold."""
+    pairs = []
+    for (out_g, aux_g), (out_w, aux_w) in zip(got, want):
+        try:
+            rows, _, _ = decision_rows(torch, aux_g, aux_w, "control", MARGINAL_BF16)
+        except AssertionError:
+            return dict(max_abs=math.inf, max_share=math.inf, ulps=math.inf, rel_l2=math.inf)
+        pairs += [(g.cpu()[rows], w.cpu()[rows]) for g, w in zip(out_g, out_w)]
+    return dict(max_abs=max(max_err(g, w) for g, w in pairs),
+                **tensor_gaps(*zip(*pairs)))
+
+
+def compare_forward(torch, got, want, what, bf16=False):
     """Max abs difference of two (outputs, aux) results of one request, the
     number of marginal object-decision flips and the number of batch rows
-    left out of the comparison for them (at most one)."""
+    left out of the comparison for them (at most one). Float32 outputs agree
+    within rtol FORWARD_RTOL, atol FORWARD_ATOL; with bf16 (the bfloat16
+    compute dtype) within FORWARD_ATOL_BF16, and a flip is marginal within
+    MARGINAL_BF16 of the threshold."""
     (out_g, aux_g), (out_w, aux_w) = got, want
-    rows, flips, dropped = decision_rows(torch, aux_g, aux_w, what)
+    rows, flips, dropped = decision_rows(torch, aux_g, aux_w, what,
+                                         MARGINAL_BF16 if bf16 else MARGINAL)
     err = 0.0
     for i, (g, w) in enumerate(zip(out_g, out_w)):
         g, w = g.cpu()[rows], w.cpu()[rows]
         if not bool(g.isfinite().all()):
             raise AssertionError(f"{what}: output {i} is not finite")
-        if g.shape != w.shape or not torch.allclose(g, w, rtol=FORWARD_RTOL, atol=FORWARD_ATOL):
+        if bf16:
+            close = g.shape == w.shape and max_err(g, w) <= FORWARD_ATOL_BF16
+        else:
+            close = g.shape == w.shape and torch.allclose(g, w, rtol=FORWARD_RTOL,
+                                                          atol=FORWARD_ATOL)
+        if not close:
             raise AssertionError(f"{what}: output {i} differs by {max_err(g, w):.3e}")
         err = max(err, max_err(g, w))
     return err, flips, dropped
 
 
-def kernel_wrappers():
-    """The wrapper of each kernel, by name; each counts its launches."""
+def kernel_counters():
+    """Each kernel's launch counter by name: (its wrapper, the attribute
+    that counts its launches). The float32 and bfloat16 variants of K1-K4
+    share a wrapper and count apart."""
     from tggcn_torch.ops import segment_scan
     from tggcn_torch.ops.geo_gcn import geo_gcn_fused
     from tggcn_torch.ops.gru_sequence import gru_sequence, gru_sequence_bwd
 
-    return {"gru_sequence": gru_sequence, "gru_sequence_bwd": gru_sequence_bwd,
-            **{name: getattr(segment_scan, name) for name in (
-                "segment_scan_dot", "segment_scan_dot_bwd", "segment_scan_v1",
-                "segment_scan_v4", "segment_scan_ext")},
-            "geo_gcn_fused": geo_gcn_fused}
+    wrappers = {"gru_sequence": gru_sequence, "gru_sequence_bwd": gru_sequence_bwd,
+                **{name: getattr(segment_scan, name) for name in (
+                    "segment_scan_dot", "segment_scan_dot_bwd", "segment_scan_v1",
+                    "segment_scan_v4", "segment_scan_ext")},
+                "geo_gcn_fused": geo_gcn_fused}
+    counters = {name: (wrapper, "launches") for name, wrapper in wrappers.items()}
+    counters.update({f"{name}_bf16": (wrappers[name], "launches_bf16")
+                     for name in TRAIN_KERNELS})
+    return counters
 
 
 def reset_launches():
-    for wrapper in kernel_wrappers().values():
-        wrapper.launches = 0
+    for wrapper, attr in kernel_counters().values():
+        setattr(wrapper, attr, 0)
 
 
 def read_launches():
-    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+    return {name: getattr(wrapper, attr) for name, (wrapper, attr) in kernel_counters().items()}
 
 
-def run_forward(torch, dev, size, seed, variant=None):
+def run_forward(torch, dev, size, seed, variant=None, dtype="float32"):
     """REQUESTS served requests of the stage-1 model, or of one of
-    stage1.SERVE_VARIANTS, on the kernel route against the plain route;
-    each kernel of the route must launch once per request, and no other."""
+    stage1.SERVE_VARIANTS, in the compute dtype, on the kernel route
+    against the plain route; each kernel of the route must launch once per
+    request, and no other."""
     from tggcn_torch.models import stage1
     from tggcn_torch.models.registry import select_model
 
     b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
     change = stage1.SERVE_VARIANTS[variant] if variant else {}
-    model = select_model("2G-GCN", device=dev, **dict(stage1.MODEL_KWARGS, **change))
+    model = select_model("2G-GCN", device=dev, **dict(stage1.model_kwargs(dtype), **change))
     params = model.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(seed)
     batches = [stage1.make_request(rng, b, t, nh, no) for _ in range(REQUESTS)]
@@ -554,6 +842,9 @@ def run_forward(torch, dev, size, seed, variant=None):
     expected = {"gru_sequence", MODE_KERNEL[variant] if variant else "segment_scan_dot"}
     if variant == "dist":
         expected.add("geo_gcn_fused")
+    bf16 = dtype == "bfloat16"
+    if bf16:
+        expected = {f"{name}_bf16" for name in expected}
 
     model.apply(params, noise=noises[0], **batches[0])   # warm-up: cuBLAS, library loads
     torch.cuda.synchronize(dev)
@@ -571,7 +862,7 @@ def run_forward(torch, dev, size, seed, variant=None):
                              f"{sorted(expected)} once a request: {launches}")
 
     want_shapes = [(b, t, nh), (b, t, nh)] + [(b, 13, t, nh)] * 4
-    plain_times, err, flips, dropped = [], 0.0, 0, 0
+    plain_times, wants, err, flips, dropped = [], [], 0.0, 0, 0
     for i, (batch, noise, got) in enumerate(zip(batches, noises, results)):
         if [tuple(o.shape) for o in got[0]] != want_shapes:
             raise AssertionError(f"request {i}: output shapes {[o.shape for o in got[0]]}")
@@ -579,13 +870,22 @@ def run_forward(torch, dev, size, seed, variant=None):
         want = model.apply(params, use_kernels=False, noise=noise, **batch)
         torch.cuda.synchronize(dev)
         plain_times.append((time.perf_counter() - start) * 1e3)
-        e, f, d = compare_forward(torch, got, want, f"request {i}")
+        wants.append(want)
+        e, f, d = compare_forward(torch, got, want, f"request {i}", bf16=bf16)
         err, flips, dropped = max(err, e), flips + f, dropped + d
+    controls = {}
+    if bf16:
+        controls = check_controls(
+            "forward_bf16", partial(forward_gaps, torch),
+            lambda: [model.apply(params, use_kernels=False, noise=noise, **batch)
+                     for batch, noise in zip(batches, noises)],
+            results, wants, LIMITS_BF16["forward"])
     after = read_launches()
     if after != launches:
         raise AssertionError(f"the plain path launched kernels: {launches} -> {after}")
     return dict(ms=statistics.median(times), plain_ms=statistics.median(plain_times),
-                max_abs_err=err, flips=flips, dropped_rows=dropped, launches=launches)
+                max_abs_err=err, flips=flips, dropped_rows=dropped, launches=launches,
+                **controls)
 
 
 def tensor_leaves(tree, path=""):
@@ -598,9 +898,32 @@ def tensor_leaves(tree, path=""):
     return {path: tree}
 
 
-def run_train(torch, dev, size, seed):
-    """One train step on each route from the same weights, compared; then
-    TRAIN_STEPS timed steps on the kernel route."""
+def grad_gaps(got, want, floor):
+    """How far the gradients of the tree got lie from want's, leaf by leaf,
+    each measure the largest over the leaves: max_share, a leaf's largest
+    difference as a share of its largest value (or of floor, where that is
+    smaller); rel_l2, the norm of a leaf's difference over its norm (or
+    over floor times the square root of its size); all inf where got is
+    not finite."""
+    got = tensor_leaves(got)
+    out = dict(max_share=0.0, rel_l2=0.0)
+    for key, w in tensor_leaves(want).items():
+        if w.grad is None:
+            continue
+        g, w = got[key].grad.double(), w.grad.double()
+        if not bool(g.isfinite().all()):
+            return dict(max_share=math.inf, rel_l2=math.inf)
+        d = g - w
+        out["max_share"] = max(out["max_share"],
+                               float(d.abs().max()) / max(float(w.abs().max()), floor))
+        out["rel_l2"] = max(out["rel_l2"], float(d.norm()) / max(float(w.norm()),
+                                                                floor * w.numel() ** 0.5))
+    return out
+
+
+def run_train(torch, dev, size, seed, dtype="float32"):
+    """One train step in the compute dtype on each route from the same
+    weights, compared; then TRAIN_STEPS timed steps on the kernel route."""
     from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
     from tggcn_torch.models import stage1
     from tggcn_torch.models.registry import select_model
@@ -609,7 +932,13 @@ def run_train(torch, dev, size, seed):
     from tggcn_torch.train.losses import select_loss
 
     b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
-    model = select_model("2G-GCN", device=dev, **stage1.MODEL_KWARGS)
+    bf16 = dtype == "bfloat16"
+    kernels = tuple(f"{k}_bf16" for k in TRAIN_KERNELS) if bf16 else TRAIN_KERNELS
+    what = "train_bf16 step" if bf16 else "train step"
+    marginal = MARGINAL_BF16 if bf16 else MARGINAL
+    loss_rtol, leaf_rtol = (LOSS_RTOL_BF16, LEAF_GRAD_RTOL_BF16) if bf16 else (LOSS_RTOL,
+                                                                              LEAF_GRAD_RTOL)
+    model = select_model("2G-GCN", device=dev, **stage1.model_kwargs(dtype))
     criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
     feeder = select_model_data_feeder("2G-GCN", "multiple", **stage1.FEEDER_KWARGS)
     fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
@@ -632,11 +961,13 @@ def run_train(torch, dev, size, seed):
 
     rows = torch.ones(b, dtype=torch.bool, device=dev)
     kern, plain = first_step(True, rows), first_step(False, rows)
-    keep, flips, dropped = decision_rows(torch, kern["aux"], plain["aux"], "train step")
+    keep, flips, dropped = decision_rows(torch, kern["aux"], plain["aux"], what,
+                                         marginal)
     if dropped:                          # run both again without the flipped row
         rows = keep.to(dev)
         kern, plain = first_step(True, rows), first_step(False, rows)
-        decision_rows(torch, kern["aux"], plain["aux"], "train step without the flipped row")
+        decision_rows(torch, kern["aux"], plain["aux"], f"{what} without the flipped row",
+                      marginal)
     if any(plain["launches"].values()):
         raise AssertionError(f"the plain route launched kernels: {plain['launches']}")
     again = first_step(True, rows)
@@ -644,44 +975,48 @@ def run_train(torch, dev, size, seed):
              for key, leaf in tensor_leaves(kern["trainable"]).items() if leaf.grad is not None]
     unequal = sum(not torch.equal(a, b) for a, b in grads)
     equal_leaves = len(grads)
-    print(f"train step: two kernel-route steps from the same weights, batch and noise: "
+    print(f"{what}: two kernel-route steps from the same weights, batch and noise: "
           f"{len(grads) - unequal} of {len(grads)} gradient leaves bitwise equal", flush=True)
     if unequal:
         raise AssertionError(f"{unequal} of {len(grads)} gradient leaves differ between two "
                              "identical kernel-route steps")
-    if kern["launches"] != {k: int(k in TRAIN_KERNELS) for k in kern["launches"]}:
+    if kern["launches"] != {k: int(k in kernels) for k in kern["launches"]}:
         raise AssertionError(f"the train step did not go through exactly the kernels "
-                             f"{TRAIN_KERNELS} once: {kern['launches']}")
+                             f"{kernels} once: {kern['launches']}")
     loss_err = max_err(kern["losses"], plain["losses"])
     if (not bool(kern["losses"].isfinite().all())
-            or not torch.allclose(kern["losses"], plain["losses"], rtol=LOSS_RTOL, atol=0)):
+            or not torch.allclose(kern["losses"], plain["losses"], rtol=loss_rtol, atol=0)):
         raise AssertionError(f"train step losses differ: {kern['losses'].tolist()} against "
                              f"{plain['losses'].tolist()}")
-    got, want = tensor_leaves(kern["trainable"]), tensor_leaves(plain["trainable"])
+    want = tensor_leaves(plain["trainable"])
     floor = GRAD_FLOOR * max(float(w.grad.abs().max()) for w in want.values()
                              if w.grad is not None)
-    rels, weight_err = {}, 0.0
-    for key, w in want.items():
-        g = got[key]
-        weight_err = max(weight_err, max_err(g.detach(), w.detach()))
-        if w.grad is not None:
-            finite = bool(g.grad.isfinite().all())
-            rels[key] = (max_err(g.grad, w.grad) / max(float(w.grad.abs().max()), floor)
-                         if finite else math.inf)
+    rels = {key: grad_gaps({key: g}, {key: want[key]}, floor)["max_share"]
+            for key, g in tensor_leaves(kern["trainable"]).items() if want[key].grad is not None}
     worst = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
-    print("train step: largest gradient differences (share of each leaf's largest): "
+    print(f"{what}: largest gradient differences (share of each leaf's largest): "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst), flush=True)
-    if not worst[0][1] <= LEAF_GRAD_RTOL:
-        raise AssertionError(f"gradients differ beyond {LEAF_GRAD_RTOL}: "
-                             f"{[k for k, v in rels.items() if not v <= LEAF_GRAD_RTOL]}")
+    if not worst[0][1] <= leaf_rtol:
+        raise AssertionError(f"gradients differ beyond {leaf_rtol}: "
+                             f"{[k for k, v in rels.items() if not v <= leaf_rtol]}")
     grad_rel = worst[0][1]
-    if not weight_err <= stage1.TRAIN["lr"]:
+    weight_err = max(max_err(g.detach(), want[key].detach())
+                     for key, g in tensor_leaves(kern["trainable"]).items())
+    # In float32 Adam's first step (lr g / (|g| + eps), which saturates at
+    # lr) may move a weight whose gradient is rounding noise either way; in
+    # bfloat16 the gradient check above already bounds the weights.
+    if not bf16 and not weight_err <= stage1.TRAIN["lr"]:
         raise AssertionError(f"updated weights differ by {weight_err:.3e} "
                              f"(limit one learning rate, {stage1.TRAIN['lr']})")
+    controls = {}
+    if bf16:
+        controls = check_controls(
+            what, lambda got, want: grad_gaps(got["trainable"], want["trainable"], floor),
+            lambda: first_step(False, rows), kern, plain, LIMITS_BF16["train"])
 
     # The timed steps' peak is the step's own: of the compared runs only the
     # kernel route's weights, Adam state and batch stay alive.
-    del plain, again, grads, got, want, g, w
+    del plain, again, grads, want
     times = []
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -694,11 +1029,11 @@ def run_train(torch, dev, size, seed):
         if not bool(losses.isfinite().all()):
             raise AssertionError(f"train step losses are not finite: {losses.tolist()}")
     launches = read_launches()
-    if launches != {k: TRAIN_STEPS * (k in TRAIN_KERNELS) for k in launches}:
+    if launches != {k: TRAIN_STEPS * (k in kernels) for k in launches}:
         raise AssertionError(f"a timed train step missed a kernel: {launches}")
     return dict(ms=statistics.median(times), losses=kern["losses"].tolist(), loss_err=loss_err,
                 grad_rel=grad_rel, weight_err=weight_err, flips=flips, dropped_rows=dropped,
-                launches=launches, equal_leaves=equal_leaves,
+                launches=launches, equal_leaves=equal_leaves, **controls,
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                 resident_gib=resident / 2 ** 30)
 
@@ -759,34 +1094,42 @@ def main(argv=None):
     scan_shape = (*(shape[k] for k in ("t", "b", "humans", "objects")), hidden)
     geo_shape = (shape["b"] * shape["t"], stage1.MODEL_KWARGS["gcn_node"])
     kernels = []
+    bf16 = getattr(torch, stage1.BENCH_DTYPE)
     for name, run, at in (("k1", run_k1, gru_shape), ("k2", run_k2, gru_shape),
                           ("k3", run_k3, scan_shape), ("k4", run_k4, scan_shape),
                           ("k5_v1", partial(run_k5, "v1"), scan_shape),
                           ("k5_v4", partial(run_k5, "v4"), scan_shape),
                           ("k5_ext", partial(run_k5, "ext"), scan_shape),
-                          ("k6", run_k6, geo_shape)):
+                          ("k6", run_k6, geo_shape),
+                          ("k1_bf16", partial(run_k1, dtype=bf16), gru_shape),
+                          ("k2_bf16", partial(run_k2, dtype=bf16), gru_shape),
+                          ("k3_bf16", partial(run_k3, dtype=bf16), scan_shape),
+                          ("k4_bf16", partial(run_k4, dtype=bf16), scan_shape)):
         with phase(name):
             kernels.append(run(torch, dev, at))
             print(f"{name} {json.dumps(kernels[-1])}", flush=True)
-    with phase("forward"):
-        fwd = run_forward(torch, dev, shape, args.seed)
-        print(f"forward ms per request {fwd['ms']:.3f} (plain path {fwd['plain_ms']:.3f}), "
-              f"max abs err vs plain {fwd['max_abs_err']:.3e}, marginal decision flips "
-              f"{fwd['flips']} (batch rows left out {fwd['dropped_rows']}), launches "
-              f"{json.dumps(fwd['launches'])} over {REQUESTS} requests", flush=True)
-    with phase("train"):
-        train = run_train(torch, dev, shape, args.seed)
-        print(f"train step ms {train['ms']:.3f} (median of {TRAIN_STEPS} on the kernel route), "
-              f"losses {json.dumps(train['losses'])}, kernel vs plain route: losses "
-              f"{train['loss_err']:.3e}, gradients {train['grad_rel']:.3e} of each leaf's "
-              f"largest, weights {train['weight_err']:.3e}; marginal decision flips "
-              f"{train['flips']} (batch rows left out {train['dropped_rows']}); launches "
-              f"{json.dumps(train['launches'])} over {TRAIN_STEPS} steps; "
-              f"{train['equal_leaves']} gradient leaves bitwise equal in two kernel-route "
-              f"steps; peak device memory {train['peak_gib']:.3f} GiB "
-              f"(torch.cuda.max_memory_allocated over the timed steps, of which "
-              f"{train['resident_gib']:.3f} GiB of weights, Adam state and batch held between "
-              f"steps)", flush=True)
+    fwd, train = {}, {}
+    for dtype, tag in (("float32", ""), (stage1.BENCH_DTYPE, "_bf16")):
+        with phase(f"forward{tag}"):
+            fwd[dtype] = r = run_forward(torch, dev, shape, args.seed, dtype=dtype)
+            print(f"forward{tag} ms per request {r['ms']:.3f} (plain path {r['plain_ms']:.3f}), "
+                  f"max abs err vs plain {r['max_abs_err']:.3e}, marginal decision flips "
+                  f"{r['flips']} (batch rows left out {r['dropped_rows']}), launches "
+                  f"{json.dumps(r['launches'])} over {REQUESTS} requests", flush=True)
+    for dtype, tag in (("float32", ""), (stage1.BENCH_DTYPE, "_bf16")):
+        with phase(f"train{tag}"):
+            train[dtype] = r = run_train(torch, dev, shape, args.seed, dtype=dtype)
+            print(f"train{tag} step ms {r['ms']:.3f} (median of {TRAIN_STEPS} on the kernel "
+                  f"route), losses {json.dumps(r['losses'])}, kernel vs plain route: losses "
+                  f"{r['loss_err']:.3e}, gradients {r['grad_rel']:.3e} of each leaf's "
+                  f"largest, weights {r['weight_err']:.3e}; marginal decision flips "
+                  f"{r['flips']} (batch rows left out {r['dropped_rows']}); launches "
+                  f"{json.dumps(r['launches'])} over {TRAIN_STEPS} steps; "
+                  f"{r['equal_leaves']} gradient leaves bitwise equal in two kernel-route "
+                  f"steps; peak device memory {r['peak_gib']:.3f} GiB "
+                  f"(torch.cuda.max_memory_allocated over the timed steps, of which "
+                  f"{r['resident_gib']:.3f} GiB of weights, Adam state and batch held between "
+                  f"steps)", flush=True)
     with phase("serve_modes"):
         served = {}
         for variant in stage1.SERVE_VARIANTS:
@@ -797,19 +1140,22 @@ def main(argv=None):
                   f"marginal decision flips {r['flips']} (batch rows left out "
                   f"{r['dropped_rows']}), launches {json.dumps(r['launches'])} over "
                   f"{REQUESTS} requests", flush=True)
-    # K1-K4's launches are the train steps'; K5's and K6's the serving modes'.
+    # K1-K4's launches are the train steps' (of their dtype); K5's and K6's
+    # the serving modes'.
     for k in kernels:
-        if k["name"] in TRAIN_KERNELS:
-            k["launches"] = train["launches"][k["name"]]
-            per = (f"per train step {k['launches'] / TRAIN_STEPS:g}, per stage-1 request "
-                   f"{fwd['launches'][k['name']] / REQUESTS:g}")
+        base = k["name"].removesuffix("_bf16")
+        if base in TRAIN_KERNELS:
+            dtype = "bfloat16" if k["name"].endswith("_bf16") else "float32"
+            k["launches"] = train[dtype]["launches"][k["name"]]
+            per = (f"per {dtype} train step {k['launches'] / TRAIN_STEPS:g}, per {dtype} "
+                   f"stage-1 request {fwd[dtype]['launches'][k['name']] / REQUESTS:g}")
         else:
             k["launches"] = sum(r["launches"][k["name"]] for r in served.values())
             per = "per request " + ", ".join(
                 f"{v} {r['launches'][k['name']] / REQUESTS:g}" for v, r in served.items())
         kind = ("gru" if k["name"].startswith("gru") else
                 "geo" if k["name"].startswith("geo") else "scan")
-        library = (f"library_ms {k['library_ms']:.3f}: {LIBRARY[k['name']]}"
+        library = (f"library_ms {k['library_ms']:.3f}: {LIBRARY[base]}"
                    if k["library_ms"] is not None else f"library_ms none: {NO_LIBRARY[kind]}")
         print(f"kernel {k['name']}: kernel_ms {k['ms']:.3f} plain_ms {k['plain_ms']:.3f} "
               f"bound_ms {k['bound_ms']:.3f} ({k['bound_by']}; {k['bound_fma_ms']:.3f} with the "

@@ -14,6 +14,17 @@ Served requests in every segment mode, kernel route against plain route:
 rtol 1e-5, atol 1e-5. The reference fixtures mphoi_st and mphoi_hidden128
 on the kernel route: rtol 2e-3, atol 2e-4, as tests/test_golden_tggcn.py
 holds the JAX package.
+
+The bfloat16 variants of K1-K4 against their plain bfloat16 versions: the
+forward kernels' outputs, and the float32 tensors they keep, within one
+bfloat16 ulp at the scale of each tensor's largest value (both carry
+float32 state, but a float32 sum in another order can round a state to the
+neighbouring bfloat16, and the next step's products read it so); the
+backward kernels 1e-2 of each output's largest value (their products take
+bfloat16 operands that can round the other way); a bfloat16
+train step at hidden 24: losses rtol 1e-2, each gradient leaf 3.9e-2 of its
+largest (the worst leaf of the JAX package's bfloat16 kernels against its
+XLA route, BASELINE.md), and two identical steps bitwise equal.
 """
 
 import json
@@ -340,3 +351,158 @@ def _to_device(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
     return tree.to(device)
+
+
+BF16 = torch.bfloat16
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at x > 0: 2^(floor(log2 x) - 7)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def _within_one_ulp(got, want, what):
+    """|got - want| within one bfloat16 ulp of want's largest value."""
+    assert got.dtype == want.dtype, what
+    err = float((got.float() - want.float()).abs().max())
+    limit = bf16_ulp(float(want.float().abs().max()))
+    assert err <= limit, f"{what}: {err:.3e} (limit {limit:.3e})"
+
+
+def _close_share(got, want, what, share):
+    scale = float(want.float().abs().max()) or 1.0
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= share * scale, f"{what}: {err:.3e} against a largest value of {scale:.3e}"
+
+
+@pytest.mark.parametrize("h", [8, 24, 136])
+def test_gru_sequence_kernel_bf16(cuda, h):
+    """K1 in bfloat16, serving and training, against its plain version."""
+    rng = np.random.default_rng(h + 50)
+    t, s, r = 9, 4, 20
+    args = [torch.tensor(a, dtype=BF16, device=cuda) for a in (
+        rng.normal(size=(t, s, r, 3 * h)), rng.uniform(-0.3, 0.3, size=(s, h, 3 * h)),
+        rng.uniform(-0.3, 0.3, size=(s, 3 * h)), rng.normal(size=(s, r, h)))]
+    before = gru_sequence.launches, gru_sequence.launches_bf16
+    got = gru_sequence(*args, num_reverse=2)
+    got_kept, gates = gru_sequence(*args, num_reverse=2, keep=True)
+    assert (gru_sequence.launches, gru_sequence.launches_bf16) == (before[0], before[1] + 2)
+    want, want_gates = gru_sequence_plain(*args, num_reverse=2, keep=True)
+    assert got.dtype == BF16 and gates.dtype == torch.float32
+    _within_one_ulp(got, want, "states")
+    _within_one_ulp(got_kept, want, "states (keep)")
+    _within_one_ulp(gates, want_gates, "gates")
+
+
+@pytest.mark.parametrize("h", [8, 24, 136])
+def test_gru_sequence_bwd_kernel_bf16(cuda, h):
+    """K2 in bfloat16 from the gates the plain forward kept."""
+    rng = np.random.default_rng(h + 51)
+    t, s, r = 9, 4, 20
+    gi, w_hh, b_hh, h0, g = [torch.tensor(a, dtype=BF16, device=cuda) for a in (
+        rng.normal(size=(t, s, r, 3 * h)), rng.uniform(-0.3, 0.3, size=(s, h, 3 * h)),
+        rng.uniform(-0.3, 0.3, size=(s, 3 * h)), rng.normal(size=(s, r, h)),
+        rng.normal(size=(t, s, r, h)))]
+    out, gates = gru_sequence_plain(gi, w_hh, b_hh, h0, 2, keep=True)
+    hprev = previous_states(out, h0, 2)
+    before = gru_sequence_bwd.launches_bf16
+    got = gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse=2)
+    assert gru_sequence_bwd.launches_bf16 == before + 1
+    want = gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse=2)
+    for name, g_, w_ in zip(("dgi", "dgh", "dh0"), got, want):
+        assert g_.dtype == BF16 and torch.isfinite(g_).all(), name
+        _close_share(g_, w_, name, 1e-2)
+
+
+def _segment_args_bf16(cuda, nh, no, h):
+    return {k: v.to(BF16) for k, v in _segment_args(cuda, nh, no, h).items()}
+
+
+@pytest.mark.parametrize("nh,no,h", [(2, 4, 8), (1, 3, 24), (3, 5, 40)])
+def test_segment_scan_kernel_bf16(cuda, nh, no, h):
+    """K3 in bfloat16, training and serving, against its plain version."""
+    args = _segment_args_bf16(cuda, nh, no, h)
+    before = segment_scan_dot.launches_bf16
+    got = segment_scan_dot(**args, scale=1 / math.sqrt(h))
+    served = segment_scan_dot(**args, scale=1 / math.sqrt(h), keep=False)
+    assert segment_scan_dot.launches_bf16 == before + 2
+    want = segment_scan_dot_plain(**args, scale=1 / math.sqrt(h))
+    names = ("h_h", "h_o", "att_oh") + KEPT
+    for name, g, w_ in zip(names, got, want):
+        _within_one_ulp(g, w_, name)
+    for name, g, w_ in zip(names, served, want[:3]):
+        _within_one_ulp(g, w_, f"{name} (serving)")
+
+
+@pytest.mark.parametrize("nh,no,h", [(2, 4, 8), (1, 3, 24), (3, 5, 40)])
+def test_segment_scan_bwd_kernel_bf16(cuda, nh, no, h):
+    """K4 in bfloat16 from what the plain forward kept."""
+    args = _segment_args_bf16(cuda, nh, no, h)
+    rng = np.random.default_rng(nh + h + 52)
+    t, b = args["gi_h"].shape[1:3]
+    out_h, out_o, _, *kept = segment_scan_dot_plain(**args, scale=1 / math.sqrt(h))
+    kept = dict(zip(KEPT, kept))
+    up = [torch.tensor(rng.normal(size=shape), dtype=BF16, device=cuda)
+          for shape in ((2, t, b, nh, h), (2, t, b, no, h), (2, t, b, nh, no))]
+    bwd_args = {k: args[k] for k in ("u_h", "u_o", "w_from", "w_msg_h", "w_msg_o", "w_hh_h",
+                                     "w_hh_o")}
+    streamed = dict(hprev_h=seg_previous(out_h, args["h0_h"]),
+                    hprev_o=seg_previous(out_o, args["h0_o"]),
+                    **{k: kept[k] for k in ("m_h", "m_o", "gates_h", "gates_o", "atts")},
+                    g_h=up[0], g_o=up[1], g_att=up[2])
+    before = segment_scan_dot_bwd.launches_bf16
+    got = segment_scan_dot_bwd(**bwd_args, **streamed, scale=1 / math.sqrt(h))
+    assert segment_scan_dot_bwd.launches_bf16 == before + 1
+    want = segment_scan_dot_bwd_plain(**bwd_args, **streamed, scale=1 / math.sqrt(h))
+    for name in BWD_OUTPUTS:
+        assert got[name].dtype == BF16 and torch.isfinite(got[name]).all(), name
+        _close_share(got[name], want[name], name, 1e-2)
+
+
+def _bf16_train_steps(cuda, use_kernels_list, seed):
+    from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
+    from tggcn_torch.models import stage1
+    from tggcn_torch.models.registry import select_model
+    from tggcn_torch.train.loop import make_train_step, model_parameters, trainable_parameters
+    from tggcn_torch.train.losses import select_loss
+
+    model = select_model("2G-GCN", device=cuda,
+                         **dict(stage1.model_kwargs("bfloat16"), hidden_size=24))
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage1.FEEDER_KWARGS)
+    rng = np.random.default_rng(seed)
+    data, targets = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")(
+        stage1.make_batch(rng, 2, 8, 2, 3))
+    noise = {"object": rng.gumbel(size=(2, 8, 3, 2)).astype(np.float32)}
+    wrappers = [gru_sequence, gru_sequence_bwd, segment_scan_dot, segment_scan_dot_bwd]
+    results = []
+    for use_kernels in use_kernels_list:
+        trainable = {"model": model.init(torch.Generator().manual_seed(seed + 1))}
+        optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage1.TRAIN["lr"])
+        step = make_train_step(model, feeder, criterion, optimizer, use_kernels=use_kernels)
+        before = [w.launches_bf16 for w in wrappers]
+        losses, _, _ = step(trainable, data, targets, noise=noise)
+        launched = [w.launches_bf16 - b for w, b in zip(wrappers, before)]
+        assert launched == ([1] * 4 if use_kernels else [0] * 4)
+        grads = [p.grad for p in model_parameters(trainable["model"])]
+        assert all(g.dtype == torch.float32 for g in grads)
+        results.append((losses, grads))
+    return results
+
+
+def test_train_step_kernel_route_bf16(cuda):
+    """One bfloat16 train step at hidden 24 on the kernel route (K1-K4 in
+    bfloat16, each launched once) against the plain route."""
+    (loss_k, grads_k), (loss_p, grads_p) = _bf16_train_steps(cuda, (True, False), 12)
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-2, atol=0)
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads_p)
+    for g_k, g_p in zip(grads_k, grads_p):
+        assert float((g_k - g_p).abs().max()) <= 3.9e-2 * max(float(g_p.abs().max()), floor)
+
+
+def test_train_step_gradients_are_reproducible_bf16(cuda):
+    """Two identical bfloat16 train steps on the kernel route give
+    bitwise-equal gradients on every leaf."""
+    (_, first), (_, second) = _bf16_train_steps(cuda, (True, True), 14)
+    unequal = [i for i, (a, b) in enumerate(zip(first, second)) if not torch.equal(a, b)]
+    assert not unequal, f"leaves {unequal} of {len(first)} differ between two runs"

@@ -14,6 +14,14 @@ recompute route it replaced (``_bwd_recompute``, kept here) and to jax.vjp,
 and the kept gates to the ones recomputed from the states. The cuDNN GRU
 that chip_smoke.py times beside K1 and K2 (``tggcn_torch.profile_gru``) is
 held to the plain versions on the CPU at the same tolerances.
+
+In bfloat16 (the IO dtype ``bench.py`` trains in), the plain versions of
+K1 and K2 against the Pallas kernel in bfloat16 in interpret mode, forward
+and jax.vjp: every output within two bfloat16 ulps of its largest value
+(the TPU kernel recomputes K2's gates from the bfloat16 states, the port
+reads K1's, taken from the float32 state), the states also within 5e-4 of
+their norm (a state carried in bfloat16 misses it); the wrappers refuse a
+mix of dtypes.
 """
 
 import jax
@@ -351,3 +359,128 @@ def test_bwd_wrapper_checks_its_inputs(bad):
     with pytest.raises(ValueError, match="gates"):
         gru_ops._check("gru_sequence_bwd", gi.device,
                        {"gi": (gi, (t, s, r, g3)), "gates": (gates, (t, s, r, g3))}, h, 2)
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at x > 0: 2^(floor(log2 x) - 7)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7) if x > 0 else 0.0
+
+
+def assert_within_bf16_ulps(got, want, ulps, what):
+    """|got - want| within `ulps` bfloat16 ulps of want's largest value."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err, limit = np.abs(got - want).max(), ulps * bf16_ulp(np.abs(want).max())
+    assert err <= limit, f"{what}: {err:.3e} (limit {limit:.3e})"
+
+
+def _bf16(*arrays):
+    """numpy arrays rounded to bfloat16: (the JAX arrays, the torch tensors)."""
+    jx = [jax.numpy.asarray(a, jax.numpy.bfloat16) for a in arrays]
+    return jx, [torch.tensor(np.asarray(a.astype(jax.numpy.float32))).bfloat16() for a in jx]
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["zero_h0", "carried_h0"])
+@pytest.mark.parametrize("num_reverse", **DIRECTIONS)
+def test_bf16_plain_versions_match_pallas(num_reverse, carried):
+    """K1's and K2's plain versions in bfloat16 through the autograd
+    Function against the Pallas kernel in bfloat16 and jax.vjp of its custom
+    VJP: states, dgi, dW_hh, db_hh and dh0 within two bfloat16 ulps."""
+    gi, w_hh, b_hh, h0, g = _torch_inputs(num_reverse, carried, seed=30)
+    (jgi, jw, jb, jh0, jg), leaves = _bf16(*(x.numpy() for x in (gi, w_hh, b_hh, h0, g)))
+    nf = 4 - num_reverse
+    outs, grads = [], []
+    for lo, hi, reverse in ((0, nf, False), (nf, 4, True)):
+        if hi > lo:
+            f = lambda *a: jax_gru_sequence(*a, reverse, True)
+            out, vjp = jax.vjp(f, jgi[:, lo:hi], jw[lo:hi], jb[lo:hi], jh0[lo:hi])
+            outs.append(out)
+            grads.append(vjp(jg[:, lo:hi]))
+    want = np.concatenate([np.asarray(o.astype(jax.numpy.float32)) for o in outs], axis=1)
+    want_grads = [np.concatenate([np.asarray(p[i].astype(jax.numpy.float32)) for p in grads],
+                                 axis=1 if i == 0 else 0) for i in range(4)]
+    leaves = leaves[:4]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    got = gru_sequence_autograd(*leaves, num_reverse=num_reverse)
+    assert got.dtype == torch.bfloat16
+    assert_within_bf16_ulps(got.detach().float(), want, 2, "states")
+    # Both carry a float32 state (measured: equal states); a state rounded
+    # to bfloat16 every step, as JAX's XLA route carries it, lies 1.9e-3
+    # away in norm.
+    err = np.linalg.norm(got.detach().float().numpy() - want) / np.linalg.norm(want)
+    assert err < 5e-4, f"states: {err:.3e} of their norm"
+    got.backward(torch.tensor(np.asarray(jg.astype(jax.numpy.float32))).bfloat16())
+    for name, leaf, w in zip(("dgi", "dW_hh", "db_hh", "dh0"), leaves, want_grads):
+        assert leaf.grad.dtype == torch.bfloat16, name
+        assert_within_bf16_ulps(leaf.grad.float(), w, 2, name)
+
+
+def test_bf16_multi_bigru_matches_pallas(bigru_setup):
+    """The three-stream BiGRU in bfloat16 (float32 weights cast to the
+    inputs' dtype, as run_multi_bigru_pallas casts them) against the Pallas
+    kernel in bfloat16."""
+    params, xs = bigru_setup
+    jxs, txs = _bf16(*xs)
+    want = run_multi_bigru_pallas(params, jxs, interpret=True)
+    got = run_multi_bigru(params_from_numpy(jax.tree_util.tree_map(np.asarray, params)), txs)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.bfloat16
+        assert_within_bf16_ulps(g.float(), np.asarray(w.astype(jax.numpy.float32)), 2,
+                                f"stream {i}")
+
+
+@pytest.mark.parametrize("bad", ["gi_float32", "h0_float32", "gates_bfloat16", "float16"])
+def test_wrappers_refuse_mixed_dtypes(bad):
+    """K1's and K2's wrappers take float32 or bfloat16 IO, all of one dtype
+    (K2's kept gates float32), and refuse any other mix (checked on CPU
+    tensors through the check the CUDA route runs)."""
+    gi, w_hh, b_hh, h0, g = (x.bfloat16() for x in _torch_inputs(2, seed=31))
+    t, s, r, g3 = gi.shape
+    h = g3 // 3
+    gates = torch.zeros(gi.shape)
+    if bad == "gi_float32":
+        gi = gi.float()
+    elif bad == "h0_float32":
+        h0 = h0.float()
+    elif bad == "gates_bfloat16":
+        gates = gates.bfloat16()
+    else:
+        gi, w_hh, b_hh, h0 = (x.half() for x in (gi, w_hh, b_hh, h0))
+    with pytest.raises(ValueError):
+        gru_ops._check("gru_sequence", gi.device,
+                       {"gi": (gi, (t, s, r, g3)), "w_hh": (w_hh, (s, h, g3)),
+                        "b_hh": (b_hh, (s, g3)), "h0": (h0, (s, r, h))}, h, 2)
+        gru_ops._check("gru_sequence_bwd", gi.device,
+                       {"gi": (gi, (t, s, r, g3)), "gates": (gates, (t, s, r, g3))}, h, 2,
+                       float32=("gates",))
+
+
+def test_round_carry_carries_the_rounded_states():
+    """round_carry (the control chip_smoke.py holds the bfloat16 checks to)
+    makes K1's plain version carry the bfloat16 states it returns, as JAX's
+    XLA route does: each step equals one step from the state returned
+    before it, and the sequence differs from the float32-state one."""
+    gi, w_hh, b_hh, h0, _ = (x.bfloat16() for x in _torch_inputs(0, seed=32))
+    out = gru_ops.gru_sequence_plain(gi, w_hh, b_hh, h0, round_carry=True)
+    prev = h0
+    for i in range(gi.shape[0]):
+        step = gru_ops.gru_sequence_plain(gi[i:i + 1], w_hh, b_hh, prev)
+        torch.testing.assert_close(out[i], step[0], rtol=0, atol=0)
+        prev = out[i]
+    assert not torch.equal(out, gru_ops.gru_sequence_plain(gi, w_hh, b_hh, h0))
+
+
+@pytest.mark.parametrize("num_reverse", **DIRECTIONS)
+def test_round_carry_changes_nothing_in_float32(num_reverse):
+    """In float32 IO there is nothing to round the carry to: K1's and K2's
+    plain versions give the same bits with round_carry."""
+    gi, w_hh, b_hh, h0, g = _torch_inputs(num_reverse, seed=33)
+    out, gates = gru_ops.gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse, keep=True)
+    again = gru_ops.gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse, keep=True,
+                                       round_carry=True)
+    assert torch.equal(out, again[0]) and torch.equal(gates, again[1])
+    hprev = gru_ops.previous_states(out, h0, num_reverse)
+    want = gru_ops.gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse)
+    got = gru_ops.gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse,
+                                         round_carry=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -178,8 +178,11 @@ def _distances():
 def test_outside_the_slice_raises(change):
     """Configurations outside the port raise. Mean pooling and v1/v4
     attention (K5) serve on the CPU and raise on a train call; 'sah' (with
-    the one human it needs) serves."""
+    the one human it needs) serves. bfloat16 is in the slice on the dot
+    route only: with v1 attention (K5, float32 only) it raises."""
     kwargs = {**STAGE1, **change}
+    if change == {"compute_dtype": "bfloat16"}:
+        kwargs["attention_style"] = "v1"
     if change not in ({"message_aggregation": "mp"}, {"attention_style": "v1"},
                       {"attention_style": "v4"}, {"object_segment_update_strategy": "sah"}):
         with pytest.raises(NotImplementedError, match="slice"):
@@ -196,12 +199,14 @@ def test_outside_the_slice_raises(change):
 
 
 def test_training_and_distances_raise():
-    """Training is in the slice in float32, but not a bfloat16 train call;
-    distance-based attention serves (K5 in 'ext' mode) and refuses to train."""
+    """Training is in the slice in float32 and bfloat16 on the dot route,
+    but not a bfloat16 train call in another attention mode; distance-based
+    attention serves (K5 in 'ext' mode) and refuses to train."""
     model = select_model("2G-GCN", device="cpu", **STAGE1)
     params = model.init(torch.Generator().manual_seed(0))
     batch = _tiny_batch()
-    bf16 = TGGCNConfig.from_kwargs(**STAGE1, compute_dtype="bfloat16")
+    bf16 = TGGCNConfig.from_kwargs(**{**STAGE1, "attention_style": "v1"},
+                                   compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="bfloat16"):
         apply_tggcn(params, bf16, train=True,
                     **{k: torch.tensor(v) for k, v in batch.items()})

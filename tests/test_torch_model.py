@@ -12,6 +12,12 @@
   2e-3, atol 2e-4 as tests/test_golden_tggcn.py holds the JAX package.
 * The port's state-dict loader against tggcn.compat's on every forward
   fixture.
+* In bfloat16 (compute_dtype, as bench.py trains), the stage-1 forward with
+  the human segmentation imposed against JAX's bfloat16 XLA route: outputs
+  float32, the decisions equal, the heads within 1e-2 absolute (measured
+  2.2e-3: the XLA route rounds its recurrent states to bfloat16 at every
+  step, the port's kernels and JAX's Pallas kernels keep them float32;
+  tests/test_torch_bf16.py holds the port to JAX's kernel route).
 """
 
 import glob
@@ -78,6 +84,23 @@ def test_forward_matches_jax(stage1, imposed, style):
     for i, (g, w) in enumerate(zip(aux["attention_scores"], want_aux["attention_scores"])):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5,
                                    err_msg=f"attention {i}")
+
+
+def test_bf16_forward_matches_jax_xla_route(stage1):
+    jax_params, params = stage1
+    kwargs = dict(STAGE1, compute_dtype="bfloat16")
+    batch = _batch(seed=1)
+    batch["human_segmentation"] = np.ones(batch["x_human"].shape[:3], np.float32)
+    want, _ = jax_apply(jax_params, JaxConfig.from_kwargs(**kwargs), train=False, **batch)
+    got, aux = select_model("2G-GCN", device="cpu", **kwargs).apply(params, **batch)
+    assert len(got) == len(want) == 6
+    assert all(g.dtype == torch.float32 for g in got)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i < 2:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"output {i}")
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-2,
+                                       err_msg=f"output {i}")
 
 
 @pytest.mark.parametrize("change", [{"attention_style": "v1"}, {"message_aggregation": "mp"}],

@@ -12,6 +12,14 @@ h2h attention row is fully masked too. Tolerance rtol 1e-5, atol 1e-6 for
 the forward; rtol 1e-4, atol 1e-5 for the gradients, whose carry sums over
 the sequence (tests/test_segment_scan_pallas.py holds the Pallas backward
 to rtol 2e-4). The float64 gradcheck uses torch's default tolerances.
+
+In bfloat16, K3's and K4's plain versions against the Pallas kernel in
+bfloat16 with both directions fused (``_seg_dir`` with fuse_dirs, as the
+JAX package runs bfloat16) in interpret mode, forward and jax.vjp, with one
+and two humans and the masked object rows: every output and gradient
+within two bfloat16 ulps of its largest value (the TPU kernel's backward
+recomputes the gates and attention from the bfloat16 states, the port's
+reads what the forward kept from the float32 states).
 """
 
 import math
@@ -30,6 +38,7 @@ from tggcn.ops.segment_scan_pallas import _external_att_weights, _seg_dir, _seg_
 from tggcn_torch.compat.weights import params_from_numpy
 from tggcn_torch.models.tggcn import (TGGCNConfig, _segment_scan_fast, external_att_weights,
                                       segment_mode)
+import tggcn_torch.ops.segment_scan as scan_ops
 from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, KEPT, _attention, _dot_scores,
                                           previous_states, scan_buffers,
                                           segment_scan_att_plain, segment_scan_dot,
@@ -508,3 +517,103 @@ def test_split_tf32_product_keeps_float32_accuracy(depth):
     assert err(split) < 1e-5
     assert err(single) > 1e-4
 
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at x > 0: 2^(floor(log2 x) - 7)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+@pytest.mark.parametrize("nh", [2, 1], ids=["two_humans", "one_human"])
+def test_bf16_plain_versions_match_pallas(nh):
+    """segment_scan_dot_autograd in bfloat16 (K3's and K4's plain versions)
+    against _seg_dir in bfloat16 with fuse_dirs (rows [:B] the forward
+    direction, [B:] the backward one on time-flipped inputs): the outputs
+    and every gradient within two bfloat16 ulps of its largest value."""
+    t, b, no, h = 6, 3, 3, 16
+    bf = jnp.bfloat16
+    rb = lambda x: np.asarray(jnp.asarray(x, bf).astype(jnp.float32))
+    a = {k: rb(v) for k, v in _inputs(t, b, nh, no, h, seed=40 + nh).items()}
+    rng = np.random.default_rng(50 + nh)
+    scale = 1.0 / math.sqrt(h)
+    g = dict(h=rb(rng.normal(size=(2, t, b, nh, h))), o=rb(rng.normal(size=(2, t, b, no, h))),
+             att=rb(rng.normal(size=(2, t, b, nh, no))))
+    fused = lambda x: np.concatenate([x[0], x[1][::-1]], axis=1)     # (T, 2B, ...)
+    both = lambda x: np.concatenate([x, x[::-1]], axis=1)
+    args = [fused(a["gi_h"]), fused(a["gi_o"]), both(a["u_h"]), both(a["u_o"]), a["w_from"],
+            a["b_from"], a["w_msg_h"], a["w_msg_o"], a["w_hh_h"], a["w_hh_o"], a["b_hh_h"],
+            a["b_hh_o"], 1.0 - np.eye(nh, dtype=np.float32),
+            np.concatenate([a["obj_mask"]] * 2), 1.0 - np.eye(no, dtype=np.float32),
+            np.concatenate(list(a["h0_h"])), np.concatenate(list(a["h0_o"]))]
+    out, vjp = jax.vjp(lambda *x: _seg_dir(scale, False, True, True, *x),
+                       *[jnp.asarray(x, bf) for x in args])
+    f32 = lambda x: np.asarray(x.astype(jnp.float32))
+    split = lambda x: np.stack([f32(x)[:, :b], f32(x)[:, b:][::-1]])   # (2, T, B, ...)
+    grads = [f32(x) for x in vjp(tuple(jnp.asarray(fused(g[k]), bf) for k in ("h", "o", "att")))]
+    want_grads = dict(
+        gi_h=np.stack([grads[0][:, :b], grads[0][:, b:][::-1]]),
+        gi_o=np.stack([grads[1][:, :b], grads[1][:, b:][::-1]]),
+        u_h=grads[2][:, :b] + grads[2][:, b:][::-1], u_o=grads[3][:, :b] + grads[3][:, b:][::-1],
+        w_from=grads[4], b_from=grads[5], w_msg_h=grads[6], w_msg_o=grads[7], w_hh_h=grads[8],
+        w_hh_o=grads[9], b_hh_h=grads[10], b_hh_o=grads[11],
+        h0_h=np.stack([grads[15][:b], grads[15][b:]]), h0_o=np.stack([grads[16][:b],
+                                                                     grads[16][b:]]))
+    leaves = {k: torch.tensor(v).bfloat16().requires_grad_(k in DIFFERENTIABLE)
+              for k, v in a.items()}
+    got = segment_scan_dot_autograd(**leaves, scale=scale)
+    for name, o, w in zip(("h_h", "h_o", "att_oh"), got, out):
+        assert o.dtype == torch.bfloat16, name
+        err = np.abs(o.detach().float().numpy() - split(w)).max()
+        assert err <= 2 * bf16_ulp(np.abs(split(w)).max()), f"{name}: {err:.3e}"
+    torch.autograd.backward(list(got), [torch.tensor(g[k]).bfloat16() for k in ("h", "o", "att")])
+    for k in DIFFERENTIABLE:
+        gk, w = leaves[k].grad.float().numpy(), want_grads[k]
+        assert leaves[k].grad.dtype == torch.bfloat16 and np.isfinite(gk).all(), k
+        err = np.abs(gk - w).max()
+        assert err <= 2 * bf16_ulp(np.abs(w).max()), f"{k}: {err:.3e}"
+
+
+@pytest.mark.parametrize("bad", ["gi_h_float32", "kept_m_bfloat16", "float16"])
+def test_wrappers_refuse_mixed_dtypes(bad):
+    """K3's and K4's wrappers take float32 or bfloat16 IO, all of one dtype
+    (the kept edge messages, gates and attention float32), K5's float32
+    only; any other mix raises (checked on CPU tensors through the check
+    the CUDA route runs)."""
+    t, b, nh, no, h = 3, 2, 2, 2, 8
+    args = {k: torch.tensor(v).bfloat16() for k, v in _inputs(t, b, nh, no, h, 60).items()}
+    dims = (t, b, nh, no, h)
+    both = (torch.float32, torch.bfloat16)
+    segment_scan_check = lambda a, **kw: scan_ops._check("segment_scan_dot", a, dims, **kw)
+    segment_scan_check(args, io_dtypes=both)                      # all bfloat16: accepted
+    with pytest.raises(ValueError):
+        segment_scan_check(args)                                   # K5: float32 only
+    if bad == "gi_h_float32":
+        args["gi_h"] = args["gi_h"].float()
+    elif bad == "kept_m_bfloat16":
+        args["m_h"] = torch.zeros((2, t, b, nh, 2 * h), dtype=torch.bfloat16)
+    else:
+        args = {k: v.half() for k, v in args.items()}
+    with pytest.raises(ValueError):
+        segment_scan_check(args, io_dtypes=both)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_round_carry_rounds_only_a_bf16_carry(dtype):
+    """round_carry (the control chip_smoke.py holds the bfloat16 checks to)
+    rounds K3's carried states and K4's carried dL/dh to the IO dtype every
+    step: the same bits in float32, other values in bfloat16."""
+    from tggcn_torch.profile_scan import bwd_inputs, scan_inputs
+
+    t, b, nh, no, h = 5, 2, 2, 3, 8
+    gen = torch.Generator().manual_seed(34)
+    fwd = {k: v.to(dtype) for k, v in scan_inputs(torch.device("cpu"), gen, t, b, nh, no,
+                                                  h).items()}
+    scale = 1.0 / math.sqrt(h)
+    bwd = bwd_inputs(fwd, gen, scale)
+    want = (scan_ops.segment_scan_dot_plain(**fwd, scale=scale),
+            scan_ops.segment_scan_dot_bwd_plain(**bwd, scale=scale))
+    got = (scan_ops.segment_scan_dot_plain(**fwd, scale=scale, round_carry=True),
+           scan_ops.segment_scan_dot_bwd_plain(**bwd, scale=scale, round_carry=True))
+    same = (all(torch.equal(a, b) for a, b in zip(got[0], want[0])),
+            all(torch.equal(got[1][k], want[1][k]) for k in BWD_OUTPUTS))
+    assert same == ((True, True) if dtype == torch.float32 else (False, False))

@@ -14,6 +14,22 @@
 * The reference training fixtures tests/golden/training_train_mphoi_{st,
   mtll,long18}.npz through the port's own state-dict loader, at the
   tolerances tests/test_golden_training.py holds the JAX package to.
+* Whole-model gradients in bfloat16 (compute_dtype, as bench.py trains):
+  the port's against jax.value_and_grad of JAX's bfloat16 apply_tggcn with
+  use_pallas_gru and use_pallas_segment_scan (the Pallas kernels in
+  interpret mode, patched in as tests/test_gru_pallas.py and
+  tests/test_segment_scan_pallas.py do), 'gs' decisions with the bfloat16
+  Gumbel draws JAX made passed in: the loss within rtol 1e-3 (measured
+  4.6e-4), each leaf within 3e-2 of its largest value (measured 2.3e-2; the
+  port's bfloat16 against its float32 differs by 0.2 of a leaf's largest
+  with 'st' decisions), float32 gradients for the float32 masters.
+* A bfloat16 train step against the float32 step from the same weights:
+  masters, Adam's moments and the BatchNorm state stay float32; losses
+  within rtol 0.05 (tests/test_bf16.py's bound); each weight moved the
+  same way as in float32 where the float32 gradient is at least a quarter
+  of its leaf's largest (Adam's first step moves a weight by lr against
+  the sign of its gradient; the largest float32 gradient whose sign
+  bfloat16 flips here is 0.11 of its leaf's largest).
 """
 
 import glob
@@ -28,6 +44,8 @@ import pytest
 import torch
 
 from tggcn.config import Config
+import tggcn.ops.gru_pallas as gru_pallas
+import tggcn.ops.segment_scan_pallas as scan_pallas
 from tggcn.data.loading import select_model_data_feeder as jax_feeder
 from tggcn.models import select_model as jax_select_model
 from tggcn.train.loop import make_train_step as jax_make_train_step
@@ -76,11 +94,12 @@ def _batch(seed, b=2, t=6, nh=2, no=3):
             y_seg, y_seg, y_rec, y_rec, y_rec, y_rec]
 
 
-def _jax_noise(rng, b, t, nh, no):
-    """The Gumbel draws JAX's apply_tggcn makes from `rng` (tggcn.models.tggcn:467)."""
+def _jax_noise(rng, b, t, nh, no, dtype=jnp.float32):
+    """The Gumbel draws JAX's apply_tggcn makes from `rng` (tggcn.models.tggcn:467)
+    in the decision dtype (tggcn/nn/distributions.py:42), as float32 arrays."""
     rng_h, rng_o = jax.random.split(rng)
-    return {"human": np.array(jax.random.gumbel(rng_h, (b, t, nh, 2), jnp.float32)),
-            "object": np.array(jax.random.gumbel(rng_o, (b, t, no, 2), jnp.float32))}
+    return {"human": np.array(jax.random.gumbel(rng_h, (b, t, nh, 2), dtype), np.float32),
+            "object": np.array(jax.random.gumbel(rng_o, (b, t, no, 2), dtype), np.float32)}
 
 
 def _flat(tree, prefix=""):
@@ -193,6 +212,84 @@ def test_train_step_matches_jax():
     # The BatchNorm state moved (to the batch statistics) and Adam did not touch it.
     assert not np.allclose(got["/geometry_embedding_gcn/bn/state/var"], 1.0)
     assert port["model"]["geometry_embedding_gcn"]["bn"]["state"]["mean"].grad is None
+
+
+def test_bf16_model_gradients_match_jax(monkeypatch):
+    """The main path's bfloat16 gradients ('gs' decisions, as stage 1 and
+    bench.py train) against JAX's bfloat16 kernel route."""
+    run_gru, run_scan = gru_pallas.run_multi_bigru_pallas, scan_pallas.run_segment_scan_pallas
+    monkeypatch.setattr(gru_pallas, "run_multi_bigru_pallas",
+                        lambda *a, **kw: run_gru(*a, **{**kw, "interpret": True}))
+    monkeypatch.setattr(scan_pallas, "run_segment_scan_pallas",
+                        lambda *a, **kw: run_scan(*a, **{**kw, "interpret": True}))
+    kwargs = dict(STAGE1, discrete_optimization_strategy="gs", compute_dtype="bfloat16")
+    jax_model = jax_select_model("2G-GCN", use_pallas_gru=True, use_pallas_segment_scan=True,
+                                 **kwargs)
+    jax_params = jax_model.init(jax.random.PRNGKey(1))
+    data, targets = _batch(seed=2)[:8], _batch(seed=2)[8:]
+    feeder_kwargs = dict(dataset_name="mphoi")
+    jax_kwargs = jax_feeder("2G-GCN", "multiple", **feeder_kwargs)(data)
+    jax_criterion, _ = jax_select_loss("2G-GCN", "multiple", "mphoi", Config({"misc": MISC}))
+    rng = jax.random.PRNGKey(3)
+
+    def jax_loss(p):
+        out, aux = jax_model.apply(p, train=True, rng=rng, **jax_kwargs)
+        return sum(jax_criterion(out, targets)), out
+
+    (want_total, want_out), want_grads = jax.value_and_grad(jax_loss, has_aux=True)(jax_params)
+
+    model = select_model("2G-GCN", device="cpu", **kwargs)
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params))
+    for p in model_parameters(params):
+        p.requires_grad_(True)
+    out, _ = model.apply(params, train=True, noise=_jax_noise(rng, 2, 6, 2, 3, jnp.bfloat16),
+                         **select_model_data_feeder("2G-GCN", "multiple", **feeder_kwargs)(data))
+    np.testing.assert_array_equal(out[0].detach().numpy(), np.asarray(want_out[0]))
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", MISC)
+    total = sum(criterion(out, [torch.tensor(y) for y in targets]))
+    np.testing.assert_allclose(float(total.detach()), float(want_total), rtol=1e-3)
+    total.backward()
+    got = {k: leaf.grad for k, leaf in _flat_tensors(params).items() if leaf.grad is not None}
+    assert all(g.dtype == torch.float32 for g in got.values())
+    want = {k: v for k, v in _flat(want_grads).items() if "/bn/state/" not in k}
+    # A leaf whose gradient is rounding noise (the GeoGCN s2 bias's is 0 in
+    # exact arithmetic, 1e-12 here) is held to a millionth of the largest.
+    floor = 1e-6 * max(float(np.abs(w).max()) for w in want.values())
+    for k, w in want.items():
+        g = got[k].numpy() if k in got else np.zeros_like(w)
+        assert np.abs(g - w).max() <= 3e-2 * max(float(np.abs(w).max()), floor), k
+
+
+def test_bf16_train_step_keeps_float32_state():
+    kwargs = dict(STAGE1, discrete_optimization_strategy="gs")
+    batch = _batch(seed=9)
+    data, targets = batch[:8], batch[8:]
+    feeder = select_model_data_feeder("2G-GCN", "multiple", dataset_name="mphoi")
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", MISC)
+    noise = _jax_noise(jax.random.PRNGKey(10), 2, 6, 2, 3)
+    lr = 1e-3
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        model = select_model("2G-GCN", device="cpu", compute_dtype=dtype, **kwargs)
+        port = {"model": model.init(torch.Generator().manual_seed(11))}
+        opt = torch.optim.Adam(trainable_parameters(port), lr=lr)
+        step = make_train_step(model, feeder, criterion, opt)
+        losses, _, _ = step(port, data, targets, noise=noise)
+        results[dtype] = (losses, port, opt)
+    (l32, p32, _), (l16, p16, opt16) = results["float32"], results["bfloat16"]
+    np.testing.assert_allclose(l16.numpy(), l32.numpy(), rtol=0.05, atol=0)
+    got, want = _flat_tensors(p16["model"]), _flat_tensors(p32["model"])
+    assert all(v.dtype == torch.float32 for v in got.values())
+    assert all(v.dtype == torch.float32 for state in opt16.state.values()
+               for v in state.values() if torch.is_tensor(v) and v.numel() > 1)
+    before = _flat_tensors(model.init(torch.Generator().manual_seed(11)))
+    grads = {k: w.grad for k, w in want.items() if w.grad is not None}
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads.values())
+    for k, g in grads.items():
+        big = g.abs() >= 0.25 * max(float(g.abs().max()), floor)
+        moved16, moved32 = torch.sign(got[k] - before[k]), torch.sign(want[k] - before[k])
+        assert bool((moved16[big] == moved32[big]).all()), k
+    assert not np.allclose(got["/geometry_embedding_gcn/bn/state/var"].numpy(), 1.0)
 
 
 def test_pad_batch_masks_the_padding():

@@ -37,6 +37,18 @@
 // per step from L2, where it stays resident (50 MB); the bytes that must
 // cross HBM (gi in, h out, W_hh once; with keep the gates out) are about
 // 280 MB (480 MB with keep).
+//
+// bfloat16 (T = bf16: gi, W_hh, b_hh, h0 and the states out in bfloat16),
+// as the TPU kernel runs it (gru_pallas.py:61-77): the state stays float32,
+// in a buffer of its own (state: two slots by step parity, since a step's
+// product reads every unit of the state the step before wrote), not in the
+// bfloat16 output, which would round the carried state at every step. The
+// product takes that float32 state against W_hh's bfloat16 values, which
+// TF32 holds exactly: two TF32 products (the state's high and low parts),
+// float32 accuracy, W_hh at half the shared-memory bytes; each k8 step
+// still rounds into the running sum (Round). The gates, gi and b_hh are
+// read as float32; the kept gates are float32. Bound: 2*T*S*R*h*3h at half
+// the TF32 rate (two products), 0.20 ms at the MPHOI shape.
 
 #include "tc_gemm.cuh"
 
@@ -50,30 +62,42 @@ constexpr int kUnits = 2 * kMTile;      // hidden units a block owns
 constexpr int kTiles = 3 * kUnits / kMTile;
 constexpr int kGroups = 2;              // warp groups of three tiles
 constexpr int kRing = 3;
-constexpr size_t kSmem = smem_bytes<false, kTiles, kTiles / kGroups, kRing>();
+template <class T>
+constexpr size_t kSmem = smem_bytes<false, kTiles, kTiles / kGroups, kRing, T, float>();
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-gru_step_kernel(const float* __restrict__ gi,     // (T, S, R, 3h)
-                const float* __restrict__ w_hh,   // (S, h, 3h)
-                const float* __restrict__ b_hh,   // (S, 3h)
-                const float* __restrict__ h0,     // (S, R, h)
-                float* __restrict__ out,          // (T, S, R, h)
+gru_step_kernel(const T* __restrict__ gi,         // (T, S, R, 3h)
+                const T* __restrict__ w_hh,       // (S, h, 3h)
+                const T* __restrict__ b_hh,       // (S, 3h)
+                const T* __restrict__ h0,         // (S, R, h)
+                T* __restrict__ out,              // (T, S, R, h)
+                float* __restrict__ state,        // bf16: (2, S, R, h), slot 1 = h0 at first
                 float* __restrict__ gates,        // (T, S, R, 3h) with keep
-                int keep, int T, int S, int R, int H, int num_reverse, int step) {
+                int keep, int T_, int S, int R, int H, int num_reverse, int step) {
   constexpr int U = kUnits / kMTile;
+  constexpr bool kF32 = !IsBf16<T>::value;
   const int s = blockIdx.z;
   const int row0 = blockIdx.y * kMaxRows;
   const int unit0 = blockIdx.x * kUnits;
   const int rows = min(kMaxRows, R - row0);
   const bool reverse = s >= S - num_reverse;
-  const int t = reverse ? T - 1 - step : step;
-  const float* h_prev = step == 0
-      ? h0 + (size_t)s * R * H
-      : out + ((size_t)(reverse ? t + 1 : t - 1) * S + s) * R * H;
+  const int t = reverse ? T_ - 1 - step : step;
+  // The float32 state this step reads, and with bfloat16 IO where it writes.
+  const float* h_prev;
+  float* h_next = nullptr;
+  if constexpr (kF32) {
+    h_prev = step == 0 ? h0 + (size_t)s * R * H
+                       : out + ((size_t)(reverse ? t + 1 : t - 1) * S + s) * R * H;
+  } else {
+    h_prev = state + ((size_t)((step + 1) & 1) * S + s) * R * H;
+    h_next = state + ((size_t)(step & 1) * S + s) * R * H;
+  }
 
   extern __shared__ __align__(16) unsigned char smem[];
   float acc[kTiles / kGroups][kNTiles][4] = {};
-  const Operand op = {h_prev + (size_t)row0 * H, H, w_hh + (size_t)s * H * 3 * H, 3 * H, H};
+  const OperandT<T, float> op = {h_prev + (size_t)row0 * H, H, w_hh + (size_t)s * H * 3 * H,
+                                 3 * H, H};
   Tiles tiles = {};
 #pragma unroll
   for (int i = 0; i < kTiles; ++i) {      // tile i: gate i / U, units (i % U) * 16 ..
@@ -86,7 +110,7 @@ gru_step_kernel(const float* __restrict__ gi,     // (T, S, R, 3h)
   store_partials<kTiles / kGroups>(smem, acc);
   __syncthreads();
 
-  const float* b = b_hh + (size_t)s * 3 * H;
+  const T* b = b_hh + (size_t)s * 3 * H;
   const size_t ts = (size_t)t * S + s;
   for (int p = threadIdx.x; p < kUnits * kMaxRows; p += kThreads) {
     const int c = p % kUnits, r = p / kUnits;
@@ -96,13 +120,15 @@ gru_step_kernel(const float* __restrict__ gi,     // (T, S, R, 3h)
     const auto gate = [&](int i) {              // the product of gate i's tile
       return reduce<kTiles / kGroups, kGroups>(smem, i * U + u, m, r);
     };
-    const float* g = gi + (ts * R + row) * 3 * H;
-    const float rg = sigmoid_f(g[unit] + (gate(0) + b[unit]));
-    const float zg = sigmoid_f(g[H + unit] + (gate(1) + b[H + unit]));
-    const float hn = gate(2) + b[2 * H + unit];
-    const float ng = tanhf(g[2 * H + unit] + rg * hn);
+    const T* g = gi + (ts * R + row) * 3 * H;
+    const float rg = sigmoid_f(to_f32(g[unit]) + (gate(0) + to_f32(b[unit])));
+    const float zg = sigmoid_f(to_f32(g[H + unit]) + (gate(1) + to_f32(b[H + unit])));
+    const float hn = gate(2) + to_f32(b[2 * H + unit]);
+    const float ng = tanhf(to_f32(g[2 * H + unit]) + rg * hn);
     const float hp = h_prev[(size_t)row * H + unit];
-    out[(ts * R + row) * H + unit] = (1.f - zg) * ng + zg * hp;
+    const float h = (1.f - zg) * ng + zg * hp;
+    out[(ts * R + row) * H + unit] = from_f32<T>(h);
+    if constexpr (!kF32) h_next[(size_t)row * H + unit] = h;
     if (keep) {
       float* kept = gates + (ts * R + row) * 3 * H + unit;
       kept[0] = rg;
@@ -110,6 +136,28 @@ gru_step_kernel(const float* __restrict__ gi,     // (T, S, R, 3h)
       kept[2 * H] = hn;
     }
   }
+}
+
+template <class T>
+int run(const T* gi, const T* w_hh, const T* b_hh, const T* h0, T* out, float* state,
+        float* gates, int keep, int T_, int S, int R, int H, int num_reverse,
+        cudaStream_t stream) {
+  if (H % (16 / (int)sizeof(T)) != 0 || (keep && gates == nullptr) ||
+      (IsBf16<T>::value && state == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(gru_step_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kSmem<T>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((H + kUnits - 1) / kUnits, (R + kMaxRows - 1) / kMaxRows, S);
+  for (int step = 0; step < T_; ++step) {
+    gru_step_kernel<T><<<grid, kThreads, kSmem<T>, stream>>>(gi, w_hh, b_hh, h0, out, state,
+                                                             gates, keep, T_, S, R, H,
+                                                             num_reverse, step);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -122,17 +170,16 @@ extern "C" int tggcn_gru_sequence_f32(const float* gi, const float* w_hh,
                                       const float* b_hh, const float* h0,
                                       float* out, float* gates, int keep, int T, int S,
                                       int R, int H, int num_reverse, void* stream_ptr) {
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (H % 4 != 0 || (keep && gates == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(gru_step_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((H + kUnits - 1) / kUnits, (R + kMaxRows - 1) / kMaxRows, S);
-  for (int step = 0; step < T; ++step) {
-    gru_step_kernel<<<grid, kThreads, kSmem, stream>>>(gi, w_hh, b_hh, h0, out, gates, keep, T,
-                                                       S, R, H, num_reverse, step);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run<float>(gi, w_hh, b_hh, h0, out, nullptr, gates, keep, T, S, R, H, num_reverse,
+                    static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The same in bfloat16 IO: state (2, S, R, h) float32 holds h0 in slot 1
+// at the call; the gates are float32. H % 8 == 0.
+extern "C" int tggcn_gru_sequence_bf16(const bf16* gi, const bf16* w_hh, const bf16* b_hh,
+                                       const bf16* h0, bf16* out, float* state, float* gates,
+                                       int keep, int T, int S, int R, int H, int num_reverse,
+                                       void* stream_ptr) {
+  return run<bf16>(gi, w_hh, b_hh, h0, out, state, gates, keep, T, S, R, H, num_reverse,
+                   static_cast<cudaStream_t>(stream_ptr));
 }

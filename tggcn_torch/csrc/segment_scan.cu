@@ -59,6 +59,21 @@
 // carry gi in, the states out and, with keep, 263 MB of kept tensors (0.08
 // ms at 3.35 TB/s). v1 and ext do about the same work; v4 adds
 // 2 * 96 * h * h * 2 * T = 17 GFLOP.
+//
+// bfloat16 ('dot' only; T = bf16: gi, u, the weights, the mask, h0 and the
+// outputs h_h, h_o, att_oh in bfloat16), as the TPU kernel runs it with
+// fuse_dirs (segment_scan_pallas.py:92-220): the states stay float32, in
+// buffers of their own (state_h, state_o: (2, rows, h), updated in place by
+// B, each element by the thread that reads it), not in the bfloat16
+// outputs, which would round the carried state at every step. A's and B's
+// products are bfloat16 x bfloat16 with float32 sums (tc_gemm.cuh, m16n8k16)
+// on the activations rounded as the TPU kernel's astype(wdt) rounds them:
+// the states (the bfloat16 outputs of the step before, or h0) and the mixed
+// messages, which M writes in bfloat16. M's scores, softmax and mixing take
+// the float32 states and edge messages; the kept m, gates and attention are
+// float32, the kept mix the bfloat16 the product read. Bound: the same
+// 92 GFLOP at the dense bfloat16 rate (989 TFLOP/s), 0.09 ms, and the
+// scores and mixing on the FMA units; the weights are half the bytes.
 
 #include "tc_gemm.cuh"
 
@@ -85,12 +100,12 @@ __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf
 
 // The states this step reads: h0 at the first step, else the previous
 // step's output of the same direction. rows = B * entities.
-__device__ __forceinline__ const float* prev_state(const float* h0, const float* out,
-                                                   Step s, int step, int T,
-                                                   int rows, int H) {
+template <class T>
+__device__ __forceinline__ const T* prev_state(const T* h0, const T* out, Step s, int step,
+                                               int T_, int rows, int H) {
   if (step == 0) return h0 + (size_t)s.d * rows * H;
   const int tp = s.d == 0 ? s.t - 1 : s.t + 1;
-  return out + ((size_t)s.d * T + tp) * rows * H;
+  return out + ((size_t)s.d * T_ + tp) * rows * H;
 }
 
 // The slot of a kept per-step tensor (m, mix, gates) at the step's (d, t):
@@ -110,16 +125,16 @@ __device__ __forceinline__ size_t msg_at(Step s, int T, int keep, int rows, int 
 // 0-3 are the messages (hh, ho, oh, oo); in v4, edges 4-7 are tmp = recv @
 // W_att of the score edges hh, oh (receivers humans, into tmp_h) and ho, oo
 // (receivers objects, into tmp_o), laid out (2, rows, sender group, h).
-template <int Mode>
+template <int Mode, class T>
 __global__ void __launch_bounds__(kThreads)
-proj_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
-            const float* __restrict__ out_h, const float* __restrict__ out_o,
-            const float* __restrict__ w_from, const float* __restrict__ b_from,
+proj_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
+            const T* __restrict__ out_h, const T* __restrict__ out_o,
+            const T* __restrict__ w_from, const T* __restrict__ b_from,
             float* __restrict__ m_h, float* __restrict__ m_o,
-            const float* __restrict__ w_att, float* __restrict__ tmp_h,
-            float* __restrict__ tmp_o, int keep, int T, int B, int NH, int NO,
+            const T* __restrict__ w_att, float* __restrict__ tmp_h,
+            float* __restrict__ tmp_o, int keep, int T_, int B, int NH, int NO,
             int H, int row_tiles, int step) {
-  const Step s = step_of(step, T);
+  const Step s = step_of(step, T_);
   const int e = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
   const int col0 = blockIdx.x * 2 * kMTile;
@@ -127,13 +142,13 @@ proj_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
   const int all_rows = B * (group == 0 ? NH : NO);
   if (row0 >= all_rows) return;
   const int rows = min(kMaxRows, all_rows - row0);
-  const float* x = (group == 0 ? prev_state(h0_h, out_h, s, step, T, all_rows, H)
-                               : prev_state(h0_o, out_o, s, step, T, all_rows, H))
-                   + (size_t)row0 * H;
-  const float* w = e < 4 ? w_from + (size_t)e * H * H : w_att + (size_t)(e - 4) * H * H;
+  const T* x = (group == 0 ? prev_state(h0_h, out_h, s, step, T_, all_rows, H)
+                           : prev_state(h0_o, out_o, s, step, T_, all_rows, H))
+               + (size_t)row0 * H;
+  const T* w = e < 4 ? w_from + (size_t)e * H * H : w_att + (size_t)(e - 4) * H * H;
   extern __shared__ __align__(16) unsigned char smem[];
   float acc[2][kNTiles][4] = {};
-  const Operand op = {x, H, w, H, H};
+  const OperandT<T, T> op = {x, H, w, H, H};
   const Tiles tiles = {{col0, col0 + kMTile, 0},
                        {max(0, min(kMTile, H - col0)), max(0, min(kMTile, H - col0 - kMTile)), 0}};
   accumulate<false, 2, 2, 1, TileSlots>(op, op, op, tiles, rows, smem, acc);
@@ -145,8 +160,8 @@ proj_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
     if (r >= rows || col >= H) continue;
     const float v = reduce<2>(smem, t, c, r);
     if (e < 4) {
-      (e < 2 ? m_h : m_o)[msg_at(s, T, keep, all_rows, row, e, H) + col] =
-          fmaxf(v + b_from[(size_t)e * H + col], 0.f);
+      (e < 2 ? m_h : m_o)[msg_at(s, T_, keep, all_rows, row, e, H) + col] =
+          fmaxf(v + to_f32(b_from[(size_t)e * H + col]), 0.f);
     } else {
       (group == 0 ? tmp_h : tmp_o)[(((size_t)s.d * all_rows + row) * 2 + (e & 1)) * H + col] = v;
     }
@@ -177,25 +192,34 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Per (batch, column slice, direction): the scores of the mode, the masked
 // softmax (ext: the weights as given), att_oh (and, with keep, the whole
-// E x E attention) and the mixed messages.
-// Dynamic shared memory: the (NH + NO) carried states of the block's batch.
-template <int Mode>
+// E x E attention) and the mixed messages (in T).
+// Dynamic shared memory: the (NH + NO) carried states of the block's batch,
+// float32 (with bfloat16 IO, from state_h and state_o).
+template <int Mode, class T>
 __global__ void __launch_bounds__(kThreads)
-mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
-           const float* __restrict__ out_h, const float* __restrict__ out_o,
-           const float* __restrict__ obj_mask, const float* __restrict__ m_h,
-           const float* __restrict__ m_o, const float* __restrict__ w_att,
+mix_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
+           const T* __restrict__ out_h, const T* __restrict__ out_o,
+           const float* __restrict__ state_h, const float* __restrict__ state_o,
+           const T* __restrict__ obj_mask, const float* __restrict__ m_h,
+           const float* __restrict__ m_o, const T* __restrict__ w_att,
            const float* __restrict__ b_att, const float* __restrict__ tmp_h,
            const float* __restrict__ tmp_o, const float* __restrict__ att_ext,
-           float* __restrict__ mix_h, float* __restrict__ mix_o,
-           float* __restrict__ att, float* __restrict__ atts, int keep, int T, int B,
+           T* __restrict__ mix_h, T* __restrict__ mix_o,
+           T* __restrict__ att, float* __restrict__ atts, int keep, int T_, int B,
            int NH, int NO, int H, float scale, int step) {
-  const Step s = step_of(step, T);
+  const Step s = step_of(step, T_);
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * kMixColumns;
   const int E = NH + NO;
-  const float* hh = prev_state(h0_h, out_h, s, step, T, B * NH, H) + (size_t)b * NH * H;
-  const float* ho = prev_state(h0_o, out_o, s, step, T, B * NO, H) + (size_t)b * NO * H;
+  const float* hh;
+  const float* ho;
+  if constexpr (IsBf16<T>::value) {
+    hh = state_h + ((size_t)s.d * B * NH + (size_t)b * NH) * H;
+    ho = state_o + ((size_t)s.d * B * NO + (size_t)b * NO) * H;
+  } else {
+    hh = prev_state(h0_h, out_h, s, step, T_, B * NH, H) + (size_t)b * NH * H;
+    ho = prev_state(h0_o, out_o, s, step, T_, B * NO, H) + (size_t)b * NO * H;
+  }
 
   extern __shared__ float4 states4[];
   float* states = reinterpret_cast<float*>(states4);       // (E, H)
@@ -252,34 +276,34 @@ mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
       a[i / E][i % E] = att_ext[(((size_t)s.t * B + b) * E + i / E) * E + i % E];
   }
   __syncthreads();
-  const float* om = obj_mask + (size_t)b * NO;
+  const T* om = obj_mask + (size_t)b * NO;
   if (Mode != kExt && tid < E) {
     const int n = tid;
     if (n < NH) {
       masked_softmax_row(a[n], 0, NH, [&](int m) { return m == n ? 0.f : 1.f; });
-      masked_softmax_row(a[n], NH, NO, [&](int o) { return om[o]; });
+      masked_softmax_row(a[n], NH, NO, [&](int o) { return to_f32(om[o]); });
     } else {
       const int o = n - NH;
       masked_softmax_row(a[n], 0, NH, [&](int) { return 1.f; });
-      masked_softmax_row(a[n], NH, NO, [&](int p) { return p == o ? 0.f : om[p]; });
+      masked_softmax_row(a[n], NH, NO, [&](int p) { return p == o ? 0.f : to_f32(om[p]); });
     }
   }
   __syncthreads();
   if (blockIdx.y == 0) {
     for (int i = tid; i < NH * NO; i += kThreads) {
       const int n = i / NO, o = i % NO;
-      att[((((size_t)s.d * T + s.t) * B + b) * NH + n) * NO + o] = a[n][NH + o];
+      att[((((size_t)s.d * T_ + s.t) * B + b) * NH + n) * NO + o] = from_f32<T>(a[n][NH + o]);
     }
     if (keep) {
       for (int i = tid; i < E * E; i += kThreads)
-        atts[((((size_t)s.d * T + s.t) * B + b) * E + i / E) * E + i % E] = a[i / E][i % E];
+        atts[((((size_t)s.d * T_ + s.t) * B + b) * E + i / E) * E + i % E] = a[i / E][i % E];
     }
   }
   auto m_row = [&](int e, int row) {
-    return e < 2 ? m_h + msg_at(s, T, keep, B * NH, row, e, H)
-                 : m_o + msg_at(s, T, keep, B * NO, row, e, H);
+    return e < 2 ? m_h + msg_at(s, T_, keep, B * NH, row, e, H)
+                 : m_o + msg_at(s, T_, keep, B * NO, row, e, H);
   };
-  const size_t slot = slot_of(s, T, keep);
+  const size_t slot = slot_of(s, T_, keep);
   const int width = min(kMixColumns, 2 * H - c0);
   for (int i = tid; i < E * width; i += kThreads) {
     const int n = i / width, k = c0 + i % width;
@@ -292,9 +316,9 @@ mix_kernel(const float* __restrict__ h0_h, const float* __restrict__ h0_o,
         v = fmaf(a[n][NH + o], m_row(human ? 2 : 3, b * NO + o)[k - H], v);
     }
     if (human)
-      mix_h[(slot * B * NH + b * NH + n) * 2 * H + k] = v;
+      mix_h[(slot * B * NH + b * NH + n) * 2 * H + k] = from_f32<T>(v);
     else
-      mix_o[(slot * B * NO + b * NO + n - NH) * 2 * H + k] = v;
+      mix_o[(slot * B * NO + b * NO + n - NH) * 2 * H + k] = from_f32<T>(v);
   }
 }
 
@@ -306,36 +330,44 @@ struct CellSlots {
   __host__ __device__ static constexpr int slot(int p, int t) { return p == 1 && t == 2 ? 3 : t; }
 };
 
+// With bfloat16 IO, h_prev for the product is the bfloat16 state (the
+// output of the step before, or h0), and for the update the float32 state
+// in `state`, which the block then overwrites with the new state.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-cell_kernel(const float* __restrict__ gi_h, const float* __restrict__ gi_o,
-            const float* __restrict__ u_h, const float* __restrict__ u_o,
-            const float* __restrict__ mix_h, const float* __restrict__ mix_o,
-            const float* __restrict__ w_msg_h, const float* __restrict__ w_msg_o,
-            const float* __restrict__ w_hh_h, const float* __restrict__ w_hh_o,
-            const float* __restrict__ b_hh_h, const float* __restrict__ b_hh_o,
-            const float* __restrict__ h0_h, const float* __restrict__ h0_o,
-            float* __restrict__ out_h, float* __restrict__ out_o,
-            float* __restrict__ gates_h, float* __restrict__ gates_o, int keep,
-            int T, int B, int NH, int NO, int H, int row_tiles, int step) {
-  const Step s = step_of(step, T);
+cell_kernel(const T* __restrict__ gi_h, const T* __restrict__ gi_o,
+            const T* __restrict__ u_h, const T* __restrict__ u_o,
+            const T* __restrict__ mix_h, const T* __restrict__ mix_o,
+            const T* __restrict__ w_msg_h, const T* __restrict__ w_msg_o,
+            const T* __restrict__ w_hh_h, const T* __restrict__ w_hh_o,
+            const T* __restrict__ b_hh_h, const T* __restrict__ b_hh_o,
+            const T* __restrict__ h0_h, const T* __restrict__ h0_o,
+            T* __restrict__ out_h, T* __restrict__ out_o, float* __restrict__ state_h,
+            float* __restrict__ state_o, float* __restrict__ gates_h,
+            float* __restrict__ gates_o, int keep, int T_, int B, int NH, int NO, int H,
+            int row_tiles, int step) {
+  const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;             // 0 humans, 1 objects
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
   const int unit0 = blockIdx.x * kMTile;
   const int all_rows = B * (cell == 0 ? NH : NO);
   if (row0 >= all_rows) return;
   const int rows = min(kMaxRows, all_rows - row0);
-  const size_t slot = slot_of(s, T, keep);
-  const float* mix = (cell == 0 ? mix_h : mix_o) + (slot * all_rows + row0) * 2 * H;
-  const float* w_msg = (cell == 0 ? w_msg_h : w_msg_o) + (size_t)s.d * 2 * H * 3 * H;
-  const float* w_hh = (cell == 0 ? w_hh_h : w_hh_o) + (size_t)s.d * H * 3 * H;
-  const float* b_hh = (cell == 0 ? b_hh_h : b_hh_o) + (size_t)s.d * 3 * H;
-  const float* h_prev = cell == 0 ? prev_state(h0_h, out_h, s, step, T, all_rows, H)
-                                  : prev_state(h0_o, out_o, s, step, T, all_rows, H);
+  const size_t slot = slot_of(s, T_, keep);
+  const T* mix = (cell == 0 ? mix_h : mix_o) + (slot * all_rows + row0) * 2 * H;
+  const T* w_msg = (cell == 0 ? w_msg_h : w_msg_o) + (size_t)s.d * 2 * H * 3 * H;
+  const T* w_hh = (cell == 0 ? w_hh_h : w_hh_o) + (size_t)s.d * H * 3 * H;
+  const T* b_hh = (cell == 0 ? b_hh_h : b_hh_o) + (size_t)s.d * 3 * H;
+  const T* h_prev = cell == 0 ? prev_state(h0_h, out_h, s, step, T_, all_rows, H)
+                              : prev_state(h0_o, out_o, s, step, T_, all_rows, H);
+  float* state = nullptr;
+  if constexpr (IsBf16<T>::value)
+    state = (cell == 0 ? state_h : state_o) + (size_t)s.d * all_rows * H;
 
   extern __shared__ __align__(16) unsigned char smem[];
   float acc[4][kNTiles][4] = {};
-  const Operand in = {mix, 2 * H, w_msg, 3 * H, 2 * H};
-  const Operand rec = {h_prev + (size_t)row0 * H, H, w_hh, 3 * H, H};
+  const OperandT<T, T> in = {mix, 2 * H, w_msg, 3 * H, 2 * H};
+  const OperandT<T, T> rec = {h_prev + (size_t)row0 * H, H, w_hh, 3 * H, H};
   const int valid = min(kMTile, H - unit0);
   const Tiles tiles = {{unit0, H + unit0, 2 * H + unit0}, {valid, valid, valid}};
   accumulate<false, 3, 4, 2, CellSlots>(in, rec, rec, tiles, rows, smem, acc);
@@ -346,16 +378,23 @@ cell_kernel(const float* __restrict__ gi_h, const float* __restrict__ gi_o,
     const int c = p % kMTile, r = p / kMTile;
     const int row = row0 + r, unit = unit0 + c;
     if (r >= rows || unit >= H) continue;
-    const float* g = (cell == 0 ? gi_h : gi_o) + (((size_t)s.d * T + s.t) * all_rows + row) * 3 * H;
-    const float rg = sigmoid_f(g[unit] + reduce<4>(smem, 0, c, r) + b_hh[unit]);
-    const float zg = sigmoid_f(g[H + unit] + reduce<4>(smem, 1, c, r) + b_hh[H + unit]);
-    const float hn = reduce<4>(smem, 3, c, r) + b_hh[2 * H + unit];
-    const float ng = tanhf(g[2 * H + unit] + reduce<4>(smem, 2, c, r) + rg * hn);
-    const float hp = h_prev[(size_t)row * H + unit];
+    const T* g = (cell == 0 ? gi_h : gi_o) + (((size_t)s.d * T_ + s.t) * all_rows + row) * 3 * H;
+    const float rg = sigmoid_f(to_f32(g[unit]) + reduce<4>(smem, 0, c, r) + to_f32(b_hh[unit]));
+    const float zg =
+        sigmoid_f(to_f32(g[H + unit]) + reduce<4>(smem, 1, c, r) + to_f32(b_hh[H + unit]));
+    const float hn = reduce<4>(smem, 3, c, r) + to_f32(b_hh[2 * H + unit]);
+    const float ng = tanhf(to_f32(g[2 * H + unit]) + reduce<4>(smem, 2, c, r) + rg * hn);
+    float hp;
+    if constexpr (IsBf16<T>::value)
+      hp = state[(size_t)row * H + unit];
+    else
+      hp = h_prev[(size_t)row * H + unit];
     const float h_new = (1.f - zg) * ng + zg * hp;
-    const float u = (cell == 0 ? u_h : u_o)[(size_t)s.t * all_rows + row];
-    float* out = cell == 0 ? out_h : out_o;
-    out[(((size_t)s.d * T + s.t) * all_rows + row) * H + unit] = u * h_new + (1.f - u) * hp;
+    const float u = to_f32((cell == 0 ? u_h : u_o)[(size_t)s.t * all_rows + row]);
+    const float h = u * h_new + (1.f - u) * hp;
+    T* out = cell == 0 ? out_h : out_o;
+    out[(((size_t)s.d * T_ + s.t) * all_rows + row) * H + unit] = from_f32<T>(h);
+    if constexpr (IsBf16<T>::value) state[(size_t)row * H + unit] = h;
     if (keep) {
       float* gr = gates + (slot * all_rows + row) * 4 * H + unit;
       gr[0] = rg;
@@ -368,24 +407,27 @@ cell_kernel(const float* __restrict__ gi_h, const float* __restrict__ gi_o,
 
 // Runs the whole scan, both directions: per step the launches A, M, B on
 // `stream`, in order. Returns the first CUDA error of a launch, else 0.
-template <int Mode>
-int run_scan(const float* gi_h, const float* gi_o, const float* u_h, const float* u_o,
-             const float* w_from, const float* b_from, const float* w_msg_h,
-             const float* w_msg_o, const float* w_hh_h, const float* w_hh_o,
-             const float* b_hh_h, const float* b_hh_o, const float* obj_mask,
-             const float* h0_h, const float* h0_o, const float* w_att, const float* b_att,
-             const float* att_ext, float* out_h, float* out_o, float* att, float* m_h,
-             float* m_o, float* tmp_h, float* tmp_o, float* mix_h, float* mix_o,
-             float* gates_h, float* gates_o, float* atts, int keep, int T, int B,
-             int NH, int NO, int H, float scale, cudaStream_t stream) {
+// With bfloat16 IO, state_h and state_o hold the float32 states (h0 at the
+// call).
+template <int Mode, class T>
+int run_scan(const T* gi_h, const T* gi_o, const T* u_h, const T* u_o, const T* w_from,
+             const T* b_from, const T* w_msg_h, const T* w_msg_o, const T* w_hh_h,
+             const T* w_hh_o, const T* b_hh_h, const T* b_hh_o, const T* obj_mask,
+             const T* h0_h, const T* h0_o, const T* w_att, const float* b_att,
+             const float* att_ext, T* out_h, T* out_o, T* att, float* m_h, float* m_o,
+             float* tmp_h, float* tmp_o, T* mix_h, T* mix_o, float* gates_h, float* gates_o,
+             float* atts, float* state_h, float* state_o, int keep, int T_, int B, int NH,
+             int NO, int H, float scale, cudaStream_t stream) {
   const size_t states_bytes = (size_t)(NH + NO) * H * sizeof(float);
-  if (NH + NO > kMaxEntities || H % 4 != 0 || states_bytes > 48 * 1024)
+  if (NH + NO > kMaxEntities || H % (16 / (int)sizeof(T)) != 0 || states_bytes > 48 * 1024 ||
+      (IsBf16<T>::value && (state_h == nullptr || state_o == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem_a = smem_bytes<false, 2, 2>(), smem_b = smem_bytes<false, 3, 4>();
-  cudaError_t err = cudaFuncSetAttribute(proj_kernel<Mode>,
+  const size_t smem_a = smem_bytes<false, 2, 2, kStages, T, T>();
+  const size_t smem_b = smem_bytes<false, 3, 4, kStages, T, T>();
+  cudaError_t err = cudaFuncSetAttribute(proj_kernel<Mode, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(cell_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_b);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int max_rows = B * (NH > NO ? NH : NO);
@@ -394,16 +436,17 @@ int run_scan(const float* gi_h, const float* gi_o, const float* u_h, const float
   const dim3 grid_a((H + 2 * kMTile - 1) / (2 * kMTile), (Mode == kV4 ? 8 : 4) * row_tiles, 2);
   const dim3 grid_m(B, (2 * H + kMixColumns - 1) / kMixColumns, 2);
   const dim3 grid_b(col_tiles, 2 * row_tiles, 2);
-  for (int step = 0; step < T; ++step) {
-    proj_kernel<Mode><<<grid_a, kThreads, smem_a, stream>>>(
-        h0_h, h0_o, out_h, out_o, w_from, b_from, m_h, m_o, w_att, tmp_h, tmp_o, keep, T, B,
+  for (int step = 0; step < T_; ++step) {
+    proj_kernel<Mode, T><<<grid_a, kThreads, smem_a, stream>>>(
+        h0_h, h0_o, out_h, out_o, w_from, b_from, m_h, m_o, w_att, tmp_h, tmp_o, keep, T_, B,
         NH, NO, H, row_tiles, step);
-    mix_kernel<Mode><<<grid_m, kThreads, states_bytes, stream>>>(
-        h0_h, h0_o, out_h, out_o, obj_mask, m_h, m_o, w_att, b_att, tmp_h, tmp_o, att_ext,
-        mix_h, mix_o, att, atts, keep, T, B, NH, NO, H, scale, step);
-    cell_kernel<<<grid_b, kThreads, smem_b, stream>>>(
+    mix_kernel<Mode, T><<<grid_m, kThreads, states_bytes, stream>>>(
+        h0_h, h0_o, out_h, out_o, state_h, state_o, obj_mask, m_h, m_o, w_att, b_att, tmp_h,
+        tmp_o, att_ext, mix_h, mix_o, att, atts, keep, T_, B, NH, NO, H, scale, step);
+    cell_kernel<T><<<grid_b, kThreads, smem_b, stream>>>(
         gi_h, gi_o, u_h, u_o, mix_h, mix_o, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o,
-        h0_h, h0_o, out_h, out_o, gates_h, gates_o, keep, T, B, NH, NO, H, row_tiles, step);
+        h0_h, h0_o, out_h, out_o, state_h, state_o, gates_h, gates_o, keep, T_, B, NH, NO, H,
+        row_tiles, step);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -427,11 +470,29 @@ extern "C" int tggcn_segment_scan_dot_f32(
     float* att, float* m_h, float* m_o, float* mix_h, float* mix_o, float* gates_h,
     float* gates_o, float* atts, int keep, int T, int B, int NH, int NO, int H, float scale,
     void* stream_ptr) {
-  return run_scan<kDot>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
-                        w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, nullptr, nullptr,
-                        nullptr, out_h, out_o, att, m_h, m_o, nullptr, nullptr, mix_h, mix_o,
-                        gates_h, gates_o, atts, keep, T, B, NH, NO, H, scale,
-                        static_cast<cudaStream_t>(stream_ptr));
+  return run_scan<kDot, float>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
+                               w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, nullptr, nullptr,
+                               nullptr, out_h, out_o, att, m_h, m_o, nullptr, nullptr, mix_h,
+                               mix_o, gates_h, gates_o, atts, nullptr, nullptr, keep, T, B, NH,
+                               NO, H, scale, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// K3 in bfloat16 IO: every pointer of tggcn_segment_scan_dot_f32 but m_h,
+// m_o, gates and atts (float32) in bfloat16, and state_h, state_o (2, B *
+// NH or NO, H) float32 holding h0 at the call. H % 8 == 0.
+extern "C" int tggcn_segment_scan_dot_bf16(
+    const bf16* gi_h, const bf16* gi_o, const bf16* u_h, const bf16* u_o,
+    const bf16* w_from, const bf16* b_from, const bf16* w_msg_h, const bf16* w_msg_o,
+    const bf16* w_hh_h, const bf16* w_hh_o, const bf16* b_hh_h, const bf16* b_hh_o,
+    const bf16* obj_mask, const bf16* h0_h, const bf16* h0_o, bf16* out_h, bf16* out_o,
+    bf16* att, float* m_h, float* m_o, bf16* mix_h, bf16* mix_o, float* gates_h,
+    float* gates_o, float* atts, float* state_h, float* state_o, int keep, int T, int B,
+    int NH, int NO, int H, float scale, void* stream_ptr) {
+  return run_scan<kDot, bf16>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
+                              w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, nullptr, nullptr,
+                              nullptr, out_h, out_o, att, m_h, m_o, nullptr, nullptr, mix_h,
+                              mix_o, gates_h, gates_o, atts, state_h, state_o, keep, T, B, NH,
+                              NO, H, scale, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // K5: the scan in mode 1 'v1' (w_att (4, 2H), b_att (4)), 2 'v4' (w_att
@@ -451,10 +512,10 @@ extern "C" int tggcn_segment_scan_att_f32(
     int H, void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define TGGCN_RUN_SCAN(M)                                                                 \
-  run_scan<M>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,      \
-              b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, w_att, b_att, att_ext, out_h, out_o,   \
-              att, m_h, m_o, tmp_h, tmp_o, mix_h, mix_o, nullptr, nullptr, nullptr, 0, T, B, \
-              NH, NO, H, 1.f, stream)
+  run_scan<M, float>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, \
+                     b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, w_att, b_att, att_ext, out_h,     \
+                     out_o, att, m_h, m_o, tmp_h, tmp_o, mix_h, mix_o, nullptr, nullptr,     \
+                     nullptr, nullptr, nullptr, 0, T, B, NH, NO, H, 1.f, stream)
   switch (mode) {
     case kV1: return TGGCN_RUN_SCAN(kV1);
     case kV4: return TGGCN_RUN_SCAN(kV4);

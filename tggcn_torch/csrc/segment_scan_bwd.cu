@@ -47,6 +47,18 @@
 // TFLOP/s, 0.56 ms as 3xTF32 at 495 TFLOP/s). The weights D and R read (46
 // MB a step for both directions: w_msg 25 MB, w_hh 13 MB, w_from twice
 // 8 MB) about fill the 50 MB L2.
+//
+// bfloat16 (T = bf16: u, hprev, the upstream gradients, the weights and
+// every output in bfloat16; K3's kept m, gates and attention float32), as
+// the TPU kernel runs it (segment_scan_pallas.py:324-527): D's and R's
+// products are bfloat16 x bfloat16 with float32 sums (tc_gemm.cuh,
+// m16n8k16) on the bfloat16 outputs dgi, dgh and dpre, which is what the
+// TPU kernel multiplies; the carry dL/dh, dhz, du's partials and attc stay
+// float32. Where the TPU kernel computes in bfloat16 the values are rounded
+// (round_to): the gates, attention and messages it would recompute, each
+// step of C's elementwise backward, dmsgs and the score gradient ds. The
+// weights are half the bytes; bound: the products at the dense bfloat16
+// rate (989 TFLOP/s), the attention backward on the FMA units.
 
 #include "tc_gemm.cuh"
 
@@ -85,106 +97,121 @@ __device__ __forceinline__ int edge_of(int n, int m, int NH) {
   return n < NH ? (m < NH ? 0 : 2) : (m < NH ? 1 : 3);
 }
 
+template <class T>
 struct CellArgs {
-  const float *u, *hprev, *g, *gates;
-  float *dgi, *dgh, *du_part, *dhz;
+  const T *u, *hprev, *g;
+  const float* gates;
+  T *dgi, *dgh;
+  float *du_part, *dhz;
 };
 
 // Phase C at (s, row, unit) from the carry dL/dh: writes dgi, dgh, dhz and
-// returns this unit's share of du.
-__device__ __forceinline__ float cell_bwd(const CellArgs& c, Step s, int T, int rows, int row,
-                                          int unit, int H, float carry) {
-  const float* gr = c.gates + at(s, T, rows, row, 4 * H);
-  const float rg = gr[unit], zg = gr[H + unit], ng = gr[2 * H + unit], hn = gr[3 * H + unit];
-  const size_t hi = at(s, T, rows, row, H) + unit;
-  const float hpv = c.hprev[hi];
-  const float dH = carry + c.g[hi];
-  const float u = c.u[(size_t)s.t * rows + row];
-  const float h_new = (1.f - zg) * ng + zg * hpv;
-  const float dh_new = dH * u;
-  const float dtanh = dh_new * (1.f - zg) * (1.f - ng * ng);
-  const float d_ir = dtanh * hn * rg * (1.f - rg);
-  const float d_iz = dh_new * (hpv - ng) * zg * (1.f - zg);
-  const size_t g3 = at(s, T, rows, row, 3 * H);
-  c.dgi[g3 + unit] = d_ir;
-  c.dgi[g3 + H + unit] = d_iz;
-  c.dgi[g3 + 2 * H + unit] = dtanh;
-  c.dgh[g3 + unit] = d_ir;
-  c.dgh[g3 + H + unit] = d_iz;
-  c.dgh[g3 + 2 * H + unit] = dtanh * rg;
-  c.dhz[((size_t)s.d * rows + row) * H + unit] = dH * (1.f - u) + dh_new * zg;
+// returns this unit's share of du. With bfloat16 IO each step is rounded
+// as the TPU kernel's bfloat16 arithmetic rounds it (q: the identity in
+// float32).
+template <class T>
+__device__ __forceinline__ float cell_bwd(const CellArgs<T>& c, Step s, int T_, int rows,
+                                          int row, int unit, int H, float carry) {
+  const auto q = [](float x) { return round_to<T>(x); };
+  const float* gr = c.gates + at(s, T_, rows, row, 4 * H);
+  const float rg = q(gr[unit]), zg = q(gr[H + unit]), ng = q(gr[2 * H + unit]);
+  const float hn = q(gr[3 * H + unit]);
+  const size_t hi = at(s, T_, rows, row, H) + unit;
+  const float hpv = to_f32(c.hprev[hi]);
+  const float dH = carry + to_f32(c.g[hi]);
+  const float u = to_f32(c.u[(size_t)s.t * rows + row]);
+  const float omz = q(1.f - zg);
+  const float h_new = q(omz * ng) + zg * hpv;
+  const float dh_new = q(dH * u);
+  const float dtanh = q(q(dh_new * omz) * q(1.f - q(ng * ng)));
+  const float d_ir = q(q(q(dtanh * hn) * rg) * q(1.f - rg));
+  const float d_iz = q(q(q(dh_new * q(hpv - ng)) * zg) * omz);
+  const size_t g3 = at(s, T_, rows, row, 3 * H);
+  c.dgi[g3 + unit] = from_f32<T>(d_ir);
+  c.dgi[g3 + H + unit] = from_f32<T>(d_iz);
+  c.dgi[g3 + 2 * H + unit] = from_f32<T>(dtanh);
+  c.dgh[g3 + unit] = from_f32<T>(d_ir);
+  c.dgh[g3 + H + unit] = from_f32<T>(d_iz);
+  c.dgh[g3 + 2 * H + unit] = from_f32<T>(dtanh * rg);
+  c.dhz[((size_t)s.d * rows + row) * H + unit] = dH * (1.f - u) + q(dh_new * zg);
   return dH * (h_new - hpv);
 }
 
 // du_s holds each (row, unit) share of the block's 32 x 16 tile: one
 // partial per row and block, added over the 16 units in order.
-__device__ __forceinline__ void store_du(const CellArgs& c, Step s, int T, int rows, int row0,
-                                         int nrows, const float (&du_s)[kMaxRows][kMTile + 1]) {
+template <class T>
+__device__ __forceinline__ void store_du(const CellArgs<T>& c, Step s, int T_, int rows,
+                                         int row0, int nrows,
+                                         const float (&du_s)[kMaxRows][kMTile + 1]) {
   __syncthreads();
   const int r = threadIdx.x;
   if (r < nrows) {
     float v = 0.f;
     for (int k = 0; k < kMTile; ++k) v += du_s[r][k];
-    c.du_part[at(s, T, rows, row0 + r, gridDim.x) + blockIdx.x] = v;
+    c.du_part[at(s, T_, rows, row0 + r, gridDim.x) + blockIdx.x] = v;
   }
 }
 
 // Phase C of the first step (zero carry); blocks own 16 units of up to 32
 // rows of one (direction, cell), as R's.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-segb_cell(CellArgs hum, CellArgs obj, int T, int B, int NH, int NO, int H, int row_tiles) {
-  const Step s = step_of(0, T);
+segb_cell(CellArgs<T> hum, CellArgs<T> obj, int T_, int B, int NH, int NO, int H,
+          int row_tiles) {
+  const Step s = step_of(0, T_);
   const int cell = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
   const int unit0 = blockIdx.x * kMTile;
   const int all_rows = B * (cell == 0 ? NH : NO);
   if (row0 >= all_rows) return;
   const int nrows = min(kMaxRows, all_rows - row0);
-  const CellArgs& c = cell == 0 ? hum : obj;
+  const CellArgs<T>& c = cell == 0 ? hum : obj;
   __shared__ float du_s[kMaxRows][kMTile + 1];
   for (int p = threadIdx.x; p < kMTile * kMaxRows; p += kThreads) {
     const int cc = p % kMTile, r = p / kMTile;
     const int unit = unit0 + cc;
-    du_s[r][cc] = r < nrows && unit < H ? cell_bwd(c, s, T, all_rows, row0 + r, unit, H, 0.f)
+    du_s[r][cc] = r < nrows && unit < H ? cell_bwd(c, s, T_, all_rows, row0 + r, unit, H, 0.f)
                                         : 0.f;
   }
-  store_du(c, s, T, all_rows, row0, nrows, du_s);
+  store_du(c, s, T_, all_rows, row0, nrows, du_s);
 }
 
 // du[i] = the sum, in block order, of the `parts` partials of row i.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
 du_sum(const float* __restrict__ part_h, const float* __restrict__ part_o,
-       float* __restrict__ du_h, float* __restrict__ du_o, int n_h, int n_o, int parts) {
+       T* __restrict__ du_h, T* __restrict__ du_o, int n_h, int n_o, int parts) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool human = i < n_h;
   if (i >= n_h + n_o) return;
   const float* p = human ? part_h + (size_t)i * parts : part_o + (size_t)(i - n_h) * parts;
   float v = 0.f;
   for (int q = 0; q < parts; ++q) v += p[q];
-  (human ? du_h : du_o)[human ? i : i - n_h] = v;
+  (human ? du_h : du_o)[human ? i : i - n_h] = from_f32<T>(v);
 }
 
-// dmsgs = dgi @ w_msg^T for both cells; blocks own 32 of 2h columns and up
-// to 32 rows.
+// dmsgs = dgi @ w_msg^T for both cells (float32, rounded to T as the TPU
+// kernel rounds it); blocks own 32 of 2h columns and up to 32 rows.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-segb_dmsgs(const float* __restrict__ dgi_h, const float* __restrict__ dgi_o,
-           const float* __restrict__ w_msg_h, const float* __restrict__ w_msg_o,
-           float* __restrict__ dmsgs_h, float* __restrict__ dmsgs_o, int T, int B, int NH,
+segb_dmsgs(const T* __restrict__ dgi_h, const T* __restrict__ dgi_o,
+           const T* __restrict__ w_msg_h, const T* __restrict__ w_msg_o,
+           float* __restrict__ dmsgs_h, float* __restrict__ dmsgs_o, int T_, int B, int NH,
            int NO, int H, int row_tiles, int step) {
-  const Step s = step_of(step, T);
+  const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
   const int col0 = blockIdx.x * 2 * kMTile;
   const int all_rows = B * (cell == 0 ? NH : NO);
   if (row0 >= all_rows) return;
   const int rows = min(kMaxRows, all_rows - row0);
-  const float* dgi = (cell == 0 ? dgi_h : dgi_o) + at(s, T, all_rows, row0, 3 * H);
-  const float* w = (cell == 0 ? w_msg_h : w_msg_o) + (size_t)s.d * 2 * H * 3 * H;
+  const T* dgi = (cell == 0 ? dgi_h : dgi_o) + at(s, T_, all_rows, row0, 3 * H);
+  const T* w = (cell == 0 ? w_msg_h : w_msg_o) + (size_t)s.d * 2 * H * 3 * H;
   float* out = (cell == 0 ? dmsgs_h : dmsgs_o) + ((size_t)s.d * all_rows + row0) * 2 * H;
 
   extern __shared__ __align__(16) unsigned char smem[];
   float acc[2][kNTiles][4] = {};
-  const Operand op = {dgi, 3 * H, w, 3 * H, 3 * H};
+  const OperandT<T, T> op = {dgi, 3 * H, w, 3 * H, 3 * H};
   const Tiles tiles = {{col0, col0 + kMTile, 0},
                        {max(0, min(kMTile, 2 * H - col0)),
                         max(0, min(kMTile, 2 * H - col0 - kMTile)), 0}};
@@ -195,13 +222,16 @@ segb_dmsgs(const float* __restrict__ dgi_h, const float* __restrict__ dgi_o,
     const int t = p / (kMTile * kMaxRows), c = p % kMTile, r = (p / kMTile) % kMaxRows;
     const int col = col0 + t * kMTile + c;
     if (r >= rows || col >= 2 * H) continue;
-    out[(size_t)r * 2 * H + col] = reduce<2>(smem, t, c, r);
+    out[(size_t)r * 2 * H + col] = round_to<T>(reduce<2>(smem, t, c, r));
   }
 }
 
+template <class T>
 struct AttArgs {
-  const float *hprev_h, *hprev_o, *g_att, *m_h, *m_o, *atts, *dmsgs_h, *dmsgs_o;
-  float *dpre_h, *dpre_o, *attc_h, *attc_o;
+  const T *hprev_h, *hprev_o, *g_att;
+  const float *m_h, *m_o, *atts, *dmsgs_h, *dmsgs_o;
+  T *dpre_h, *dpre_o;
+  float *attc_h, *attc_o;
 };
 
 // Per (batch, column slice, direction): the backward through the attention,
@@ -209,10 +239,14 @@ struct AttArgs {
 // message rows (full width, for da) and its states' column slice are staged
 // in shared memory with 16-byte loads first, so that the dot products and
 // the per-column sums read shared memory and not a chain of L2 loads.
-// Dynamic shared memory: att_smem_bytes(E, H).
+// Dynamic shared memory: att_smem_bytes(E, H). With bfloat16 IO the
+// attention and the messages read as the TPU kernel's bfloat16 recompute
+// (rounded), the ReLU's derivative from the float32 messages K3 kept.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-segb_att(AttArgs x, int T, int B, int NH, int NO, int H, float scale, int step) {
-  const Step s = step_of(step, T);
+segb_att(AttArgs<T> x, int T_, int B, int NH, int NO, int H, float scale, int step) {
+  const auto q = [](float v) { return round_to<T>(v); };
+  const Step s = step_of(step, T_);
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * kSliceColumns;
   const int E = NH + NO;
@@ -228,18 +262,19 @@ segb_att(AttArgs x, int T, int B, int NH, int NO, int H, float scale, int step) 
     const int n = (4 * i) / (2 * H), k = (4 * i) % (2 * H);
     const float* dr = n < NH ? x.dmsgs_h + ((size_t)s.d * B * NH + b * NH + n) * 2 * H
                              : x.dmsgs_o + ((size_t)s.d * B * NO + b * NO + n - NH) * 2 * H;
-    const float* mr = n < NH ? x.m_h + at(s, T, B * NH, b * NH + n, 2 * H)
-                             : x.m_o + at(s, T, B * NO, b * NO + n - NH, 2 * H);
+    const float* mr = n < NH ? x.m_h + at(s, T_, B * NH, b * NH + n, 2 * H)
+                             : x.m_o + at(s, T_, B * NO, b * NO + n - NH, 2 * H);
     staged4[i] = *reinterpret_cast<const float4*>(dr + k);
     staged4[E * 2 * H / 4 + i] = *reinterpret_cast<const float4*>(mr + k);
   }
   for (int i = tid; i < E * width; i += kThreads) {
     const int n = i / width, k = i % width;
-    st_s[n * kSliceColumns + k] = n < NH ? x.hprev_h[at(s, T, B * NH, b * NH + n, H) + c0 + k]
-                                         : x.hprev_o[at(s, T, B * NO, b * NO + n - NH, H) + c0 + k];
+    st_s[n * kSliceColumns + k] =
+        to_f32(n < NH ? x.hprev_h[at(s, T_, B * NH, b * NH + n, H) + c0 + k]
+                      : x.hprev_o[at(s, T_, B * NO, b * NO + n - NH, H) + c0 + k]);
   }
   for (int i = tid; i < E * E; i += kThreads)
-    a[i / E][i % E] = x.atts[at(s, T, B, b, E * E) + i];
+    a[i / E][i % E] = q(x.atts[at(s, T_, B, b, E * E) + i]);
   __syncthreads();
   // Receiver n takes from sender m the edge whose half of m's message row
   // is 0 for a human receiver (hh, oh) and H for an object (ho, oo); n's
@@ -249,10 +284,10 @@ segb_att(AttArgs x, int T, int B, int NH, int NO, int H, float scale, int step) 
     const float* dr = dm_s + (size_t)n * 2 * H + (m < NH ? 0 : H);
     const float* mr = m_s + (size_t)m * 2 * H + (n < NH ? 0 : H);
     float dot = 0.f;
-    for (int k = lane; k < H; k += 32) dot = fmaf(dr[k], mr[k], dot);
+    for (int k = lane; k < H; k += 32) dot = fmaf(dr[k], q(mr[k]), dot);
     for (int off = 16; off > 0; off /= 2) dot += __shfl_down_sync(0xffffffffu, dot, off);
     if (lane == 0) {
-      if (n < NH && m >= NH) dot += x.g_att[(at(s, T, B, b, NH) + n) * NO + m - NH];
+      if (n < NH && m >= NH) dot += to_f32(x.g_att[(at(s, T_, B, b, NH) + n) * NO + m - NH]);
       ds[n][m] = dot;
     }
   }
@@ -263,7 +298,7 @@ segb_att(AttArgs x, int T, int B, int NH, int NO, int H, float scale, int step) 
       const int lo = grp == 0 ? 0 : NH, hi = grp == 0 ? NH : E;
       float dot = 0.f;
       for (int m = lo; m < hi; ++m) dot += ds[n][m] * a[n][m];
-      for (int m = lo; m < hi; ++m) ds[n][m] = a[n][m] * (ds[n][m] - dot);
+      for (int m = lo; m < hi; ++m) ds[n][m] = q(a[n][m] * (ds[n][m] - dot));
     }
   }
   __syncthreads();
@@ -281,14 +316,14 @@ segb_att(AttArgs x, int T, int B, int NH, int NO, int H, float scale, int step) 
     dm_h = m_s[(size_t)j * 2 * H + k] > 0.f ? dm_h : 0.f;
     dm_o = m_s[(size_t)j * 2 * H + H + k] > 0.f ? dm_o : 0.f;
     if (j < NH) {
-      const size_t o = at(s, T, B * NH, b * NH + j, 2 * H);
-      x.dpre_h[o + k] = dm_h;                          // edge hh
-      x.dpre_h[o + H + k] = dm_o;                      // edge ho
+      const size_t o = at(s, T_, B * NH, b * NH + j, 2 * H);
+      x.dpre_h[o + k] = from_f32<T>(dm_h);             // edge hh
+      x.dpre_h[o + H + k] = from_f32<T>(dm_o);         // edge ho
       x.attc_h[((size_t)s.d * B * NH + b * NH + j) * H + k] = scale * g;
     } else {
-      const size_t o = at(s, T, B * NO, b * NO + j - NH, 2 * H);
-      x.dpre_o[o + k] = dm_h;                          // edge oh
-      x.dpre_o[o + H + k] = dm_o;                      // edge oo
+      const size_t o = at(s, T_, B * NO, b * NO + j - NH, 2 * H);
+      x.dpre_o[o + k] = from_f32<T>(dm_h);             // edge oh
+      x.dpre_o[o + H + k] = from_f32<T>(dm_o);         // edge oo
       x.attc_o[((size_t)s.d * B * NO + b * NO + j - NH) * H + k] = scale * g;
     }
   }
@@ -298,40 +333,43 @@ size_t att_smem_bytes(int E, int H) {
   return ((size_t)E * 4 * H + (size_t)E * kSliceColumns) * sizeof(float);
 }
 
+template <class T>
 struct CarryArgs {
-  const float *dgh, *w_hh, *dpre, *w_from, *attc;   // w_from: the cell's first sent edge
-  float* dh0;
+  const T *dgh, *w_hh, *dpre, *w_from;   // w_from: the cell's first sent edge
+  const float* attc;
+  T* dh0;
 };
 
 // carry = dhz + attc + dgh @ w_hh^T + dpre @ w_from^T (of the sent edges),
 // then phase C of the next step from it (or dh0 = carry after the last).
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-segb_carry(CarryArgs hum, CarryArgs obj, CellArgs cell_h, CellArgs cell_o, int T, int B, int NH,
-           int NO, int H, int row_tiles, int step) {
-  const Step s = step_of(step, T);
+segb_carry(CarryArgs<T> hum, CarryArgs<T> obj, CellArgs<T> cell_h, CellArgs<T> cell_o, int T_,
+           int B, int NH, int NO, int H, int row_tiles, int step) {
+  const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
   const int unit0 = blockIdx.x * kMTile;
   const int all_rows = B * (cell == 0 ? NH : NO);
   if (row0 >= all_rows) return;
   const int rows = min(kMaxRows, all_rows - row0);
-  const CarryArgs& c = cell == 0 ? hum : obj;
-  const CellArgs& cb = cell == 0 ? cell_h : cell_o;
+  const CarryArgs<T>& c = cell == 0 ? hum : obj;
+  const CellArgs<T>& cb = cell == 0 ? cell_h : cell_o;
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float du_s[kMaxRows][kMTile + 1];
   float acc[1][kNTiles][4] = {};
-  const float* dpre = c.dpre + at(s, T, all_rows, row0, 2 * H);
-  const Operand rec = {c.dgh + at(s, T, all_rows, row0, 3 * H), 3 * H,
-                       c.w_hh + (size_t)s.d * H * 3 * H, 3 * H, 3 * H};
-  const Operand snd0 = {dpre, 2 * H, c.w_from, H, H};
-  const Operand snd1 = {dpre + H, 2 * H, c.w_from + (size_t)H * H, H, H};
+  const T* dpre = c.dpre + at(s, T_, all_rows, row0, 2 * H);
+  const OperandT<T, T> rec = {c.dgh + at(s, T_, all_rows, row0, 3 * H), 3 * H,
+                              c.w_hh + (size_t)s.d * H * 3 * H, 3 * H, 3 * H};
+  const OperandT<T, T> snd0 = {dpre, 2 * H, c.w_from, H, H};
+  const OperandT<T, T> snd1 = {dpre + H, 2 * H, c.w_from + (size_t)H * H, H, H};
   const Tiles tiles = {{unit0, 0, 0}, {min(kMTile, H - unit0), 0, 0}};
   accumulate<true, 1, 1, 3, OneSlot>(rec, snd0, snd1, tiles, rows, smem, acc);
   store_partials<1>(smem, acc);
   __syncthreads();
-  const bool last = step + 1 == T;
-  const Step next = step_of(step + 1, T);
+  const bool last = step + 1 == T_;
+  const Step next = step_of(step + 1, T_);
   for (int p = threadIdx.x; p < kMTile * kMaxRows; p += kThreads) {
     const int cc = p % kMTile, r = p / kMTile;
     const int row = row0 + r, unit = unit0 + cc;
@@ -340,13 +378,65 @@ segb_carry(CarryArgs hum, CarryArgs obj, CellArgs cell_h, CellArgs cell_o, int T
       const size_t hs = ((size_t)s.d * all_rows + row) * H + unit;
       const float carry = cb.dhz[hs] + c.attc[hs] + reduce<1>(smem, 0, cc, r);
       if (last)
-        c.dh0[hs] = carry;
+        c.dh0[hs] = from_f32<T>(carry);
       else
-        du = cell_bwd(cb, next, T, all_rows, row, unit, H, carry);
+        du = cell_bwd(cb, next, T_, all_rows, row, unit, H, carry);
     }
     du_s[r][cc] = du;
   }
-  if (!last) store_du(cb, next, T, all_rows, row0, rows, du_s);
+  if (!last) store_du(cb, next, T_, all_rows, row0, rows, du_s);
+}
+
+template <class T>
+int run_bwd(const T* u_h, const T* u_o, const T* hprev_h, const T* hprev_o, const float* m_h,
+            const float* m_o, const float* gates_h, const float* gates_o, const float* atts,
+            const T* g_h, const T* g_o, const T* g_att, const T* w_from, const T* w_msg_h,
+            const T* w_msg_o, const T* w_hh_h, const T* w_hh_o, T* dgi_h, T* dgi_o, T* dgh_h,
+            T* dgh_o, T* dpre_h, T* dpre_o, T* du_h, T* du_o, T* dh0_h, T* dh0_o,
+            float* du_part_h, float* du_part_o, float* dhz_h, float* dhz_o, float* dmsgs_h,
+            float* dmsgs_o, float* attc_h, float* attc_o, int T_, int B, int NH, int NO, int H,
+            float scale, cudaStream_t stream) {
+  const size_t smem_a = att_smem_bytes(NH + NO, H);
+  if (NH + NO > kMaxEntities || H % (16 / (int)sizeof(T)) != 0 || T_ < 1 ||
+      smem_a > kMaxAttSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem_d = smem_bytes<true, 2, 2, kStages, T, T>();
+  const size_t smem_r = smem_bytes<true, 1, 1, kStages, T, T>();
+  cudaError_t err = cudaFuncSetAttribute(segb_dmsgs<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_d);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(segb_carry<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_r);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(segb_att<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int max_rows = B * (NH > NO ? NH : NO);
+  const int row_tiles = (max_rows + kMaxRows - 1) / kMaxRows;
+  const int col_tiles = (H + kMTile - 1) / kMTile;
+  const dim3 grid_c(col_tiles, 2 * row_tiles, 2);
+  const dim3 grid_d((2 * H + 2 * kMTile - 1) / (2 * kMTile), 2 * row_tiles, 2);
+  const dim3 grid_a(B, (H + kSliceColumns - 1) / kSliceColumns, 2);
+  const CellArgs<T> cell_h = {u_h, hprev_h, g_h, gates_h, dgi_h, dgh_h, du_part_h, dhz_h};
+  const CellArgs<T> cell_o = {u_o, hprev_o, g_o, gates_o, dgi_o, dgh_o, du_part_o, dhz_o};
+  const AttArgs<T> att = {hprev_h, hprev_o, g_att, m_h, m_o, atts, dmsgs_h, dmsgs_o,
+                          dpre_h, dpre_o, attc_h, attc_o};
+  const CarryArgs<T> carry_h = {dgh_h, w_hh_h, dpre_h, w_from, attc_h, dh0_h};
+  const CarryArgs<T> carry_o = {dgh_o, w_hh_o, dpre_o, w_from + (size_t)2 * H * H, attc_o, dh0_o};
+  segb_cell<T><<<grid_c, kThreads, 0, stream>>>(cell_h, cell_o, T_, B, NH, NO, H, row_tiles);
+  for (int step = 0; step < T_; ++step) {
+    segb_dmsgs<T><<<grid_d, kThreads, smem_d, stream>>>(dgi_h, dgi_o, w_msg_h, w_msg_o, dmsgs_h,
+                                                       dmsgs_o, T_, B, NH, NO, H, row_tiles, step);
+    segb_att<T><<<grid_a, kThreads, smem_a, stream>>>(att, T_, B, NH, NO, H, scale, step);
+    segb_carry<T><<<grid_c, kThreads, smem_r, stream>>>(carry_h, carry_o, cell_h, cell_o, T_, B,
+                                                       NH, NO, H, row_tiles, step);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int n_h = 2 * T_ * B * NH, n_o = 2 * T_ * B * NO;
+  du_sum<T><<<(n_h + n_o + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      du_part_h, du_part_o, du_h, du_o, n_h, n_o, col_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -368,44 +458,28 @@ extern "C" int tggcn_segment_scan_dot_bwd_f32(
     float* du_part_h, float* du_part_o, float* dhz_h, float* dhz_o, float* dmsgs_h,
     float* dmsgs_o, float* attc_h, float* attc_o, int T, int B, int NH, int NO, int H,
     float scale, void* stream_ptr) {
-  const size_t smem_a = att_smem_bytes(NH + NO, H);
-  if (NH + NO > kMaxEntities || H % 4 != 0 || T < 1 || smem_a > kMaxAttSmem)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t smem_d = smem_bytes<true, 2, 2>(), smem_r = smem_bytes<true, 1, 1>();
-  cudaError_t err = cudaFuncSetAttribute(segb_dmsgs,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_d);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(segb_carry, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_r);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(segb_att, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int max_rows = B * (NH > NO ? NH : NO);
-  const int row_tiles = (max_rows + kMaxRows - 1) / kMaxRows;
-  const int col_tiles = (H + kMTile - 1) / kMTile;
-  const dim3 grid_c(col_tiles, 2 * row_tiles, 2);
-  const dim3 grid_d((2 * H + 2 * kMTile - 1) / (2 * kMTile), 2 * row_tiles, 2);
-  const dim3 grid_a(B, (H + kSliceColumns - 1) / kSliceColumns, 2);
-  const CellArgs cell_h = {u_h, hprev_h, g_h, gates_h, dgi_h, dgh_h, du_part_h, dhz_h};
-  const CellArgs cell_o = {u_o, hprev_o, g_o, gates_o, dgi_o, dgh_o, du_part_o, dhz_o};
-  const AttArgs att = {hprev_h, hprev_o, g_att, m_h, m_o, atts, dmsgs_h, dmsgs_o,
-                       dpre_h, dpre_o, attc_h, attc_o};
-  const CarryArgs carry_h = {dgh_h, w_hh_h, dpre_h, w_from, attc_h, dh0_h};
-  const CarryArgs carry_o = {dgh_o, w_hh_o, dpre_o, w_from + (size_t)2 * H * H, attc_o, dh0_o};
-  segb_cell<<<grid_c, kThreads, 0, stream>>>(cell_h, cell_o, T, B, NH, NO, H, row_tiles);
-  for (int step = 0; step < T; ++step) {
-    segb_dmsgs<<<grid_d, kThreads, smem_d, stream>>>(dgi_h, dgi_o, w_msg_h, w_msg_o, dmsgs_h,
-                                                    dmsgs_o, T, B, NH, NO, H, row_tiles, step);
-    segb_att<<<grid_a, kThreads, smem_a, stream>>>(att, T, B, NH, NO, H, scale, step);
-    segb_carry<<<grid_c, kThreads, smem_r, stream>>>(carry_h, carry_o, cell_h, cell_o, T, B, NH,
-                                                    NO, H, row_tiles, step);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int n_h = 2 * T * B * NH, n_o = 2 * T * B * NO;
-  du_sum<<<(n_h + n_o + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      du_part_h, du_part_o, du_h, du_o, n_h, n_o, col_tiles);
-  return static_cast<int>(cudaGetLastError());
+  return run_bwd<float>(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o, atts, g_h, g_o,
+                        g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, dgi_h, dgi_o, dgh_h,
+                        dgh_o, dpre_h, dpre_o, du_h, du_o, dh0_h, dh0_o, du_part_h, du_part_o,
+                        dhz_h, dhz_o, dmsgs_h, dmsgs_o, attc_h, attc_o, T, B, NH, NO, H, scale,
+                        static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The same in bfloat16 IO: m_h, m_o, gates and atts (K3's kept) and the
+// scratch float32, every other tensor bfloat16. H % 8 == 0.
+extern "C" int tggcn_segment_scan_dot_bwd_bf16(
+    const bf16* u_h, const bf16* u_o, const bf16* hprev_h, const bf16* hprev_o,
+    const float* m_h, const float* m_o, const float* gates_h, const float* gates_o,
+    const float* atts, const bf16* g_h, const bf16* g_o, const bf16* g_att,
+    const bf16* w_from, const bf16* w_msg_h, const bf16* w_msg_o, const bf16* w_hh_h,
+    const bf16* w_hh_o, bf16* dgi_h, bf16* dgi_o, bf16* dgh_h, bf16* dgh_o, bf16* dpre_h,
+    bf16* dpre_o, bf16* du_h, bf16* du_o, bf16* dh0_h, bf16* dh0_o, float* du_part_h,
+    float* du_part_o, float* dhz_h, float* dhz_o, float* dmsgs_h, float* dmsgs_o,
+    float* attc_h, float* attc_o, int T, int B, int NH, int NO, int H, float scale,
+    void* stream_ptr) {
+  return run_bwd<bf16>(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o, atts, g_h, g_o,
+                       g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, dgi_h, dgi_o, dgh_h,
+                       dgh_o, dpre_h, dpre_o, du_h, du_o, dh0_h, dh0_o, du_part_h, du_part_o,
+                       dhz_h, dhz_o, dmsgs_h, dmsgs_o, attc_h, attc_o, T, B, NH, NO, H, scale,
+                       static_cast<cudaStream_t>(stream_ptr));
 }

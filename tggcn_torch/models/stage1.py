@@ -9,6 +9,10 @@ human segmentation (all ones), so only the objects draw Gumbel noise.
 clipping, and loss weights that leave only the segment-level recognition
 and anticipation losses on (the same weights as ``bench.py``'s empty misc).
 
+The yaml computes in float32; ``bench.py`` trains it in bfloat16
+(``bench.py:181``, ``compute_dtype="bfloat16"``), the dtype ``BENCH_DTYPE``
+names: ``model_kwargs(dtype)`` is ``MODEL_KWARGS`` in either.
+
 ``SERVE_VARIANTS`` are the changes to the yaml that serve the model through
 K5 (the set ``tools/bench_segment_modes.py`` times at this shape): distance-
 based attention with the GeoGCN kernel on (``dist``, which needs
@@ -29,6 +33,14 @@ MODEL_KWARGS = dict(
     message_aggregation="att", attention_style="v3",
     discrete_optimization_strategy="gs", object_segment_update_strategy="ind",
     discrete_networks_num_layers=1, update_segment_threshold=0.5, bias=True)
+
+BENCH_DTYPE = "bfloat16"
+
+
+def model_kwargs(dtype: str = "float32") -> dict:
+    """MODEL_KWARGS with the compute dtype ('float32' or 'bfloat16')."""
+    return dict(MODEL_KWARGS, compute_dtype=dtype)
+
 
 TRAIN = dict(
     lr=1e-4, clip=0.0,

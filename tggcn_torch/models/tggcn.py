@@ -1,7 +1,7 @@
 """TGGCN — the 2G-GCN two-level recurrent HOI model in PyTorch.
 
-Counterpart of ``tggcn/models/tggcn.py:52-808, 819-1046``. The port covers,
-in float32, non-relational generic messages on all four entity edges plus
+Counterpart of ``tggcn/models/tggcn.py:52-808, 819-1046``. The port covers
+non-relational generic messages on all four entity edges plus
 geometry edges, with decisions imposed (stage-1 feeders impose the human
 segmentation) or taken by the straight-through ('st') or Gumbel-sigmoid
 ('gs') estimator, and 'ind', 'sah' or 'coh' object decisions:
@@ -13,6 +13,17 @@ segmentation) or taken by the straight-through ('st') or Gumbel-sigmoid
     routing runs them (``tggcn/models/registry.py:45``).
 A configuration or call outside these raises NotImplementedError; it never
 takes another path silently.
+
+``compute_dtype`` 'bfloat16' (or 'bf16') runs the heavy path in bfloat16 as
+``tggcn``'s does (``tggcn/models/tggcn.py:387-412, 477-516, 764-790``): the
+parameters are cast inside ``apply_tggcn`` from the float32 masters, so
+autograd hands float32 gradients back to them, except the GeoGCN block with
+its BatchNorm and the recognition and prediction heads, which stay
+float32; the geometry enters the GCN in float32 and its output is cast;
+the heads take float32 input; every returned output is float32. It covers
+the dot attention route (K1-K4, forward and training); the other segment
+modes, mean pooling and the GeoGCN kernel raise NotImplementedError in
+bfloat16, since their kernels (K5, K6) are float32 only.
 
 The frame-level BiGRU runs through K1 forward and K2 backward
 (``gru_sequence_autograd``); the segment scan through K3 forward and K4
@@ -38,6 +49,7 @@ from tggcn_torch.ops.segment_scan import segment_scan_dot_autograd, segment_scan
 
 SLICE = "the 2G-GCN slice of tggcn_torch"
 DOT_STYLES = {"v2", "dot-product", "v3", "scaled_dot-product"}
+BF16 = {"bfloat16", "bf16"}
 
 
 @dataclass(frozen=True)
@@ -145,10 +157,45 @@ def check_slice(cfg: TGGCNConfig) -> None:
          "time-position and segment-length features")
     need(not (cfg.filter_discrete_updates or cfg.cat_level_states or cfg.share_level_mlps),
          "filter_discrete_updates, cat_level_states and share_level_mlps")
-    need(cfg.compute_dtype in (None, "float32", "f32"),
+    need(cfg.compute_dtype in {None, "float32", "f32"} | BF16,
          f"compute_dtype={cfg.compute_dtype!r}")
+    if cfg.compute_dtype in BF16 and (cfg.use_pallas_geo_gcn or not cfg.attention
+                                      or cfg.attention_style not in DOT_STYLES):
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} with attention_style="
+            f"{cfg.attention_style!r}, message_aggregation={cfg.message_aggregation!r}, "
+            f"use_pallas_geo_gcn={cfg.use_pallas_geo_gcn} is outside {SLICE}: the bfloat16 "
+            "variants of the segment scan's other modes (K5) and of the GeoGCN kernel (K6) "
+            "are not written yet")
     need(cfg.geometry_flatten in {"reference", "per_frame"},
          f"geometry_flatten={cfg.geometry_flatten!r}")
+
+
+def work_dtype(cfg: TGGCNConfig) -> Optional[torch.dtype]:
+    """The compute dtype of the heavy path, or None for plain float32
+    (``tggcn/models/tggcn.py:387`` ``_work_dtype``)."""
+    return torch.bfloat16 if cfg.compute_dtype in BF16 else None
+
+
+def cast_params_for_compute(params: dict, dtype: torch.dtype) -> dict:
+    """The heavy path's parameters cast to the compute dtype
+    (``tggcn/models/tggcn.py:394`` ``_cast_params_for_compute``). The GeoGCN
+    block (its BatchNorm statistics must not round-trip through bfloat16)
+    and the classification heads (their log-softmax sets the loss
+    precision) stay float32. The casts are autograd operations on the
+    masters, whose gradients stay float32."""
+    def keep(name):
+        return (name == "geometry_embedding_gcn" or name.endswith("_recognition_mlp")
+                or name.endswith("_prediction_mlp"))
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cast(v) for v in tree)
+        return tree.to(dtype) if tree.is_floating_point() else tree
+
+    return {k: (v if keep(k) else cast(v)) for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -274,13 +321,25 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
         raise NotImplementedError(
             f"training (or serving with grad enabled) in segment mode {mode!r} is outside "
             f"{SLICE}: K5 is forward only")
+    work = work_dtype(cfg)
+    if work is not None and mode != "dot":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} in segment mode {mode!r} is outside "
+            f"{SLICE}: the bfloat16 variant of K5 is not written yet")
     del steps_per_example   # read only by time/segment-length features
     b, t, num_humans = x_human.shape[0], x_human.shape[1], x_human.shape[2]
     num_objects = x_objects.shape[2]
     hidden = cfg.hidden_size
 
+    # --- Mixed precision (tggcn/models/tggcn.py:477-491) ------------------
+    if work is not None:
+        params = cast_params_for_compute(params, work)
+        x_objects, objects_mask = x_objects.to(work), objects_mask.to(work)
+
     # --- Geometry stream -------------------------------------------------
     x_vis, x_geometry = x_human[..., :2048], x_human[:, :, 0, 2048:]
+    if work is not None:
+        x_vis = x_vis.to(work)          # the geometry stays float32 for the GCN and BN
     vw = x_geometry.shape[-1]
     if vw // 4 != cfg.gcn_node:
         raise ValueError(
@@ -298,6 +357,8 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
         # is raw-memory reshaped to (B, T, 1, 128*V), which scrambles
         # (channel, node, time) into per-"frame" blocks. Kept for parity.
         geo_flat = geo_out.permute(0, 3, 2, 1).reshape(b, t, 1, geo_out.shape[-1] * (vw // 4))
+    if work is not None:
+        geo_flat = geo_flat.to(work)
     x_geo_emb = apply_mlp(params["geometry_embedding_mlp"], geo_flat,
                           activations=["relu", "relu"])
     x_hum_emb = apply_mlp(params["human_embedding_mlp"], x_vis, activations=["relu"])
@@ -399,6 +460,8 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
 
     # --- Heads -------------------------------------------------------------
     def head(name, x):
+        if work is not None:
+            x = x.float()               # heads and log-softmax in float32 (:764-765)
         out = apply_mlp(params[name], x, activations=[{"name": "logsoftmax", "dim": -1}])
         return out.permute(0, 3, 1, 2)                        # (B, C, T, E)
 
@@ -412,6 +475,12 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     if cfg.num_classes[1] is not None:
         outputs += [head("object_recognition_mlp", hx_os), head("object_prediction_mlp", hx_os)]
 
+    if work is not None:
+        # Every output is float32 whatever the compute dtype (:786-790).
+        outputs = [o.float() for o in outputs]
+        u_o, u_o_soft = u_o.float(), u_o_soft.float()
+        att_frame, att_seg_f, att_seg_b = (None if a is None else a.float()
+                                           for a in (att_frame, att_seg_f, att_seg_b))
     aux = {"bn_state": bn_state, "object_decisions": (u_o, u_o_soft)}
     if inspect_model:
         # (B, T, H, O) -> (B, H, T, O), as the reference stacks them. Mean

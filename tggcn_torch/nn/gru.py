@@ -5,7 +5,8 @@ gate order r, z, n; ``n = tanh(i_n + r * (h W_hn + b_hn))``;
 ``h' = (1 - z) * n + z * h``. The input projection of the whole sequence is
 one large matmul outside the recurrence; the recurrence itself runs
 through ``gru_sequence_autograd`` (``tggcn_torch/ops/gru_sequence.py``): the
-K1 kernel forward and the K2 kernel backward.
+K1 kernel forward and the K2 kernel backward, in float32 or bfloat16 (the
+inputs' dtype, which the weights are cast to).
 """
 
 from typing import Optional, Sequence
@@ -66,11 +67,12 @@ def run_multi_bigru(params_list: Sequence[dict], xs_list: Sequence[torch.Tensor]
 
     xs = torch.stack([fold(x) for x in xs_list])                  # (S, R, T, F)
     dirs = [(p, d) for d in ("fwd", "bwd") for p in params_list]  # 2S cells
-    w_ih = torch.stack([p[d]["w_ih"] for p, d in dirs])           # (2S, F, 3h)
-    w_hh = torch.stack([p[d]["w_hh"] for p, d in dirs])
     zeros = xs.new_zeros(3 * hidden)
-    b_ih = torch.stack([p[d].get("b_ih", zeros) for p, d in dirs])
-    b_hh = torch.stack([p[d].get("b_hh", zeros) for p, d in dirs])
+
+    def stacked(key):                  # (2S, ...) in the inputs' dtype (gru_pallas.py:251-266)
+        return torch.stack([p[d].get(key, zeros) for p, d in dirs]).to(xs.dtype)
+
+    w_ih, w_hh, b_ih, b_hh = (stacked(k) for k in ("w_ih", "w_hh", "b_ih", "b_hh"))
 
     xs2 = torch.cat([xs, xs])                                     # (2S, R, T, F)
     gi = torch.matmul(xs2, w_ih[:, None]) + b_ih[:, None, None]   # (2S, R, T, 3h)
@@ -78,7 +80,7 @@ def run_multi_bigru(params_list: Sequence[dict], xs_list: Sequence[torch.Tensor]
 
     h0 = xs.new_zeros((2 * num_streams, r_max, hidden))
     if h0_fwd_list is not None:
-        h0[:num_streams] = torch.stack([fold(h[:, None])[:, 0] for h in h0_fwd_list])
+        h0[:num_streams] = torch.stack([fold(h[:, None])[:, 0] for h in h0_fwd_list]).to(xs.dtype)
     seq = gru_sequence_autograd(gi, w_hh, b_hh, h0, num_reverse=num_streams,
                                 use_kernels=use_kernels)          # (T, 2S, R, h)
     out = torch.cat([seq[:, :num_streams], seq[:, num_streams:]], dim=-1)

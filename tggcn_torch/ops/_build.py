@@ -114,3 +114,24 @@ def refuse_autograd(what: str, *tensors) -> None:
         raise RuntimeError(
             f"{what} was called on tensors that require grad outside its "
             "autograd Function; call its differentiable entry point instead")
+
+
+def count_launch(wrapper, io) -> None:
+    """One more launch of wrapper's kernel of the IO dtype io: float32 in
+    ``wrapper.launches``, bfloat16 in ``wrapper.launches_bf16``."""
+    attr = "launches_bf16" if io == torch.bfloat16 else "launches"
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def upcast(x):
+    """A plain version's working copy of x: float32 for bfloat16 IO, the
+    tensor itself for any other dtype (float32, or float64 in gradchecks)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def rounding(io):
+    """x -> x rounded to the IO dtype io and back, where a kernel rounds to
+    it; the identity unless io is bfloat16."""
+    if io != torch.bfloat16:
+        return lambda x: x
+    return lambda x: x.to(io).float()

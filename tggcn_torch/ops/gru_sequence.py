@@ -36,6 +36,17 @@ K2 backward (or, with ``use_kernels=False`` or on the CPU, their plain
 versions); when no gradient will be taken it runs the forward alone,
 keeping nothing. The wrappers ``gru_sequence`` and ``gru_sequence_bwd``
 refuse to run on tensors that require grad outside it.
+
+Both kernels take float32 or bfloat16 IO (gi, w_hh, b_hh, h0, the states;
+hprev, g, dgi, dgh, dh0), all of one dtype, and pick their variant by it;
+each wrapper counts the launches of its float32 kernel in ``launches`` and
+of its bfloat16 kernel in ``launches_bf16``. In bfloat16, as the TPU
+kernels run it (``gru_pallas.py:61-77``, ``:97-126``), the state and the
+carried dL/dh stay float32: K1 carries its state in a float32 buffer of its
+own, not through its bfloat16 output, and its product h @ W_hh takes the
+float32 state against W_hh's bfloat16 values at float32 accuracy; K2's
+carry product takes the float32 dgh. The kept gates are float32 in both.
+Only the tensors the JAX kernels write in their IO dtype are rounded to it.
 """
 
 import ctypes
@@ -66,9 +77,17 @@ def _step(gi, h, w_hh, b_hh):
     return (1.0 - z) * n + z * h, (r, z, h_n)
 
 
-def gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse: int = 0, keep: bool = False):
+def gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse: int = 0, keep: bool = False,
+                       round_carry: bool = False):
     """Plain PyTorch version of K1: a Python loop over time. Returns the
-    states, and with keep also the gates (KEPT)."""
+    states, and with keep also the gates (KEPT). It computes in float32
+    with a float32 state whatever the IO dtype and rounds only the states
+    it returns to it; the gates stay float32. round_carry rounds the state
+    to the IO dtype after every step, as JAX's XLA route does and the
+    kernels do not: a control for the checks that hold K1 to this version."""
+    io = gi.dtype
+    q = _build.rounding(io) if round_carry else (lambda x: x)
+    gi, w_hh, b_hh, h0 = (_build.upcast(x) for x in (gi, w_hh, b_hh, h0))
     t, s = gi.shape[0], gi.shape[1]
     nf = s - num_reverse
     out = gi.new_empty(gi.shape[:-1] + (gi.shape[-1] // 3,))
@@ -77,27 +96,39 @@ def gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse: int = 0, keep: bool = Fa
     for i in range(t):
         gi_i = torch.cat([gi[i, :nf], gi[t - 1 - i, nf:]])
         h, kept = _step(gi_i, h, w_hh, b_hh)
+        h = q(h)
         out[i, :nf] = h[:nf]
         out[t - 1 - i, nf:] = h[nf:]
         if keep:
             kept = torch.cat(kept, dim=-1)
             gates[i, :nf], gates[t - 1 - i, nf:] = kept[:nf], kept[nf:]
+    out = out.to(io)
     return (out, gates) if keep else out
 
 
-def _check(what, device, tensors, h, num_reverse):
-    """tensors: {name: (tensor, shape)}; all float32, contiguous, on device."""
+IO_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(what, device, tensors, h, num_reverse, float32=()):
+    """tensors: {name: (tensor, shape)}, contiguous, on device; the names in
+    float32 are float32, the others all of one IO dtype (IO_DTYPES), which
+    is returned. bfloat16 needs h % 8 == 0 (16-byte copies of 8 values)."""
+    io = tensors["gi"][0].dtype
+    if io not in IO_DTYPES:
+        raise ValueError(f"{what}: gi must be float32 or bfloat16, not {io}")
     for name, (x, shape) in tensors.items():
-        if x.device != device or x.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32 on {device}")
+        want = torch.float32 if name in float32 else io
+        if x.device != device or x.dtype != want:
+            raise ValueError(f"{what}: {name} must be {want} on {device} (the IO dtype is gi's)")
         if tuple(x.shape) != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, want {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     s = tensors["gi"][0].shape[1]
-    if h % 4 or not 0 <= num_reverse <= s:
-        raise ValueError(f"{what}: needs a gate width 3h with h % 4 == 0 "
-                         "and 0 <= num_reverse <= S")
+    if h % (8 if io == torch.bfloat16 else 4) or not 0 <= num_reverse <= s:
+        raise ValueError(f"{what}: needs a gate width 3h with h % 4 == 0 (h % 8 == 0 in "
+                         "bfloat16) and 0 <= num_reverse <= S")
+    return io
 
 
 def _stream(device):
@@ -115,26 +146,35 @@ def gru_sequence(gi, w_hh, b_hh, h0, num_reverse: int = 0, keep: bool = False):
         raise ValueError(f"gru_sequence runs on CUDA or the CPU, not {gi.device}")
     t, s, r, g3 = gi.shape
     h = g3 // 3
-    _check("gru_sequence", gi.device,
-           {"gi": (gi, (t, s, r, 3 * h)), "w_hh": (w_hh, (s, h, 3 * h)),
-            "b_hh": (b_hh, (s, 3 * h)), "h0": (h0, (s, r, h))}, h, num_reverse)
-    out = torch.empty((t, s, r, h), device=gi.device, dtype=gi.dtype)
-    gates = torch.empty_like(gi) if keep else None
+    io = _check("gru_sequence", gi.device,
+                {"gi": (gi, (t, s, r, 3 * h)), "w_hh": (w_hh, (s, h, 3 * h)),
+                 "b_hh": (b_hh, (s, 3 * h)), "h0": (h0, (s, r, h))}, h, num_reverse)
+    out = torch.empty((t, s, r, h), device=gi.device, dtype=io)
+    gates = torch.empty(gi.shape, device=gi.device) if keep else None
     if t == 0:
         return (out, gates) if keep else out
-    fn = _build.load_library("gru_sequence").tggcn_gru_sequence_f32
-    fn.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib = _build.load_library("gru_sequence")
+    ptrs = [gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), out.data_ptr()]
+    if io == torch.float32:
+        fn = lib.tggcn_gru_sequence_f32
+    else:
+        # The float32 state, two slots by step parity: step i reads slot
+        # (i + 1) % 2 (slot 1 holds h0 for step 0) and writes slot i % 2.
+        state = torch.empty((2, s, r, h), device=gi.device)
+        state[1] = h0
+        fn = lib.tggcn_gru_sequence_bf16
+        ptrs.append(state.data_ptr())
+    fn.argtypes = [_P] * (len(ptrs) + 1) + [_I] * 6 + [_P]
     fn.restype = _I
     with torch.cuda.device(gi.device):
-        err = fn(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-                 out.data_ptr(), gates.data_ptr() if keep else None, int(keep), t, s, r, h,
+        err = fn(*ptrs, gates.data_ptr() if keep else None, int(keep), t, s, r, h,
                  num_reverse, _stream(gi.device))
     _build.check_launch(err, "gru_sequence")
-    gru_sequence.launches += 1
+    _build.count_launch(gru_sequence, io)
     return (out, gates) if keep else out
 
 
-gru_sequence.launches = 0
+gru_sequence.launches = gru_sequence.launches_bf16 = 0
 
 
 def previous_states(out, h0, num_reverse: int = 0):
@@ -146,9 +186,16 @@ def previous_states(out, h0, num_reverse: int = 0):
     return torch.cat([fwd, rev], dim=1).contiguous()
 
 
-def gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse: int = 0):
+def gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse: int = 0,
+                           round_carry: bool = False):
     """Plain PyTorch version of K2: (dgi, dgh, dh0) from the kept gates, by a
-    Python loop that visits time opposite to the forward."""
+    Python loop that visits time opposite to the forward. It computes in
+    float32 whatever the IO dtype (the carry product takes the float32
+    dgh) and rounds only the outputs to it. round_carry rounds the carried
+    dL/dh to the IO dtype after every step: a control, as K1's."""
+    io = gi.dtype
+    q = _build.rounding(io) if round_carry else (lambda x: x)
+    gi, hprev, g, w_hh = (_build.upcast(x) for x in (gi, hprev, g, w_hh))
     t, s = gi.shape[0], gi.shape[1]
     nf = s - num_reverse
     dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
@@ -169,10 +216,10 @@ def gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse: int = 0):
         d_iz = dh * (hp - n) * z * (1.0 - z)
         dgi_i = torch.cat([d_ir, d_iz, dtanh], dim=-1)
         dgh_i = torch.cat([d_ir, d_iz, dtanh * r], dim=-1)
-        dh = dh * z + torch.matmul(dgh_i, w_t)
+        dh = q(dh * z + torch.matmul(dgh_i, w_t))
         dgi[tf, :nf], dgi[tr, nf:] = dgi_i[:nf], dgi_i[nf:]
         dgh[tf, :nf], dgh[tr, nf:] = dgh_i[:nf], dgh_i[nf:]
-    return dgi, dgh, dh
+    return dgi.to(io), dgh.to(io), dh.to(io)
 
 
 def gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse: int = 0):
@@ -187,28 +234,36 @@ def gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse: int = 0):
         raise ValueError(f"gru_sequence_bwd runs on CUDA or the CPU, not {gi.device}")
     t, s, r, g3 = gi.shape
     h = g3 // 3
-    _check("gru_sequence_bwd", gi.device,
-           {"gi": (gi, (t, s, r, 3 * h)), "hprev": (hprev, (t, s, r, h)),
-            "g": (g, (t, s, r, h)), "gates": (gates, (t, s, r, 3 * h)),
-            "w_hh": (w_hh, (s, h, 3 * h))}, h, num_reverse)
+    io = _check("gru_sequence_bwd", gi.device,
+                {"gi": (gi, (t, s, r, 3 * h)), "hprev": (hprev, (t, s, r, h)),
+                 "g": (g, (t, s, r, h)), "gates": (gates, (t, s, r, 3 * h)),
+                 "w_hh": (w_hh, (s, h, 3 * h))}, h, num_reverse, float32=("gates",))
     dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
-    dh0 = torch.zeros((s, r, h), device=gi.device)
+    dh0 = torch.zeros((s, r, h), device=gi.device, dtype=io)
     if t == 0:
         return dgi, dgh, dh0
-    dhz = torch.empty_like(dh0)
-    fn = _build.load_library("gru_sequence_bwd").tggcn_gru_sequence_bwd_f32
-    fn.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+    dhz = torch.empty((s, r, h), device=gi.device)
+    lib = _build.load_library("gru_sequence_bwd")
+    ptrs = [gi.data_ptr(), hprev.data_ptr(), g.data_ptr(), gates.data_ptr(), w_hh.data_ptr(),
+            dgi.data_ptr(), dgh.data_ptr(), dhz.data_ptr(), dh0.data_ptr()]
+    if io == torch.float32:
+        fn = lib.tggcn_gru_sequence_bwd_f32
+    else:
+        # The float32 dgh of the carry product, two slots by step parity
+        # (a launch reads its step's and writes the next step's).
+        fn = lib.tggcn_gru_sequence_bwd_bf16
+        dgh32 = torch.empty((2, s, r, 3 * h), device=gi.device)
+        ptrs.append(dgh32.data_ptr())
+    fn.argtypes = [_P] * len(ptrs) + [_I] * 5 + [_P]
     fn.restype = _I
     with torch.cuda.device(gi.device):
-        err = fn(gi.data_ptr(), hprev.data_ptr(), g.data_ptr(), gates.data_ptr(),
-                 w_hh.data_ptr(), dgi.data_ptr(), dgh.data_ptr(), dhz.data_ptr(),
-                 dh0.data_ptr(), t, s, r, h, num_reverse, _stream(gi.device))
+        err = fn(*ptrs, t, s, r, h, num_reverse, _stream(gi.device))
     _build.check_launch(err, "gru_sequence_bwd")
-    gru_sequence_bwd.launches += 1
+    _build.count_launch(gru_sequence_bwd, io)
     return dgi, dgh, dh0
 
 
-gru_sequence_bwd.launches = 0
+gru_sequence_bwd.launches = gru_sequence_bwd.launches_bf16 = 0
 
 
 class GRUSequence(torch.autograd.Function):
@@ -229,6 +284,8 @@ class GRUSequence(torch.autograd.Function):
         hprev = previous_states(out, h0, ctx.num_reverse)
         run = gru_sequence_bwd if ctx.use_kernels else gru_sequence_bwd_plain
         dgi, dgh, dh0 = run(gi, hprev, g.contiguous(), gates, w_hh, ctx.num_reverse)
+        # In bfloat16 the products sum in float32 (runtime.py pins cuBLAS so)
+        # and the result takes the weights' dtype, as gru_pallas.py:216-218.
         dw = torch.einsum("tsrh,tsrg->shg", hprev, dgh)
         return dgi, dw, dgh.sum(dim=(0, 2)), dh0, None, None
 

@@ -53,6 +53,22 @@ both read and written in natural time order):
   h0_h (2, B, H, h), h0_o (2, B, O, h)
   -> h_h (2, T, B, H, h), h_o (2, T, B, O, h), att_oh (2, T, B, H, O), and
      with keep the KEPT tensors
+
+K3 and K4 take float32 or bfloat16 IO, all of one dtype, and pick their
+variant by it (K5 is float32 only); each wrapper counts the launches of its
+float32 kernel in ``launches`` and of its bfloat16 kernel in
+``launches_bf16``. In bfloat16 they compute what the TPU kernels compute
+with ``fuse_dirs`` (``segment_scan_pallas.py:92-220``, ``:324-527``): K3
+carries float32 states in a buffer of its own, not through its bfloat16
+outputs; its projection and cell products take bfloat16 activations
+(the states and mixed messages rounded, as ``astype(wdt)`` rounds them)
+against bfloat16 weights with float32 sums; scores, softmax and mixing
+take the float32 states and messages. K4's products are bfloat16 x
+bfloat16 with float32 sums on its bfloat16 outputs dgi, dgh and dpre, its
+dL/dh carry is float32, and the mixed-message gradient and the softmax's
+score gradient are rounded where the TPU kernel rounds them. Of K3's kept
+tensors only the mixed messages (what the cell's product read) take the
+IO dtype; the edge messages, gates and attention stay float32.
 """
 
 import ctypes
@@ -67,11 +83,12 @@ _I = ctypes.c_int
 MAX_ENTITIES = 16
 
 
-def _cell(gi_base, msgs, h_prev, u, w_msg, w_hh, b_hh):
+def _cell(gi_base, msgs, h_prev, h_rec, u, w_msg, w_hh, b_hh):
     """The committed GRU cell: (h, gates), gates = [r | z | n | hn] with hn
-    the recurrent n pre-activation h_prev @ w_hh_n + b_hh_n."""
+    the recurrent n pre-activation h_rec @ w_hh_n + b_hh_n; h_rec is h_prev
+    as the product reads it (rounded to the IO dtype)."""
     gi = gi_base + torch.einsum("dbnf,dfk->dbnk", msgs, w_msg)
-    gh = torch.einsum("dbnh,dhk->dbnk", h_prev, w_hh) + b_hh[:, None, None]
+    gh = torch.einsum("dbnh,dhk->dbnk", h_rec, w_hh) + b_hh[:, None, None]
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r)
@@ -103,18 +120,30 @@ def _dot_scores(scale):
 # (2, T, B, E_group, width) but atts (2, T, B, E, E):
 #   m_h, m_o       the edge messages each step read, [h2h | h2o] and [o2h | o2o]
 #   gates_h, gates_o   the gates [r | z | n | hn] of every cell row (4h)
-#   mix_h, mix_o   the attention-mixed messages (2h)
+#   mix_h, mix_o   the attention-mixed messages (2h), in the IO dtype
 #   atts           the softmaxed attention: row n < H holds [a_hh | a_oh] of
 #                  human n, row H + o [a_ho | a_oo] of object o
+# All float32 but mix_h and mix_o.
 KEPT = ("m_h", "m_o", "gates_h", "gates_o", "mix_h", "mix_o", "atts")
 
 
 def _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
-                b_hh_h, b_hh_o, h0_h, h0_o, attention, keep):
+                b_hh_h, b_hh_o, h0_h, h0_o, attention, keep, round_carry=False):
     """The plain scan: a Python loop over time, both directions batched on
     the leading axis; attention(h_h, h_o, ts) gives the step's four weights
     from the carried states and the times ts each direction processes.
-    Returns (h_h, h_o, att_oh), followed with keep by the KEPT tensors."""
+    Returns (h_h, h_o, att_oh), followed with keep by the KEPT tensors.
+    It computes in float32 with float32 states whatever the IO dtype, and
+    rounds to it where the kernel does: the products' activations (states
+    and mixed messages) and the outputs. round_carry also rounds the
+    carried states to it after every step, as JAX's XLA route does and the
+    kernels do not: a control for the checks that hold K3 to this version."""
+    io = gi_h.dtype
+    q = _build.rounding(io)
+    carry = q if round_carry else (lambda x: x)
+    (gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o,
+     h0_h, h0_o) = (_build.upcast(x) for x in (gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
+                                        w_hh_h, w_hh_o, b_hh_h, b_hh_o, h0_h, h0_o))
     t, b, nh, no = gi_h.shape[1], gi_h.shape[2], gi_h.shape[3], gi_o.shape[3]
     h = w_hh_h.shape[1]
     out_h = gi_h.new_empty(gi_h.shape[:-1] + (h,))
@@ -125,26 +154,27 @@ def _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, 
                     m_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,)),
                     gates_h=gi_h.new_empty(gi_h.shape[:-1] + (4 * h,)),
                     gates_o=gi_o.new_empty(gi_o.shape[:-1] + (4 * h,)),
-                    mix_h=gi_h.new_empty(gi_h.shape[:-1] + (2 * h,)),
-                    mix_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,)),
+                    mix_h=gi_h.new_empty(gi_h.shape[:-1] + (2 * h,), dtype=io),
+                    mix_o=gi_o.new_empty(gi_o.shape[:-1] + (2 * h,), dtype=io),
                     atts=gi_h.new_empty((2, t, b, nh + no, nh + no)))
     h_h, h_o = h0_h, h0_o
 
     def proj(x, e):
-        return torch.relu(torch.matmul(x, w_from[e]) + b_from[e])
+        return torch.relu(torch.matmul(q(x), w_from[e]) + b_from[e])
 
     for i in range(t):
         ts = (i, t - 1 - i)                                           # per direction
         m_hh, m_ho, m_oh, m_oo = proj(h_h, 0), proj(h_h, 1), proj(h_o, 2), proj(h_o, 3)
         a_hh, a_oh, a_ho, a_oo = attention(h_h, h_o, ts)
-        msgs_h = torch.cat([a_hh @ m_hh, a_oh @ m_oh], dim=-1)        # (2, B, H, 2h)
-        msgs_o = torch.cat([a_ho @ m_ho, a_oo @ m_oo], dim=-1)        # (2, B, O, 2h)
+        msgs_h = q(torch.cat([a_hh @ m_hh, a_oh @ m_oh], dim=-1))     # (2, B, H, 2h)
+        msgs_o = q(torch.cat([a_ho @ m_ho, a_oo @ m_oo], dim=-1))     # (2, B, O, 2h)
         gib_h = torch.stack([gi_h[d, ts[d]] for d in range(2)])
         gib_o = torch.stack([gi_o[d, ts[d]] for d in range(2)])
         uh = torch.stack([u_h[ts[d]] for d in range(2)])
         uo = torch.stack([u_o[ts[d]] for d in range(2)])
-        h_h, gates_h = _cell(gib_h, msgs_h, h_h, uh, w_msg_h, w_hh_h, b_hh_h)
-        h_o, gates_o = _cell(gib_o, msgs_o, h_o, uo, w_msg_o, w_hh_o, b_hh_o)
+        h_h, gates_h = _cell(gib_h, msgs_h, h_h, q(h_h), uh, w_msg_h, w_hh_h, b_hh_h)
+        h_o, gates_o = _cell(gib_o, msgs_o, h_o, q(h_o), uo, w_msg_o, w_hh_o, b_hh_o)
+        h_h, h_o = carry(h_h), carry(h_o)
         for d in range(2):
             out_h[d, ts[d]], out_o[d, ts[d]], att[d, ts[d]] = h_h[d], h_o[d], a_oh[d]
         if keep:
@@ -155,18 +185,20 @@ def _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, 
             for k, v in step.items():
                 for d in range(2):
                     kept[k][d, ts[d]] = v[d]
-    return (out_h, out_o, att) + (tuple(kept[k] for k in KEPT) if keep else ())
+    return ((out_h.to(io), out_o.to(io), att.to(io))
+            + (tuple(kept[k] for k in KEPT) if keep else ()))
 
 
 def segment_scan_dot_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
                            w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
-                           scale: float, keep: bool = True):
+                           scale: float, keep: bool = True, round_carry: bool = False):
     """Plain PyTorch version of K3: (h_h, h_o, att_oh), followed with keep
-    by the KEPT tensors."""
+    by the KEPT tensors; round_carry as _scan_plain's."""
     scores = _dot_scores(scale)
     return _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
                        w_hh_o, b_hh_h, b_hh_o, h0_h, h0_o,
-                       lambda h_h, h_o, ts: _attention(h_h, h_o, obj_mask, scores), keep)
+                       lambda h_h, h_o, ts: _attention(h_h, h_o, obj_mask, scores), keep,
+                       round_carry)
 
 
 MODES = ("v1", "v4", "ext")
@@ -199,9 +231,15 @@ def segment_scan_att_plain(mode, gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, 
                        w_hh_o, b_hh_h, b_hh_o, h0_h, h0_o, attention, keep=False)
 
 
-def _check(what, args, dims, w_att_shape=None):
+# K3's kept tensors and K4's inputs that are float32 whatever the IO dtype.
+FLOAT32 = ("m_h", "m_o", "gates_h", "gates_o", "atts")
+
+
+def _check(what, args, dims, w_att_shape=None, io_dtypes=(torch.float32,)):
     """Device, dtype, shape and contiguity of every tensor in args, and the
-    kernels' limits; dims = (T, B, H, O, h)."""
+    kernels' limits; dims = (T, B, H, O, h). The tensors of FLOAT32 are
+    float32, the others all of one IO dtype of io_dtypes, which is
+    returned; bfloat16 needs h % 8 == 0 (16-byte copies of 8 values)."""
     t, b, nh, no, h = dims
     e = nh + no
     shapes = {
@@ -219,17 +257,24 @@ def _check(what, args, dims, w_att_shape=None):
         "g_h": (2, t, b, nh, h), "g_o": (2, t, b, no, h), "g_att": (2, t, b, nh, no),
         "w_att": w_att_shape, "b_att": (4,), "att_ext": (t, b, e, e),
     }
-    device = next(iter(args.values())).device
+    first = next(iter(args.values()))
+    device, io = first.device, first.dtype
+    if io not in io_dtypes:
+        raise ValueError(f"{what}: the IO dtype {io} is not one of {io_dtypes}")
     for name, x in args.items():
-        if x.device != device or x.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32 on {device}")
+        want = torch.float32 if name in FLOAT32 else io
+        if x.device != device or x.dtype != want:
+            raise ValueError(f"{what}: {name} must be {want} on {device} "
+                             f"(the IO dtype is {next(iter(args))}'s)")
         if tuple(x.shape) != shapes[name]:
             raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, want {shapes[name]}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if h % 4 or nh < 1 or no < 1 or e > MAX_ENTITIES or e * h * 4 > 48 * 1024:
-        raise ValueError(f"{what}: needs h % 4 == 0, 1 <= H, O, "
+    if (h % (8 if io == torch.bfloat16 else 4) or nh < 1 or no < 1 or e > MAX_ENTITIES
+            or e * h * 4 > 48 * 1024):
+        raise ValueError(f"{what}: needs h % 4 == 0 (h % 8 == 0 in bfloat16), 1 <= H, O, "
                          f"H + O <= {MAX_ENTITIES} and (H + O) * h <= 12288")
+    return io
 
 
 def _dims(gi_h, gi_o):
@@ -239,21 +284,24 @@ def _dims(gi_h, gi_o):
     return t, b, nh, gi_o.shape[3], g3 // 3
 
 
-def scan_buffers(t, b, nh, no, h, keep, device):
+def scan_buffers(t, b, nh, no, h, keep, device, io=torch.float32):
     """What K3 (and K5, without keep) writes: its outputs (h_h, h_o,
-    att_oh); with keep the KEPT tensors, every step's; without, one step's
-    edge and mixed messages per direction, the kernel's scratch (serving
-    keeps nothing per step)."""
-    empty = lambda *shape: torch.empty(shape, device=device)
-    out = [empty(2, t, b, nh, h), empty(2, t, b, no, h), empty(2, t, b, nh, no)]
+    att_oh) in the IO dtype; with keep the KEPT tensors, every step's;
+    without, one step's edge and mixed messages per direction, the kernel's
+    scratch (serving keeps nothing per step). The mixed messages take the
+    IO dtype, the rest float32."""
+    empty = lambda *shape, dtype=torch.float32: torch.empty(shape, device=device, dtype=dtype)
+    out = [empty(2, t, b, nh, h, dtype=io), empty(2, t, b, no, h, dtype=io),
+           empty(2, t, b, nh, no, dtype=io)]
     if keep:
         kept = dict(m_h=empty(2, t, b, nh, 2 * h), m_o=empty(2, t, b, no, 2 * h),
                     gates_h=empty(2, t, b, nh, 4 * h), gates_o=empty(2, t, b, no, 4 * h),
-                    mix_h=empty(2, t, b, nh, 2 * h), mix_o=empty(2, t, b, no, 2 * h),
+                    mix_h=empty(2, t, b, nh, 2 * h, dtype=io),
+                    mix_o=empty(2, t, b, no, 2 * h, dtype=io),
                     atts=empty(2, t, b, nh + no, nh + no))
     else:
         kept = dict(m_h=empty(2, b, nh, 2 * h), m_o=empty(2, b, no, 2 * h),
-                    mix_h=empty(2, b, nh, 2 * h), mix_o=empty(2, b, no, 2 * h))
+                    mix_h=empty(2, b, nh, 2 * h, dtype=io), mix_o=empty(2, b, no, 2 * h, dtype=io))
     return out, kept
 
 
@@ -273,25 +321,32 @@ def segment_scan_dot(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
     if gi_h.device.type != "cuda":
         raise ValueError(f"segment_scan_dot runs on CUDA or the CPU, not {gi_h.device}")
     dims = _dims(gi_h, gi_o)
-    _check("segment_scan_dot", args, dims)
+    io = _check("segment_scan_dot", args, dims, io_dtypes=(torch.float32, torch.bfloat16))
     t, b, nh, no, h = dims
-    out, kept = scan_buffers(*dims, keep, gi_h.device)
+    out, kept = scan_buffers(*dims, keep, gi_h.device, io)
     if t > 0:
-        fn = _build.load_library("segment_scan").tggcn_segment_scan_dot_f32
-        fn.argtypes = [_P] * 25 + [_I] * 6 + [ctypes.c_float, _P]
-        fn.restype = _I
+        lib = _build.load_library("segment_scan")
         ptrs = [x.data_ptr() for x in (*args.values(), *out)]
         ptrs += [kept[k].data_ptr() if k in kept else None
                  for k in ("m_h", "m_o", "mix_h", "mix_o", "gates_h", "gates_o", "atts")]
+        if io == torch.float32:
+            fn = lib.tggcn_segment_scan_dot_f32
+        else:
+            # The float32 states (2, B * E, h), updated in place each step.
+            fn = lib.tggcn_segment_scan_dot_bf16
+            states = [h0_h.float().contiguous(), h0_o.float().contiguous()]
+            ptrs += [x.data_ptr() for x in states]
+        fn.argtypes = [_P] * len(ptrs) + [_I] * 6 + [ctypes.c_float, _P]
+        fn.restype = _I
         with torch.cuda.device(gi_h.device):
             stream = torch.cuda.current_stream(gi_h.device).cuda_stream
             err = fn(*ptrs, int(keep), t, b, nh, no, h, float(scale), stream)
         _build.check_launch(err, "segment_scan_dot")
-        segment_scan_dot.launches += 1
+        _build.count_launch(segment_scan_dot, io)
     return tuple(out) + (tuple(kept[k] for k in KEPT) if keep else ())
 
 
-segment_scan_dot.launches = 0
+segment_scan_dot.launches = segment_scan_dot.launches_bf16 = 0
 
 
 def _segment_scan_att(wrapper, mode, args, extra):
@@ -376,7 +431,7 @@ BWD_OUTPUTS = ("dgi_h", "dgi_o", "dgh_h", "dgh_o", "dpre_h", "dpre_o", "du_h", "
 
 def segment_scan_dot_bwd_plain(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o, atts,
                                g_h, g_o, g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
-                               scale: float):
+                               scale: float, round_carry: bool = False):
     """Plain PyTorch version of K4: a Python loop that visits time opposite
     to the forward, both directions batched on the leading axis, from the
     states (hprev) each forward step read and what K3 kept of it (the edge
@@ -384,7 +439,17 @@ def segment_scan_dot_bwd_plain(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, ga
     recomputed. Returns a dict of BWD_OUTPUTS: per step dgi, dgh (2, T, B, E,
     3h), the message pre-ReLU gradients dpre (2, T, B, E, 2h; dpre_h holds
     the edges hh | ho, dpre_o oh | oo), du (2, T, B, E) per direction, and
-    dh0 (2, B, E, h)."""
+    dh0 (2, B, E, h). It computes in float32 whatever the IO dtype and
+    rounds to it where the kernel does: the products' operands dgi, dgh and
+    dpre, the mixed-message gradient dmsgs, the score gradient ds, and the
+    outputs. round_carry also rounds the carried dL/dh to it after every
+    step: a control, as K3's."""
+    io = hprev_h.dtype
+    q = _build.rounding(io)
+    carry = q if round_carry else (lambda x: x)
+    (u_h, u_o, hprev_h, hprev_o, g_h, g_o, g_att, w_from, w_msg_h, w_msg_o, w_hh_h,
+     w_hh_o) = (_build.upcast(x) for x in (u_h, u_o, hprev_h, hprev_o, g_h, g_o, g_att, w_from,
+                                    w_msg_h, w_msg_o, w_hh_h, w_hh_o))
     h = w_hh_h.shape[1]
     t, nh = hprev_h.shape[1], hprev_h.shape[3]
     new = lambda like, width: like.new_empty(like.shape[:-1] + (width,))
@@ -395,27 +460,33 @@ def segment_scan_dot_bwd_plain(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, ga
                du_o=hprev_o.new_empty(hprev_o.shape[:-1]))
     dh_h, dh_o = hprev_h.new_zeros(hprev_h[:, 0].shape), hprev_o.new_zeros(hprev_o[:, 0].shape)
 
+    # q rounds where the TPU kernel computes in the IO dtype (the gates and
+    # the elementwise cell backward, segment_scan_pallas.py:409-459; the
+    # attention and messages it recomputes, :362-393); the identity in
+    # float32.
     def cell_bwd(gates, hp, u, dH, w_msg, w_hh):
-        r, z, n, hn = gates.chunk(4, dim=-1)
-        h_new = (1.0 - z) * n + z * hp
+        r, z, n, hn = (q(x) for x in gates.chunk(4, dim=-1))
+        omz = q(1.0 - z)
+        h_new = q(omz * n) + z * hp
         du = torch.sum(dH * (h_new - hp), dim=-1)
-        dh_new = dH * u[..., None]
-        dtanh = dh_new * (1.0 - z) * (1.0 - n * n)
-        d_ir = dtanh * hn * r * (1.0 - r)
-        d_iz = dh_new * (hp - n) * z * (1.0 - z)
+        dh_new = q(dH * u[..., None])
+        dtanh = q(q(dh_new * omz) * q(1.0 - q(n * n)))
+        d_ir = q(q(q(dtanh * hn) * r) * q(1.0 - r))
+        d_iz = q(q(q(dh_new * q(hp - n)) * z) * omz)
         dgi = torch.cat([d_ir, d_iz, dtanh], dim=-1)
-        dgh = torch.cat([d_ir, d_iz, dtanh * r], dim=-1)
-        dhp = (dH * (1.0 - u[..., None]) + dh_new * z
+        dgh = torch.cat([d_ir, d_iz, q(dtanh * r)], dim=-1)
+        dhp = (dH * (1.0 - u[..., None]) + q(dh_new * z)
                + torch.einsum("dbnk,dhk->dbnh", dgh, w_hh))
-        return dgi, dgh, du, dhp, torch.einsum("dbnk,dfk->dbnf", dgi, w_msg)
+        return dgi, dgh, du, dhp, q(torch.einsum("dbnk,dfk->dbnf", dgi, w_msg))
 
     def att_bwd(a, m, dmg, recv, send, e, extra=None):
-        da = torch.einsum("dbrh,dbsh->dbrs", dmg, m)
+        a = q(a)
+        da = torch.einsum("dbrh,dbsh->dbrs", dmg, q(m))
         if extra is not None:
             da = da + extra
         dm = torch.einsum("dbrs,dbrh->dbsh", a, dmg)
-        ds = a * (da - torch.sum(da * a, dim=-1, keepdim=True))
-        dpre = dm * (m > 0).to(dm.dtype)
+        ds = q(a * (da - torch.sum(da * a, dim=-1, keepdim=True)))
+        dpre = q(dm * (m > 0).to(dm.dtype))
         dsend = scale * torch.einsum("dbrs,dbrh->dbsh", ds, recv)
         dsend = dsend + torch.matmul(dpre, w_from[e].transpose(0, 1))
         return scale * torch.einsum("dbrs,dbsh->dbrh", ds, send), dsend, dpre
@@ -440,8 +511,8 @@ def segment_scan_dot_bwd_plain(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, ga
         dr_oh, ds_oh, dp_oh = att_bwd(a_oh, m_oh, dmsgs_h[..., h:], hh, ho, 2, at(g_att))
         dr_ho, ds_ho, dp_ho = att_bwd(a_ho, m_ho, dmsgs_o[..., :h], ho, hh, 1)
         dr_oo, ds_oo, dp_oo = att_bwd(a_oo, m_oo, dmsgs_o[..., h:], ho, ho, 3)
-        dh_h = dhp_h + dr_hh + ds_hh + dr_oh + ds_ho
-        dh_o = dhp_o + ds_oh + dr_ho + dr_oo + ds_oo
+        dh_h = carry(dhp_h + dr_hh + ds_hh + dr_oh + ds_ho)
+        dh_o = carry(dhp_o + ds_oh + dr_ho + dr_oo + ds_oo)
         step = dict(dgi_h=dgi_h, dgi_o=dgi_o, dgh_h=dgh_h, dgh_o=dgh_o,
                     dpre_h=torch.cat([dp_hh, dp_ho], dim=-1),
                     dpre_o=torch.cat([dp_oh, dp_oo], dim=-1), du_h=du_h, du_o=du_o)
@@ -449,14 +520,17 @@ def segment_scan_dot_bwd_plain(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, ga
             for d in range(2):
                 out[k][d, ts[d]] = v[d]
     out.update(dh0_h=dh_h, dh0_o=dh_o)
-    return out
+    return {k: v.to(io) for k, v in out.items()}
 
 
 def segment_scan_dot_weight_grads(hprev_h, hprev_o, mix_h, mix_o, grads):
     """The weight and bias gradients, reduced outside the kernel as large
     products over its per-step outputs and K3's kept mixed messages (as
-    ``segment_scan_pallas.py:620-663`` does): (dw_from, db_from, dw_msg_h,
-    dw_msg_o, dw_hh_h, dw_hh_o, db_hh_h, db_hh_o)."""
+    ``segment_scan_pallas.py:620-663`` does), in the IO dtype, whose
+    products sum in float32 (runtime.py pins cuBLAS so for bfloat16; the
+    TPU kernel's route sums them in float32 and casts the result to the
+    weights' bfloat16): (dw_from, db_from, dw_msg_h, dw_msg_o, dw_hh_h,
+    dw_hh_o, db_hh_h, db_hh_o)."""
     h = hprev_h.shape[-1]
 
     def red(a, b):                                   # per direction (2, F, G)
@@ -491,14 +565,16 @@ def segment_scan_dot_bwd(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o,
         raise ValueError(f"segment_scan_dot_bwd runs on CUDA or the CPU, not {hprev_h.device}")
     _, t, b, nh, h = hprev_h.shape
     no = hprev_o.shape[3]
-    _check("segment_scan_dot_bwd", args, (t, b, nh, no, h))
+    io = _check("segment_scan_dot_bwd", args, (t, b, nh, no, h),
+                io_dtypes=(torch.float32, torch.bfloat16))
     dev = hprev_h.device
-    empty = lambda *shape: torch.empty(shape, device=dev)
-    out = dict(dgi_h=empty(2, t, b, nh, 3 * h), dgi_o=empty(2, t, b, no, 3 * h),
-               dgh_h=empty(2, t, b, nh, 3 * h), dgh_o=empty(2, t, b, no, 3 * h),
-               dpre_h=empty(2, t, b, nh, 2 * h), dpre_o=empty(2, t, b, no, 2 * h),
-               du_h=empty(2, t, b, nh), du_o=empty(2, t, b, no),
-               dh0_h=empty(2, b, nh, h), dh0_o=empty(2, b, no, h))
+    empty = lambda *shape, dtype=torch.float32: torch.empty(shape, device=dev, dtype=dtype)
+    out = dict(dgi_h=empty(2, t, b, nh, 3 * h, dtype=io), dgi_o=empty(2, t, b, no, 3 * h, dtype=io),
+               dgh_h=empty(2, t, b, nh, 3 * h, dtype=io), dgh_o=empty(2, t, b, no, 3 * h, dtype=io),
+               dpre_h=empty(2, t, b, nh, 2 * h, dtype=io),
+               dpre_o=empty(2, t, b, no, 2 * h, dtype=io),
+               du_h=empty(2, t, b, nh, dtype=io), du_o=empty(2, t, b, no, dtype=io),
+               dh0_h=empty(2, b, nh, h, dtype=io), dh0_o=empty(2, b, no, h, dtype=io))
     if t == 0:
         out["dh0_h"].zero_()
         out["dh0_o"].zero_()
@@ -509,18 +585,20 @@ def segment_scan_dot_bwd(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o,
                empty(2, b * nh, 2 * h), empty(2, b * no, 2 * h),                 # dmsgs
                empty(2, b * nh, h), empty(2, b * no, h)]                         # attc
     ptrs = [x.data_ptr() for x in (*args.values(), *(out[k] for k in BWD_OUTPUTS), *scratch)]
-    fn = _build.load_library("segment_scan_bwd").tggcn_segment_scan_dot_bwd_f32
+    lib = _build.load_library("segment_scan_bwd")
+    fn = (lib.tggcn_segment_scan_dot_bwd_f32 if io == torch.float32
+          else lib.tggcn_segment_scan_dot_bwd_bf16)
     fn.argtypes = [_P] * len(ptrs) + [_I] * 5 + [ctypes.c_float, _P]
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, t, b, nh, no, h, float(scale), stream)
     _build.check_launch(err, "segment_scan_dot_bwd")
-    segment_scan_dot_bwd.launches += 1
+    _build.count_launch(segment_scan_dot_bwd, io)
     return out
 
 
-segment_scan_dot_bwd.launches = 0
+segment_scan_dot_bwd.launches = segment_scan_dot_bwd.launches_bf16 = 0
 
 class SegmentScanDot(torch.autograd.Function):
     """K3 forward, keeping what K4 reads; K4 backward; the weight gradients

@@ -41,9 +41,9 @@ def gru_inputs(dev, gen, t, s, r, h):
 def gru_bwd_inputs(gi, w_hh, b_hh, h0, num_reverse, gen):
     """K2's inputs (gi, hprev, g, gates, w_hh): the states each step read and
     the gates of the plain forward, and a standard-normal upstream gradient
-    from gen."""
+    from gen, in the IO dtype of gi."""
     out, gates = ops.gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse, keep=True)
-    g = torch.randn(out.shape, generator=gen, device=out.device)
+    g = torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
     return gi, ops.previous_states(out, h0, num_reverse), g, gates, w_hh
 
 
@@ -53,12 +53,14 @@ def cudnn_grus(w_hh, b_hh):
     the identity and its input bias zero, so W_ih x + b_ih = gi; W_hh and
     b_hh are the stream's (PyTorch's GRU also puts b_hn inside r * (...)).
     A yardstick only: each call also multiplies its input by the identity,
-    and it needs one call per stream (several weight sets). TF32 is off."""
+    and it needs one call per stream (several weight sets). TF32 is off.
+    The GRUs take w_hh's dtype (bfloat16 for K1's and K2's bfloat16
+    variants; the library then carries its state in bfloat16)."""
     pin_float32_numerics()
     s, h = w_hh.shape[0], w_hh.shape[1]
     grus = []
     for i in range(s):
-        gru = torch.nn.GRU(3 * h, h).to(w_hh.device)
+        gru = torch.nn.GRU(3 * h, h).to(w_hh.device, w_hh.dtype)
         with torch.no_grad():
             gru.weight_ih_l0.copy_(torch.eye(3 * h, device=w_hh.device))
             gru.bias_ih_l0.zero_()

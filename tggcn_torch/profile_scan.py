@@ -52,11 +52,12 @@ def scan_inputs(dev, gen, t, b, nh, no, h):
 
 def bwd_inputs(fwd, gen, scale):
     """K4's inputs for K3's inputs fwd: what the plain forward keeps, the
-    previous states and standard-normal upstream gradients from gen."""
+    previous states and standard-normal upstream gradients from gen, in
+    the IO dtype of fwd."""
     out_h, out_o, _, *kept = ops.segment_scan_dot_plain(**fwd, scale=scale)
     kept = dict(zip(ops.KEPT, kept))
     dev = out_h.device
-    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(out_h.dtype)
     return dict(u_h=fwd["u_h"], u_o=fwd["u_o"], hprev_h=ops.previous_states(out_h, fwd["h0_h"]),
                 hprev_o=ops.previous_states(out_o, fwd["h0_o"]),
                 **{k: kept[k] for k in ("m_h", "m_o", "gates_h", "gates_o", "atts")},

@@ -3,23 +3,26 @@ more repetitions than chip_smoke.py takes, and split the train step's
 device time by kernel.
 
     python -m tggcn_torch.profile_step [--steps N] [--requests N] [--seed N]
+                                       [--dtype {float32,bfloat16}]
 
 Builds the stage-1 MPHOI model (``tggcn_torch.models.stage1``) at the full
-width on one CUDA card, with random weights and a seeded batch resident on
-the card, as chip_smoke.py's train phase does. Runs 2 warm-up train steps
+width on one CUDA card, in the compute dtype ``--dtype`` (float32 by
+default; ``bench.py`` trains in bfloat16), with random weights and a seeded
+batch resident on the card, as chip_smoke.py's train phases do. Runs 2 warm-up train steps
 on the kernel route, then ``--steps`` timed steps (host clock, each ended
 by a synchronize), then 3 steps under ``torch.profiler``; then one warm-up
 request and ``--requests`` timed requests of the same shape (host->device
 copy included). Prints one JSON object: the card (name and power limit from
 nvidia-smi), the train step's and the request's wall ms (median and
 quartiles), the train step's device-busy ms and idle share, its device ms
-by group (K1-K4 by their kernel names, the rest as "other") and its
-largest kernels.
+by group (K1-K4 by their kernel names, cuBLAS's products, Adam's
+multi-tensor kernels, the rest as "other"), its largest kernels and the
+largest of "other".
 
-It reads only entry points that earlier commits of the package also have,
-so a checkout of one can be timed the same way: from that checkout's root,
-``PYTHONPATH=. python <this file>`` (the checkout's own ``tggcn_torch`` is
-then the one imported). Needs a CUDA device.
+It reads only entry points that earlier commits of the package also have
+(in float32), so a checkout of one can be timed the same way: from that
+checkout's root, ``PYTHONPATH=. python <this file>`` (the checkout's own
+``tggcn_torch`` is then the one imported). Needs a CUDA device.
 """
 
 import argparse
@@ -41,9 +44,11 @@ from tggcn_torch.train.loop import make_train_step, trainable_parameters
 from tggcn_torch.train.losses import select_loss
 
 PROFILED_STEPS = 3
-# Kernel-name fragments of the train step's kernels (both designs' names).
+# Kernel-name fragments of the train step's kernels (both designs' names),
+# then cuBLAS's products and the optimizer's multi-tensor kernels.
 GROUPS = {"gru_step_kernel": "K1", "gru_bwd": "K2", "proj_kernel": "K3", "mix_kernel": "K3",
-          "cell_kernel": "K3", "segb_": "K4", "du_sum": "K4"}
+          "cell_kernel": "K3", "segb_": "K4", "du_sum": "K4", "gemm": "cuBLAS",
+          "nvjet": "cuBLAS", "xmma": "cuBLAS", "multi_tensor_apply": "Adam"}
 
 
 def group_of(name):
@@ -70,13 +75,18 @@ def main(argv=None):
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--requests", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                        help="the model's compute dtype")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     dev = torch.device("cuda", 0)
     b, t, nh, no = (stage1.SHAPE[k] for k in ("b", "t", "humans", "objects"))
 
-    model = select_model("2G-GCN", device=dev, **stage1.MODEL_KWARGS)
+    kwargs = stage1.MODEL_KWARGS
+    if args.dtype != "float32":
+        kwargs = dict(kwargs, compute_dtype=args.dtype)
+    model = select_model("2G-GCN", device=dev, **kwargs)
     trainable = {"model": model.init(torch.Generator().manual_seed(0))}
     criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
     feeder = select_model_data_feeder("2G-GCN", "multiple", **stage1.FEEDER_KWARGS)
@@ -122,9 +132,20 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=30).stdout.strip()
     per_step = lambda us: us / 1e3 / PROFILED_STEPS
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+
+    def largest(names, n):
+        """The n largest of names by device time, summed over the names
+        that share their first 80 characters."""
+        short = defaultdict(float)
+        for k in names:
+            short[k[:80]] += per_name[k]
+        return sorted(short.items(), key=lambda kv: -kv[1])[:n]
+
+    top = largest(per_name, 10)
+    top_other = largest([k for k in per_name if group_of(k) == "other"], 8)
     print(json.dumps({
-        "card": smi, "train_step_ms": spread(step_ms), "request_ms": spread(request_ms),
+        "card": smi, "dtype": args.dtype, "train_step_ms": spread(step_ms),
+        "request_ms": spread(request_ms),
         "train_step_peak_gib": peak_gib,
         "profiled_steps": PROFILED_STEPS, "profiled_wall_ms_per_step": wall / PROFILED_STEPS,
         "device_busy_ms_per_step": busy_ms / PROFILED_STEPS,
@@ -132,7 +153,8 @@ def main(argv=None):
         "kernel_launches_per_step": len(kernels) / PROFILED_STEPS,
         "groups_ms_per_step": {k: per_step(v) for k, v in
                                sorted(per_group.items(), key=lambda kv: -kv[1])},
-        "top_kernels_ms_per_step": {k[:80]: per_step(v) for k, v in top}}))
+        "top_kernels_ms_per_step": {k: per_step(v) for k, v in top},
+        "top_other_kernels_ms_per_step": {k: per_step(v) for k, v in top_other}}))
 
 
 if __name__ == "__main__":

@@ -1,21 +1,26 @@
-"""Device choice and float32 numerics for the port.
+"""Device choice and matmul numerics for the port.
 
 Counterpart of ``tggcn/runtime.py``. The port's entry points run on the
 CUDA card unless the caller asks for the CPU; asking for CUDA where there is
 none raises instead of carrying on somewhere else. The float32 path is held
 to tight tolerances against the JAX reference, and two reference fixtures
 flip a hard segmentation decision under reduced-precision matmuls, so TF32
-is pinned off for matmuls and cuDNN alike.
+is pinned off for matmuls and cuDNN alike. The bfloat16 path's cuBLAS
+products (input projections, embeddings and their backward) reduce in
+float32, as XLA's do with ``preferred_element_type``: cuBLAS's reduced-
+precision reduction for bfloat16 is pinned off too.
 """
 
 import torch
 
 
 def pin_float32_numerics() -> None:
-    """Full-precision float32 matmuls and convolutions (TF32 off)."""
+    """Full-precision float32 matmuls and convolutions (TF32 off), and
+    bfloat16 matmuls that reduce in float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:
