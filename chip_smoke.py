@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tggcn_torch's stage-1 serving and training paths, in float32 and in
-bfloat16 (the dtype bench.py trains in), and its serving modes on one CUDA
-card.
+bfloat16 (the dtype bench.py trains in), its stage-2 training and serving
+paths, and its serving modes on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -72,6 +72,22 @@ exit and the phase's name if the phase hangs:
            state): each timed step must launch the bfloat16 variants of
            K1-K4; the controls of the gradient comparison (two more plain
            steps)
+  train_stage2, train_stage2_bf16
+           the train and train_bf16 phases for the stage-2 model
+           (tggcn_torch.models.stage2: decisions learned for humans and
+           objects and filtered to local maxima at threshold 0.1, the
+           segmentation loss on, stage2.make_batch), its weights a stage-1
+           tree merged into its own init (merge_params; the number of
+           leaves taken is printed), Gumbel noise for humans and objects
+           handed to both routes, the same limits
+  forward_stage2
+           one stage-2 request (nothing imposed) on each route, held to the
+           forward phase's limits
+  forward_stage2_features
+           the same for each of stage2.FEATURE_VARIANTS (the time position
+           as a decision input with the periodic encoding and shared level
+           heads; as a segment input with the embedding, the segment length
+           and the level states concatenated)
   serve_modes
            the forward phase for each of stage1.SERVE_VARIANTS at the same
            width and shape: distance-based attention from seeded distances
@@ -105,8 +121,11 @@ millionth of the model's largest gradient, where a leaf's gradient is
 rounding noise: the softmax makes the GeoGCN s2 bias's exactly 0), each weight
 within one learning rate (Adam's first step moves a weight by lr g / (|g| +
 eps), which saturates at lr, so a gradient within rounding of zero may step
-either way). A hard object decision whose soft value lies within 1e-4 of
-the threshold may round the other way in the two routes; such a flip is
+either way). A hard decision (a human's or an object's) whose soft value
+lies within 1e-4 of the threshold may round the other way in the two
+routes; with filtered decisions (stage 2: a local maximum of the soft
+values at or above the threshold) also one whose soft value lies within
+1e-4 of the neighbour it is compared with (flip_margins). Such a flip is
 counted and its batch row left out of the comparison (the train step is
 then run again on both routes without that row), at most one row per
 request or batch. Any other flip, or a second row with flips, fails the run.
@@ -120,7 +139,7 @@ bfloat16, which the next step's products then read: an element-by-element
 ulp does not hold, and the phase line prints both); K2-bf16 within 5e-3
 and K4-bf16 within 1e-2 of each output's largest value; whole bfloat16
 forwards within 6e-4, with a decision marginal within 2^-7 of the
-threshold (two bfloat16 ulps above 0.5); the bfloat16 train step's losses
+threshold or of its neighbour (two bfloat16 ulps above 0.5); the bfloat16 train step's losses
 within rtol 1e-2, each gradient leaf within 3.9e-2 of its largest; cuDNN's
 bfloat16 GRU, which rounds its carried state to bfloat16, within 5e-2 of
 the plain version. Beside these, each bfloat16 check runs two controls
@@ -243,7 +262,8 @@ PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k
                  "k5_v1": 240, "k5_v4": 240, "k5_ext": 240, "k6": 120,
                  "k1_bf16": 180, "k2_bf16": 180, "k3_bf16": 240, "k4_bf16": 300,
                  "forward": 300, "forward_bf16": 300, "train": 420, "train_bf16": 420,
-                 "serve_modes": 600, "small": 180}
+                 "train_stage2": 420, "train_stage2_bf16": 420, "forward_stage2": 180,
+                 "forward_stage2_features": 300, "serve_modes": 600, "small": 180}
 # The kernels of the train step, and of each serving mode's segment scan.
 TRAIN_KERNELS = ("gru_sequence", "gru_sequence_bwd", "segment_scan_dot", "segment_scan_dot_bwd")
 MODE_KERNEL = {"dist": "segment_scan_ext", "v1": "segment_scan_v1", "v4": "segment_scan_v4",
@@ -731,33 +751,74 @@ def run_k6(torch, dev, shape):
                 plain_ms=plain_ms, library_ms=None, **bounds(nbytes(x, *weights, got), flops))
 
 
-def decision_rows(torch, aux_g, aux_w, what, marginal=MARGINAL):
-    """Batch rows whose object decisions agree in both runs (a bool mask),
-    the number of marginal flips and the number of rows left out (at most
-    one); any flip away from the threshold (by marginal or more) fails."""
-    hard_g, soft_g = (x.detach().cpu() for x in aux_g["object_decisions"])
-    hard_w, soft_w = (x.detach().cpu() for x in aux_w["object_decisions"])
-    flips = hard_g != hard_w
-    if flips.any():
-        margin = torch.maximum((soft_g[flips] - 0.5).abs(), (soft_w[flips] - 0.5).abs())
-        if float(margin.max()) >= marginal:
-            raise AssertionError(f"{what}: object decisions differ away from the threshold")
-    rows = ~flips.flatten(1).any(dim=1)
+def flip_margins(torch, soft_g, soft_w, flips, threshold=0.5, filtered=False):
+    """How far each flipped hard decision (flips, a bool mask) lay from
+    turning out the same in both runs, from the soft decisions of both.
+    Unfiltered, a decision compares its soft value with the threshold: the
+    margin is that distance. Filtered (filter_discrete_updates), it also
+    compares it with each neighbour's along time (zero outside the clip):
+    the margin is the largest distance over the comparisons whose outcome
+    differs between the runs, each distance the larger of the two runs';
+    infinite where no comparison's outcome differs."""
+    def comparisons(soft):
+        zeros = torch.zeros_like(soft[:, :1])
+        sides = [torch.full_like(soft, threshold)]
+        if filtered:
+            sides += [torch.cat([zeros, soft[:, :-1]], 1), torch.cat([soft[:, 1:], zeros], 1)]
+        return [(soft >= side if i == 0 and filtered else soft > side, (soft - side).abs())
+                for i, side in enumerate(sides)]
+
+    margin, explained = torch.zeros_like(soft_g), torch.zeros_like(flips)
+    for (c_g, d_g), (c_w, d_w) in zip(comparisons(soft_g), comparisons(soft_w)):
+        margin = torch.where(c_g != c_w, torch.maximum(margin, torch.maximum(d_g, d_w)), margin)
+        explained |= c_g != c_w
+    # A flip no comparison explains has no margin.
+    return torch.where(explained, margin, math.inf)[flips]
+
+
+def decision_rows(torch, aux_g, aux_w, what, marginal=MARGINAL, threshold=0.5, filtered=False):
+    """Batch rows whose hard decisions (humans' and objects') agree in both
+    runs (a bool mask), the number of marginal flips and the number of rows
+    left out (at most one); any flip with a margin (flip_margins) of
+    marginal or more fails."""
+    rows, flipped = None, 0
+    for key in ("human_decisions", "object_decisions"):
+        if key not in aux_g:
+            continue
+        hard_g, soft_g = (x.detach().cpu() for x in aux_g[key])
+        hard_w, soft_w = (x.detach().cpu() for x in aux_w[key])
+        flips = hard_g != hard_w
+        if flips.any():
+            margin = flip_margins(torch, soft_g, soft_w, flips, threshold, filtered)
+            if float(margin.max()) >= marginal:
+                raise AssertionError(f"{what}: {key.split('_')[0]} decisions differ away from "
+                                     f"the threshold and their neighbours "
+                                     f"(margin {float(margin.max()):.3e})")
+        agree = ~flips.flatten(1).any(dim=1)
+        rows = agree if rows is None else rows & agree
+        flipped += int(flips.sum())
     dropped = int((~rows).sum())
     if dropped > 1:
         raise AssertionError(f"{what}: {dropped} batch rows have flipped decisions")
-    return rows, int(flips.sum()), dropped
+    return rows, flipped, dropped
 
 
-def forward_gaps(torch, got, want):
+def decision_rule(cfg):
+    """The keywords of decision_rows for a model configuration: its
+    threshold and whether its decisions are filtered."""
+    return dict(threshold=cfg.update_segment_threshold, filtered=cfg.filter_discrete_updates)
+
+
+def forward_gaps(torch, got, want, rule=None):
     """tensor_gaps of the outputs of requests got against want, with
     max_abs, the largest absolute difference, over the batch rows whose
-    object decisions agree (as compare_forward in bfloat16); every
-    measure inf if a decision flipped away from the threshold."""
+    decisions agree (as compare_forward in bfloat16, by the decision rule
+    rule); every measure inf if a decision flipped with a margin."""
     pairs = []
     for (out_g, aux_g), (out_w, aux_w) in zip(got, want):
         try:
-            rows, _, _ = decision_rows(torch, aux_g, aux_w, "control", MARGINAL_BF16)
+            rows, _, _ = decision_rows(torch, aux_g, aux_w, "control", MARGINAL_BF16,
+                                       **(rule or {}))
         except AssertionError:
             return dict(max_abs=math.inf, max_share=math.inf, ulps=math.inf, rel_l2=math.inf)
         pairs += [(g.cpu()[rows], w.cpu()[rows]) for g, w in zip(out_g, out_w)]
@@ -765,16 +826,16 @@ def forward_gaps(torch, got, want):
                 **tensor_gaps(*zip(*pairs)))
 
 
-def compare_forward(torch, got, want, what, bf16=False):
+def compare_forward(torch, got, want, what, bf16=False, rule=None):
     """Max abs difference of two (outputs, aux) results of one request, the
-    number of marginal object-decision flips and the number of batch rows
-    left out of the comparison for them (at most one). Float32 outputs agree
-    within rtol FORWARD_RTOL, atol FORWARD_ATOL; with bf16 (the bfloat16
-    compute dtype) within FORWARD_ATOL_BF16, and a flip is marginal within
-    MARGINAL_BF16 of the threshold."""
+    number of marginal decision flips and the number of batch rows left out
+    of the comparison for them (at most one; decision_rows with the
+    decision rule rule, decision_rule). Float32 outputs agree within rtol
+    FORWARD_RTOL, atol FORWARD_ATOL; with bf16 (the bfloat16 compute dtype)
+    within FORWARD_ATOL_BF16, and a flip is marginal within MARGINAL_BF16."""
     (out_g, aux_g), (out_w, aux_w) = got, want
     rows, flips, dropped = decision_rows(torch, aux_g, aux_w, what,
-                                         MARGINAL_BF16 if bf16 else MARGINAL)
+                                         MARGINAL_BF16 if bf16 else MARGINAL, **(rule or {}))
     err = 0.0
     for i, (g, w) in enumerate(zip(out_g, out_w)):
         g, w = g.cpu()[rows], w.cpu()[rows]
@@ -819,27 +880,40 @@ def read_launches():
     return {name: getattr(wrapper, attr) for name, (wrapper, attr) in kernel_counters().items()}
 
 
-def run_forward(torch, dev, size, seed, variant=None, dtype="float32"):
-    """REQUESTS served requests of the stage-1 model, or of one of
-    stage1.SERVE_VARIANTS, in the compute dtype, on the kernel route
-    against the plain route; each kernel of the route must launch once per
-    request, and no other."""
-    from tggcn_torch.models import stage1
+def stage_module(stage):
+    from tggcn_torch.models import stage1, stage2
+
+    return {"stage1": stage1, "stage2": stage2}[stage]
+
+
+def run_forward(torch, dev, size, seed, variant=None, dtype="float32", stage="stage1",
+                requests=REQUESTS):
+    """Served requests of the stage-1 or stage-2 model, or of one of
+    stage1.SERVE_VARIANTS or stage2.FEATURE_VARIANTS, in the compute dtype,
+    on the kernel route against the plain route; each kernel of the route
+    must launch once per request, and no other."""
     from tggcn_torch.models.registry import select_model
 
+    module = stage_module(stage)
     b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
-    change = stage1.SERVE_VARIANTS[variant] if variant else {}
-    model = select_model("2G-GCN", device=dev, **dict(stage1.model_kwargs(dtype), **change))
+    variants = {**getattr(module, "SERVE_VARIANTS", {}), **getattr(module, "FEATURE_VARIANTS", {})}
+    change = variants[variant] if variant else {}
+    model = select_model("2G-GCN", device=dev, **dict(module.model_kwargs(dtype), **change))
     params = model.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(seed)
-    batches = [stage1.make_request(rng, b, t, nh, no) for _ in range(REQUESTS)]
+    batches = [module.make_request(rng, b, t, nh, no) for _ in range(requests)]
     if variant == "dist":
         for batch in batches:
-            batch.update(stage1.make_distances(rng, b, t, nh, no))
-    # The objects' Gumbel noise of each request, handed to both routes.
-    noises = [{"object": rng.gumbel(size=(b, t, no, 2)).astype(np.float32)}
-              for _ in range(REQUESTS)]
-    expected = {"gru_sequence", MODE_KERNEL[variant] if variant else "segment_scan_dot"}
+            batch.update(module.make_distances(rng, b, t, nh, no))
+    # The Gumbel noise of each request, handed to both routes: the objects',
+    # and the humans' where their segmentation is not imposed.
+    noises = []
+    for batch in batches:
+        noises.append({"object": rng.gumbel(size=(b, t, no, 2)).astype(np.float32)})
+        if "human_segmentation" not in batch:
+            noises[-1]["human"] = rng.gumbel(size=(b, t, nh, 2)).astype(np.float32)
+    rule = decision_rule(model.config)
+    expected = {"gru_sequence", MODE_KERNEL.get(variant, "segment_scan_dot")}
     if variant == "dist":
         expected.add("geo_gcn_fused")
     bf16 = dtype == "bfloat16"
@@ -857,7 +931,7 @@ def run_forward(torch, dev, size, seed, variant=None, dtype="float32"):
         times.append((time.perf_counter() - start) * 1e3)
         results.append(out)
     launches = read_launches()
-    if launches != {name: REQUESTS if name in expected else 0 for name in launches}:
+    if launches != {name: requests if name in expected else 0 for name in launches}:
         raise AssertionError(f"the forward did not go through exactly the kernels "
                              f"{sorted(expected)} once a request: {launches}")
 
@@ -871,12 +945,12 @@ def run_forward(torch, dev, size, seed, variant=None, dtype="float32"):
         torch.cuda.synchronize(dev)
         plain_times.append((time.perf_counter() - start) * 1e3)
         wants.append(want)
-        e, f, d = compare_forward(torch, got, want, f"request {i}", bf16=bf16)
+        e, f, d = compare_forward(torch, got, want, f"request {i}", bf16=bf16, rule=rule)
         err, flips, dropped = max(err, e), flips + f, dropped + d
     controls = {}
     if bf16:
         controls = check_controls(
-            "forward_bf16", partial(forward_gaps, torch),
+            "forward_bf16", partial(forward_gaps, torch, rule=rule),
             lambda: [model.apply(params, use_kernels=False, noise=noise, **batch)
                      for batch, noise in zip(batches, noises)],
             results, wants, LIMITS_BF16["forward"])
@@ -921,38 +995,69 @@ def grad_gaps(got, want, floor):
     return out
 
 
-def run_train(torch, dev, size, seed, dtype="float32"):
-    """One train step in the compute dtype on each route from the same
-    weights, compared; then TRAIN_STEPS timed steps on the kernel route."""
+def run_train(torch, dev, size, seed, dtype="float32", stage="stage1"):
+    """One train step of the stage-1 or stage-2 model in the compute dtype on
+    each route from the same weights, compared; then TRAIN_STEPS timed steps
+    on the kernel route. Stage 2 starts from stage-1 weights merged into its
+    own init (merge_params, as train.py warm-starts it) and draws Gumbel
+    noise for humans and objects."""
     from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
     from tggcn_torch.models import stage1
     from tggcn_torch.models.registry import select_model
     from tggcn_torch.nn.distributions import gumbel_noise
+    from tggcn_torch.train.checkpoint import count_merged, merge_params
     from tggcn_torch.train.loop import make_train_step, trainable_parameters
     from tggcn_torch.train.losses import select_loss
 
+    module = stage_module(stage)
     b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
     bf16 = dtype == "bfloat16"
     kernels = tuple(f"{k}_bf16" for k in TRAIN_KERNELS) if bf16 else TRAIN_KERNELS
-    what = "train_bf16 step" if bf16 else "train step"
+    what = f"train{'_' + stage if stage != 'stage1' else ''}{'_bf16' if bf16 else ''} step"
     marginal = MARGINAL_BF16 if bf16 else MARGINAL
     loss_rtol, leaf_rtol = (LOSS_RTOL_BF16, LEAF_GRAD_RTOL_BF16) if bf16 else (LOSS_RTOL,
                                                                               LEAF_GRAD_RTOL)
-    model = select_model("2G-GCN", device=dev, **stage1.model_kwargs(dtype))
-    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
-    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage1.FEEDER_KWARGS)
+    model = select_model("2G-GCN", device=dev, **module.model_kwargs(dtype))
+    rule = decision_rule(model.config)
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", module.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **module.FEEDER_KWARGS)
     fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
-    data, targets = fetch(stage1.make_batch(np.random.default_rng(seed), b, t, nh, no))
+    data, targets = fetch(module.make_batch(np.random.default_rng(seed), b, t, nh, no))
     data = [torch.as_tensor(x, device=dev) for x in data]          # resident, as bench.py
     targets = [torch.as_tensor(y, device=dev) for y in targets]
-    noise = gumbel_noise((b, t, no, 2), torch.Generator(device=dev).manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = {"object": gumbel_noise((b, t, no, 2), gen)}
+    if stage != "stage1":
+        noise["human"] = gumbel_noise((b, t, nh, 2), gen)
+    warm = None
+    if stage != "stage1":
+        warm = select_model("2G-GCN", device=dev, **stage1.model_kwargs(dtype))
+
+    def init():
+        """The weights of a first step: stage 1's init, or stage 2's init
+        with a stage-1 tree merged in."""
+        if warm is None:
+            return model.init(torch.Generator().manual_seed(0))
+        own = model.init(torch.Generator().manual_seed(1))
+        return own, merge_params(own, warm.init(torch.Generator().manual_seed(0)))
+
+    merged = None
+    if warm is not None:
+        own, params = init()
+        merged = (count_merged(own, params), len(tensor_leaves(own)))
+        print(f"{what}: warm start took {merged[0]} of {merged[1]} leaves from a stage-1 tree",
+              flush=True)
+        del own, params
 
     def first_step(use_kernels, rows):
-        trainable = {"model": model.init(torch.Generator().manual_seed(0))}
-        optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage1.TRAIN["lr"])
+        weights = init()
+        trainable = {"model": weights if warm is None else weights[1]}
+        del weights
+        optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=module.TRAIN["lr"])
         step = make_train_step(model, feeder, criterion, optimizer,
-                               clip_gradient_at=stage1.TRAIN["clip"], use_kernels=use_kernels)
-        batch = ([x[rows] for x in data], [y[rows] for y in targets], {"object": noise[rows]})
+                               clip_gradient_at=module.TRAIN["clip"], use_kernels=use_kernels)
+        batch = ([x[rows] for x in data], [y[rows] for y in targets],
+                 {k: v[rows] for k, v in noise.items()})
         reset_launches()
         losses, _, aux = step(trainable, *batch[:2], noise=batch[2])
         torch.cuda.synchronize(dev)
@@ -962,12 +1067,12 @@ def run_train(torch, dev, size, seed, dtype="float32"):
     rows = torch.ones(b, dtype=torch.bool, device=dev)
     kern, plain = first_step(True, rows), first_step(False, rows)
     keep, flips, dropped = decision_rows(torch, kern["aux"], plain["aux"], what,
-                                         marginal)
+                                         marginal, **rule)
     if dropped:                          # run both again without the flipped row
         rows = keep.to(dev)
         kern, plain = first_step(True, rows), first_step(False, rows)
         decision_rows(torch, kern["aux"], plain["aux"], f"{what} without the flipped row",
-                      marginal)
+                      marginal, **rule)
     if any(plain["launches"].values()):
         raise AssertionError(f"the plain route launched kernels: {plain['launches']}")
     again = first_step(True, rows)
@@ -1005,9 +1110,9 @@ def run_train(torch, dev, size, seed, dtype="float32"):
     # In float32 Adam's first step (lr g / (|g| + eps), which saturates at
     # lr) may move a weight whose gradient is rounding noise either way; in
     # bfloat16 the gradient check above already bounds the weights.
-    if not bf16 and not weight_err <= stage1.TRAIN["lr"]:
+    if not bf16 and not weight_err <= module.TRAIN["lr"]:
         raise AssertionError(f"updated weights differ by {weight_err:.3e} "
-                             f"(limit one learning rate, {stage1.TRAIN['lr']})")
+                             f"(limit one learning rate, {module.TRAIN['lr']})")
     controls = {}
     if bf16:
         controls = check_controls(
@@ -1033,9 +1138,28 @@ def run_train(torch, dev, size, seed, dtype="float32"):
         raise AssertionError(f"a timed train step missed a kernel: {launches}")
     return dict(ms=statistics.median(times), losses=kern["losses"].tolist(), loss_err=loss_err,
                 grad_rel=grad_rel, weight_err=weight_err, flips=flips, dropped_rows=dropped,
-                launches=launches, equal_leaves=equal_leaves, **controls,
+                launches=launches, equal_leaves=equal_leaves, merged=merged, **controls,
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                 resident_gib=resident / 2 ** 30)
+
+
+def print_forward(name, r, requests):
+    print(f"{name} ms per request {r['ms']:.3f} (plain path {r['plain_ms']:.3f}), max abs err "
+          f"vs plain {r['max_abs_err']:.3e}, marginal decision flips {r['flips']} (batch rows "
+          f"left out {r['dropped_rows']}), launches {json.dumps(r['launches'])} over "
+          f"{requests} requests", flush=True)
+
+
+def print_train(name, r):
+    print(f"{name} step ms {r['ms']:.3f} (median of {TRAIN_STEPS} on the kernel route), losses "
+          f"{json.dumps(r['losses'])}, kernel vs plain route: losses {r['loss_err']:.3e}, "
+          f"gradients {r['grad_rel']:.3e} of each leaf's largest, weights "
+          f"{r['weight_err']:.3e}; marginal decision flips {r['flips']} (batch rows left out "
+          f"{r['dropped_rows']}); launches {json.dumps(r['launches'])} over {TRAIN_STEPS} "
+          f"steps; {r['equal_leaves']} gradient leaves bitwise equal in two kernel-route "
+          f"steps; peak device memory {r['peak_gib']:.3f} GiB (torch.cuda.max_memory_allocated "
+          f"over the timed steps, of which {r['resident_gib']:.3f} GiB of weights, Adam state "
+          f"and batch held between steps)", flush=True)
 
 
 def run_small(torch, dev, seed):
@@ -1069,7 +1193,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from tggcn_torch.models import stage1  # fails outside a checkout of the repository
+    from tggcn_torch.models import stage1, stage2  # fail outside a checkout of the repository
     from tggcn_torch.ops import _build
 
     dev = torch.device("cuda", 0)
@@ -1108,47 +1232,41 @@ def main(argv=None):
         with phase(name):
             kernels.append(run(torch, dev, at))
             print(f"{name} {json.dumps(kernels[-1])}", flush=True)
-    fwd, train = {}, {}
+    fwd, train, train2 = {}, {}, {}
     for dtype, tag in (("float32", ""), (stage1.BENCH_DTYPE, "_bf16")):
         with phase(f"forward{tag}"):
             fwd[dtype] = r = run_forward(torch, dev, shape, args.seed, dtype=dtype)
-            print(f"forward{tag} ms per request {r['ms']:.3f} (plain path {r['plain_ms']:.3f}), "
-                  f"max abs err vs plain {r['max_abs_err']:.3e}, marginal decision flips "
-                  f"{r['flips']} (batch rows left out {r['dropped_rows']}), launches "
-                  f"{json.dumps(r['launches'])} over {REQUESTS} requests", flush=True)
-    for dtype, tag in (("float32", ""), (stage1.BENCH_DTYPE, "_bf16")):
-        with phase(f"train{tag}"):
-            train[dtype] = r = run_train(torch, dev, shape, args.seed, dtype=dtype)
-            print(f"train{tag} step ms {r['ms']:.3f} (median of {TRAIN_STEPS} on the kernel "
-                  f"route), losses {json.dumps(r['losses'])}, kernel vs plain route: losses "
-                  f"{r['loss_err']:.3e}, gradients {r['grad_rel']:.3e} of each leaf's "
-                  f"largest, weights {r['weight_err']:.3e}; marginal decision flips "
-                  f"{r['flips']} (batch rows left out {r['dropped_rows']}); launches "
-                  f"{json.dumps(r['launches'])} over {TRAIN_STEPS} steps; "
-                  f"{r['equal_leaves']} gradient leaves bitwise equal in two kernel-route "
-                  f"steps; peak device memory {r['peak_gib']:.3f} GiB "
-                  f"(torch.cuda.max_memory_allocated over the timed steps, of which "
-                  f"{r['resident_gib']:.3f} GiB of weights, Adam state and batch held between "
-                  f"steps)", flush=True)
+            print_forward(f"forward{tag}", r, REQUESTS)
+    for stage, into in (("stage1", train), ("stage2", train2)):
+        for dtype, tag in (("float32", ""), (stage_module(stage).BENCH_DTYPE, "_bf16")):
+            name = f"train{'_' + stage if stage != 'stage1' else ''}{tag}"
+            with phase(name):
+                into[dtype] = r = run_train(torch, dev, shape, args.seed, dtype=dtype,
+                                            stage=stage)
+                print_train(name, r)
+    with phase("forward_stage2"):
+        fwd2 = run_forward(torch, dev, shape, args.seed, stage="stage2", requests=1)
+        print_forward("forward_stage2", fwd2, 1)
+    with phase("forward_stage2_features"):
+        for variant in stage2.FEATURE_VARIANTS:
+            r = run_forward(torch, dev, shape, args.seed, variant, stage="stage2", requests=1)
+            print_forward(f"forward_stage2 {variant}", r, 1)
     with phase("serve_modes"):
         served = {}
         for variant in stage1.SERVE_VARIANTS:
             served[variant] = run_forward(torch, dev, shape, args.seed, variant)
             r = served[variant]
-            print(f"serve {variant}: ms per request {r['ms']:.3f} (plain path "
-                  f"{r['plain_ms']:.3f}), max abs err vs plain {r['max_abs_err']:.3e}, "
-                  f"marginal decision flips {r['flips']} (batch rows left out "
-                  f"{r['dropped_rows']}), launches {json.dumps(r['launches'])} over "
-                  f"{REQUESTS} requests", flush=True)
-    # K1-K4's launches are the train steps' (of their dtype); K5's and K6's
-    # the serving modes'.
+            print_forward(f"serve {variant}:", r, REQUESTS)
+    # K1-K4's launches are the stage-1 train steps' (of their dtype); K5's
+    # and K6's the serving modes'.
     for k in kernels:
         base = k["name"].removesuffix("_bf16")
         if base in TRAIN_KERNELS:
             dtype = "bfloat16" if k["name"].endswith("_bf16") else "float32"
             k["launches"] = train[dtype]["launches"][k["name"]]
             per = (f"per {dtype} train step {k['launches'] / TRAIN_STEPS:g}, per {dtype} "
-                   f"stage-1 request {fwd[dtype]['launches'][k['name']] / REQUESTS:g}")
+                   f"stage-2 train step {train2[dtype]['launches'][k['name']] / TRAIN_STEPS:g}, "
+                   f"per {dtype} stage-1 request {fwd[dtype]['launches'][k['name']] / REQUESTS:g}")
         else:
             k["launches"] = sum(r["launches"][k["name"]] for r in served.values())
             per = "per request " + ", ".join(

@@ -24,7 +24,9 @@ backward kernels 1e-2 of each output's largest value (their products take
 bfloat16 operands that can round the other way); a bfloat16
 train step at hidden 24: losses rtol 1e-2, each gradient leaf 3.9e-2 of its
 largest (the worst leaf of the JAX package's bfloat16 kernels against its
-XLA route, BASELINE.md), and two identical steps bitwise equal.
+XLA route, BASELINE.md), and two identical steps bitwise equal. The stage-2
+train step (learned, filtered decisions) at the same limits in each dtype,
+with the hard decisions equal on both routes.
 """
 
 import json
@@ -204,6 +206,51 @@ def test_train_step_kernel_route(cuda):
     floor = 1e-6 * max(float(g.abs().max()) for g in grads_p)
     for g_k, g_p in zip(grads_k, grads_p):
         assert float((g_k - g_p).abs().max()) <= 1e-4 * max(float(g_p.abs().max()), floor)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stage2_train_step_kernel_route(cuda, dtype):
+    """One stage-2 train step at hidden 24 (decisions learned for humans and
+    objects, filtered to local maxima at 0.1, the segmentation loss on) on
+    the kernel route, K1-K4 each launched once, against the plain route from
+    the same weights and the same Gumbel noise for humans and objects; in
+    bfloat16 at the bfloat16 limits (losses rtol 1e-2, leaves 3.9e-2)."""
+    from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
+    from tggcn_torch.models import stage2
+    from tggcn_torch.models.registry import select_model
+    from tggcn_torch.train.loop import make_train_step, model_parameters, trainable_parameters
+    from tggcn_torch.train.losses import select_loss
+
+    model = select_model("2G-GCN", device=cuda, **dict(stage2.model_kwargs(dtype),
+                                                       hidden_size=24))
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage2.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage2.FEEDER_KWARGS)
+    rng = np.random.default_rng(12)
+    b, t, nh, no = 2, 48, 2, 3
+    data, targets = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")(
+        stage2.make_batch(rng, b, t, nh, no))
+    noise = {who: rng.gumbel(size=(b, t, n, 2)).astype(np.float32)
+             for who, n in (("human", nh), ("object", no))}
+    wrappers = [gru_sequence, gru_sequence_bwd, segment_scan_dot, segment_scan_dot_bwd]
+    counter = "launches_bf16" if dtype == "bfloat16" else "launches"
+    results = []
+    for use_kernels in (True, False):
+        trainable = {"model": model.init(torch.Generator().manual_seed(13))}
+        optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage2.TRAIN["lr"])
+        step = make_train_step(model, feeder, criterion, optimizer, use_kernels=use_kernels)
+        before = [getattr(w, counter) for w in wrappers]
+        losses, _, aux = step(trainable, data, targets, noise=noise)
+        launched = [getattr(w, counter) - n for w, n in zip(wrappers, before)]
+        assert launched == ([1] * 4 if use_kernels else [0] * 4)
+        results.append((losses, [p.grad for p in model_parameters(trainable["model"])], aux))
+    (loss_k, grads_k, aux_k), (loss_p, grads_p, aux_p) = results
+    for who in ("human_decisions", "object_decisions"):
+        assert torch.equal(aux_k[who][0], aux_p[who][0]), who
+    loss_rtol, leaf_rtol = (1e-2, 3.9e-2) if dtype == "bfloat16" else (1e-5, 1e-4)
+    torch.testing.assert_close(loss_k, loss_p, rtol=loss_rtol, atol=0)
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads_p)
+    for g_k, g_p in zip(grads_k, grads_p):
+        assert float((g_k - g_p).abs().max()) <= leaf_rtol * max(float(g_p.abs().max()), floor)
 
 
 MODE_WRAPPERS = {"v1": segment_scan_v1, "v4": segment_scan_v4, "ext": segment_scan_ext}

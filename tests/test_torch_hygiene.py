@@ -171,9 +171,9 @@ def _distances():
 @pytest.mark.parametrize("change", [
     {"message_type": "relational"}, {"message_granularity": "specific"},
     {"message_aggregation": "mp"}, {"attention_style": "v1"}, {"attention_style": "v4"},
-    {"gs_noise": "frame_indexed"}, {"filter_discrete_updates": True},
+    {"gs_noise": "frame_indexed"}, {"message_humans_to_human": False},
     {"object_segment_update_strategy": "sah"},
-    {"add_time_position": True}, {"compute_dtype": "bfloat16"}, {"message_segment": False},
+    {"compute_dtype": "float16"}, {"compute_dtype": "bfloat16"}, {"message_segment": False},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_outside_the_slice_raises(change):
     """Configurations outside the port raise. Mean pooling and v1/v4
@@ -288,34 +288,57 @@ def test_plain_route_calls_no_kernel_wrapper(monkeypatch):
         model.apply(params, **batch)
 
 
-@pytest.mark.parametrize("flipped_rows,margin,dropped", [
-    ([], 0.0, 0), ([1], 1e-6, 1), ([0, 2], 1e-6, None), ([1], 0.2, None)],
-    ids=["none", "one_marginal_row", "two_rows", "away_from_threshold"])
-def test_chip_smoke_drops_at_most_one_row(flipped_rows, margin, dropped):
+@pytest.mark.parametrize("flipped_rows,margin,dropped,filtered", [
+    ([], 0.0, 0, None), ([1], 1e-6, 1, None), ([0, 2], 1e-6, None, None),
+    ([1], 0.2, None, None), ([1], 1e-6, 1, "threshold"), ([1], 0.05, None, "threshold"),
+    ([1], 1e-6, 1, "tie"), ([0, 2], 1e-6, None, "tie"), ([1], 0.3, None, "tie")],
+    ids=["none", "one_marginal_row", "two_rows", "away_from_threshold",
+         "filtered_at_threshold_0.1", "filtered_away_from_threshold_0.1",
+         "filtered_neighbour_tie", "filtered_two_rows_of_ties", "filtered_away_from_neighbour"])
+def test_chip_smoke_drops_at_most_one_row(flipped_rows, margin, dropped, filtered):
     """chip_smoke's forward comparison leaves out at most one batch row per
-    request for marginal decision flips, and fails on any other flip."""
+    request for marginal decision flips, and fails on any other flip. With
+    filtered decisions (stage 2: local maxima at threshold 0.1), a flip is
+    marginal near the configured threshold or near the neighbour whose
+    comparison changed."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
+    from tggcn_torch.nn.temporal import filter_soft_decisions
+
     b, t, o = 3, 4, 2
     out = [torch.rand(b, t, 2, generator=torch.Generator().manual_seed(0))]
     soft_w = torch.full((b, t, o), 0.25)
     soft_g = soft_w.clone()
     for row in flipped_rows:
-        soft_w[row, 1, 0], soft_g[row, 1, 0] = 0.5 - margin, 0.5 + margin
-    hard = lambda soft: (soft > 0.5).float()
+        if filtered == "threshold":        # frame 1 a local maximum, at 0.1 in one run
+            soft_w[row, :, 0] = soft_g[row, :, 0] = 0.05
+            soft_w[row, 1, 0], soft_g[row, 1, 0] = 0.1 - margin, 0.1 + margin
+        elif filtered == "tie":            # frames 1 and 2 tie in one run, not in the other
+            soft_w[row, 1, 0] = soft_g[row, 1, 0] = 0.6
+            soft_w[row, 2, 0], soft_g[row, 2, 0] = 0.6 + margin, 0.6 - margin
+        else:
+            soft_w[row, 1, 0], soft_g[row, 1, 0] = 0.5 - margin, 0.5 + margin
+    if filtered:
+        rule = dict(threshold=0.1, filtered=True)
+        hard = lambda soft: filter_soft_decisions(soft, 0.1)
+    else:
+        rule = None
+        hard = lambda soft: (soft > 0.5).float()
     got = ([out[0].clone()], {"object_decisions": (hard(soft_g), soft_g)})
     want = ([out[0].clone()], {"object_decisions": (hard(soft_w), soft_w)})
+    flips = int((hard(soft_g) != hard(soft_w)).sum())
+    assert flips >= len(flipped_rows)
     for row in flipped_rows:
         got[0][0][row] += 1.0              # a flipped row's outputs may differ
     if dropped is None:
         with pytest.raises(AssertionError):
-            chip_smoke.compare_forward(torch, got, want, "request")
+            chip_smoke.compare_forward(torch, got, want, "request", rule=rule)
     else:
-        err, flips, n = chip_smoke.compare_forward(torch, got, want, "request")
-        assert (err, flips, n) == (0.0, len(flipped_rows), dropped)
+        err, n_flips, n = chip_smoke.compare_forward(torch, got, want, "request", rule=rule)
+        assert (err, n_flips, n) == (0.0, flips, dropped)
 
 
 def _seg_args(requires_grad):

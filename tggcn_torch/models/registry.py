@@ -33,8 +33,7 @@ class ModelDef:
 def select_model(model_name: str, device=None, **model_kwargs) -> ModelDef:
     if model_name != "2G-GCN":
         raise NotImplementedError(
-            f"model {model_name!r}: the stage-1 slice of tggcn_torch "
-            "serves '2G-GCN' only")
+            f"model {model_name!r}: tggcn_torch serves '2G-GCN' only")
     dev = resolve_device(device)
     cfg = TGGCNConfig.from_kwargs(**model_kwargs)
     check_slice(cfg)

@@ -4,9 +4,12 @@ Counterpart of ``tggcn/models/tggcn.py:52-808, 819-1046``. The port covers
 non-relational generic messages on all four entity edges plus
 geometry edges, with decisions imposed (stage-1 feeders impose the human
 segmentation) or taken by the straight-through ('st') or Gumbel-sigmoid
-('gs') estimator, and 'ind', 'sah' or 'coh' object decisions:
-  * (scaled) dot attention (the stage-1 configuration,
-    ``conf/models/2G-GCN_stage1.yaml``), forward and training;
+('gs') estimator, optionally filtered to local maxima
+(filter_discrete_updates, stage 2), 'ind', 'sah' or 'coh' object
+decisions, the time-position ('s' or 'u', embedded or periodic) and
+segment-length features, cat_level_states and share_level_mlps:
+  * (scaled) dot attention (the stage-1 and stage-2 configurations,
+    ``conf/models/2G-GCN_stage{1,2}.yaml``), forward and training;
   * concat (v1) and bilinear (v4) attention, mean pooling, and
     inverse-distance attention from all three distance tensors: serving
     only (train=False with grad disabled), as JAX's forward-only kernel
@@ -44,7 +47,9 @@ from tggcn_torch.nn.geo_gcn import apply_geo_gcn, init_geo_gcn
 from tggcn_torch.nn.gru import init_bigru, init_gru_cell, run_multi_bigru
 from tggcn_torch.nn.messages import compute_message_features, distance_based_attention_weights
 from tggcn_torch.nn.mlp import apply_mlp, init_bilinear, init_mlp
-from tggcn_torch.nn.temporal import reorder_hidden_states
+from tggcn_torch.nn.temporal import (assemble_segment_length_tensor, assemble_time_tensor,
+                                     filter_soft_decisions, make_periodic_embedding,
+                                     reorder_hidden_states)
 from tggcn_torch.ops.segment_scan import segment_scan_dot_autograd, segment_scan_forward
 
 SLICE = "the 2G-GCN slice of tggcn_torch"
@@ -122,6 +127,16 @@ class TGGCNConfig:
     def attention(self):
         return self.message_aggregation in {"att", "attention"}
 
+    @property
+    def embedding_positional(self):
+        return self.positional_encoding_style in {"e", "embedding"}
+
+    @property
+    def shared_heads(self):
+        """The frame heads are the segment heads (share_level_mlps without
+        cat_level_states, ``tggcn/models/tggcn.py:751``)."""
+        return self.share_level_mlps and not self.cat_level_states
+
     def message_kwargs(self):
         return dict(message_type=self.message_type,
                     message_granularity=self.message_granularity,
@@ -153,10 +168,10 @@ def check_slice(cfg: TGGCNConfig) -> None:
                                                 "gs", "gumbel-sigmoid"},
          f"discrete_optimization_strategy={cfg.discrete_optimization_strategy!r}")
     need(cfg.gs_noise == "batched", f"gs_noise={cfg.gs_noise!r}")
-    need(not (cfg.add_time_position or cfg.add_segment_length),
-         "time-position and segment-length features")
-    need(not (cfg.filter_discrete_updates or cfg.cat_level_states or cfg.share_level_mlps),
-         "filter_discrete_updates, cat_level_states and share_level_mlps")
+    need(cfg.time_position_strategy in {"s", "u"},
+         f"time_position_strategy={cfg.time_position_strategy!r}")
+    need(cfg.positional_encoding_style in {"e", "embedding", "p", "periodic"},
+         f"positional_encoding_style={cfg.positional_encoding_style!r}")
     need(cfg.compute_dtype in {None, "float32", "f32"} | BF16,
          f"compute_dtype={cfg.compute_dtype!r}")
     if cfg.compute_dtype in BF16 and (cfg.use_pallas_geo_gcn or not cfg.attention
@@ -203,14 +218,24 @@ def cast_params_for_compute(params: dict, dtype: torch.dtype) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _positional_size(cfg: TGGCNConfig) -> int:
+    """The widths the time position (strategy 's') and the segment length
+    add to a segment-level input."""
+    h = cfg.hidden_size
+    return ((h if cfg.add_time_position and cfg.time_position_strategy == "s" else 0)
+            + (h if cfg.add_segment_length else 0))
+
+
 def _human_segment_input_size(cfg: TGGCNConfig) -> int:
     h = cfg.hidden_size
-    return h + 2 * h + (h if cfg.message_geometry_to_human else 0) + 2 * h
+    return (h + 2 * h + (h if cfg.message_geometry_to_human else 0) + 2 * h
+            + _positional_size(cfg))
 
 
 def _object_segment_input_size(cfg: TGGCNConfig) -> int:
     h = cfg.hidden_size
-    return h + (h if cfg.message_geometry_to_objects else 0) + 2 * h + 2 * h
+    return (h + (h if cfg.message_geometry_to_objects else 0) + 2 * h + 2 * h
+            + _positional_size(cfg))
 
 
 def init_tggcn(generator: torch.Generator, cfg: TGGCNConfig) -> dict:
@@ -220,7 +245,12 @@ def init_tggcn(generator: torch.Generator, cfg: TGGCNConfig) -> dict:
     h, bias, g = cfg.hidden_size, cfg.bias, generator
     _, object_input_size = cfg.input_size
     num_subactivities, num_affordances = cfg.num_classes
-    params = {
+    params = {}
+    if cfg.add_time_position and cfg.embedding_positional:
+        params["time_position_mlp"] = init_mlp(g, [1, h], bias)
+    if cfg.add_segment_length and cfg.embedding_positional:
+        params["segment_length_mlp"] = init_mlp(g, [1, h], bias)
+    params.update({
         "geometry_embedding_gcn": init_geo_gcn(g, cfg.gcn_node, 4, 128),
         "geometry_embedding_mlp": init_mlp(g, [cfg.gcn_node * 128, 2048, h], bias),
         "geometry_bd_rnn": init_bigru(g, h, h, bias),
@@ -235,7 +265,7 @@ def init_tggcn(generator: torch.Generator, cfg: TGGCNConfig) -> dict:
         "object_bd_embedding_mlp": init_mlp(g, [2 * h, h], bias),
         "object_segment_rnn_fcell": init_gru_cell(g, _object_segment_input_size(cfg), h, bias),
         "object_segment_rnn_bcell": init_gru_cell(g, _object_segment_input_size(cfg), h, bias),
-    }
+    })
     # Message bundles: generic frame messages read [x, h] (2h), segment
     # messages the state (h). Under attention the reference has an
     # attention layer for every style, even where the dot styles never read
@@ -263,18 +293,24 @@ def init_tggcn(generator: torch.Generator, cfg: TGGCNConfig) -> dict:
         if name not in ("s2h", "s2o"):
             params[name]["segment"] = bundle(h)
     num_hidden = cfg.discrete_networks_num_layers - 1
-    upd_h_in = 4 * h + (h if cfg.message_geometry_to_human else 0)
+    time_u = h if cfg.add_time_position and cfg.time_position_strategy == "u" else 0
+    upd_h_in = 4 * h + (h if cfg.message_geometry_to_human else 0) + time_u
     params["update_human_segment_mlp"] = init_mlp(g, [upd_h_in] + [h] * num_hidden + [1], bias)
     if cfg.object_segment_update_strategy not in {"same_as_human", "sah"}:
-        upd_o_in = 4 * h + (h if cfg.message_geometry_to_objects else 0)
+        upd_o_in = 4 * h + (h if cfg.message_geometry_to_objects else 0) + time_u
         params["update_object_segment_mlp"] = init_mlp(g, [upd_o_in] + [h] * num_hidden + [1],
                                                        bias)
+    label_in = 2 * h + (2 * h if cfg.cat_level_states else 0)
     for head, width in [("human_recognition_mlp", num_subactivities),
                         ("human_prediction_mlp", num_subactivities),
                         ("object_recognition_mlp", num_affordances),
                         ("object_prediction_mlp", num_affordances)]:
         if width is not None:
-            params[head] = init_mlp(g, [2 * h, width], bias)
+            params[head] = init_mlp(g, [label_in, width], bias)
+    if cfg.shared_heads:
+        # The frame heads read the segment heads' parameters, so both levels'
+        # gradients reach one tensor (the reference aliases the modules).
+        return params
     for head, width in [("human_frame_recognition_mlp", num_subactivities),
                         ("human_frame_prediction_mlp", num_subactivities),
                         ("object_frame_recognition_mlp", num_affordances),
@@ -303,7 +339,9 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     ``tggcn.models.tggcn.apply_tggcn``'s.
 
     aux holds 'bn_state' (the updated BatchNorm statistics when train, else
-    unchanged), 'object_decisions' (hard, soft) (B, T, O) and, with
+    unchanged), 'human_decisions' (B, T, H) and 'object_decisions' (B, T, O),
+    each (hard, soft) with the hard decisions the scan used (filtered with
+    filter_discrete_updates), and, with
     inspect_model, 'attention_scores' [frame, segment-fwd, segment-bwd]
     each (B, H, T, O) (zeros under mean pooling). use_kernels=False runs the
     kernels' plain PyTorch versions, forward and backward, on any device, as
@@ -326,7 +364,6 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r} in segment mode {mode!r} is outside "
             f"{SLICE}: the bfloat16 variant of K5 is not written yet")
-    del steps_per_example   # read only by time/segment-length features
     b, t, num_humans = x_human.shape[0], x_human.shape[1], x_human.shape[2]
     num_objects = x_objects.shape[2]
     hidden = cfg.hidden_size
@@ -335,6 +372,8 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     if work is not None:
         params = cast_params_for_compute(params, work)
         x_objects, objects_mask = x_objects.to(work), objects_mask.to(work)
+        if cfg.add_time_position or cfg.add_segment_length:
+            steps_per_example = steps_per_example.to(work)
 
     # --- Geometry stream -------------------------------------------------
     x_vis, x_geometry = x_human[..., :2048], x_human[:, :, 0, 2048:]
@@ -371,6 +410,22 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     h_hf = apply_mlp(params["human_bd_embedding_mlp"], h_hfr, activations=["relu"])
     h_of = apply_mlp(params["object_bd_embedding_mlp"], h_ofr, activations=["relu"])
     h_sf = apply_mlp(params["geometry_bd_embedding_mlp"], h_sfr, activations=["relu"])
+
+    # --- Positional features (tggcn/models/tggcn.py:560-570) --------------
+    ignore_div = cfg.positional_encoding_style in {"p", "periodic"}
+
+    def positional(x, mlp):
+        if cfg.embedding_positional:
+            return apply_mlp(params[mlp], x, activations=["relu"])
+        return make_periodic_embedding(x, hidden)
+
+    x_time_emb = None
+    if cfg.add_time_position:
+        x_time = assemble_time_tensor(steps_per_example, t, ignore_div)      # (T, B, 1)
+        x_time_emb = positional(x_time, "time_position_mlp").permute(1, 0, 2)   # (B, T, h)
+
+    def time_features(n):
+        return x_time_emb[:, :, None, :].expand(b, t, n, hidden)
 
     # --- Frame-level messages (vectorised over B, T) ----------------------
     mkw = cfg.message_kwargs()
@@ -429,8 +484,11 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
         hard[:, -1, :] = 1.0
         return hard, soft[..., 0]
 
+    time_u = cfg.add_time_position and cfg.time_position_strategy == "u"
     u_h, u_h_soft = decide("update_human_segment_mlp",
-                           [x_hum_emb, h_hf, m_hh, m_oh, m_sh], human_segmentation, "human")
+                           [x_hum_emb, h_hf, m_hh, m_oh, m_sh,
+                            time_features(num_humans) if time_u else None],
+                           human_segmentation, "human")
     # The human decision conditions the object decision only with one human
     # (reference models.py:741-742): 'sah' copies it, 'coh' gates by it.
     strategy = cfg.object_segment_update_strategy
@@ -440,32 +498,57 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
         u_o_soft = u_h_soft.expand(b, t, num_objects)
     else:
         gate = u_h if num_humans == 1 and strategy in {"conditional_on_human", "coh"} else None
-        u_o, u_o_soft = decide("update_object_segment_mlp", [x_obj_emb, h_of, m_ho, m_oo, m_so],
+        u_o, u_o_soft = decide("update_object_segment_mlp",
+                               [x_obj_emb, h_of, m_ho, m_oo, m_so,
+                                time_features(num_objects) if time_u else None],
                                objects_segmentation, "object", gate)
 
+    # --- Decision filtering (tggcn/models/tggcn.py:673-677) ----------------
+    u_h_used, u_o_used = u_h, u_o
+    if cfg.filter_discrete_updates:
+        u_h_used = filter_soft_decisions(u_h_soft, cfg.update_segment_threshold)
+        u_o_used = filter_soft_decisions(u_o_soft, cfg.update_segment_threshold)
+
+    # --- Segment-level inputs (tggcn/models/tggcn.py:679-694) --------------
+    x_hs = [h_hf, m_hh, m_oh, m_sh]
+    x_os = [h_of, m_ho, m_so, m_oo]
+    if cfg.add_time_position and cfg.time_position_strategy == "s":
+        x_hs.append(time_features(num_humans))
+        x_os.append(time_features(num_objects))
+    if cfg.add_segment_length:
+        for xs, u_used in ((x_hs, u_h_used), (x_os, u_o_used)):
+            x_sl = assemble_segment_length_tensor(u_used, steps_per_example, ignore_div)
+            xs.append(positional(x_sl, "segment_length_mlp"))
+    x_hs = torch.cat([x for x in x_hs if x is not None], dim=-1)
+    x_os = torch.cat([x for x in x_os if x is not None], dim=-1)
+
     # --- Segment-level gated bidirectional scan ----------------------------
-    x_hs = torch.cat([x for x in (h_hf, m_hh, m_oh, m_sh) if x is not None], dim=-1)
-    x_os = torch.cat([x for x in (h_of, m_ho, m_so, m_oo) if x is not None], dim=-1)
     hx_hs, hx_os, att_seg_f, att_seg_b = _segment_scan_fast(
-        params, cfg, mode, x_hs, x_os, u_h, u_o, objects_mask, dists3, use_kernels)
+        params, cfg, mode, x_hs, x_os, u_h_used, u_o_used, objects_mask, dists3, use_kernels)
 
     # --- Reorder: every frame labelled with its segment's final state ------
     hx = torch.cat([hx_hs, hx_os], dim=2)                     # (B, T, H+O, 2h)
-    u = torch.cat([u_h, u_o], dim=2)
+    u = torch.cat([u_h_used, u_o_used], dim=2)
     n_e = hx.shape[2]
     hx = reorder_hidden_states(hx.permute(0, 2, 1, 3).reshape(b * n_e, t, -1),
                                u.permute(0, 2, 1).reshape(b * n_e, t))
     hx = hx.reshape(b, n_e, t, -1).permute(0, 2, 1, 3)
     hx_hs, hx_os = hx[:, :, :num_humans], hx[:, :, num_humans:]
+    if cfg.cat_level_states:
+        hx_hs = torch.cat([hx_hs, h_hfr], dim=-1)
+        hx_os = torch.cat([hx_os, h_ofr], dim=-1)
 
     # --- Heads -------------------------------------------------------------
     def head(name, x):
+        if cfg.shared_heads:
+            name = name.replace("_frame_", "_")
         if work is not None:
             x = x.float()               # heads and log-softmax in float32 (:764-765)
         out = apply_mlp(params[name], x, activations=[{"name": "logsoftmax", "dim": -1}])
         return out.permute(0, 3, 1, 2)                        # (B, C, T, E)
 
-    outputs = [u_h, u_o, u_h_soft, u_o_soft] if cfg.num_classes[1] is not None else [u_h, u_h_soft]
+    outputs = ([u_h_used, u_o_used, u_h_soft, u_o_soft] if cfg.num_classes[1] is not None
+               else [u_h_used, u_h_soft])
     outputs += [head("human_frame_recognition_mlp", h_hfr),
                 head("human_frame_prediction_mlp", h_hfr)]
     if cfg.num_classes[1] is not None:
@@ -478,10 +561,14 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     if work is not None:
         # Every output is float32 whatever the compute dtype (:786-790).
         outputs = [o.float() for o in outputs]
-        u_o, u_o_soft = u_o.float(), u_o_soft.float()
+        if cfg.num_classes[1] is None:
+            u_o_used, u_o_soft = u_o_used.float(), u_o_soft.float()
         att_frame, att_seg_f, att_seg_b = (None if a is None else a.float()
                                            for a in (att_frame, att_seg_f, att_seg_b))
-    aux = {"bn_state": bn_state, "object_decisions": (u_o, u_o_soft)}
+    human = (outputs[0], outputs[2 if cfg.num_classes[1] is not None else 1])
+    objects = (outputs[1], outputs[3]) if cfg.num_classes[1] is not None else (u_o_used,
+                                                                               u_o_soft)
+    aux = {"bn_state": bn_state, "human_decisions": human, "object_decisions": objects}
     if inspect_model:
         # (B, T, H, O) -> (B, H, T, O), as the reference stacks them. Mean
         # pooling has no frame attention: zeros, as for its segment level.

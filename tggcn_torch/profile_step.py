@@ -1,14 +1,16 @@
-"""Time the stage-1 train step and the stage-1 request on the card, over
+"""Time the stage-1 (or stage-2) train step and request on the card, over
 more repetitions than chip_smoke.py takes, and split the train step's
 device time by kernel.
 
     python -m tggcn_torch.profile_step [--steps N] [--requests N] [--seed N]
-                                       [--dtype {float32,bfloat16}]
+                                       [--dtype {float32,bfloat16}] [--stage {1,2}]
 
-Builds the stage-1 MPHOI model (``tggcn_torch.models.stage1``) at the full
-width on one CUDA card, in the compute dtype ``--dtype`` (float32 by
-default; ``bench.py`` trains in bfloat16), with random weights and a seeded
-batch resident on the card, as chip_smoke.py's train phases do. Runs 2 warm-up train steps
+Builds the stage-1 MPHOI model (``tggcn_torch.models.stage1``), or with
+``--stage 2`` the stage-2 one (``stage2``: its batch, loss bundle and
+Gumbel noise for humans and objects), at the full width on one CUDA card,
+in the compute dtype ``--dtype`` (float32 by default; ``bench.py`` trains
+in bfloat16), with random weights and a seeded batch resident on the card,
+as chip_smoke.py's train phases do. Runs 2 warm-up train steps
 on the kernel route, then ``--steps`` timed steps (host clock, each ended
 by a synchronize), then 3 steps under ``torch.profiler``; then one warm-up
 request and ``--requests`` timed requests of the same shape (host->device
@@ -20,7 +22,7 @@ multi-tensor kernels, the rest as "other"), its largest kernels and the
 largest of "other".
 
 It reads only entry points that earlier commits of the package also have
-(in float32), so a checkout of one can be timed the same way: from that
+(in float32, stage 1), so a checkout of one can be timed the same way: from that
 checkout's root, ``PYTHONPATH=. python <this file>`` (the checkout's own
 ``tggcn_torch`` is then the one imported). Needs a CUDA device.
 """
@@ -77,28 +79,35 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                         help="the model's compute dtype")
+    parser.add_argument("--stage", type=int, choices=(1, 2), default=1,
+                        help="the stage of the two-stage protocol")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     dev = torch.device("cuda", 0)
     b, t, nh, no = (stage1.SHAPE[k] for k in ("b", "t", "humans", "objects"))
+    stage = stage1
+    if args.stage == 2:
+        from tggcn_torch.models import stage2 as stage
 
-    kwargs = stage1.MODEL_KWARGS
+    kwargs = stage.MODEL_KWARGS
     if args.dtype != "float32":
         kwargs = dict(kwargs, compute_dtype=args.dtype)
     model = select_model("2G-GCN", device=dev, **kwargs)
     trainable = {"model": model.init(torch.Generator().manual_seed(0))}
-    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
-    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage1.FEEDER_KWARGS)
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage.FEEDER_KWARGS)
     fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
-    data, targets = fetch(stage1.make_batch(np.random.default_rng(args.seed), b, t, nh, no))
+    data, targets = fetch(stage.make_batch(np.random.default_rng(args.seed), b, t, nh, no))
     data = [torch.as_tensor(x, device=dev) for x in data]
     targets = [torch.as_tensor(y, device=dev) for y in targets]
-    noise = {"object": gumbel_noise((b, t, no, 2),
-                                    torch.Generator(device=dev).manual_seed(args.seed))}
-    optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage1.TRAIN["lr"])
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    noise = {"object": gumbel_noise((b, t, no, 2), gen)}
+    if args.stage == 2:
+        noise["human"] = gumbel_noise((b, t, nh, 2), gen)
+    optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage.TRAIN["lr"])
     step = make_train_step(model, feeder, criterion, optimizer,
-                           clip_gradient_at=stage1.TRAIN["clip"])
+                           clip_gradient_at=stage.TRAIN["clip"])
     run_step = lambda: step(trainable, data, targets, noise=noise)
 
     timed(run_step, 2)
@@ -121,7 +130,7 @@ def main(argv=None):
 
     params = trainable["model"]
     rng = np.random.default_rng(args.seed + 1)
-    requests = [stage1.make_request(rng, b, t, nh, no) for _ in range(args.requests + 1)]
+    requests = [stage.make_request(rng, b, t, nh, no) for _ in range(args.requests + 1)]
     with torch.no_grad():
         model.apply(params, **requests[0])
         torch.cuda.synchronize()
@@ -144,7 +153,7 @@ def main(argv=None):
     top = largest(per_name, 10)
     top_other = largest([k for k in per_name if group_of(k) == "other"], 8)
     print(json.dumps({
-        "card": smi, "dtype": args.dtype, "train_step_ms": spread(step_ms),
+        "card": smi, "stage": args.stage, "dtype": args.dtype, "train_step_ms": spread(step_ms),
         "request_ms": spread(request_ms),
         "train_step_peak_gib": peak_gib,
         "profiled_steps": PROFILED_STEPS, "profiled_wall_ms_per_step": wall / PROFILED_STEPS,
