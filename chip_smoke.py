@@ -47,6 +47,9 @@ exit and the phase's name if the phase hangs:
            shapes, as k1-k4, with the controls of each check (see
            Tolerances); k1_bf16 and k2_bf16 time cuDNN's GRU in bfloat16
            beside them
+  k5_v1_bf16, k5_v4_bf16, k5_ext_bf16
+           K5's bfloat16 variant in each mode against its plain bfloat16
+           version on the k5 phases' inputs in bfloat16, with the controls
   forward  the 2G-GCN stage-1 forward at the full MPHOI width (hidden 512,
            gcn_node 26, input (2152, 2048), B=8, T=167, 2 humans, 4
            objects) on 3 seeded requests through select_model: finite
@@ -95,6 +98,23 @@ exit and the phase's name if the phase hangs:
            K1, K5 v1) and bilinear (v4: K1, K5 v4) attention, mean pooling
            (mp: K1, K5 ext); each against its plain route, which must
            launch nothing
+  serve_modes_bf16
+           the serve_modes phase with compute_dtype bfloat16, one request a
+           variant: K1's and K5's bfloat16 variants (K6 float32, as in
+           JAX's bfloat16 model), each held to its plain route under
+           forward_bf16's limits
+  train_modes, train_modes_bf16
+           the train phase (in float32, in bfloat16) for each of
+           stage1.SERVE_VARIANTS (one timed step each): K1 and K5 forward
+           (K6 in 'dist'), K2 and the recompute backward of JAX's fast path
+           (tggcn_torch/models/segment_fast.py) for K5's gradients; each
+           step launches K5 once; two kernel-route steps bitwise equal;
+           losses under the stage-1 limits against the plain route, the
+           gradients over the whole model (MODE_TRAIN_LIMITS: float32
+           within 1e-3 of the model's largest gradient; bfloat16 the norm
+           of the difference within 1.15e-2 of the gradient's, with the
+           controls); the recompute backward's ms per step (CUDA events
+           around it: its span on the card, gaps included)
   small    the same model at hidden 24 on the card against the plain path
            on the CPU
 
@@ -172,7 +192,8 @@ stream, with identity input weights): an upper bound on the library's time.
 The second-to-last line is a JSON object with each kernel's launches (K1-K4
 on the timed train steps, their bfloat16 variants on the timed bfloat16
 train steps, K5 and K6 on the serve_modes requests), error, times and
-bound; the last line is {"ok": true, "device": {...}}. Without a
+bound (K5's bfloat16 variants on the serve_modes_bf16 request); the
+last line is {"ok": true, "device": {...}}. Without a
 CUDA device the script exits 1 and prints no result.
 """
 
@@ -225,6 +246,8 @@ LEAF_GRAD_RTOL = 1e-3
 #   K4 rel_l2 2.64e-3, 2.64e-3, 5.13e-3 (max_share 8.9e-3, 1.27e-2, 1.27e-2:
 #      a correct version with other sums lies 1.27e-2 away, so K4's 1e-2
 #      of each output's largest tells no rounded carry apart)
+#   K5 rel_l2 v1 1.02e-3, 1.05e-3, 2.10e-3; v4 2.05e-3, 2.07e-3, 2.86e-3;
+#      ext 1.00e-3, 1.00e-3, 2.09e-3
 #   request max_abs 3.8e-4, 3.9e-4, 8.9e-4
 #   train step gradients max_share 2.65e-2, 3.05e-2, 5.78e-2: 3.9e-2 is
 #      also the worst leaf of the JAX package's bfloat16 kernels against
@@ -239,13 +262,33 @@ FORWARD_ATOL_BF16 = 6e-4
 LIMITS_BF16 = {"k1": {"rel_l2": 2e-4}, "k2": {"max_share": GRU_GRAD_RTOL_BF16, "rel_l2": 4e-4},
                "k3": {"rel_l2": 2.25e-3}, "k4": {"rel_l2": 3.7e-3},
                "forward": {"max_abs": FORWARD_ATOL_BF16},
-               "train": {"max_share": LEAF_GRAD_RTOL_BF16}}
+               "train": {"max_share": LEAF_GRAD_RTOL_BF16},
+               "k5_v1": {"rel_l2": 1.5e-3}, "k5_v4": {"rel_l2": 2.4e-3},
+               "k5_ext": {"rel_l2": 1.5e-3}}
+# The train_modes phases' measures (grad_gaps) and limits, by dtype. A
+# variant's gradients are the fast path's (models/segment_fast.py),
+# recomputed at each route's own saved inputs, which differ by the kernels'
+# rounding: in float32 a ReLU score or message that lies within that of
+# its kink flips in the recompute, and in bfloat16 the recompute carries
+# bfloat16 states, as JAX's does. A small leaf then moves by a large share
+# of itself on a correct route: the stage-1 per-leaf measure read, at the
+# MPHOI width (H100 80GB HBM3, 700 W), float32 kernel up to 1.7e-2 (v1,
+# o2o's attention bias, 7e-7 of the model's largest gradient) and float64
+# sums 5.0e-3 (dist), bfloat16 kernel 3.6e-2 to 0.68 and float64 sums 4.9e-2
+# to 0.89. So the variants are held over the whole model. Readings, kernel
+# / float64 sums / rounded carry:
+#   float32 model_share 3.3e-7 (v4) to 1.7e-4 (v1), kernel only
+#   bfloat16 model_rel_l2 7.0e-3-8.8e-3 / 6.9e-3-8.7e-3 / 1.48e-2-1.73e-2
+#   (model_share reads 2.4e-3-4.3e-3 for all three: it separates nothing)
+MODE_TRAIN_LIMITS = {"float32": {"model_share": LEAF_GRAD_RTOL},
+                     "bfloat16": {"model_rel_l2": 1.15e-2}}
 GRAD_FLOOR = 1e-6
 MARGINAL = 1e-4
 MARGINAL_BF16 = 2.0 ** -7         # two bfloat16 ulps above 0.5: a soft decision in bfloat16
 SPIN_CYCLES = 20_000_000         # about 10 ms at the H100's clock: longer than any wrapper's host time
 REQUESTS = 3
 TRAIN_STEPS = 3
+MODE_TRAIN_STEPS = 1             # timed steps of a train_modes variant (profile_step times more)
 LIBRARY = {
     "gru_sequence": "cuDNN's GRU (torch.nn.GRU, TF32 off), one call per stream with identity "
                     "input weights: an upper bound, since it also multiplies its input by the "
@@ -261,11 +304,14 @@ NO_LIBRARY = {
 PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k4": 300,
                  "k5_v1": 240, "k5_v4": 240, "k5_ext": 240, "k6": 120,
                  "k1_bf16": 180, "k2_bf16": 180, "k3_bf16": 240, "k4_bf16": 300,
+                 "k5_v1_bf16": 240, "k5_v4_bf16": 240, "k5_ext_bf16": 240,
+                 "serve_modes_bf16": 600, "train_modes": 900, "train_modes_bf16": 900,
                  "forward": 300, "forward_bf16": 300, "train": 420, "train_bf16": 420,
                  "train_stage2": 420, "train_stage2_bf16": 420, "forward_stage2": 180,
                  "forward_stage2_features": 300, "serve_modes": 600, "small": 180}
 # The kernels of the train step, and of each serving mode's segment scan.
 TRAIN_KERNELS = ("gru_sequence", "gru_sequence_bwd", "segment_scan_dot", "segment_scan_dot_bwd")
+K5_KERNELS = ("segment_scan_v1", "segment_scan_v4", "segment_scan_ext")
 MODE_KERNEL = {"dist": "segment_scan_ext", "v1": "segment_scan_v1", "v4": "segment_scan_v4",
                "mp": "segment_scan_ext"}
 
@@ -394,7 +440,8 @@ def control(kind):
         for owner, name in ((gru_sequence, "gru_sequence_plain"),
                             (gru_sequence, "gru_sequence_bwd_plain"),
                             (segment_scan, "segment_scan_dot_plain"),
-                            (segment_scan, "segment_scan_dot_bwd_plain")):
+                            (segment_scan, "segment_scan_dot_bwd_plain"),
+                            (segment_scan, "segment_scan_att_plain")):
             patch(owner, name, partial(getattr(owner, name), round_carry=True))
     try:
         yield
@@ -701,35 +748,45 @@ def k5_flops(mode, t, b, nh, no, h):
     return 2.0 * t * products, 2.0 * t * 2 * (b * e * e * h + scores)
 
 
-def run_k5(mode, torch, dev, shape):
-    from tggcn_torch.models import stage1
-    from tggcn_torch.models.tggcn import external_att_weights
+def run_k5(mode, torch, dev, shape, dtype=None):
+    """K5 in `mode` (or, with dtype bfloat16, its bfloat16 variant) against
+    its plain version, timed."""
     from tggcn_torch.ops import segment_scan as ops
-    from tggcn_torch.profile_scan import scan_inputs
+    from tggcn_torch.profile_scan import device_ms_by_kernel, mode_inputs, scan_inputs
 
+    bf16 = dtype == torch.bfloat16
     t, b, nh, no, h = shape
     gen = torch.Generator(device=dev).manual_seed(6)
     args = scan_inputs(dev, gen, t, b, nh, no, h)
-    if mode == "ext":
-        dists = stage1.make_distances(np.random.default_rng(6), b, t, nh, no)
-        extra = dict(att_ext=external_att_weights(
-            False, [torch.as_tensor(d, device=dev) for d in dists.values()], args["obj_mask"],
-            t, nh))
-    else:
-        shape_w = (4, 2 * h) if mode == "v1" else (4, h, h)
-        u = lambda *sh: ((torch.rand(sh, generator=gen, device=dev) * 2 - 1) * h ** -0.5)
-        extra = dict(w_att=u(*shape_w).contiguous(), b_att=u(4).contiguous())
+    extra = mode_inputs(mode, args, gen)
+    if bf16:
+        args = {k: v.to(dtype) for k, v in args.items()}
+        extra = {k: v.to(dtype) for k, v in extra.items()}
     wrapper = getattr(ops, f"segment_scan_{mode}")
+    name = wrapper.__name__ + ("_bf16" if bf16 else "")
     got = wrapper(**args, **extra)
     want = ops.segment_scan_att_plain(mode, **args, **extra)
-    err = check_kernel(wrapper.__name__, got, want)
+    controls = {}
+    if bf16:
+        err, _ = check_kernel_bf16(torch, name, got, want)
+        controls = check_controls(name, tensor_gaps,
+                                  lambda: ops.segment_scan_att_plain(mode, **args, **extra),
+                                  got, want, LIMITS_BF16[f"k5_{mode}"])
+    else:
+        err = check_kernel(wrapper.__name__, got, want)
     ms = cuda_ms(torch, lambda: wrapper(**args, **extra), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: ops.segment_scan_att_plain(mode, **args, **extra), 2)
-    return dict(name=wrapper.__name__, route="cuda", source="tggcn_torch/csrc/segment_scan.cu",
+    if bf16:
+        print_split(f"k5_{mode}_bf16", device_ms_by_kernel(lambda: wrapper(**args, **extra), 1))
+    # In bfloat16 the products (projections, cells and v4's recv @ W) are
+    # bfloat16 x bfloat16; v4's second score product takes a float32 state
+    # and runs, with the other scores and the mixing, at the FMA rate.
+    return dict(name=name, route="cuda", source="tggcn_torch/csrc/segment_scan.cu",
                 replaces="tggcn/ops/segment_scan_pallas.py:268", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=None,
+                plain_ms=plain_ms, library_ms=None, **controls,
                 **bounds(nbytes(*args.values(), *extra.values(), *got),
-                         *k5_flops(mode, t, b, nh, no, h)))
+                         *k5_flops(mode, t, b, nh, no, h),
+                         product_rate=BF16_FLOP_PER_S if bf16 else PRODUCT_FLOP_PER_S))
 
 
 def run_k6(torch, dev, shape):
@@ -867,7 +924,7 @@ def kernel_counters():
                 "geo_gcn_fused": geo_gcn_fused}
     counters = {name: (wrapper, "launches") for name, wrapper in wrappers.items()}
     counters.update({f"{name}_bf16": (wrappers[name], "launches_bf16")
-                     for name in TRAIN_KERNELS})
+                     for name in TRAIN_KERNELS + K5_KERNELS})
     return counters
 
 
@@ -913,12 +970,11 @@ def run_forward(torch, dev, size, seed, variant=None, dtype="float32", stage="st
         if "human_segmentation" not in batch:
             noises[-1]["human"] = rng.gumbel(size=(b, t, nh, 2)).astype(np.float32)
     rule = decision_rule(model.config)
-    expected = {"gru_sequence", MODE_KERNEL.get(variant, "segment_scan_dot")}
-    if variant == "dist":
-        expected.add("geo_gcn_fused")
     bf16 = dtype == "bfloat16"
-    if bf16:
-        expected = {f"{name}_bf16" for name in expected}
+    expected = {f"{name}{'_bf16' if bf16 else ''}"
+                for name in ("gru_sequence", MODE_KERNEL.get(variant, "segment_scan_dot"))}
+    if variant == "dist":
+        expected.add("geo_gcn_fused")            # float32 in either dtype, as JAX keeps it
 
     model.apply(params, noise=noises[0], **batches[0])   # warm-up: cuBLAS, library loads
     torch.cuda.synchronize(dev)
@@ -977,30 +1033,66 @@ def grad_gaps(got, want, floor):
     each measure the largest over the leaves: max_share, a leaf's largest
     difference as a share of its largest value (or of floor, where that is
     smaller); rel_l2, the norm of a leaf's difference over its norm (or
-    over floor times the square root of its size); all inf where got is
-    not finite."""
+    over floor times the square root of its size); and over the model as a
+    whole: model_share, the largest difference as a share of the model's
+    largest gradient, and model_rel_l2, the norm of all the differences
+    over the norm of all the gradients; all inf where got is not finite."""
     got = tensor_leaves(got)
     out = dict(max_share=0.0, rel_l2=0.0)
+    top = diff = norm_d = norm_w = 0.0
     for key, w in tensor_leaves(want).items():
         if w.grad is None:
             continue
         g, w = got[key].grad.double(), w.grad.double()
         if not bool(g.isfinite().all()):
-            return dict(max_share=math.inf, rel_l2=math.inf)
+            return dict(max_share=math.inf, rel_l2=math.inf, model_share=math.inf,
+                        model_rel_l2=math.inf)
         d = g - w
         out["max_share"] = max(out["max_share"],
                                float(d.abs().max()) / max(float(w.abs().max()), floor))
         out["rel_l2"] = max(out["rel_l2"], float(d.norm()) / max(float(w.norm()),
                                                                 floor * w.numel() ** 0.5))
+        top, diff = max(top, float(w.abs().max())), max(diff, float(d.abs().max()))
+        norm_d, norm_w = norm_d + float(d.norm()) ** 2, norm_w + float(w.norm()) ** 2
+    out.update(model_share=diff / (top or 1.0), model_rel_l2=(norm_d / (norm_w or 1.0)) ** 0.5)
     return out
 
 
-def run_train(torch, dev, size, seed, dtype="float32", stage="stage1"):
-    """One train step of the stage-1 or stage-2 model in the compute dtype on
-    each route from the same weights, compared; then TRAIN_STEPS timed steps
-    on the kernel route. Stage 2 starts from stage-1 weights merged into its
-    own init (merge_params, as train.py warm-starts it) and draws Gumbel
-    noise for humans and objects."""
+@contextlib.contextmanager
+def recompute_timer(torch):
+    """CUDA events around each backward of SegmentScanRecompute (K5's
+    gradients, recomputed through the fast path's counterpart): yields a
+    list that holds, after the block, the ms between them on the card of
+    each backward, the card's span over the recompute, idle gaps included."""
+    from tggcn_torch.ops.segment_scan import SegmentScanRecompute
+
+    events, backward = [], SegmentScanRecompute.backward
+
+    def timed(ctx, *grads):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = backward(ctx, *grads)
+        end.record()
+        events.append((start, end))
+        return out
+
+    SegmentScanRecompute.backward = staticmethod(timed)
+    times = []
+    try:
+        yield times
+    finally:
+        SegmentScanRecompute.backward = staticmethod(backward)
+        torch.cuda.synchronize()
+        times.extend(start.elapsed_time(end) for start, end in events)
+
+
+def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=None):
+    """One train step of the stage-1 or stage-2 model (or of one of
+    stage1.SERVE_VARIANTS) in the compute dtype on each route from the same
+    weights, compared; then TRAIN_STEPS (MODE_TRAIN_STEPS for a variant)
+    timed steps on the kernel route. Stage 2 starts from stage-1 weights
+    merged into its own init (merge_params, as train.py warm-starts it) and
+    draws Gumbel noise for humans and objects."""
     from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
     from tggcn_torch.models import stage1
     from tggcn_torch.models.registry import select_model
@@ -1012,17 +1104,26 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1"):
     module = stage_module(stage)
     b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
     bf16 = dtype == "bfloat16"
-    kernels = tuple(f"{k}_bf16" for k in TRAIN_KERNELS) if bf16 else TRAIN_KERNELS
-    what = f"train{'_' + stage if stage != 'stage1' else ''}{'_bf16' if bf16 else ''} step"
+    kernels = ((MODE_KERNEL[variant], "gru_sequence", "gru_sequence_bwd") if variant
+               else TRAIN_KERNELS)
+    kernels = tuple(f"{k}_bf16" for k in kernels) if bf16 else kernels
+    if variant == "dist":
+        kernels += ("geo_gcn_fused",)            # float32 in either dtype
+    steps = MODE_TRAIN_STEPS if variant else TRAIN_STEPS
+    what = (f"train{'_' + stage if stage != 'stage1' else ''}{'_bf16' if bf16 else ''}"
+            f"{' ' + variant if variant else ''} step")
     marginal = MARGINAL_BF16 if bf16 else MARGINAL
     loss_rtol, leaf_rtol = (LOSS_RTOL_BF16, LEAF_GRAD_RTOL_BF16) if bf16 else (LOSS_RTOL,
                                                                               LEAF_GRAD_RTOL)
-    model = select_model("2G-GCN", device=dev, **module.model_kwargs(dtype))
+    change = module.SERVE_VARIANTS[variant] if variant else {}
+    model = select_model("2G-GCN", device=dev, **dict(module.model_kwargs(dtype), **change))
     rule = decision_rule(model.config)
     criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", module.TRAIN["misc"])
-    feeder = select_model_data_feeder("2G-GCN", "multiple", **module.FEEDER_KWARGS)
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **(
+        module.feeder_kwargs(variant) if variant else module.FEEDER_KWARGS))
     fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
-    data, targets = fetch(module.make_batch(np.random.default_rng(seed), b, t, nh, no))
+    data, targets = fetch(module.make_batch(np.random.default_rng(seed), b, t, nh, no,
+                                            **({"variant": variant} if variant else {})))
     data = [torch.as_tensor(x, device=dev) for x in data]          # resident, as bench.py
     targets = [torch.as_tensor(y, device=dev) for y in targets]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1096,28 +1197,45 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1"):
     want = tensor_leaves(plain["trainable"])
     floor = GRAD_FLOOR * max(float(w.grad.abs().max()) for w in want.values()
                              if w.grad is not None)
-    rels = {key: grad_gaps({key: g}, {key: want[key]}, floor)["max_share"]
+    gaps = {key: grad_gaps({key: g}, {key: want[key]}, floor)
             for key, g in tensor_leaves(kern["trainable"]).items() if want[key].grad is not None}
+    rels = {key: gap["max_share"] for key, gap in gaps.items()}
     worst = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
-    print(f"{what}: largest gradient differences (share of each leaf's largest): "
-          + ", ".join(f"{k} {v:.3e}" for k, v in worst), flush=True)
-    if not worst[0][1] <= leaf_rtol:
-        raise AssertionError(f"gradients differ beyond {leaf_rtol}: "
-                             f"{[k for k, v in rels.items() if not v <= leaf_rtol]}")
-    grad_rel = worst[0][1]
+    top = floor / GRAD_FLOOR
+    print(f"{what}: largest gradient differences (share of each leaf's largest; the leaf's "
+          f"rel. norm; its largest over the model's largest gradient): " + ", ".join(
+              f"{k} {v:.3e} ({gaps[k]['rel_l2']:.3e}; "
+              f"{float(want[k].grad.abs().max()) / top:.2e})" for k, v in worst), flush=True)
+    measure = lambda got, want: grad_gaps(got["trainable"], want["trainable"], floor)
+    whole = measure(kern, plain)
+    print(f"{what}: over the whole model: largest difference {whole['model_share']:.3e} of the "
+          f"model's largest gradient, rel. norm {whole['model_rel_l2']:.3e}", flush=True)
+    if variant:
+        # The gradients of a variant are those of the fast path recomputed
+        # at each route's own saved inputs: see MODE_TRAIN_LIMITS.
+        over = {k: whole[k] for k, limit in MODE_TRAIN_LIMITS[dtype].items()
+                if not whole[k] <= limit}
+        if over:
+            raise AssertionError(f"gradients differ beyond {MODE_TRAIN_LIMITS[dtype]}: {over}")
+        grad_rel = whole["model_share"]
+    else:
+        if not worst[0][1] <= leaf_rtol:
+            raise AssertionError(f"gradients differ beyond {leaf_rtol}: "
+                                 f"{[k for k, v in rels.items() if not v <= leaf_rtol]}")
+        grad_rel = worst[0][1]
     weight_err = max(max_err(g.detach(), want[key].detach())
                      for key, g in tensor_leaves(kern["trainable"]).items())
     # In float32 Adam's first step (lr g / (|g| + eps), which saturates at
     # lr) may move a weight whose gradient is rounding noise either way; in
-    # bfloat16 the gradient check above already bounds the weights.
-    if not bf16 and not weight_err <= module.TRAIN["lr"]:
+    # bfloat16, and for a variant (whose near-zero gradients change sign
+    # where a recomputed kink flips), the gradient check above bounds them.
+    if not bf16 and not variant and not weight_err <= module.TRAIN["lr"]:
         raise AssertionError(f"updated weights differ by {weight_err:.3e} "
                              f"(limit one learning rate, {module.TRAIN['lr']})")
     controls = {}
     if bf16:
-        controls = check_controls(
-            what, lambda got, want: grad_gaps(got["trainable"], want["trainable"], floor),
-            lambda: first_step(False, rows), kern, plain, LIMITS_BF16["train"])
+        controls = check_controls(what, measure, lambda: first_step(False, rows), kern, plain,
+                                  MODE_TRAIN_LIMITS[dtype] if variant else LIMITS_BF16["train"])
 
     # The timed steps' peak is the step's own: of the compared runs only the
     # kernel route's weights, Adam state and batch stay alive.
@@ -1126,17 +1244,22 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1"):
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     resident = torch.cuda.memory_allocated(dev)
-    for _ in range(TRAIN_STEPS):
-        start = time.perf_counter()
-        losses, _, _ = kern["step"](kern["trainable"], *kern["batch"][:2], noise=kern["batch"][2])
-        torch.cuda.synchronize(dev)
-        times.append((time.perf_counter() - start) * 1e3)
-        if not bool(losses.isfinite().all()):
-            raise AssertionError(f"train step losses are not finite: {losses.tolist()}")
+    with recompute_timer(torch) as recompute_ms:
+        for _ in range(steps):
+            start = time.perf_counter()
+            losses, _, _ = kern["step"](kern["trainable"], *kern["batch"][:2],
+                                        noise=kern["batch"][2])
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - start) * 1e3)
+            if not bool(losses.isfinite().all()):
+                raise AssertionError(f"train step losses are not finite: {losses.tolist()}")
     launches = read_launches()
-    if launches != {k: TRAIN_STEPS * (k in kernels) for k in launches}:
+    if launches != {k: steps * (k in kernels) for k in launches}:
         raise AssertionError(f"a timed train step missed a kernel: {launches}")
+    if len(recompute_ms) != (steps if variant else 0):
+        raise AssertionError(f"{len(recompute_ms)} recompute backwards in {steps} steps")
     return dict(ms=statistics.median(times), losses=kern["losses"].tolist(), loss_err=loss_err,
+                steps=steps, recompute_ms=statistics.median(recompute_ms) if recompute_ms else None,
                 grad_rel=grad_rel, weight_err=weight_err, flips=flips, dropped_rows=dropped,
                 launches=launches, equal_leaves=equal_leaves, merged=merged, **controls,
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
@@ -1151,15 +1274,19 @@ def print_forward(name, r, requests):
 
 
 def print_train(name, r):
-    print(f"{name} step ms {r['ms']:.3f} (median of {TRAIN_STEPS} on the kernel route), losses "
+    recompute = ("" if r["recompute_ms"] is None else
+                 f"; recompute backward {r['recompute_ms']:.3f} ms a step (median, CUDA events)")
+    of = "the model's largest gradient" if r["recompute_ms"] is not None else "each leaf's largest"
+    print(f"{name} step ms {r['ms']:.3f} (median of {r['steps']} on the kernel route), losses "
           f"{json.dumps(r['losses'])}, kernel vs plain route: losses {r['loss_err']:.3e}, "
-          f"gradients {r['grad_rel']:.3e} of each leaf's largest, weights "
+          f"gradients {r['grad_rel']:.3e} of {of}, weights "
           f"{r['weight_err']:.3e}; marginal decision flips {r['flips']} (batch rows left out "
-          f"{r['dropped_rows']}); launches {json.dumps(r['launches'])} over {TRAIN_STEPS} "
-          f"steps; {r['equal_leaves']} gradient leaves bitwise equal in two kernel-route "
-          f"steps; peak device memory {r['peak_gib']:.3f} GiB (torch.cuda.max_memory_allocated "
-          f"over the timed steps, of which {r['resident_gib']:.3f} GiB of weights, Adam state "
-          f"and batch held between steps)", flush=True)
+          f"{r['dropped_rows']}); launches {json.dumps(r['launches'])} over {r['steps']} "
+          f"steps{recompute}; {r['equal_leaves']} gradient leaves bitwise equal in two "
+          f"kernel-route steps; peak device memory {r['peak_gib']:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated over the timed steps, of which "
+          f"{r['resident_gib']:.3f} GiB of weights, Adam state and batch held between steps)",
+          flush=True)
 
 
 def run_small(torch, dev, seed):
@@ -1228,7 +1355,10 @@ def main(argv=None):
                           ("k1_bf16", partial(run_k1, dtype=bf16), gru_shape),
                           ("k2_bf16", partial(run_k2, dtype=bf16), gru_shape),
                           ("k3_bf16", partial(run_k3, dtype=bf16), scan_shape),
-                          ("k4_bf16", partial(run_k4, dtype=bf16), scan_shape)):
+                          ("k4_bf16", partial(run_k4, dtype=bf16), scan_shape),
+                          ("k5_v1_bf16", partial(run_k5, "v1", dtype=bf16), scan_shape),
+                          ("k5_v4_bf16", partial(run_k5, "v4", dtype=bf16), scan_shape),
+                          ("k5_ext_bf16", partial(run_k5, "ext", dtype=bf16), scan_shape)):
         with phase(name):
             kernels.append(run(torch, dev, at))
             print(f"{name} {json.dumps(kernels[-1])}", flush=True)
@@ -1257,8 +1387,24 @@ def main(argv=None):
             served[variant] = run_forward(torch, dev, shape, args.seed, variant)
             r = served[variant]
             print_forward(f"serve {variant}:", r, REQUESTS)
+    with phase("serve_modes_bf16"):
+        served_bf16 = {}
+        for variant in stage1.SERVE_VARIANTS:
+            served_bf16[variant] = r = run_forward(torch, dev, shape, args.seed, variant,
+                                                   dtype=stage1.BENCH_DTYPE, requests=1)
+            print_forward(f"serve_bf16 {variant}:", r, 1)
+    for dtype, tag in (("float32", ""), (stage1.BENCH_DTYPE, "_bf16")):
+        with phase(f"train_modes{tag}"):
+            for variant in stage1.SERVE_VARIANTS:
+                r = run_train(torch, dev, shape, args.seed, dtype=dtype, variant=variant)
+                print_train(f"train_modes{tag} {variant}", r)
+                print(f"train_modes{tag} {variant}: per step K5 "
+                      f"{r['launches'][MODE_KERNEL[variant] + tag] / r['steps']:g}, K6 "
+                      f"{r['launches']['geo_gcn_fused'] / r['steps']:g} launches; recompute "
+                      f"backward {r['recompute_ms']:.3f} ms of a {r['ms']:.3f} ms step",
+                      flush=True)
     # K1-K4's launches are the stage-1 train steps' (of their dtype); K5's
-    # and K6's the serving modes'.
+    # and K6's the serving modes' (K5's bfloat16 variant's the bfloat16 ones).
     for k in kernels:
         base = k["name"].removesuffix("_bf16")
         if base in TRAIN_KERNELS:
@@ -1268,9 +1414,10 @@ def main(argv=None):
                    f"stage-2 train step {train2[dtype]['launches'][k['name']] / TRAIN_STEPS:g}, "
                    f"per {dtype} stage-1 request {fwd[dtype]['launches'][k['name']] / REQUESTS:g}")
         else:
-            k["launches"] = sum(r["launches"][k["name"]] for r in served.values())
+            pool, n = (served_bf16, 1) if k["name"].endswith("_bf16") else (served, REQUESTS)
+            k["launches"] = sum(r["launches"][k["name"]] for r in pool.values())
             per = "per request " + ", ".join(
-                f"{v} {r['launches'][k['name']] / REQUESTS:g}" for v, r in served.items())
+                f"{v} {r['launches'][k['name']] / n:g}" for v, r in pool.items())
         kind = ("gru" if k["name"].startswith("gru") else
                 "geo" if k["name"].startswith("geo") else "scan")
         library = (f"library_ms {k['library_ms']:.3f}: {LIBRARY[base]}"

@@ -16,9 +16,10 @@ bfloat16 versions.
   float32 (heads max < 0.5, mean < 0.05; margin flips below 1%; soft
   decisions within 0.05), float32 outputs, float32 gradients that reach
   the float32 master parameters, finite, and a loss within rtol 0.05.
-* A bfloat16 configuration outside the dot route (K5 and K6 have no
-  bfloat16 variant) raises NotImplementedError; the weight bridge feeds
-  both dtypes; the entry point pins bfloat16 products to float32 sums.
+* A bfloat16 configuration outside the dot route (K5's bfloat16 variant,
+  K6 in float32) serves with float32 outputs, where a float16 one raises
+  NotImplementedError; the weight bridge feeds both dtypes; the entry
+  point pins bfloat16 products to float32 sums.
 """
 
 import jax
@@ -133,19 +134,23 @@ def test_gradients_reach_float32_master_params(pair):
     ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_bf16_outside_the_dot_route_raises(change):
     """bfloat16 with another segment mode (v1, v4, mean pooling, distances:
-    K5) or the GeoGCN kernel (K6) raises, naming bfloat16; it never runs in
-    float32 instead."""
-    kwargs = dict(KW, hidden_size=8, compute_dtype="bfloat16")
-    if "distances" not in change:
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            check_slice(TGGCNConfig.from_kwargs(**{**kwargs, **change}))
-        return
-    model = select_model("2G-GCN", device="cpu", **kwargs)
-    params = model.init(torch.Generator().manual_seed(0))
+    K5) or the GeoGCN kernel (K6) serves: float32 finite outputs that
+    differ from the float32 model's (it does not run in float32 instead).
+    The same configuration in float16 raises, naming the dtype."""
+    kwargs = dict(KW, hidden_size=8, **{k: v for k, v in change.items() if k != "distances"})
+    with pytest.raises(NotImplementedError, match="compute_dtype='float16'"):
+        check_slice(TGGCNConfig.from_kwargs(**kwargs, compute_dtype="float16"))
     rng = np.random.default_rng(1)
     batch = stage1.make_request(rng, 1, 3, 2, 2)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        model.apply(params, **batch, **stage1.make_distances(rng, 1, 3, 2, 2))
+    if "distances" in change:
+        batch.update(stage1.make_distances(rng, 1, 3, 2, 2))
+    outs = {}
+    for dtype in ("bfloat16", "float32"):
+        model = select_model("2G-GCN", device="cpu", **kwargs, compute_dtype=dtype)
+        outs[dtype], _ = model.apply(model.init(torch.Generator().manual_seed(0)), **batch)
+    assert all(o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+               for o in outs["bfloat16"])
+    assert not all(torch.equal(a, b) for a, b in zip(outs["bfloat16"][2:], outs["float32"][2:]))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "bf16"])

@@ -27,6 +27,16 @@ largest (the worst leaf of the JAX package's bfloat16 kernels against its
 XLA route, BASELINE.md), and two identical steps bitwise equal. The stage-2
 train step (learned, filtered decisions) at the same limits in each dtype,
 with the hard decisions equal on both routes.
+
+K5's bfloat16 variant in each mode against its plain bfloat16 version,
+within one bfloat16 ulp of each output's largest value, as K3's; a
+bfloat16 request in each segment mode against the plain route within 6e-4
+(chip_smoke.py's whole-forward limit); a train step at hidden 24 in each
+mode (K5 forward, the recompute backward) in both dtypes, K5 launched
+once, the gradients held over the whole model as chip_smoke.py's
+train_modes phases hold them (float32 within 1e-4 of the model's largest
+gradient; bfloat16 the norm of the difference within 1.15e-2 of the
+gradient's), and two identical steps bitwise equal.
 """
 
 import json
@@ -553,3 +563,112 @@ def test_train_step_gradients_are_reproducible_bf16(cuda):
     (_, first), (_, second) = _bf16_train_steps(cuda, (True, True), 14)
     unequal = [i for i, (a, b) in enumerate(zip(first, second)) if not torch.equal(a, b)]
     assert not unequal, f"leaves {unequal} of {len(first)} differ between two runs"
+
+
+def _bf16_ulp_share(got, want, what):
+    """got within one bfloat16 ulp at the scale of want's largest value."""
+    top = float(want.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ulp, f"{what}: {err:.3e} against a largest value of {top:.3e}"
+
+
+@pytest.mark.parametrize("mode", ["v1", "v4", "ext"])
+@pytest.mark.parametrize("nh,no,h", [(2, 4, 8), (1, 3, 24), (3, 5, 40)])
+def test_segment_scan_mode_kernel_bf16(cuda, mode, nh, no, h):
+    """K5's bfloat16 variant in each mode (h % 8 == 0), counted apart."""
+    args = _segment_args_bf16(cuda, nh, no, h)
+    extra = {k: v.to(BF16) for k, v in _mode_extra(
+        cuda, mode, {k: v.float() for k, v in args.items()},
+        np.random.default_rng(nh + no + h)).items()}
+    wrapper = MODE_WRAPPERS[mode]
+    before = (wrapper.launches, wrapper.launches_bf16)
+    got = wrapper(**args, **extra)
+    assert (wrapper.launches, wrapper.launches_bf16) == (before[0], before[1] + 1)
+    want = segment_scan_att_plain(mode, **args, **extra)
+    for name, g, w_ in zip(("h_h", "h_o", "att_oh"), got, want):
+        assert g.dtype == BF16 and bool(torch.isfinite(g.float()).all()), name
+        _bf16_ulp_share(g, w_, name)
+
+
+def _mode_train_steps(cuda, variant, dtype, use_kernels_list, seed):
+    """Train steps at hidden 24 in a serving variant, one per entry of
+    use_kernels_list from the same weights: (losses, gradients) each."""
+    from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
+    from tggcn_torch.models import stage1
+    from tggcn_torch.models.registry import select_model
+    from tggcn_torch.train.loop import make_train_step, model_parameters, trainable_parameters
+    from tggcn_torch.train.losses import select_loss
+
+    model = select_model("2G-GCN", device=cuda, **dict(
+        stage1.model_kwargs(dtype), hidden_size=24, **stage1.SERVE_VARIANTS[variant]))
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage1.feeder_kwargs(variant))
+    rng = np.random.default_rng(seed)
+    data, targets = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")(
+        stage1.make_batch(rng, 2, 8, 2, 3, variant=variant))
+    noise = {"object": rng.gumbel(size=(2, 8, 3, 2)).astype(np.float32)}
+    wrapper = MODE_WRAPPERS["ext" if variant in ("dist", "mp") else variant]
+    attr = "launches_bf16" if dtype == "bfloat16" else "launches"
+    results = []
+    for use_kernels in use_kernels_list:
+        trainable = {"model": model.init(torch.Generator().manual_seed(seed + 1))}
+        optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage1.TRAIN["lr"])
+        step = make_train_step(model, feeder, criterion, optimizer, use_kernels=use_kernels)
+        before = getattr(wrapper, attr)
+        losses, _, _ = step(trainable, data, targets, noise=noise)
+        assert getattr(wrapper, attr) == before + int(use_kernels)
+        results.append((losses, [p.grad for p in model_parameters(trainable["model"])]))
+    return results
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["dist", "v1", "v4", "mp"])
+def test_mode_train_step_kernel_route(cuda, variant, dtype):
+    """A train step in each segment mode: K5 forward (once), the gradients
+    from the recompute of the fast path at each route's own saved inputs;
+    kernel route against plain route (losses rtol 1e-5 in float32, 1e-2
+    in bfloat16; the gradients over the whole model: a recomputed ReLU
+    score within rounding of its kink may flip, which moves a small leaf by
+    a large share of itself), then two kernel-route steps bitwise equal."""
+    (loss_k, grads_k), (loss_p, grads_p), (_, again) = _mode_train_steps(
+        cuda, variant, dtype, (True, False, True), 21)
+    bf16 = dtype == "bfloat16"
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-2 if bf16 else 1e-5, atol=0)
+    diff = torch.cat([(g_k - g_p).double().flatten() for g_k, g_p in zip(grads_k, grads_p)])
+    want = torch.cat([g_p.double().flatten() for g_p in grads_p])
+    if bf16:
+        assert float(diff.norm() / want.norm()) <= 1.15e-2
+    else:
+        assert float(diff.abs().max() / want.abs().max()) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(grads_k, again))
+
+
+@pytest.mark.parametrize("variant", ["dist", "v1", "v4", "mp"])
+def test_serve_modes_kernel_route_bf16(cuda, variant):
+    """A bfloat16 request at hidden 24 in each segment mode: K1's and K5's
+    bfloat16 variants and, for 'dist', K6 in float32."""
+    from tggcn_torch.models import stage1
+    from tggcn_torch.models.registry import select_model
+
+    model = select_model("2G-GCN", device=cuda, **dict(
+        stage1.model_kwargs("bfloat16"), hidden_size=24, **stage1.SERVE_VARIANTS[variant]))
+    params = model.init(torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(5)
+    batch = stage1.make_request(rng, 2, 7, 2, 3)
+    if variant == "dist":
+        batch.update(stage1.make_distances(rng, 2, 7, 2, 3))
+    # The objects' segmentation imposed too: a bfloat16 soft decision within
+    # an ulp of the threshold may round either way on the two routes.
+    batch["objects_segmentation"] = (rng.uniform(size=(2, 7, 3)) < 0.5).astype(np.float32)
+    noise = {"object": rng.gumbel(size=(2, 7, 3, 2)).astype(np.float32)}
+    counters = [(gru_sequence, "launches_bf16"),
+                (MODE_WRAPPERS["ext" if variant in ("dist", "mp") else variant], "launches_bf16"),
+                (geo_gcn_fused, "launches")]
+    before = [getattr(w, a) for w, a in counters]
+    got, _ = model.apply(params, noise=noise, **batch)
+    launched = [getattr(w, a) - b for (w, a), b in zip(counters, before)]
+    assert launched == [1, 1, 1 if variant == "dist" else 0]
+    want, _ = model.apply(params, use_kernels=False, noise=noise, **batch)
+    for g, w_ in zip(got, want):
+        assert float((g - w_).abs().max()) <= 6e-4

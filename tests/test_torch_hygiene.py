@@ -9,8 +9,8 @@
 * The plain route (use_kernels=False) calls no kernel wrapper, forward or
   backward.
 * Configurations outside the slice raise NotImplementedError; the K5
-  modes (v1, v4, mean pooling, distances) serve and refuse to train, and a
-  partial set of distance tensors raises.
+  modes (v1, v4, mean pooling, distances) serve and train in both dtypes,
+  and a partial set of distance tensors raises.
 * chip_smoke.py fails, printing no result, without a CUDA device.
 """
 
@@ -168,6 +168,27 @@ def _distances():
     return stage1.make_distances(np.random.default_rng(1), 1, 2, 2, 2)
 
 
+def _assert_trains(model, params, batch):
+    """A train call gives a finite loss and finite gradients, and the
+    segment scan's input weights get one."""
+    from tggcn_torch.train.loop import model_parameters
+
+    for p in model_parameters(params):
+        p.requires_grad_(True)
+    outputs, _ = model.apply(params, train=True, **batch)
+    loss = sum(o.mean() for o in outputs[2:])
+    loss.backward()
+    grads = [p.grad for p in model_parameters(params) if p.grad is not None]
+    assert bool(torch.isfinite(loss)) and grads
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert float(params["human_segment_rnn_fcell"]["w_ih"].grad.abs().max()) > 0
+
+
+# Configurations of the K5 modes that serve and train.
+TRAINS = ({"message_aggregation": "mp"}, {"attention_style": "v1"}, {"attention_style": "v4"},
+          {"compute_dtype": "bfloat16"})
+
+
 @pytest.mark.parametrize("change", [
     {"message_type": "relational"}, {"message_granularity": "specific"},
     {"message_aggregation": "mp"}, {"attention_style": "v1"}, {"attention_style": "v4"},
@@ -176,15 +197,14 @@ def _distances():
     {"compute_dtype": "float16"}, {"compute_dtype": "bfloat16"}, {"message_segment": False},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_outside_the_slice_raises(change):
-    """Configurations outside the port raise. Mean pooling and v1/v4
-    attention (K5) serve on the CPU and raise on a train call; 'sah' (with
-    the one human it needs) serves. bfloat16 is in the slice on the dot
-    route only: with v1 attention (K5, float32 only) it raises."""
+    """Configurations outside the port raise (float16 among them).
+    Mean pooling and v1/v4 attention (K5) serve and train on the CPU, and
+    so does v1 attention in bfloat16; 'sah' (with the one human it needs)
+    serves."""
     kwargs = {**STAGE1, **change}
     if change == {"compute_dtype": "bfloat16"}:
         kwargs["attention_style"] = "v1"
-    if change not in ({"message_aggregation": "mp"}, {"attention_style": "v1"},
-                      {"attention_style": "v4"}, {"object_segment_update_strategy": "sah"}):
+    if change not in TRAINS + ({"object_segment_update_strategy": "sah"},):
         with pytest.raises(NotImplementedError, match="slice"):
             check_slice(TGGCNConfig.from_kwargs(**kwargs))
         return
@@ -193,27 +213,27 @@ def test_outside_the_slice_raises(change):
     batch = _tiny_batch(humans=1)
     outputs, _ = model.apply(params, **batch)
     assert all(bool(torch.isfinite(o).all()) for o in outputs)
-    if "object_segment_update_strategy" not in change:
-        with pytest.raises(NotImplementedError, match="slice"):
-            model.apply(params, train=True, **batch)
+    if change in TRAINS:
+        _assert_trains(model, params, batch)
 
 
 def test_training_and_distances_raise():
-    """Training is in the slice in float32 and bfloat16 on the dot route,
-    but not a bfloat16 train call in another attention mode; distance-based
-    attention serves (K5 in 'ext' mode) and refuses to train."""
+    """Training is in the slice in float32 and bfloat16 in every segment
+    mode: a bfloat16 train call with v1 attention, and distance-based
+    attention (K5 in 'ext' mode), serve and train. A train call with a
+    partial set of distance tensors still raises."""
     model = select_model("2G-GCN", device="cpu", **STAGE1)
     params = model.init(torch.Generator().manual_seed(0))
     batch = _tiny_batch()
-    bf16 = TGGCNConfig.from_kwargs(**{**STAGE1, "attention_style": "v1"},
-                                   compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        apply_tggcn(params, bf16, train=True,
-                    **{k: torch.tensor(v) for k, v in batch.items()})
+    bf16 = select_model("2G-GCN", device="cpu",
+                        **{**STAGE1, "attention_style": "v1", "compute_dtype": "bfloat16"})
+    _assert_trains(bf16, bf16.init(torch.Generator().manual_seed(0)), batch)
     outputs, _ = model.apply(params, **batch, **_distances())
     assert all(bool(torch.isfinite(o).all()) for o in outputs)
-    with pytest.raises(NotImplementedError, match="segment mode 'ext'"):
-        model.apply(params, train=True, **batch, **_distances())
+    _assert_trains(model, params, dict(batch, **_distances()))
+    with pytest.raises(NotImplementedError, match="all three distance tensors"):
+        model.apply(params, train=True, **batch,
+                    human_object_distances=_distances()["human_object_distances"])
 
 
 @pytest.mark.parametrize("given", ["human_object_distances",

@@ -575,10 +575,10 @@ def test_bf16_plain_versions_match_pallas(nh):
 
 @pytest.mark.parametrize("bad", ["gi_h_float32", "kept_m_bfloat16", "float16"])
 def test_wrappers_refuse_mixed_dtypes(bad):
-    """K3's and K4's wrappers take float32 or bfloat16 IO, all of one dtype
-    (the kept edge messages, gates and attention float32), K5's float32
-    only; any other mix raises (checked on CPU tensors through the check
-    the CUDA route runs)."""
+    """The wrappers of K3, K4 and K5 take float32 or bfloat16 IO, all of one
+    dtype (the kept edge messages, gates and attention float32); the check
+    alone takes float32 only; any other mix raises (checked on CPU tensors
+    through the check the CUDA route runs)."""
     t, b, nh, no, h = 3, 2, 2, 2, 8
     args = {k: torch.tensor(v).bfloat16() for k, v in _inputs(t, b, nh, no, h, 60).items()}
     dims = (t, b, nh, no, h)
@@ -586,7 +586,7 @@ def test_wrappers_refuse_mixed_dtypes(bad):
     segment_scan_check = lambda a, **kw: scan_ops._check("segment_scan_dot", a, dims, **kw)
     segment_scan_check(args, io_dtypes=both)                      # all bfloat16: accepted
     with pytest.raises(ValueError):
-        segment_scan_check(args)                                   # K5: float32 only
+        segment_scan_check(args)                                   # the default: float32
     if bad == "gi_h_float32":
         args["gi_h"] = args["gi_h"].float()
     elif bad == "kept_m_bfloat16":

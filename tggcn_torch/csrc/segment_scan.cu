@@ -60,9 +60,9 @@
 // ms at 3.35 TB/s). v1 and ext do about the same work; v4 adds
 // 2 * 96 * h * h * 2 * T = 17 GFLOP.
 //
-// bfloat16 ('dot' only; T = bf16: gi, u, the weights, the mask, h0 and the
-// outputs h_h, h_o, att_oh in bfloat16), as the TPU kernel runs it with
-// fuse_dirs (segment_scan_pallas.py:92-220): the states stay float32, in
+// bfloat16 (T = bf16: gi, u, the weights, the mask, h0 and the outputs
+// h_h, h_o, att_oh in bfloat16), as the TPU kernel runs it
+// (segment_scan_pallas.py:92-220; 'dot' with fuse_dirs): the states stay float32, in
 // buffers of their own (state_h, state_o: (2, rows, h), updated in place by
 // B, each element by the thread that reads it), not in the bfloat16
 // outputs, which would round the carried state at every step. A's and B's
@@ -74,6 +74,13 @@
 // float32, the kept mix the bfloat16 the product read. Bound: the same
 // 92 GFLOP at the dense bfloat16 rate (989 TFLOP/s), 0.09 ms, and the
 // scores and mixing on the FMA units; the weights are half the bytes.
+// K5 in bfloat16 rounds each mode's scores where the TPU kernel does
+// (scores_v1 :123, scores_v4 :134, :147-149): v1 takes the float32 states
+// rounded to bfloat16 against the bfloat16 w_att; v4's A phase takes the
+// bfloat16 states (the outputs of the step before) against W_att, and M
+// rounds that product's float32 sum to bfloat16 and multiplies it by the
+// float32 sender state in float32 (JAX promotes the bfloat16 x float32
+// product); ext widens the bfloat16 weights computed outside.
 
 #include "tc_gemm.cuh"
 
@@ -202,8 +209,8 @@ mix_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
            const float* __restrict__ state_h, const float* __restrict__ state_o,
            const T* __restrict__ obj_mask, const float* __restrict__ m_h,
            const float* __restrict__ m_o, const T* __restrict__ w_att,
-           const float* __restrict__ b_att, const float* __restrict__ tmp_h,
-           const float* __restrict__ tmp_o, const float* __restrict__ att_ext,
+           const T* __restrict__ b_att, const float* __restrict__ tmp_h,
+           const float* __restrict__ tmp_o, const T* __restrict__ att_ext,
            T* __restrict__ mix_h, T* __restrict__ mix_o,
            T* __restrict__ att, float* __restrict__ atts, int keep, int T_, int B,
            int NH, int NO, int H, float scale, int step) {
@@ -248,17 +255,18 @@ mix_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
     __shared__ float proj[kMaxEntities][4];
     for (int p = warp; p < 4 * E; p += kWarps) {
       const int n = p / 4, j = p % 4, gn = n < NH ? 0 : 1;
-      const float* w = j < 2 ? w_att + (size_t)(2 * gn + j) * 2 * H
-                             : w_att + (size_t)(2 * (j - 2) + gn) * 2 * H + H;
+      const T* w = j < 2 ? w_att + (size_t)(2 * gn + j) * 2 * H
+                         : w_att + (size_t)(2 * (j - 2) + gn) * 2 * H + H;
       float dot = 0.f;
-      for (int k = lane; k < H; k += 32) dot = fmaf(states[n * H + k], w[k], dot);
+      for (int k = lane; k < H; k += 32)
+        dot = fmaf(round_to<T>(states[n * H + k]), to_f32(w[k]), dot);
       dot = warp_sum(dot);
       if (lane == 0) proj[n][j] = dot;
     }
     __syncthreads();
     for (int i = tid; i < E * E; i += kThreads) {
       const int n = i / E, m = i % E, gn = n < NH ? 0 : 1, gm = m < NH ? 0 : 1;
-      a[n][m] = fmaxf(proj[n][gm] + proj[m][2 + gn] + b_att[2 * gn + gm], 0.f);
+      a[n][m] = fmaxf(proj[n][gm] + proj[m][2 + gn] + to_f32(b_att[2 * gn + gm]), 0.f);
     }
   } else if constexpr (Mode == kV4) {
     for (int p = warp; p < E * E; p += kWarps) {
@@ -267,13 +275,13 @@ mix_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
           ? tmp_h + (((size_t)s.d * B * NH + b * NH + n) * 2 + gm) * H
           : tmp_o + (((size_t)s.d * B * NO + b * NO + n - NH) * 2 + gm) * H;
       float dot = 0.f;
-      for (int k = lane; k < H; k += 32) dot = fmaf(tr[k], states[m * H + k], dot);
+      for (int k = lane; k < H; k += 32) dot = fmaf(round_to<T>(tr[k]), states[m * H + k], dot);
       dot = warp_sum(dot);
-      if (lane == 0) a[n][m] = fmaxf(dot + b_att[2 * gn + gm], 0.f);
+      if (lane == 0) a[n][m] = fmaxf(dot + to_f32(b_att[2 * gn + gm]), 0.f);
     }
   } else {
     for (int i = tid; i < E * E; i += kThreads)
-      a[i / E][i % E] = att_ext[(((size_t)s.t * B + b) * E + i / E) * E + i % E];
+      a[i / E][i % E] = to_f32(att_ext[(((size_t)s.t * B + b) * E + i / E) * E + i % E]);
   }
   __syncthreads();
   const T* om = obj_mask + (size_t)b * NO;
@@ -413,8 +421,8 @@ template <int Mode, class T>
 int run_scan(const T* gi_h, const T* gi_o, const T* u_h, const T* u_o, const T* w_from,
              const T* b_from, const T* w_msg_h, const T* w_msg_o, const T* w_hh_h,
              const T* w_hh_o, const T* b_hh_h, const T* b_hh_o, const T* obj_mask,
-             const T* h0_h, const T* h0_o, const T* w_att, const float* b_att,
-             const float* att_ext, T* out_h, T* out_o, T* att, float* m_h, float* m_o,
+             const T* h0_h, const T* h0_o, const T* w_att, const T* b_att,
+             const T* att_ext, T* out_h, T* out_o, T* att, float* m_h, float* m_o,
              float* tmp_h, float* tmp_o, T* mix_h, T* mix_o, float* gates_h, float* gates_o,
              float* atts, float* state_h, float* state_o, int keep, int T_, int B, int NH,
              int NO, int H, float scale, cudaStream_t stream) {
@@ -516,6 +524,32 @@ extern "C" int tggcn_segment_scan_att_f32(
                      b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, w_att, b_att, att_ext, out_h,     \
                      out_o, att, m_h, m_o, tmp_h, tmp_o, mix_h, mix_o, nullptr, nullptr,     \
                      nullptr, nullptr, nullptr, 0, T, B, NH, NO, H, 1.f, stream)
+  switch (mode) {
+    case kV1: return TGGCN_RUN_SCAN(kV1);
+    case kV4: return TGGCN_RUN_SCAN(kV4);
+    case kExt: return TGGCN_RUN_SCAN(kExt);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TGGCN_RUN_SCAN
+}
+
+// K5 in bfloat16 IO: every pointer of tggcn_segment_scan_att_f32 but m_h,
+// m_o, tmp_h and tmp_o (float32) in bfloat16, and state_h, state_o (2, B *
+// NH or NO, H) float32 holding h0 at the call, as K3 in bfloat16. H % 8 == 0.
+extern "C" int tggcn_segment_scan_att_bf16(
+    int mode, const bf16* gi_h, const bf16* gi_o, const bf16* u_h, const bf16* u_o,
+    const bf16* w_from, const bf16* b_from, const bf16* w_msg_h, const bf16* w_msg_o,
+    const bf16* w_hh_h, const bf16* w_hh_o, const bf16* b_hh_h, const bf16* b_hh_o,
+    const bf16* obj_mask, const bf16* h0_h, const bf16* h0_o, const bf16* w_att,
+    const bf16* b_att, const bf16* att_ext, bf16* out_h, bf16* out_o, bf16* att, float* m_h,
+    float* m_o, float* tmp_h, float* tmp_o, bf16* mix_h, bf16* mix_o, float* state_h,
+    float* state_o, int T, int B, int NH, int NO, int H, void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+#define TGGCN_RUN_SCAN(M)                                                                 \
+  run_scan<M, bf16>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, \
+                    b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, w_att, b_att, att_ext, out_h,     \
+                    out_o, att, m_h, m_o, tmp_h, tmp_o, mix_h, mix_o, nullptr, nullptr,     \
+                    nullptr, state_h, state_o, 0, T, B, NH, NO, H, 1.f, stream)
   switch (mode) {
     case kV1: return TGGCN_RUN_SCAN(kV1);
     case kV4: return TGGCN_RUN_SCAN(kV4);

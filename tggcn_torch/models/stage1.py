@@ -13,11 +13,13 @@ The yaml computes in float32; ``bench.py`` trains it in bfloat16
 (``bench.py:181``, ``compute_dtype="bfloat16"``), the dtype ``BENCH_DTYPE``
 names: ``model_kwargs(dtype)`` is ``MODEL_KWARGS`` in either.
 
-``SERVE_VARIANTS`` are the changes to the yaml that serve the model through
-K5 (the set ``tools/bench_segment_modes.py`` times at this shape): distance-
-based attention with the GeoGCN kernel on (``dist``, which needs
-``make_distances``), concat (``v1``) or bilinear (``v4``) attention, and
-mean pooling (``mp``).
+``SERVE_VARIANTS`` are the changes to the yaml that run the model's segment
+scan through K5 (the set ``tools/bench_segment_modes.py`` times at this
+shape), served and trained in either dtype: distance-based attention with
+the GeoGCN kernel on (``dist``, which needs ``make_distances``: in a
+request, or in a batch from ``make_batch(..., variant="dist")`` fed with
+``feeder_kwargs("dist")``), concat (``v1``) or bilinear (``v4``) attention,
+and mean pooling (``mp``).
 """
 
 import numpy as np
@@ -71,10 +73,19 @@ def make_request(rng: np.random.Generator, b: int, t: int, humans: int, objects:
         steps_per_example=np.full((b,), float(t), np.float32))
 
 
-def make_batch(rng: np.random.Generator, b: int, t: int, humans: int, objects: int) -> list:
+def feeder_kwargs(variant=None) -> dict:
+    """The feeder's keywords for a batch of the model or of one of
+    SERVE_VARIANTS: 'dist' reads the batch's distance tensors."""
+    return dict(FEEDER_KWARGS, make_attention_distance_based=variant == "dist")
+
+
+def make_batch(rng: np.random.Generator, b: int, t: int, humans: int, objects: int,
+               variant=None) -> list:
     """One training batch as ``bench.py`` builds it: the 8 inputs of the
     2G-GCN fetcher, then the six MPHOI targets (segmentation twice, then
-    sub-activity labels for the frame and segment heads)."""
+    sub-activity labels for the frame and segment heads). For the 'dist'
+    variant the three distance tensors (make_distances, drawn last) take the
+    places the feeder reads them from; else those places hold dummies."""
     x_human = rng.normal(size=(b, t, humans, 2152)).astype(np.float32)
     x_objects = rng.normal(size=(b, t, objects, 2048)).astype(np.float32)
     mask = np.ones((b, objects), dtype=np.float32)
@@ -83,7 +94,10 @@ def make_batch(rng: np.random.Generator, b: int, t: int, humans: int, objects: i
     dummy = np.zeros((b, 1, 1, 1), dtype=np.float32)
     y_seg = rng.integers(0, 2, size=(b, t, humans)).astype(np.float32)
     y_rec = rng.integers(0, 13, size=(b, t, humans)).astype(np.int64)
-    return [x_human, x_objects, mask, x_hseg, dummy, dummy, dummy, steps,
+    dists = [dummy] * 3
+    if variant == "dist":
+        dists = list(make_distances(rng, b, t, humans, objects).values())
+    return [x_human, x_objects, mask, x_hseg, *dists, steps,
             y_seg, y_seg, y_rec, y_rec, y_rec, y_rec]
 
 

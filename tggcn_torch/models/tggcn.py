@@ -11,9 +11,9 @@ segment-length features, cat_level_states and share_level_mlps:
   * (scaled) dot attention (the stage-1 and stage-2 configurations,
     ``conf/models/2G-GCN_stage{1,2}.yaml``), forward and training;
   * concat (v1) and bilinear (v4) attention, mean pooling, and
-    inverse-distance attention from all three distance tensors: serving
-    only (train=False with grad disabled), as JAX's forward-only kernel
-    routing runs them (``tggcn/models/registry.py:45``).
+    inverse-distance attention from all three distance tensors (the
+    attention options of the same yamls), forward and training, as JAX's
+    fast segment path runs them.
 A configuration or call outside these raises NotImplementedError; it never
 takes another path silently.
 
@@ -23,16 +23,20 @@ parameters are cast inside ``apply_tggcn`` from the float32 masters, so
 autograd hands float32 gradients back to them, except the GeoGCN block with
 its BatchNorm and the recognition and prediction heads, which stay
 float32; the geometry enters the GCN in float32 and its output is cast;
-the heads take float32 input; every returned output is float32. It covers
-the dot attention route (K1-K4, forward and training); the other segment
-modes, mean pooling and the GeoGCN kernel raise NotImplementedError in
-bfloat16, since their kernels (K5, K6) are float32 only.
+the heads take float32 input; every returned output is float32; the
+distance tensors are cast to bfloat16 as JAX casts them (``:483-485``). It
+covers every segment mode; the GeoGCN block, K6 included, stays float32, as
+in JAX's bfloat16 model.
 
 The frame-level BiGRU runs through K1 forward and K2 backward
 (``gru_sequence_autograd``); the segment scan through K3 forward and K4
-backward (``segment_scan_dot_autograd``) in 'dot' mode and through K5
-(``segment_scan_forward``) in the modes 'v1', 'v4' and 'ext'; with
-``use_pallas_geo_gcn`` the GeoGCN block through K6. On the CPU they take
+backward (``segment_scan_dot_autograd``) in 'dot' mode, and through K5 in
+the modes 'v1', 'v4' and 'ext': forward only (``segment_scan_forward``)
+where no gradient will be taken, else K5 forward with the gradients of the
+XLA fast path's counterpart (``models/segment_fast.py``) recomputed at the
+saved inputs (``segment_scan_recompute``), as JAX's custom VJP for these
+modes takes them; with ``use_pallas_geo_gcn`` the GeoGCN block through K6
+(forward, with its backward recomputed as JAX's). On the CPU they take
 their plain PyTorch versions.
 """
 
@@ -42,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from tggcn_torch.models.segment_fast import CELLS, EDGES, segment_scan_fast
 from tggcn_torch.nn.distributions import discrete_estimator
 from tggcn_torch.nn.geo_gcn import apply_geo_gcn, init_geo_gcn
 from tggcn_torch.nn.gru import init_bigru, init_gru_cell, run_multi_bigru
@@ -50,7 +55,8 @@ from tggcn_torch.nn.mlp import apply_mlp, init_bilinear, init_mlp
 from tggcn_torch.nn.temporal import (assemble_segment_length_tensor, assemble_time_tensor,
                                      filter_soft_decisions, make_periodic_embedding,
                                      reorder_hidden_states)
-from tggcn_torch.ops.segment_scan import segment_scan_dot_autograd, segment_scan_forward
+from tggcn_torch.ops.segment_scan import (segment_scan_dot_autograd, segment_scan_forward,
+                                          segment_scan_recompute)
 
 SLICE = "the 2G-GCN slice of tggcn_torch"
 DOT_STYLES = {"v2", "dot-product", "v3", "scaled_dot-product"}
@@ -174,14 +180,6 @@ def check_slice(cfg: TGGCNConfig) -> None:
          f"positional_encoding_style={cfg.positional_encoding_style!r}")
     need(cfg.compute_dtype in {None, "float32", "f32"} | BF16,
          f"compute_dtype={cfg.compute_dtype!r}")
-    if cfg.compute_dtype in BF16 and (cfg.use_pallas_geo_gcn or not cfg.attention
-                                      or cfg.attention_style not in DOT_STYLES):
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} with attention_style="
-            f"{cfg.attention_style!r}, message_aggregation={cfg.message_aggregation!r}, "
-            f"use_pallas_geo_gcn={cfg.use_pallas_geo_gcn} is outside {SLICE}: the bfloat16 "
-            "variants of the segment scan's other modes (K5) and of the GeoGCN kernel (K6) "
-            "are not written yet")
     need(cfg.geometry_flatten in {"reference", "per_frame"},
          f"geometry_flatten={cfg.geometry_flatten!r}")
 
@@ -355,15 +353,7 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     check_slice(cfg)
     dists3 = (human_human_distances, human_object_distances, object_object_distances)
     mode = segment_mode(cfg, dists3)
-    if mode != "dot" and (train or torch.is_grad_enabled()):
-        raise NotImplementedError(
-            f"training (or serving with grad enabled) in segment mode {mode!r} is outside "
-            f"{SLICE}: K5 is forward only")
     work = work_dtype(cfg)
-    if work is not None and mode != "dot":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} in segment mode {mode!r} is outside "
-            f"{SLICE}: the bfloat16 variant of K5 is not written yet")
     b, t, num_humans = x_human.shape[0], x_human.shape[1], x_human.shape[2]
     num_objects = x_objects.shape[2]
     hidden = cfg.hidden_size
@@ -372,6 +362,7 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     if work is not None:
         params = cast_params_for_compute(params, work)
         x_objects, objects_mask = x_objects.to(work), objects_mask.to(work)
+        dists3 = tuple(None if d is None else d.to(work) for d in dists3)
         if cfg.add_time_position or cfg.add_segment_length:
             steps_per_example = steps_per_example.to(work)
 
@@ -647,13 +638,10 @@ def external_att_weights(mean_pooling: bool, dists3, objects_mask, t: int, nh: i
                       torch.cat([a_ho, a_oo], dim=-1)], dim=-2).contiguous()
 
 
-def _segment_scan_fast(params, cfg: TGGCNConfig, mode: str, x_hs, x_os, u_h, u_o,
-                       objects_mask, dists3, use_kernels: bool = True):
-    """Gated bidirectional segment scan for non-relational generic messages,
-    both directions in one call: through ``segment_scan_dot_autograd`` in
-    'dot' mode, else through the forward-only ``segment_scan_forward``.
-    Returns (hx_hs (B,T,H,2h), hx_os (B,T,O,2h), att fwd, att bwd (B,T,H,O));
-    mean pooling records zeros for the attention, as JAX does."""
+def _scan_inputs(params, cfg: TGGCNConfig, x_hs, x_os, u_h, u_o, objects_mask):
+    """The kernels' inputs (see ``tggcn_torch.ops.segment_scan``): base gates
+    (2, T, B, E, 3h) of both directions, time-major decisions, stacked
+    weights, the object mask and zero initial states."""
     b, t, num_humans, base_h = x_hs.shape
     num_objects, base_o = x_os.shape[2], x_os.shape[-1]
     h = cfg.hidden_size
@@ -674,31 +662,100 @@ def _segment_scan_fast(params, cfg: TGGCNConfig, mode: str, x_hs, x_os, u_h, u_o
 
     edges = [msg_layer(e) for e in ("h2h", "h2o", "o2h", "o2o")]
     time_major = lambda u: u.permute(1, 0, 2).contiguous()      # (T, B, E)
-    obj_mask = objects_mask.to(x_hs.dtype).contiguous()
-    mean_pooling = cfg.message_aggregation in {"mp", "mean_pooling"}
-    args = (base_gates(cells_h, x_hs, base_h), base_gates(cells_o, x_os, base_o),
+    return (base_gates(cells_h, x_hs, base_h), base_gates(cells_o, x_os, base_o),
             time_major(u_h), time_major(u_o),
             torch.stack([w for w, _ in edges]), torch.stack([bb for _, bb in edges]),
             stack(cells_h, lambda c: c["w_ih"][base_h:]), stack(cells_o, lambda c: c["w_ih"][base_o:]),
             stack(cells_h, lambda c: c["w_hh"]), stack(cells_o, lambda c: c["w_hh"]),
             stack(cells_h, lambda c: c.get("b_hh", zeros3)),
-            stack(cells_o, lambda c: c.get("b_hh", zeros3)), obj_mask,
+            stack(cells_o, lambda c: c.get("b_hh", zeros3)),
+            objects_mask.to(x_hs.dtype).contiguous(),
             x_hs.new_zeros((2, b, num_humans, h)), x_hs.new_zeros((2, b, num_objects, h)))
-    if mode == "dot":
-        scale = 1.0 / math.sqrt(h) if cfg.attention_style in {"v3", "scaled_dot-product"} else 1.0
-        h_h, h_o, att = segment_scan_dot_autograd(*args, scale, use_kernels=use_kernels)
-    else:
-        if mode == "ext":
-            extra = dict(att_ext=external_att_weights(mean_pooling, dists3, obj_mask, t,
-                                                      num_humans))
-        else:
-            w_att, b_att = collect_att(params, mode)
-            extra = dict(w_att=w_att, b_att=b_att)
-        h_h, h_o, att = segment_scan_forward(mode, *args, use_kernels=use_kernels, **extra)
-        if mean_pooling:
-            att = torch.zeros_like(att)
 
-    def order(seq):                                            # (2, T, B, E, h) -> (B, T, E, 2h)
-        return torch.cat([seq[0], seq[1]], dim=-1).permute(1, 0, 2, 3)
 
+def _order(h_h, h_o, att):
+    """The kernels' outputs (2, T, B, E, h) and (2, T, B, H, O) as
+    (hx_hs (B, T, H, 2h), hx_os (B, T, O, 2h), att fwd, att bwd (B, T, H, O))."""
+    order = lambda seq: torch.cat([seq[0], seq[1]], dim=-1).permute(1, 0, 2, 3)
     return order(h_h), order(h_o), att[0].permute(1, 0, 2, 3), att[1].permute(1, 0, 2, 3)
+
+
+def _k5_scan(params, cfg: TGGCNConfig, mode: str, x_hs, x_os, u_h, u_o, objects_mask, dists3,
+             use_kernels: bool):
+    """The scan through K5 in `mode` (its plain version with
+    use_kernels=False or on the CPU), forward only."""
+    args = _scan_inputs(params, cfg, x_hs, x_os, u_h, u_o, objects_mask)
+    mean_pooling = cfg.message_aggregation in {"mp", "mean_pooling"}
+    if mode == "ext":
+        extra = dict(att_ext=external_att_weights(mean_pooling, dists3, args[12], x_hs.shape[1],
+                                                  x_hs.shape[2]))
+    else:
+        w_att, b_att = collect_att(params, mode)
+        extra = dict(w_att=w_att, b_att=b_att)
+    h_h, h_o, att = segment_scan_forward(mode, *args, use_kernels=use_kernels, **extra)
+    if mean_pooling:
+        att = torch.zeros_like(att)
+    return _order(h_h, h_o, att)
+
+
+def flatten(tree):
+    """(leaves, rebuild) of a tree of dicts and lists: rebuild(values) is the
+    tree with its leaves replaced by values, in the order of leaves."""
+    leaves = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        leaves.append(x)
+        return len(leaves) - 1
+
+    spec = walk(tree)
+
+    def rebuild(values):
+        def fill(s):
+            if isinstance(s, dict):
+                return {k: fill(v) for k, v in s.items()}
+            if isinstance(s, (list, tuple)):
+                return type(s)(fill(v) for v in s)
+            return values[s]
+        return fill(spec)
+
+    return leaves, rebuild
+
+
+def _segment_scan_fast(params, cfg: TGGCNConfig, mode: str, x_hs, x_os, u_h, u_o,
+                       objects_mask, dists3, use_kernels: bool = True):
+    """Gated bidirectional segment scan for non-relational generic messages,
+    both directions in one call: through ``segment_scan_dot_autograd`` (K3,
+    K4) in 'dot' mode; else through K5 forward, with the gradients of
+    ``segment_scan_fast`` (JAX's XLA fast path) recomputed at the saved
+    inputs when a gradient will be taken (``segment_scan_recompute``), as
+    JAX's custom VJP takes them: they reach every segment parameter, x_hs,
+    x_os, the decisions u_h and u_o and the distances. Returns (hx_hs
+    (B,T,H,2h), hx_os (B,T,O,2h), att fwd, att bwd (B,T,H,O)); mean pooling
+    records zeros for the attention, as JAX does."""
+    if mode == "dot":
+        args = _scan_inputs(params, cfg, x_hs, x_os, u_h, u_o, objects_mask)
+        h = cfg.hidden_size
+        scale = 1.0 / math.sqrt(h) if cfg.attention_style in {"v3", "scaled_dot-product"} else 1.0
+        return _order(*segment_scan_dot_autograd(*args, scale, use_kernels=use_kernels))
+    seg = {**{c: params[c] for c in CELLS},
+           **{e: {"segment": params[e]["segment"]} for e in EDGES}}
+    leaves, rebuild = flatten(seg)
+    n = len(leaves)
+
+    def split(inputs):
+        return (rebuild(inputs[:n]), *inputs[n:n + 5], inputs[n + 5:])
+
+    def run(*inputs):
+        p, xh, xo, uh, uo, mask, d3 = split(inputs)
+        return _k5_scan(p, cfg, mode, xh, xo, uh, uo, mask, d3, use_kernels)
+
+    def recompute(*inputs):
+        p, xh, xo, uh, uo, mask, d3 = split(inputs)
+        return segment_scan_fast(p, cfg, xh, xo, uh, uo, mask, *d3)
+
+    return segment_scan_recompute(run, recompute, *leaves, x_hs, x_os, u_h, u_o, objects_mask,
+                                  *dists3)

@@ -30,12 +30,16 @@ every run.
 K5 replaces the same TPU kernel in its other modes (``_make_kernel``
 ``scores_v1`` ``:123``, ``scores_v4`` ``:134``, the streamed weights of
 ``:147-149``): the same ``csrc/segment_scan.cu``, with the mode a template
-parameter of the projection and mix phases. It is forward only (serving),
-as JAX's forward-only routing runs it; ``segment_scan_forward`` picks the
-wrapper of the mode (``segment_scan_v1``, ``segment_scan_v4``,
-``segment_scan_ext``) or, with ``use_kernels=False``, the plain version
-``segment_scan_att_plain``. Its extra inputs, in the score order hh, oh, ho,
-oo (receiver, then sender; w_from's order is hh, ho, oh, oo):
+parameter of the projection and mix phases. It has no backward kernel, as
+JAX's has none: ``segment_scan_forward`` picks the wrapper of the mode
+(``segment_scan_v1``, ``segment_scan_v4``, ``segment_scan_ext``) or, with
+``use_kernels=False``, the plain version ``segment_scan_att_plain``, and
+``segment_scan_recompute`` (``SegmentScanRecompute``) runs such a forward
+with the gradients of another function recomputed at the saved inputs, as
+JAX's custom VJP for these modes recomputes through its XLA fast path
+(the model passes ``models/segment_fast.py``). Its extra inputs, in the
+score order hh, oh, ho, oo (receiver, then sender; w_from's order is hh,
+ho, oh, oo):
   v1   w_att (4, 2h) (the receiver half, then the sender half), b_att (4)
   v4   w_att (4, h, h), b_att (4)
   ext  att_ext (T, B, E, E), E = H + O: row n < H holds [a_hh | a_oh] of
@@ -54,8 +58,8 @@ both read and written in natural time order):
   -> h_h (2, T, B, H, h), h_o (2, T, B, O, h), att_oh (2, T, B, H, O), and
      with keep the KEPT tensors
 
-K3 and K4 take float32 or bfloat16 IO, all of one dtype, and pick their
-variant by it (K5 is float32 only); each wrapper counts the launches of its
+K3, K4 and K5 take float32 or bfloat16 IO, all of one dtype, and pick their
+variant by it; each wrapper counts the launches of its
 float32 kernel in ``launches`` and of its bfloat16 kernel in
 ``launches_bf16``. In bfloat16 they compute what the TPU kernels compute
 with ``fuse_dirs`` (``segment_scan_pallas.py:92-220``, ``:324-527``): K3
@@ -68,7 +72,9 @@ bfloat16 with float32 sums on its bfloat16 outputs dgi, dgh and dpre, its
 dL/dh carry is float32, and the mixed-message gradient and the softmax's
 score gradient are rounded where the TPU kernel rounds them. Of K3's kept
 tensors only the mixed messages (what the cell's product read) take the
-IO dtype; the edge messages, gates and attention stay float32.
+IO dtype; the edge messages, gates and attention stay float32. K5 in
+bfloat16 is K3's bfloat16 variant with each mode's scores rounded where
+the TPU kernel rounds them (see ``segment_scan_att_plain``).
 """
 
 import ctypes
@@ -204,31 +210,56 @@ def segment_scan_dot_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_
 MODES = ("v1", "v4", "ext")
 
 
+def _v1_scores(q, w_att, b_att):
+    """K5's concat scores relu(q(recv) . wa[:h] + q(send) . wa[h:] + b), q
+    the rounding to the IO dtype."""
+    h = w_att.shape[1] // 2
+
+    def scores(recv, send, e):
+        qr, ks = q(recv) @ w_att[e, :h], q(send) @ w_att[e, h:]      # (2, B, R), (2, B, S)
+        return torch.relu(qr[..., :, None] + ks[..., None, :] + b_att[e])
+    return scores
+
+
+def _v4_scores(q, w_att, b_att):
+    """K5's bilinear scores relu(q(q(recv) @ W) @ send^T + b): the product
+    recv @ W takes the rounded state and is itself rounded, the second
+    takes the unrounded sender state (bfloat16 x float32 promotes to
+    float32, ``segment_scan_pallas.py:139-142``)."""
+    def scores(recv, send, e):
+        return torch.relu(q(q(recv) @ w_att[e]) @ send.transpose(-1, -2) + b_att[e])
+    return scores
+
+
 def segment_scan_att_plain(mode, gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
                            w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
-                           w_att=None, b_att=None, att_ext=None):
-    """Plain PyTorch version of K5 in `mode`: (h_h, h_o, att_oh)."""
+                           w_att=None, b_att=None, att_ext=None, round_carry: bool = False):
+    """Plain PyTorch version of K5 in `mode`: (h_h, h_o, att_oh). In
+    bfloat16 it rounds where the TPU kernel rounds (``scores_v1`` ``:123``,
+    ``scores_v4`` ``:134``, ``:147-149``), from the float32 states: v1 takes
+    the states rounded to bfloat16 against the bfloat16 weights; v4 rounds
+    the state for recv @ W and that product's float32 sum, then multiplies it
+    by the float32 sender state at float32 accuracy; ext widens the weights
+    computed outside. round_carry as _scan_plain's."""
     if mode not in MODES:
         raise ValueError(f"segment scan mode {mode!r} is not one of {MODES}")
     nh = gi_h.shape[3]
+    q = _build.rounding(gi_h.dtype)
     if mode == "ext":
+        att_ext = _build.upcast(att_ext)
+
         def attention(h_h, h_o, ts):
             a = torch.stack([att_ext[ts[d]] for d in range(2)])       # (2, B, E, E)
             return a[..., :nh, :nh], a[..., :nh, nh:], a[..., nh:, :nh], a[..., nh:, nh:]
     else:
-        h = w_hh_h.shape[1]
-        if mode == "v1":
-            def scores(recv, send, e):
-                q, k = recv @ w_att[e, :h], send @ w_att[e, h:]       # (2, B, R), (2, B, S)
-                return torch.relu(q[..., :, None] + k[..., None, :] + b_att[e])
-        else:
-            def scores(recv, send, e):
-                return torch.relu((recv @ w_att[e]) @ send.transpose(-1, -2) + b_att[e])
+        w_att, b_att = _build.upcast(w_att), _build.upcast(b_att)
+        scores = (_v1_scores if mode == "v1" else _v4_scores)(q, w_att, b_att)
 
         def attention(h_h, h_o, ts):
             return _attention(h_h, h_o, obj_mask, scores)
     return _scan_plain(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
-                       w_hh_o, b_hh_h, b_hh_o, h0_h, h0_o, attention, keep=False)
+                       w_hh_o, b_hh_h, b_hh_o, h0_h, h0_o, attention, keep=False,
+                       round_carry=round_carry)
 
 
 # K3's kept tensors and K4's inputs that are float32 whatever the IO dtype.
@@ -361,10 +392,11 @@ def _segment_scan_att(wrapper, mode, args, extra):
         raise ValueError(f"segment_scan_{mode} runs on CUDA or the CPU, not {gi_h.device}")
     dims = _dims(gi_h, args["gi_o"])
     t, b, nh, no, h = dims
-    _check(f"segment_scan_{mode}", {**args, **extra}, dims,
-           w_att_shape=(4, 2 * h) if mode == "v1" else (4, h, h))
+    io = _check(f"segment_scan_{mode}", {**args, **extra}, dims,
+                w_att_shape=(4, 2 * h) if mode == "v1" else (4, h, h),
+                io_dtypes=(torch.float32, torch.bfloat16))
     dev = gi_h.device
-    out, scratch = scan_buffers(*dims, False, dev)
+    out, scratch = scan_buffers(*dims, False, dev, io)
     if t > 0:
         tmp = ([torch.empty((2, b * nh, 2, h), device=dev),
                 torch.empty((2, b * no, 2, h), device=dev)] if mode == "v4" else [None, None])
@@ -374,14 +406,21 @@ def _segment_scan_att(wrapper, mode, args, extra):
         ptrs += [x.data_ptr() if x is not None else None
                  for x in (*out, scratch["m_h"], scratch["m_o"], *tmp, scratch["mix_h"],
                            scratch["mix_o"])]
-        fn = _build.load_library("segment_scan").tggcn_segment_scan_att_f32
-        fn.argtypes = [_I] + [_P] * 27 + [_I] * 5 + [_P]
+        lib = _build.load_library("segment_scan")
+        if io == torch.float32:
+            fn = lib.tggcn_segment_scan_att_f32
+        else:
+            # The float32 states (2, B * E, h), updated in place each step.
+            fn = lib.tggcn_segment_scan_att_bf16
+            states = [args["h0_h"].float().contiguous(), args["h0_o"].float().contiguous()]
+            ptrs += [x.data_ptr() for x in states]
+        fn.argtypes = [_I] + [_P] * len(ptrs) + [_I] * 5 + [_P]
         fn.restype = _I
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(1 + MODES.index(mode), *ptrs, t, b, nh, no, h, stream)
         _build.check_launch(err, f"segment_scan_{mode}")
-        wrapper.launches += 1
+        _build.count_launch(wrapper, io)
     return tuple(out)
 
 
@@ -406,7 +445,8 @@ def segment_scan_ext(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_h
     return _segment_scan_att(segment_scan_ext, "ext", args, dict(att_ext=att_ext))
 
 
-segment_scan_v1.launches = segment_scan_v4.launches = segment_scan_ext.launches = 0
+for _wrapper in (segment_scan_v1, segment_scan_v4, segment_scan_ext):
+    _wrapper.launches = _wrapper.launches_bf16 = 0
 
 
 def segment_scan_forward(mode, *args, use_kernels: bool = True, **extra):
@@ -416,6 +456,50 @@ def segment_scan_forward(mode, *args, use_kernels: bool = True, **extra):
         return segment_scan_att_plain(mode, *args, **extra)
     wrapper = {"v1": segment_scan_v1, "v4": segment_scan_v4, "ext": segment_scan_ext}[mode]
     return wrapper(*args, **extra)
+
+
+RECOMPUTE_RANGE = "segment_scan_recompute_backward"
+
+
+class SegmentScanRecompute(torch.autograd.Function):
+    """A forward that runs without autograd (K5), and a backward that takes
+    autograd of another function of the same inputs, recomputed at the
+    saved inputs: the counterpart of ``segment_scan_fast_pallas``'s custom
+    VJP (``segment_scan_pallas.py:911-942``), whose backward recomputes
+    through the XLA fast path. run(*inputs) and recompute(*inputs) return
+    the same tuple of tensors; inputs may hold None."""
+
+    @staticmethod
+    def forward(ctx, run, recompute, *inputs):
+        ctx.recompute = recompute
+        ctx.save_for_backward(*inputs)
+        return run(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        needs = ctx.needs_input_grad[2:]
+        inputs = [x.detach().requires_grad_(need) if x is not None else None
+                  for x, need in zip(ctx.saved_tensors, needs)]
+        wanted = [x for x, need in zip(inputs, needs) if need]
+        # The range names the recompute in a profiler's trace (profile_step).
+        with torch.enable_grad(), torch.profiler.record_function(RECOMPUTE_RANGE):
+            outs = ctx.recompute(*inputs)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+            found = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                             [g for _, g in pairs], allow_unused=True)
+                         if pairs and wanted else ())
+        return (None, None, *(next(found, None) if need else None for need in needs))
+
+
+def segment_scan_recompute(run, recompute, *inputs):
+    """run(*inputs) (K5's route, without autograd) with the gradients of
+    recompute(*inputs) (the XLA fast path's counterpart); see
+    SegmentScanRecompute. When no gradient will be taken (grad disabled, or
+    no input requires one) it is run(*inputs) alone."""
+    if not (torch.is_grad_enabled()
+            and any(x is not None and x.requires_grad for x in inputs)):
+        return run(*inputs)
+    return SegmentScanRecompute.apply(run, recompute, *inputs)
 
 
 def previous_states(out, h0):

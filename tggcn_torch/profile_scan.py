@@ -1,17 +1,21 @@
 """Where the time of one segment-scan call (K3) and one backward sweep (K4)
-goes on the card, by kernel name; and the scan's seeded inputs, which
-chip_smoke.py's k3, k4 and k5 phases also use.
+goes on the card, by kernel name, or of one K5 call in a mode; and the
+scan's seeded inputs, which chip_smoke.py's k3, k4 and k5 phases also use.
 
     python -m tggcn_torch.profile_scan [--reps N] [--hidden H] [--batch B]
+                                       [--mode {v1,v4,ext}] [--dtype {float32,bfloat16}]
 
 Builds the kernels, then runs K3 (``segment_scan_dot``, keeping what the
-backward reads) and K4 (``segment_scan_dot_bwd``) at the MPHOI shape
-(T=167, B=8, 2 humans, 4 objects, h=512; ``--hidden`` and ``--batch``
-change h and B, to see how a phase's time scales with the weights and the
-rows), one warm-up call each, then ``--reps`` calls of each under
-``torch.profiler``. Prints one JSON object: the card (name and power limit
-from nvidia-smi) and, per kernel, the device milliseconds per call by
-kernel name and the launches per call. Needs a CUDA device.
+backward reads) and K4 (``segment_scan_dot_bwd``), or with ``--mode`` K5
+in that mode (``segment_scan_v1``, ``_v4``, ``_ext``: random attention
+weights, or the inverse-distance weights of seeded distances), at the MPHOI
+shape (T=167, B=8, 2 humans, 4 objects, h=512; ``--hidden`` and
+``--batch`` change h and B, to see how a phase's time scales with the
+weights and the rows) with IO in ``--dtype``, one warm-up call each, then
+``--reps`` calls of each under ``torch.profiler``. Prints one JSON object:
+the card (name and power limit from nvidia-smi) and, per kernel, the device
+milliseconds per call by kernel name and the launches per call. Needs a
+CUDA device.
 """
 
 import argparse
@@ -21,6 +25,7 @@ import re
 import subprocess
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 from tggcn_torch.models import stage1
@@ -66,6 +71,24 @@ def bwd_inputs(fwd, gen, scale):
                 **{k: fwd[k] for k in ("w_from", "w_msg_h", "w_msg_o", "w_hh_h", "w_hh_o")})
 
 
+def mode_inputs(mode, args, gen):
+    """K5's extra inputs in `mode` for the scan inputs args (float32, on
+    their device): random w_att and b_att within h^-1/2 (v1, v4), or the
+    inverse-distance weights of seeded distances with exact zeros (ext)."""
+    from tggcn_torch.models.tggcn import external_att_weights
+
+    _, t, b, nh, g3 = args["gi_h"].shape
+    h, no, dev = g3 // 3, args["gi_o"].shape[3], args["gi_h"].device
+    if mode == "ext":
+        dists = stage1.make_distances(np.random.default_rng(6), b, t, nh, no)
+        return dict(att_ext=external_att_weights(
+            False, [torch.as_tensor(d, device=dev) for d in dists.values()], args["obj_mask"],
+            t, nh))
+    shape_w = (4, 2 * h) if mode == "v1" else (4, h, h)
+    u = lambda *sh: ((torch.rand(sh, generator=gen, device=dev) * 2 - 1) * h ** -0.5)
+    return dict(w_att=u(*shape_w).contiguous(), b_att=u(4).contiguous())
+
+
 def kernel_name(name):
     """The kernel's own name in a demangled signature such as 'void
     (anonymous namespace)::proj_kernel<0>(float const*, ...)'."""
@@ -100,6 +123,10 @@ def main(argv=None):
     parser.add_argument("--hidden", type=int, default=stage1.MODEL_KWARGS["hidden_size"],
                         help="h (the weights grow as h^2)")
     parser.add_argument("--batch", type=int, default=stage1.SHAPE["b"])
+    parser.add_argument("--mode", choices=ops.MODES, default=None,
+                        help="time K5 in this mode instead of K3 and K4")
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                        help="the kernels' IO dtype")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_scan: no CUDA device")
@@ -108,17 +135,26 @@ def main(argv=None):
     t, nh, no = (stage1.SHAPE[k] for k in ("t", "humans", "objects"))
     b, h = args.batch, args.hidden
     gen = torch.Generator(device=dev).manual_seed(2)
+    dtype = getattr(torch, args.dtype)
     k3 = scan_inputs(dev, gen, t, b, nh, no, h)
     scale = 1.0 / math.sqrt(h)
-    k4 = bwd_inputs(k3, gen, scale)
+    if args.mode:
+        extra = {k: v.to(dtype) for k, v in mode_inputs(args.mode, k3, gen).items()}
+        k5 = {k: v.to(dtype) for k, v in k3.items()}
+        wrapper = getattr(ops, f"segment_scan_{args.mode}")
+        runs = {f"k5_{args.mode}": lambda: wrapper(**k5, **extra)}
+    else:
+        k3 = {k: v.to(dtype) for k, v in k3.items()}
+        k4 = bwd_inputs(k3, gen, scale)
+        runs = {"k3": lambda: ops.segment_scan_dot(**k3, scale=scale),
+                "k4": lambda: ops.segment_scan_dot_bwd(**k4, scale=scale)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=30).stdout.strip()
     print(json.dumps({
-        "card": smi, "reps": args.reps, "shape": dict(t=t, b=b, humans=nh, objects=no, h=h),
-        "k3": device_ms_by_kernel(lambda: ops.segment_scan_dot(**k3, scale=scale), args.reps),
-        "k4": device_ms_by_kernel(lambda: ops.segment_scan_dot_bwd(**k4, scale=scale),
-                                  args.reps)}))
+        "card": smi, "reps": args.reps, "dtype": args.dtype,
+        "shape": dict(t=t, b=b, humans=nh, objects=no, h=h),
+        **{name: device_ms_by_kernel(run, args.reps) for name, run in runs.items()}}))
 
 
 if __name__ == "__main__":

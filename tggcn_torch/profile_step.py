@@ -4,10 +4,14 @@ device time by kernel.
 
     python -m tggcn_torch.profile_step [--steps N] [--requests N] [--seed N]
                                        [--dtype {float32,bfloat16}] [--stage {1,2}]
+                                       [--variant {dist,v1,v4,mp}]
 
 Builds the stage-1 MPHOI model (``tggcn_torch.models.stage1``), or with
 ``--stage 2`` the stage-2 one (``stage2``: its batch, loss bundle and
-Gumbel noise for humans and objects), at the full width on one CUDA card,
+Gumbel noise for humans and objects), or with ``--variant`` the stage-1
+model in one of ``stage1.SERVE_VARIANTS`` (its segment scan through K5, its
+gradients from the recompute of ``models/segment_fast.py``; 'dist' with
+distance tensors in the batch and the requests), at the full width on one CUDA card,
 in the compute dtype ``--dtype`` (float32 by default; ``bench.py`` trains
 in bfloat16), with random weights and a seeded batch resident on the card,
 as chip_smoke.py's train phases do. Runs 2 warm-up train steps
@@ -17,9 +21,11 @@ request and ``--requests`` timed requests of the same shape (host->device
 copy included). Prints one JSON object: the card (name and power limit from
 nvidia-smi), the train step's and the request's wall ms (median and
 quartiles), the train step's device-busy ms and idle share, its device ms
-by group (K1-K4 by their kernel names, cuBLAS's products, Adam's
+by group (K1-K6 by their kernel names, cuBLAS's products, Adam's
 multi-tensor kernels, the rest as "other"), its largest kernels and the
-largest of "other".
+largest of "other"; with ``--variant``, also the recompute backward's wall
+ms a step (its profiler range) and the device busy ms of the kernels that
+start inside that range.
 
 It reads only entry points that earlier commits of the package also have
 (in float32, stage 1), so a checkout of one can be timed the same way: from that
@@ -41,6 +47,7 @@ from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data
 from tggcn_torch.models import stage1
 from tggcn_torch.models.registry import select_model
 from tggcn_torch.nn.distributions import gumbel_noise
+from tggcn_torch.ops import segment_scan
 from tggcn_torch.profile_forward import _union_us
 from tggcn_torch.train.loop import make_train_step, trainable_parameters
 from tggcn_torch.train.losses import select_loss
@@ -49,7 +56,7 @@ PROFILED_STEPS = 3
 # Kernel-name fragments of the train step's kernels (both designs' names),
 # then cuBLAS's products and the optimizer's multi-tensor kernels.
 GROUPS = {"gru_step_kernel": "K1", "gru_bwd": "K2", "proj_kernel": "K3", "mix_kernel": "K3",
-          "cell_kernel": "K3", "segb_": "K4", "du_sum": "K4", "gemm": "cuBLAS",
+          "cell_kernel": "K3", "segb_": "K4", "du_sum": "K4", "geo_gcn": "K6", "gemm": "cuBLAS",
           "nvjet": "cuBLAS", "xmma": "cuBLAS", "multi_tensor_apply": "Adam"}
 
 
@@ -81,7 +88,11 @@ def main(argv=None):
                         help="the model's compute dtype")
     parser.add_argument("--stage", type=int, choices=(1, 2), default=1,
                         help="the stage of the two-stage protocol")
+    parser.add_argument("--variant", choices=tuple(stage1.SERVE_VARIANTS), default=None,
+                        help="a stage-1 variant whose segment scan runs through K5")
     args = parser.parse_args(argv)
+    if args.variant and args.stage != 1:
+        raise SystemExit("profile_step: --variant is a stage-1 variant")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -93,12 +104,17 @@ def main(argv=None):
     kwargs = stage.MODEL_KWARGS
     if args.dtype != "float32":
         kwargs = dict(kwargs, compute_dtype=args.dtype)
+    feeder_kwargs, variant = stage.FEEDER_KWARGS, {}
+    if args.variant:
+        kwargs = dict(kwargs, **stage1.SERVE_VARIANTS[args.variant])
+        feeder_kwargs, variant = stage1.feeder_kwargs(args.variant), dict(variant=args.variant)
     model = select_model("2G-GCN", device=dev, **kwargs)
     trainable = {"model": model.init(torch.Generator().manual_seed(0))}
     criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage.TRAIN["misc"])
-    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage.FEEDER_KWARGS)
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **feeder_kwargs)
     fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
-    data, targets = fetch(stage.make_batch(np.random.default_rng(args.seed), b, t, nh, no))
+    data, targets = fetch(stage.make_batch(np.random.default_rng(args.seed), b, t, nh, no,
+                                           **variant))
     data = [torch.as_tensor(x, device=dev) for x in data]
     targets = [torch.as_tensor(y, device=dev) for y in targets]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -127,10 +143,21 @@ def main(argv=None):
         per_name[e.name] += us
         per_group[group_of(e.name)] += us
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    if args.variant:                 # K5 runs K3's phases, under K3's kernel names
+        per_group["K5"] = per_group.pop("K3", 0.0)
+    # (An older checkout has no recompute range: getattr keeps it timeable.)
+    recompute = [e.time_range for e in prof.events()
+                 if e.name == getattr(segment_scan, "RECOMPUTE_RANGE", None)
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+    inside = [(e.time_range.start, e.time_range.end) for e in kernels
+              if any(r.start <= e.time_range.start <= r.end for r in recompute)]
 
     params = trainable["model"]
     rng = np.random.default_rng(args.seed + 1)
     requests = [stage.make_request(rng, b, t, nh, no) for _ in range(args.requests + 1)]
+    if args.variant == "dist":
+        for request in requests:
+            request.update(stage1.make_distances(rng, b, t, nh, no))
     with torch.no_grad():
         model.apply(params, **requests[0])
         torch.cuda.synchronize()
@@ -153,13 +180,16 @@ def main(argv=None):
     top = largest(per_name, 10)
     top_other = largest([k for k in per_name if group_of(k) == "other"], 8)
     print(json.dumps({
-        "card": smi, "stage": args.stage, "dtype": args.dtype, "train_step_ms": spread(step_ms),
+        "card": smi, "stage": args.stage, "dtype": args.dtype, "variant": args.variant,
+        "train_step_ms": spread(step_ms),
         "request_ms": spread(request_ms),
         "train_step_peak_gib": peak_gib,
         "profiled_steps": PROFILED_STEPS, "profiled_wall_ms_per_step": wall / PROFILED_STEPS,
         "device_busy_ms_per_step": busy_ms / PROFILED_STEPS,
         "device_idle_share": 1.0 - busy_ms / wall,
         "kernel_launches_per_step": len(kernels) / PROFILED_STEPS,
+        "recompute_backward_wall_ms_per_step": per_step(sum(r.end - r.start for r in recompute)),
+        "recompute_backward_busy_ms_per_step": per_step(_union_us(inside)),
         "groups_ms_per_step": {k: per_step(v) for k, v in
                                sorted(per_group.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": {k: per_step(v) for k, v in top},
