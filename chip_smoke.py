@@ -38,9 +38,13 @@ exit and the phase's name if the phase hangs:
            the segment-scan kernel in its other modes (segment_scan_v1,
            _v4, _ext) against its plain version on K3's inputs and random
            attention weights (v1, v4) or the inverse-distance weights of
-           seeded distances with exact zeros (ext)
+           seeded distances with exact zeros (ext); its device ms by kernel
+           name and each phase's blocks and blocks an SM
+           (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
   k6       the fused GeoGCN kernel (geo_gcn_fused) against its plain
-           version over N = B * T = 1336 frames of V = 26 nodes
+           version over N = B * T = 1336 frames of V = 26 nodes, and both
+           against the plain version in float64; its frames a block, grid
+           and blocks an SM
   k1_bf16, k2_bf16, k3_bf16, k4_bf16
            the bfloat16 variants of K1-K4 (the same wrappers, on bfloat16
            inputs) against their plain bfloat16 versions at the same
@@ -776,8 +780,14 @@ def run_k5(mode, torch, dev, shape, dtype=None):
         err = check_kernel(wrapper.__name__, got, want)
     ms = cuda_ms(torch, lambda: wrapper(**args, **extra), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: ops.segment_scan_att_plain(mode, **args, **extra), 2)
-    if bf16:
-        print_split(f"k5_{mode}_bf16", device_ms_by_kernel(lambda: wrapper(**args, **extra), 1))
+    tag = f"k5_{mode}{'_bf16' if bf16 else ''}"
+    print_split(tag, device_ms_by_kernel(lambda: wrapper(**args, **extra), 1))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"{tag} phases: " + ", ".join(
+        f"{phase} {blocks} blocks, {per_sm} an SM ({math.ceil(blocks / (per_sm * sms))} wave(s) "
+        f"on {sms} SMs), {smem} B dynamic shared memory"
+        for phase, (blocks, per_sm, smem) in ops.scan_occupancy(
+            mode, args["gi_h"].dtype, b, nh, no, h).items()), flush=True)
     # In bfloat16 the products (projections, cells and v4's recv @ W) are
     # bfloat16 x bfloat16; v4's second score product takes a float32 state
     # and runs, with the other scores and the mixing, at the FMA rate.
@@ -790,7 +800,7 @@ def run_k5(mode, torch, dev, shape, dtype=None):
 
 
 def run_k6(torch, dev, shape):
-    from tggcn_torch.ops.geo_gcn import geo_gcn_fused, geo_gcn_plain
+    from tggcn_torch.ops.geo_gcn import geo_gcn_config, geo_gcn_fused, geo_gcn_plain
 
     n, v = shape
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -799,7 +809,17 @@ def run_k6(torch, dev, shape):
                for sh in shapes]
     x = torch.randn((n, v, 4), generator=gen, device=dev)
     got = geo_gcn_fused(x, *weights)
-    err = check_kernel("geo_gcn_fused", [got], [geo_gcn_plain(x, *weights)])
+    plain = geo_gcn_plain(x, *weights)
+    err = check_kernel("geo_gcn_fused", [got], [plain])
+    # A control with float64 sums: how far the kernel and the float32 plain
+    # version (cuBLAS) each lie from it.
+    exact = geo_gcn_plain(x.double(), *(w.double() for w in weights))
+    config = geo_gcn_config(n)
+    print(f"k6: kernel vs float64 max abs err {max_err(got, exact):.3e}, plain float32 vs "
+          f"float64 {max_err(plain, exact):.3e} (limit {KERNEL_ATOL} against the plain "
+          f"version); {config['frames_per_block']} frames a block at a time, grid "
+          f"{config['blocks']} blocks of {config['threads']} threads, {config['blocks_per_sm']} "
+          f"an SM, {config['smem_bytes']} B dynamic shared memory", flush=True)
     ms = cuda_ms(torch, lambda: geo_gcn_fused(x, *weights), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: geo_gcn_plain(x, *weights), 5)
     flops = 2.0 * n * v * (4 * 64 + 64 * 64 + 2 * 64 * 128 + v * 128 + v * 64 + 64 * 128)

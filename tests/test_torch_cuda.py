@@ -37,6 +37,11 @@ once, the gradients held over the whole model as chip_smoke.py's
 train_modes phases hold them (float32 within 1e-4 of the model's largest
 gradient; bfloat16 the norm of the difference within 1.15e-2 of the
 gradient's), and two identical steps bitwise equal.
+
+K5's scores made once a step ('v1' projections, 'v4' 32-column partial
+scores) at the hidden sizes around its 32-column blocks, and K6 at frame
+counts around its 12 frames a block and V up to its 32 padded rows, each
+against its plain version at the limits above.
 """
 
 import json
@@ -295,6 +300,58 @@ def test_segment_scan_mode_kernel(cuda, mode, nh, no, h):
     assert len(got) == len(want) == 3
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["v1", "v4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("nh,h", [(2, 24), (1, 40), (2, 64), (1, 64)])
+def test_segment_scan_mode_scores_at_edge_shapes(cuda, mode, dtype, nh, h):
+    """K5's scores made once a step (v1's projections, v4's 32-column
+    partial scores: one ragged block at h 24, a ragged last block at 40)
+    against the plain version, with a fully masked object row; float32
+    within ATOL, bfloat16 within one bfloat16 ulp of each output's largest
+    value; the scratch shape the wrapper allocates, and v4's projection
+    phase in one wave."""
+    from tggcn_torch.ops.segment_scan import scan_occupancy, score_scratch_shape
+
+    args = _segment_args(cuda, nh, 3, h)
+    extra = _mode_extra(cuda, mode, args, np.random.default_rng(nh + h))
+    args = {k: v.to(dtype) for k, v in args.items()}
+    extra = {k: v.to(dtype) for k, v in extra.items()}
+    got = MODE_WRAPPERS[mode](**args, **extra)
+    want = segment_scan_att_plain(mode, **args, **extra)
+    for name, g, w_ in zip(("h_h", "h_o", "att_oh"), got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w_, rtol=0, atol=ATOL)
+        else:
+            _bf16_ulp_share(g, w_, name)
+    e = nh + 3
+    assert score_scratch_shape(mode, args["gi_h"].shape[2], nh, 3, h) == (
+        (2, args["gi_h"].shape[2], e, 4) if mode == "v1" else
+        (2, args["gi_h"].shape[2], e, e, -(-h // 32)))
+    blocks, per_sm, _ = scan_occupancy(mode, dtype, 8, 2, 4, 512)["proj"]
+    assert blocks <= per_sm * torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("v", [1, 5, 26, 32])
+@pytest.mark.parametrize("n", [1, 11, 13, 37])
+def test_geo_gcn_kernel_frames(cuda, n, v):
+    """K6 with N frames around its 12 frames a block (and past a block's
+    worth) and V up to its 32 padded rows, against the plain version; the
+    launch's shape."""
+    from tggcn_torch.ops.geo_gcn import FRAMES_PER_BLOCK, geo_gcn_config
+
+    rng = np.random.default_rng(10 * n + v)
+    shapes = [(4, 64), (64,), (64, 64), (64,), (64, 128), (128,), (64, 128), (128,), (64, 128)]
+    weights = [torch.tensor(rng.uniform(-1, 1, size=s) / math.sqrt(s[0]), dtype=torch.float32,
+                            device=cuda) for s in shapes]
+    x = torch.tensor(rng.normal(size=(n, v, 4)), dtype=torch.float32, device=cuda)
+    torch.testing.assert_close(geo_gcn_fused(x, *weights), geo_gcn_plain(x, *weights), rtol=0,
+                               atol=ATOL)
+    config = geo_gcn_config(n)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert config["frames_per_block"] == FRAMES_PER_BLOCK
+    assert config["blocks"] == min(n, sms) and config["blocks_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("v", [19, 26, 30])

@@ -143,12 +143,12 @@ def test_kernels_wait_on_no_other_block(path):
     """No kernel source waits for another block (no cooperative launch, grid
     sync or programmatic dependent launch: phase order comes from stream
     order), and the sources of the train step's kernels (the frame GRU's
-    and the segment scan's) add with no atomics, so two identical train
-    steps give the same gradient bits."""
+    and the segment scan's) and of the GeoGCN kernel add with no atomics,
+    so two identical train steps give the same gradient bits."""
     text = (_build.CSRC_DIR / path).read_text()
     for word in INTER_BLOCK_WAITS:
         assert word not in text, f"{path} uses {word}"
-    if path.startswith(("segment_scan", "gru_sequence")):
+    if path.startswith(("segment_scan", "gru_sequence", "geo_gcn")):
         assert "atomic" not in text.replace("no atomics", ""), f"{path} uses an atomic"
         for ptx in ("atom.", "red.global", "red.shared"):
             assert ptx not in text, f"{path} uses the PTX atomic {ptx}"

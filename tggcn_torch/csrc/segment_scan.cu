@@ -38,14 +38,44 @@
 //
 // K5, the same scan in the other attention modes of _make_kernel, is the
 // same three phases with the mode a template parameter of A and M (the
-// 'dot' instantiation is K3 as above):
-//   v1   M scores relu(recv . wa[e][:h] + send . wa[e][h:] + b_att[e]): four
-//        dot products per entity over the carried states in shared memory.
-//   v4   A also computes tmp_e = recv @ W_e for the two score edges of each
-//        receiver (96 more rows of depth h at the MPHOI shape); M scores
-//        relu(tmp_e . send + b_att[e]).
+// 'dot' instantiation is K3 as above). Each step's scores are computed
+// once per (batch, direction), in A, and M only reads them, takes the
+// masked softmax and mixes, as in 'ext':
+//   v1   four more blocks in A (one per direction and source group, after
+//        the 128 message blocks at the MPHOI shape: 132, one wave on the
+//        H100's 132 SMs) take the four projections of each entity's state
+//        against w_att, proj (2, B, E, 4): n as the receiver of each
+//        sender group (the first half of w_att[e]) and as the sender to
+//        each receiver group (the second half); a warp a projection, the
+//        dot product strided over the lanes. M scores relu(proj[n][g_m] +
+//        proj[m][2 + g_n] + b_att[e]).
+//   v4   A runs its own kernel, proj_v4_kernel: each block owns 32 columns
+//        of BOTH edges of one source group (four tiles of 16 columns, one
+//        load of the rows for two weights), either the messages (hh, ho or
+//        oh, oo) or tmp_e = recv @ W_e for the group's two score edges as
+//        receiver (hh, oh or ho, oo). A tmp block never writes tmp: its
+//        epilogue multiplies its 32 columns by the senders' states into
+//        partial scores, part (2, B, E, E, h / 32), and M adds the h / 32
+//        partials of a score in column order and scores relu(sum +
+//        b_att[e]). 2 kinds x 2 groups x 16 column pairs x 2 directions =
+//        128 blocks at the MPHOI shape, one wave (one edge a block would
+//        be 256 blocks of a 150 KB ring each: two waves at one block an SM).
 //   ext  M reads step t of the weights computed outside (mean pooling or
 //        inverse distances), already softmaxed, and scores nothing.
+// M stages the scores A made in shared memory (v1 E * 4, v4 E * E * h / 32
+// floats) and takes the masked softmax one warp a receiver row, its lanes
+// the senders, in masked_softmax_row's order (one thread a row waits on a
+// chain of global loads and exponentials: on the H100, 1.5-1.75 ms of the
+// call that way, 0.66-0.80 ms this way, against ext's 0.50 with no
+// softmax; PERF.md).
+// What bounds A is the bytes a block copies into shared memory (PERF.md,
+// the K1-K4 redesign): a v4 block copies two weights' tiles and one set of
+// rows, 1.44 times a K3 block's bytes a chunk, in one wave instead of two;
+// its ring (4 stages of 53,760 bytes, 215,040 with the epilogue's buffers)
+// allows one block an SM, as K3's does
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: 1; -Xptxas -v: 128
+// registers, no spills). On the H100 v4's A phase takes 1.65 ms a bf16 call
+// (two waves of one edge a block took 1.84), 1.6 times K3's.
 // w_att and b_att are in score order, by receiver then sender: hh, oh, ho,
 // oo (segment_scan_pallas.py:729), unlike w_from's hh, ho, oh, oo. K5 is
 // forward only: it runs with keep = 0.
@@ -76,11 +106,12 @@
 // scores and mixing on the FMA units; the weights are half the bytes.
 // K5 in bfloat16 rounds each mode's scores where the TPU kernel does
 // (scores_v1 :123, scores_v4 :134, :147-149): v1 takes the float32 states
-// rounded to bfloat16 against the bfloat16 w_att; v4's A phase takes the
-// bfloat16 states (the outputs of the step before) against W_att, and M
-// rounds that product's float32 sum to bfloat16 and multiplies it by the
-// float32 sender state in float32 (JAX promotes the bfloat16 x float32
-// product); ext widens the bfloat16 weights computed outside.
+// rounded to bfloat16 (the bfloat16 outputs of the step before, or h0)
+// against the bfloat16 w_att; v4's A phase takes the bfloat16 states
+// against W_att, rounds each element of that product's float32 sum to
+// bfloat16 and multiplies it by the float32 sender state (state_h,
+// state_o) in float32 (JAX promotes the bfloat16 x float32 product); ext
+// widens the bfloat16 weights computed outside.
 
 #include "tc_gemm.cuh"
 
@@ -128,31 +159,108 @@ __device__ __forceinline__ size_t msg_at(Step s, int T, int keep, int rows, int 
   return (slot_of(s, T, keep) * rows + row) * 2 * H + (size_t)(e & 1) * H;
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The float32 states this step reads: with bfloat16 IO the carried states
+// (state, (2, rows, H)), else the IO-type states themselves.
+template <class T>
+__device__ __forceinline__ const float* f32_state(const T* h0, const T* out, const float* state,
+                                                  Step s, int step, int T_, int rows, int H) {
+  if constexpr (IsBf16<T>::value)
+    return state + (size_t)s.d * rows * H;
+  else
+    return prev_state(h0, out, s, step, T_, rows, H);
+}
+
+// Four values of x as float32 (16 or 8 aligned bytes).
+__device__ __forceinline__ float4 load4(const float* x) {
+  return *reinterpret_cast<const float4*>(x);
+}
+__device__ __forceinline__ float4 load4(const bf16* x) {
+  const uint2 u = *reinterpret_cast<const uint2*>(x);
+  const bf16* v = reinterpret_cast<const bf16*>(&u);
+  return make_float4(to_f32(v[0]), to_f32(v[1]), to_f32(v[2]), to_f32(v[3]));
+}
+
+// v1's projections of source group g (0 humans, 1 objects) for every row
+// of the group, into proj (2, B, E, 4): proj[n][j] for j < 2 is n as the
+// receiver of senders of group j (the first half of w_att[2 g + j]), for j
+// >= 2 n as the sender to receivers of group j - 2 (the second half of
+// w_att[2 (j - 2) + g]). x holds the states in the IO type: the bfloat16
+// outputs are the float32 states rounded as the TPU kernel rounds them. A
+// warp a row: each lane takes four neighbouring values of every 128, all
+// its loads issued before the sums, then four warp sums.
+template <class T>
+__device__ void v1_projections(const T* x, const T* w_att, float* proj, Step s, int g, int B,
+                               int NH, int NO, int H) {
+  const int ng = g == 0 ? NH : NO, E = NH + NO;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const T* w[4] = {w_att + (size_t)(2 * g) * 2 * H, w_att + (size_t)(2 * g + 1) * 2 * H,
+                   w_att + (size_t)g * 2 * H + H, w_att + (size_t)(2 + g) * 2 * H + H};
+  for (int r = warp; r < B * ng; r += kWarps) {
+    float dot[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 4 * lane; k < H; k += 128) {
+      const float4 xv = load4(x + (size_t)r * H + k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 wv = load4(w[j] + k);
+        dot[j] = fmaf(xv.x, wv.x, dot[j]);
+        dot[j] = fmaf(xv.y, wv.y, dot[j]);
+        dot[j] = fmaf(xv.z, wv.z, dot[j]);
+        dot[j] = fmaf(xv.w, wv.w, dot[j]);
+      }
+    }
+    const int b = r / ng, n = (g == 0 ? 0 : NH) + r % ng;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = warp_sum(dot[j]);
+      if (lane == 0) proj[(((size_t)s.d * B + b) * E + n) * 4 + j] = v;
+    }
+  }
+}
+
 // Blocks own 32 columns of one (direction, edge) and up to 32 rows: edges
-// 0-3 are the messages (hh, ho, oh, oo); in v4, edges 4-7 are tmp = recv @
-// W_att of the score edges hh, oh (receivers humans, into tmp_h) and ho, oo
-// (receivers objects, into tmp_o), laid out (2, rows, sender group, h).
+// 0-3 are the messages hh, ho (from the humans) and oh, oo (from the
+// objects). In v1 the grid is flat in x: blocks below col_pairs * 4 *
+// row_tiles are those (x = column pair + col_pairs * y), and the two after
+// them (per direction) take v1_projections of the humans and the objects.
 template <int Mode, class T>
 __global__ void __launch_bounds__(kThreads)
 proj_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
             const T* __restrict__ out_h, const T* __restrict__ out_o,
             const T* __restrict__ w_from, const T* __restrict__ b_from,
             float* __restrict__ m_h, float* __restrict__ m_o,
-            const T* __restrict__ w_att, float* __restrict__ tmp_h,
-            float* __restrict__ tmp_o, int keep, int T_, int B, int NH, int NO,
-            int H, int row_tiles, int step) {
+            const T* __restrict__ w_att, float* __restrict__ proj, int keep, int T_, int B,
+            int NH, int NO, int H, int row_tiles, int step) {
   const Step s = step_of(step, T_);
-  const int e = blockIdx.y / row_tiles;
-  const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
-  const int col0 = blockIdx.x * 2 * kMTile;
-  const int group = (e < 4 ? e : e - 4) < 2 ? 0 : 1;          // the source: humans, objects
+  int bx = blockIdx.x, by = blockIdx.y;
+  if constexpr (Mode == kV1) {
+    const int col_pairs = (H + 2 * kMTile - 1) / (2 * kMTile);
+    const int regular = col_pairs * 4 * row_tiles;
+    if (bx >= regular) {
+      const int g = bx - regular;
+      const T* x = g == 0 ? prev_state(h0_h, out_h, s, step, T_, B * NH, H)
+                          : prev_state(h0_o, out_o, s, step, T_, B * NO, H);
+      v1_projections<T>(x, w_att, proj, s, g, B, NH, NO, H);
+      return;
+    }
+    by = bx / col_pairs;
+    bx %= col_pairs;
+  }
+  const int e = by / row_tiles;
+  const int row0 = (by % row_tiles) * kMaxRows;
+  const int col0 = bx * 2 * kMTile;
+  const int group = e < 2 ? 0 : 1;          // the source: humans, objects
   const int all_rows = B * (group == 0 ? NH : NO);
   if (row0 >= all_rows) return;
   const int rows = min(kMaxRows, all_rows - row0);
   const T* x = (group == 0 ? prev_state(h0_h, out_h, s, step, T_, all_rows, H)
                            : prev_state(h0_o, out_o, s, step, T_, all_rows, H))
                + (size_t)row0 * H;
-  const T* w = e < 4 ? w_from + (size_t)e * H * H : w_att + (size_t)(e - 4) * H * H;
+  const T* w = w_from + (size_t)e * H * H;
   extern __shared__ __align__(16) unsigned char smem[];
   float acc[2][kNTiles][4] = {};
   const OperandT<T, T> op = {x, H, w, H, H};
@@ -166,12 +274,100 @@ proj_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
     const int row = row0 + r, col = col0 + t * kMTile + c;
     if (r >= rows || col >= H) continue;
     const float v = reduce<2>(smem, t, c, r);
-    if (e < 4) {
-      (e < 2 ? m_h : m_o)[msg_at(s, T_, keep, all_rows, row, e, H) + col] =
+    (e < 2 ? m_h : m_o)[msg_at(s, T_, keep, all_rows, row, e, H) + col] =
+        fmaxf(v + to_f32(b_from[(size_t)e * H + col]), 0.f);
+  }
+}
+
+// v4's tmp values of a block, rounded to T as the TPU kernel's astype(wdt)
+// rounds them ([sender group][row][32 columns]), and the float32 states of
+// the senders of its rows' batches over its 32 columns ([batch][sender][32
+// columns]), after the partial sums in shared memory; rows padded to 33
+// floats, so the threads of a warp, each on its own row, read other banks.
+constexpr int kPad = 2 * kMTile + 1;
+constexpr size_t kTmpBytes = 2 * kMaxRows * kPad * sizeof(float);
+constexpr size_t kSendBytes = (kMaxRows + 1) * kMaxEntities * kPad * sizeof(float);
+
+// v4's projection phase. Block (column pair, y, direction), y = (kind * 2 +
+// g) * row_tiles + row tile: 32 columns of both edges 2 g and 2 g + 1 of
+// source group g (four tiles of 16 columns of w_from, kind 0, or of w_att,
+// kind 1) and up to 32 rows of the group. Kind 0 writes the messages (hh,
+// ho or oh, oo) as proj_kernel; kind 1 holds tmp_e = recv @ W_att[e] of the
+// score edges e = 2 g + g_m (hh, oh for the humans as receivers, ho, oo for
+// the objects) and writes, for each of its rows n and every sender m of the
+// row's batch, the partial score sum over its columns c of q(tmp_e[n][c])
+// * state[m][c] (state float32, q the rounding to T) into part[d][b][n][m]
+// [column pair], part (2, B, E, E, col_pairs).
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+proj_v4_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
+               const T* __restrict__ out_h, const T* __restrict__ out_o,
+               const float* __restrict__ state_h, const float* __restrict__ state_o,
+               const T* __restrict__ w_from, const T* __restrict__ b_from,
+               float* __restrict__ m_h, float* __restrict__ m_o, const T* __restrict__ w_att,
+               float* __restrict__ part, int T_, int B, int NH, int NO, int H, int row_tiles,
+               int step) {
+  const Step s = step_of(step, T_);
+  const int kind = blockIdx.y / (2 * row_tiles);
+  const int g = (blockIdx.y / row_tiles) % 2;
+  const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int col0 = blockIdx.x * 2 * kMTile;
+  const int ng = g == 0 ? NH : NO;
+  const int all_rows = B * ng;
+  if (row0 >= all_rows) return;
+  const int rows = min(kMaxRows, all_rows - row0);
+  const T* x = (g == 0 ? prev_state(h0_h, out_h, s, step, T_, all_rows, H)
+                       : prev_state(h0_o, out_o, s, step, T_, all_rows, H))
+               + (size_t)row0 * H;
+  const int e0 = 2 * g * H * H, e1 = e0 + H * H;            // edges 2 g, 2 g + 1
+  const int v0 = max(0, min(kMTile, H - col0)), v1 = max(0, min(kMTile, H - col0 - kMTile));
+  const Tiles tiles = {{e0 + col0, e0 + col0 + kMTile, e1 + col0, e1 + col0 + kMTile},
+                       {v0, v1, v0, v1}};
+  extern __shared__ __align__(16) unsigned char smem[];
+  float acc[4][kNTiles][4] = {};
+  const OperandT<T, T> op = {x, H, kind == 0 ? w_from : w_att, H, H};
+  accumulate<false, 4, 4, 1, TileSlots>(op, op, op, tiles, rows, smem, acc);
+  store_partials<4>(smem, acc);
+  __syncthreads();
+  if (kind == 0) {
+    for (int p = threadIdx.x; p < 4 * kMTile * kMaxRows; p += kThreads) {
+      const int t = p / (kMTile * kMaxRows), c = p % kMTile, r = (p / kMTile) % kMaxRows;
+      const int e = 2 * g + t / 2, row = row0 + r, col = col0 + (t % 2) * kMTile + c;
+      if (r >= rows || col >= H) continue;
+      const float v = reduce<4>(smem, t, c, r);
+      (g == 0 ? m_h : m_o)[msg_at(s, T_, 0, all_rows, row, e, H) + col] =
           fmaxf(v + to_f32(b_from[(size_t)e * H + col]), 0.f);
-    } else {
-      (group == 0 ? tmp_h : tmp_o)[(((size_t)s.d * all_rows + row) * 2 + (e & 1)) * H + col] = v;
     }
+    return;
+  }
+  float* tv = reinterpret_cast<float*>(smem + sizeof(Partials<4>));
+  float* ss = tv + 2 * kMaxRows * kPad;
+  for (int p = threadIdx.x; p < 4 * kMTile * kMaxRows; p += kThreads) {
+    const int t = p / (kMTile * kMaxRows), c = p % kMTile, r = (p / kMTile) % kMaxRows;
+    tv[((t / 2) * kMaxRows + r) * kPad + (t % 2) * kMTile + c] =
+        round_to<T>(reduce<4>(smem, t, c, r));
+  }
+  const int E = NH + NO, width = min(2 * kMTile, H - col0);
+  const int b0 = row0 / ng, nb = (row0 + rows - 1) / ng - b0 + 1;
+  const float* send_h = f32_state(h0_h, out_h, state_h, s, step, T_, B * NH, H) + col0;
+  const float* send_o = f32_state(h0_o, out_o, state_o, s, step, T_, B * NO, H) + col0;
+  for (int i = threadIdx.x; i < nb * E * 8; i += kThreads) {
+    const int sr = i / 8, c = (i % 8) * 4, b = b0 + sr / E, m = sr % E;
+    const float* src = m < NH ? send_h + ((size_t)b * NH + m) * H
+                              : send_o + ((size_t)b * NO + m - NH) * H;
+    const float4 v = c < width ? load4(src + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    float* dst = ss + sr * kPad + c;
+    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < rows * E; p += kThreads) {
+    const int r = p / E, m = p % E, gm = m < NH ? 0 : 1;
+    const int row = row0 + r, b = row / ng, n = (g == 0 ? 0 : NH) + row % ng;
+    const float* send = ss + ((b - b0) * E + m) * kPad;
+    const float* tr = tv + (gm * kMaxRows + r) * kPad;
+    float v = 0.f;
+    for (int c = 0; c < width; ++c) v = fmaf(tr[c], send[c], v);
+    part[((((size_t)s.d * B + b) * E + n) * E + m) * gridDim.x + blockIdx.x] = v;
   }
 }
 
@@ -192,25 +388,21 @@ __device__ void masked_softmax_row(float* a, int first, int n, Mask mask) {
   for (int m = 0; m < n; ++m) a[first + m] /= den;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Per (batch, column slice, direction): the scores of the mode, the masked
-// softmax (ext: the weights as given), att_oh (and, with keep, the whole
+// Per (batch, column slice, direction): the scores of the mode (dot: from
+// the carried states; v1, v4: from what A wrote, proj or part; ext: the
+// weights as given), the masked softmax, att_oh (and, with keep, the whole
 // E x E attention) and the mixed messages (in T).
-// Dynamic shared memory: the (NH + NO) carried states of the block's batch,
-// float32 (with bfloat16 IO, from state_h and state_o).
+// Dynamic shared memory: dot, the (NH + NO) carried states of the block's
+// batch, float32 (with bfloat16 IO, from state_h and state_o); v1 and v4,
+// the batch's scores from A (E * 4 or E * E * h / 32 floats).
 template <int Mode, class T>
 __global__ void __launch_bounds__(kThreads)
 mix_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
            const T* __restrict__ out_h, const T* __restrict__ out_o,
            const float* __restrict__ state_h, const float* __restrict__ state_o,
            const T* __restrict__ obj_mask, const float* __restrict__ m_h,
-           const float* __restrict__ m_o, const T* __restrict__ w_att,
-           const T* __restrict__ b_att, const float* __restrict__ tmp_h,
-           const float* __restrict__ tmp_o, const T* __restrict__ att_ext,
+           const float* __restrict__ m_o, const T* __restrict__ b_att,
+           const float* __restrict__ scores_in, const T* __restrict__ att_ext,
            T* __restrict__ mix_h, T* __restrict__ mix_o,
            T* __restrict__ att, float* __restrict__ atts, int keep, int T_, int B,
            int NH, int NO, int H, float scale, int step) {
@@ -231,8 +423,9 @@ mix_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
   extern __shared__ float4 states4[];
   float* states = reinterpret_cast<float*>(states4);       // (E, H)
   __shared__ float a[kMaxEntities][kMaxEntities];
+  __shared__ float om_s[kMaxEntities];      // v1, v4: the batch's object mask
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  if constexpr (Mode != kExt) {
+  if constexpr (Mode == kDot) {
     for (int i = tid; i < E * H / 4; i += kThreads) {
       const int n = (4 * i) / H, k = (4 * i) % H;
       const float* src = n < NH ? hh + (size_t)n * H : ho + (size_t)(n - NH) * H;
@@ -248,44 +441,55 @@ mix_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
       for (int off = 16; off > 0; off /= 2) dot += __shfl_down_sync(0xffffffffu, dot, off);
       if (lane == 0) a[n][m] = dot * scale;
     }
-  } else if constexpr (Mode == kV1) {
-    // proj[n][g]: n as the receiver of senders of group g (0 humans, 1
-    // objects), the first half of wa; proj[n][2 + g]: n as the sender to
-    // receivers of group g, the second half. Score edge = 2 g_recv + g_send.
-    __shared__ float proj[kMaxEntities][4];
-    for (int p = warp; p < 4 * E; p += kWarps) {
-      const int n = p / 4, j = p % 4, gn = n < NH ? 0 : 1;
-      const T* w = j < 2 ? w_att + (size_t)(2 * gn + j) * 2 * H
-                         : w_att + (size_t)(2 * (j - 2) + gn) * 2 * H + H;
-      float dot = 0.f;
-      for (int k = lane; k < H; k += 32)
-        dot = fmaf(round_to<T>(states[n * H + k]), to_f32(w[k]), dot);
-      dot = warp_sum(dot);
-      if (lane == 0) proj[n][j] = dot;
-    }
-    __syncthreads();
-    for (int i = tid; i < E * E; i += kThreads) {
-      const int n = i / E, m = i % E, gn = n < NH ? 0 : 1, gm = m < NH ? 0 : 1;
-      a[n][m] = fmaxf(proj[n][gm] + proj[m][2 + gn] + to_f32(b_att[2 * gn + gm]), 0.f);
-    }
-  } else if constexpr (Mode == kV4) {
-    for (int p = warp; p < E * E; p += kWarps) {
-      const int n = p / E, m = p % E, gn = n < NH ? 0 : 1, gm = m < NH ? 0 : 1;
-      const float* tr = gn == 0
-          ? tmp_h + (((size_t)s.d * B * NH + b * NH + n) * 2 + gm) * H
-          : tmp_o + (((size_t)s.d * B * NO + b * NO + n - NH) * 2 + gm) * H;
-      float dot = 0.f;
-      for (int k = lane; k < H; k += 32) dot = fmaf(round_to<T>(tr[k]), states[m * H + k], dot);
-      dot = warp_sum(dot);
-      if (lane == 0) a[n][m] = fmaxf(dot + to_f32(b_att[2 * gn + gm]), 0.f);
-    }
-  } else {
+  } else if constexpr (Mode == kExt) {
     for (int i = tid; i < E * E; i += kThreads)
       a[i / E][i % E] = to_f32(att_ext[(((size_t)s.t * B + b) * E + i / E) * E + i % E]);
+  } else {
+    // v1, v4: the scores A made (proj, or part), staged in shared memory,
+    // then one warp a receiver row n, lane m its sender: the score edge
+    // is 2 g_n + g_m. The masked softmax over each sender group is
+    // masked_softmax_row's arithmetic in its order (the row's maximum,
+    // then the sum of its exponentials in sender order), across the lanes.
+    float* sc = reinterpret_cast<float*>(states4);
+    const int parts = (H + 2 * kMTile - 1) / (2 * kMTile);
+    const int count = Mode == kV1 ? E * 4 : E * E * parts;
+    const float* src = scores_in + ((size_t)s.d * B + b) * count;
+    for (int i = tid; i < count; i += kThreads) sc[i] = src[i];
+    if (tid < NO) om_s[tid] = to_f32(obj_mask[(size_t)b * NO + tid]);
+    __syncthreads();
+    if (warp < E) {
+      const int n = warp, m = lane < E ? lane : 0;
+      const int gn = n < NH ? 0 : 1, gm = m < NH ? 0 : 1;
+      float v;
+      if constexpr (Mode == kV1) {
+        v = fmaxf(sc[n * 4 + gm] + sc[m * 4 + 2 + gn] + to_f32(b_att[2 * gn + gm]), 0.f);
+      } else {
+        v = 0.f;
+        for (int p = 0; p < parts; ++p) v += sc[(n * E + m) * parts + p];
+        v = fmaxf(v + to_f32(b_att[2 * gn + gm]), 0.f);
+      }
+      const float mask = gm == 0 ? (gn == 0 && m == n ? 0.f : 1.f)
+                                 : (gn == 1 && m == n ? 0.f : om_s[m - NH]);
+      const int first = gm == 0 ? 0 : NH, last = gm == 0 ? NH : E;
+      const float x = mask > 0.f ? v : -1e30f;
+      float mx = -1e30f;
+      for (int j = 0; j < E; ++j) {
+        const float xj = __shfl_sync(0xffffffffu, x, j);
+        if (j >= first && j < last) mx = fmaxf(mx, xj);
+      }
+      const float ev = expf(x - mx) * mask;
+      float den = 0.f;
+      for (int j = 0; j < E; ++j) {
+        const float ej = __shfl_sync(0xffffffffu, ev, j);
+        if (j >= first && j < last) den += ej;
+      }
+      den = fmaxf(den, 1e-30f);
+      if (lane < E) a[n][m] = ev / den;
+    }
   }
   __syncthreads();
   const T* om = obj_mask + (size_t)b * NO;
-  if (Mode != kExt && tid < E) {
+  if (Mode == kDot && tid < E) {
     const int n = tid;
     if (n < NH) {
       masked_softmax_row(a[n], 0, NH, [&](int m) { return m == n ? 0.f : 1.f; });
@@ -413,52 +617,114 @@ cell_kernel(const T* __restrict__ gi_h, const T* __restrict__ gi_o,
   }
 }
 
+// The launch shapes of a scan, with the kernels' shared-memory limits set.
+struct Launch {
+  dim3 grid_a, grid_m, grid_b;
+  size_t smem_a, smem_m, smem_b;
+  int row_tiles;
+};
+
+// The A kernel of a mode: proj_v4_kernel in v4, else proj_kernel.
+template <int Mode, class T>
+const void* proj_of() {
+  if constexpr (Mode == kV4)
+    return reinterpret_cast<const void*>(proj_v4_kernel<T>);
+  else
+    return reinterpret_cast<const void*>(proj_kernel<Mode, T>);
+}
+
+template <int Mode, class T>
+cudaError_t configure(int B, int NH, int NO, int H, Launch& L) {
+  const size_t states_bytes = (size_t)(NH + NO) * H * sizeof(float);
+  constexpr size_t v4_epilogue = sizeof(Partials<4>) + kTmpBytes + kSendBytes;
+  constexpr size_t v4_smem = smem_bytes<false, 4, 4, kStages, T, T>() > v4_epilogue
+                                 ? smem_bytes<false, 4, 4, kStages, T, T>()
+                                 : v4_epilogue;
+  L.smem_a = Mode == kV4 ? v4_smem : smem_bytes<false, 2, 2, kStages, T, T>();
+  const int E = NH + NO, col_pairs = (H + 2 * kMTile - 1) / (2 * kMTile);
+  L.smem_m = Mode == kDot ? states_bytes
+             : Mode == kV1 ? (size_t)E * 4 * sizeof(float)
+             : Mode == kV4 ? (size_t)E * E * col_pairs * sizeof(float) : 0;
+  L.smem_b = smem_bytes<false, 3, 4, kStages, T, T>();
+  const int max_rows = B * (NH > NO ? NH : NO);
+  L.row_tiles = (max_rows + kMaxRows - 1) / kMaxRows;
+  const int col_tiles = (H + kMTile - 1) / kMTile;
+  // v1: the message blocks flat in x, then one projection block per group.
+  L.grid_a = Mode == kV1 ? dim3(col_pairs * 4 * L.row_tiles + 2, 1, 2)
+                         : dim3(col_pairs, 4 * L.row_tiles, 2);
+  L.grid_m = dim3(B, (2 * H + kMixColumns - 1) / kMixColumns, 2);
+  L.grid_b = dim3(col_tiles, 2 * L.row_tiles, 2);
+  cudaError_t err = cudaFuncSetAttribute(proj_of<Mode, T>(),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L.smem_a);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cell_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)L.smem_b);
+  return err;
+}
+
 // Runs the whole scan, both directions: per step the launches A, M, B on
 // `stream`, in order. Returns the first CUDA error of a launch, else 0.
 // With bfloat16 IO, state_h and state_o hold the float32 states (h0 at the
-// call).
+// call). scores: v1's proj (2, B, E, 4) or v4's part (2, B, E, E, h / 32).
 template <int Mode, class T>
 int run_scan(const T* gi_h, const T* gi_o, const T* u_h, const T* u_o, const T* w_from,
              const T* b_from, const T* w_msg_h, const T* w_msg_o, const T* w_hh_h,
              const T* w_hh_o, const T* b_hh_h, const T* b_hh_o, const T* obj_mask,
              const T* h0_h, const T* h0_o, const T* w_att, const T* b_att,
              const T* att_ext, T* out_h, T* out_o, T* att, float* m_h, float* m_o,
-             float* tmp_h, float* tmp_o, T* mix_h, T* mix_o, float* gates_h, float* gates_o,
+             float* scores, T* mix_h, T* mix_o, float* gates_h, float* gates_o,
              float* atts, float* state_h, float* state_o, int keep, int T_, int B, int NH,
              int NO, int H, float scale, cudaStream_t stream) {
   const size_t states_bytes = (size_t)(NH + NO) * H * sizeof(float);
   if (NH + NO > kMaxEntities || H % (16 / (int)sizeof(T)) != 0 || states_bytes > 48 * 1024 ||
-      (IsBf16<T>::value && (state_h == nullptr || state_o == nullptr)))
+      (IsBf16<T>::value && (state_h == nullptr || state_o == nullptr)) ||
+      ((Mode == kV1 || Mode == kV4) && scores == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem_a = smem_bytes<false, 2, 2, kStages, T, T>();
-  const size_t smem_b = smem_bytes<false, 3, 4, kStages, T, T>();
-  cudaError_t err = cudaFuncSetAttribute(proj_kernel<Mode, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cell_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_b);
+  Launch L;
+  cudaError_t err = configure<Mode, T>(B, NH, NO, H, L);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int max_rows = B * (NH > NO ? NH : NO);
-  const int row_tiles = (max_rows + kMaxRows - 1) / kMaxRows;
-  const int col_tiles = (H + kMTile - 1) / kMTile;
-  const dim3 grid_a((H + 2 * kMTile - 1) / (2 * kMTile), (Mode == kV4 ? 8 : 4) * row_tiles, 2);
-  const dim3 grid_m(B, (2 * H + kMixColumns - 1) / kMixColumns, 2);
-  const dim3 grid_b(col_tiles, 2 * row_tiles, 2);
   for (int step = 0; step < T_; ++step) {
-    proj_kernel<Mode, T><<<grid_a, kThreads, smem_a, stream>>>(
-        h0_h, h0_o, out_h, out_o, w_from, b_from, m_h, m_o, w_att, tmp_h, tmp_o, keep, T_, B,
-        NH, NO, H, row_tiles, step);
-    mix_kernel<Mode, T><<<grid_m, kThreads, states_bytes, stream>>>(
-        h0_h, h0_o, out_h, out_o, state_h, state_o, obj_mask, m_h, m_o, w_att, b_att, tmp_h,
-        tmp_o, att_ext, mix_h, mix_o, att, atts, keep, T_, B, NH, NO, H, scale, step);
-    cell_kernel<T><<<grid_b, kThreads, smem_b, stream>>>(
+    if constexpr (Mode == kV4)
+      proj_v4_kernel<T><<<L.grid_a, kThreads, L.smem_a, stream>>>(
+          h0_h, h0_o, out_h, out_o, state_h, state_o, w_from, b_from, m_h, m_o, w_att, scores,
+          T_, B, NH, NO, H, L.row_tiles, step);
+    else
+      proj_kernel<Mode, T><<<L.grid_a, kThreads, L.smem_a, stream>>>(
+          h0_h, h0_o, out_h, out_o, w_from, b_from, m_h, m_o, w_att, scores, keep, T_, B, NH,
+          NO, H, L.row_tiles, step);
+    mix_kernel<Mode, T><<<L.grid_m, kThreads, L.smem_m, stream>>>(
+        h0_h, h0_o, out_h, out_o, state_h, state_o, obj_mask, m_h, m_o, b_att, scores, att_ext,
+        mix_h, mix_o, att, atts, keep, T_, B, NH, NO, H, scale, step);
+    cell_kernel<T><<<L.grid_b, kThreads, L.smem_b, stream>>>(
         gi_h, gi_o, u_h, u_o, mix_h, mix_o, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o,
         h0_h, h0_o, out_h, out_o, state_h, state_o, gates_h, gates_o, keep, T_, B, NH, NO, H,
-        row_tiles, step);
+        L.row_tiles, step);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The phases' launch shapes and resident blocks an SM: out[0..2] the
+// blocks of A, M and B, out[3..5] their blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[6..8] their dynamic
+// shared memory in bytes.
+template <int Mode, class T>
+int occupancy(int B, int NH, int NO, int H, int* out) {
+  Launch L;
+  cudaError_t err = configure<Mode, T>(B, NH, NO, H, L);
+  const dim3 grids[3] = {L.grid_a, L.grid_m, L.grid_b};
+  const size_t smem[3] = {L.smem_a, L.smem_m, L.smem_b};
+  const void* kernels[3] = {proj_of<Mode, T>(), reinterpret_cast<const void*>(mix_kernel<Mode, T>),
+                            reinterpret_cast<const void*>(cell_kernel<T>)};
+  for (int i = 0; i < 3 && err == cudaSuccess; ++i) {
+    out[i] = (int)(grids[i].x * grids[i].y * grids[i].z);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3 + i], kernels[i], kThreads,
+                                                        smem[i]);
+    out[6 + i] = (int)smem[i];
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -480,8 +746,8 @@ extern "C" int tggcn_segment_scan_dot_f32(
     void* stream_ptr) {
   return run_scan<kDot, float>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
                                w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, nullptr, nullptr,
-                               nullptr, out_h, out_o, att, m_h, m_o, nullptr, nullptr, mix_h,
-                               mix_o, gates_h, gates_o, atts, nullptr, nullptr, keep, T, B, NH,
+                               nullptr, out_h, out_o, att, m_h, m_o, nullptr, mix_h, mix_o,
+                               gates_h, gates_o, atts, nullptr, nullptr, keep, T, B, NH,
                                NO, H, scale, static_cast<cudaStream_t>(stream_ptr));
 }
 
@@ -498,14 +764,15 @@ extern "C" int tggcn_segment_scan_dot_bf16(
     int NH, int NO, int H, float scale, void* stream_ptr) {
   return run_scan<kDot, bf16>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h,
                               w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, nullptr, nullptr,
-                              nullptr, out_h, out_o, att, m_h, m_o, nullptr, nullptr, mix_h,
-                              mix_o, gates_h, gates_o, atts, state_h, state_o, keep, T, B, NH,
+                              nullptr, out_h, out_o, att, m_h, m_o, nullptr, mix_h, mix_o,
+                              gates_h, gates_o, atts, state_h, state_o, keep, T, B, NH,
                               NO, H, scale, static_cast<cudaStream_t>(stream_ptr));
 }
 
-// K5: the scan in mode 1 'v1' (w_att (4, 2H), b_att (4)), 2 'v4' (w_att
-// (4, H, H), b_att (4); tmp_h (2, B * NH, 2, H) and tmp_o (2, B * NO, 2, H)
-// scratch) or 3 'ext' (att_ext (T, B, E, E), E = NH + NO: row n < NH holds
+// K5: the scan in mode 1 'v1' (w_att (4, 2H), b_att (4); scores, the
+// projections, (2, B, E, 4) scratch), 2 'v4' (w_att (4, H, H), b_att (4);
+// scores, the partial scores, (2, B, E, E, ceil(H / 32)) scratch) or 3
+// 'ext' (att_ext (T, B, E, E), E = NH + NO: row n < NH holds
 // [a_hh | a_oh] of human n, row NH + o [a_ho | a_oo] of object o). m_h, m_o,
 // mix_h and mix_o hold one step's, (2, B * NH or NO, 2H). Unused pointers
 // may be null. The limits are K3's.
@@ -516,14 +783,14 @@ extern "C" int tggcn_segment_scan_att_f32(
     const float* b_hh_h, const float* b_hh_o, const float* obj_mask,
     const float* h0_h, const float* h0_o, const float* w_att, const float* b_att,
     const float* att_ext, float* out_h, float* out_o, float* att, float* m_h, float* m_o,
-    float* tmp_h, float* tmp_o, float* mix_h, float* mix_o, int T, int B, int NH, int NO,
-    int H, void* stream_ptr) {
+    float* scores, float* mix_h, float* mix_o, int T, int B, int NH, int NO, int H,
+    void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define TGGCN_RUN_SCAN(M)                                                                 \
   run_scan<M, float>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, \
                      b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, w_att, b_att, att_ext, out_h,     \
-                     out_o, att, m_h, m_o, tmp_h, tmp_o, mix_h, mix_o, nullptr, nullptr,     \
-                     nullptr, nullptr, nullptr, 0, T, B, NH, NO, H, 1.f, stream)
+                     out_o, att, m_h, m_o, scores, mix_h, mix_o, nullptr, nullptr, nullptr,  \
+                     nullptr, nullptr, 0, T, B, NH, NO, H, 1.f, stream)
   switch (mode) {
     case kV1: return TGGCN_RUN_SCAN(kV1);
     case kV4: return TGGCN_RUN_SCAN(kV4);
@@ -534,7 +801,7 @@ extern "C" int tggcn_segment_scan_att_f32(
 }
 
 // K5 in bfloat16 IO: every pointer of tggcn_segment_scan_att_f32 but m_h,
-// m_o, tmp_h and tmp_o (float32) in bfloat16, and state_h, state_o (2, B *
+// m_o and scores (float32) in bfloat16, and state_h, state_o (2, B *
 // NH or NO, H) float32 holding h0 at the call, as K3 in bfloat16. H % 8 == 0.
 extern "C" int tggcn_segment_scan_att_bf16(
     int mode, const bf16* gi_h, const bf16* gi_o, const bf16* u_h, const bf16* u_o,
@@ -542,14 +809,14 @@ extern "C" int tggcn_segment_scan_att_bf16(
     const bf16* w_hh_h, const bf16* w_hh_o, const bf16* b_hh_h, const bf16* b_hh_o,
     const bf16* obj_mask, const bf16* h0_h, const bf16* h0_o, const bf16* w_att,
     const bf16* b_att, const bf16* att_ext, bf16* out_h, bf16* out_o, bf16* att, float* m_h,
-    float* m_o, float* tmp_h, float* tmp_o, bf16* mix_h, bf16* mix_o, float* state_h,
+    float* m_o, float* scores, bf16* mix_h, bf16* mix_o, float* state_h,
     float* state_o, int T, int B, int NH, int NO, int H, void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define TGGCN_RUN_SCAN(M)                                                                 \
   run_scan<M, bf16>(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, \
                     b_hh_h, b_hh_o, obj_mask, h0_h, h0_o, w_att, b_att, att_ext, out_h,     \
-                    out_o, att, m_h, m_o, tmp_h, tmp_o, mix_h, mix_o, nullptr, nullptr,     \
-                    nullptr, state_h, state_o, 0, T, B, NH, NO, H, 1.f, stream)
+                    out_o, att, m_h, m_o, scores, mix_h, mix_o, nullptr, nullptr, nullptr,  \
+                    state_h, state_o, 0, T, B, NH, NO, H, 1.f, stream)
   switch (mode) {
     case kV1: return TGGCN_RUN_SCAN(kV1);
     case kV4: return TGGCN_RUN_SCAN(kV4);
@@ -557,4 +824,23 @@ extern "C" int tggcn_segment_scan_att_bf16(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TGGCN_RUN_SCAN
+}
+
+// The launch shapes of the scan in `mode` (0 'dot', 1 'v1', 2 'v4', 3
+// 'ext'; bf16 != 0 for the bfloat16 variant) at (B, NH, NO, H): out[0..2]
+// the blocks of phases A, M and B, out[3..5] the blocks of each that an SM
+// holds at once, out[6..8] their dynamic shared memory in bytes. Returns
+// the CUDA error of the query, else 0.
+extern "C" int tggcn_segment_scan_occupancy(int mode, int bf16_io, int B, int NH, int NO,
+                                            int H, int* out) {
+#define TGGCN_OCCUPANCY(M) \
+  (bf16_io ? occupancy<M, bf16>(B, NH, NO, H, out) : occupancy<M, float>(B, NH, NO, H, out))
+  switch (mode) {
+    case kDot: return TGGCN_OCCUPANCY(kDot);
+    case kV1: return TGGCN_OCCUPANCY(kV1);
+    case kV4: return TGGCN_OCCUPANCY(kV4);
+    case kExt: return TGGCN_OCCUPANCY(kExt);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TGGCN_OCCUPANCY
 }

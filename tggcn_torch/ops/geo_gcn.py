@@ -2,9 +2,12 @@
 
 Replaces the TPU kernel ``tggcn/ops/geo_gcn_pallas.py::_kernel`` (launched
 by ``_geo_gcn_fused_impl`` at ``geo_gcn_pallas.py:100``). The CUDA kernel is
-``csrc/geo_gcn.cu``: one launch over the N = batch * time frames, each
-frame's whole chain in shared memory (embed 4 -> 64 -> 64 with ReLU, the
-similarity projections 64 -> 128, the V x V softmax adjacency, (S h) W_out).
+``csrc/geo_gcn.cu``: one launch over the N = batch * time frames, one warp
+a frame and FRAMES_PER_BLOCK warps a block, V padded to 32 rows, every
+product of the chain (embed 4 -> 64 -> 64 with ReLU, the similarity
+projections 64 -> 128, the V x V softmax adjacency, (S h) W_out) on the
+tensor cores in the 3xTF32 split (float32 accuracy); ``geo_gcn_config``
+gives the launch's shape and occupancy.
 
 ``geo_gcn_plain`` is its plain version (``geo_gcn_pallas.py:24``
 ``geo_gcn_reference``), and the GeoGCN module's own computation after the
@@ -26,6 +29,7 @@ from tggcn_torch.ops import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 MAX_NODES = 32
+FRAMES_PER_BLOCK = 12          # the kernel's warps, one frame each at a time
 WEIGHTS = ("w1", "b1", "w2", "b2", "ws1", "bs1", "ws2", "bs2", "w_out")
 
 
@@ -80,6 +84,20 @@ def geo_gcn_fused(x, w1, b1, w2, b2, ws1, bs1, ws2, bs2, w_out):
 
 
 geo_gcn_fused.launches = 0
+
+
+def geo_gcn_config(n):
+    """The kernel's launch over n frames on the current CUDA device: frames
+    a block runs at a time, blocks, blocks an SM holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads a block and
+    dynamic shared memory bytes, as a dict."""
+    fn = _build.load_library("geo_gcn").tggcn_geo_gcn_config
+    fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    out = (ctypes.c_int * 5)()
+    _build.check_launch(fn(n, out), "geo_gcn config")
+    return dict(zip(("frames_per_block", "blocks", "blocks_per_sm", "threads", "smem_bytes"),
+                    out))
 
 
 class GeoGCNFused(torch.autograd.Function):

@@ -30,7 +30,11 @@ every run.
 K5 replaces the same TPU kernel in its other modes (``_make_kernel``
 ``scores_v1`` ``:123``, ``scores_v4`` ``:134``, the streamed weights of
 ``:147-149``): the same ``csrc/segment_scan.cu``, with the mode a template
-parameter of the projection and mix phases. It has no backward kernel, as
+parameter of the projection and mix phases. Each step's scores are made
+once, in the projection phase, into a small float32 scratch
+(``score_scratch_shape``: v1's per-entity projections, v4's partial scores
+of each 32-column block), and the mix phase reads them
+(``scan_occupancy`` gives each phase's blocks). It has no backward kernel, as
 JAX's has none: ``segment_scan_forward`` picks the wrapper of the mode
 (``segment_scan_v1``, ``segment_scan_v4``, ``segment_scan_ext``) or, with
 ``use_kernels=False``, the plain version ``segment_scan_att_plain``, and
@@ -380,6 +384,43 @@ def segment_scan_dot(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
 segment_scan_dot.launches = segment_scan_dot.launches_bf16 = 0
 
 
+# Columns of a v4 partial score: the 32 columns of each projection block
+# (csrc/segment_scan.cu, proj_v4_kernel).
+V4_PART_COLUMNS = 32
+
+
+def score_scratch_shape(mode, b, nh, no, h):
+    """The shape of K5's score scratch in `mode` (float32), which its
+    projection phase writes and its mix phase reads, or None: v1 the four
+    projections of each entity's state (2, B, E, 4); v4 the partial
+    bilinear scores of each 32-column block, summed in column order by the
+    mix phase (2, B, E, E, ceil(h / 32)); ext none."""
+    e = nh + no
+    if mode == "v1":
+        return (2, b, e, 4)
+    if mode == "v4":
+        return (2, b, e, e, -(-h // V4_PART_COLUMNS))
+    return None
+
+
+PHASES = ("proj", "mix", "cell")
+
+
+def scan_occupancy(mode, dtype, b, nh, no, h):
+    """The launch shapes of K3 ('dot') or K5 in `mode` at (B, H, O, h) on
+    the current CUDA device: {phase: (blocks, blocks an SM holds at once,
+    dynamic shared memory bytes)} for the phases A (proj), M (mix) and B
+    (cell), from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    fn = _build.load_library("segment_scan").tggcn_segment_scan_occupancy
+    fn.argtypes = [_I] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    out = (ctypes.c_int * 9)()
+    code = ("dot",) + MODES
+    _build.check_launch(fn(code.index(mode), int(dtype == torch.bfloat16), b, nh, no, h, out),
+                        "segment_scan occupancy")
+    return {p: (out[i], out[3 + i], out[6 + i]) for i, p in enumerate(PHASES)}
+
+
 def _segment_scan_att(wrapper, mode, args, extra):
     """K5 in `mode` for the tensors of args (K3's inputs) and extra (the
     mode's); CPU tensors take the plain version. Counts its launch on
@@ -398,13 +439,13 @@ def _segment_scan_att(wrapper, mode, args, extra):
     dev = gi_h.device
     out, scratch = scan_buffers(*dims, False, dev, io)
     if t > 0:
-        tmp = ([torch.empty((2, b * nh, 2, h), device=dev),
-                torch.empty((2, b * no, 2, h), device=dev)] if mode == "v4" else [None, None])
+        shape = score_scratch_shape(mode, b, nh, no, h)
+        scores = torch.empty(shape, device=dev) if shape else None
         ptrs = [x.data_ptr() for x in args.values()]
         ptrs += [extra[k].data_ptr() if k in extra else None
                  for k in ("w_att", "b_att", "att_ext")]
         ptrs += [x.data_ptr() if x is not None else None
-                 for x in (*out, scratch["m_h"], scratch["m_o"], *tmp, scratch["mix_h"],
+                 for x in (*out, scratch["m_h"], scratch["m_o"], scores, scratch["mix_h"],
                            scratch["mix_o"])]
         lib = _build.load_library("segment_scan")
         if io == torch.float32:
