@@ -119,6 +119,29 @@ exit and the phase's name if the phase hangs:
            of the difference within 1.15e-2 of the gradient's, with the
            controls); the recompute backward's ms per step (CUDA events
            around it: its span on the card, gaps included)
+  sync_free
+           one eager kernel-route train step of the bfloat16 stage-1 and
+           stage-2 models, each drawing its Gumbel noise on the card, under
+           torch.cuda.set_sync_debug_mode("error"): no call may synchronize
+  train_fused, train_fused_bf16, train_fused_stage2_bf16
+           stage 1 in float32 and bfloat16, stage 2 in bfloat16: 4 train
+           steps fused into one call (tggcn_torch.train.loop.
+           make_fused_train_steps: one step captured in a CUDA graph and
+           replayed) against 4 eager kernel-route steps from the same
+           weights, batch and Gumbel noise stack, each route with its own
+           capturable Adam: losses, every leaf, Adam's moments and step
+           counts, the BatchNorm state, equal bit for bit; each replay
+           launches K1-K4 of the dtype as often as an eager step, counted
+           by torch.profiler's kernel names (a replay runs no wrapper);
+           then a 20-step window of each route with fresh noise drawn on
+           the card: ms a step (host clock, one synchronize a window), busy
+           ms and kernels a step over 5 profiled steps, idle share (1 -
+           busy / ms a step; and of the profiled wall, which the
+           profiler's own overhead raises); peak device memory
+  bench_short
+           python -m tggcn_torch.bench --steps 2 --best-of 1 (bfloat16, the
+           full width) in a subprocess: its last line parses, carries no
+           error, a positive value and a cross-check within 5%
   small    the same model at hidden 24 on the card against the plain path
            on the CPU
 
@@ -211,6 +234,7 @@ import subprocess
 import sys
 import time
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 
@@ -305,6 +329,12 @@ NO_LIBRARY = {
     "geo": "no PyTorch call computes the GeoGCN chain (embeddings, similarity softmax, "
            "(S h) W_out)"}
 
+FUSED_STEPS = 4                  # the fused steps held to eager ones bit for bit
+FUSED_WINDOW = 20                # the timed window, bench.py's K
+PROFILED_STEPS = 5               # steps of each route under torch.profiler
+BENCH_SHORT_S = 300
+# Kernel-name fragments of the train step's kernels (profile_step.GROUPS).
+FUSED_GROUPS = ("K1", "K2", "K3", "K4")
 PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k4": 300,
                  "k5_v1": 240, "k5_v4": 240, "k5_ext": 240, "k6": 120,
                  "k1_bf16": 180, "k2_bf16": 180, "k3_bf16": 240, "k4_bf16": 300,
@@ -312,7 +342,9 @@ PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k
                  "serve_modes_bf16": 600, "train_modes": 900, "train_modes_bf16": 900,
                  "forward": 300, "forward_bf16": 300, "train": 420, "train_bf16": 420,
                  "train_stage2": 420, "train_stage2_bf16": 420, "forward_stage2": 180,
-                 "forward_stage2_features": 300, "serve_modes": 600, "small": 180}
+                 "forward_stage2_features": 300, "serve_modes": 600, "small": 180,
+                 "sync_free": 180, "train_fused": 300, "train_fused_bf16": 300,
+                 "train_fused_stage2_bf16": 300, "bench_short": BENCH_SHORT_S + 30}
 # The kernels of the train step, and of each serving mode's segment scan.
 TRAIN_KERNELS = ("gru_sequence", "gru_sequence_bwd", "segment_scan_dot", "segment_scan_dot_bwd")
 K5_KERNELS = ("segment_scan_v1", "segment_scan_v4", "segment_scan_ext")
@@ -1286,6 +1318,209 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
                 resident_gib=resident / 2 ** 30)
 
 
+def train_setup(torch, dev, size, seed, dtype, stage):
+    """The model of a stage in a dtype at the full width, its loss bundle
+    and feeder, and one seeded batch resident on the card."""
+    from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
+    from tggcn_torch.models.registry import select_model
+    from tggcn_torch.train.losses import select_loss
+
+    module = stage_module(stage)
+    b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
+    model = select_model("2G-GCN", device=dev, **module.model_kwargs(dtype))
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", module.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **module.FEEDER_KWARGS)
+    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
+    data, targets = fetch(module.make_batch(np.random.default_rng(seed), b, t, nh, no))
+    return (model, module, criterion, feeder, [torch.as_tensor(x, device=dev) for x in data],
+            [torch.as_tensor(y, device=dev) for y in targets])
+
+
+def run_sync_free(torch, dev, size, seed):
+    """One eager kernel-route train step of the bfloat16 stage-1 and stage-2
+    models, each drawing its Gumbel noise on the card from a generator,
+    under torch.cuda.set_sync_debug_mode("error"): a synchronizing call
+    raises. A warm-up step before each builds the kernels."""
+    from tggcn_torch.train.loop import make_train_step, trainable_parameters
+
+    out, dtype = {}, "bfloat16"
+    for stage in ("stage1", "stage2"):
+        model, module, criterion, feeder, data, targets = train_setup(torch, dev, size, seed,
+                                                                      dtype, stage)
+        trainable = {"model": model.init(torch.Generator().manual_seed(0))}
+        step = make_train_step(model, feeder, criterion, torch.optim.Adam(
+            trainable_parameters(trainable), lr=module.TRAIN["lr"]))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        step(trainable, data, targets, generator=gen)
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses, _, _ = step(trainable, data, targets, generator=gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize(dev)
+        if not bool(losses.isfinite().all()):
+            raise AssertionError(f"{stage} {dtype} step losses: {losses.tolist()}")
+        out[stage] = losses.tolist()
+        print(f"sync_free {stage} {dtype}: an eager kernel-route step made no "
+              f"synchronizing call; losses {json.dumps(out[stage])}", flush=True)
+    return out
+
+
+def profiled(fn):
+    """fn() under torch.profiler (tggcn_torch.profile_step.profile): (host
+    ms up to a synchronize, the card's busy ms, its kernel events)."""
+    from tggcn_torch.profile_forward import _union_us
+    from tggcn_torch.profile_step import profile, timed
+
+    wall, events, _ = profile(lambda: timed(fn, 1)[0])
+    return wall, _union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3, events
+
+
+def kernel_groups(events, bf16):
+    """{K1-K4: launches} among events, each kernel's name checked to be the
+    variant of the dtype (a bfloat16 variant's signature names
+    __nv_bfloat16)."""
+    from tggcn_torch.profile_step import group_of
+
+    counts = dict.fromkeys(FUSED_GROUPS, 0)
+    for e in events:
+        group = group_of(e.name)
+        if group in counts:
+            if ("bfloat16" in e.name) != bf16:
+                raise AssertionError(f"{group} launched a kernel of the other dtype: {e.name}")
+            counts[group] += 1
+    return counts
+
+
+def run_train_fused(torch, dev, size, seed, dtype="float32", stage="stage1"):
+    """FUSED_STEPS train steps fused into one call (one step captured in a
+    CUDA graph, replayed) against as many eager kernel-route steps, from
+    the same weights, batch and noise stack, each route with its own
+    capturable Adam: losses, every leaf, Adam's state and the BatchNorm
+    state must be equal bit for bit. The kernels of a replay are counted by
+    the profiler (the wrappers count in Python, which a replay does not
+    run): PROFILED_STEPS replays must launch K1-K4 of the dtype as often as
+    as many eager steps. Before those, a FUSED_WINDOW-step window of each
+    route, fresh noise drawn on the card: ms a step (host clock, one
+    synchronize at the end); busy ms and idle share from the profiled
+    steps."""
+    from tggcn_torch.train.loop import (gumbel_noise_stack, make_fused_train_steps,
+                                        make_train_step, trainable_parameters)
+
+    model, module, criterion, feeder, data, targets = train_setup(torch, dev, size, seed,
+                                                                  dtype, stage)
+    bf16 = dtype == "bfloat16"
+    k = FUSED_STEPS
+    b, t, nh, no = (size[key] for key in ("b", "t", "humans", "objects"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = gumbel_noise_stack(gen, k, b, t, nh, no)
+
+    def route():
+        trainable = {"model": model.init(torch.Generator().manual_seed(0))}
+        return trainable, torch.optim.Adam(trainable_parameters(trainable),
+                                           lr=module.TRAIN["lr"], capturable=True)
+
+    eager, eager_opt = route()
+    step = make_train_step(model, feeder, criterion, eager_opt,
+                           clip_gradient_at=module.TRAIN["clip"])
+    want = torch.stack([step(eager, data, targets, noise={w: v[i] for w, v in noise.items()})[0]
+                        for i in range(k)])
+    torch.cuda.synchronize(dev)
+    tree, opt = route()
+    fused = make_fused_train_steps(model, feeder, criterion, opt,
+                                   clip_gradient_at=module.TRAIN["clip"])
+    stack = lambda xs, n: [x.expand(n, *x.shape) for x in xs]
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    start = time.perf_counter()
+    got, _ = fused(tree, stack(data, k), stack(targets, k), noise_stack=noise)
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - start
+    captured = {name: n for name, n in read_launches().items() if n}
+    fused_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if not torch.equal(got, want):
+        raise AssertionError(f"fused losses {got.tolist()} differ from eager {want.tolist()}")
+    leaves_f, leaves_e = tensor_leaves(tree), tensor_leaves(eager)
+    unequal = [key for key in leaves_e if not torch.equal(leaves_f[key], leaves_e[key])]
+    params_f, params_e = trainable_parameters(tree), trainable_parameters(eager)
+    moments = [(opt.state[p][key], eager_opt.state[q][key]) for p, q in zip(params_f, params_e)
+               for key in ("exp_avg", "exp_avg_sq", "step")]
+    unequal += [f"adam {i}" for i, (x, y) in enumerate(moments) if not torch.equal(x, y)]
+    if unequal:
+        raise AssertionError(f"{len(unequal)} tensors differ between {k} fused and {k} eager "
+                             f"steps: {unequal[:8]}")
+    print(f"train_fused {stage} {dtype}: {k} fused steps (first call {first_s:.3f} s: "
+          f"warm-up, capture, replays) equal {k} eager steps bit for bit: losses, "
+          f"{len(leaves_e)} leaves (BatchNorm state among them), {len(moments)} Adam tensors; "
+          f"wrapper launches counted at capture {json.dumps(captured)}", flush=True)
+
+    def run_fused(n):
+        fused(tree, stack(data, n), stack(targets, n), generator=gen)
+
+    def run_eager(n):
+        for _ in range(n):
+            step(eager, data, targets, generator=gen)
+
+    result = dict(equal_leaves=len(leaves_e), equal_adam=len(moments), first_call_s=first_s,
+                  fused_peak_gib=fused_peak)
+    for name, run in (("fused", run_fused), ("eager", run_eager)):   # both warm already
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = time.perf_counter()
+        run(FUSED_WINDOW)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - start) * 1e3 / FUSED_WINDOW
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        wall, busy, events = profiled(lambda: run(PROFILED_STEPS))
+        result[name] = dict(ms=ms, busy_ms=busy / PROFILED_STEPS,
+                            idle=1.0 - busy / PROFILED_STEPS / ms, profiled_idle=1.0 - busy / wall,
+                            launches=len(events) / PROFILED_STEPS, peak_gib=peak_gib,
+                            kernels=kernel_groups(events, bf16))
+    replays, steps = result["fused"]["kernels"], result["eager"]["kernels"]
+    if not all(steps.values()) or replays != steps:
+        raise AssertionError(f"{PROFILED_STEPS} replays launched {replays}; "
+                             f"{PROFILED_STEPS} eager steps {steps}")
+    return result
+
+
+def print_train_fused(name, r):
+    f, e = r["fused"], r["eager"]
+    each = lambda kernels: json.dumps({g: n // PROFILED_STEPS for g, n in kernels.items()})
+    print(f"{name}: K1-K4 kernels a replay {each(f['kernels'])} (an eager step "
+          f"{each(e['kernels'])}); {FUSED_WINDOW}-step window: fused "
+          f"{f['ms']:.3f} ms a step, eager {e['ms']:.3f} (host clock, one synchronize a "
+          f"window); over {PROFILED_STEPS} profiled steps: busy {f['busy_ms']:.3f} / "
+          f"{e['busy_ms']:.3f} ms a step, idle share (1 - busy / ms a step) {f['idle']:.3f} / "
+          f"{e['idle']:.3f} ({f['profiled_idle']:.3f} / {e['profiled_idle']:.3f} of the "
+          f"profiled wall), {f['launches']:.0f} / {e['launches']:.0f} kernels a step; peak "
+          f"device memory "
+          f"{f['peak_gib']:.3f} / {e['peak_gib']:.3f} GiB over the window "
+          f"({r['fused_peak_gib']:.3f} GiB over the capture)", flush=True)
+
+
+def run_bench_short(torch):
+    """python -m tggcn_torch.bench --steps 2 --best-of 1 at the full width,
+    in a subprocess: its last line must parse, carry no error, a positive
+    value and a cross-check within bench's 5%."""
+    from tggcn_torch import bench
+
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    run = subprocess.run([sys.executable, "-m", "tggcn_torch.bench", "--steps", "2",
+                          "--best-of", "1"], cwd=root, capture_output=True, text=True,
+                         timeout=BENCH_SHORT_S)
+    lines = run.stdout.strip().splitlines()
+    record = json.loads(lines[-1]) if lines else {}
+    print(f"bench_short: rc {run.returncode}, last line {json.dumps(record)}", flush=True)
+    deviation = record.get("crosscheck_max_dev")
+    if (run.returncode != 0 or "error" in record or record.get("metric") != bench.METRIC
+            or not (record.get("value") or 0) > 0
+            or deviation is None or not deviation < bench.CROSSCHECK_LIMIT):
+        raise AssertionError(f"tggcn_torch.bench failed: rc {run.returncode}, "
+                             f"{json.dumps(record)}; stderr tail {run.stderr[-2000:]}")
+    return record
+
+
 def print_forward(name, r, requests):
     print(f"{name} ms per request {r['ms']:.3f} (plain path {r['plain_ms']:.3f}), max abs err "
           f"vs plain {r['max_abs_err']:.3e}, marginal decision flips {r['flips']} (batch rows "
@@ -1423,6 +1658,15 @@ def main(argv=None):
                       f"{r['launches']['geo_gcn_fused'] / r['steps']:g} launches; recompute "
                       f"backward {r['recompute_ms']:.3f} ms of a {r['ms']:.3f} ms step",
                       flush=True)
+    with phase("sync_free"):
+        run_sync_free(torch, dev, shape, args.seed)
+    for name, dtype, stage in (("train_fused", "float32", "stage1"),
+                               ("train_fused_bf16", stage1.BENCH_DTYPE, "stage1"),
+                               ("train_fused_stage2_bf16", stage2.BENCH_DTYPE, "stage2")):
+        with phase(name):
+            print_train_fused(name, run_train_fused(torch, dev, shape, args.seed, dtype, stage))
+    with phase("bench_short"):
+        run_bench_short(torch)
     # K1-K4's launches are the stage-1 train steps' (of their dtype); K5's
     # and K6's the serving modes' (K5's bfloat16 variant's the bfloat16 ones).
     for k in kernels:

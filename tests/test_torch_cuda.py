@@ -42,6 +42,13 @@ K5's scores made once a step ('v1' projections, 'v4' 32-column partial
 scores) at the hidden sizes around its 32-column blocks, and K6 at frame
 counts around its 12 frames a block and V up to its 32 padded rows, each
 against its plain version at the limits above.
+
+Fused train steps at hidden 24 in both dtypes: 3 steps captured once in a
+CUDA graph and replayed equal 3 eager kernel-route steps with the same
+capturable Adam bit for bit (losses, every leaf, Adam's state), twice in a
+row; an eager kernel-route step that draws its own noise makes no
+synchronizing call (torch.cuda.set_sync_debug_mode("error")); the fused
+steps raise on an Adam they cannot capture and touch no weight.
 """
 
 import json
@@ -729,3 +736,113 @@ def test_serve_modes_kernel_route_bf16(cuda, variant):
     want, _ = model.apply(params, use_kernels=False, noise=noise, **batch)
     for g, w_ in zip(got, want):
         assert float((g - w_).abs().max()) <= 6e-4
+
+
+def _fused_setup(cuda, dtype, hidden=24, k=3):
+    """A stage-1 model at hidden, its loss bundle and feeder, a seeded batch
+    on the card, its K-step stacks and a noise stack of K steps."""
+    from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
+    from tggcn_torch.models import stage1
+    from tggcn_torch.models.registry import select_model
+    from tggcn_torch.train.loop import gumbel_noise_stack
+    from tggcn_torch.train.losses import select_loss
+
+    model = select_model("2G-GCN", device=cuda, **dict(stage1.model_kwargs(dtype),
+                                                       hidden_size=hidden))
+    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage1.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **stage1.FEEDER_KWARGS)
+    data, targets = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")(
+        stage1.make_batch(np.random.default_rng(31), 2, 6, 2, 3))
+    data = [torch.as_tensor(x, device=cuda) for x in data]
+    targets = [torch.as_tensor(y, device=cuda) for y in targets]
+    noise = gumbel_noise_stack(torch.Generator(device=cuda).manual_seed(32), k, 2, 6, 2, 3)
+    return model, criterion, feeder, data, targets, noise
+
+
+def _adam(trainable, capturable=True):
+    from tggcn_torch.models import stage1
+    from tggcn_torch.train.loop import trainable_parameters
+
+    return torch.optim.Adam(trainable_parameters(trainable), lr=stage1.TRAIN["lr"],
+                            capturable=capturable)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_steps_replay_equals_eager_steps(cuda, dtype):
+    """K=3 steps captured once in a CUDA graph and replayed, at hidden 24,
+    equal 3 eager kernel-route steps with the same capturable Adam, weights,
+    batch and noise bit for bit: the losses, every leaf, Adam's moments and
+    step counts, the BatchNorm state; a second call replays the same graph."""
+    from tggcn_torch.train.loop import make_fused_train_steps, make_train_step
+
+    model, criterion, feeder, data, targets, noise = _fused_setup(cuda, dtype)
+    k = noise["object"].shape[0]
+    eager = {"model": model.init(torch.Generator().manual_seed(33))}
+    eager_opt = _adam(eager)
+    step = make_train_step(model, feeder, criterion, eager_opt)
+    want = torch.stack([step(eager, data, targets, noise={w: v[i] for w, v in noise.items()})[0]
+                        for i in range(k)])
+    fused_tree = {"model": model.init(torch.Generator().manual_seed(33))}
+    fused_opt = _adam(fused_tree)
+    fused = make_fused_train_steps(model, feeder, criterion, fused_opt)
+    stacks = [[x.expand(k, *x.shape) for x in xs] for xs in (data, targets)]
+    got, _ = fused(fused_tree, *stacks, noise_stack=noise)
+    assert torch.equal(got, want)
+    leaves = lambda tree: [x for _, x in _flat_leaves(tree)]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(fused_tree), leaves(eager)))
+    for p, q in zip(fused_opt.param_groups[0]["params"], eager_opt.param_groups[0]["params"]):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(fused_opt.state[p][key], eager_opt.state[q][key]), key
+    again, _ = fused(fused_tree, *stacks, noise_stack=noise)
+    want = torch.stack([step(eager, data, targets, noise={w: v[i] for w, v in noise.items()})[0]
+                        for i in range(k)])
+    assert torch.equal(again, want)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(fused_tree), leaves(eager)))
+
+
+def _flat_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _flat_leaves(sub, path + (key,))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _flat_leaves(sub, path + (i,))
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eager_kernel_route_step_never_syncs(cuda, dtype):
+    """An eager stage-1 kernel-route step that draws its own Gumbel noise
+    on the card makes no synchronizing call (torch's sync debug mode set
+    to raise), after a warm-up step that builds the kernels."""
+    from tggcn_torch.train.loop import make_train_step
+
+    model, criterion, feeder, data, targets, _ = _fused_setup(cuda, dtype)
+    trainable = {"model": model.init(torch.Generator().manual_seed(34))}
+    step = make_train_step(model, feeder, criterion, _adam(trainable, capturable=False))
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    step(trainable, data, targets, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses, _, _ = step(trainable, data, targets, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(losses.isfinite().all())
+
+
+def test_fused_steps_refuse_an_optimizer_they_cannot_capture(cuda):
+    """On the card the fused steps raise on an Adam whose step count lives
+    on the host, before any step runs, instead of looping eagerly."""
+    from tggcn_torch.train.loop import make_fused_train_steps
+
+    model, criterion, feeder, data, targets, noise = _fused_setup(cuda, "float32")
+    trainable = {"model": model.init(torch.Generator().manual_seed(36))}
+    before = [x.clone() for _, x in _flat_leaves(trainable)]
+    fused = make_fused_train_steps(model, feeder, criterion, _adam(trainable, capturable=False))
+    k = noise["object"].shape[0]
+    with pytest.raises(ValueError, match="capturable"):
+        fused(trainable, [x.expand(k, *x.shape) for x in data],
+              [y.expand(k, *y.shape) for y in targets], noise_stack=noise)
+    assert all(torch.equal(a, b) for a, (_, b) in zip(before, _flat_leaves(trainable)))

@@ -67,7 +67,7 @@ def test_port_imports_without_jax():
             "import tggcn_torch.models.registry, tggcn_torch.compat.weights\n"
             "import tggcn_torch.ops.gru_sequence, tggcn_torch.ops.segment_scan\n"
             "import tggcn_torch.train.loop, tggcn_torch.train.losses\n"
-            "import tggcn_torch.data.feeders\n"
+            "import tggcn_torch.data.feeders, tggcn_torch.bench\n"
             "print('ok')")
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)

@@ -47,7 +47,7 @@ from typing import Optional
 import torch
 
 from tggcn_torch.models.segment_fast import CELLS, EDGES, segment_scan_fast
-from tggcn_torch.nn.distributions import discrete_estimator
+from tggcn_torch.nn.distributions import GUMBEL_STRATEGIES, discrete_estimator
 from tggcn_torch.nn.geo_gcn import apply_geo_gcn, init_geo_gcn
 from tggcn_torch.nn.gru import init_bigru, init_gru_cell, run_multi_bigru
 from tggcn_torch.nn.messages import compute_message_features, distance_based_attention_weights
@@ -347,8 +347,11 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
 
     The 'gs' decisions take their Gumbel noise from ``noise`` ({'human':
     (B, T, H, 2), 'object': (B, T, O, 2)}) where it has an entry, else draw
-    it from ``generator`` (default: seed 0 on the inputs' device), which is
-    split into a human and an object source as JAX splits its key.
+    it from ``generator`` (default: seed 0 on the inputs' device): the
+    humans' draw and then the objects', in that order, each where it is
+    needed. The draws stay on the generator's device, so a step reads
+    nothing back to the host (JAX splits its key in two instead,
+    ``tggcn/models/tggcn.py:467``; its numbers cannot be reproduced anyway).
     """
     check_slice(cfg)
     dists3 = (human_human_distances, human_object_distances, object_object_distances)
@@ -444,19 +447,16 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
                         dists=oo_d)
 
     # --- Decisions (vectorised over B, T, E) -------------------------------
-    noise, sources = noise or {}, {}
-    gumbel = cfg.discrete_optimization_strategy in {"gs", "gumbel-sigmoid"}
+    noise, sources = noise or {}, []
+    gumbel = cfg.discrete_optimization_strategy in GUMBEL_STRATEGIES
 
     def source(who):
-        """The noise source of `who`, drawn only where noise is missing."""
+        """The generator `who` draws its noise from, where noise is missing."""
         if not gumbel or noise.get(who) is not None:
             return None
         if not sources:
-            gen = generator or torch.Generator(device=x_human.device).manual_seed(0)
-            seeds = torch.randint(2 ** 62, (2,), generator=gen, device=gen.device).tolist()
-            sources.update((k, torch.Generator(device=gen.device).manual_seed(v))
-                           for k, v in zip(("human", "object"), seeds))
-        return sources[who]
+            sources.append(generator or torch.Generator(device=x_human.device).manual_seed(0))
+        return sources[0]
 
     def decide(name, features, imposed, who, gate=None):
         """(hard, soft) decisions; a 'coh' gate multiplies the hard ones

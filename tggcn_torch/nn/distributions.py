@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 
 import torch
 
+GUMBEL_STRATEGIES = ("gumbel-sigmoid", "gs")
+
 
 def straight_through_estimator(x: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
     """Hard threshold in the forward pass, identity gradient in the backward."""
@@ -44,7 +46,7 @@ def discrete_estimator(x: torch.Tensor, strategy: str = "straight-through",
     when given, else draws it from ``generator``."""
     if strategy in {"straight-through", "st"}:
         return straight_through_estimator(x, threshold), x
-    if strategy in {"gumbel-sigmoid", "gs"}:
+    if strategy in GUMBEL_STRATEGIES:
         if noise is None:
             if generator is None:
                 raise ValueError("gumbel-sigmoid strategy requires noise or a generator.")

@@ -25,7 +25,7 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     all -inf row would give NaN through inf - inf).
     """
     maskf = torch.broadcast_to(mask, scores.shape).to(scores.dtype)
-    scores = torch.where(maskf > 0, scores, scores.new_tensor(-1e30))
+    scores = torch.where(maskf > 0, scores, scores.new_full((), -1e30))
     m = torch.amax(scores, dim=-1, keepdim=True)
     e = torch.exp(scores - m) * maskf
     d = torch.sum(e, dim=-1, keepdim=True)

@@ -84,7 +84,7 @@ def make_periodic_embedding(x: torch.Tensor, hidden_size: int) -> torch.Tensor:
     if hidden_size % 2:
         raise ValueError("hidden_size must be even.")
     exponent = torch.linspace(0.0, 1.0, hidden_size // 2, dtype=x.dtype, device=x.device)
-    w = torch.tensor(1e4, dtype=x.dtype, device=x.device) ** exponent
+    w = torch.full((), 1e4, dtype=x.dtype, device=x.device) ** exponent
     return torch.cat([torch.sin(x / w), torch.cos(x / w)], dim=-1)
 
 

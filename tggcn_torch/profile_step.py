@@ -4,7 +4,7 @@ device time by kernel.
 
     python -m tggcn_torch.profile_step [--steps N] [--requests N] [--seed N]
                                        [--dtype {float32,bfloat16}] [--stage {1,2}]
-                                       [--variant {dist,v1,v4,mp}]
+                                       [--variant {dist,v1,v4,mp}] [--fused K]
 
 Builds the stage-1 MPHOI model (``tggcn_torch.models.stage1``), or with
 ``--stage 2`` the stage-2 one (``stage2``: its batch, loss bundle and
@@ -27,10 +27,23 @@ largest of "other"; with ``--variant``, also the recompute backward's wall
 ms a step (its profiler range) and the device busy ms of the kernels that
 start inside that range.
 
+With ``--fused K`` it also times the same step fused, K steps a call
+(``tggcn_torch.train.loop.make_fused_train_steps``: one step captured in a
+CUDA graph and replayed), on its own copy of the weights with a capturable
+Adam, each call drawing fresh Gumbel noise on the card: the first call's
+seconds (warm-up, capture, K replays), FUSED_WINDOWS timed windows (ms a
+step, host clock, each window ended by a synchronize), and one window of
+PROFILED_STEPS steps under torch.profiler (busy ms, idle share of the
+profiled wall and of the timed windows' ms a step, kernels and ms by group
+a step), and the peak device memory over the capture and the windows,
+under "fused" in the JSON object. A step that cannot be captured
+raises.
+
 It reads only entry points that earlier commits of the package also have
 (in float32, stage 1), so a checkout of one can be timed the same way: from that
 checkout's root, ``PYTHONPATH=. python <this file>`` (the checkout's own
-``tggcn_torch`` is then the one imported). Needs a CUDA device.
+``tggcn_torch`` is then the one imported); ``--fused`` needs this tree.
+Needs a CUDA device.
 """
 
 import argparse
@@ -53,6 +66,7 @@ from tggcn_torch.train.loop import make_train_step, trainable_parameters
 from tggcn_torch.train.losses import select_loss
 
 PROFILED_STEPS = 3
+FUSED_WINDOWS = 5
 # Kernel-name fragments of the train step's kernels (both designs' names),
 # then cuBLAS's products and the optimizer's multi-tensor kernels.
 GROUPS = {"gru_step_kernel": "K1", "gru_bwd": "K2", "proj_kernel": "K3", "mix_kernel": "K3",
@@ -79,6 +93,63 @@ def timed(fn, reps):
     return times
 
 
+def profile(fn):
+    """(fn()'s value, the device's kernel events, the profile) under
+    torch.profiler. The kernel events leave out the ranges that user
+    annotations (the optimizer's step) also mark on the device's timeline
+    over the kernels."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        value = fn()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    return value, kernels, prof
+
+
+def by_name_and_group(kernels, variant):
+    """Device us by kernel name and by group; K5 runs K3's phases, under
+    K3's kernel names."""
+    per_name, per_group = defaultdict(float), defaultdict(float)
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        per_name[e.name] += us
+        per_group[group_of(e.name)] += us
+    if variant:
+        per_group["K5"] = per_group.pop("K3", 0.0)
+    return per_name, per_group
+
+
+def time_fused(args, model, feeder, criterion, lr, clip, data, targets, dev):
+    """The train step fused, args.fused steps a call: the "fused" entry."""
+    from tggcn_torch.train.loop import make_fused_train_steps
+
+    k = args.fused
+    trainable = {"model": model.init(torch.Generator().manual_seed(0))}
+    optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=lr, capturable=True)
+    fused = make_fused_train_steps(model, feeder, criterion, optimizer, clip_gradient_at=clip)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    window = lambda n: fused(trainable, [x.expand(n, *x.shape) for x in data],
+                             [y.expand(n, *y.shape) for y in targets], generator=gen)
+    torch.cuda.reset_peak_memory_stats(dev)
+    first_s = timed(lambda: window(k), 1)[0] / 1e3
+    window_ms = timed(lambda: window(k), FUSED_WINDOWS)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    wall, kernels, _ = profile(lambda: sum(timed(lambda: window(PROFILED_STEPS), 1)))
+    _, per_group = by_name_and_group(kernels, args.variant)
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    per_step = lambda us: us / 1e3 / PROFILED_STEPS
+    return {"steps": k, "first_call_s": first_s, "window_ms": spread(window_ms),
+            "step_ms": statistics.median(window_ms) / k, "peak_gib": peak_gib,
+            "profiled_wall_ms_per_step": wall / PROFILED_STEPS,
+            "device_busy_ms_per_step": busy_ms / PROFILED_STEPS,
+            "device_idle_share": 1.0 - busy_ms / wall,
+            "device_idle_share_of_step": 1.0 - busy_ms / PROFILED_STEPS / (
+                statistics.median(window_ms) / k),
+            "kernel_launches_per_step": len(kernels) / PROFILED_STEPS,
+            "groups_ms_per_step": {g: per_step(v) for g, v in
+                                   sorted(per_group.items(), key=lambda kv: -kv[1])}}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=20)
@@ -90,6 +161,8 @@ def main(argv=None):
                         help="the stage of the two-stage protocol")
     parser.add_argument("--variant", choices=tuple(stage1.SERVE_VARIANTS), default=None,
                         help="a stage-1 variant whose segment scan runs through K5")
+    parser.add_argument("--fused", type=int, default=0, metavar="K",
+                        help="also time K steps a call, captured in a CUDA graph")
     args = parser.parse_args(argv)
     if args.variant and args.stage != 1:
         raise SystemExit("profile_step: --variant is a stage-1 variant")
@@ -130,21 +203,9 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms = timed(run_step, args.steps)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        wall = sum(timed(run_step, PROFILED_STEPS))
-    # Device events, without the ranges that user annotations (the
-    # optimizer's step) also mark on the device's timeline over the kernels.
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    per_name, per_group = defaultdict(float), defaultdict(float)
-    for e in kernels:
-        us = e.time_range.end - e.time_range.start
-        per_name[e.name] += us
-        per_group[group_of(e.name)] += us
+    wall, kernels, prof = profile(lambda: sum(timed(run_step, PROFILED_STEPS)))
+    per_name, per_group = by_name_and_group(kernels, args.variant)
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    if args.variant:                 # K5 runs K3's phases, under K3's kernel names
-        per_group["K5"] = per_group.pop("K3", 0.0)
     # (An older checkout has no recompute range: getattr keeps it timeable.)
     recompute = [e.time_range for e in prof.events()
                  if e.name == getattr(segment_scan, "RECOMPUTE_RANGE", None)
@@ -163,6 +224,11 @@ def main(argv=None):
         torch.cuda.synchronize()
         it = iter(requests[1:])
         request_ms = timed(lambda: model.apply(params, **next(it)), args.requests)
+
+    fused = None
+    if args.fused:
+        fused = time_fused(args, model, feeder, criterion, stage.TRAIN["lr"],
+                           stage.TRAIN["clip"], data, targets, dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -193,7 +259,8 @@ def main(argv=None):
         "groups_ms_per_step": {k: per_step(v) for k, v in
                                sorted(per_group.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": {k: per_step(v) for k, v in top},
-        "top_other_kernels_ms_per_step": {k: per_step(v) for k, v in top_other}}))
+        "top_other_kernels_ms_per_step": {k: per_step(v) for k, v in top_other},
+        **({"fused": fused} if fused else {})}))
 
 
 if __name__ == "__main__":
