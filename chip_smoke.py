@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive tggcn_torch's stage-1 serving and training paths, in float32 and in
 bfloat16 (the dtype bench.py trains in), its stage-2 training and serving
-paths, and its serving modes on one CUDA card.
+paths, its serving modes, and CAD-120's stage 1 and the general segment
+scan's configurations on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -120,9 +121,10 @@ exit and the phase's name if the phase hangs:
            controls); the recompute backward's ms per step (CUDA events
            around it: its span on the card, gaps included)
   sync_free
-           one eager kernel-route train step of the bfloat16 stage-1 and
-           stage-2 models, each drawing its Gumbel noise on the card, under
-           torch.cuda.set_sync_debug_mode("error"): no call may synchronize
+           one eager kernel-route train step of the bfloat16 stage-1,
+           stage-2 and CAD-120 models, each drawing its Gumbel noise on the
+           card, under torch.cuda.set_sync_debug_mode("error"): no call may
+           synchronize
   train_fused, train_fused_bf16, train_fused_stage2_bf16
            stage 1 in float32 and bfloat16, stage 2 in bfloat16: 4 train
            steps fused into one call (tggcn_torch.train.loop.
@@ -138,6 +140,33 @@ exit and the phase's name if the phase hangs:
            ms and kernels a step over 5 profiled steps, idle share (1 -
            busy / ms a step; and of the profiled wall, which the
            profiler's own overhead raises); peak device memory
+  forward_cad120, forward_cad120_bf16
+           one CAD-120 stage-1 request (tggcn_torch.models.cad120: hidden
+           512, gcn_node 19, B=16, T=167, 1 human, 5 object slots, some
+           empty, both segmentations imposed by the stage-1 feeder) on each
+           route, under the forward phases' limits; its segment scan is the
+           general one (plain PyTorch), so exactly K1 launches, once
+  forward_cad120_dist
+           the same in float32 with CAD-120's two distance tensors
+           (human-object, object-object) and the GeoGCN kernel: exactly K1
+           and K6, once each
+  train_cad120, train_cad120_bf16
+           the train phases for the CAD-120 model (its 12-loss bundle, lr
+           1e-3): each step launches exactly K1 and K2 of the dtype, with
+           the bfloat16 phase's controls
+  train_fused_cad120_bf16
+           the train_fused phase for the CAD-120 model in bfloat16 (K3 and
+           K4 launched by neither route), 1 profiled step a route and
+           the eager route timed over 5 steps (about 1.5 s each)
+  forward_general_variants
+           float32 at hidden 64, B=8, T=167, one request of each of three
+           configurations of the general scan, on each route: relational
+           messages with mean pooling and 'sah' objects (CAD-120, 1 human,
+           5 objects), 'specific' messages with concat attention, both
+           positional features and the level states concatenated
+           (Bimanual, 2 hands, 9 objects), no segment messages with the
+           GeoGCN BatchNorm in train mode (MPHOI, 2 humans, 4 objects);
+           'st' decisions taken; exactly K1 launches, once a request
   bench_short
            python -m tggcn_torch.bench --steps 2 --best-of 1 (bfloat16, the
            full width) in a subprocess: its last line parses, carries no
@@ -176,6 +205,20 @@ values at or above the threshold) also one whose soft value lies within
 counted and its batch row left out of the comparison (the train step is
 then run again on both routes without that row), at most one row per
 request or batch. Any other flip, or a second row with flips, fails the run.
+A ReLU of the model's MLPs is a hard decision at 0 too. In the CAD-120
+float32 train step, held leaf by leaf, an input within KINK_MARGIN (1e-6)
+of 0 in both routes that falls on the other side of it in the kernel
+route is counted, at most KINK_FLIPS (4) in a step (so in at most 4 batch
+rows); the kernel-route step as it ran must then hold the float32
+whole-model limit of a K5 mode's step (MODE_TRAIN_LIMITS), and it is run
+again taking the plain route's side at each such kink (kink_sides,
+relu_inputs) before the leaves are compared. A wider flip, or a fifth,
+fails. (On an H100 80GB HBM3, 700 W, at the CAD-120 width three inputs
+within 2.8e-8 of 0 fell either way, in three batch rows; they moved o2h's
+frame message weight gradient by 1.28e-2 of the leaf's largest, and the
+whole model's by 3.5e-4 of its largest gradient. Their count bounds the
+kernel route's error there: an error some tens of times larger would flip
+some tens of times as many.)
 
 Tolerances (bfloat16; the values and the readings they were set from
 stand beside LIMITS_BF16): each bfloat16 forward kernel's outputs, and the
@@ -312,6 +355,12 @@ MODE_TRAIN_LIMITS = {"float32": {"model_share": LEAF_GRAD_RTOL},
                      "bfloat16": {"model_rel_l2": 1.15e-2}}
 GRAD_FLOOR = 1e-6
 MARGINAL = 1e-4
+# A ReLU input's kink in the CAD-120 float32 step (kink_sides): the margin
+# and the most flips a step, from the readings (three flips, each input
+# within 2.8e-8 of 0, H100 80GB HBM3, 700 W): about 36 times the
+# largest input, and one flip more.
+KINK_MARGIN = 1e-6
+KINK_FLIPS = 4
 MARGINAL_BF16 = 2.0 ** -7         # two bfloat16 ulps above 0.5: a soft decision in bfloat16
 SPIN_CYCLES = 20_000_000         # about 10 ms at the H100's clock: longer than any wrapper's host time
 REQUESTS = 3
@@ -343,13 +392,39 @@ PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k
                  "forward": 300, "forward_bf16": 300, "train": 420, "train_bf16": 420,
                  "train_stage2": 420, "train_stage2_bf16": 420, "forward_stage2": 180,
                  "forward_stage2_features": 300, "serve_modes": 600, "small": 180,
-                 "sync_free": 180, "train_fused": 300, "train_fused_bf16": 300,
-                 "train_fused_stage2_bf16": 300, "bench_short": BENCH_SHORT_S + 30}
+                 "sync_free": 240, "train_fused": 300, "train_fused_bf16": 300,
+                 "train_fused_stage2_bf16": 300, "bench_short": BENCH_SHORT_S + 30,
+                 "forward_cad120": 240, "forward_cad120_bf16": 240, "forward_cad120_dist": 240,
+                 "train_cad120": 420, "train_cad120_bf16": 420, "train_fused_cad120_bf16": 420,
+                 "forward_general_variants": 300}
 # The kernels of the train step, and of each serving mode's segment scan.
 TRAIN_KERNELS = ("gru_sequence", "gru_sequence_bwd", "segment_scan_dot", "segment_scan_dot_bwd")
 K5_KERNELS = ("segment_scan_v1", "segment_scan_v4", "segment_scan_ext")
 MODE_KERNEL = {"dist": "segment_scan_ext", "v1": "segment_scan_v1", "v4": "segment_scan_v4",
                "mp": "segment_scan_ext"}
+K5_MODES = ("v1", "v4", "ext")
+# The profiler's group (profile_step.GROUPS) of each of K1-K4's counters.
+KERNEL_GROUP = {"gru_sequence": "K1", "gru_sequence_bwd": "K2", "segment_scan_dot": "K3",
+                "segment_scan_dot_bwd": "K4"}
+# A CAD-120 step runs about 48k kernels and takes about 1.5 s eager: its
+# fused phase profiles 1 step a route and times the eager route over 5.
+FUSED_PROFILED_CAD120, EAGER_WINDOW_CAD120 = 1, 5
+# The general scan's configurations of forward_general_variants: the model
+# (over the stage-1 yaml, hidden 64, 'st' decisions), humans, objects and
+# whether the GeoGCN BatchNorm runs in train mode; after the reference
+# fixtures cad120_sah_relational_mp, bimanual_extras and mphoi_train_bn.
+GENERAL_VARIANTS = {
+    "relational_mp_sah": (dict(input_size=(2124, 2048), num_classes=(10, 12), gcn_node=19,
+                               message_humans_to_human=False, message_type="v1",
+                               message_granularity="v2", message_aggregation="mp",
+                               attention_style="v1", object_segment_update_strategy="sah"),
+                          1, 5, False),
+    "specific_v1_features": (dict(input_size=(2168, 2048), num_classes=(14, None), gcn_node=30,
+                                  message_granularity="v2", attention_style="v1",
+                                  add_time_position=True, add_segment_length=True,
+                                  cat_level_states=True), 2, 9, False),
+    "no_segment_messages_bn_train": (dict(message_segment=False), 2, 4, True),
+}
 
 
 @contextlib.contextmanager
@@ -912,6 +987,66 @@ def decision_rows(torch, aux_g, aux_w, what, marginal=MARGINAL, threshold=0.5, f
     return rows, flipped, dropped
 
 
+@contextlib.contextmanager
+def relu_inputs(sides=None):
+    """While open, the input of every ReLU of the model's MLPs
+    (tggcn_torch.nn.mlp.apply_mlp), in call order: yields the list. With
+    sides (kink_sides), the ReLU of each call that has an entry passes its
+    input where the entry's mask says which side of the kink to take, and
+    where x > 0 elsewhere: x times that 0/1 mask, whose derivative is the
+    mask."""
+    from tggcn_torch.nn import mlp
+
+    pick, seen = mlp.pick_activation, []
+
+    def picking(activation):
+        fn = pick(activation)
+        if activation != "relu":
+            return fn
+
+        def relu(x):
+            forced = sides[len(seen)] if sides else None
+            seen.append(x.detach())
+            if forced is None:
+                return fn(x)
+            flips, side = forced
+            return x * side.where(flips, x > 0).to(x.dtype)
+        return relu
+
+    mlp.pick_activation = picking
+    try:
+        yield seen
+    finally:
+        mlp.pick_activation = pick
+
+
+def kink_sides(torch, got, want, what, marginal=KINK_MARGIN, most=KINK_FLIPS):
+    """The ReLU kinks that the inputs of two runs (relu_inputs: the kernel
+    route's got, the plain route's want) put on different sides of 0: a
+    list by call of None or (the mask of such inputs, want's side there,
+    x > 0), and their count. A ReLU is a hard decision at 0, and a float32
+    input within rounding of it may fall either way, as a marginal
+    decision does; a flip where either run's input lies marginal or
+    further from 0 fails, and so do more than most flips."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} against {len(want)} ReLU calls")
+    sides, flipped = [], 0
+    for x, y in zip(got, want):
+        flips = (x > 0) != (y > 0)
+        if not bool(flips.any()):
+            sides.append(None)
+            continue
+        margin = float(torch.maximum(x.abs(), y.abs())[flips].max())
+        if margin >= marginal:
+            raise AssertionError(f"{what}: a ReLU input of shape {tuple(x.shape)} flips "
+                                 f"{margin:.3e} from its kink")
+        sides.append((flips, y > 0))
+        flipped += int(flips.sum())
+    if flipped > most:
+        raise AssertionError(f"{what}: {flipped} ReLU inputs flip at their kink (at most {most})")
+    return sides, flipped
+
+
 def decision_rule(cfg):
     """The keywords of decision_rows for a model configuration: its
     threshold and whether its decisions are filtered."""
@@ -990,17 +1125,52 @@ def read_launches():
 
 
 def stage_module(stage):
-    from tggcn_torch.models import stage1, stage2
+    from tggcn_torch.models import cad120, stage1, stage2
 
-    return {"stage1": stage1, "stage2": stage2}[stage]
+    return {"stage1": stage1, "stage2": stage2, "cad120": cad120}[stage]
+
+
+def route_kernels(cfg, dists3, train, bf16):
+    """The kernels (counter names) one request (train=False) or one train
+    step of a model configuration launches, each once, given which distance
+    tensors it reads: K1 (and K2 in a step); the segment scan's by its mode
+    (models/tggcn.py segment_mode): K3 (and K4) in 'dot', K5 in another
+    mode, none for the general scan (plain PyTorch); of the dtype; and K6,
+    float32 in either dtype, with the GeoGCN kernel on. Returns (names,
+    mode)."""
+    from tggcn_torch.models.tggcn import segment_mode
+
+    mode = segment_mode(cfg, dists3)
+    names = ["gru_sequence"] + (["gru_sequence_bwd"] if train else [])
+    if mode == "dot":
+        names += ["segment_scan_dot"] + (["segment_scan_dot_bwd"] if train else [])
+    elif mode is not None:
+        names.append(f"segment_scan_{mode}")
+    names = {f"{name}_bf16" if bf16 else name for name in names}
+    if cfg.use_pallas_geo_gcn:
+        names.add("geo_gcn_fused")
+    return names, mode
+
+
+DIST_KEYS = ("human_human_distances", "human_object_distances", "object_object_distances")
+
+
+def output_shapes(cfg, b, t, nh, no):
+    """The shapes of a request's outputs: the decisions, then the frame and
+    segment heads (B, classes, T, entities)."""
+    sub, aff = cfg.num_classes
+    if aff is None:
+        return [(b, t, nh)] * 2 + [(b, sub, t, nh)] * 4
+    heads = [(b, sub, t, nh)] * 2 + [(b, aff, t, no)] * 2
+    return [(b, t, nh), (b, t, no)] * 2 + heads * 2
 
 
 def run_forward(torch, dev, size, seed, variant=None, dtype="float32", stage="stage1",
                 requests=REQUESTS):
-    """Served requests of the stage-1 or stage-2 model, or of one of
-    stage1.SERVE_VARIANTS or stage2.FEATURE_VARIANTS, in the compute dtype,
-    on the kernel route against the plain route; each kernel of the route
-    must launch once per request, and no other."""
+    """Served requests of the stage-1, stage-2 or CAD-120 model, or of one
+    of its SERVE_VARIANTS or FEATURE_VARIANTS, in the compute dtype, on the
+    kernel route against the plain route; each kernel of the route
+    (route_kernels) must launch once per request, and no other."""
     from tggcn_torch.models.registry import select_model
 
     module = stage_module(stage)
@@ -1018,15 +1188,16 @@ def run_forward(torch, dev, size, seed, variant=None, dtype="float32", stage="st
     # and the humans' where their segmentation is not imposed.
     noises = []
     for batch in batches:
-        noises.append({"object": rng.gumbel(size=(b, t, no, 2)).astype(np.float32)})
+        noises.append({})
+        if "objects_segmentation" not in batch:
+            noises[-1]["object"] = rng.gumbel(size=(b, t, no, 2)).astype(np.float32)
         if "human_segmentation" not in batch:
             noises[-1]["human"] = rng.gumbel(size=(b, t, nh, 2)).astype(np.float32)
     rule = decision_rule(model.config)
     bf16 = dtype == "bfloat16"
-    expected = {f"{name}{'_bf16' if bf16 else ''}"
-                for name in ("gru_sequence", MODE_KERNEL.get(variant, "segment_scan_dot"))}
-    if variant == "dist":
-        expected.add("geo_gcn_fused")            # float32 in either dtype, as JAX keeps it
+    # K6 is float32 in either dtype, as JAX keeps it.
+    expected, _ = route_kernels(model.config, [batches[0].get(k) for k in DIST_KEYS], False,
+                                bf16)
 
     model.apply(params, noise=noises[0], **batches[0])   # warm-up: cuBLAS, library loads
     torch.cuda.synchronize(dev)
@@ -1043,7 +1214,7 @@ def run_forward(torch, dev, size, seed, variant=None, dtype="float32", stage="st
         raise AssertionError(f"the forward did not go through exactly the kernels "
                              f"{sorted(expected)} once a request: {launches}")
 
-    want_shapes = [(b, t, nh), (b, t, nh)] + [(b, 13, t, nh)] * 4
+    want_shapes = output_shapes(model.config, b, t, nh, no)
     plain_times, wants, err, flips, dropped = [], [], 0.0, 0, 0
     for i, (batch, noise, got) in enumerate(zip(batches, noises, results)):
         if [tuple(o.shape) for o in got[0]] != want_shapes:
@@ -1139,12 +1310,13 @@ def recompute_timer(torch):
 
 
 def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=None):
-    """One train step of the stage-1 or stage-2 model (or of one of
-    stage1.SERVE_VARIANTS) in the compute dtype on each route from the same
+    """One train step of the stage-1, stage-2 or CAD-120 model (or of one of
+    its SERVE_VARIANTS) in the compute dtype on each route from the same
     weights, compared; then TRAIN_STEPS (MODE_TRAIN_STEPS for a variant)
-    timed steps on the kernel route. Stage 2 starts from stage-1 weights
-    merged into its own init (merge_params, as train.py warm-starts it) and
-    draws Gumbel noise for humans and objects."""
+    timed steps on the kernel route, each launching the route's kernels
+    (route_kernels) once. Stage 2 starts from stage-1 weights merged into
+    its own init (merge_params, as train.py warm-starts it) and draws
+    Gumbel noise for humans and objects."""
     from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
     from tggcn_torch.models import stage1
     from tggcn_torch.models.registry import select_model
@@ -1156,11 +1328,6 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     module = stage_module(stage)
     b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
     bf16 = dtype == "bfloat16"
-    kernels = ((MODE_KERNEL[variant], "gru_sequence", "gru_sequence_bwd") if variant
-               else TRAIN_KERNELS)
-    kernels = tuple(f"{k}_bf16" for k in kernels) if bf16 else kernels
-    if variant == "dist":
-        kernels += ("geo_gcn_fused",)            # float32 in either dtype
     steps = MODE_TRAIN_STEPS if variant else TRAIN_STEPS
     what = (f"train{'_' + stage if stage != 'stage1' else ''}{'_bf16' if bf16 else ''}"
             f"{' ' + variant if variant else ''} step")
@@ -1170,20 +1337,24 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     change = module.SERVE_VARIANTS[variant] if variant else {}
     model = select_model("2G-GCN", device=dev, **dict(module.model_kwargs(dtype), **change))
     rule = decision_rule(model.config)
-    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", module.TRAIN["misc"])
+    criterion, _ = select_loss("2G-GCN", "multiple", module.DATASET, module.TRAIN["misc"])
     feeder = select_model_data_feeder("2G-GCN", "multiple", **(
         module.feeder_kwargs(variant) if variant else module.FEEDER_KWARGS))
-    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
+    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name=module.DATASET)
     data, targets = fetch(module.make_batch(np.random.default_rng(seed), b, t, nh, no,
                                             **({"variant": variant} if variant else {})))
     data = [torch.as_tensor(x, device=dev) for x in data]          # resident, as bench.py
     targets = [torch.as_tensor(y, device=dev) for y in targets]
+    # K6 is float32 in either dtype; a K5 mode's gradients are recomputed.
+    fed = feeder(data)
+    kernels, mode = route_kernels(model.config, [fed[k] for k in DIST_KEYS], True, bf16)
+    recompute = mode in K5_MODES
     gen = torch.Generator(device=dev).manual_seed(seed)
     noise = {"object": gumbel_noise((b, t, no, 2), gen)}
-    if stage != "stage1":
+    if stage == "stage2":
         noise["human"] = gumbel_noise((b, t, nh, 2), gen)
     warm = None
-    if stage != "stage1":
+    if stage == "stage2":
         warm = select_model("2G-GCN", device=dev, **stage1.model_kwargs(dtype))
 
     def init():
@@ -1202,7 +1373,12 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
               flush=True)
         del own, params
 
-    def first_step(use_kernels, rows):
+    # The CAD-120 float32 step, held leaf by leaf, is held with the plain
+    # route's side of each marginal ReLU kink (kink_sides, at most
+    # KINK_FLIPS); every other step is held as it ran.
+    kinks = stage == "cad120" and not bf16 and not recompute
+
+    def first_step(use_kernels, rows, record=False, sides=None):
         weights = init()
         trainable = {"model": weights if warm is None else weights[1]}
         del weights
@@ -1212,20 +1388,40 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
         batch = ([x[rows] for x in data], [y[rows] for y in targets],
                  {k: v[rows] for k, v in noise.items()})
         reset_launches()
-        losses, _, aux = step(trainable, *batch[:2], noise=batch[2])
+        with relu_inputs(sides) if record or sides else contextlib.nullcontext([]) as relus:
+            losses, _, aux = step(trainable, *batch[:2], noise=batch[2])
         torch.cuda.synchronize(dev)
         return dict(trainable=trainable, step=step, batch=batch, losses=losses, aux=aux,
-                    launches=read_launches())
+                    launches=read_launches(), relus=relus)
 
     rows = torch.ones(b, dtype=torch.bool, device=dev)
-    kern, plain = first_step(True, rows), first_step(False, rows)
+    kern, plain = first_step(True, rows, kinks), first_step(False, rows, kinks)
     keep, flips, dropped = decision_rows(torch, kern["aux"], plain["aux"], what,
                                          marginal, **rule)
     if dropped:                          # run both again without the flipped row
         rows = keep.to(dev)
-        kern, plain = first_step(True, rows), first_step(False, rows)
+        kern, plain = first_step(True, rows, kinks), first_step(False, rows, kinks)
         decision_rows(torch, kern["aux"], plain["aux"], f"{what} without the flipped row",
                       marginal, **rule)
+    want = tensor_leaves(plain["trainable"])
+    floor = GRAD_FLOOR * max(float(w.grad.abs().max()) for w in want.values()
+                             if w.grad is not None)
+    held, kink_flips, unheld = kern, 0, None
+    if kinks:
+        sides, kink_flips = kink_sides(torch, kern.pop("relus"), plain.pop("relus"), what)
+        if kink_flips:
+            # The kernel route as it ran, over the whole model as a K5
+            # mode's float32 step; then again, on the plain route's sides.
+            unheld = grad_gaps(kern["trainable"], plain["trainable"], floor)["model_share"]
+            print(f"{what}: {kink_flips} ReLU kink flips; the kernel route as it ran: largest "
+                  f"difference {unheld:.3e} of the model's largest gradient", flush=True)
+            limit = MODE_TRAIN_LIMITS["float32"]["model_share"]
+            if not (unheld <= limit and torch.allclose(kern["losses"], plain["losses"],
+                                                       rtol=loss_rtol, atol=0)):
+                raise AssertionError(f"{what}: the kernel route as it ran differs beyond "
+                                     f"{limit} of the model's largest gradient ({unheld:.3e}) "
+                                     f"or in its losses")
+            held = first_step(True, rows, sides=sides)
     if any(plain["launches"].values()):
         raise AssertionError(f"the plain route launched kernels: {plain['launches']}")
     again = first_step(True, rows)
@@ -1241,16 +1437,13 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     if kern["launches"] != {k: int(k in kernels) for k in kern["launches"]}:
         raise AssertionError(f"the train step did not go through exactly the kernels "
                              f"{kernels} once: {kern['launches']}")
-    loss_err = max_err(kern["losses"], plain["losses"])
-    if (not bool(kern["losses"].isfinite().all())
-            or not torch.allclose(kern["losses"], plain["losses"], rtol=loss_rtol, atol=0)):
-        raise AssertionError(f"train step losses differ: {kern['losses'].tolist()} against "
+    loss_err = max_err(held["losses"], plain["losses"])
+    if (not bool(held["losses"].isfinite().all())
+            or not torch.allclose(held["losses"], plain["losses"], rtol=loss_rtol, atol=0)):
+        raise AssertionError(f"train step losses differ: {held['losses'].tolist()} against "
                              f"{plain['losses'].tolist()}")
-    want = tensor_leaves(plain["trainable"])
-    floor = GRAD_FLOOR * max(float(w.grad.abs().max()) for w in want.values()
-                             if w.grad is not None)
     gaps = {key: grad_gaps({key: g}, {key: want[key]}, floor)
-            for key, g in tensor_leaves(kern["trainable"]).items() if want[key].grad is not None}
+            for key, g in tensor_leaves(held["trainable"]).items() if want[key].grad is not None}
     rels = {key: gap["max_share"] for key, gap in gaps.items()}
     worst = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
     top = floor / GRAD_FLOOR
@@ -1259,11 +1452,11 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
               f"{k} {v:.3e} ({gaps[k]['rel_l2']:.3e}; "
               f"{float(want[k].grad.abs().max()) / top:.2e})" for k, v in worst), flush=True)
     measure = lambda got, want: grad_gaps(got["trainable"], want["trainable"], floor)
-    whole = measure(kern, plain)
+    whole = measure(held, plain)
     print(f"{what}: over the whole model: largest difference {whole['model_share']:.3e} of the "
           f"model's largest gradient, rel. norm {whole['model_rel_l2']:.3e}", flush=True)
-    if variant:
-        # The gradients of a variant are those of the fast path recomputed
+    if recompute:
+        # The gradients of a K5 mode are those of the fast path recomputed
         # at each route's own saved inputs: see MODE_TRAIN_LIMITS.
         over = {k: whole[k] for k, limit in MODE_TRAIN_LIMITS[dtype].items()
                 if not whole[k] <= limit}
@@ -1276,22 +1469,22 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
                                  f"{[k for k, v in rels.items() if not v <= leaf_rtol]}")
         grad_rel = worst[0][1]
     weight_err = max(max_err(g.detach(), want[key].detach())
-                     for key, g in tensor_leaves(kern["trainable"]).items())
+                     for key, g in tensor_leaves(held["trainable"]).items())
     # In float32 Adam's first step (lr g / (|g| + eps), which saturates at
     # lr) may move a weight whose gradient is rounding noise either way; in
     # bfloat16, and for a variant (whose near-zero gradients change sign
     # where a recomputed kink flips), the gradient check above bounds them.
-    if not bf16 and not variant and not weight_err <= module.TRAIN["lr"]:
+    if not bf16 and not recompute and not weight_err <= module.TRAIN["lr"]:
         raise AssertionError(f"updated weights differ by {weight_err:.3e} "
                              f"(limit one learning rate, {module.TRAIN['lr']})")
     controls = {}
     if bf16:
         controls = check_controls(what, measure, lambda: first_step(False, rows), kern, plain,
-                                  MODE_TRAIN_LIMITS[dtype] if variant else LIMITS_BF16["train"])
+                                  MODE_TRAIN_LIMITS[dtype] if recompute else LIMITS_BF16["train"])
 
     # The timed steps' peak is the step's own: of the compared runs only the
     # kernel route's weights, Adam state and batch stay alive.
-    del plain, again, grads, want
+    del plain, again, grads, want, held
     times = []
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1308,11 +1501,12 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     launches = read_launches()
     if launches != {k: steps * (k in kernels) for k in launches}:
         raise AssertionError(f"a timed train step missed a kernel: {launches}")
-    if len(recompute_ms) != (steps if variant else 0):
+    if len(recompute_ms) != (steps if recompute else 0):
         raise AssertionError(f"{len(recompute_ms)} recompute backwards in {steps} steps")
     return dict(ms=statistics.median(times), losses=kern["losses"].tolist(), loss_err=loss_err,
                 steps=steps, recompute_ms=statistics.median(recompute_ms) if recompute_ms else None,
-                grad_rel=grad_rel, weight_err=weight_err, flips=flips, dropped_rows=dropped,
+                grad_rel=grad_rel, weight_err=weight_err, flips=flips, kink_flips=kink_flips,
+                unheld_model_share=unheld, dropped_rows=dropped,
                 launches=launches, equal_leaves=equal_leaves, merged=merged, **controls,
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                 resident_gib=resident / 2 ** 30)
@@ -1328,24 +1522,26 @@ def train_setup(torch, dev, size, seed, dtype, stage):
     module = stage_module(stage)
     b, t, nh, no = (size[k] for k in ("b", "t", "humans", "objects"))
     model = select_model("2G-GCN", device=dev, **module.model_kwargs(dtype))
-    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", module.TRAIN["misc"])
+    criterion, _ = select_loss("2G-GCN", "multiple", module.DATASET, module.TRAIN["misc"])
     feeder = select_model_data_feeder("2G-GCN", "multiple", **module.FEEDER_KWARGS)
-    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
+    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name=module.DATASET)
     data, targets = fetch(module.make_batch(np.random.default_rng(seed), b, t, nh, no))
     return (model, module, criterion, feeder, [torch.as_tensor(x, device=dev) for x in data],
             [torch.as_tensor(y, device=dev) for y in targets])
 
 
 def run_sync_free(torch, dev, size, seed):
-    """One eager kernel-route train step of the bfloat16 stage-1 and stage-2
-    models, each drawing its Gumbel noise on the card from a generator,
-    under torch.cuda.set_sync_debug_mode("error"): a synchronizing call
-    raises. A warm-up step before each builds the kernels."""
+    """One eager kernel-route train step of the bfloat16 stage-1, stage-2
+    and CAD-120 models (each at its module's SHAPE, stage 1 and 2 at size),
+    each drawing its Gumbel noise on the card from a generator, under
+    torch.cuda.set_sync_debug_mode("error"): a synchronizing call raises. A
+    warm-up step before each builds the kernels."""
     from tggcn_torch.train.loop import make_train_step, trainable_parameters
 
     out, dtype = {}, "bfloat16"
-    for stage in ("stage1", "stage2"):
-        model, module, criterion, feeder, data, targets = train_setup(torch, dev, size, seed,
+    for stage in ("stage1", "stage2", "cad120"):
+        at = stage_module(stage).SHAPE if stage == "cad120" else size
+        model, module, criterion, feeder, data, targets = train_setup(torch, dev, at, seed,
                                                                       dtype, stage)
         trainable = {"model": model.init(torch.Generator().manual_seed(0))}
         step = make_train_step(model, feeder, criterion, torch.optim.Adam(
@@ -1393,18 +1589,20 @@ def kernel_groups(events, bf16):
     return counts
 
 
-def run_train_fused(torch, dev, size, seed, dtype="float32", stage="stage1"):
+def run_train_fused(torch, dev, size, seed, dtype="float32", stage="stage1",
+                    profiled_steps=PROFILED_STEPS, eager_window=FUSED_WINDOW):
     """FUSED_STEPS train steps fused into one call (one step captured in a
     CUDA graph, replayed) against as many eager kernel-route steps, from
     the same weights, batch and noise stack, each route with its own
     capturable Adam: losses, every leaf, Adam's state and the BatchNorm
     state must be equal bit for bit. The kernels of a replay are counted by
     the profiler (the wrappers count in Python, which a replay does not
-    run): PROFILED_STEPS replays must launch K1-K4 of the dtype as often as
-    as many eager steps. Before those, a FUSED_WINDOW-step window of each
-    route, fresh noise drawn on the card: ms a step (host clock, one
-    synchronize at the end); busy ms and idle share from the profiled
-    steps."""
+    run): profiled_steps replays must launch K1-K4 of the dtype as often as
+    as many eager steps, each group of the route's kernels (route_kernels)
+    and no other. Before those, a FUSED_WINDOW-step window of the fused
+    route and an eager_window-step one of the eager route, fresh noise
+    drawn on the card: ms a step (host clock, one synchronize at the end);
+    busy ms and idle share from the profiled steps."""
     from tggcn_torch.train.loop import (gumbel_noise_stack, make_fused_train_steps,
                                         make_train_step, trainable_parameters)
 
@@ -1415,6 +1613,10 @@ def run_train_fused(torch, dev, size, seed, dtype="float32", stage="stage1"):
     b, t, nh, no = (size[key] for key in ("b", "t", "humans", "objects"))
     gen = torch.Generator(device=dev).manual_seed(seed)
     noise = gumbel_noise_stack(gen, k, b, t, nh, no)
+    fed = feeder(data)
+    names, _ = route_kernels(model.config, [fed[key] for key in DIST_KEYS], True, bf16)
+    groups = {KERNEL_GROUP[n.removesuffix("_bf16")] for n in names
+              if n.removesuffix("_bf16") in KERNEL_GROUP}
 
     def route():
         trainable = {"model": model.init(torch.Generator().manual_seed(0))}
@@ -1464,32 +1666,34 @@ def run_train_fused(torch, dev, size, seed, dtype="float32", stage="stage1"):
 
     result = dict(equal_leaves=len(leaves_e), equal_adam=len(moments), first_call_s=first_s,
                   fused_peak_gib=fused_peak)
-    for name, run in (("fused", run_fused), ("eager", run_eager)):   # both warm already
+    for name, run, window in (("fused", run_fused, FUSED_WINDOW),
+                              ("eager", run_eager, eager_window)):   # both warm already
         torch.cuda.reset_peak_memory_stats(dev)
         start = time.perf_counter()
-        run(FUSED_WINDOW)
+        run(window)
         torch.cuda.synchronize(dev)
-        ms = (time.perf_counter() - start) * 1e3 / FUSED_WINDOW
+        ms = (time.perf_counter() - start) * 1e3 / window
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        wall, busy, events = profiled(lambda: run(PROFILED_STEPS))
-        result[name] = dict(ms=ms, busy_ms=busy / PROFILED_STEPS,
-                            idle=1.0 - busy / PROFILED_STEPS / ms, profiled_idle=1.0 - busy / wall,
-                            launches=len(events) / PROFILED_STEPS, peak_gib=peak_gib,
+        wall, busy, events = profiled(lambda: run(profiled_steps))
+        result[name] = dict(ms=ms, busy_ms=busy / profiled_steps,
+                            idle=1.0 - busy / profiled_steps / ms, profiled_idle=1.0 - busy / wall,
+                            launches=len(events) / profiled_steps, peak_gib=peak_gib,
                             kernels=kernel_groups(events, bf16))
     replays, steps = result["fused"]["kernels"], result["eager"]["kernels"]
-    if not all(steps.values()) or replays != steps:
-        raise AssertionError(f"{PROFILED_STEPS} replays launched {replays}; "
-                             f"{PROFILED_STEPS} eager steps {steps}")
+    if {g for g, n in steps.items() if n} != groups or replays != steps:
+        raise AssertionError(f"{profiled_steps} replays launched {replays}; "
+                             f"{profiled_steps} eager steps {steps}; the route's groups {groups}")
+    result.update(profiled_steps=profiled_steps, eager_window=eager_window)
     return result
 
 
 def print_train_fused(name, r):
-    f, e = r["fused"], r["eager"]
-    each = lambda kernels: json.dumps({g: n // PROFILED_STEPS for g, n in kernels.items()})
+    f, e, n_prof = r["fused"], r["eager"], r["profiled_steps"]
+    each = lambda kernels: json.dumps({g: n // n_prof for g, n in kernels.items()})
     print(f"{name}: K1-K4 kernels a replay {each(f['kernels'])} (an eager step "
           f"{each(e['kernels'])}); {FUSED_WINDOW}-step window: fused "
-          f"{f['ms']:.3f} ms a step, eager {e['ms']:.3f} (host clock, one synchronize a "
-          f"window); over {PROFILED_STEPS} profiled steps: busy {f['busy_ms']:.3f} / "
+          f"{f['ms']:.3f} ms a step, eager {e['ms']:.3f} (over {r['eager_window']} steps; "
+          f"host clock, one synchronize a window); over {n_prof} profiled steps: busy {f['busy_ms']:.3f} / "
           f"{e['busy_ms']:.3f} ms a step, idle share (1 - busy / ms a step) {f['idle']:.3f} / "
           f"{e['idle']:.3f} ({f['profiled_idle']:.3f} / {e['profiled_idle']:.3f} of the "
           f"profiled wall), {f['launches']:.0f} / {e['launches']:.0f} kernels a step; peak "
@@ -1532,16 +1736,75 @@ def print_train(name, r):
     recompute = ("" if r["recompute_ms"] is None else
                  f"; recompute backward {r['recompute_ms']:.3f} ms a step (median, CUDA events)")
     of = "the model's largest gradient" if r["recompute_ms"] is not None else "each leaf's largest"
+    unheld = ("" if r["unheld_model_share"] is None else
+              f"; unheld, {r['unheld_model_share']:.3e} of the model's largest gradient")
     print(f"{name} step ms {r['ms']:.3f} (median of {r['steps']} on the kernel route), losses "
           f"{json.dumps(r['losses'])}, kernel vs plain route: losses {r['loss_err']:.3e}, "
           f"gradients {r['grad_rel']:.3e} of {of}, weights "
           f"{r['weight_err']:.3e}; marginal decision flips {r['flips']} (batch rows left out "
-          f"{r['dropped_rows']}); launches {json.dumps(r['launches'])} over {r['steps']} "
+          f"{r['dropped_rows']}), marginal ReLU kink flips {r['kink_flips']} (held on the "
+          f"plain route's side{unheld}); launches {json.dumps(r['launches'])} over {r['steps']} "
           f"steps{recompute}; {r['equal_leaves']} gradient leaves bitwise equal in two "
           f"kernel-route steps; peak device memory {r['peak_gib']:.3f} GiB "
           f"(torch.cuda.max_memory_allocated over the timed steps, of which "
           f"{r['resident_gib']:.3f} GiB of weights, Adam state and batch held between steps)",
           flush=True)
+
+
+def run_general_variants(torch, dev, seed, b=8, t=167, hidden=64):
+    """One float32 request of each of GENERAL_VARIANTS at hidden 64 on the
+    kernel route against the plain route, under the forward phase's limits:
+    'st' decisions taken, nothing imposed, the last clip with half its
+    objects masked and a shorter clip length for the positional features;
+    exactly K1 launches, once a request."""
+    from tggcn_torch.models import stage1
+    from tggcn_torch.models.registry import select_model
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (change, nh, no, bn_train) in GENERAL_VARIANTS.items():
+        model = select_model("2G-GCN", device=dev, **dict(
+            stage1.MODEL_KWARGS, hidden_size=hidden, discrete_optimization_strategy="st",
+            **change))
+        params = model.init(torch.Generator().manual_seed(0))
+        mask = np.ones((b, no), np.float32)
+        mask[-1, no // 2:] = 0.0
+        steps = np.full((b,), float(t), np.float32)
+        steps[-1] = float(t // 2)
+        batch = dict(
+            x_human=rng.standard_normal((b, t, nh, model.config.input_size[0]), dtype=np.float32),
+            x_objects=rng.standard_normal((b, t, no, 2048), dtype=np.float32),
+            objects_mask=mask, steps_per_example=steps)
+        expected, mode = route_kernels(model.config, [None] * 3, False, False)
+        if mode is not None:
+            raise AssertionError(f"{name}: segment mode {mode}, not the general scan")
+        with torch.no_grad():
+            model.apply(params, train=bn_train, **batch)              # warm-up
+            torch.cuda.synchronize(dev)
+            reset_launches()
+            start = time.perf_counter()
+            got = model.apply(params, train=bn_train, **batch)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - start) * 1e3
+            launches = read_launches()
+            start = time.perf_counter()
+            want = model.apply(params, train=bn_train, use_kernels=False, **batch)
+            torch.cuda.synchronize(dev)
+            plain_ms = (time.perf_counter() - start) * 1e3
+        if launches != {k: int(k in expected) for k in launches}:
+            raise AssertionError(f"{name}: the forward did not go through exactly "
+                                 f"{sorted(expected)} once: {launches}")
+        if read_launches() != launches:
+            raise AssertionError(f"{name}: the plain route launched kernels")
+        shapes = [tuple(o.shape) for o in got[0]]
+        if shapes != output_shapes(model.config, b, t, nh, no):
+            raise AssertionError(f"{name}: output shapes {shapes}")
+        err, flips, dropped = compare_forward(torch, got, want, name,
+                                              rule=decision_rule(model.config))
+        out[name] = r = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, flips=flips,
+                             dropped_rows=dropped, launches=launches)
+        print_forward(f"forward_general_variants {name}:", r, 1)
+    return out
 
 
 def run_small(torch, dev, seed):
@@ -1665,6 +1928,28 @@ def main(argv=None):
                                ("train_fused_stage2_bf16", stage2.BENCH_DTYPE, "stage2")):
         with phase(name):
             print_train_fused(name, run_train_fused(torch, dev, shape, args.seed, dtype, stage))
+    cad, cad_shape = stage_module("cad120"), stage_module("cad120").SHAPE
+    fwd_cad, train_cad = {}, {}
+    for dtype, tag in (("float32", ""), (cad.BENCH_DTYPE, "_bf16")):
+        with phase(f"forward_cad120{tag}"):
+            fwd_cad[dtype] = r = run_forward(torch, dev, cad_shape, args.seed, dtype=dtype,
+                                             stage="cad120", requests=1)
+            print_forward(f"forward_cad120{tag}", r, 1)
+    with phase("forward_cad120_dist"):
+        r = run_forward(torch, dev, cad_shape, args.seed, "dist", stage="cad120", requests=1)
+        print_forward("forward_cad120_dist", r, 1)
+    for dtype, tag in (("float32", ""), (cad.BENCH_DTYPE, "_bf16")):
+        with phase(f"train_cad120{tag}"):
+            train_cad[dtype] = r = run_train(torch, dev, cad_shape, args.seed, dtype=dtype,
+                                             stage="cad120")
+            print_train(f"train_cad120{tag}", r)
+    with phase("train_fused_cad120_bf16"):
+        print_train_fused("train_fused_cad120_bf16",
+                          run_train_fused(torch, dev, cad_shape, args.seed, cad.BENCH_DTYPE,
+                                          "cad120", profiled_steps=FUSED_PROFILED_CAD120,
+                                          eager_window=EAGER_WINDOW_CAD120))
+    with phase("forward_general_variants"):
+        run_general_variants(torch, dev, args.seed)
     with phase("bench_short"):
         run_bench_short(torch)
     # K1-K4's launches are the stage-1 train steps' (of their dtype); K5's
@@ -1676,7 +1961,10 @@ def main(argv=None):
             k["launches"] = train[dtype]["launches"][k["name"]]
             per = (f"per {dtype} train step {k['launches'] / TRAIN_STEPS:g}, per {dtype} "
                    f"stage-2 train step {train2[dtype]['launches'][k['name']] / TRAIN_STEPS:g}, "
-                   f"per {dtype} stage-1 request {fwd[dtype]['launches'][k['name']] / REQUESTS:g}")
+                   f"per {dtype} stage-1 request {fwd[dtype]['launches'][k['name']] / REQUESTS:g}, "
+                   f"per {dtype} CAD-120 train step "
+                   f"{train_cad[dtype]['launches'][k['name']] / TRAIN_STEPS:g}, per {dtype} "
+                   f"CAD-120 request {fwd_cad[dtype]['launches'][k['name']]:g}")
         else:
             pool, n = (served_bf16, 1) if k["name"].endswith("_bf16") else (served, REQUESTS)
             k["launches"] = sum(r["launches"][k["name"]] for r in pool.values())

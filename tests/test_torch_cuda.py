@@ -49,6 +49,15 @@ capturable Adam bit for bit (losses, every leaf, Adam's state), twice in a
 row; an eager kernel-route step that draws its own noise makes no
 synchronizing call (torch.cuda.set_sync_debug_mode("error")); the fused
 steps raise on an Adam they cannot capture and touch no weight.
+
+CAD-120 stage 1 (tggcn_torch.models.cad120) and the general segment scan's
+configurations at hidden 24: a request launches exactly K1 (and K6 with
+the GeoGCN kernel), no segment-scan kernel, and agrees with the plain route
+at rtol 1e-5, atol 1e-5 (bfloat16: 6e-4 absolute); a CAD-120 train step
+launches exactly K1 and K2, held to the plain route as the stage-1 step is
+in its dtype, two identical steps bitwise equal; 3 fused bfloat16 CAD-120
+steps equal 3 eager ones bit for bit, and an eager one makes no
+synchronizing call.
 """
 
 import json
@@ -846,3 +855,176 @@ def test_fused_steps_refuse_an_optimizer_they_cannot_capture(cuda):
         fused(trainable, [x.expand(k, *x.shape) for x in data],
               [y.expand(k, *y.shape) for y in targets], noise_stack=noise)
     assert all(torch.equal(a, b) for a, (_, b) in zip(before, _flat_leaves(trainable)))
+
+
+# --- CAD-120 stage 1 and the general segment scan ----------------------------------
+
+def _cad120_setup(cuda, dtype, variant=None, hidden=24, b=3, t=9):
+    """The CAD-120 model at hidden, its 12-loss bundle and feeder, and a
+    seeded batch on the card (1 human, 5 object slots, some empty)."""
+    from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
+    from tggcn_torch.models import cad120
+    from tggcn_torch.models.registry import select_model
+    from tggcn_torch.train.losses import select_loss
+
+    model = select_model("2G-GCN", device=cuda, **dict(
+        cad120.model_kwargs(dtype), hidden_size=hidden,
+        **(cad120.SERVE_VARIANTS[variant] if variant else {})))
+    criterion, _ = select_loss("2G-GCN", "multiple", cad120.DATASET, cad120.TRAIN["misc"])
+    feeder = select_model_data_feeder("2G-GCN", "multiple", **cad120.feeder_kwargs(variant))
+    data, targets = select_model_data_fetcher("2G-GCN", "multiple",
+                                              dataset_name=cad120.DATASET)(
+        cad120.make_batch(np.random.default_rng(41), b, t, 1, 5, variant=variant))
+    data = [torch.as_tensor(x, device=cuda) for x in data]
+    targets = [torch.as_tensor(y, device=cuda) for y in targets]
+    return model, criterion, feeder, data, targets
+
+
+def _launch_counts(bf16):
+    attr = "launches_bf16" if bf16 else "launches"
+    counters = [getattr(w, attr) for w in (gru_sequence, gru_sequence_bwd, segment_scan_dot,
+                                           segment_scan_dot_bwd, segment_scan_v1,
+                                           segment_scan_v4, segment_scan_ext)]
+    return counters + [geo_gcn_fused.launches]
+
+
+@pytest.mark.parametrize("dtype,variant", [("float32", None), ("bfloat16", None),
+                                           ("float32", "dist")])
+def test_cad120_request_kernel_route(cuda, dtype, variant):
+    """A CAD-120 request at hidden 24: its segment scan is the general one,
+    so the kernel route launches exactly K1 (and K6 with the GeoGCN kernel
+    on), once; against the plain route at rtol 1e-5, atol 1e-5 (bfloat16:
+    6e-4 absolute, chip_smoke.py's whole-forward limit)."""
+    from tggcn_torch.models import cad120
+    from tggcn_torch.models.registry import select_model
+
+    model = select_model("2G-GCN", device=cuda, **dict(
+        cad120.model_kwargs(dtype), hidden_size=24,
+        **(cad120.SERVE_VARIANTS[variant] if variant else {})))
+    params = model.init(torch.Generator().manual_seed(42))
+    rng = np.random.default_rng(43)
+    batch = cad120.make_request(rng, 3, 9, 1, 5)
+    if variant:
+        batch.update(cad120.make_distances(rng, 3, 9, 1, 5))
+    bf16 = dtype == "bfloat16"
+    before = _launch_counts(bf16)
+    got, _ = model.apply(params, **batch)
+    launched = [a - b for a, b in zip(_launch_counts(bf16), before)]
+    assert launched == [1, 0, 0, 0, 0, 0, 0, int(variant == "dist")]
+    want, _ = model.apply(params, use_kernels=False, **batch)
+    assert _launch_counts(bf16) == [b + n for b, n in zip(before, launched)]
+    for g, w_ in zip(got, want):
+        if bf16:
+            assert float((g - w_).abs().max()) <= 6e-4
+        else:
+            torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cad120_train_step_kernel_route(cuda, dtype):
+    """One CAD-120 train step at hidden 24 on the kernel route (K1 and K2
+    each launched once, no segment-scan kernel) against the plain route
+    from the same weights: losses rtol 1e-5, leaves 1e-4 of their largest
+    (bfloat16: 1e-2 and 3.9e-2); two kernel-route steps bitwise equal."""
+    from tggcn_torch.models import cad120
+    from tggcn_torch.train.loop import make_train_step, model_parameters, trainable_parameters
+
+    model, criterion, feeder, data, targets = _cad120_setup(cuda, dtype)
+    bf16 = dtype == "bfloat16"
+    results = []
+    for use_kernels in (True, False, True):
+        trainable = {"model": model.init(torch.Generator().manual_seed(44))}
+        optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=cad120.TRAIN["lr"])
+        step = make_train_step(model, feeder, criterion, optimizer, use_kernels=use_kernels)
+        before = _launch_counts(bf16)
+        losses, _, _ = step(trainable, data, targets)
+        launched = [a - b for a, b in zip(_launch_counts(bf16), before)]
+        assert launched == ([1, 1] if use_kernels else [0, 0]) + [0] * 6
+        results.append((losses, [p.grad for p in model_parameters(trainable["model"])]))
+    (loss_k, grads_k), (loss_p, grads_p), (_, grads_again) = results
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-2 if bf16 else 1e-5, atol=0)
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads_p)
+    for g_k, g_p in zip(grads_k, grads_p):
+        limit = (3.9e-2 if bf16 else 1e-4) * max(float(g_p.abs().max()), floor)
+        assert float((g_k - g_p).abs().max()) <= limit
+    assert all(torch.equal(a, b) for a, b in zip(grads_k, grads_again))
+
+
+def test_cad120_fused_steps_equal_eager_steps(cuda):
+    """3 bfloat16 CAD-120 steps at hidden 24 captured once and replayed
+    equal 3 eager kernel-route steps bit for bit (losses, every leaf,
+    Adam's state); an eager step drawing its noise on the card makes no
+    synchronizing call."""
+    from tggcn_torch.train.loop import (gumbel_noise_stack, make_fused_train_steps,
+                                        make_train_step)
+
+    model, criterion, feeder, data, targets = _cad120_setup(cuda, "bfloat16")
+    k = 3
+    noise = gumbel_noise_stack(torch.Generator(device=cuda).manual_seed(45), k, 3, 9, 1, 5)
+    eager = {"model": model.init(torch.Generator().manual_seed(46))}
+    eager_opt = _adam(eager)
+    step = make_train_step(model, feeder, criterion, eager_opt)
+    want = torch.stack([step(eager, data, targets, noise={w: v[i] for w, v in noise.items()})[0]
+                        for i in range(k)])
+    fused_tree = {"model": model.init(torch.Generator().manual_seed(46))}
+    fused_opt = _adam(fused_tree)
+    fused = make_fused_train_steps(model, feeder, criterion, fused_opt)
+    got, _ = fused(fused_tree, [x.expand(k, *x.shape) for x in data],
+                   [y.expand(k, *y.shape) for y in targets], noise_stack=noise)
+    assert torch.equal(got, want)
+    leaves = lambda tree: [x for _, x in _flat_leaves(tree)]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(fused_tree), leaves(eager)))
+    for p, q in zip(fused_opt.param_groups[0]["params"], eager_opt.param_groups[0]["params"]):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(fused_opt.state[p][key], eager_opt.state[q][key]), key
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses, _, _ = step(eager, data, targets, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(losses.isfinite().all())
+
+
+GENERAL_CHANGES = {
+    "relational_mp_sah": (dict(input_size=(2124, 2048), num_classes=(10, 12), gcn_node=19,
+                               message_humans_to_human=False, message_type="v1",
+                               message_granularity="v2", message_aggregation="mp",
+                               attention_style="v1", object_segment_update_strategy="sah"),
+                          1, 5, False),
+    "specific_v1_features": (dict(input_size=(2168, 2048), num_classes=(14, None), gcn_node=30,
+                                  message_granularity="v2", attention_style="v1",
+                                  add_time_position=True, add_segment_length=True,
+                                  cat_level_states=True), 2, 9, False),
+    "no_segment_messages_bn_train": (dict(message_segment=False), 2, 4, True),
+}
+
+
+@pytest.mark.parametrize("name", list(GENERAL_CHANGES))
+def test_general_variants_kernel_route(cuda, name):
+    """A request of each configuration of chip_smoke.py's
+    forward_general_variants at hidden 24 ('st' decisions taken): exactly
+    K1 launches, once; against the plain route at rtol 1e-5, atol 1e-5."""
+    from tggcn_torch.models import stage1
+    from tggcn_torch.models.registry import select_model
+
+    change, nh, no, bn_train = GENERAL_CHANGES[name]
+    model = select_model("2G-GCN", device=cuda, **dict(
+        stage1.MODEL_KWARGS, hidden_size=24, discrete_optimization_strategy="st", **change))
+    params = model.init(torch.Generator().manual_seed(48))
+    rng = np.random.default_rng(49)
+    mask = np.ones((2, no), np.float32)
+    mask[-1, no // 2:] = 0.0
+    batch = dict(x_human=rng.standard_normal((2, 8, nh, model.config.input_size[0]),
+                                             dtype=np.float32),
+                 x_objects=rng.standard_normal((2, 8, no, 2048), dtype=np.float32),
+                 objects_mask=mask, steps_per_example=np.array([8.0, 5.0], np.float32))
+    before = _launch_counts(False)
+    with torch.no_grad():
+        got, _ = model.apply(params, train=bn_train, **batch)
+        launched = [a - b for a, b in zip(_launch_counts(False), before)]
+        want, _ = model.apply(params, train=bn_train, use_kernels=False, **batch)
+    assert launched == [1] + [0] * 7
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)

@@ -10,7 +10,12 @@
   backward.
 * Configurations outside the slice raise NotImplementedError; the K5
   modes (v1, v4, mean pooling, distances) serve and train in both dtypes,
-  and a partial set of distance tensors raises.
+  and so do the general scan's configurations (relational and 'specific'
+  messages, a missing entity edge, no segment messages, a partial set of
+  distance tensors).
+* The general segment scan makes no host read and takes no
+  data-dependent branch in its loop: no .item(), .tolist(), .cpu(),
+  .numpy(), tensor made from host data or Python condition on a tensor.
 * chip_smoke.py fails, printing no result, without a CUDA device.
 """
 
@@ -68,6 +73,7 @@ def test_port_imports_without_jax():
             "import tggcn_torch.ops.gru_sequence, tggcn_torch.ops.segment_scan\n"
             "import tggcn_torch.train.loop, tggcn_torch.train.losses\n"
             "import tggcn_torch.data.feeders, tggcn_torch.bench\n"
+            "import tggcn_torch.models.segment_general, tggcn_torch.models.cad120\n"
             "print('ok')")
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
@@ -184,9 +190,11 @@ def _assert_trains(model, params, batch):
     assert float(params["human_segment_rnn_fcell"]["w_ih"].grad.abs().max()) > 0
 
 
-# Configurations of the K5 modes that serve and train.
+# Configurations of the K5 modes and of the general scan that serve and train.
 TRAINS = ({"message_aggregation": "mp"}, {"attention_style": "v1"}, {"attention_style": "v4"},
-          {"compute_dtype": "bfloat16"})
+          {"compute_dtype": "bfloat16"}, {"message_type": "relational"},
+          {"message_granularity": "specific"}, {"message_humans_to_human": False},
+          {"message_segment": False})
 
 
 @pytest.mark.parametrize("change", [
@@ -197,10 +205,12 @@ TRAINS = ({"message_aggregation": "mp"}, {"attention_style": "v1"}, {"attention_
     {"compute_dtype": "float16"}, {"compute_dtype": "bfloat16"}, {"message_segment": False},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_outside_the_slice_raises(change):
-    """Configurations outside the port raise (float16 among them).
-    Mean pooling and v1/v4 attention (K5) serve and train on the CPU, and
-    so does v1 attention in bfloat16; 'sah' (with the one human it needs)
-    serves."""
+    """Configurations outside the port raise (float16 and frame-indexed
+    Gumbel noise). Mean pooling and v1/v4 attention (K5) serve and train
+    on the CPU, and so does v1 attention in bfloat16; so do relational and
+    'specific' messages, a segment level without the humans-to-human edge
+    and one without segment messages (the general scan); 'sah' (with the
+    one human it needs) serves."""
     kwargs = {**STAGE1, **change}
     if change == {"compute_dtype": "bfloat16"}:
         kwargs["attention_style"] = "v1"
@@ -220,8 +230,8 @@ def test_outside_the_slice_raises(change):
 def test_training_and_distances_raise():
     """Training is in the slice in float32 and bfloat16 in every segment
     mode: a bfloat16 train call with v1 attention, and distance-based
-    attention (K5 in 'ext' mode), serve and train. A train call with a
-    partial set of distance tensors still raises."""
+    attention (K5 in 'ext' mode), serve and train; so does a train call
+    with a partial set of distance tensors (the general scan)."""
     model = select_model("2G-GCN", device="cpu", **STAGE1)
     params = model.init(torch.Generator().manual_seed(0))
     batch = _tiny_batch()
@@ -231,21 +241,50 @@ def test_training_and_distances_raise():
     outputs, _ = model.apply(params, **batch, **_distances())
     assert all(bool(torch.isfinite(o).all()) for o in outputs)
     _assert_trains(model, params, dict(batch, **_distances()))
-    with pytest.raises(NotImplementedError, match="all three distance tensors"):
-        model.apply(params, train=True, **batch,
-                    human_object_distances=_distances()["human_object_distances"])
+    _assert_trains(model, model.init(torch.Generator().manual_seed(0)),
+                   dict(batch, human_object_distances=_distances()["human_object_distances"]))
 
 
 @pytest.mark.parametrize("given", ["human_object_distances",
                                    "human_object_distances,object_object_distances"])
 def test_partial_distance_set_raises(given):
-    """JAX runs a partial set of distance tensors through its general XLA
-    scan, which the port does not have: serving with one raises."""
+    """JAX runs a partial set of distance tensors through its XLA scans;
+    the port serves it through its general scan (no kernel mode applies)
+    and no longer raises: finite outputs that differ from the request
+    without distances."""
+    from tggcn_torch.models.tggcn import segment_mode
+
     model = select_model("2G-GCN", device="cpu", **STAGE1)
     params = model.init(torch.Generator().manual_seed(0))
-    dists = {k: v for k, v in _distances().items() if k in given.split(",")}
-    with pytest.raises(NotImplementedError, match="all three distance tensors"):
-        model.apply(params, **_tiny_batch(), **dists)
+    dists = {k: torch.tensor(v) for k, v in _distances().items() if k in given.split(",")}
+    three = [dists.get(k) for k in ("human_human_distances", "human_object_distances",
+                                     "object_object_distances")]
+    assert segment_mode(model.config, three) is None
+    outputs, _ = model.apply(params, **_tiny_batch(), **dists)
+    plain, _ = model.apply(params, **_tiny_batch())
+    assert all(bool(torch.isfinite(o).all()) for o in outputs)
+    assert any(not torch.equal(a, b) for a, b in zip(outputs, plain))
+
+
+HOST_READS = ("item", "tolist", "cpu", "numpy", "new_tensor")
+
+
+def test_general_scan_makes_no_host_read():
+    """The general scan's module calls no method that reads a tensor back
+    to the host or copies host data to the device, builds no tensor with
+    torch.tensor, and tests no tensor in an if, while or assert."""
+    path = ROOT / "tggcn_torch" / "models" / "segment_general.py"
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            assert node.func.attr not in HOST_READS, f"line {node.lineno}: .{node.func.attr}"
+            assert not (node.func.attr in ("tensor", "as_tensor")
+                        and getattr(node.func.value, "id", None) == "torch"), node.lineno
+        if isinstance(node, (ast.If, ast.While, ast.Assert, ast.IfExp)):
+            for sub in ast.walk(node.test):
+                assert not (isinstance(sub, ast.Call) and isinstance(sub.func, ast.Attribute)
+                            and sub.func.attr in ("any", "all", "sum", "max", "min")), \
+                    f"line {node.lineno}: a condition on a tensor"
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

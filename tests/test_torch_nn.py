@@ -125,11 +125,16 @@ def test_messages(style, edge):
 
 
 def test_messages_outside_slice_raise():
+    """Every message kind of the reference is in the port (relational and
+    'specific' ones are held to JAX in tests/test_torch_general_jax.py); a
+    message type or granularity that is none of them raises."""
     x = torch.zeros(1, 2, 4)
-    with pytest.raises(NotImplementedError):
-        compute_message_features({}, x, x, None, message_type="v1",
-                                 message_granularity="v1", message_aggregation="att",
-                                 attention_style="v3")
+    params = {"msg": {"layers": [{"w": torch.zeros(4, 3)}]}}
+    for kind in (dict(message_type="v3", message_granularity="v1"),
+                 dict(message_type="v2", message_granularity="v3")):
+        with pytest.raises(ValueError, match="unknown message"):
+            compute_message_features(params, x, x, None, message_aggregation="mp",
+                                     attention_style="v3", **kind)
 
 
 def test_reorder_hidden_states():

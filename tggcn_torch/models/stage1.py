@@ -24,6 +24,7 @@ and mean pooling (``mp``).
 
 import numpy as np
 
+DATASET = "mphoi"
 SHAPE = dict(b=8, t=167, humans=2, objects=4)
 
 MODEL_KWARGS = dict(

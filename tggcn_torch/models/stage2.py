@@ -24,6 +24,7 @@ import numpy as np
 from tggcn_torch.data.assembly import assemble_segmentation_targets
 from tggcn_torch.models import stage1
 
+DATASET = stage1.DATASET
 SHAPE = stage1.SHAPE
 NUM_SUBACTIVITIES = stage1.MODEL_KWARGS["num_classes"][0]
 

@@ -1,21 +1,18 @@
 """TGGCN — the 2G-GCN two-level recurrent HOI model in PyTorch.
 
-Counterpart of ``tggcn/models/tggcn.py:52-808, 819-1046``. The port covers
-non-relational generic messages on all four entity edges plus
-geometry edges, with decisions imposed (stage-1 feeders impose the human
-segmentation) or taken by the straight-through ('st') or Gumbel-sigmoid
-('gs') estimator, optionally filtered to local maxima
-(filter_discrete_updates, stage 2), 'ind', 'sah' or 'coh' object
-decisions, the time-position ('s' or 'u', embedded or periodic) and
-segment-length features, cat_level_states and share_level_mlps:
-  * (scaled) dot attention (the stage-1 and stage-2 configurations,
-    ``conf/models/2G-GCN_stage{1,2}.yaml``), forward and training;
-  * concat (v1) and bilinear (v4) attention, mean pooling, and
-    inverse-distance attention from all three distance tensors (the
-    attention options of the same yamls), forward and training, as JAX's
-    fast segment path runs them.
-A configuration or call outside these raises NotImplementedError; it never
-takes another path silently.
+Counterpart of ``tggcn/models/tggcn.py:52-808, 819-1214``. The port covers
+every message kind (relational, non-relational generic or 'specific'), any
+set of entity edges with or without segment-level messages, geometry
+edges, with decisions imposed (stage-1 feeders impose the human
+segmentation, and CAD-120's the objects' too) or taken by the
+straight-through ('st') or Gumbel-sigmoid ('gs') estimator, optionally
+filtered to local maxima (filter_discrete_updates, stage 2), 'ind', 'sah'
+or 'coh' object decisions, the time-position ('s' or 'u', embedded or
+periodic) and segment-length features, cat_level_states and
+share_level_mlps, attention in every style, mean pooling and
+inverse-distance attention from any set of distance tensors, forward and
+training. A configuration or call outside these raises
+NotImplementedError; it never takes another path silently.
 
 ``compute_dtype`` 'bfloat16' (or 'bf16') runs the heavy path in bfloat16 as
 ``tggcn``'s does (``tggcn/models/tggcn.py:387-412, 477-516, 764-790``): the
@@ -29,15 +26,20 @@ covers every segment mode; the GeoGCN block, K6 included, stays float32, as
 in JAX's bfloat16 model.
 
 The frame-level BiGRU runs through K1 forward and K2 backward
-(``gru_sequence_autograd``); the segment scan through K3 forward and K4
-backward (``segment_scan_dot_autograd``) in 'dot' mode, and through K5 in
-the modes 'v1', 'v4' and 'ext': forward only (``segment_scan_forward``)
-where no gradient will be taken, else K5 forward with the gradients of the
-XLA fast path's counterpart (``models/segment_fast.py``) recomputed at the
-saved inputs (``segment_scan_recompute``), as JAX's custom VJP for these
-modes takes them; with ``use_pallas_geo_gcn`` the GeoGCN block through K6
-(forward, with its backward recomputed as JAX's). On the CPU they take
-their plain PyTorch versions.
+(``gru_sequence_autograd``). The segment scan takes one of three routes,
+as JAX's kernel route does (``segment_mode``): with non-relational
+generic messages on all four entity edges and segment messages on, through
+K3 forward and K4 backward (``segment_scan_dot_autograd``) in 'dot' mode,
+and through K5 in the modes 'v1', 'v4' and 'ext': forward only
+(``segment_scan_forward``) where no gradient will be taken, else K5
+forward with the gradients of the XLA fast path's counterpart
+(``models/segment_fast.py``) recomputed at the saved inputs
+(``segment_scan_recompute``), as JAX's custom VJP for these modes takes
+them; in every other configuration through the general scan
+(``models/segment_general.py``, JAX's XLA ``_segment_scan``, plain PyTorch
+with autograd). With ``use_pallas_geo_gcn`` the GeoGCN block runs through
+K6 (forward, with its backward recomputed as JAX's). On the CPU the
+kernels take their plain PyTorch versions.
 """
 
 import math
@@ -47,10 +49,13 @@ from typing import Optional
 import torch
 
 from tggcn_torch.models.segment_fast import CELLS, EDGES, segment_scan_fast
+from tggcn_torch.models.segment_general import GENERAL_SCAN_RANGE, segment_scan_general
 from tggcn_torch.nn.distributions import GUMBEL_STRATEGIES, discrete_estimator
 from tggcn_torch.nn.geo_gcn import apply_geo_gcn, init_geo_gcn
 from tggcn_torch.nn.gru import init_bigru, init_gru_cell, run_multi_bigru
-from tggcn_torch.nn.messages import compute_message_features, distance_based_attention_weights
+from tggcn_torch.nn.messages import (GENERIC, MEAN_POOLING, NON_RELATIONAL, RELATIONAL,
+                                     SPECIFIC, compute_message_features,
+                                     distance_based_attention_weights)
 from tggcn_torch.nn.mlp import apply_mlp, init_bilinear, init_mlp
 from tggcn_torch.nn.temporal import (assemble_segment_length_tensor, assemble_time_tensor,
                                      filter_soft_decisions, make_periodic_embedding,
@@ -156,17 +161,14 @@ def check_slice(cfg: TGGCNConfig) -> None:
         if not ok:
             raise NotImplementedError(f"{what} is outside {SLICE}")
 
-    need(not cfg.relational and cfg.message_granularity in {"v1", "generic"},
-         f"message_type={cfg.message_type!r}/granularity={cfg.message_granularity!r}")
-    need(cfg.attention or cfg.message_aggregation in {"mp", "mean_pooling"},
+    need(cfg.message_type in RELATIONAL | NON_RELATIONAL, f"message_type={cfg.message_type!r}")
+    need(cfg.message_granularity in GENERIC | SPECIFIC,
+         f"message_granularity={cfg.message_granularity!r}")
+    need(cfg.attention or cfg.message_aggregation in MEAN_POOLING,
          f"message_aggregation={cfg.message_aggregation!r}")
     need(not cfg.attention
          or cfg.attention_style in DOT_STYLES | {"v1", "concat", "v4", "general"},
          f"attention_style={cfg.attention_style!r}")
-    need(cfg.message_segment and cfg.message_humans_to_human
-         and cfg.message_objects_to_human and cfg.message_human_to_objects
-         and cfg.message_objects_to_object,
-         "a segment level without all four entity edges")
     need(cfg.object_segment_update_strategy in {"ind", "independent", "sah", "same_as_human",
                                                 "coh", "conditional_on_human"},
          f"object_segment_update_strategy={cfg.object_segment_update_strategy!r}")
@@ -224,16 +226,46 @@ def _positional_size(cfg: TGGCNConfig) -> int:
             + (h if cfg.add_segment_length else 0))
 
 
+def _edge_width(cfg: TGGCNConfig, flag: bool) -> int:
+    """The width an entity edge adds to a segment cell's input: its frame
+    message, and its segment message with message_segment."""
+    return cfg.hidden_size * (1 + cfg.message_segment) if flag else 0
+
+
 def _human_segment_input_size(cfg: TGGCNConfig) -> int:
     h = cfg.hidden_size
-    return (h + 2 * h + (h if cfg.message_geometry_to_human else 0) + 2 * h
-            + _positional_size(cfg))
+    return (h + _edge_width(cfg, cfg.message_humans_to_human)
+            + (h if cfg.message_geometry_to_human else 0)
+            + _edge_width(cfg, cfg.message_objects_to_human) + _positional_size(cfg))
 
 
 def _object_segment_input_size(cfg: TGGCNConfig) -> int:
     h = cfg.hidden_size
-    return (h + (h if cfg.message_geometry_to_objects else 0) + 2 * h + 2 * h
-            + _positional_size(cfg))
+    return (h + (h if cfg.message_geometry_to_objects else 0)
+            + _edge_width(cfg, cfg.message_human_to_objects)
+            + _edge_width(cfg, cfg.message_objects_to_object) + _positional_size(cfg))
+
+
+def _init_message_params(g, cfg: TGGCNConfig, segment: bool) -> dict:
+    """The parameter bundle of one edge at one level
+    (``tggcn/models/tggcn.py:214`` ``_init_message_params``): a segment
+    message reads states (h wide), a frame message [x, h] (2h); a pair
+    [receiver, sender] twice that. Relational edges take 'g' over the pair
+    and 'f'; the others 'msg' over the sender ('generic') or the pair
+    ('specific') and, under attention, an attention layer for every style,
+    even where the dot styles never read it: a bilinear layer for v4, else
+    an MLP over the pair."""
+    h, bias = cfg.hidden_size, cfg.bias
+    width = h if segment else 2 * h
+    if cfg.relational:
+        return {"g": init_mlp(g, [2 * width, h], bias), "f": init_mlp(g, [h, h], bias)}
+    msg_in = width if cfg.message_granularity in GENERIC else 2 * width
+    out = {"msg": init_mlp(g, [msg_in, h], bias)}
+    if cfg.attention:
+        out["att"] = (init_bilinear(g, width, width, 1, bias)
+                      if cfg.attention_style in {"v4", "general"}
+                      else init_mlp(g, [2 * width, 1], bias))
+    return out
 
 
 def init_tggcn(generator: torch.Generator, cfg: TGGCNConfig) -> dict:
@@ -264,19 +296,6 @@ def init_tggcn(generator: torch.Generator, cfg: TGGCNConfig) -> dict:
         "object_segment_rnn_fcell": init_gru_cell(g, _object_segment_input_size(cfg), h, bias),
         "object_segment_rnn_bcell": init_gru_cell(g, _object_segment_input_size(cfg), h, bias),
     })
-    # Message bundles: generic frame messages read [x, h] (2h), segment
-    # messages the state (h). Under attention the reference has an
-    # attention layer for every style, even where the dot styles never read
-    # it: a bilinear layer for v4, else an MLP over the [receiver, sender]
-    # pair.
-    def bundle(width):
-        out = {"msg": init_mlp(g, [width, h], bias)}
-        if cfg.attention:
-            out["att"] = (init_bilinear(g, width, width, 1, bias)
-                          if cfg.attention_style in {"v4", "general"}
-                          else init_mlp(g, [2 * width, 1], bias))
-        return out
-
     for flag, name in [
         (cfg.message_humans_to_human, "h2h"),
         (cfg.message_human_to_objects, "h2o"),
@@ -287,15 +306,18 @@ def init_tggcn(generator: torch.Generator, cfg: TGGCNConfig) -> dict:
     ]:
         if not flag:
             continue
-        params[name] = {"frame": bundle(2 * h)}
-        if name not in ("s2h", "s2o"):
-            params[name]["segment"] = bundle(h)
+        params[name] = {"frame": _init_message_params(g, cfg, segment=False)}
+        if cfg.message_segment and name not in ("s2h", "s2o"):
+            params[name]["segment"] = _init_message_params(g, cfg, segment=True)
+    # The decision MLPs read [x, h] and each frame message that is on.
     num_hidden = cfg.discrete_networks_num_layers - 1
     time_u = h if cfg.add_time_position and cfg.time_position_strategy == "u" else 0
-    upd_h_in = 4 * h + (h if cfg.message_geometry_to_human else 0) + time_u
+    upd_h_in = 2 * h + h * (cfg.message_humans_to_human + cfg.message_objects_to_human
+                            + cfg.message_geometry_to_human) + time_u
     params["update_human_segment_mlp"] = init_mlp(g, [upd_h_in] + [h] * num_hidden + [1], bias)
     if cfg.object_segment_update_strategy not in {"same_as_human", "sah"}:
-        upd_o_in = 4 * h + (h if cfg.message_geometry_to_objects else 0) + time_u
+        upd_o_in = 2 * h + h * (cfg.message_human_to_objects + cfg.message_objects_to_object
+                                + cfg.message_geometry_to_objects) + time_u
         params["update_object_segment_mlp"] = init_mlp(g, [upd_o_in] + [h] * num_hidden + [1],
                                                        bias)
     label_in = 2 * h + (2 * h if cfg.cat_level_states else 0)
@@ -431,20 +453,26 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
                                         torch.cat(senders, dim=-1), mask,
                                         exclude_self=exclude_self, distances=dists, **mkw)
 
-    # Distance-based attention (all three tensors or none, segment_mode):
-    # objects receive from the humans along the swapped (B, T, O, H) tensor.
+    # Each edge only where its flag is on; each distance tensor where it is
+    # given (tggcn/models/tggcn.py:583-615): objects receive from the
+    # humans along the swapped (B, T, O, H) tensor.
     hh_d, ho_d, oo_d = dists3
     oh_d = None if ho_d is None else ho_d.transpose(2, 3)
     hum, obj, geo = [x_hum_emb, h_hf], [x_obj_emb, h_of], [x_geo_emb, h_sf]
-    m_hh, _ = frame_msg("h2h", hum, hum, None, exclude_self=True, dists=hh_d)
-    m_oh, att_frame = frame_msg("o2h", hum, obj, obj_mask_bt[:, :, None, :], dists=ho_d)
-    m_sh = frame_msg("s2h", hum, geo, None)[0] if cfg.message_geometry_to_human else None
-    m_ho = frame_msg("h2o", obj, hum, None, dists=oh_d)[0] * objects_mask[:, None, :, None]
-    m_so = None
+    m_hh = m_oh = m_sh = m_ho = m_so = m_oo = att_frame = None
+    if cfg.message_humans_to_human:
+        m_hh, _ = frame_msg("h2h", hum, hum, None, exclude_self=True, dists=hh_d)
+    if cfg.message_objects_to_human:
+        m_oh, att_frame = frame_msg("o2h", hum, obj, obj_mask_bt[:, :, None, :], dists=ho_d)
+    if cfg.message_geometry_to_human:
+        m_sh, _ = frame_msg("s2h", hum, geo, None)
+    if cfg.message_human_to_objects:
+        m_ho = frame_msg("h2o", obj, hum, None, dists=oh_d)[0] * objects_mask[:, None, :, None]
     if cfg.message_geometry_to_objects:
         m_so = frame_msg("s2o", obj, geo, None)[0] * objects_mask[:, None, :, None]
-    m_oo, _ = frame_msg("o2o", obj, obj, obj_mask_bt[:, :, None, :], exclude_self=True,
-                        dists=oo_d)
+    if cfg.message_objects_to_object:
+        m_oo, _ = frame_msg("o2o", obj, obj, obj_mask_bt[:, :, None, :], exclude_self=True,
+                            dists=oo_d)
 
     # --- Decisions (vectorised over B, T, E) -------------------------------
     noise, sources = noise or {}, []
@@ -514,8 +542,14 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     x_os = torch.cat([x for x in x_os if x is not None], dim=-1)
 
     # --- Segment-level gated bidirectional scan ----------------------------
-    hx_hs, hx_os, att_seg_f, att_seg_b = _segment_scan_fast(
-        params, cfg, mode, x_hs, x_os, u_h_used, u_o_used, objects_mask, dists3, use_kernels)
+    if mode is None:
+        with torch.profiler.record_function(GENERAL_SCAN_RANGE):
+            hx_hs, hx_os, att_seg_f, att_seg_b = segment_scan_general(
+                params, cfg, x_hs, x_os, u_h_used, u_o_used, objects_mask, *dists3)
+    else:
+        hx_hs, hx_os, att_seg_f, att_seg_b = _segment_scan_fast(
+            params, cfg, mode, x_hs, x_os, u_h_used, u_o_used, objects_mask, dists3,
+            use_kernels)
 
     # --- Reorder: every frame labelled with its segment's final state ------
     hx = torch.cat([hx_hs, hx_os], dim=2)                     # (B, T, H+O, 2h)
@@ -570,20 +604,32 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     return outputs, aux
 
 
-def segment_mode(cfg: TGGCNConfig, dists3) -> str:
-    """The segment scan's attention mode (``segment_scan_pallas.py:694``
+def fast_segment_scan_applicable(cfg: TGGCNConfig) -> bool:
+    """Whether JAX's fast segment path applies (``tggcn/models/tggcn.py:819``
+    ``_fast_segment_scan_applicable``): non-relational generic messages on
+    all four entity edges, with segment messages, by attention or mean
+    pooling."""
+    return (cfg.message_segment and not cfg.relational
+            and cfg.message_granularity in GENERIC
+            and (cfg.attention or cfg.message_aggregation in MEAN_POOLING)
+            and cfg.message_humans_to_human and cfg.message_objects_to_human
+            and cfg.message_human_to_objects and cfg.message_objects_to_object)
+
+
+def segment_mode(cfg: TGGCNConfig, dists3) -> Optional[str]:
+    """The segment scan's kernel mode (``segment_scan_pallas.py:694``
     ``pallas_segment_mode``): 'ext' for mean pooling or distance-based
-    attention, else 'dot', 'v1' or 'v4' by attention style. A partial set of
-    distance tensors, which JAX runs through its general XLA scan, raises."""
-    if cfg.message_aggregation in {"mp", "mean_pooling"}:
+    attention from all three distance tensors, else 'dot', 'v1' or 'v4' by
+    attention style; None, for the general scan, where the fast path does
+    not apply or a partial set of distance tensors mixes computed and
+    distance-based attention."""
+    if not fast_segment_scan_applicable(cfg):
+        return None
+    if cfg.message_aggregation in MEAN_POOLING:
         return "ext"
     given = [d is not None for d in dists3]
     if any(given):
-        if not all(given):
-            raise NotImplementedError(
-                f"distance-based attention without all three distance tensors is outside "
-                f"{SLICE}")
-        return "ext"
+        return "ext" if all(given) else None
     if cfg.attention_style in DOT_STYLES:
         return "dot"
     return "v1" if cfg.attention_style in {"v1", "concat"} else "v4"
@@ -727,8 +773,9 @@ def flatten(tree):
 
 def _segment_scan_fast(params, cfg: TGGCNConfig, mode: str, x_hs, x_os, u_h, u_o,
                        objects_mask, dists3, use_kernels: bool = True):
-    """Gated bidirectional segment scan for non-relational generic messages,
-    both directions in one call: through ``segment_scan_dot_autograd`` (K3,
+    """Gated bidirectional segment scan of the fast path's configurations
+    (non-relational generic messages on all four entity edges), both
+    directions in one call: through ``segment_scan_dot_autograd`` (K3,
     K4) in 'dot' mode; else through K5 forward, with the gradients of
     ``segment_scan_fast`` (JAX's XLA fast path) recomputed at the saved
     inputs when a gradient will be taken (``segment_scan_recompute``), as

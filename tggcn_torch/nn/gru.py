@@ -75,7 +75,9 @@ def run_multi_bigru(params_list: Sequence[dict], xs_list: Sequence[torch.Tensor]
     w_ih, w_hh, b_ih, b_hh = (stacked(k) for k in ("w_ih", "w_hh", "b_ih", "b_hh"))
 
     xs2 = torch.cat([xs, xs])                                     # (2S, R, T, F)
-    gi = torch.matmul(xs2, w_ih[:, None]) + b_ih[:, None, None]   # (2S, R, T, 3h)
+    # Batched over the cells only: a weight broadcast over the rows would be
+    # copied out for every row and kept for the backward.
+    gi = torch.einsum("srtf,sfk->srtk", xs2, w_ih) + b_ih[:, None, None]   # (2S, R, T, 3h)
     gi = gi.permute(2, 0, 1, 3).contiguous()                      # (T, 2S, R, 3h)
 
     h0 = xs.new_zeros((2 * num_streams, r_max, hidden))

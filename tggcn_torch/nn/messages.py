@@ -1,10 +1,16 @@
 """Entity-to-entity messages with attention (counterpart of
 ``tggcn/nn/messages.py:30-199``).
 
-The port covers non-relational generic messages (``message_type`` v2,
-``message_granularity`` v1), aggregated by attention in every style (v1
-concat MLP, v2 dot, v3 scaled dot, v4 bilinear + ReLU), by inverse-distance
-attention, or by mean pooling. Relational and 'specific' messages raise.
+Every message kind of the reference:
+  * relational ('v1'): ``f(sum_s mask * g([receiver, sender]))``, with no
+    attention;
+  * non-relational ('v2') with 'generic' granularity (the sender alone) or
+    'specific' ([receiver, sender]), aggregated by attention in every style
+    (v1 concat MLP, v2 dot, v3 scaled dot, v4 bilinear + ReLU), by
+    inverse-distance attention, or by mean pooling.
+``message_mask`` and ``aggregate_messages`` split ``compute_message_features``
+in two, so that a scan can build its masks and its distance weights once
+for every step.
 """
 
 import math
@@ -14,7 +20,11 @@ import torch
 
 from tggcn_torch.nn.mlp import apply_bilinear, apply_mlp
 
-SLICE = "the port (non-relational generic messages)"
+RELATIONAL = {"v1", "relational"}
+NON_RELATIONAL = {"v2", "non_relational", "non-relational"}
+GENERIC = {"v1", "generic"}
+SPECIFIC = {"v2", "specific"}
+MEAN_POOLING = {"mp", "mean_pooling"}
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -70,6 +80,62 @@ def distance_based_attention_weights(distances: torch.Tensor,
     return masked_softmax(1.0 / (distances + 1e-7), combined)
 
 
+def message_mask(receivers: torch.Tensor, senders: torch.Tensor,
+                 senders_mask: Optional[torch.Tensor],
+                 exclude_self: bool = False) -> torch.Tensor:
+    """The (..., R, S) sender mask of R receivers (..., R, F) and S senders
+    (..., S, F), in the receivers' dtype: senders_mask (..., S) or (..., R,
+    S), or None (every sender real); exclude_self masks out sender j for
+    receiver j (R == S)."""
+    r, s = receivers.shape[-2], senders.shape[-2]
+    if senders_mask is None:
+        mask_rs = receivers.new_ones(receivers.shape[:-2] + (r, s))
+    else:
+        if senders_mask.dim() == receivers.dim() - 1:     # (..., S)
+            senders_mask = senders_mask[..., None, :]
+        mask_rs = torch.broadcast_to(senders_mask, senders_mask.shape[:-2] + (r, s))
+        mask_rs = mask_rs.to(receivers.dtype)
+    if exclude_self:
+        if r != s:
+            raise ValueError("exclude_self requires R == S")
+        mask_rs = mask_rs * (1.0 - torch.eye(r, dtype=mask_rs.dtype,
+                                             device=mask_rs.device))
+    return mask_rs
+
+
+def aggregate_messages(params: dict, receivers: torch.Tensor, senders: torch.Tensor,
+                       mask_rs: torch.Tensor, *, message_type: str,
+                       message_granularity: str, message_aggregation: str,
+                       attention_style: str, weights: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """compute_message_features with its sender mask mask_rs (..., R, S)
+    made (message_mask); weights, where given, are the distance-based
+    attention weights (..., R, S),
+    ``distance_based_attention_weights(distances, mask_rs)``."""
+    if message_type in RELATIONAL:
+        pairs = apply_mlp(params["g"], torch.cat(_pairs(receivers, senders), dim=-1),
+                          activations=["relu"]) * mask_rs[..., None]
+        return apply_mlp(params["f"], torch.sum(pairs, dim=-2), activations=["relu"]), None
+    if message_type not in NON_RELATIONAL:
+        raise ValueError(f"unknown message_type {message_type!r}")
+    if message_granularity in GENERIC:
+        msgs = apply_mlp(params["msg"], senders, activations=["relu"])    # (..., S, H)
+        msgs = msgs[..., None, :, :] * mask_rs[..., None]                 # (..., R, S, H)
+    elif message_granularity in SPECIFIC:
+        msgs = apply_mlp(params["msg"], torch.cat(_pairs(receivers, senders), dim=-1),
+                         activations=["relu"]) * mask_rs[..., None]
+    else:
+        raise ValueError(f"unknown message_granularity {message_granularity!r}")
+    if message_aggregation in MEAN_POOLING:
+        num_real = torch.clamp(torch.sum(mask_rs, dim=-1, keepdim=True), min=1.0)
+        return torch.sum(msgs, dim=-2) / num_real, None
+    att = weights
+    if att is None:
+        att = attention_weights(receivers, senders, mask_rs, attention_style,
+                                params.get("att"))
+    return torch.sum(att[..., None] * msgs, dim=-2), att
+
+
 def compute_message_features(
     params: dict,
     receivers: torch.Tensor,
@@ -86,8 +152,9 @@ def compute_message_features(
     """Messages from S senders to each of R receivers.
 
     Arguments:
-        params - {'msg': MLP params, 'att': attention params (an MLP for
-            v1, a bilinear layer for v4)} of one edge type.
+        params - {'g', 'f': MLP params} of a relational edge, or {'msg': MLP
+            params, 'att': attention params (an MLP for v1, a bilinear layer
+            for v4)} of a non-relational one.
         receivers - (..., R, F) receiver features.
         senders - (..., S, F) sender features.
         senders_mask - (..., S) or (..., R, S) real/virtual mask, or None.
@@ -95,32 +162,12 @@ def compute_message_features(
         distances - (..., R, S) distances for distance-based attention.
     Returns:
         (message (..., R, H_out), attention weights (..., R, S), or None
-        under mean pooling).
+        for relational messages and under mean pooling).
     """
-    if message_type in {"v1", "relational"} or message_granularity not in {"v1", "generic"}:
-        raise NotImplementedError(
-            f"message ({message_type}, {message_granularity}) is outside {SLICE}")
-    r, s = receivers.shape[-2], senders.shape[-2]
-    if senders_mask is None:
-        mask_rs = receivers.new_ones(receivers.shape[:-2] + (r, s))
-    else:
-        if senders_mask.dim() == receivers.dim() - 1:     # (..., S)
-            senders_mask = senders_mask[..., None, :]
-        mask_rs = torch.broadcast_to(senders_mask, senders_mask.shape[:-2] + (r, s))
-        mask_rs = mask_rs.to(receivers.dtype)
-    if exclude_self:
-        if r != s:
-            raise ValueError("exclude_self requires R == S")
-        mask_rs = mask_rs * (1.0 - torch.eye(r, dtype=mask_rs.dtype,
-                                             device=mask_rs.device))
-    msgs = apply_mlp(params["msg"], senders, activations=["relu"])    # (..., S, H)
-    msgs = msgs[..., None, :, :] * mask_rs[..., None]                 # (..., R, S, H)
-    if message_aggregation in {"mp", "mean_pooling"}:
-        num_real = torch.clamp(torch.sum(mask_rs, dim=-1, keepdim=True), min=1.0)
-        return torch.sum(msgs, dim=-2) / num_real, None
-    if distances is None:
-        att = attention_weights(receivers, senders, mask_rs, attention_style,
-                                params.get("att"))
-    else:
-        att = distance_based_attention_weights(distances, mask_rs)
-    return torch.sum(att[..., None] * msgs, dim=-2), att
+    mask_rs = message_mask(receivers, senders, senders_mask, exclude_self)
+    weights = None if distances is None else distance_based_attention_weights(distances,
+                                                                              mask_rs)
+    return aggregate_messages(params, receivers, senders, mask_rs, message_type=message_type,
+                              message_granularity=message_granularity,
+                              message_aggregation=message_aggregation,
+                              attention_style=attention_style, weights=weights)

@@ -1,16 +1,21 @@
 """Where the time of one stage-1 request goes on the card.
 
     python -m tggcn_torch.profile_forward [--seed N] [--out PATH]
+                                          [--stage {1,cad120}] [--dtype D]
+                                          [--variant dist]
 
-Runs the stage-1 MPHOI forward (``tggcn_torch.models.stage1``) at the full
-width on one CUDA card under ``torch.profiler``: 3 seeded requests after one
-warm-up request. Prints one JSON object: the card (name and power limit
+Runs the stage-1 MPHOI forward (``tggcn_torch.models.stage1``), or with
+``--stage cad120`` the CAD-120 one (``tggcn_torch.models.cad120``: its
+segment scan the general one; ``--variant dist`` gives it its two distance
+tensors and the GeoGCN kernel), at the full width on one CUDA card in the
+compute dtype ``--dtype`` under ``torch.profiler``: 3 seeded requests after
+one warm-up request. Prints one JSON object: the card (name and power limit
 from nvidia-smi), the wall milliseconds per request (host clock, ended by a
 synchronize), the device-busy milliseconds (union of kernel intervals) and
 idle share, and device time per kernel name, largest first, grouped as K1
 (``gru_step_kernel``), K3 (``proj_kernel``, ``mix_kernel``,
-``cell_kernel``) and the rest. ``--out`` also writes the Chrome trace.
-Needs a CUDA device.
+``cell_kernel``), K6 (``geo_gcn``) and the rest. ``--out`` also writes the
+Chrome trace. Needs a CUDA device.
 """
 
 import argparse
@@ -27,7 +32,8 @@ from tggcn_torch.models.registry import select_model
 
 REQUESTS = 3
 GROUPS = {"gru_step_kernel": "K1 gru_sequence", "proj_kernel": "K3 segment_scan_dot",
-          "mix_kernel": "K3 segment_scan_dot", "cell_kernel": "K3 segment_scan_dot"}
+          "mix_kernel": "K3 segment_scan_dot", "cell_kernel": "K3 segment_scan_dot",
+          "geo_gcn": "K6 geo_gcn_fused"}
 
 
 def _group(name: str) -> str:
@@ -50,12 +56,25 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default=None, help="Chrome trace path")
+    parser.add_argument("--stage", choices=("1", "cad120"), default="1",
+                        help="stage 1 of MPHOI or of CAD-120")
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    parser.add_argument("--variant", choices=("dist",), default=None,
+                        help="distance-based attention with the GeoGCN kernel")
     args = parser.parse_args(argv)
 
-    model = select_model("2G-GCN", **stage1.MODEL_KWARGS)     # CUDA, or raise
+    module = stage1
+    if args.stage == "cad120":
+        from tggcn_torch.models import cad120 as module
+    kwargs = dict(module.MODEL_KWARGS, compute_dtype=args.dtype,
+                  **(module.SERVE_VARIANTS[args.variant] if args.variant else {}))
+    model = select_model("2G-GCN", **kwargs)                  # CUDA, or raise
     params = model.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(args.seed)
-    batches = [stage1.make_request(rng, **stage1.SHAPE) for _ in range(REQUESTS)]
+    batches = [module.make_request(rng, **module.SHAPE) for _ in range(REQUESTS)]
+    if args.variant:
+        for batch in batches:
+            batch.update(module.make_distances(rng, **module.SHAPE))
     model.apply(params, **batches[0])
     torch.cuda.synchronize()
 
@@ -83,7 +102,8 @@ def main(argv=None):
                          timeout=30).stdout.strip()
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "card": smi, "requests": REQUESTS, "wall_ms_per_request": wall_ms,
+        "card": smi, "stage": args.stage, "dtype": args.dtype, "variant": args.variant,
+        "requests": REQUESTS, "wall_ms_per_request": wall_ms,
         "device_busy_ms_per_request": busy_ms,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
         "kernel_launches_per_request": len(kernels) / REQUESTS,

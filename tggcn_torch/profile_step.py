@@ -1,15 +1,19 @@
-"""Time the stage-1 (or stage-2) train step and request on the card, over
-more repetitions than chip_smoke.py takes, and split the train step's
-device time by kernel.
+"""Time the stage-1 (or stage-2, or CAD-120 stage-1) train step and
+request on the card, over more repetitions than chip_smoke.py takes, and
+split the train step's device time by kernel.
 
     python -m tggcn_torch.profile_step [--steps N] [--requests N] [--seed N]
-                                       [--dtype {float32,bfloat16}] [--stage {1,2}]
+                                       [--dtype {float32,bfloat16}]
+                                       [--stage {1,2,cad120}]
                                        [--variant {dist,v1,v4,mp}] [--fused K]
 
 Builds the stage-1 MPHOI model (``tggcn_torch.models.stage1``), or with
 ``--stage 2`` the stage-2 one (``stage2``: its batch, loss bundle and
-Gumbel noise for humans and objects), or with ``--variant`` the stage-1
-model in one of ``stage1.SERVE_VARIANTS`` (its segment scan through K5, its
+Gumbel noise for humans and objects), or with ``--stage cad120`` the
+CAD-120 stage-1 one (``cad120``: B=16, 1 human, 5 object slots, the
+12-loss bundle, its segment scan the general one, with ``--variant dist``
+its two distance tensors and the GeoGCN kernel), or with ``--variant`` the
+stage-1 model in one of ``stage1.SERVE_VARIANTS`` (its segment scan through K5, its
 gradients from the recompute of ``models/segment_fast.py``; 'dist' with
 distance tensors in the batch and the requests), at the full width on one CUDA card,
 in the compute dtype ``--dtype`` (float32 by default; ``bench.py`` trains
@@ -25,7 +29,12 @@ by group (K1-K6 by their kernel names, cuBLAS's products, Adam's
 multi-tensor kernels, the rest as "other"), its largest kernels and the
 largest of "other"; with ``--variant``, also the recompute backward's wall
 ms a step (its profiler range) and the device busy ms of the kernels that
-start inside that range.
+start inside that range. Where the model's segment scan is the general
+one (``models/segment_general.py``), "general_scan" gives, from the same
+profiled steps, the device ms a step of its forward (the kernels launched
+inside its profiler range, GENERAL_SCAN_RANGE) and of its backward (those
+of the autograd nodes made there), their kernels and ms by group, and
+their share of the step's busy ms.
 
 With ``--fused K`` it also times the same step fused, K steps a call
 (``tggcn_torch.train.loop.make_fused_train_steps``: one step captured in a
@@ -39,11 +48,8 @@ a step), and the peak device memory over the capture and the windows,
 under "fused" in the JSON object. A step that cannot be captured
 raises.
 
-It reads only entry points that earlier commits of the package also have
-(in float32, stage 1), so a checkout of one can be timed the same way: from that
-checkout's root, ``PYTHONPATH=. python <this file>`` (the checkout's own
-``tggcn_torch`` is then the one imported); ``--fused`` needs this tree.
-Needs a CUDA device.
+An earlier commit is timed with its own copy of this module, from its
+checkout's root. Needs a CUDA device.
 """
 
 import argparse
@@ -58,6 +64,7 @@ import torch
 
 from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
 from tggcn_torch.models import stage1
+from tggcn_torch.models.segment_general import GENERAL_SCAN_RANGE
 from tggcn_torch.models.registry import select_model
 from tggcn_torch.nn.distributions import gumbel_noise
 from tggcn_torch.ops import segment_scan
@@ -66,6 +73,8 @@ from tggcn_torch.train.loop import make_train_step, trainable_parameters
 from tggcn_torch.train.losses import select_loss
 
 PROFILED_STEPS = 3
+BACKWARD_SCOPE = 1                 # a backward node's torch.profiler scope (RecordScope)
+ENGINE_RANGE = "autograd::engine::evaluate_function"
 FUSED_WINDOWS = 5
 # Kernel-name fragments of the train step's kernels (both designs' names),
 # then cuBLAS's products and the optimizer's multi-tensor kernels.
@@ -150,6 +159,57 @@ def time_fused(args, model, feeder, criterion, lr, clip, data, targets, dev):
                                    sorted(per_group.items(), key=lambda kv: -kv[1])}}
 
 
+def range_ops(events, name):
+    """(forward, backward): the CPU ops of a torch.profiler profile's
+    events inside the ranges called name, and those inside the backward
+    nodes of the autograd nodes that these made, each with the autograd
+    engine's range around it (where the engine adds up the gradients that
+    the node passes on). A backward node and its engine range carry the
+    sequence number of the forward op that made it; an op that makes no
+    node carries the next one's, so a number that an op outside the ranges
+    also carries is left out."""
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def under(e, test):
+        while e is not None:
+            if test(e):
+                return True
+            e = e.cpu_parent
+        return False
+
+    in_range = lambda e: e.name == name
+    is_node = lambda e: e.scope == BACKWARD_SCOPE or e.name.startswith(ENGINE_RANGE)
+    ops = [e for e in cpu if e.sequence_nr >= 0 and not under(e, is_node)]
+    made = ({e.sequence_nr for e in ops if under(e, in_range)}
+            - {e.sequence_nr for e in ops if not under(e, in_range)})
+    return ([e for e in cpu if under(e, in_range)],
+            [e for e in cpu if under(e, lambda a: is_node(a) and a.sequence_nr in made)])
+
+
+def general_scan_split(events, steps):
+    """The "general_scan" entry of a profile of steps train steps: the
+    general segment scan's forward and backward (the kernels that the ops
+    of range_ops(events, GENERAL_SCAN_RANGE) launched), each its device ms
+    a step (its kernels run in one stream, one after another: their sum),
+    kernels a step and ms a step by group; None where no step ran the
+    general scan."""
+    forward, backward = range_ops(events, GENERAL_SCAN_RANGE)
+    if not forward:
+        return None
+    result = {}
+    for name, ops in (("forward", forward), ("backward", backward)):
+        kernels = [k for e in ops for k in e.kernels]    # (name, device, duration us)
+        groups = defaultdict(float)
+        for k in kernels:
+            groups[group_of(k.name)] += k.duration
+        result[name] = {
+            "busy_ms": sum(k.duration for k in kernels) / 1e3 / steps,
+            "kernels": len(kernels) / steps,
+            "groups_ms": {g: v / 1e3 / steps
+                          for g, v in sorted(groups.items(), key=lambda kv: -kv[1])}}
+    return result
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=20)
@@ -157,42 +217,46 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                         help="the model's compute dtype")
-    parser.add_argument("--stage", type=int, choices=(1, 2), default=1,
-                        help="the stage of the two-stage protocol")
+    parser.add_argument("--stage", choices=("1", "2", "cad120"), default="1",
+                        help="the stage of the two-stage protocol (MPHOI), or CAD-120 stage 1")
     parser.add_argument("--variant", choices=tuple(stage1.SERVE_VARIANTS), default=None,
-                        help="a stage-1 variant whose segment scan runs through K5")
+                        help="a stage-1 variant whose segment scan runs through K5 "
+                             "(CAD-120: 'dist' only)")
     parser.add_argument("--fused", type=int, default=0, metavar="K",
                         help="also time K steps a call, captured in a CUDA graph")
     args = parser.parse_args(argv)
-    if args.variant and args.stage != 1:
-        raise SystemExit("profile_step: --variant is a stage-1 variant")
+    stage = stage1
+    if args.stage == "2":
+        from tggcn_torch.models import stage2 as stage
+    elif args.stage == "cad120":
+        from tggcn_torch.models import cad120 as stage
+    if args.variant and args.variant not in getattr(stage, "SERVE_VARIANTS", {}):
+        raise SystemExit(f"profile_step: --variant {args.variant} is not a variant of "
+                         f"--stage {args.stage}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     dev = torch.device("cuda", 0)
-    b, t, nh, no = (stage1.SHAPE[k] for k in ("b", "t", "humans", "objects"))
-    stage = stage1
-    if args.stage == 2:
-        from tggcn_torch.models import stage2 as stage
+    b, t, nh, no = (stage.SHAPE[k] for k in ("b", "t", "humans", "objects"))
 
     kwargs = stage.MODEL_KWARGS
     if args.dtype != "float32":
         kwargs = dict(kwargs, compute_dtype=args.dtype)
     feeder_kwargs, variant = stage.FEEDER_KWARGS, {}
     if args.variant:
-        kwargs = dict(kwargs, **stage1.SERVE_VARIANTS[args.variant])
-        feeder_kwargs, variant = stage1.feeder_kwargs(args.variant), dict(variant=args.variant)
+        kwargs = dict(kwargs, **stage.SERVE_VARIANTS[args.variant])
+        feeder_kwargs, variant = stage.feeder_kwargs(args.variant), dict(variant=args.variant)
     model = select_model("2G-GCN", device=dev, **kwargs)
     trainable = {"model": model.init(torch.Generator().manual_seed(0))}
-    criterion, _ = select_loss("2G-GCN", "multiple", "mphoi", stage.TRAIN["misc"])
+    criterion, _ = select_loss("2G-GCN", "multiple", stage.DATASET, stage.TRAIN["misc"])
     feeder = select_model_data_feeder("2G-GCN", "multiple", **feeder_kwargs)
-    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name="mphoi")
+    fetch = select_model_data_fetcher("2G-GCN", "multiple", dataset_name=stage.DATASET)
     data, targets = fetch(stage.make_batch(np.random.default_rng(args.seed), b, t, nh, no,
                                            **variant))
     data = [torch.as_tensor(x, device=dev) for x in data]
     targets = [torch.as_tensor(y, device=dev) for y in targets]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     noise = {"object": gumbel_noise((b, t, no, 2), gen)}
-    if args.stage == 2:
+    if args.stage == "2":
         noise["human"] = gumbel_noise((b, t, nh, 2), gen)
     optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=stage.TRAIN["lr"])
     step = make_train_step(model, feeder, criterion, optimizer,
@@ -206,9 +270,8 @@ def main(argv=None):
     wall, kernels, prof = profile(lambda: sum(timed(run_step, PROFILED_STEPS)))
     per_name, per_group = by_name_and_group(kernels, args.variant)
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    # (An older checkout has no recompute range: getattr keeps it timeable.)
     recompute = [e.time_range for e in prof.events()
-                 if e.name == getattr(segment_scan, "RECOMPUTE_RANGE", None)
+                 if e.name == segment_scan.RECOMPUTE_RANGE
                  and e.device_type == torch.autograd.DeviceType.CPU]
     inside = [(e.time_range.start, e.time_range.end) for e in kernels
               if any(r.start <= e.time_range.start <= r.end for r in recompute)]
@@ -218,12 +281,18 @@ def main(argv=None):
     requests = [stage.make_request(rng, b, t, nh, no) for _ in range(args.requests + 1)]
     if args.variant == "dist":
         for request in requests:
-            request.update(stage1.make_distances(rng, b, t, nh, no))
+            request.update(stage.make_distances(rng, b, t, nh, no))
     with torch.no_grad():
         model.apply(params, **requests[0])
         torch.cuda.synchronize()
         it = iter(requests[1:])
         request_ms = timed(lambda: model.apply(params, **next(it)), args.requests)
+
+    general_scan = general_scan_split(prof.events(), PROFILED_STEPS)
+    if general_scan is not None:
+        general_scan["share_of_step_busy"] = (general_scan["forward"]["busy_ms"]
+                                              + general_scan["backward"]["busy_ms"]) / (
+                                                  busy_ms / PROFILED_STEPS)
 
     fused = None
     if args.fused:
@@ -260,6 +329,7 @@ def main(argv=None):
                                sorted(per_group.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": {k: per_step(v) for k, v in top},
         "top_other_kernels_ms_per_step": {k: per_step(v) for k, v in top_other},
+        **({"general_scan": general_scan} if general_scan else {}),
         **({"fused": fused} if fused else {})}))
 
 
