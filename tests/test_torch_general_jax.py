@@ -11,12 +11,10 @@ module, at hidden 8-16 and T <= 8, on the same numpy inputs from a seed.
   a partial set of distance tensors; and a one-object clip, whose
   objects-to-object row has no sender left, stays finite.
 * The same scan in bfloat16 against JAX's bfloat16 ``_segment_scan``:
-  both run their products in bfloat16, but the port carries float32
-  states (as its kernels do) where JAX carries bfloat16 ones; the outputs
-  within 1.6e-2 absolute, two bfloat16 ulps at 1 (measured 1.2e-2; JAX's
-  bfloat16 scan lies 1.1e-2 from its own float32 one on these inputs).
-  The port's bfloat16 scan lies closer to JAX's float32 one than JAX's
-  bfloat16 scan does (measured 6.2e-3 against 1.1e-2).
+  both run everything in bfloat16, the carried states included; the
+  outputs within 1e-2 absolute (measured 7.8e-3; a float32 carry read
+  1.17e-2), and at most 45% of the output elements differ from JAX's in
+  any bit (measured 33% and 36%; a float32 carry read 56% and 58%).
 * ``compute_message_features``, relational and 'specific', with and
   without a sender mask, with exclude_self, by attention, mean pooling and
   distances, within rtol 1e-5, atol 1e-6 (tests/test_torch_nn.py's).
@@ -67,7 +65,8 @@ SEGMENT_KEYS = ("human_segment_rnn_fcell", "human_segment_rnn_bcell",
                 "object_segment_rnn_fcell", "object_segment_rnn_bcell")
 B, T = 2, 7
 ATOL = 1e-5
-BF16_ATOL = 1.6e-2
+BF16_ATOL = 1e-2
+BF16_DIFFERING = 0.45       # the share of output elements not equal to JAX's
 
 
 def _np(tree):
@@ -184,10 +183,8 @@ def test_general_scan_bf16_matches_jax():
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), rtol=0,
                                    atol=BF16_ATOL, err_msg=f"output {i}")
-    f32 = [np.asarray(w) for w in _jax_scan(cfg, params, inputs, dists)[:2]]
-    gap = lambda outs: max(float(np.abs(np.asarray(o, np.float32) - w).max())
-                           for o, w in zip(outs, f32))
-    assert gap([g.float().numpy() for g in got[:2]]) < gap(want[:2])
+        differing = float(np.mean(g.float().numpy() != np.asarray(w, np.float32)))
+        assert differing <= BF16_DIFFERING, (i, differing)
 
 
 def test_general_scan_one_object_stays_finite():

@@ -74,6 +74,11 @@ def test_port_imports_without_jax():
             "import tggcn_torch.train.loop, tggcn_torch.train.losses\n"
             "import tggcn_torch.data.feeders, tggcn_torch.bench\n"
             "import tggcn_torch.models.segment_general, tggcn_torch.models.cad120\n"
+            "import tggcn_torch.train.cli, tggcn_torch.predict, tggcn_torch.config\n"
+            "import tggcn_torch.data.loading, tggcn_torch.data.pipeline\n"
+            "import tggcn_torch.data.synthetic, tggcn_torch.eval.engine\n"
+            "import tggcn_torch.eval.reporting, tggcn_torch.utils.native\n"
+            "import tggcn_torch.visualisation, tggcn_torch.train.logging\n"
             "print('ok')")
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)

@@ -10,8 +10,15 @@ of it (nor JAX). Layout mirrors it:
                          their plain PyTorch versions
     tggcn_torch.models   the 2G-GCN model (forward and training) and the
                          model registry
-    tggcn_torch.train    losses, multi-task weighting and the train step
-    tggcn_torch.data     the 2G-GCN batch feeder, fetcher and padding
+    tggcn_torch.train    losses, multi-task weighting, the train step, the
+                         fit loop, checkpoints and run dirs, and the train
+                         entry point (python -m tggcn_torch.train)
+    tggcn_torch.predict  the predict entry point (python -m tggcn_torch.predict)
+    tggcn_torch.eval     run-dir discovery, batched inference, metrics
+    tggcn_torch.data     dataset loading and assembly, synthetic datasets,
+                         the 2G-GCN batch feeder, fetcher and padding
+    tggcn_torch.config   the conf/ YAML configs and overrides
+    tggcn_torch.utils    numpy helpers (F1@k, run-length encoding, files)
     tggcn_torch.compat   weight bridges (JAX pytrees, reference state dicts)
 
 Kernels build at first use (``tggcn_torch.ops._build``), never on import.

@@ -28,12 +28,16 @@ def params_from_numpy(tree, device="cpu"):
 
 def params_to_numpy(tree):
     """The inverse of params_from_numpy: a tree of tensors -> the same tree
-    of float32 numpy arrays on the host."""
+    of float32 numpy arrays on the host, each a copy (a snapshot of
+    parameters that a train step updates in place); leaves that are not
+    tensors (a checkpoint's scalers, numbers) as they are."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_to_numpy(v) for v in tree)
-    return tree.detach().to("cpu", torch.float32).numpy()
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", torch.float32, copy=True).numpy()
+    return tree
 
 
 def _t(a):

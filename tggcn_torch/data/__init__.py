@@ -1,1 +1,2 @@
-"""Batch adapters of the port: the 2G-GCN feeder and fetcher."""
+"""Data of the port: dataset loading and assembly, synthetic datasets, and
+the 2G-GCN batch feeder and fetcher."""

@@ -40,7 +40,7 @@ def select_model(model_name: str, device=None, **model_kwargs) -> ModelDef:
 
     def init(generator: torch.Generator) -> dict:
         params = init_tggcn(generator, cfg)
-        return _to(params, dev)
+        return to_device(params, dev)
 
     def apply(params, train: bool = False, generator=None, noise=None, **batch):
         """Serving (train=False) runs under torch.no_grad(); training keeps
@@ -59,9 +59,10 @@ def select_model(model_name: str, device=None, **model_kwargs) -> ModelDef:
     return ModelDef(model_name, cfg, dev, init, apply)
 
 
-def _to(tree, device):
+def to_device(tree, device):
+    """A tree of dicts and lists of tensors with every tensor on device."""
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
+        return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to(v, device) for v in tree)
+        return type(tree)(to_device(v, device) for v in tree)
     return tree.to(device)

@@ -16,17 +16,11 @@ and objects-to-object messages exclude self, and the object mask masks
 the objects as senders; the objects receive from the humans along the
 swapped human-object distances; the commit is ``u h_new + (1 - u) h_prev``;
 the forward carry starts from ``seg_carry``, the backward one from zeros.
-The products run in the compute dtype of the inputs, on the states rounded
-to it; the GRU's gate arithmetic, the commit and the carried states are
-float32, as in every recurrence of the port (K1, K3 and K5 carry float32
-states in a bfloat16 model; JAX's XLA scan carries bfloat16 ones). A
-bfloat16 carry would round each step's state and pass the rounding on: a
-correct frame BiGRU whose float32 sums differ from the plain version's
-moves a bfloat16 CAD-120 request's segment heads by 6.7e-4 through it
-(the plain versions on a CPU, float64 sums against float32, 4 clips),
-beyond the port's whole-forward limit. In float32 the two coincide. In
-bfloat16 this departs from JAX's semantics, and ``ROADMAP.md`` Queue 3
-holds it open. The outputs come back in the compute dtype.
+Everything runs in the compute dtype of the inputs, as JAX's scan does
+(``dtype = x_hs.dtype``): the products, the GRU's gate arithmetic, the
+commit and the carried states, which in a bfloat16 model are rounded to
+bfloat16 every step. (The kernels K1, K3 and K5 carry float32 states in a
+bfloat16 model; this scan follows JAX's XLA route instead.)
 
 Both directions advance in one set of operations: their states are stacked
 on a leading axis (the message parameters are shared by the directions,
@@ -66,25 +60,23 @@ def _cell_weights(params, cells, base):
             torch.stack([params[c].get("b_hh", zeros) for c in cells]))
 
 
-def _gru_commit(gi, msgs, w_msg, w_hh, b_hh, h_prev, h_read, u):
+def _gru_commit(gi, msgs, w_msg, w_hh, b_hh, h, u):
     """One GRU step of both directions (``tggcn/nn/gru.py:43``
     ``gru_step_from_gates``) from the hoisted input gates gi (2, B, E, 3h),
-    the messages (2, B, E, F_msg) or None and the carried states h_prev
-    (float32) as the products read them (h_read, in the compute dtype),
-    committed where u (2, B, E, 1) is 1; float32 out."""
+    the messages (2, B, E, F_msg) or None and the carried states h (2, B,
+    E, h), committed where u (2, B, E, 1) is 1: all in the compute dtype."""
     # Batched over the direction axis only: a weight broadcast over (B,
     # E) would be copied out for every batch row and kept for the backward.
     if msgs is not None:
         gi = gi + torch.einsum("dbef,dfk->dbek", msgs, w_msg)
-    gh = torch.einsum("dbeh,dhk->dbek", h_read, w_hh) + b_hh[:, None, None]
-    gi, gh = gi.float(), gh.float()
+    gh = torch.einsum("dbeh,dhk->dbek", h, w_hh) + b_hh[:, None, None]
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r)
     z = torch.sigmoid(i_z + h_z)
     n = torch.tanh(i_n + r * h_n)
-    h_new = (1.0 - z) * n + z * h_prev
-    return u * h_new + (1.0 - u) * h_prev
+    h_new = (1.0 - z) * n + z * h
+    return u * h_new + (1.0 - u) * h
 
 
 def segment_scan_general(params, cfg, x_hs, x_os, u_h, u_o, objects_mask, hh=None, ho=None,
@@ -122,12 +114,12 @@ def segment_scan_general(params, cfg, x_hs, x_os, u_h, u_o, objects_mask, hh=Non
 
     dtype = x_hs.dtype
     seg_h0, seg_o0 = seg_carry
-    h_h = x_hs.new_zeros((2, b, num_humans, h), dtype=torch.float32)   # (direction, B, H, h)
-    h_o = x_hs.new_zeros((2, b, num_objects, h), dtype=torch.float32)
+    h_h = x_hs.new_zeros((2, b, num_humans, h))          # (direction, B, H, h)
+    h_o = x_hs.new_zeros((2, b, num_objects, h))
     if seg_h0 is not None:
-        h_h = torch.cat([seg_h0[None].float(), h_h[1:]])
+        h_h = torch.cat([seg_h0[None].to(dtype), h_h[1:]])
     if seg_o0 is not None:
-        h_o = torch.cat([seg_o0[None].float(), h_o[1:]])
+        h_o = torch.cat([seg_o0[None].to(dtype), h_o[1:]])
 
     # The segment edges of each receiver type, in the order of JAX's
     # message concatenation: (name, senders are humans, sender mask,
@@ -174,17 +166,17 @@ def segment_scan_general(params, cfg, x_hs, x_os, u_h, u_o, objects_mask, hh=Non
 
     seq_h, seq_o, seq_att = [], [], []
     for i in range(t):
-        states = (h_h.to(dtype), h_o.to(dtype))          # the carries, as the products read them
-        msgs_h, att = messages(prepared_h, states, states[0], i)
-        msgs_o, _ = messages(prepared_o, states, states[1], i)
-        h_h, h_o = (_gru_commit(gi_h[i], msgs_h, *cell_h, h_h, states[0], u_h2[i]),
-                    _gru_commit(gi_o[i], msgs_o, *cell_o, h_o, states[1], u_o2[i]))
+        states = (h_h, h_o)
+        msgs_h, att = messages(prepared_h, states, h_h, i)
+        msgs_o, _ = messages(prepared_o, states, h_o, i)
+        h_h, h_o = (_gru_commit(gi_h[i], msgs_h, *cell_h, h_h, u_h2[i]),
+                    _gru_commit(gi_o[i], msgs_o, *cell_o, h_o, u_o2[i]))
         seq_h.append(h_h)
         seq_o.append(h_o)
         seq_att.append(att)
 
     def order(seq):              # (T, 2, B, E, h) -> (B, T, E, 2h), natural time order
-        seq = torch.stack(seq).to(dtype)
+        seq = torch.stack(seq)
         return torch.cat([seq[:, 0].movedim(0, 1), seq[:, 1].flip(0).movedim(0, 1)], dim=-1)
 
     if seq_att[0] is None:

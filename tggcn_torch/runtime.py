@@ -13,6 +13,16 @@ precision reduction for bfloat16 is pinned off too.
 
 import torch
 
+# The configs' resources.parity_mode values. The JAX package switches its
+# matmul precision by them; the port has one numerics mode
+# (pin_float32_numerics) and runs either in it.
+PARITY_MODES = ("fast", "exact")
+
+
+def check_parity_mode(mode: str) -> None:
+    if mode not in PARITY_MODES:
+        raise ValueError(f"resources.parity_mode must be one of {PARITY_MODES}, not {mode!r}")
+
 
 def pin_float32_numerics() -> None:
     """Full-precision float32 matmuls and convolutions (TF32 off), and

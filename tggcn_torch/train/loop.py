@@ -1,6 +1,8 @@
-"""The train step of the port (counterpart of ``tggcn/train/loop.py:65-144``)
-and K steps fused into one call (``make_fused_train_steps``, the
-counterpart of ``tggcn/train/loop.py:162-191``).
+"""The train step of the port (counterpart of ``tggcn/train/loop.py:65-144``),
+K steps fused into one call (``make_fused_train_steps``, the counterpart
+of ``tggcn/train/loop.py:162-191``), the eval step, and the fit loop
+(``train``, ``tggcn/train/loop.py:194-422``) that the train entry point
+runs.
 
 One step: forward with train=True, the loss bundle (optionally weighted by
 the multi-task loss learner), backward (through the K2 and K4 kernels on
@@ -19,12 +21,18 @@ that step's batch and noise into the graph's input buffers, one graph
 launch and the copy of its losses out, and never waits for the card.
 """
 
+import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from tggcn_torch.compat.weights import params_to_numpy
+from tggcn_torch.data.feeders import pad_batch
 from tggcn_torch.nn.distributions import GUMBEL_STRATEGIES, gumbel_noise
-from tggcn_torch.train.multi_task import apply_mtll
+from tggcn_torch.train.checkpoint import save_last
+from tggcn_torch.train.logging import ScalarWriter
+from tggcn_torch.train.multi_task import apply_mtll, mtll_weights
 
 BN_STATE = ("geometry_embedding_gcn", "bn", "state")
 
@@ -261,3 +269,196 @@ def make_fused_train_steps(model, feeder: Callable, criterion: Callable, optimiz
         return losses, raw
 
     return fused
+
+
+# ---------------------------------------------------------------------------
+# Evaluation and the fit loop (tggcn/train/loop.py:194-422)
+# ---------------------------------------------------------------------------
+
+EVAL_STREAM = 10_000_000         # the eval generator's key: (seed, EVAL_STREAM + epoch)
+NUM_INPUTS = 8                   # a batch's input arrays before its targets (pad_batch)
+LOG_INTERVAL = 25                # train batches between progress lines
+
+
+def keyed_generator(device, seed: int, index: int) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, index): the train
+    step's draws are a function of the global step alone, so a resumed run
+    draws what the uninterrupted one drew."""
+    state = np.random.SeedSequence([seed, index]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(int(state[0]) << 32 | int(state[1]))
+
+
+def device_batches(loader, batch_size: int, num_inputs: int, device):
+    """The loader's numpy batches, a partial one padded to batch_size
+    (``data/feeders.py`` ``pad_batch``), as tensors on ``device``."""
+    for batch in loader:
+        yield [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+               for x in pad_batch(batch, batch_size, num_inputs)]
+
+
+def make_eval_step(model, feeder: Callable, criterion: Callable, mtll: Optional[dict] = None):
+    """An eval_step(trainable, data, targets, generator=None) -> (losses,
+    raw_losses): the forward with train=False, no gradient."""
+    mtll_static = None if mtll is None else (mtll["loss_types"], mtll["mask"])
+
+    @torch.no_grad()
+    def eval_step(trainable, data, targets, generator=None):
+        outputs, _ = model.apply(trainable["model"], train=False, generator=generator,
+                                 **feeder(data))
+        raw_losses = criterion(outputs, targets, reduction="mean")
+        losses = raw_losses
+        if mtll_static is not None:
+            losses = apply_mtll(trainable["mtll"], *mtll_static, raw_losses)
+        return torch.stack(losses), torch.stack(raw_losses)
+
+    return eval_step
+
+
+def evaluate(eval_step, trainable, loader, fetcher, key: tuple, batch_size: int,
+             num_inputs: int, device):
+    """Mean losses and raw losses over a loader's batches, as numpy arrays
+    (reference test(), train_utils.py:168-224); (None, None) for no batch.
+    Each batch draws from ``keyed_generator(device, *key)`` afresh, as
+    JAX's evaluate hands every batch one key."""
+    total = total_raw = None
+    num_batches = 0
+    for batch in device_batches(loader, batch_size, num_inputs, device):
+        data, targets = fetcher(batch)
+        losses, raw = eval_step(trainable, data, targets,
+                                generator=keyed_generator(device, *key))
+        total = losses if total is None else total + losses
+        total_raw = raw if total_raw is None else total_raw + raw
+        num_batches += 1
+    if num_batches == 0:
+        return None, None
+    return (total / num_batches).cpu().numpy(), (total_raw / num_batches).cpu().numpy()
+
+
+def _print_eval(name, total, loss_names, losses):
+    tag = f"({name})"
+    print(f"{tag:>12} Loss: {total: 7.4f}", end="")
+    for loss_name, loss in zip(loss_names, losses):
+        print(f"   {loss_name}: {loss: 6.4f}", end="")
+    print()
+
+
+def train(model, train_loader, learning_rate: float, criterion, epochs: int, loss_names,
+          clip_gradient_at: float = 0.0, fetch_model_data=None, feed_model_data=None,
+          val_loader=None, initial_epoch: int = 1, mtll: Optional[dict] = None,
+          num_main_losses: Optional[int] = None, seed: int = 42,
+          checkpoint_name: Optional[str] = None, tensorboard_log_dir: Optional[str] = None,
+          log_dir: Optional[str] = None, init_params=None, init_optimizer_state=None,
+          initial_global_step: int = 0,
+          initial_best_val_loss: float = float("inf"),
+          initial_checkpoint: Optional[dict] = None):
+    """The fit loop (reference train(), train_utils.py:12-165): per epoch the
+    train steps (Adam at learning_rate over ``trainable_parameters``), the
+    mean losses over the whole train set and then the val set, the best
+    val checkpoint, the loss histories (and, with the multi-task loss
+    learner, the raw ones), scalars, and the ``last.ckpt`` snapshot.
+    Returns the checkpoint dict.
+
+    Step k draws from ``keyed_generator(device, seed, k)`` and each batch
+    of epoch e's evaluations from ``keyed_generator(device, seed,
+    EVAL_STREAM + e)``; the loader's order is a function of the epoch
+    (``set_epoch``). A run resumed from ``last.ckpt`` (the initial_*
+    arguments, the optimizer's state) so replays the uninterrupted run.
+    """
+    device = model.device
+    writer = ScalarWriter(tensorboard_log_dir, checkpoint_name)
+    trainable = {"model": init_params}
+    if mtll is not None:
+        trainable["mtll"] = mtll["log_sds"]
+    optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=learning_rate)
+    if init_optimizer_state is not None:
+        optimizer.load_state_dict(init_optimizer_state)
+    train_step = make_train_step(model, feed_model_data, criterion, optimizer,
+                                 clip_gradient_at=clip_gradient_at, mtll=mtll)
+    eval_step = make_eval_step(model, feed_model_data, criterion, mtll=mtll)
+
+    batch_size = train_loader.batch_size
+    checkpoint = dict(initial_checkpoint) if initial_checkpoint else {}
+    histories = {key: list(checkpoint.pop(key, [])) for key in (
+        "train_losses", "val_losses", "train_raw_losses", "val_raw_losses")}
+    best_val_loss = initial_best_val_loss
+    global_step = initial_global_step
+    num_examples = train_loader.num_examples
+
+    def keep_best(epoch):
+        checkpoint["epoch"] = epoch
+        checkpoint["model_state_dict"] = params_to_numpy(trainable["model"])
+        if mtll is not None:
+            checkpoint["mtll_model_state_dict"] = params_to_numpy(trainable["mtll"])
+
+    def record(split, losses, raw, epoch):
+        n_main = num_main_losses if num_main_losses is not None else len(losses)
+        total = float(losses[-n_main:].sum())
+        _print_eval({"train": "Train", "val": "Validation"}[split], total, loss_names, losses)
+        histories[f"{split}_losses"].append([total, losses.tolist()])
+        if mtll is not None:
+            histories[f"{split}_raw_losses"].append([float(raw[-n_main:].sum()), raw.tolist()])
+        base = f"Loss/{split}_mtll/" if mtll is not None else f"Loss/{split}/"
+        for loss_name, value in zip(loss_names, losses):
+            writer.add_scalar(base + loss_name, value, epoch)
+        writer.add_scalar(base + "total", total, epoch)
+        if mtll is not None and split == "train":
+            weights = mtll_weights(trainable["mtll"].detach().cpu(), mtll["loss_types"],
+                                   mtll["mask"])
+            for loss_name, value, weight in zip(loss_names, raw, weights):
+                writer.add_scalar(f"Loss/train/{loss_name}", value, epoch)
+                if weight is not None:
+                    writer.add_scalar(f"Loss/mtll_weight/{loss_name}", weight, epoch)
+            writer.add_scalar("Loss/train/total", float(raw[-n_main:].sum()), epoch)
+        return total
+
+    for epoch in range(initial_epoch, epochs + initial_epoch):
+        print(f"\nEpoch: [{epoch:4d}/{epochs + initial_epoch - 1:4d}]")
+        epoch_start = time.time()
+        num_batches = len(train_loader)
+        if hasattr(train_loader, "set_epoch"):
+            train_loader.set_epoch(epoch)
+        batches = device_batches(train_loader, batch_size, NUM_INPUTS, device)
+        for batch_idx, batch in enumerate(batches):
+            data, targets = fetch_model_data(batch)
+            losses, _, _ = train_step(trainable, data, targets,
+                                      generator=keyed_generator(device, seed, global_step))
+            global_step += 1
+            if batch_idx % LOG_INTERVAL == 0 or batch_idx == num_batches - 1:
+                losses = losses.cpu().numpy()
+                n_main = num_main_losses if num_main_losses is not None else len(losses)
+                batch_end = min((batch_idx + 1) * batch_size, num_examples)
+                progress = 100 * (batch_idx + 1) / num_batches
+                print(f"(Train) Batch [{batch_end:6d}/{num_examples:6d} ({progress:3.0f}%)] ",
+                      f"Loss: {float(losses[-n_main:].sum()): 8.4f}", end="")
+                for loss_name, single in zip(loss_names, losses):
+                    print(f"  {loss_name}: {single: 6.4f}", end="")
+                print()
+        train_seconds = time.time() - epoch_start
+
+        eval_start = time.time()
+        key = (seed, EVAL_STREAM + epoch)
+        losses, raw = evaluate(eval_step, trainable, train_loader, fetch_model_data, key,
+                               batch_size, NUM_INPUTS, device)
+        record("train", losses, raw, epoch)
+        if val_loader is not None and val_loader.num_examples > 0:
+            losses, raw = evaluate(eval_step, trainable, val_loader, fetch_model_data, key,
+                                   val_loader.batch_size, NUM_INPUTS, device)
+            total_val = record("val", losses, raw, epoch)
+            if total_val < best_val_loss:
+                best_val_loss = total_val
+                keep_best(epoch)
+        else:
+            keep_best(epoch)
+        writer.add_scalar("perf/train_seconds", train_seconds, epoch)
+        writer.add_scalar("perf/eval_seconds", time.time() - eval_start, epoch)
+        writer.add_scalar("perf/epoch_seconds", time.time() - epoch_start, epoch)
+        if log_dir is not None:
+            save_last(log_dir, {"epoch": epoch, "trainable": trainable,
+                                "optimizer": optimizer.state_dict(), "global_step": global_step,
+                                "best_val_loss": best_val_loss,
+                                "best_checkpoint": {**checkpoint, **histories}})
+
+    print("Lowest val_loss is", best_val_loss)
+    checkpoint.update(histories)
+    writer.close()
+    return checkpoint

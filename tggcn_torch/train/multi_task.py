@@ -41,3 +41,9 @@ def apply_mtll(log_sds: torch.Tensor, loss_types, mask, losses: List[torch.Tenso
         raise ValueError("Specified loss types must match the number of input losses.")
     return [_loss_weight(loss_type, log_sds[i]) * loss + log_sds[i] if learnable else loss
             for i, (loss_type, loss, learnable) in enumerate(zip(loss_types, losses, mask))]
+
+
+def mtll_weights(log_sds, loss_types, mask) -> List[Optional[float]]:
+    """The current learned weights (None for a loss that does not learn)."""
+    return [float(_loss_weight(loss_type, log_sds[i])) if learnable else None
+            for i, (loss_type, learnable) in enumerate(zip(loss_types, mask))]
