@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive tggcn_torch's stage-1 serving and training paths, in float32 and in
 bfloat16 (the dtype bench.py trains in), its stage-2 training and serving
-paths, its serving modes, and CAD-120's stage 1 and the general segment
-scan's configurations on one CUDA card.
+paths, its serving modes, CAD-120's stage 1 and the general segment scan's
+configurations, the entry points, the baselines and sliding-window
+streaming on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -186,6 +187,36 @@ exit and the phase's name if the phase hangs:
            float32 for 2 epochs. Seconds of each epoch's train steps and
            of its evaluation (the runs' scalars.jsonl) and peak device
            memory of each run
+  entry_baselines
+           the baselines through the entry points: synthetic CAD-120 and
+           Bimanual datasets (tggcn_torch.data.synthetic, the generators'
+           2048-wide features, 16 clips of 360-500 frames each, downsampled
+           by 3) under outputs/; the train CLI for 2 epochs of
+           cad120_baseline and bimanual_baseline at the yaml's width (hidden
+           128, batch 16, float32), K1 launched by each train step and each
+           evaluation batch, K2 by each step; the predict CLI on each run
+           dir, K1 once a batch; the kernel route held against the plain
+           route on the test clips (the forward limits, and frame labels
+           equal except within a top-two margin of FORWARD_ATOL, counted);
+           one train step of each trained run on its first train batch on
+           both routes (K1 and K2 once on the kernel route, none on the
+           plain route; losses within LOSS_RTOL, every leaf's gradient
+           within LEAF_GRAD_RTOL of that leaf's largest); the reference's
+           two baseline fixtures (tests/golden/baseline_*) on the kernel
+           route at rtol 2e-4, atol 2e-5
+  stream_mphoi
+           tggcn_torch.models.streaming.StreamingRunner at MPHOI's width
+           (hidden 512, 2 humans, 4 objects, v3, 'st', per_frame, B=1, the
+           human segmentation imposed), in float32 and in bfloat16: a
+           96-frame stream in windows of 16 with the whole stream as
+           lookahead against the offline forward, both on the kernel route
+           (float32: the forward limits; bfloat16: rel_l2 within the
+           CAD-120 bfloat16 request's 7e-5); then tools/bench_streaming.py's
+           stream (2048 frames, window 128, lookahead 32, fuse_group 16):
+           K1 and K3 once a window, the kernel route held against the plain
+           route under the same limits, frames/s and ms a window (best of 3,
+           host clock to the outputs on the host), with the stream on the
+           host and on the card
   bench_short
            python -m tggcn_torch.bench --steps 2 --best-of 1 (bfloat16, the
            full width) in a subprocess: its last line parses, carries no
@@ -440,7 +471,8 @@ PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k
                  "train_fused_stage2_bf16": 300, "bench_short": BENCH_SHORT_S + 30,
                  "forward_cad120": 240, "forward_cad120_bf16": 240, "forward_cad120_dist": 240,
                  "train_cad120": 420, "train_cad120_bf16": 420, "train_fused_cad120_bf16": 420,
-                 "forward_general_variants": 300, "entry_mphoi": 420}
+                 "forward_general_variants": 300, "entry_mphoi": 420, "entry_baselines": 300,
+                 "stream_mphoi": 420}
 # The kernels of the train step, and of each serving mode's segment scan.
 TRAIN_KERNELS = ("gru_sequence", "gru_sequence_bwd", "segment_scan_dot", "segment_scan_dot_bwd")
 K5_KERNELS = ("segment_scan_v1", "segment_scan_v4", "segment_scan_ext")
@@ -1983,6 +2015,406 @@ def run_entry_mphoi(torch, dev, seed):
     return out
 
 
+# The entry_baselines phase: each baseline's synthetic dataset (the
+# generators' feature widths) and its cross-validation fold.
+BASELINE_DATASETS = {
+    "cad120_baseline": ("cad120", dict(num_videos=16, min_len=360, max_len=500), "Subject1",
+                        ("path", "path_zarr", "video_id_to_subject_id")),
+    "bimanual_baseline": ("bimanual", dict(num_videos=16, min_len=360, max_len=500), "2",
+                          ("path", "path_zarr", "path_bb_zarr", "path_hp_zarr",
+                           "video_id_to_video_fps")),
+}
+BASELINE_GOLDEN_RTOL, BASELINE_GOLDEN_ATOL = 2e-4, 2e-5   # tests/test_golden_baselines.py
+
+
+def run_entry_baselines(torch, dev, seed):
+    """The entry_baselines phase (see the module's docstring): each
+    baseline through the train and predict CLIs at its yaml's width, held
+    against the plain route, and the reference's baseline fixtures on the
+    kernel route. Returns the numbers it measured."""
+    import shutil
+    import tempfile
+
+    from tggcn_torch import predict as predict_cli
+    from tggcn_torch.config import compose
+    from tggcn_torch.data import synthetic
+    from tggcn_torch.data.feeders import num_inputs
+    from tggcn_torch.data.loading import load_training_data
+    from tggcn_torch.eval.engine import load_run_model
+    from tggcn_torch.eval.rundir import RunDir
+    from tggcn_torch.train import cli
+    from tggcn_torch.train.loop import device_batches
+
+    outputs = Path(__file__).resolve().parent / "outputs"
+    outputs.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="entry_baselines_", dir=outputs))
+    out = {}
+    try:
+        for model_name, (dataset, sizes, subject, keys) in BASELINE_DATASETS.items():
+            start = time.perf_counter()
+            generate = getattr(synthetic, f"generate_{dataset}_dataset")
+            paths = generate(str(work / dataset), seed=seed, **sizes)
+            dataset_s = time.perf_counter() - start
+            args = [f"models={model_name}", f"data={dataset}",
+                    *(f"data.{k}={paths[k]}" for k in keys),
+                    f"data.cross_validation_test_subject={subject}", "optimization.epochs=2",
+                    f"logging.root_log_dir={work / model_name}"]
+            cfg = compose(cli.CONF_DIR, overrides=args)
+            epochs, batch_size = cfg.optimization.epochs, cfg.optimization.batch_size
+            train_loader, val_loader, _, _ = load_training_data(
+                cfg.data, model_name, "multiple", batch_size=batch_size,
+                val_fraction=cfg.optimization.val_fraction)
+            steps, evals = len(train_loader), len(train_loader) + len(val_loader)
+            first = next(device_batches(train_loader, batch_size, num_inputs(model_name), dev))
+            del train_loader, val_loader
+
+            # The train CLI: K1 once a forward (each step and each
+            # evaluation batch), K2 once a step, float32.
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            start = time.perf_counter()
+            checkpoint = cli.main(args)
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - start
+            launches = read_launches()
+            want = {"gru_sequence": epochs * (steps + evals), "gru_sequence_bwd": epochs * steps}
+            if launches != {k: want.get(k, 0) for k in launches}:
+                raise AssertionError(f"{model_name} train: launches {launches}, not {want}")
+            scalars = Path(cfg.logging.root_log_dir) / "runs" / cfg.logging.checkpoint_name
+            records = [json.loads(line) for line in
+                       (scalars / "scalars.jsonl").read_text().splitlines()]
+            losses = [total for total, _ in checkpoint["train_losses"]]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"{model_name}: train losses {losses}")
+            r = dict(dataset_s=dataset_s, hidden=cfg.parameters.hidden_size,
+                     batch=batch_size, epochs=epochs, steps_per_epoch=steps,
+                     eval_batches_per_epoch=evals, seconds=seconds,
+                     launches={k: v for k, v in launches.items() if v},
+                     peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                     train_losses=losses,
+                     **{tag: [x["value"] for x in records if x["tag"] == f"perf/{tag}"]
+                        for tag in ("train_seconds", "eval_seconds")})
+            print(f"entry_baselines {model_name} train: {json.dumps(r)}", flush=True)
+
+            # The predict CLI on the run dir: K1 once a batch.
+            run_dir = str(Path(cfg.logging.root_log_dir) / cfg.logging.checkpoint_name)
+            reset_launches()
+            start = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as report:
+                predict_cli.main(["--pretrained_model_dir", run_dir])
+            torch.cuda.synchronize(dev)
+            predict_s = time.perf_counter() - start
+            loaded = load_run_model(RunDir(run_dir), dev)
+            batches = math.ceil(loaded["test_loader"].num_examples / ENTRY_PREDICT_BATCH)
+            launches = read_launches()
+            if launches != {k: batches * (k == "gru_sequence") for k in launches}:
+                raise AssertionError(f"{model_name} predict: launches {launches}")
+            lines = report.getvalue().splitlines()
+            print(f"entry_baselines {model_name} predict: " + "; ".join(
+                f"{a} {b}" for a, b in zip(lines, lines[1:]) if b.startswith("F1@")), flush=True)
+            r.update(predict_s=predict_s, test_clips=loaded["test_loader"].num_examples,
+                     predict_batches=batches,
+                     predict_launches={k: v for k, v in launches.items() if v},
+                     **hold_baseline_routes(torch, dev, loaded, model_name),
+                     step=hold_baseline_step(torch, dev, cfg, loaded, first, model_name))
+            out[model_name] = r
+        out["golden"] = hold_baseline_fixtures(torch, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def hold_baseline_routes(torch, dev, loaded, what):
+    """The test clips of a trained baseline's run dir as one request on
+    the kernel route (K1 once) and on the plain route (no launch): float32
+    forward limits, and the label of every frame and entity of the
+    outputs equal except where the plain route's top-two margin lies within
+    FORWARD_ATOL (counted)."""
+    model = loaded["model"]
+    batch = next(iter(loaded["test_loader"]))
+    data, _ = loaded["fetch"](batch)
+    fed = loaded["feed"](data)
+    reset_launches()
+    start = time.perf_counter()
+    got, _ = model.apply(loaded["params"], **fed)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - start) * 1e3
+    want, _ = model.apply(loaded["params"], use_kernels=False, **fed)
+    launches = read_launches()
+    if launches != {k: int(k == "gru_sequence") for k in launches}:
+        raise AssertionError(f"{what}: kernel and plain route launched {launches}")
+    err = marginal = labels = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.cpu(), w.cpu()
+        if not (bool(g.isfinite().all())
+                and torch.allclose(g, w, rtol=FORWARD_RTOL, atol=FORWARD_ATOL)):
+            raise AssertionError(f"{what}: output {i} differs by {max_err(g, w):.3e}")
+        err = max(err, max_err(g, w))
+        differ = g.argmax(1) != w.argmax(1)
+        top2 = w.topk(2, dim=1).values
+        if bool((differ & (top2[:, 0] - top2[:, 1] > FORWARD_ATOL)).any()):
+            raise AssertionError(f"{what}: a label differs between the routes beyond the "
+                                 f"margin {FORWARD_ATOL}")
+        labels += differ.numel()
+        marginal += int(differ.sum())
+    r = dict(request_ms=ms, request_clips=int(fed["x_human"].shape[0]), max_abs_err=err,
+             labels=labels, marginal_label_flips=marginal)
+    print(f"entry_baselines {what} kernel vs plain route: max abs err {err:.3e} (limits rtol "
+          f"{FORWARD_RTOL}, atol {FORWARD_ATOL}), {marginal} of {labels} frame labels differ, "
+          f"each within a top-two margin of {FORWARD_ATOL}", flush=True)
+    return r
+
+
+def hold_baseline_step(torch, dev, cfg, loaded, batch, what):
+    """One train step of a trained baseline (the run's weights, its yaml's
+    learning rate and clipping) on its first train batch, as the train
+    loop pads it, on the kernel route (K1 and K2 once) and on the plain
+    route (no launch), each from its own copy of the weights: the losses
+    within LOSS_RTOL, and every leaf's gradient within LEAF_GRAD_RTOL of
+    that leaf's largest (GRAD_FLOOR of the model's largest where that is
+    larger)."""
+    from tggcn_torch.compat.weights import params_from_numpy, params_to_numpy
+    from tggcn_torch.train.loop import make_train_step, trainable_parameters
+    from tggcn_torch.train.losses import select_loss
+
+    model = loaded["model"]
+    criterion, _ = select_loss(model.name, "multiple", cfg.data.name,
+                               cfg.get("misc", default_value={}))
+    data, targets = loaded["fetch"](batch)
+    weights = params_to_numpy(loaded["params"])
+    runs = {}
+    for use_kernels in (True, False):
+        trainable = {"model": params_from_numpy(weights, dev)}
+        optimizer = torch.optim.Adam(trainable_parameters(trainable),
+                                     lr=cfg.optimization.learning_rate)
+        step = make_train_step(model, loaded["feed"], criterion, optimizer,
+                               clip_gradient_at=cfg.optimization.clip_gradient_at,
+                               use_kernels=use_kernels)
+        reset_launches()
+        losses, _, _ = step(trainable, data, targets)
+        torch.cuda.synchronize(dev)
+        runs[use_kernels] = dict(trainable=trainable, losses=losses, launches=read_launches())
+    kern, plain = runs[True], runs[False]
+    expect = {True: ("gru_sequence", "gru_sequence_bwd"), False: ()}
+    for use_kernels, run in runs.items():
+        if run["launches"] != {k: int(k in expect[use_kernels]) for k in run["launches"]}:
+            raise AssertionError(f"{what} step (use_kernels={use_kernels}): launches "
+                                 f"{run['launches']}")
+    if not (bool(kern["losses"].isfinite().all())
+            and torch.allclose(kern["losses"], plain["losses"], rtol=LOSS_RTOL, atol=0)):
+        raise AssertionError(f"{what} step: losses {kern['losses'].tolist()} against "
+                             f"{plain['losses'].tolist()}")
+    want = tensor_leaves(plain["trainable"])
+    floor = GRAD_FLOOR * max(float(w.grad.abs().max()) for w in want.values()
+                             if w.grad is not None)
+    shares = {key: grad_gaps({key: g}, {key: want[key]}, floor)["max_share"]
+              for key, g in tensor_leaves(kern["trainable"]).items()
+              if want[key].grad is not None}
+    worst = sorted(shares.items(), key=lambda kv: -kv[1])[:3]
+    print(f"entry_baselines {what} train step, kernel vs plain route, batch "
+          f"{int(data[0].shape[0])}: launches {kern['launches']} (plain route "
+          f"{plain['launches']}); "
+          f"losses {max_err(kern['losses'], plain['losses']):.3e} apart; largest gradient "
+          f"differences (share of each leaf's largest, limit {LEAF_GRAD_RTOL}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst), flush=True)
+    if not worst[0][1] <= LEAF_GRAD_RTOL:
+        raise AssertionError(f"{what} step: gradients differ beyond {LEAF_GRAD_RTOL}: {worst}")
+    return dict(leaves=len(shares), max_share=worst[0][1],
+                launches={k: v for k, v in kern["launches"].items() if v})
+
+
+def hold_baseline_fixtures(torch, dev):
+    """tests/golden/baseline_*.npz on the kernel route (K1 once each) at
+    test_golden_baselines.py's tolerance."""
+    from tggcn_torch.compat.weights import baseline_params_from_torch_state_dict
+    from tggcn_torch.models.baselines import BaselineConfig, apply_baseline
+    from tggcn_torch.models.registry import to_device
+
+    out = {}
+    golden = Path(__file__).resolve().parent / "tests" / "golden"
+    for path in sorted(golden.glob("baseline_*.npz")):
+        data = np.load(path)
+        part = lambda kind: {k.split("::")[1]: data[k] for k in data.files
+                             if k.startswith(kind + "::")}
+        inputs, weights = part("input"), part("weight")
+        want = [data[f"output::{i}"] for i in range(len(part("output")))]
+        cad120 = "cad120" in path.name
+        cfg = BaselineConfig(input_size=(2124, 2048),
+                             num_classes=(10, 12) if cad120 else (14, None), hidden_size=16,
+                             with_object_head=cad120)
+        params = to_device(baseline_params_from_torch_state_dict(weights), dev)
+        reset_launches()
+        with torch.no_grad():
+            got = apply_baseline(params, cfg, *(torch.as_tensor(inputs[k], device=dev) for k in
+                                                ("x_human", "x_objects", "objects_mask")))
+        launches = read_launches()
+        if launches != {k: int(k == "gru_sequence") for k in launches}:
+            raise AssertionError(f"{path.name}: launches {launches}")
+        err = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            g = g.cpu().numpy()
+            if not np.allclose(g, w, rtol=BASELINE_GOLDEN_RTOL, atol=BASELINE_GOLDEN_ATOL):
+                raise AssertionError(f"{path.name}: output {i} lies {np.abs(g - w).max():.3e} "
+                                     "from the reference")
+            err = max(err, float(np.abs(g - w).max()))
+        out[path.stem] = err
+        print(f"entry_baselines {path.stem}: kernel route against the reference's outputs, "
+              f"max abs err {err:.3e} (rtol {BASELINE_GOLDEN_RTOL}, atol "
+              f"{BASELINE_GOLDEN_ATOL})", flush=True)
+    if len(out) != 2:
+        raise AssertionError(f"baseline fixtures found: {sorted(out)}")
+    return out
+
+
+# The stream_mphoi phase: MPHOI's width served by StreamingRunner (B=1,
+# 2 humans, 4 objects), after tools/bench_streaming.py's model; a short
+# stream held to the offline forward, then the tool's stream.
+STREAM_KWARGS = dict(input_size=(2152, 2048), num_classes=(13, None), hidden_size=512,
+                     gcn_node=26, message_humans_to_human=True, message_human_to_objects=True,
+                     message_objects_to_human=True, message_objects_to_object=True,
+                     message_geometry_to_objects=True, message_segment=True, message_type="v2",
+                     message_granularity="v1", message_aggregation="att", attention_style="v3",
+                     discrete_optimization_strategy="st", object_segment_update_strategy="ind",
+                     geometry_flatten="per_frame")
+STREAM_SHORT = dict(frames=96, window=16)                # lookahead: the whole stream
+STREAM_LONG = dict(frames=2048, window=128, lookahead=32, fuse_group=16)
+STREAM_REPS = 3
+STREAM_REL_L2_BF16 = LIMITS_CAD120_BF16["forward"]["rel_l2"]
+
+
+def stream_request(seed, frames, humans=2, objects=4):
+    """A seeded MPHOI stream (B=1) with the human segmentation imposed, as
+    the stage-1 feeder imposes it."""
+    rng = np.random.default_rng(seed)
+    seg = (rng.uniform(size=(1, frames, humans)) > 0.8).astype(np.float32)
+    seg[:, -1] = 1.0
+    return dict(x_human=rng.standard_normal((1, frames, humans, 2152), dtype=np.float32),
+                x_objects=rng.standard_normal((1, frames, objects, 2048), dtype=np.float32),
+                objects_mask=np.ones((1, objects), np.float32), human_segmentation=seg)
+
+
+def stream_gaps(torch, got, want, what, bf16):
+    """got against want (lists of stitched outputs): float32 within the
+    forward limits, bfloat16 within STREAM_REL_L2_BF16 of the norm (rel_l2)."""
+    got = [torch.as_tensor(np.asarray(g)) for g in got]
+    want = [torch.as_tensor(np.asarray(w)) for w in want]
+    if [g.shape for g in got] != [w.shape for w in want] or not all(
+            bool(g.isfinite().all()) for g in got):
+        raise AssertionError(f"{what}: outputs of other shapes or not finite")
+    gaps = dict(max_abs=max(max_err(g, w) for g, w in zip(got, want)),
+                **tensor_gaps(got, want))
+    if bf16:
+        ok = gaps["rel_l2"] <= STREAM_REL_L2_BF16
+    else:
+        ok = all(torch.allclose(g, w, rtol=FORWARD_RTOL, atol=FORWARD_ATOL)
+                 for g, w in zip(got, want))
+    print(f"stream_mphoi {what}: " + ", ".join(f"{k} {v:.4g}" for k, v in gaps.items())
+          + (f" (limit rel_l2 {STREAM_REL_L2_BF16:g})" if bf16 else
+             f" (limits rtol {FORWARD_RTOL}, atol {FORWARD_ATOL})"), flush=True)
+    if not ok:
+        raise AssertionError(f"stream_mphoi {what}: outside the limit: {gaps}")
+    return gaps
+
+
+def run_stream_mphoi(torch, dev, seed, dtype):
+    """The stream_mphoi phase for one compute dtype (see the module's
+    docstring). Returns the numbers it measured."""
+    from tggcn_torch.models.registry import select_model
+    from tggcn_torch.models.streaming import StreamingRunner
+
+    bf16 = dtype != "float32"
+    tag = "_bf16" if bf16 else ""
+    model = select_model("2G-GCN", device=dev, compute_dtype=dtype, **STREAM_KWARGS)
+    params = model.init(torch.Generator().manual_seed(seed))
+    out = {}
+
+    # A short stream, whole-stream lookahead: streamed equals offline.
+    t, w = STREAM_SHORT["frames"], STREAM_SHORT["window"]
+    request = stream_request(seed, t)
+    offline, _ = model.apply(params, steps_per_example=np.full((1,), float(t), np.float32),
+                             **request)
+    runner = StreamingRunner(params, model.config, window=w, lookahead=t)
+    reset_launches()
+    streamed = runner.run(**request)
+    launches = read_launches()
+    windows = math.ceil(t / w)
+    want = {f"gru_sequence{tag}": windows, f"segment_scan_dot{tag}": windows}
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"stream_mphoi short stream: launches {launches}, not {want}")
+    out["short"] = dict(frames=t, window=w, lookahead=t, windows=windows,
+                        launches={k: v for k, v in launches.items() if v}, **stream_gaps(
+        torch, streamed, [o.cpu() for o in offline], f"{dtype} short stream, streamed vs "
+        "offline (kernel route)", bf16))
+
+    # tools/bench_streaming.py's stream: the kernel route timed and held
+    # against the plain route.
+    long = STREAM_LONG
+    t = long["frames"]
+    request = stream_request(seed + 1, t)
+    kernel = StreamingRunner(params, model.config, window=long["window"],
+                             lookahead=long["lookahead"], fuse_group=long["fuse_group"])
+    plain = StreamingRunner(params, model.config, window=long["window"],
+                            lookahead=long["lookahead"], fuse_group=long["fuse_group"],
+                            use_kernels=False)
+    got = kernel.run(**request)                                    # warm-up
+    torch.cuda.synchronize(dev)
+    on_card = {k: torch.as_tensor(v, device=dev) for k, v in request.items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = {"host": [], "card": []}
+    reset_launches()
+    for _ in range(STREAM_REPS):
+        for where, inputs in (("host", request), ("card", on_card)):
+            start = time.perf_counter()
+            kernel.run(**inputs)                                   # ends in a copy to the host
+            times[where].append(time.perf_counter() - start)
+    launches = read_launches()
+    windows = math.ceil(t / long["window"])
+    want = {f"gru_sequence{tag}": windows, f"segment_scan_dot{tag}": windows}
+    if launches != {k: 2 * STREAM_REPS * want.get(k, 0) for k in launches}:
+        raise AssertionError(f"stream_mphoi long stream: launches {launches}, not "
+                             f"{2 * STREAM_REPS} x {want}")
+    start = time.perf_counter()
+    reference = plain.run(**request)
+    plain_s = time.perf_counter() - start
+    if read_launches() != launches:
+        raise AssertionError("stream_mphoi: the plain route launched kernels")
+    best = {k: min(v) for k, v in times.items()}
+    out["long"] = dict(
+        long, launches={k: v for k, v in launches.items() if v}, runs=2 * STREAM_REPS,
+        windows=windows, seconds=best,
+        frames_per_s={k: t / v for k, v in best.items()},
+        window_ms={k: v / windows * 1e3 for k, v in best.items()}, plain_s=plain_s,
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30, **stream_gaps(
+            torch, got, reference, f"{dtype} long stream, kernel vs plain route", bf16))
+    print(f"stream_mphoi{tag}: {t} frames, window {long['window']}, lookahead "
+          f"{long['lookahead']}, fuse_group {long['fuse_group']}: inputs on the host "
+          f"{out['long']['frames_per_s']['host']:.1f} frames/s, "
+          f"{out['long']['window_ms']['host']:.3f} ms a window; inputs on the card "
+          f"{out['long']['frames_per_s']['card']:.1f} frames/s, "
+          f"{out['long']['window_ms']['card']:.3f} ms a window (best of {STREAM_REPS}, host "
+          f"clock, outputs copied to the host); plain route {plain_s:.3f} s", flush=True)
+    return out
+
+
+def streamed_per_window(r, name):
+    """A kernel's launches a streamed window, as the long stream's runs read them."""
+    return r["launches"].get(name, 0) / (r["runs"] * r["windows"])
+
+
+def baseline_per_call(model_name, r, name):
+    """A kernel's launches in a baseline's CLI runs, as entry_baselines read
+    them: a train step (K2), a forward of the train CLI (its steps and
+    evaluation batches) and a predict batch (K1)."""
+    if name == "gru_sequence_bwd":
+        return (f", per {model_name} train step "
+                f"{r['launches'].get(name, 0) / (r['epochs'] * r['steps_per_epoch']):g}")
+    forwards = r["epochs"] * (r["steps_per_epoch"] + r["eval_batches_per_epoch"])
+    return (f", per {model_name} train-CLI forward {r['launches'].get(name, 0) / forwards:g}"
+            f", per {model_name} predict batch "
+            f"{r['predict_launches'].get(name, 0) / r['predict_batches']:g}")
+
+
 # K1 and K3: the kernels of a forward (an evaluation batch, a request).
 FORWARD_KERNELS = ("gru_sequence", "segment_scan_dot")
 
@@ -2216,6 +2648,13 @@ def main(argv=None):
     with phase("entry_mphoi"):
         entry = run_entry_mphoi(torch, dev, args.seed)
         print(f"entry_mphoi {json.dumps(entry)}", flush=True)
+    with phase("entry_baselines"):
+        baselines = run_entry_baselines(torch, dev, args.seed)
+        print(f"entry_baselines {json.dumps(baselines)}", flush=True)
+    with phase("stream_mphoi"):
+        stream = {dtype: run_stream_mphoi(torch, dev, args.seed, dtype)
+                  for dtype in ("float32", stage1.BENCH_DTYPE)}
+        print(f"stream_mphoi {json.dumps(stream)}", flush=True)
     with phase("bench_short"):
         run_bench_short(torch)
     # K1-K4's launches are the stage-1 train steps' (of their dtype); K5's
@@ -2230,7 +2669,11 @@ def main(argv=None):
                    f"per {dtype} stage-1 request {fwd[dtype]['launches'][k['name']] / REQUESTS:g}, "
                    f"per {dtype} CAD-120 train step "
                    f"{train_cad[dtype]['launches'][k['name']] / TRAIN_STEPS:g}, per {dtype} "
-                   f"CAD-120 request {fwd_cad[dtype]['launches'][k['name']]:g}")
+                   f"CAD-120 request {fwd_cad[dtype]['launches'][k['name']]:g}, per {dtype} "
+                   f"streamed window {streamed_per_window(stream[dtype]['long'], k['name']):g}")
+            if dtype == "float32" and base in ("gru_sequence", "gru_sequence_bwd"):
+                per += "".join(baseline_per_call(name, baselines[name], k["name"])
+                               for name in BASELINE_DATASETS)
         else:
             pool, n = (served_bf16, 1) if k["name"].endswith("_bf16") else (served, REQUESTS)
             k["launches"] = sum(r["launches"][k["name"]] for r in pool.values())

@@ -17,9 +17,11 @@ tggcn_torch.predict``) and the run dir between them, at hidden 16, T <= 42
 * A JAX-written checkpoint pickles scikit-learn's StandardScaler: the
   port always reads it as its own StandardScaler (here with scikit-learn
   hidden, as the card has none).
-* The CLIs refuse ``num_devices=2`` and the baselines (NotImplementedError
-  naming the ROADMAP item), and without a CUDA device raise unless given
-  ``--device cpu``.
+* The CLIs refuse ``num_devices=2``, a distributed run and the orbax
+  checkpoint backend (NotImplementedError naming the ROADMAP item or
+  saying it is not ported), and without a CUDA device raise unless given
+  ``--device cpu``. (The baselines' CLI runs are in
+  ``tests/test_torch_baselines.py``.)
 """
 
 import argparse
@@ -228,8 +230,8 @@ def test_scaler_unpickler_without_sklearn(monkeypatch):
 
 @pytest.mark.parametrize("change, item", [
     (["resources.num_devices=2"], "item 9"),
-    (["models=bimanual_baseline", "data=bimanual"], "item 7"),
-    (["parameters.gs_noise=frame_indexed"], "item 8"),
+    (["resources.distributed.num_processes=2"], "item 9"),
+    (["logging.checkpoint_backend=orbax"], "not ported"),
 ])
 def test_train_cli_refuses_what_is_not_ported(change, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -12,7 +12,7 @@
   modes (v1, v4, mean pooling, distances) serve and train in both dtypes,
   and so do the general scan's configurations (relational and 'specific'
   messages, a missing entity edge, no segment messages, a partial set of
-  distance tensors).
+  distance tensors) and 'gs' decisions with frame-indexed noise.
 * The general segment scan makes no host read and takes no
   data-dependent branch in its loop: no .item(), .tolist(), .cpu(),
   .numpy(), tensor made from host data or Python condition on a tensor.
@@ -79,6 +79,7 @@ def test_port_imports_without_jax():
             "import tggcn_torch.data.synthetic, tggcn_torch.eval.engine\n"
             "import tggcn_torch.eval.reporting, tggcn_torch.utils.native\n"
             "import tggcn_torch.visualisation, tggcn_torch.train.logging\n"
+            "import tggcn_torch.models.baselines, tggcn_torch.models.streaming\n"
             "print('ok')")
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
@@ -199,7 +200,7 @@ def _assert_trains(model, params, batch):
 TRAINS = ({"message_aggregation": "mp"}, {"attention_style": "v1"}, {"attention_style": "v4"},
           {"compute_dtype": "bfloat16"}, {"message_type": "relational"},
           {"message_granularity": "specific"}, {"message_humans_to_human": False},
-          {"message_segment": False})
+          {"message_segment": False}, {"gs_noise": "frame_indexed"})
 
 
 @pytest.mark.parametrize("change", [
@@ -210,15 +211,17 @@ TRAINS = ({"message_aggregation": "mp"}, {"attention_style": "v1"}, {"attention_
     {"compute_dtype": "float16"}, {"compute_dtype": "bfloat16"}, {"message_segment": False},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_outside_the_slice_raises(change):
-    """Configurations outside the port raise (float16 and frame-indexed
-    Gumbel noise). Mean pooling and v1/v4 attention (K5) serve and train
-    on the CPU, and so does v1 attention in bfloat16; so do relational and
-    'specific' messages, a segment level without the humans-to-human edge
-    and one without segment messages (the general scan); 'sah' (with the
-    one human it needs) serves."""
+    """Configurations outside the port raise (float16). Mean pooling and
+    v1/v4 attention (K5) serve and train on the CPU, and so does v1
+    attention in bfloat16; so do relational and 'specific' messages, a
+    segment level without the humans-to-human edge and one without segment
+    messages (the general scan), and frame-indexed Gumbel noise; 'sah'
+    (with the one human it needs) serves."""
     kwargs = {**STAGE1, **change}
     if change == {"compute_dtype": "bfloat16"}:
         kwargs["attention_style"] = "v1"
+    if change == {"gs_noise": "frame_indexed"}:
+        kwargs["discrete_optimization_strategy"] = "gs"
     if change not in TRAINS + ({"object_segment_update_strategy": "sah"},):
         with pytest.raises(NotImplementedError, match="slice"):
             check_slice(TGGCNConfig.from_kwargs(**kwargs))

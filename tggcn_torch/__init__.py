@@ -8,15 +8,16 @@ of it (nor JAX). Layout mirrors it:
     tggcn_torch.nn       plain PyTorch layers (MLP, GRU, GeoGCN, messages)
     tggcn_torch.ops      hand-written CUDA kernels, their ctypes wrappers and
                          their plain PyTorch versions
-    tggcn_torch.models   the 2G-GCN model (forward and training) and the
-                         model registry
+    tggcn_torch.models   the 2G-GCN model (forward and training), the
+                         baselines, sliding-window streaming and the model
+                         registry
     tggcn_torch.train    losses, multi-task weighting, the train step, the
                          fit loop, checkpoints and run dirs, and the train
                          entry point (python -m tggcn_torch.train)
     tggcn_torch.predict  the predict entry point (python -m tggcn_torch.predict)
     tggcn_torch.eval     run-dir discovery, batched inference, metrics
     tggcn_torch.data     dataset loading and assembly, synthetic datasets,
-                         the 2G-GCN batch feeder, fetcher and padding
+                         the batch feeders, fetchers and padding
     tggcn_torch.config   the conf/ YAML configs and overrides
     tggcn_torch.utils    numpy helpers (F1@k, run-length encoding, files)
     tggcn_torch.compat   weight bridges (JAX pytrees, reference state dicts)

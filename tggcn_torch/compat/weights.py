@@ -2,10 +2,11 @@
 
 The port's parameter trees have the keys of ``tggcn``'s (``params[
 "human_bd_rnn"]["fwd"]["w_hh"]``, ...), so carrying a JAX tree over is a
-map of its leaves (``params_from_numpy``, and back: ``params_to_numpy``). ``tggcn_params_from_torch_state_dict``
-is a copy, free of JAX, of ``tggcn/compat/torch_weights.py``'s loader for
-reference-named state dicts (the ``weight::`` blocks of the golden fixtures
-and reference checkpoints).
+map of its leaves (``params_from_numpy``, and back: ``params_to_numpy``); a JAX baseline tree bridges the same way.
+``tggcn_params_from_torch_state_dict`` and
+``baseline_params_from_torch_state_dict`` are copies, free of JAX, of
+``tggcn/compat/torch_weights.py``'s loaders for reference-named state dicts
+(the ``weight::`` blocks of the golden fixtures and reference checkpoints).
 """
 
 from typing import Dict
@@ -216,4 +217,20 @@ def tggcn_params_from_torch_state_dict(sd: Dict[str, np.ndarray], cfg: TGGCNConf
         for head in ["human_frame_recognition_mlp", "human_frame_prediction_mlp",
                      "object_frame_recognition_mlp", "object_frame_prediction_mlp"]:
             params.pop(head, None)
+    return params
+
+
+def baseline_params_from_torch_state_dict(sd: Dict[str, np.ndarray]) -> dict:
+    """A reference CAD120Baseline / BimanualBaseline state_dict -> the port's
+    parameter tree, as CPU float32 tensors
+    (``tggcn/compat/torch_weights.py:223-235``)."""
+    params = {
+        "human_embedding_mlp": _mlp(sd, "human_embedding_mlp"),
+        "object_embedding_mlp": _mlp(sd, "object_embedding_mlp"),
+        "human_bd_rnn": _bigru(sd, "human_bd_rnn"),
+        "object_bd_rnn": _bigru(sd, "object_bd_rnn"),
+        "human_recognition_mlp": _mlp(sd, "human_recognition_mlp"),
+    }
+    if "object_recognition_mlp.0.weight" in sd:
+        params["object_recognition_mlp"] = _mlp(sd, "object_recognition_mlp")
     return params

@@ -1,12 +1,14 @@
-"""The 2G-GCN batch adapters (counterpart of ``tggcn/data/loading.py:490-564``)
-and batch padding (``tggcn/train/loop.py:43-62``).
+"""The batch adapters of the 2G-GCN and the baselines (counterpart of
+``tggcn/data/loading.py:485-564``) and batch padding
+(``tggcn/train/loop.py:43-62``).
 
-A batch is the positional list the loaders yield: for MPHOI and Bimanual
-[x_human, x_objects, objects_mask, human_segmentation, hh, ho, oo
+A 2G-GCN batch is the positional list the loaders yield: for MPHOI and
+Bimanual [x_human, x_objects, objects_mask, human_segmentation, hh, ho, oo
 distances, steps_per_example] and then the targets; for CAD-120 the seventh
-input is the object segmentation's place. The fetcher splits inputs from
-targets, the feeder maps the inputs onto the model's keyword arguments.
-Arrays may be numpy arrays or tensors.
+input is the object segmentation's place. A baseline batch is [x_human,
+x_objects, objects_mask] and then the targets. The fetcher splits inputs
+from targets, the feeder maps the inputs onto the model's keyword
+arguments. Arrays may be numpy arrays or tensors.
 """
 
 from functools import partial
@@ -14,12 +16,30 @@ from functools import partial
 import numpy as np
 import torch
 
+from tggcn_torch.models.baselines import BASELINES
+
 
 def _ones(like):
     """Ones over the entity axes of a feature array (its last axis dropped)."""
     if isinstance(like, torch.Tensor):
         return torch.ones(like.shape[:-1], dtype=like.dtype, device=like.device)
     return np.ones(like.shape[:-1], dtype=like.dtype)
+
+
+def num_inputs(model_name: str) -> int:
+    """The input arrays a batch holds before its targets: 8 for the 2G-GCN,
+    3 for the baselines (the root ``train.py:134``)."""
+    return 8 if model_name == "2G-GCN" else 3
+
+
+def generic_fetcher(dataset, n: int):
+    """The first n arrays are inputs, the rest targets (reference fetchers.py:13)."""
+    return list(dataset[:n]), list(dataset[n:])
+
+
+def baseline_feeder(data, **_kwargs) -> dict:
+    """Map a baseline's data list onto its keyword arguments."""
+    return {"x_human": data[0], "x_objects": data[1], "objects_mask": data[2]}
 
 
 def gcn_fetcher(dataset, **_kwargs):
@@ -63,14 +83,18 @@ def gcn_forward_kwargs(data, input_human_segmentation: bool = False,
 
 
 def select_model_data_fetcher(model_name: str, model_input_type: str, **kwargs):
+    if model_name in BASELINES:
+        return partial(generic_fetcher, n=num_inputs(model_name))
     if model_name != "2G-GCN":
-        raise NotImplementedError(f"the data fetcher of {model_name!r} is outside the port")
+        raise KeyError(model_name)
     return partial(gcn_fetcher, **kwargs)
 
 
 def select_model_data_feeder(model_name: str, model_input_type: str, **kwargs):
+    if model_name in BASELINES:
+        return baseline_feeder
     if model_name != "2G-GCN":
-        raise NotImplementedError(f"the data feeder of {model_name!r} is outside the port")
+        raise KeyError(model_name)
     return partial(gcn_forward_kwargs, **kwargs)
 
 

@@ -42,8 +42,9 @@ def head_names(model_name: str, input_type: str, dataset_name: str) -> List[str]
 def load_run_model(run: RunDir, device=None) -> dict:
     """The test split and the trained model of a run dir: {'model',
     'params' (its init with the run's weights merged in), 'fetch', 'feed',
-    'num_main' (the evaluation heads: the last num_main outputs), 'names'
-    (theirs), 'test_loader', 'segmentations', 'test_ids'}."""
+    'num_main' (the evaluation heads: the last num_main outputs; None,
+    every output, for a baseline), 'names' (theirs), 'test_loader',
+    'segmentations', 'test_ids'}."""
     import torch
 
     from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
@@ -52,9 +53,6 @@ def load_run_model(run: RunDir, device=None) -> dict:
     from tggcn_torch.train.checkpoint import load_model_weights, merge_params
     from tggcn_torch.train.losses import decide_num_main_losses
 
-    if run.model_name != "2G-GCN":
-        raise NotImplementedError(f"model {run.model_name!r}: the baselines are not ported "
-                                  "(ROADMAP.md Queue 1 item 7)")
     test_loader, data_info, segmentations, test_ids = load_testing_data(
         run.cfg.data, run.model_name, run.input_type,
         batch_size=EVAL_BATCH_SIZE, scalers=run.load_scalers())
@@ -90,7 +88,7 @@ def run_inference(run: RunDir, frame_to_segment_level: bool = False,
     """
     import torch
 
-    from tggcn_torch.data.feeders import pad_batch
+    from tggcn_torch.data.feeders import num_inputs, pad_batch
 
     loaded = load_run_model(run, device)
     model, test_loader, names = loaded["model"], loaded["test_loader"], loaded["names"]
@@ -101,13 +99,14 @@ def run_inference(run: RunDir, frame_to_segment_level: bool = False,
     attention_batches: List[List[np.ndarray]] = []
     for batch in test_loader:
         rows = len(batch[0])
-        data, target = loaded["fetch"](pad_batch(batch, batch_size, num_inputs=8))
+        data, target = loaded["fetch"](pad_batch(batch, batch_size, num_inputs(run.model_name)))
         output, aux = model.apply(loaded["params"], train=False, inspect_model=inspect_model,
                                   generator=torch.Generator(device=model.device).manual_seed(42),
                                   **loaded["feed"](data))
         # Only the trailing num_main heads are evaluation outputs; the rest
         # are auxiliary training signals (budget/segmentation).
-        output, target = output[-num_main:], target[-num_main:]
+        if num_main is not None:
+            output, target = output[-num_main:], target[-num_main:]
         for name, out, tgt in zip(names, output, target):
             collected[name].append(out[:rows].cpu().numpy())
             collected_targets[name].append(np.asarray(tgt)[:rows])

@@ -48,12 +48,21 @@ def _both_directions(x):
     return torch.stack([x, x.flip(0)], dim=1)
 
 
+def initial_states(x_hs, n: int, h: int, fwd):
+    """(2, B, n, h) initial states in x_hs's dtype: the forward direction's
+    from the carry fwd (B, n, h) where given, the backward direction's zero."""
+    zeros = x_hs.new_zeros((2, x_hs.shape[0], n, h))
+    return zeros if fwd is None else torch.cat([fwd[None].to(x_hs.dtype), zeros[1:]])
+
+
 def segment_scan_fast(params, cfg, x_hs, x_os, u_h, u_o, objects_mask,
-                      hh_dists=None, ho_dists=None, oo_dists=None):
+                      hh_dists=None, ho_dists=None, oo_dists=None, seg_carry=(None, None)):
     """The gated bidirectional segment scan, as JAX's ``_segment_scan_fast``:
     x_hs (B, T, H, F_h), x_os (B, T, O, F_o), decisions u_h (B, T, H), u_o
-    (B, T, O), objects_mask (B, O), and the (B, T, R, S) distances of
-    distance-based attention (all three, or none). Returns (hx_hs (B, T, H,
+    (B, T, O), objects_mask (B, O), the (B, T, R, S) distances of
+    distance-based attention (all three, or none) and the forward
+    direction's initial states seg_carry ((B, H, h) or None, (B, O, h) or
+    None; the backward direction starts from zero). Returns (hx_hs (B, T, H,
     2h), hx_os (B, T, O, 2h), att fwd, att bwd (B, T, H, O)), each direction's
     states in natural time order, zeros for the attention under mean
     pooling."""
@@ -128,8 +137,8 @@ def segment_scan_fast(params, cfg, x_hs, x_os, u_h, u_o, objects_mask,
     if use_dists:
         d_hh, d_ho, d_oo = (_both_directions(d.movedim(1, 0)) for d in (hh_dists, ho_dists,
                                                                          oo_dists))
-    h_h2 = x_hs.new_zeros((2, b, num_humans, h))                        # (direction, B, H, h)
-    h_o2 = x_hs.new_zeros((2, b, num_objects, h))
+    h_h2 = initial_states(x_hs, num_humans, h, seg_carry[0])            # (direction, B, H, h)
+    h_o2 = initial_states(x_hs, num_objects, h, seg_carry[1])
     seq_h, seq_o, seq_att = [], [], []
     for i in range(t):
         d_hh_e = d_oh_e = d_ho_e = d_oo_e = None

@@ -39,7 +39,10 @@ them; in every other configuration through the general scan
 (``models/segment_general.py``, JAX's XLA ``_segment_scan``, plain PyTorch
 with autograd). With ``use_pallas_geo_gcn`` the GeoGCN block runs through
 K6 (forward, with its backward recomputed as JAX's). On the CPU the
-kernels take their plain PyTorch versions.
+kernels take their plain PyTorch versions. The forward carries of
+sliding-window streaming (``carry``, ``return_carry``,
+``force_last_step_commit``, ``frame_offset``) and frame-indexed Gumbel
+noise serve ``models/streaming.py``.
 """
 
 import math
@@ -48,9 +51,10 @@ from typing import Optional
 
 import torch
 
-from tggcn_torch.models.segment_fast import CELLS, EDGES, segment_scan_fast
+from tggcn_torch.models.segment_fast import CELLS, EDGES, initial_states, segment_scan_fast
 from tggcn_torch.models.segment_general import GENERAL_SCAN_RANGE, segment_scan_general
-from tggcn_torch.nn.distributions import GUMBEL_STRATEGIES, discrete_estimator
+from tggcn_torch.nn.distributions import (GUMBEL_STRATEGIES, discrete_estimator,
+                                          frame_indexed_gumbel, noise_key)
 from tggcn_torch.nn.geo_gcn import apply_geo_gcn, init_geo_gcn
 from tggcn_torch.nn.gru import init_bigru, init_gru_cell, run_multi_bigru
 from tggcn_torch.nn.messages import (GENERIC, MEAN_POOLING, NON_RELATIONAL, RELATIONAL,
@@ -64,6 +68,10 @@ from tggcn_torch.ops.segment_scan import (segment_scan_dot_autograd, segment_sca
                                           segment_scan_recompute)
 
 SLICE = "the 2G-GCN slice of tggcn_torch"
+# The streaming carries of K1's three forward streams, in its stream order,
+# and the hash stream of each decision kind's frame-indexed noise.
+FRAME_CARRIES = ("frame_human", "frame_object", "frame_geometry")
+NOISE_STREAMS = {"human": 0, "object": 1}
 DOT_STYLES = {"v2", "dot-product", "v3", "scaled_dot-product"}
 BF16 = {"bfloat16", "bf16"}
 
@@ -111,8 +119,8 @@ class TGGCNConfig:
     geometry_flatten: str = "reference"
     compute_dtype: str = "float32"
     # 'batched' draws the Gumbel noise of a whole clip at once;
-    # 'frame_indexed' (window-independent noise for streaming) is outside
-    # the slice.
+    # 'frame_indexed' draws each absolute frame's from a hash of (key,
+    # frame), the same in any window (streaming; nn/distributions.py).
     gs_noise: str = "batched"
     use_pallas_geo_gcn: bool = False
 
@@ -175,7 +183,7 @@ def check_slice(cfg: TGGCNConfig) -> None:
     need(cfg.discrete_optimization_strategy in {"st", "straight-through",
                                                 "gs", "gumbel-sigmoid"},
          f"discrete_optimization_strategy={cfg.discrete_optimization_strategy!r}")
-    need(cfg.gs_noise == "batched", f"gs_noise={cfg.gs_noise!r}")
+    need(cfg.gs_noise in {"batched", "frame_indexed"}, f"gs_noise={cfg.gs_noise!r}")
     need(cfg.time_position_strategy in {"s", "u"},
          f"time_position_strategy={cfg.time_position_strategy!r}")
     need(cfg.positional_encoding_style in {"e", "embedding", "p", "periodic"},
@@ -354,7 +362,9 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
                 object_object_distances=None, steps_per_example=None,
                 train: bool = False, inspect_model: bool = False,
                 use_kernels: bool = True, noise: Optional[dict] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                carry: Optional[dict] = None, return_carry: bool = False,
+                force_last_step_commit: bool = True, frame_offset=0):
     """Forward pass. Returns (outputs list, aux dict), laid out as
     ``tggcn.models.tggcn.apply_tggcn``'s.
 
@@ -374,6 +384,21 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     needed. The draws stay on the generator's device, so a step reads
     nothing back to the host (JAX splits its key in two instead,
     ``tggcn/models/tggcn.py:467``; its numbers cannot be reproduced anyway).
+    With ``gs_noise='frame_indexed'`` the generator gives one key instead,
+    and the noise of absolute frame ``frame_offset + i`` is a hash of (key,
+    humans or objects, that frame, the element's place in it)
+    (``frame_indexed_gumbel``), so a window draws what the whole clip draws.
+
+    Streaming (``tggcn/models/tggcn.py:444-446, 529-538, 700-733, 793-802``):
+    ``carry`` holds forward-direction initial states, any of
+    'frame_human' (B, H, h), 'frame_object' (B, O, h), 'frame_geometry'
+    (B, 1, h) (K1's forward h0) and 'seg_human' (B, H, h), 'seg_object' (B,
+    O, h) (the segment scan's forward h0; its backward starts from zero),
+    cast to the compute dtype as JAX casts them; ``return_carry`` adds
+    aux['carry_seq'], the forward states of every step under the same keys
+    (B, T, E, h), the segment ones before the reorder;
+    ``force_last_step_commit=False`` leaves the final step's decisions as
+    taken (the forced commit is right only at a clip's true end).
     """
     check_slice(cfg)
     dists3 = (human_human_distances, human_object_distances, object_object_distances)
@@ -382,6 +407,7 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     b, t, num_humans = x_human.shape[0], x_human.shape[1], x_human.shape[2]
     num_objects = x_objects.shape[2]
     hidden = cfg.hidden_size
+    carry = carry or {}
 
     # --- Mixed precision (tggcn/models/tggcn.py:477-491) ------------------
     if work is not None:
@@ -390,6 +416,7 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
         dists3 = tuple(None if d is None else d.to(work) for d in dists3)
         if cfg.add_time_position or cfg.add_segment_length:
             steps_per_example = steps_per_example.to(work)
+        carry = {k: v.to(work) for k, v in carry.items()}
 
     # --- Geometry stream -------------------------------------------------
     x_vis, x_geometry = x_human[..., :2048], x_human[:, :, 0, 2048:]
@@ -420,9 +447,14 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     x_obj_emb = apply_mlp(params["object_embedding_mlp"], x_objects, activations=["relu"])
 
     # --- Frame-level BiGRUs: all three streams in one kernel call ---------
+    frame_xs = [x_hum_emb, x_obj_emb, x_geo_emb]
+    h0s = None
+    if any(k in carry for k in FRAME_CARRIES):
+        h0s = [carry[k] if k in carry else x.new_zeros((b, x.shape[2], hidden))
+               for k, x in zip(FRAME_CARRIES, frame_xs)]
     h_hfr, h_ofr, h_sfr = run_multi_bigru(
         [params["human_bd_rnn"], params["object_bd_rnn"], params["geometry_bd_rnn"]],
-        [x_hum_emb, x_obj_emb, x_geo_emb], use_kernels=use_kernels)
+        frame_xs, h0_fwd_list=h0s, use_kernels=use_kernels)
     h_hf = apply_mlp(params["human_bd_embedding_mlp"], h_hfr, activations=["relu"])
     h_of = apply_mlp(params["object_bd_embedding_mlp"], h_ofr, activations=["relu"])
     h_sf = apply_mlp(params["geometry_bd_embedding_mlp"], h_sfr, activations=["relu"])
@@ -475,16 +507,25 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
                             dists=oo_d)
 
     # --- Decisions (vectorised over B, T, E) -------------------------------
-    noise, sources = noise or {}, []
+    noise, sources = dict(noise or {}), []
     gumbel = cfg.discrete_optimization_strategy in GUMBEL_STRATEGIES
+    frame_indexed = gumbel and cfg.gs_noise == "frame_indexed"
 
     def source(who):
-        """The generator `who` draws its noise from, where noise is missing."""
+        """The generator `who` draws its noise from, where noise is missing
+        (None for frame-indexed noise, which this puts in noise)."""
         if not gumbel or noise.get(who) is not None:
             return None
         if not sources:
             sources.append(generator or torch.Generator(device=x_human.device).manual_seed(0))
-        return sources[0]
+            if frame_indexed:
+                sources.append(noise_key(sources[0]))
+        if not frame_indexed:
+            return sources[0]
+        frames = frame_offset + torch.arange(t, device=x_human.device)
+        n = num_humans if who == "human" else num_objects
+        noise[who] = frame_indexed_gumbel(sources[1], NOISE_STREAMS[who], frames, b, n)
+        return None
 
     def decide(name, features, imposed, who, gate=None):
         """(hard, soft) decisions; a 'coh' gate multiplies the hard ones
@@ -495,12 +536,14 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
         u_soft = apply_mlp(params[name], torch.cat([f for f in features if f is not None], -1),
                            activations=["relu"] * (cfg.discrete_networks_num_layers - 1)
                            + ["sigmoid"])
+        drawn_from = source(who)
         hard, soft = discrete_estimator(u_soft, strategy=cfg.discrete_optimization_strategy,
                                         threshold=cfg.update_segment_threshold,
-                                        noise=noise.get(who), generator=source(who))
+                                        noise=noise.get(who), generator=drawn_from)
         hard = hard[..., 0]
         hard = hard * gate if gate is not None else hard.clone()
-        hard[:, -1, :] = 1.0
+        if force_last_step_commit:
+            hard[:, -1, :] = 1.0
         return hard, soft[..., 0]
 
     time_u = cfg.add_time_position and cfg.time_position_strategy == "u"
@@ -542,14 +585,18 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     x_os = torch.cat([x for x in x_os if x is not None], dim=-1)
 
     # --- Segment-level gated bidirectional scan ----------------------------
+    seg_carry = (carry.get("seg_human"), carry.get("seg_object"))
     if mode is None:
         with torch.profiler.record_function(GENERAL_SCAN_RANGE):
             hx_hs, hx_os, att_seg_f, att_seg_b = segment_scan_general(
-                params, cfg, x_hs, x_os, u_h_used, u_o_used, objects_mask, *dists3)
+                params, cfg, x_hs, x_os, u_h_used, u_o_used, objects_mask, *dists3,
+                seg_carry=seg_carry)
     else:
         hx_hs, hx_os, att_seg_f, att_seg_b = _segment_scan_fast(
             params, cfg, mode, x_hs, x_os, u_h_used, u_o_used, objects_mask, dists3,
-            use_kernels)
+            use_kernels, seg_carry)
+    # The forward segment states before the reorder: the streaming carries.
+    seg_fwd = (hx_hs[..., :hidden], hx_os[..., :hidden])
 
     # --- Reorder: every frame labelled with its segment's final state ------
     hx = torch.cat([hx_hs, hx_os], dim=2)                     # (B, T, H+O, 2h)
@@ -594,6 +641,10 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     objects = (outputs[1], outputs[3]) if cfg.num_classes[1] is not None else (u_o_used,
                                                                                u_o_soft)
     aux = {"bn_state": bn_state, "human_decisions": human, "object_decisions": objects}
+    if return_carry:
+        aux["carry_seq"] = {**{k: x[..., :hidden] for k, x in zip(FRAME_CARRIES,
+                                                                  (h_hfr, h_ofr, h_sfr))},
+                            "seg_human": seg_fwd[0], "seg_object": seg_fwd[1]}
     if inspect_model:
         # (B, T, H, O) -> (B, H, T, O), as the reference stacks them. Mean
         # pooling has no frame attention: zeros, as for its segment level.
@@ -684,10 +735,12 @@ def external_att_weights(mean_pooling: bool, dists3, objects_mask, t: int, nh: i
                       torch.cat([a_ho, a_oo], dim=-1)], dim=-2).contiguous()
 
 
-def _scan_inputs(params, cfg: TGGCNConfig, x_hs, x_os, u_h, u_o, objects_mask):
+def _scan_inputs(params, cfg: TGGCNConfig, x_hs, x_os, u_h, u_o, objects_mask,
+                 seg_carry=(None, None)):
     """The kernels' inputs (see ``tggcn_torch.ops.segment_scan``): base gates
     (2, T, B, E, 3h) of both directions, time-major decisions, stacked
-    weights, the object mask and zero initial states."""
+    weights, the object mask and the initial states (the forward ones from
+    seg_carry where given, else zero)."""
     b, t, num_humans, base_h = x_hs.shape
     num_objects, base_o = x_os.shape[2], x_os.shape[-1]
     h = cfg.hidden_size
@@ -716,7 +769,8 @@ def _scan_inputs(params, cfg: TGGCNConfig, x_hs, x_os, u_h, u_o, objects_mask):
             stack(cells_h, lambda c: c.get("b_hh", zeros3)),
             stack(cells_o, lambda c: c.get("b_hh", zeros3)),
             objects_mask.to(x_hs.dtype).contiguous(),
-            x_hs.new_zeros((2, b, num_humans, h)), x_hs.new_zeros((2, b, num_objects, h)))
+            initial_states(x_hs, num_humans, h, seg_carry[0]).contiguous(),
+            initial_states(x_hs, num_objects, h, seg_carry[1]).contiguous())
 
 
 def _order(h_h, h_o, att):
@@ -727,10 +781,10 @@ def _order(h_h, h_o, att):
 
 
 def _k5_scan(params, cfg: TGGCNConfig, mode: str, x_hs, x_os, u_h, u_o, objects_mask, dists3,
-             use_kernels: bool):
+             use_kernels: bool, seg_carry=(None, None)):
     """The scan through K5 in `mode` (its plain version with
     use_kernels=False or on the CPU), forward only."""
-    args = _scan_inputs(params, cfg, x_hs, x_os, u_h, u_o, objects_mask)
+    args = _scan_inputs(params, cfg, x_hs, x_os, u_h, u_o, objects_mask, seg_carry)
     mean_pooling = cfg.message_aggregation in {"mp", "mean_pooling"}
     if mode == "ext":
         extra = dict(att_ext=external_att_weights(mean_pooling, dists3, args[12], x_hs.shape[1],
@@ -772,7 +826,7 @@ def flatten(tree):
 
 
 def _segment_scan_fast(params, cfg: TGGCNConfig, mode: str, x_hs, x_os, u_h, u_o,
-                       objects_mask, dists3, use_kernels: bool = True):
+                       objects_mask, dists3, use_kernels: bool = True, seg_carry=(None, None)):
     """Gated bidirectional segment scan of the fast path's configurations
     (non-relational generic messages on all four entity edges), both
     directions in one call: through ``segment_scan_dot_autograd`` (K3,
@@ -780,11 +834,13 @@ def _segment_scan_fast(params, cfg: TGGCNConfig, mode: str, x_hs, x_os, u_h, u_o
     ``segment_scan_fast`` (JAX's XLA fast path) recomputed at the saved
     inputs when a gradient will be taken (``segment_scan_recompute``), as
     JAX's custom VJP takes them: they reach every segment parameter, x_hs,
-    x_os, the decisions u_h and u_o and the distances. Returns (hx_hs
-    (B,T,H,2h), hx_os (B,T,O,2h), att fwd, att bwd (B,T,H,O)); mean pooling
-    records zeros for the attention, as JAX does."""
+    x_os, the decisions u_h and u_o, the distances and the carries.
+    seg_carry holds the forward direction's initial states ((B, H, h) or
+    None, (B, O, h) or None). Returns (hx_hs (B,T,H,2h), hx_os (B,T,O,2h),
+    att fwd, att bwd (B,T,H,O)); mean pooling records zeros for the
+    attention, as JAX does."""
     if mode == "dot":
-        args = _scan_inputs(params, cfg, x_hs, x_os, u_h, u_o, objects_mask)
+        args = _scan_inputs(params, cfg, x_hs, x_os, u_h, u_o, objects_mask, seg_carry)
         h = cfg.hidden_size
         scale = 1.0 / math.sqrt(h) if cfg.attention_style in {"v3", "scaled_dot-product"} else 1.0
         return _order(*segment_scan_dot_autograd(*args, scale, use_kernels=use_kernels))
@@ -794,15 +850,15 @@ def _segment_scan_fast(params, cfg: TGGCNConfig, mode: str, x_hs, x_os, u_h, u_o
     n = len(leaves)
 
     def split(inputs):
-        return (rebuild(inputs[:n]), *inputs[n:n + 5], inputs[n + 5:])
+        return (rebuild(inputs[:n]), *inputs[n:n + 5], inputs[n + 5:n + 8], inputs[n + 8:])
 
     def run(*inputs):
-        p, xh, xo, uh, uo, mask, d3 = split(inputs)
-        return _k5_scan(p, cfg, mode, xh, xo, uh, uo, mask, d3, use_kernels)
+        p, xh, xo, uh, uo, mask, d3, c2 = split(inputs)
+        return _k5_scan(p, cfg, mode, xh, xo, uh, uo, mask, d3, use_kernels, c2)
 
     def recompute(*inputs):
-        p, xh, xo, uh, uo, mask, d3 = split(inputs)
-        return segment_scan_fast(p, cfg, xh, xo, uh, uo, mask, *d3)
+        p, xh, xo, uh, uo, mask, d3, c2 = split(inputs)
+        return segment_scan_fast(p, cfg, xh, xo, uh, uo, mask, *d3, seg_carry=c2)
 
     return segment_scan_recompute(run, recompute, *leaves, x_hs, x_os, u_h, u_o, objects_mask,
-                                  *dists3)
+                                  *dists3, *seg_carry)

@@ -37,7 +37,7 @@ def init_bigru(generator, input_size: int, hidden_size: int,
 
 def run_multi_bigru(params_list: Sequence[dict], xs_list: Sequence[torch.Tensor],
                     h0_fwd_list: Optional[Sequence[torch.Tensor]] = None,
-                    use_kernels: bool = True):
+                    use_kernels: bool = True, bidirectional: bool = True):
     """Several same-width BiGRU streams in one ``gru_sequence`` call.
 
     Entity rows of each stream (batch x entities) are padded to the widest
@@ -52,8 +52,11 @@ def run_multi_bigru(params_list: Sequence[dict], xs_list: Sequence[torch.Tensor]
         use_kernels - False runs the plain PyTorch versions of the
             recurrence and its backward on any device (a reference for the
             kernels).
+        bidirectional - False runs the 'fwd' cells alone (S recurrences,
+            none reversed), as ``tggcn``'s ``run_gru`` on params['fwd'].
     Returns:
-        Per-stream outputs (B, T, E_i, 2h), forward then backward features.
+        Per-stream outputs (B, T, E_i, 2h), forward then backward features
+        ((B, T, E_i, h) without bidirectional).
     """
     num_streams = len(params_list)
     hidden = params_list[0]["fwd"]["w_hh"].shape[0]
@@ -66,7 +69,9 @@ def run_multi_bigru(params_list: Sequence[dict], xs_list: Sequence[torch.Tensor]
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, r_max - b_ * e_))
 
     xs = torch.stack([fold(x) for x in xs_list])                  # (S, R, T, F)
-    dirs = [(p, d) for d in ("fwd", "bwd") for p in params_list]  # 2S cells
+    directions = ("fwd", "bwd") if bidirectional else ("fwd",)
+    dirs = [(p, d) for d in directions for p in params_list]      # 2S (or S) cells
+    num_reverse = len(dirs) - num_streams
     zeros = xs.new_zeros(3 * hidden)
 
     def stacked(key):                  # (2S, ...) in the inputs' dtype (gru_pallas.py:251-266)
@@ -74,23 +79,24 @@ def run_multi_bigru(params_list: Sequence[dict], xs_list: Sequence[torch.Tensor]
 
     w_ih, w_hh, b_ih, b_hh = (stacked(k) for k in ("w_ih", "w_hh", "b_ih", "b_hh"))
 
-    xs2 = torch.cat([xs, xs])                                     # (2S, R, T, F)
+    xs2 = torch.cat([xs] * len(directions))                       # (2S, R, T, F)
     # Batched over the cells only: a weight broadcast over the rows would be
     # copied out for every row and kept for the backward.
     gi = torch.einsum("srtf,sfk->srtk", xs2, w_ih) + b_ih[:, None, None]   # (2S, R, T, 3h)
     gi = gi.permute(2, 0, 1, 3).contiguous()                      # (T, 2S, R, 3h)
 
-    h0 = xs.new_zeros((2 * num_streams, r_max, hidden))
+    h0 = xs.new_zeros((len(dirs), r_max, hidden))
     if h0_fwd_list is not None:
         h0[:num_streams] = torch.stack([fold(h[:, None])[:, 0] for h in h0_fwd_list]).to(xs.dtype)
-    seq = gru_sequence_autograd(gi, w_hh, b_hh, h0, num_reverse=num_streams,
+    seq = gru_sequence_autograd(gi, w_hh, b_hh, h0, num_reverse=num_reverse,
                                 use_kernels=use_kernels)          # (T, 2S, R, h)
-    out = torch.cat([seq[:, :num_streams], seq[:, num_streams:]], dim=-1)
+    out = torch.cat([seq[:, :num_streams], seq[:, num_streams:]], dim=-1) if num_reverse else seq
+    width = out.shape[-1]
 
     results = []
     for i, x in enumerate(xs_list):
         b_, _, e_, _ = x.shape
         stream = out[:, i, : b_ * e_]                             # (T, B*E, 2h)
-        stream = stream.permute(1, 0, 2).reshape(b_, e_, t, 2 * hidden)
+        stream = stream.permute(1, 0, 2).reshape(b_, e_, t, width)
         results.append(stream.transpose(1, 2))                    # (B, T, E, 2h)
     return results

@@ -28,9 +28,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tggcn_torch.compat.weights import (params_from_numpy, params_to_numpy,
+from tggcn_torch.compat.weights import (baseline_params_from_torch_state_dict,
+                                        params_from_numpy, params_to_numpy,
                                         tggcn_params_from_torch_state_dict)
 from tggcn_torch.data.loading import ScalerUnpickler, scaler_pickle
+from tggcn_torch.models.tggcn import TGGCNConfig
 
 ORBAX = ("checkpoint_backend=orbax stores the parameters in orbax, JAX's array "
          "checkpoint library, which the port does not have (ROADMAP.md: not ported)")
@@ -122,17 +124,17 @@ def load_model_weights(model_dir: str, cfg=None) -> dict:
     """A run dir's model parameters as the port's tree of CPU float32
     tensors (reference models.py:1630-1634). A reference ``.tar`` is
     converted by ``tggcn_params_from_torch_state_dict``, which needs the
-    model's TGGCNConfig ``cfg``."""
+    model's TGGCNConfig ``cfg``, or, for a baseline (``cfg`` None or a
+    BaselineConfig, as JAX passes None), by
+    ``baseline_params_from_torch_state_dict``."""
     ckpt, tar, basename = _run_files(model_dir)
     if os.path.exists(ckpt):
         return params_from_numpy(load_checkpoint(ckpt)["model_state_dict"])
     if os.path.exists(tar):
-        if cfg is None:
-            raise NotImplementedError(
-                "a reference .tar without a 2G-GCN config: the baselines are not ported "
-                "(ROADMAP.md Queue 1 item 7)")
         sd = {k: np.asarray(v) for k, v in _load_tar(tar)["model_state_dict"].items()}
-        return tggcn_params_from_torch_state_dict(sd, cfg)
+        if isinstance(cfg, TGGCNConfig):
+            return tggcn_params_from_torch_state_dict(sd, cfg)
+        return baseline_params_from_torch_state_dict(sd)
     raise FileNotFoundError(f"No checkpoint found in {model_dir} "
                             f"(looked for {basename}.ckpt and {basename}.tar)")
 

@@ -66,14 +66,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             "resources.num_devices > 1 and distributed runs: data-parallel training is not "
             "ported (ROADMAP.md Queue 1 item 9)")
-    if cfg.metadata.model_name != "2G-GCN":
-        raise NotImplementedError(
-            f"model {cfg.metadata.model_name!r}: the baselines are not ported "
-            "(ROADMAP.md Queue 1 item 7)")
-    if cfg.get("parameters", default_value={}).get("gs_noise", "batched") != "batched":
-        raise NotImplementedError(
-            "parameters.gs_noise=frame_indexed: the streaming noise is not ported "
-            "(ROADMAP.md Queue 1 item 8)")
     if cfg.logging.get("checkpoint_backend", "pickle") == "orbax":
         raise NotImplementedError(ORBAX)
     for key in ("jax_profiler_dir", "debug_nans"):

@@ -28,8 +28,10 @@ import numpy as np
 import torch
 
 from tggcn_torch.compat.weights import params_to_numpy
-from tggcn_torch.data.feeders import pad_batch
-from tggcn_torch.nn.distributions import GUMBEL_STRATEGIES, gumbel_noise
+from tggcn_torch.data.feeders import num_inputs as model_inputs, pad_batch
+from tggcn_torch.models.tggcn import NOISE_STREAMS
+from tggcn_torch.nn.distributions import (GUMBEL_STRATEGIES, frame_indexed_gumbel,
+                                          gumbel_noise, noise_key)
 from tggcn_torch.train.checkpoint import save_last
 from tggcn_torch.train.logging import ScalarWriter
 from tggcn_torch.train.multi_task import apply_mtll, mtll_weights
@@ -102,10 +104,11 @@ def make_train_step(model, feeder: Callable, criterion: Callable, optimizer,
         if clip_gradient_at:
             _clip_([p.grad for p in model_parameters(trainable["model"])], clip_gradient_at)
         optimizer.step()
-        with torch.no_grad():
-            state = trainable["model"]["geometry_embedding_gcn"]["bn"]["state"]
-            for k, v in aux["bn_state"].items():
-                state[k].copy_(v)
+        if aux["bn_state"] is not None:
+            with torch.no_grad():
+                state = trainable["model"]["geometry_embedding_gcn"]["bn"]["state"]
+                for k, v in aux["bn_state"].items():
+                    state[k].copy_(v)
         return (torch.stack([x.detach() for x in losses]),
                 torch.stack([x.detach() for x in raw_losses]), aux)
 
@@ -121,6 +124,18 @@ def gumbel_noise_stack(generator: torch.Generator, k: int, b: int, t: int, human
     (K, B, T, O, 2)}, in one draw from ``generator`` on its device."""
     noise = gumbel_noise((k, b, t, humans + objects, 2), generator)
     return {"human": noise[:, :, :, :humans], "object": noise[:, :, :, humans:]}
+
+
+def frame_indexed_noise_stack(generator: torch.Generator, k: int, b: int, t: int, humans: int,
+                              objects: int) -> dict:
+    """The frame-indexed noise of K steps (frames 0 to T-1), shaped as
+    gumbel_noise_stack's: one key a step from ``generator``, as an eager
+    step of a ``gs_noise='frame_indexed'`` model draws it."""
+    frames = torch.arange(t, device=generator.device)
+    keys = [noise_key(generator) for _ in range(k)]
+    return {who: torch.stack([frame_indexed_gumbel(key, NOISE_STREAMS[who], frames, b, n)
+                              for key in keys])
+            for who, n in (("human", humans), ("object", objects))}
 
 
 def _snapshot(trainable: dict, optimizer) -> tuple:
@@ -166,7 +181,8 @@ def make_fused_train_steps(model, feeder: Callable, criterion: Callable, optimiz
     step: ``noise_stack`` ({'human': (K, B, T, H, 2), 'object': (K, B, T,
     O, 2)}, both entries) where the caller gives it, else one draw a call
     from ``generator`` (default: a generator seeded 0, as apply draws), as
-    ``gumbel_noise_stack`` draws it. Passing both, or noise_stack to a
+    ``gumbel_noise_stack`` (``frame_indexed_noise_stack`` for a
+    frame-indexed model) draws it. Passing both, or noise_stack to a
     model without Gumbel decisions, raises ValueError.
 
     On the CPU, fused is the loop of K steps. On CUDA, the first call warms
@@ -199,7 +215,9 @@ def make_fused_train_steps(model, feeder: Callable, criterion: Callable, optimiz
         objects = inputs["x_objects"].shape[2]
         if noise_stack is None:
             generator = generator or torch.Generator(device=model.device).manual_seed(0)
-            return gumbel_noise_stack(generator, k, b, t, humans, objects)
+            draw = (frame_indexed_noise_stack if model.config.gs_noise == "frame_indexed"
+                    else gumbel_noise_stack)
+            return draw(generator, k, b, t, humans, objects)
         want = {"human": (k, b, t, humans, 2), "object": (k, b, t, objects, 2)}
         shapes = {w: tuple(v.shape) for w, v in noise_stack.items()}
         if shapes != want:
@@ -276,7 +294,6 @@ def make_fused_train_steps(model, feeder: Callable, criterion: Callable, optimiz
 # ---------------------------------------------------------------------------
 
 EVAL_STREAM = 10_000_000         # the eval generator's key: (seed, EVAL_STREAM + epoch)
-NUM_INPUTS = 8                   # a batch's input arrays before its targets (pad_batch)
 LOG_INTERVAL = 25                # train batches between progress lines
 
 
@@ -356,7 +373,9 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
     mean losses over the whole train set and then the val set, the best
     val checkpoint, the loss histories (and, with the multi-task loss
     learner, the raw ones), scalars, and the ``last.ckpt`` snapshot.
-    Returns the checkpoint dict.
+    Returns the checkpoint dict. A partial batch pads the model's input
+    arrays (``data/feeders.py`` ``num_inputs`` of ``model.name``) and gives
+    its targets' pad rows -1.
 
     Step k draws from ``keyed_generator(device, seed, k)`` and each batch
     of epoch e's evaluations from ``keyed_generator(device, seed,
@@ -365,6 +384,7 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
     arguments, the optimizer's state) so replays the uninterrupted run.
     """
     device = model.device
+    num_inputs = model_inputs(model.name)
     writer = ScalarWriter(tensorboard_log_dir, checkpoint_name)
     trainable = {"model": init_params}
     if mtll is not None:
@@ -417,7 +437,7 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
         num_batches = len(train_loader)
         if hasattr(train_loader, "set_epoch"):
             train_loader.set_epoch(epoch)
-        batches = device_batches(train_loader, batch_size, NUM_INPUTS, device)
+        batches = device_batches(train_loader, batch_size, num_inputs, device)
         for batch_idx, batch in enumerate(batches):
             data, targets = fetch_model_data(batch)
             losses, _, _ = train_step(trainable, data, targets,
@@ -438,11 +458,11 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
         eval_start = time.time()
         key = (seed, EVAL_STREAM + epoch)
         losses, raw = evaluate(eval_step, trainable, train_loader, fetch_model_data, key,
-                               batch_size, NUM_INPUTS, device)
+                               batch_size, num_inputs, device)
         record("train", losses, raw, epoch)
         if val_loader is not None and val_loader.num_examples > 0:
             losses, raw = evaluate(eval_step, trainable, val_loader, fetch_model_data, key,
-                                   val_loader.batch_size, NUM_INPUTS, device)
+                                   val_loader.batch_size, num_inputs, device)
             total_val = record("val", losses, raw, epoch)
             if total_val < best_val_loss:
                 best_val_loss = total_val

@@ -1,4 +1,4 @@
-"""Loss primitives and the 2G-GCN loss bundle (counterpart of
+"""Loss primitives and the loss bundles of the 2G-GCN and the baselines (counterpart of
 ``tggcn/train/losses.py``).
 
 The same functions, weights, ordering and loss names as the JAX package
@@ -70,10 +70,16 @@ def multi_task_loss(input: list, target: list, loss_functions: list, weight: lis
 
 
 def select_loss(model_name: str, model_input_type: str, dataset_name: str, misc: dict):
-    """(criterion, loss_names) of the 2G-GCN for a dataset; ``misc`` is the
-    configuration's misc block as a plain dict."""
+    """(criterion, loss_names) of a model for a dataset; ``misc`` is the
+    configuration's misc block as a plain dict. The baselines take the
+    negative log-likelihood of each head (``tggcn/train/losses.py:124-129``)."""
+    if model_name == "bimanual_baseline":
+        return partial(multi_task_loss, loss_functions=(nll_loss,)), ["NLL_SAR"]
+    if model_name == "cad120_baseline":
+        return (partial(multi_task_loss, loss_functions=(nll_loss, nll_loss)),
+                ["NLL_SAR", "NLL_OAR"])
     if model_name != "2G-GCN":
-        raise NotImplementedError(f"the losses of {model_name!r} are outside the port")
+        raise ValueError(f"Unknown model {model_name}")
     misc = misc or {}
     budget = misc.get("budget_loss", {})
     segmentation = misc.get("segmentation_loss", {})
