@@ -2,8 +2,9 @@
 """Drive tggcn_torch's stage-1 serving and training paths, in float32 and in
 bfloat16 (the dtype bench.py trains in), its stage-2 training and serving
 paths, its serving modes, CAD-120's stage 1 and the general segment scan's
-configurations, the entry points, the baselines and sliding-window
-streaming on one CUDA card.
+configurations, the entry points on MPHOI, CAD-120 and Bimanual, the
+baselines, sliding-window streaming and data-parallel training on one CUDA
+card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -155,6 +156,11 @@ exit and the phase's name if the phase hangs:
            the train phases for the CAD-120 model (its 12-loss bundle, lr
            1e-3): each step launches exactly K1 and K2 of the dtype, with
            the bfloat16 phase's controls
+  train_cad120_dist
+           the train phase for the CAD-120 model with its two distance
+           tensors and the GeoGCN kernel (cad120.SERVE_VARIANTS['dist']),
+           float32, one timed step: K1, K2 and K6 once a step; held over
+           the whole model, as every variant's step (MODE_TRAIN_LIMITS)
   train_fused_cad120_bf16
            the train_fused phase for the CAD-120 model in bfloat16 (K3 and
            K4 launched by neither route), 1 profiled step a route and
@@ -187,6 +193,17 @@ exit and the phase's name if the phase hangs:
            float32 for 2 epochs. Seconds of each epoch's train steps and
            of its evaluation (the runs' scalars.jsonl) and peak device
            memory of each run
+  entry_cad120, entry_bimanual
+           the 2G-GCN stage 1 through the train and predict CLIs on a
+           synthetic CAD-120 (5 object slots) or Bimanual dataset (16 clips
+           of 360-500 frames under outputs/) at the widths the stage-1
+           yaml gives the dataset (CAD-120: hidden 512, batch 16, lr 1e-3,
+           gcn_node 19, one human; Bimanual: hidden 64, batch 32, lr 1e-3,
+           gcn_node 30), float32, 2 epochs: each train step launches its
+           route's kernels once (route_kernels: K1 and K2; the general
+           scan runs CAD-120's segments, K3 and K4 Bimanual's), each
+           evaluation batch the forward's, the predict CLI's once a batch;
+           finite losses; seconds, epoch seconds and peak memory
   entry_baselines
            the baselines through the entry points: synthetic CAD-120 and
            Bimanual datasets (tggcn_torch.data.synthetic, the generators'
@@ -217,6 +234,35 @@ exit and the phase's name if the phase hangs:
            route under the same limits, frames/s and ms a window (best of 3,
            host clock to the outputs on the host), with the stream on the
            host and on the card
+  train_dp
+           data-parallel training (tggcn_torch.parallel): stage 1 at the
+           full MPHOI width (hidden 512, B=8, T=167, 'gs' object
+           decisions), float32 then bfloat16, 3 eager steps from one init
+           with each step's noise from a generator seeded seed + step: in
+           one process; in a group of one NCCL process, which must equal it
+           bit for bit (losses, first-step gradients, every leaf and the
+           BatchNorm state after every step); and on 2 gloo processes on
+           the one card (NCCL takes one device a process), 4 rows each,
+           which must hold the same bits after every step, launch K1-K4 of
+           the dtype once a step each, and stay within LOSS_RTOL (bfloat16:
+           LOSS_RTOL_BF16) of the one process's losses and within
+           LEAF_GRAD_RTOL (LEAF_GRAD_RTOL_BF16) of each leaf's largest in
+           the first step's gradients, with the decision-flip check of the
+           train phases (a marginal flip reruns both without its row and
+           one more) and, in float32, the kink check of train_cad120: the
+           processes' products see 4 rows, the one process's 8, so a ReLU
+           input within rounding of 0 may fall either way. MLP kinks
+           (kink_sides) and kinks inside K3 (its kept messages,
+           scan_kinks) each at most KINK_FLIPS within KINK_MARGIN; with
+           any, the step as it ran must hold the whole-model limit of
+           MODE_TRAIN_LIMITS, the processes run again on the one process's
+           side of each MLP kink, and the leaves are compared; a K3 kink
+           cannot be made to take a side, so with one the rerun is held
+           over the whole model (MODE_TRAIN_LIMITS, as a K5 mode's step
+           whose recomputed ReLUs flip). Step ms and peak memory per
+           process; then python -m tggcn_torch.train with
+           resources.num_devices one above the card count must fail with
+           make_mesh's ValueError
   bench_short
            python -m tggcn_torch.bench --steps 2 --best-of 1 (bfloat16, the
            full width) in a subprocess: its last line parses, carries no
@@ -417,7 +463,11 @@ LIMITS_CAD120_BF16 = {"forward": {"rel_l2": 7e-5}, "train": {"model_rel_l2": 8e-
 # MPHOI width (H100 80GB HBM3, 700 W), float32 kernel up to 1.7e-2 (v1,
 # o2o's attention bias, 7e-7 of the model's largest gradient) and float64
 # sums 5.0e-3 (dist), bfloat16 kernel 3.6e-2 to 0.68 and float64 sums 4.9e-2
-# to 0.89. So the variants are held over the whole model. Readings, kernel
+# to 0.89. So the variants are held over the whole model, CAD-120's 'dist'
+# too (train_cad120_dist; no recompute, its scan the general one): K6's
+# products move every ReLU input downstream of the geometry by their
+# rounding, and 11 within 1e-6 of 0 fell either way (H100 80GB HBM3, 700 W),
+# beyond the KINK_FLIPS that train_cad120's route, without K6, keeps. Readings, kernel
 # / float64 sums / rounded carry:
 #   float32 model_share 3.3e-7 (v4) to 1.7e-4 (v1), kernel only
 #   bfloat16 model_rel_l2 7.0e-3-8.8e-3 / 6.9e-3-8.7e-3 / 1.48e-2-1.73e-2
@@ -472,7 +522,8 @@ PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k
                  "forward_cad120": 240, "forward_cad120_bf16": 240, "forward_cad120_dist": 240,
                  "train_cad120": 420, "train_cad120_bf16": 420, "train_fused_cad120_bf16": 420,
                  "forward_general_variants": 300, "entry_mphoi": 420, "entry_baselines": 300,
-                 "stream_mphoi": 420}
+                 "stream_mphoi": 420, "train_cad120_dist": 420, "entry_cad120": 300,
+                 "entry_bimanual": 300, "train_dp": 300}
 # The kernels of the train step, and of each serving mode's segment scan.
 TRAIN_KERNELS = ("gru_sequence", "gru_sequence_bwd", "segment_scan_dot", "segment_scan_dot_bwd")
 K5_KERNELS = ("segment_scan_v1", "segment_scan_v4", "segment_scan_ext")
@@ -1096,6 +1147,50 @@ def relu_inputs(sides=None):
         mlp.pick_activation = pick
 
 
+@contextlib.contextmanager
+def scan_messages():
+    """While open, the edge messages K3 keeps for K4 (m_h, m_o: each step's
+    messages after their ReLU) of every call that keeps them, in call
+    order: yields the list. The wrapper's launch counters carry over."""
+    from tggcn_torch.ops import segment_scan
+
+    run, seen = segment_scan.segment_scan_dot, []
+
+    def recording(*args, **kwargs):
+        out = run(*args, **kwargs)
+        if kwargs.get("keep"):
+            seen.append(out[3:5])
+        return out
+
+    recording.launches, recording.launches_bf16 = run.launches, run.launches_bf16
+    segment_scan.segment_scan_dot = recording
+    try:
+        yield seen
+    finally:
+        segment_scan.segment_scan_dot = run
+        run.launches, run.launches_bf16 = recording.launches, recording.launches_bf16
+
+
+def scan_kinks(torch, got, want, what, marginal=KINK_MARGIN, most=KINK_FLIPS):
+    """The ReLU kinks inside K3 that two runs' kept messages (scan_messages)
+    put on different sides of 0, zero in one and not in the other: a flip
+    where either message lies marginal or further from 0 fails, and so do
+    more than most; returns their count. K3 cannot be made to take a side."""
+    flipped = 0
+    for x, y in zip(got, want):
+        flips = (x > 0) != (y > 0)
+        if bool(flips.any()):
+            margin = float(torch.maximum(x.abs(), y.abs())[flips].max())
+            if margin >= marginal:
+                raise AssertionError(f"{what}: a segment message of K3 flips {margin:.3e} from "
+                                     f"its kink")
+            flipped += int(flips.sum())
+    if flipped > most:
+        raise AssertionError(f"{what}: {flipped} segment messages of K3 flip at their kink "
+                             f"(at most {most})")
+    return flipped
+
+
 def kink_sides(torch, got, want, what, marginal=KINK_MARGIN, most=KINK_FLIPS):
     """The ReLU kinks that the inputs of two runs (relu_inputs: the kernel
     route's got, the plain route's want) put on different sides of 0: a
@@ -1428,6 +1523,10 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     fed = feeder(data)
     kernels, mode = route_kernels(model.config, [fed[k] for k in DIST_KEYS], True, bf16)
     recompute = mode in K5_MODES
+    # A variant's step (a K5 mode's recompute; CAD-120's 'dist', whose K6
+    # moves every ReLU input downstream of the geometry by its rounding) is
+    # held over the whole model: see MODE_TRAIN_LIMITS.
+    whole_model = variant is not None
     gen = torch.Generator(device=dev).manual_seed(seed)
     noise = {"object": gumbel_noise((b, t, no, 2), gen)}
     if stage == "stage2":
@@ -1455,7 +1554,7 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     # The CAD-120 float32 step, held leaf by leaf, is held with the plain
     # route's side of each marginal ReLU kink (kink_sides, at most
     # KINK_FLIPS); every other step is held as it ran.
-    kinks = stage == "cad120" and not bf16 and not recompute
+    kinks = stage == "cad120" and not bf16 and not whole_model
 
     def first_step(use_kernels, rows, record=False, sides=None):
         weights = init()
@@ -1534,9 +1633,7 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     whole = measure(held, plain)
     print(f"{what}: over the whole model: largest difference {whole['model_share']:.3e} of the "
           f"model's largest gradient, rel. norm {whole['model_rel_l2']:.3e}", flush=True)
-    if recompute:
-        # The gradients of a K5 mode are those of the fast path recomputed
-        # at each route's own saved inputs: see MODE_TRAIN_LIMITS.
+    if whole_model:
         over = {k: whole[k] for k, limit in MODE_TRAIN_LIMITS[dtype].items()
                 if not whole[k] <= limit}
         if over:
@@ -1556,12 +1653,12 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     # lr) may move a weight whose gradient is rounding noise either way; in
     # bfloat16, and for a variant (whose near-zero gradients change sign
     # where a recomputed kink flips), the gradient check above bounds them.
-    if not bf16 and not recompute and not weight_err <= module.TRAIN["lr"]:
+    if not bf16 and not whole_model and not weight_err <= module.TRAIN["lr"]:
         raise AssertionError(f"updated weights differ by {weight_err:.3e} "
                              f"(limit one learning rate, {module.TRAIN['lr']})")
     controls = {}
     if bf16:
-        limits = (MODE_TRAIN_LIMITS[dtype] if recompute else
+        limits = (MODE_TRAIN_LIMITS[dtype] if whole_model else
                   (LIMITS_CAD120_BF16 if stage == "cad120" else LIMITS_BF16)["train"])
         controls = check_controls(what, measure, lambda: first_step(False, rows), kern, plain,
                                   limits)
@@ -1589,6 +1686,7 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
         raise AssertionError(f"{len(recompute_ms)} recompute backwards in {steps} steps")
     return dict(ms=statistics.median(times), losses=kern["losses"].tolist(), loss_err=loss_err,
                 steps=steps, recompute_ms=statistics.median(recompute_ms) if recompute_ms else None,
+                whole_model=whole_model,
                 grad_rel=grad_rel, weight_err=weight_err, flips=flips, kink_flips=kink_flips,
                 unheld_model_share=unheld, dropped_rows=dropped,
                 launches=launches, equal_leaves=equal_leaves, merged=merged, **controls,
@@ -1819,7 +1917,7 @@ def print_forward(name, r, requests):
 def print_train(name, r):
     recompute = ("" if r["recompute_ms"] is None else
                  f"; recompute backward {r['recompute_ms']:.3f} ms a step (median, CUDA events)")
-    of = "the model's largest gradient" if r["recompute_ms"] is not None else "each leaf's largest"
+    of = "the model's largest gradient" if r["whole_model"] else "each leaf's largest"
     unheld = ("" if r["unheld_model_share"] is None else
               f"; unheld, {r['unheld_model_share']:.3e} of the model's largest gradient")
     print(f"{name} step ms {r['ms']:.3f} (median of {r['steps']} on the kernel route), losses "
@@ -2502,6 +2600,374 @@ def time_predict_batch(torch, dev, loaded, reps=3):
     return r
 
 
+# The entry_cad120 and entry_bimanual phases: each dataset's synthetic
+# features (the generators' 2048-wide features, 16 clips of 360-500
+# frames), its cross-validation fold and the overrides of its yaml widths
+# (conf/models/2G-GCN_stage1.yaml's comments: CAD-120 hidden 512, batch 16,
+# lr 1e-3, gcn_node 19, one human; Bimanual hidden 64, batch 32, lr 1e-3,
+# gcn_node 30).
+ENTRY_DATASETS = {
+    "cad120": (dict(num_videos=16, min_len=360, max_len=500, num_objects=5), "Subject1",
+               ("path", "path_zarr", "video_id_to_subject_id"),
+               ["parameters.gcn_node=19", "parameters.message_humans_to_human=false",
+                "optimization.batch_size=16", "optimization.learning_rate=1e-3"]),
+    "bimanual": (dict(num_videos=16, min_len=360, max_len=500), "2",
+                 ("path", "path_zarr", "path_bb_zarr", "path_hp_zarr", "video_id_to_video_fps"),
+                 ["parameters.gcn_node=30", "parameters.hidden_size=64",
+                  "optimization.batch_size=32", "optimization.learning_rate=1e-3"]),
+}
+
+
+def run_entry_2ggcn(torch, dev, seed, dataset):
+    """The entry_cad120 or entry_bimanual phase (see the module's
+    docstring): the 2G-GCN stage 1 through the train and predict CLIs on a
+    synthetic dataset at the yaml's widths for the dataset, float32.
+    Returns the numbers it measured."""
+    import shutil
+    import tempfile
+
+    from tggcn_torch import predict as predict_cli
+    from tggcn_torch.config import compose
+    from tggcn_torch.data import synthetic
+    from tggcn_torch.data.loading import determine_num_classes, load_training_data
+    from tggcn_torch.eval.engine import load_run_model
+    from tggcn_torch.eval.rundir import RunDir
+    from tggcn_torch.models.tggcn import TGGCNConfig
+    from tggcn_torch.train import cli
+
+    sizes, subject, keys, widths = ENTRY_DATASETS[dataset]
+    outputs = Path(__file__).resolve().parent / "outputs"
+    outputs.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix=f"entry_{dataset}_", dir=outputs))
+    what = f"entry_{dataset}"
+    try:
+        start = time.perf_counter()
+        paths = getattr(synthetic, f"generate_{dataset}_dataset")(str(work / "data"), seed=seed,
+                                                                  **sizes)
+        dataset_s = time.perf_counter() - start
+        args = ["models=2G-GCN_stage1", f"data={dataset}", *(f"data.{k}={paths[k]}" for k in keys),
+                f"data.cross_validation_test_subject={subject}", *widths,
+                "optimization.epochs=2", f"logging.root_log_dir={work / 'runs'}"]
+        cfg = compose(cli.CONF_DIR, overrides=args)
+        epochs, batch_size = cfg.optimization.epochs, cfg.optimization.batch_size
+        train_loader, val_loader, data_info, _ = load_training_data(
+            cfg.data, "2G-GCN", "multiple", batch_size=batch_size,
+            val_fraction=cfg.optimization.val_fraction)
+        steps, evals = len(train_loader), len(train_loader) + len(val_loader)
+        clips = dict(train_clips=train_loader.num_examples, val_clips=val_loader.num_examples)
+        del train_loader, val_loader
+        model_cfg = TGGCNConfig.from_kwargs(
+            num_classes=determine_num_classes("2G-GCN", "multiple", dataset),
+            **{**data_info, **cfg.parameters})
+        step_kernels, _ = route_kernels(model_cfg, (None,) * 3, True, False)
+        forward_kernels, _ = route_kernels(model_cfg, (None,) * 3, False, False)
+
+        # The train CLI: each step launches the step's kernels once, each
+        # evaluation batch the forward's.
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        start = time.perf_counter()
+        checkpoint = cli.main(args)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+        want = {k: epochs * (steps * (k in step_kernels) + evals * (k in forward_kernels))
+                for k in launches}
+        if launches != want:
+            raise AssertionError(f"{what} train: launches {launches}, not {want}")
+        scalars = Path(cfg.logging.root_log_dir) / "runs" / cfg.logging.checkpoint_name
+        records = [json.loads(line) for line in
+                   (scalars / "scalars.jsonl").read_text().splitlines()]
+        losses = [total for total, _ in checkpoint["train_losses"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{what}: train losses {losses}")
+        r = dict(dataset_s=dataset_s, hidden=cfg.parameters.hidden_size, batch=batch_size,
+                 epochs=epochs, steps_per_epoch=steps, eval_batches_per_epoch=evals, **clips,
+                 seconds=seconds, launches={k: v for k, v in launches.items() if v},
+                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30, train_losses=losses,
+                 **{tag: [x["value"] for x in records if x["tag"] == f"perf/{tag}"]
+                    for tag in ("train_seconds", "eval_seconds")})
+        print(f"{what} train: {json.dumps(r)}", flush=True)
+
+        # The predict CLI on the run dir: the forward's kernels once a batch.
+        run_dir = str(Path(cfg.logging.root_log_dir) / cfg.logging.checkpoint_name)
+        reset_launches()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as report:
+            predict_cli.main(["--pretrained_model_dir", run_dir])
+        torch.cuda.synchronize(dev)
+        predict_s = time.perf_counter() - start
+        launches = read_launches()
+        loaded = load_run_model(RunDir(run_dir), dev)
+        batches = math.ceil(loaded["test_loader"].num_examples / ENTRY_PREDICT_BATCH)
+        if launches != {k: batches * (k in forward_kernels) for k in launches}:
+            raise AssertionError(f"{what} predict: launches {launches}")
+        lines = report.getvalue().splitlines()
+        print(f"{what} predict: " + "; ".join(
+            f"{a} {b}" for a, b in zip(lines, lines[1:]) if b.startswith("F1@")), flush=True)
+        r.update(predict_s=predict_s, test_clips=loaded["test_loader"].num_examples,
+                 predict_batches=batches,
+                 predict_launches={k: v for k, v in launches.items() if v})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return r
+
+
+# The train_dp phase: stage 1 at the full MPHOI width, TRAIN_STEPS eager
+# steps from one init, in one process, in a group of one NCCL process, and
+# on DP_RANKS gloo processes sharing the one card (NCCL takes one device a
+# process); each step's noise from a generator seeded seed + step.
+DP_RANKS = 2
+DP_INIT_TIMEOUT_S = 240          # a gloo process's rendezvous and collectives
+
+
+def leaves_digest(torch, tree):
+    """sha256 of the bytes of every tensor of a tree, in tree order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tensor_leaves(tree).values():
+        h.update(x.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_steps(torch, dev, seed, dtype, rows, mesh=None, record=False, sides=None):
+    """TRAIN_STEPS eager stage-1 steps (tggcn_torch.train.loop.
+    make_train_step, with the mesh where given) on the batch rows ``rows``
+    of the seeded batch: each step's losses, ms, launches and a digest of
+    every leaf (weights and BatchNorm state) after it; the first step's
+    gradients and decisions (this process's rows), and the peak memory.
+    With record, also the first step's ReLU inputs (relu_inputs) and K3's
+    kept messages (scan_messages), this process's rows; with sides
+    (kink_sides, this process's rows), the first step takes those sides of
+    the flipped kinks."""
+    from tggcn_torch.models import stage1
+    from tggcn_torch.train.loop import make_train_step, trainable_parameters
+
+    model, module, criterion, feeder, data, targets = train_setup(
+        torch, dev, stage1.SHAPE, seed, dtype, "stage1")
+    keep = torch.as_tensor(rows, device=dev)
+    data, targets = [x[keep] for x in data], [y[keep] for y in targets]
+    trainable = {"model": model.init(torch.Generator().manual_seed(0))}
+    optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=module.TRAIN["lr"])
+    step = make_train_step(model, feeder, criterion, optimizer,
+                           clip_gradient_at=module.TRAIN["clip"], mesh=mesh)
+    out = dict(losses=[], ms=[], launches=[], digests=[])
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    if sides:
+        sides = [None if s is None else tuple(x.to(dev) for x in s) for s in sides]
+    for i in range(TRAIN_STEPS):
+        reset_launches()
+        start = time.perf_counter()
+        with (relu_inputs(sides) if i == 0 and (record or sides)
+              else contextlib.nullcontext([])) as relus, \
+                (scan_messages() if i == 0 and record else contextlib.nullcontext([])) as scan:
+            losses, _, aux = step(trainable, data, targets,
+                                  generator=torch.Generator(device=dev).manual_seed(seed + i))
+        torch.cuda.synchronize(dev)
+        out["ms"].append((time.perf_counter() - start) * 1e3)
+        out["launches"].append({k: v for k, v in read_launches().items() if v})
+        out["losses"].append(losses.cpu())
+        out["digests"].append(leaves_digest(torch, trainable))
+        if i == 0:
+            out["grads"] = {k: x.grad.detach().cpu() for k, x in tensor_leaves(trainable).items()
+                            if x.grad is not None}
+            out["aux"] = {k: tuple(x.detach().cpu() for x in aux[k])
+                          for k in ("human_decisions", "object_decisions")}
+            out["relus"] = [x.cpu() for x in relus] if record else None
+            out["scan"] = [x.cpu() for call in scan for x in call] if record else None
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return out
+
+
+def dp_rank(rank, port, seed, dtype, rows, record, sides, out_dir):
+    """One gloo process of the train_dp phase (spawned): join, run
+    dp_steps with a mesh over the processes, leave its results in out_dir.
+    Its own watchdog and the collectives' timeout end it if a peer hangs."""
+    import os
+
+    faulthandler.dump_traceback_later(PHASE_LIMIT_S["train_dp"], exit=True)
+    os.environ["TGGCN_DIST_INIT_TIMEOUT"] = str(DP_INIT_TIMEOUT_S)
+    import torch
+    import torch.distributed as dist
+
+    from tggcn_torch.parallel.distributed import maybe_initialize
+    from tggcn_torch.parallel.mesh import make_mesh
+
+    maybe_initialize(f"127.0.0.1:{port}", DP_RANKS, rank, device_type="cuda", backend="gloo")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if sides:
+        sides = [None if s is None else tuple(x.chunk(DP_RANKS)[rank] for x in s) for s in sides]
+    out = dp_steps(torch, dev, seed, dtype, rows, make_mesh(DP_RANKS, "cuda"), record, sides)
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_train_dp(torch, dev, seed, dtype):
+    """The train_dp phase in one dtype (see the module's docstring).
+    Returns the numbers it measured."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from tggcn_torch.models import stage1
+    from tggcn_torch.parallel.distributed import maybe_initialize
+    from tggcn_torch.parallel.mesh import make_mesh
+
+    bf16 = dtype == "bfloat16"
+    what = f"train_dp{'_bf16' if bf16 else ''}"
+    loss_rtol, leaf_rtol = (LOSS_RTOL_BF16, LEAF_GRAD_RTOL_BF16) if bf16 else (LOSS_RTOL,
+                                                                              LEAF_GRAD_RTOL)
+    kernels = {f"{k}_bf16" if bf16 else k: 1 for k in TRAIN_KERNELS}
+    rows = [True] * stage1.SHAPE["b"]
+    # As the CAD-120 float32 step is held: a ReLU input within rounding of
+    # its kink may fall either way (the processes' products see 4 rows,
+    # the one process's 8).
+    kinks = not bf16
+
+    def gloo_ranks(rows, sides=None):
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.start_processes(dp_rank, args=(free_port(), seed, dtype, rows, kinks, sides, tmp),
+                               nprocs=DP_RANKS, join=True, start_method="spawn")
+            return [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(DP_RANKS)]
+
+    single = dp_steps(torch, dev, seed, dtype, rows, record=kinks)
+    maybe_initialize(f"127.0.0.1:{free_port()}", 1, 0, device_type="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"{what}: the one-process group is {dist.get_backend()}")
+        nccl = dp_steps(torch, dev, seed, dtype, rows, mesh=make_mesh(1, "cuda"))
+    finally:
+        dist.destroy_process_group()
+    if nccl["digests"] != single["digests"] or not all(
+            torch.equal(a, b) for a, b in zip(nccl["losses"], single["losses"])) or not all(
+            torch.equal(g, single["grads"][k]) for k, g in nccl["grads"].items()):
+        raise AssertionError(f"{what}: one NCCL process differs from one process without a "
+                             f"group: losses {nccl['losses']} against {single['losses']}")
+    print(f"{what}: one NCCL process equals one process bit for bit over {TRAIN_STEPS} steps "
+          f"(losses, gradients, every leaf and the BatchNorm state)", flush=True)
+
+    ranks = gloo_ranks(rows)
+    aux = {k: tuple(torch.cat([r["aux"][k][i] for r in ranks]) for i in range(2))
+           for k in ranks[0]["aux"]}
+    keep, flips, dropped = decision_rows(torch, aux, single["aux"], what,
+                                         MARGINAL_BF16 if bf16 else MARGINAL)
+    if dropped:
+        # A marginal flip: both sides again without its row and another,
+        # so that the rows still split over the processes.
+        rows = keep.tolist()
+        rows[max(i for i, k in enumerate(rows) if k)] = False
+        single = dp_steps(torch, dev, seed, dtype, rows, record=kinks)
+        ranks = gloo_ranks(rows)
+        aux = {k: tuple(torch.cat([r["aux"][k][i] for r in ranks]) for i in range(2))
+               for k in ranks[0]["aux"]}
+        if decision_rows(torch, aux, single["aux"], what, MARGINAL_BF16 if bf16 else MARGINAL
+                         )[2]:
+            raise AssertionError(f"{what}: decisions flip without the flipped row")
+    for r, got in enumerate(ranks):
+        if got["launches"] != [kernels] * TRAIN_STEPS:
+            raise AssertionError(f"{what}: rank {r}'s steps launched {got['launches']}, not "
+                                 f"{kernels} each")
+        if got["digests"] != ranks[0]["digests"] or not all(
+                torch.equal(a, b) for a, b in zip(got["losses"], ranks[0]["losses"])):
+            raise AssertionError(f"{what}: rank {r} does not hold rank 0's bits after every step")
+    got = ranks[0]
+    equal_losses = all(torch.equal(a, b) for a, b in zip(got["losses"], single["losses"]))
+    print(f"{what}: the processes' losses {'equal' if equal_losses else 'differ from'} one "
+          f"process's bit for bit: {[x.tolist() for x in got['losses']]} against "
+          f"{[x.tolist() for x in single['losses']]}", flush=True)
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in single["grads"].values())
+
+    def leaf_shares(grads):
+        return {k: float((grads[k].double() - g.double()).abs().max())
+                / max(float(g.abs().max()), floor) for k, g in single["grads"].items()}
+    def model_share(grads):
+        return max(float((grads[k].double() - g.double()).abs().max())
+                   for k, g in single["grads"].items()) / (floor / GRAD_FLOOR)
+    held, kink_flips, scan_flips, unheld = got, 0, 0, None
+    limit = MODE_TRAIN_LIMITS["float32"]["model_share"]
+    if kinks:
+        relus = [torch.cat([r["relus"][i] for r in ranks]) for i in range(len(got["relus"]))]
+        sides, kink_flips = kink_sides(torch, relus, single["relus"], what)
+        scan = [torch.cat([r["scan"][i] for r in ranks], dim=2) for i in range(len(got["scan"]))]
+        scan_flips = scan_kinks(torch, scan, single["scan"], what)
+        if kink_flips or scan_flips:
+            # The processes' step as it ran, over the whole model; then
+            # again on the one process's side of each flipped MLP kink.
+            unheld = model_share(got["grads"])
+            print(f"{what}: {kink_flips} MLP and {scan_flips} K3 ReLU kink flips; the "
+                  f"processes' step as it ran: largest difference {unheld:.3e} of the "
+                  f"model's largest gradient", flush=True)
+            if not unheld <= limit:
+                raise AssertionError(f"{what}: the step as it ran differs beyond {limit} of "
+                                     f"the model's largest gradient ({unheld:.3e})")
+        if kink_flips:
+            held = gloo_ranks(rows, sides)[0]
+    loss_err = max(max_err(a, b) for a, b in zip(got["losses"], single["losses"]))
+    if not all(bool(a.isfinite().all()) and torch.allclose(a, b, rtol=loss_rtol, atol=0)
+               for a, b in zip(got["losses"], single["losses"])):
+        raise AssertionError(f"{what}: losses {got['losses']} against one process's "
+                             f"{single['losses']}")
+    shares = leaf_shares(held["grads"])
+    worst = max(shares, key=shares.get)
+    whole = model_share(held["grads"])
+    if scan_flips:
+        # A kink flipped inside K3 cannot be taken to one side: the held
+        # step is held over the whole model, as a K5 mode's step whose
+        # recomputed ReLUs flip (MODE_TRAIN_LIMITS).
+        if not whole <= limit:
+            raise AssertionError(f"{what}: first-step gradients differ beyond {limit} of the "
+                                 f"model's largest gradient: {whole:.3e}")
+    elif not shares[worst] <= leaf_rtol:
+        raise AssertionError(f"{what}: first-step gradients differ beyond {leaf_rtol} of a "
+                             f"leaf's largest: {worst} {shares[worst]:.3e}")
+    r = dict(ranks=DP_RANKS, rows=sum(rows), steps=TRAIN_STEPS, loss_err=loss_err,
+             equal_losses=equal_losses,
+             grad_share=shares[worst], grad_leaf=worst, flips=flips, dropped_rows=dropped,
+             kink_flips=kink_flips, scan_kink_flips=scan_flips, unheld_model_share=unheld,
+             model_share=whole,
+             ms_per_rank=[statistics.median(x["ms"]) for x in ranks],
+             peak_gib_per_rank=[x["peak_gib"] for x in ranks],
+             single_ms=statistics.median(single["ms"]), single_peak_gib=single["peak_gib"],
+             launches_per_step_per_rank=kernels,
+             losses=[x.tolist() for x in got["losses"]])
+    print(f"{what}: {DP_RANKS} gloo processes on one card: the same bits after every step; "
+          f"against one process: losses {loss_err:.3e} (limit rtol {loss_rtol}), first-step "
+          f"gradients {shares[worst]:.3e} of the leaf's largest ({worst}; limit {leaf_rtol} "
+          f"where no kink flips inside K3), {whole:.3e} of the model's largest (limit {limit} "
+          f"where one does); marginal ReLU kink flips: {kink_flips} in the MLPs, held on the one "
+          f"process's side, {scan_flips} inside K3; "
+          f"step ms per rank {r['ms_per_rank']} (one process {r['single_ms']:.3f}), peak GiB "
+          f"per rank {r['peak_gib_per_rank']} (one process {r['single_peak_gib']:.3f}); "
+          f"launches per step per rank {json.dumps(kernels)}", flush=True)
+    return r
+
+
+def run_dp_cli(torch):
+    """python -m tggcn_torch.train with one device more than the host has
+    must fail with make_mesh's ValueError."""
+    cards = torch.cuda.device_count()
+    run = subprocess.run([sys.executable, "-m", "tggcn_torch.train",
+                          f"resources.num_devices={cards + 1}"], capture_output=True, text=True,
+                         timeout=120, cwd=Path(__file__).resolve().parent)
+    want = f"ValueError: Requested {cards + 1} devices, have {cards}"
+    if run.returncode == 0 or want not in run.stderr:
+        raise AssertionError(f"the train CLI with resources.num_devices={cards + 1}: rc "
+                             f"{run.returncode}, {run.stderr[-2000:]}")
+    print(f"train CLI resources.num_devices={cards + 1}: rc {run.returncode}, {want}", flush=True)
+
+
 def run_small(torch, dev, seed):
     """Hidden-24 model: kernel path on the card against the plain path on the CPU."""
     from tggcn_torch.models import stage1
@@ -2638,6 +3104,9 @@ def main(argv=None):
             train_cad[dtype] = r = run_train(torch, dev, cad_shape, args.seed, dtype=dtype,
                                              stage="cad120")
             print_train(f"train_cad120{tag}", r)
+    with phase("train_cad120_dist"):
+        r = run_train(torch, dev, cad_shape, args.seed, stage="cad120", variant="dist")
+        print_train("train_cad120_dist", r)
     with phase("train_fused_cad120_bf16"):
         print_train_fused("train_fused_cad120_bf16",
                           run_train_fused(torch, dev, cad_shape, args.seed, cad.BENCH_DTYPE,
@@ -2648,6 +3117,10 @@ def main(argv=None):
     with phase("entry_mphoi"):
         entry = run_entry_mphoi(torch, dev, args.seed)
         print(f"entry_mphoi {json.dumps(entry)}", flush=True)
+    for dataset in ENTRY_DATASETS:
+        with phase(f"entry_{dataset}"):
+            r = run_entry_2ggcn(torch, dev, args.seed, dataset)
+            print(f"entry_{dataset} {json.dumps(r)}", flush=True)
     with phase("entry_baselines"):
         baselines = run_entry_baselines(torch, dev, args.seed)
         print(f"entry_baselines {json.dumps(baselines)}", flush=True)
@@ -2655,6 +3128,11 @@ def main(argv=None):
         stream = {dtype: run_stream_mphoi(torch, dev, args.seed, dtype)
                   for dtype in ("float32", stage1.BENCH_DTYPE)}
         print(f"stream_mphoi {json.dumps(stream)}", flush=True)
+    with phase("train_dp"):
+        dp = {dtype: run_train_dp(torch, dev, args.seed, dtype)
+              for dtype in ("float32", stage1.BENCH_DTYPE)}
+        print(f"train_dp {json.dumps(dp)}", flush=True)
+        run_dp_cli(torch)
     with phase("bench_short"):
         run_bench_short(torch)
     # K1-K4's launches are the stage-1 train steps' (of their dtype); K5's
@@ -2670,7 +3148,9 @@ def main(argv=None):
                    f"per {dtype} CAD-120 train step "
                    f"{train_cad[dtype]['launches'][k['name']] / TRAIN_STEPS:g}, per {dtype} "
                    f"CAD-120 request {fwd_cad[dtype]['launches'][k['name']]:g}, per {dtype} "
-                   f"streamed window {streamed_per_window(stream[dtype]['long'], k['name']):g}")
+                   f"streamed window {streamed_per_window(stream[dtype]['long'], k['name']):g}, "
+                   f"per {dtype} data-parallel step on each of {dp[dtype]['ranks']} processes "
+                   f"{dp[dtype]['launches_per_step_per_rank'][k['name']]:g}")
             if dtype == "float32" and base in ("gru_sequence", "gru_sequence_bwd"):
                 per += "".join(baseline_per_call(name, baselines[name], k["name"])
                                for name in BASELINE_DATASETS)

@@ -17,10 +17,10 @@ tggcn_torch.predict``) and the run dir between them, at hidden 16, T <= 42
 * A JAX-written checkpoint pickles scikit-learn's StandardScaler: the
   port always reads it as its own StandardScaler (here with scikit-learn
   hidden, as the card has none).
-* The CLIs refuse ``num_devices=2``, a distributed run and the orbax
-  checkpoint backend (NotImplementedError naming the ROADMAP item or
-  saying it is not ported), and without a CUDA device raise unless given
-  ``--device cpu``. (The baselines' CLI runs are in
+* ``resources.num_devices=2`` trains on two gloo processes and gives the
+  one-process run's losses; the train CLI refuses the orbax checkpoint
+  backend (NotImplementedError saying it is not ported); both CLIs raise
+  without a CUDA device unless given ``--device cpu``. (The baselines' CLI runs are in
   ``tests/test_torch_baselines.py``.)
 """
 
@@ -228,14 +228,28 @@ def test_scaler_unpickler_without_sklearn(monkeypatch):
     np.testing.assert_allclose(np.nanmean(got[:, [0, 1, 3, 5]], axis=0), 0.0, atol=1e-5)
 
 
-@pytest.mark.parametrize("change, item", [
-    (["resources.num_devices=2"], "item 9"),
-    (["resources.distributed.num_processes=2"], "item 9"),
+@pytest.mark.parametrize("change, refusal", [
+    (["resources.num_devices=2"], None),
+    (["resources.distributed.num_processes=2"], None),
     (["logging.checkpoint_backend=orbax"], "not ported"),
-])
-def test_train_cli_refuses_what_is_not_ported(change, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(["models=2G-GCN_stage1", "data=mphoi", *change, "--device", "cpu"])
+], ids=["change0-item 9", "change1-item 9", "change2-not ported"])
+def test_train_cli_refuses_what_is_not_ported(change, refusal, mphoi, tmp_path):
+    """The orbax backend is refused. Data parallelism over two gloo
+    processes (num_devices=2), and a distributed block with no coordinator
+    (one process, as in the JAX package), train and give the one-process
+    run's losses (tests/test_distributed.py's tolerance)."""
+    if refusal is not None:
+        with pytest.raises(NotImplementedError, match=refusal):
+            train_cli.main(["models=2G-GCN_stage1", "data=mphoi", *change, "--device", "cpu"])
+        return
+    root, paths, want = mphoi
+    got = train_cli.main(mphoi_overrides(paths, tmp_path) + change)
+    assert os.path.isfile(os.path.join(run_dir(tmp_path, "mphoi"), "last.ckpt"))
+    for key in ("train_losses", "val_losses"):
+        assert len(got[key]) == len(want[key]) == 2
+        for (total_g, per_g), (total_w, per_w) in zip(got[key], want[key]):
+            np.testing.assert_allclose(total_g, total_w, rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(per_g, per_w, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without CUDA")

@@ -80,6 +80,9 @@ def test_port_imports_without_jax():
             "import tggcn_torch.eval.reporting, tggcn_torch.utils.native\n"
             "import tggcn_torch.visualisation, tggcn_torch.train.logging\n"
             "import tggcn_torch.models.baselines, tggcn_torch.models.streaming\n"
+            "import tggcn_torch.parallel.distributed, tggcn_torch.parallel.mesh\n"
+            "import tggcn_torch.analysis, tggcn_torch.data.cross_validation\n"
+            "import tggcn_torch.utils.drawing\n"
             "print('ok')")
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)

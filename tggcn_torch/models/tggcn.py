@@ -54,7 +54,7 @@ import torch
 from tggcn_torch.models.segment_fast import CELLS, EDGES, initial_states, segment_scan_fast
 from tggcn_torch.models.segment_general import GENERAL_SCAN_RANGE, segment_scan_general
 from tggcn_torch.nn.distributions import (GUMBEL_STRATEGIES, discrete_estimator,
-                                          frame_indexed_gumbel, noise_key)
+                                          frame_indexed_gumbel, gumbel_noise, noise_key)
 from tggcn_torch.nn.geo_gcn import apply_geo_gcn, init_geo_gcn
 from tggcn_torch.nn.gru import init_bigru, init_gru_cell, run_multi_bigru
 from tggcn_torch.nn.messages import (GENERIC, MEAN_POOLING, NON_RELATIONAL, RELATIONAL,
@@ -364,7 +364,7 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
                 use_kernels: bool = True, noise: Optional[dict] = None,
                 generator: Optional[torch.Generator] = None,
                 carry: Optional[dict] = None, return_carry: bool = False,
-                force_last_step_commit: bool = True, frame_offset=0):
+                force_last_step_commit: bool = True, frame_offset=0, shard=None):
     """Forward pass. Returns (outputs list, aux dict), laid out as
     ``tggcn.models.tggcn.apply_tggcn``'s.
 
@@ -388,6 +388,13 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     and the noise of absolute frame ``frame_offset + i`` is a hash of (key,
     humans or objects, that frame, the element's place in it)
     (``frame_indexed_gumbel``), so a window draws what the whole clip draws.
+
+    Data parallelism (``shard``, a ``tggcn_torch.parallel.distributed``
+    ``BatchShard``: the inputs are this process's rows of a global batch):
+    the GeoGCN BatchNorm trains on the global rows' statistics, and the
+    Gumbel noise drawn here is the global batch's draw (the same
+    generator's, at the global shape), of which this process takes its
+    rows; ``noise`` handed in is already this process's rows.
 
     Streaming (``tggcn/models/tggcn.py:444-446, 529-538, 700-733, 793-802``):
     ``carry`` holds forward-direction initial states, any of
@@ -431,7 +438,7 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
     x_geometry = x_geometry.reshape(b, t, vw // 4, 4)
     geo_out, bn_state = apply_geo_gcn(params["geometry_embedding_gcn"], x_geometry,
                                       train=train, fused=cfg.use_pallas_geo_gcn,
-                                      use_kernels=use_kernels)
+                                      use_kernels=use_kernels, shard=shard)
     if cfg.geometry_flatten == "per_frame":
         geo_flat = geo_out.reshape(b, t, 1, geo_out.shape[-1] * (vw // 4))
     else:
@@ -524,7 +531,10 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
             return sources[0]
         frames = frame_offset + torch.arange(t, device=x_human.device)
         n = num_humans if who == "human" else num_objects
-        noise[who] = frame_indexed_gumbel(sources[1], NOISE_STREAMS[who], frames, b, n)
+        noise[who] = frame_indexed_gumbel(sources[1], NOISE_STREAMS[who], frames,
+                                          b if shard is None else shard.global_rows, n)
+        if shard is not None:
+            noise[who] = shard.take(noise[who])
         return None
 
     def decide(name, features, imposed, who, gate=None):
@@ -537,6 +547,10 @@ def apply_tggcn(params: dict, cfg: TGGCNConfig,
                            activations=["relu"] * (cfg.discrete_networks_num_layers - 1)
                            + ["sigmoid"])
         drawn_from = source(who)
+        if drawn_from is not None and shard is not None:
+            noise[who] = shard.take(gumbel_noise((shard.global_rows,) + u_soft.shape[1:-1] + (2,),
+                                                 drawn_from, u_soft.dtype))
+            drawn_from = None
         hard, soft = discrete_estimator(u_soft, strategy=cfg.discrete_optimization_strategy,
                                         threshold=cfg.update_segment_threshold,
                                         noise=noise.get(who), generator=drawn_from)

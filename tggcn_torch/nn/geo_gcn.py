@@ -28,12 +28,14 @@ def init_geo_gcn(generator, node_n: int, in_channels: int = 4,
 
 
 def apply_geo_gcn(params: dict, x: torch.Tensor, train: bool = False, fused: bool = False,
-                  use_kernels: bool = True):
+                  use_kernels: bool = True, shard=None):
     """x (batch, time, nodes, in_channels) -> ((batch, time, nodes, out), bn_state);
     train normalises with the batch statistics and updates the running ones.
     fused runs the block after the BatchNorm through K6 (its plain version
-    with use_kernels=False or on the CPU)."""
-    x, bn_state = apply_batchnorm(params["bn"], x, reduce_axes=(0, 1), train=train)
+    with use_kernels=False or on the CPU). ``shard``: the BatchNorm's
+    data-parallel statistics (``apply_batchnorm``)."""
+    x, bn_state = apply_batchnorm(params["bn"], x, reduce_axes=(0, 1), train=train,
+                                  shard=shard)
     weights = [params[name][key] for name in ("embed1", "embed2", "s1", "s2")
                for key in ("w", "b")] + [params["weight"]]
     if not fused:

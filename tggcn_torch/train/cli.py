@@ -11,15 +11,27 @@ contract: the frozen config under ``.hydra/config.yaml`` and
 ``<checkpoint_name>.ckpt`` in ``logging.log_dir``.
 
 The run takes the CUDA card unless ``--device cpu`` is given; without a
-card it raises. Configurations outside the port raise NotImplementedError
-naming their ``ROADMAP.md`` item: several devices or processes, the
-baseline models, ``gs_noise=frame_indexed``, the orbax checkpoint backend.
-``resources.parity_mode`` is accepted: the port has one numerics mode
-(float32 matmuls with TF32 off, ``runtime.py``).
+card it raises. The orbax checkpoint backend and the JAX package's own
+switches raise NotImplementedError. ``resources.parity_mode`` is accepted:
+the port has one numerics mode (float32 matmuls with TF32 off,
+``runtime.py``).
+
+Data parallelism (``tggcn_torch/parallel``), as the root ``train.py``:
+``resources.num_devices=N`` (N > 1) spawns N processes on this host, one a
+device (``cuda:r`` over NCCL; with ``--device cpu``, N gloo processes), and
+rendezvouses them on localhost; ``resources.distributed.*`` or the
+TGGCN_COORDINATOR / TGGCN_NUM_PROCESSES / TGGCN_PROCESS_ID environment
+joins this process to a group launched elsewhere, every process of which
+is then in the run. More devices than present, or a batch size the
+processes do not divide, raise ValueError. The launching call returns
+process 0's checkpoint dict.
 """
 
 import os
+import pickle
+import socket
 import sys
+import tempfile
 
 import torch
 
@@ -28,6 +40,9 @@ from tggcn_torch.config import compose, save_config
 from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
 from tggcn_torch.data.loading import determine_num_classes, load_training_data
 from tggcn_torch.models.registry import select_model, to_device
+from tggcn_torch.parallel.distributed import (assert_same_across_processes, is_main_process,
+                                              local_device, maybe_initialize, process_count)
+from tggcn_torch.parallel.mesh import make_mesh
 from tggcn_torch.runtime import check_parity_mode, resolve_device
 from tggcn_torch.train.checkpoint import (ORBAX, count_merged, load_last, load_model_weights,
                                           merge_params, save_checkpoint)
@@ -60,18 +75,41 @@ def split_device(argv):
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for a configuration outside the port."""
     resources = cfg.get("resources", default_value={})
-    distributed = resources.get("distributed", {}) or {}
-    if (resources.get("num_devices") or 1) > 1 or any(
-            distributed.get(k) for k in ("coordinator_address", "num_processes", "auto")):
-        raise NotImplementedError(
-            "resources.num_devices > 1 and distributed runs: data-parallel training is not "
-            "ported (ROADMAP.md Queue 1 item 9)")
     if cfg.logging.get("checkpoint_backend", "pickle") == "orbax":
         raise NotImplementedError(ORBAX)
     for key in ("jax_profiler_dir", "debug_nans"):
         if resources.get(key):
             raise NotImplementedError(f"resources.{key} is a switch of the JAX package only")
     check_parity_mode(resources.get("parity_mode", "fast"))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned(rank: int, argv: list, count: int, port: int, out: str) -> None:
+    """Process ``rank`` of a one-host launch: join the group through the
+    environment contract and run; process 0 leaves its checkpoint in out."""
+    os.environ.update(TGGCN_COORDINATOR=f"127.0.0.1:{port}", TGGCN_NUM_PROCESSES=str(count),
+                      TGGCN_PROCESS_ID=str(rank), LOCAL_RANK=str(rank))
+    checkpoint = main(argv)
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump(checkpoint, f)
+
+
+def launch(argv: list, count: int) -> dict:
+    """Run ``main(argv)`` in ``count`` spawned processes joined on
+    localhost; returns process 0's checkpoint dict. A process that fails
+    ends the others and raises here."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "checkpoint.pkl")
+        torch.multiprocessing.start_processes(_spawned, args=(argv, count, _free_port(), out),
+                                              nprocs=count, join=True, start_method="spawn")
+        with open(out, "rb") as f:
+            return pickle.load(f)
 
 
 def main(argv=None):
@@ -82,6 +120,31 @@ def main(argv=None):
     cfg = compose(CONF_DIR, overrides=overrides)
     check_supported(cfg)
     device = resolve_device(device)
+    resources = cfg.get("resources", default_value={})
+    dist_conf = resources.get("distributed", {}) or {}
+    distributed = maybe_initialize(
+        coordinator_address=dist_conf.get("coordinator_address"),
+        num_processes=dist_conf.get("num_processes"), process_id=dist_conf.get("process_id"),
+        auto=bool(dist_conf.get("auto", False)), device_type=device.type)
+    num_devices = resources.get("num_devices") or 1
+    if distributed:
+        # A joined group's run spans every process (train.py:115-119).
+        num_devices = num_devices if num_devices > 1 else process_count()
+        if num_devices != process_count():
+            raise ValueError(f"resources.num_devices={num_devices}, but the process group "
+                             f"has {process_count()} processes")
+        device = local_device(device.type)
+    mesh = None
+    if num_devices > 1:
+        mesh = make_mesh(num_devices, device.type)
+        if cfg.optimization.batch_size % num_devices != 0:
+            raise ValueError(
+                f"batch_size {cfg.optimization.batch_size} must be a multiple of num_devices "
+                f"{num_devices} (the batch is sharded over the data mesh)")
+        if not distributed:
+            return launch(argv, num_devices)
+    main_process = is_main_process()
+    log = print if main_process else (lambda *_args, **_kwargs: None)
 
     model_name, input_type = cfg.metadata.model_name, cfg.metadata.input_type
     batch_size, val_fraction = cfg.optimization.batch_size, cfg.optimization.val_fraction
@@ -100,8 +163,8 @@ def main(argv=None):
         own = params
         loaded = load_model_weights(misc["pretrained_path"], cfg=model.config)
         params = merge_params(own, to_device(loaded, model.device))
-        print(f"Warm-started from {misc['pretrained_path']}: {count_merged(own, params)} "
-              f"parameter leaves taken")
+        log(f"Warm-started from {misc['pretrained_path']}: {count_merged(own, params)} "
+            f"parameter leaves taken")
 
     criterion, loss_names = select_loss(model_name, input_type, dataset_name, misc)
     mtll = None
@@ -116,7 +179,7 @@ def main(argv=None):
 
     log_dir = cfg.logging.get("log_dir")
     checkpoint_name = cfg.logging.get("checkpoint_name")
-    if log_dir is not None:
+    if log_dir is not None and main_process:
         os.makedirs(log_dir, exist_ok=True)
         save_config(cfg, os.path.join(log_dir, ".hydra", "config.yaml"))
 
@@ -133,11 +196,16 @@ def main(argv=None):
                           initial_global_step=last.get("global_step", 0),
                           initial_best_val_loss=last.get("best_val_loss", float("inf")),
                           initial_checkpoint=last.get("best_checkpoint"))
-            print(f"Resumed from epoch {last['epoch']} ({log_dir}/last.ckpt)")
+            log(f"Resumed from epoch {last['epoch']} ({log_dir}/last.ckpt)")
+        if distributed:
+            # Every process must restore the same snapshot: one that
+            # missed last.ckpt would restart from scratch and diverge.
+            assert_same_across_processes(resume["initial_epoch"],
+                                         "misc.resume=true restored epoch")
 
     num_epochs = max(cfg.optimization.epochs - (resume["initial_epoch"] - 1), 0)
     if num_epochs == 0:
-        print(f"Run already completed ({cfg.optimization.epochs} epochs); nothing to do.")
+        log(f"Run already completed ({cfg.optimization.epochs} epochs); nothing to do.")
         return {}
     checkpoint = train(model, train_loader, cfg.optimization.learning_rate, criterion,
                        num_epochs, loss_names,
@@ -146,8 +214,8 @@ def main(argv=None):
                        mtll=mtll, num_main_losses=num_main_losses, seed=SEED,
                        checkpoint_name=checkpoint_name,
                        tensorboard_log_dir=cfg.logging.get("root_log_dir"), log_dir=log_dir,
-                       init_params=params, **resume)
-    if log_dir is not None:
+                       init_params=params, mesh=mesh, **resume)
+    if log_dir is not None and main_process:
         checkpoint["scalers"] = scalers
         save_checkpoint(log_dir, checkpoint, checkpoint_name)
     return checkpoint

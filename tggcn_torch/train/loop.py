@@ -9,6 +9,20 @@ the multi-task loss learner), backward (through the K2 and K4 kernels on
 the card), global-norm clipping over the model's gradients only, Adam from
 ``torch.optim``, and the write-back of the GeoGCN BatchNorm statistics.
 
+Data parallelism (``mesh``, ``tggcn_torch/parallel``): the step takes the
+global batch on every process, computes on this process's rows of it, and
+gives the single-process step's result on the global batch, as JAX's
+sharded step does. The BatchNorm trains on the global rows' statistics; the
+heads' outputs are gathered and the loss bundle (and the multi-task
+weighting) runs on the global batch on every process, so each loss is the
+mean over the global batch's unmasked targets; the Gumbel draws are the
+global batch's; the gradients are summed over the processes before
+clipping, the MTLL log-sigmas' (which every process computed from the
+same global losses) entering from process 0 alone. Averaging the
+gradients of per-process means instead would weigh a process's targets
+by its own count, which a padded last batch or masked targets make
+unequal.
+
 ``trainable`` is {'model': parameter tree, ['mtll': log-sigmas]}. Its
 tensors are updated in place. The BatchNorm running statistics are state,
 not parameters: ``trainable_parameters`` leaves them out, so Adam never
@@ -32,6 +46,8 @@ from tggcn_torch.data.feeders import num_inputs as model_inputs, pad_batch
 from tggcn_torch.models.tggcn import NOISE_STREAMS
 from tggcn_torch.nn.distributions import (GUMBEL_STRATEGIES, frame_indexed_gumbel,
                                           gumbel_noise, noise_key)
+from tggcn_torch.parallel.distributed import (batch_shard, is_main_process, is_multiprocess,
+                                              reduce_gradients, replicate_global)
 from tggcn_torch.train.checkpoint import save_last
 from tggcn_torch.train.logging import ScalarWriter
 from tggcn_torch.train.multi_task import apply_mtll, mtll_weights
@@ -71,9 +87,18 @@ def _clip_(grads, max_norm: float) -> None:
         g.mul_(coef)
 
 
+def _rows(shard, data, noise):
+    """This process's rows of the global batch's inputs and noise (both as
+    they are without a shard)."""
+    if shard is None:
+        return data, noise
+    noise = None if noise is None else {k: shard.take(v) for k, v in noise.items()}
+    return [shard.take(x) for x in data], noise
+
+
 def make_train_step(model, feeder: Callable, criterion: Callable, optimizer,
                     clip_gradient_at: float = 0.0, mtll: Optional[dict] = None,
-                    use_kernels: bool = True):
+                    use_kernels: bool = True, mesh=None):
     """A step(trainable, data, targets, generator=None, noise=None) ->
     (losses, raw_losses, aux) that updates ``trainable`` in place.
 
@@ -82,6 +107,10 @@ def make_train_step(model, feeder: Callable, criterion: Callable, optimizer,
     that Adam counts its steps as optax's global count does.
     use_kernels=False runs the kernels' plain versions, forward and
     backward (the reference route).
+
+    With a ``mesh`` (``tggcn_torch.parallel.make_mesh``, in a joined
+    process group) every process passes the same global batch, noise and
+    generator, and gets the global losses; aux is of its own rows.
     """
     mtll_static = None if mtll is None else (mtll["loss_types"], mtll["mask"])
 
@@ -89,8 +118,13 @@ def make_train_step(model, feeder: Callable, criterion: Callable, optimizer,
         params = trainable_parameters(trainable)
         for p in params:
             p.requires_grad_(True)
+        shard = None if mesh is None else batch_shard(len(data[0]))
+        data, noise = _rows(shard, data, noise)
         outputs, aux = model.apply(trainable["model"], train=True, generator=generator,
-                                   noise=noise, use_kernels=use_kernels, **feeder(data))
+                                   noise=noise, use_kernels=use_kernels, shard=shard,
+                                   **feeder(data))
+        if shard is not None:
+            outputs = [shard.gather(o) for o in outputs]
         targets = [torch.as_tensor(t, device=model.device) for t in targets]
         raw_losses = criterion(outputs, targets, reduction="mean")
         losses = raw_losses
@@ -101,6 +135,10 @@ def make_train_step(model, feeder: Callable, criterion: Callable, optimizer,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            if mtll_static is not None and not is_main_process():
+                trainable["mtll"].grad.zero_()
+            reduce_gradients([p.grad for p in params], mesh.gradient_groups())
         if clip_gradient_at:
             _clip_([p.grad for p in model_parameters(trainable["model"])], clip_gradient_at)
         optimizer.step()
@@ -197,7 +235,13 @@ def make_fused_train_steps(model, feeder: Callable, criterion: Callable, optimiz
     must be capturable (``torch.optim.Adam(..., capturable=True)``, whose
     step count lives on the card), or the call raises; a failed capture
     raises too, and nothing falls back to the eager loop.
+
+    Fused steps run in one process, as JAX's take no mesh: in a process
+    group of more than one process this raises ValueError.
     """
+    if is_multiprocess():
+        raise ValueError("fused train steps run in one process: data-parallel training "
+                         "takes the eager step (make_train_step with a mesh)")
     step = make_train_step(model, feeder, criterion, optimizer, clip_gradient_at, mtll,
                            use_kernels)
     gumbel = model.config.discrete_optimization_strategy in GUMBEL_STRATEGIES
@@ -313,15 +357,21 @@ def device_batches(loader, batch_size: int, num_inputs: int, device):
                for x in pad_batch(batch, batch_size, num_inputs)]
 
 
-def make_eval_step(model, feeder: Callable, criterion: Callable, mtll: Optional[dict] = None):
+def make_eval_step(model, feeder: Callable, criterion: Callable, mtll: Optional[dict] = None,
+                   mesh=None):
     """An eval_step(trainable, data, targets, generator=None) -> (losses,
-    raw_losses): the forward with train=False, no gradient."""
+    raw_losses): the forward with train=False, no gradient; with a mesh,
+    of the global batch every process passes (as make_train_step)."""
     mtll_static = None if mtll is None else (mtll["loss_types"], mtll["mask"])
 
     @torch.no_grad()
     def eval_step(trainable, data, targets, generator=None):
+        shard = None if mesh is None else batch_shard(len(data[0]))
+        data, _ = _rows(shard, data, None)
         outputs, _ = model.apply(trainable["model"], train=False, generator=generator,
-                                 **feeder(data))
+                                 shard=shard, **feeder(data))
+        if shard is not None:
+            outputs = [shard.gather(o) for o in outputs]
         raw_losses = criterion(outputs, targets, reduction="mean")
         losses = raw_losses
         if mtll_static is not None:
@@ -351,12 +401,16 @@ def evaluate(eval_step, trainable, loader, fetcher, key: tuple, batch_size: int,
     return (total / num_batches).cpu().numpy(), (total_raw / num_batches).cpu().numpy()
 
 
-def _print_eval(name, total, loss_names, losses):
+def _print_eval(name, total, loss_names, losses, printer=print):
     tag = f"({name})"
-    print(f"{tag:>12} Loss: {total: 7.4f}", end="")
+    printer(f"{tag:>12} Loss: {total: 7.4f}", end="")
     for loss_name, loss in zip(loss_names, losses):
-        print(f"   {loss_name}: {loss: 6.4f}", end="")
-    print()
+        printer(f"   {loss_name}: {loss: 6.4f}", end="")
+    printer()
+
+
+def _silent(*_args, **_kwargs):
+    pass
 
 
 def train(model, train_loader, learning_rate: float, criterion, epochs: int, loss_names,
@@ -367,7 +421,7 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
           log_dir: Optional[str] = None, init_params=None, init_optimizer_state=None,
           initial_global_step: int = 0,
           initial_best_val_loss: float = float("inf"),
-          initial_checkpoint: Optional[dict] = None):
+          initial_checkpoint: Optional[dict] = None, mesh=None):
     """The fit loop (reference train(), train_utils.py:12-165): per epoch the
     train steps (Adam at learning_rate over ``trainable_parameters``), the
     mean losses over the whole train set and then the val set, the best
@@ -382,9 +436,17 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
     EVAL_STREAM + e)``; the loader's order is a function of the epoch
     (``set_epoch``). A run resumed from ``last.ckpt`` (the initial_*
     arguments, the optimizer's state) so replays the uninterrupted run.
+
+    With a ``mesh`` every process of the group runs this loop on the same
+    batches (make_train_step's data parallelism), from process 0's
+    weights and optimizer state; process 0 alone prints and writes the
+    scalars and ``last.ckpt``.
     """
     device = model.device
     num_inputs = model_inputs(model.name)
+    log = print
+    if mesh is not None and not is_main_process():
+        log, tensorboard_log_dir, log_dir = _silent, None, None
     writer = ScalarWriter(tensorboard_log_dir, checkpoint_name)
     trainable = {"model": init_params}
     if mtll is not None:
@@ -392,9 +454,11 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
     optimizer = torch.optim.Adam(trainable_parameters(trainable), lr=learning_rate)
     if init_optimizer_state is not None:
         optimizer.load_state_dict(init_optimizer_state)
+    if mesh is not None:
+        replicate_global([x for _, x in _leaves(trainable)], optimizer)
     train_step = make_train_step(model, feed_model_data, criterion, optimizer,
-                                 clip_gradient_at=clip_gradient_at, mtll=mtll)
-    eval_step = make_eval_step(model, feed_model_data, criterion, mtll=mtll)
+                                 clip_gradient_at=clip_gradient_at, mtll=mtll, mesh=mesh)
+    eval_step = make_eval_step(model, feed_model_data, criterion, mtll=mtll, mesh=mesh)
 
     batch_size = train_loader.batch_size
     checkpoint = dict(initial_checkpoint) if initial_checkpoint else {}
@@ -413,7 +477,8 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
     def record(split, losses, raw, epoch):
         n_main = num_main_losses if num_main_losses is not None else len(losses)
         total = float(losses[-n_main:].sum())
-        _print_eval({"train": "Train", "val": "Validation"}[split], total, loss_names, losses)
+        _print_eval({"train": "Train", "val": "Validation"}[split], total, loss_names, losses,
+                    log)
         histories[f"{split}_losses"].append([total, losses.tolist()])
         if mtll is not None:
             histories[f"{split}_raw_losses"].append([float(raw[-n_main:].sum()), raw.tolist()])
@@ -432,7 +497,7 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
         return total
 
     for epoch in range(initial_epoch, epochs + initial_epoch):
-        print(f"\nEpoch: [{epoch:4d}/{epochs + initial_epoch - 1:4d}]")
+        log(f"\nEpoch: [{epoch:4d}/{epochs + initial_epoch - 1:4d}]")
         epoch_start = time.time()
         num_batches = len(train_loader)
         if hasattr(train_loader, "set_epoch"):
@@ -448,11 +513,11 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
                 n_main = num_main_losses if num_main_losses is not None else len(losses)
                 batch_end = min((batch_idx + 1) * batch_size, num_examples)
                 progress = 100 * (batch_idx + 1) / num_batches
-                print(f"(Train) Batch [{batch_end:6d}/{num_examples:6d} ({progress:3.0f}%)] ",
-                      f"Loss: {float(losses[-n_main:].sum()): 8.4f}", end="")
+                log(f"(Train) Batch [{batch_end:6d}/{num_examples:6d} ({progress:3.0f}%)] ",
+                    f"Loss: {float(losses[-n_main:].sum()): 8.4f}", end="")
                 for loss_name, single in zip(loss_names, losses):
-                    print(f"  {loss_name}: {single: 6.4f}", end="")
-                print()
+                    log(f"  {loss_name}: {single: 6.4f}", end="")
+                log()
         train_seconds = time.time() - epoch_start
 
         eval_start = time.time()
@@ -478,7 +543,7 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
                                 "best_val_loss": best_val_loss,
                                 "best_checkpoint": {**checkpoint, **histories}})
 
-    print("Lowest val_loss is", best_val_loss)
+    log("Lowest val_loss is", best_val_loss)
     checkpoint.update(histories)
     writer.close()
     return checkpoint
