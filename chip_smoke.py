@@ -12,7 +12,9 @@ Phases, in order, each under a watchdog that ends the run with a non-zero
 exit and the phase's name if the phase hangs:
 
   device   the card's name and power limit (nvidia-smi)
-  build    the CUDA kernels from tggcn_torch/csrc, with nvcc
+  build    the CUDA kernels from tggcn_torch/csrc, with nvcc; the wgmma
+           kernels' registers, static shared memory and spills (-Xptxas
+           -v) and their dynamic shared memory
   k1       the frame-BiGRU kernel (gru_sequence) against its plain PyTorch
            version at the MPHOI shape T=167, S=6, R=32, h=512: the states
            and the gates it keeps for the backward, and the states of the
@@ -53,7 +55,10 @@ exit and the phase's name if the phase hangs:
            inputs) against their plain bfloat16 versions at the same
            shapes, as k1-k4, with the controls of each check (see
            Tolerances); k1_bf16 and k2_bf16 time cuDNN's GRU in bfloat16
-           beside them
+           beside them; k3_bf16 and k4_bf16 print beside each product
+           phase's device ms the bytes it copies from L2 a step (from the
+           shapes) and the rate it reached, and k3_bf16 its phases' blocks,
+           blocks an SM and dynamic shared memory
   k5_v1_bf16, k5_v4_bf16, k5_ext_bf16
            K5's bfloat16 variant in each mode against its plain bfloat16
            version on the k5 phases' inputs in bfloat16, with the controls
@@ -374,6 +379,7 @@ import faulthandler
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -874,6 +880,58 @@ def print_split(name, split):
         f"{k} {v['ms']:.3f} ({v['launches']:g} launches)" for k, v in split.items()), flush=True)
 
 
+def k4_l2_bytes(b, nh, no, h):
+    """The bytes K4's bfloat16 product phases (tc_gemm.cuh) copy from L2 a
+    step: a dmsgs block (32 of 2h columns, up to 32 rows of a (cell,
+    direction)) copies its columns of w_msg and its rows of dgi, 3h deep; a
+    carry block (16 units, up to 32 rows) its units' rows of w_hh and of the
+    two w_from edges its cell sends, and its rows of dgh and dpre, 5h deep;
+    all bfloat16 (cp.async reads nothing for the rows a block lacks)."""
+    out = dict(segb_dmsgs=0, segb_carry=0)
+    for rows in (b * nh, b * no):
+        for row0 in range(0, rows, 32):
+            n = min(32, rows - row0)
+            out["segb_dmsgs"] += 2 * -(-2 * h // 32) * (32 + n) * 3 * h * 2
+            out["segb_carry"] += 2 * -(-h // 16) * (16 + n) * 5 * h * 2
+    return out
+
+
+def print_l2_rates(name, split, shape):
+    """Beside the bfloat16 product phases' device ms: the bytes each phase
+    copies from L2 a step, computed from the shapes (K3's wgmma phases from
+    ops/segment_scan.py::wg_plan, K4's from k4_l2_bytes), and the rate it
+    reached."""
+    from tggcn_torch.ops.segment_scan import wg_plan
+
+    t, b, nh, no, h = shape
+    l2 = {k: v["l2_bytes"] for k, v in wg_plan(b, nh, no, h).items()}
+    l2.update(k4_l2_bytes(b, nh, no, h))
+    rows = [f"{k} {l2[k] / 1e6:.3f} MB a step, "
+            f"{l2[k] * v['launches'] / (v['ms'] * 1e-3) / 1e12:.3f} TB/s"
+            for k, v in split.items() if k in l2 and v["ms"] > 0]
+    print(f"{name} L2 bytes a step and rate: " + "; ".join(rows), flush=True)
+
+
+def ptxas_report(log, names):
+    """{kernel: 'R registers, S bytes smem, X bytes spill stores, Y bytes
+    spill loads'} of the kernels of a -Xptxas -v log whose mangled names
+    hold one of names."""
+    out, current = {}, None
+    for line in log.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if found:
+            current = next((n for n in names if n in found.group(1)), None)
+        elif current and "spill" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out.setdefault(current, {}).update(spill_stores=int(stores), spill_loads=int(loads))
+        elif current and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(current, {}).update(registers=int(regs.group(1)),
+                                               static_smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def run_k3(torch, dev, shape, dtype=None):
     """K3 (or its bfloat16 variant) against its plain version, timed."""
     import tggcn_torch.ops.segment_scan as scan_ops
@@ -901,8 +959,14 @@ def run_k3(torch, dev, shape, dtype=None):
         err = max(err, check_kernel("segment_scan_dot (serving)", served, want[:3]))
     ms = cuda_ms(torch, lambda: segment_scan_dot(**args, scale=scale), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: segment_scan_dot_plain(**args, scale=scale), 3)
-    print_split("k3_bf16" if bf16 else "k3",
-                device_ms_by_kernel(lambda: segment_scan_dot(**args, scale=scale), 1))
+    split = device_ms_by_kernel(lambda: segment_scan_dot(**args, scale=scale), 1)
+    print_split("k3_bf16" if bf16 else "k3", split)
+    if bf16:
+        print_l2_rates("k3_bf16", split, shape)
+        occ = scan_ops.scan_occupancy("dot", dtype, b, nh, no, h)
+        print(f"k3_bf16 blocks, blocks an SM, dynamic smem: {json.dumps(occ)}", flush=True)
+        if occ["proj"][2] != scan_ops.WG_SMEM_BYTES or occ["cell"][2] != scan_ops.WG_SMEM_BYTES:
+            raise AssertionError(f"WG_SMEM_BYTES {scan_ops.WG_SMEM_BYTES} is not the kernels'")
     return dict(name="segment_scan_dot_bf16" if bf16 else "segment_scan_dot", route="cuda",
                 source="tggcn_torch/csrc/segment_scan.cu",
                 replaces="tggcn/ops/segment_scan_pallas.py:268", max_abs_err=err, ms=ms,
@@ -959,7 +1023,10 @@ def run_k4(torch, dev, shape, dtype=None):
             [got[k] for k in BWD_OUTPUTS], [want[k] for k in BWD_OUTPUTS], LIMITS_BF16["k4"])
     ms = cuda_ms(torch, lambda: segment_scan_dot_bwd(**args, scale=scale), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: segment_scan_dot_bwd_plain(**args, scale=scale), 2)
-    print_split(tag, device_ms_by_kernel(lambda: segment_scan_dot_bwd(**args, scale=scale), 1))
+    split = device_ms_by_kernel(lambda: segment_scan_dot_bwd(**args, scale=scale), 1)
+    print_split(tag, split)
+    if bf16:
+        print_l2_rates(tag, split, shape)
     byte_count = nbytes(*args.values(), *got.values())
     rate = BF16_FLOP_PER_S if bf16 else PRODUCT_FLOP_PER_S
     new = bounds(byte_count, *k4_flops(t, b, nh, no, h), product_rate=rate)
@@ -3015,10 +3082,18 @@ def main(argv=None):
         seconds = _build.build()
         print(f"build seconds {json.dumps({k: round(v, 3) for k, v in seconds.items()})}",
               flush=True)
+        from tggcn_torch.ops.segment_scan import WG_PHASES, WG_SMEM_BYTES
+
+        wg = {}
         for name in _build.SOURCES:
             log = _build.library_path(name).with_suffix(".log")
             if log.exists():
                 print(log.read_text().strip(), flush=True)
+                wg.update(ptxas_report(log.read_text(), WG_PHASES))
+        print(f"build wgmma kernels (registers, static smem and spills from -Xptxas -v; "
+              f"dynamic smem {WG_SMEM_BYTES} bytes each): {json.dumps(wg)}", flush=True)
+        if sorted(wg) != sorted(WG_PHASES):
+            raise AssertionError(f"the build log lacks a wgmma kernel: {sorted(wg)}")
     shape, hidden = stage1.SHAPE, stage1.MODEL_KWARGS["hidden_size"]
     gru_shape = (shape["t"], 6, shape["b"] * shape["objects"], hidden)
     scan_shape = (*(shape[k] for k in ("t", "b", "humans", "objects")), hidden)

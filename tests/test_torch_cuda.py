@@ -175,9 +175,9 @@ def test_segment_scan_bwd_kernel(cuda, nh, no, h):
         _close_rel(got[name], want[name], name)
 
 
-def _segment_args(cuda, nh, no, h):
-    rng = np.random.default_rng(nh * 100 + h)
-    t, b = 7, 5
+def _segment_args(cuda, nh, no, h, b=5):
+    rng = np.random.default_rng(nh * 100 + h + 1000 * (b != 5))
+    t = 7
     w = lambda *shape: rng.uniform(-1 / math.sqrt(h), 1 / math.sqrt(h), size=shape)
     mask = (rng.uniform(size=(b, no)) > 0.3).astype(np.float32)
     mask[0] = 0.0
@@ -544,14 +544,22 @@ def test_gru_sequence_bwd_kernel_bf16(cuda, h):
         _close_share(g_, w_, name, 1e-2)
 
 
-def _segment_args_bf16(cuda, nh, no, h):
-    return {k: v.to(BF16) for k, v in _segment_args(cuda, nh, no, h).items()}
+def _segment_args_bf16(cuda, nh, no, h, b=5):
+    return {k: v.to(BF16) for k, v in _segment_args(cuda, nh, no, h, b).items()}
 
 
-@pytest.mark.parametrize("nh,no,h", [(2, 4, 8), (1, 3, 24), (3, 5, 40)])
-def test_segment_scan_kernel_bf16(cuda, nh, no, h):
+# The bfloat16 scan's shapes (humans, objects, h, B): ragged widths at B=5,
+# MPHOI's full width at its batch of 8, and a streamed window's batch of 1.
+SCAN_SHAPES_BF16 = [pytest.param(2, 4, 8, 5, id="2-4-8"), pytest.param(1, 3, 24, 5, id="1-3-24"),
+                    pytest.param(3, 5, 40, 5, id="3-5-40"),
+                    pytest.param(2, 4, 512, 8, id="2-4-512-b8"),
+                    pytest.param(2, 4, 40, 1, id="2-4-40-b1")]
+
+
+@pytest.mark.parametrize("nh,no,h,b", SCAN_SHAPES_BF16)
+def test_segment_scan_kernel_bf16(cuda, nh, no, h, b):
     """K3 in bfloat16, training and serving, against its plain version."""
-    args = _segment_args_bf16(cuda, nh, no, h)
+    args = _segment_args_bf16(cuda, nh, no, h, b)
     before = segment_scan_dot.launches_bf16
     got = segment_scan_dot(**args, scale=1 / math.sqrt(h))
     served = segment_scan_dot(**args, scale=1 / math.sqrt(h), keep=False)
@@ -564,10 +572,10 @@ def test_segment_scan_kernel_bf16(cuda, nh, no, h):
         _within_one_ulp(g, w_, f"{name} (serving)")
 
 
-@pytest.mark.parametrize("nh,no,h", [(2, 4, 8), (1, 3, 24), (3, 5, 40)])
-def test_segment_scan_bwd_kernel_bf16(cuda, nh, no, h):
+@pytest.mark.parametrize("nh,no,h,b", SCAN_SHAPES_BF16)
+def test_segment_scan_bwd_kernel_bf16(cuda, nh, no, h, b):
     """K4 in bfloat16 from what the plain forward kept."""
-    args = _segment_args_bf16(cuda, nh, no, h)
+    args = _segment_args_bf16(cuda, nh, no, h, b)
     rng = np.random.default_rng(nh + h + 52)
     t, b = args["gi_h"].shape[1:3]
     out_h, out_o, _, *kept = segment_scan_dot_plain(**args, scale=1 / math.sqrt(h))

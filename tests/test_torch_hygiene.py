@@ -16,6 +16,9 @@
 * The general segment scan makes no host read and takes no
   data-dependent branch in its loop: no .item(), .tolist(), .cpu(),
   .numpy(), tensor made from host data or Python condition on a tensor.
+* No kernel source waits for another block (no cooperative launch, grid
+  sync, programmatic dependent launch or cluster barrier) or adds with
+  atomics.
 * chip_smoke.py fails, printing no result, without a CUDA device.
 """
 
@@ -23,6 +26,7 @@ import ast
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -149,24 +153,41 @@ def test_library_path_follows_sources():
 
 
 INTER_BLOCK_WAITS = ("cudaLaunchCooperativeKernel", "cudaLaunchAttributeCooperative",
-                     "this_grid", "griddepcontrol", "cudaGridDependencySynchronize")
+                     "this_grid", "griddepcontrol", "cudaGridDependencySynchronize",
+                     "barrier.cluster", "cluster.sync(", "this_cluster", "cluster_sync(",
+                     "__cluster_dims__", "cudaLaunchAttributeClusterDimension")
+# PTX's atomic and reduction instructions, as whole words (not the tail of
+# "shared.global" in a copy's state spaces).
+PTX_ATOMICS = re.compile(r"\b(atom|red)\.")
 
 
 @pytest.mark.parametrize("path", sorted(p.name for p in _build.CSRC_DIR.iterdir()
                                         if p.suffix in (".cu", ".cuh")))
 def test_kernels_wait_on_no_other_block(path):
     """No kernel source waits for another block (no cooperative launch, grid
-    sync or programmatic dependent launch: phase order comes from stream
-    order), and the sources of the train step's kernels (the frame GRU's
-    and the segment scan's) and of the GeoGCN kernel add with no atomics,
-    so two identical train steps give the same gradient bits."""
+    sync, programmatic dependent launch or cluster barrier: phase order comes
+    from stream order), and no source adds with atomics, so two identical
+    train steps give the same gradient bits."""
     text = (_build.CSRC_DIR / path).read_text()
     for word in INTER_BLOCK_WAITS:
         assert word not in text, f"{path} uses {word}"
-    if path.startswith(("segment_scan", "gru_sequence", "geo_gcn")):
-        assert "atomic" not in text.replace("no atomics", ""), f"{path} uses an atomic"
-        for ptx in ("atom.", "red.global", "red.shared"):
-            assert ptx not in text, f"{path} uses the PTX atomic {ptx}"
+    assert "atomic" not in text.replace("no atomics", ""), f"{path} uses an atomic"
+    found = PTX_ATOMICS.search(text)
+    assert found is None, f"{path} uses the PTX atomic {found and found.group(0)}"
+
+
+@pytest.mark.parametrize("line", ["atom.global.add.f32 %0, [%1], %2;",
+                                  "red.shared.add.u32 [%0], 1;", "red.global.add.f32 [%0], %1;",
+                                  "atomicAdd(p, 1.f);", "barrier.cluster.arrive;",
+                                  "cluster.sync();", "cg::this_cluster().sync();",
+                                  "cute::cluster_sync();", "__cluster_dims__(2, 1, 1)"])
+def test_source_checks_catch_atomics_and_cluster_waits(line):
+    """The checks above see each form an atomic or a cluster wait takes in a
+    source, and pass a TMA copy's state spaces."""
+    caught = (any(word in line for word in INTER_BLOCK_WAITS) or "atomic" in line
+              or PTX_ATOMICS.search(line) is not None)
+    assert caught, line
+    assert PTX_ATOMICS.search("cp.async.cg.shared.global [%0], [%1], 16;") is None
 
 
 def _tiny_batch(humans=2, objects=2):

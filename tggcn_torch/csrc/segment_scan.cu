@@ -24,7 +24,8 @@
 // A and B run their products on the tensor cores through tc_gemm.cuh
 // (mma.sync TF32 with the 3xTF32 split, float32 accumulation; weight
 // columns on the mma's M side, the step's 16 or 32 rows on its N side), so
-// each weight is read once per step.
+// each weight is read once per step; in bfloat16 through wg_gemm.cuh
+// (wgmma fed by TMA, the weights read MN-major as stored: proj_wg, cell_wg).
 //
 // What the backward (K4) reads is kept when the caller asks (keep = 1, the
 // training forward): every step's edge messages m_h = [hh | ho] per human
@@ -96,7 +97,8 @@
 // buffers of their own (state_h, state_o: (2, rows, h), updated in place by
 // B, each element by the thread that reads it), not in the bfloat16
 // outputs, which would round the carried state at every step. A's and B's
-// products are bfloat16 x bfloat16 with float32 sums (tc_gemm.cuh, m16n8k16)
+// products are bfloat16 x bfloat16 with float32 sums (wg_gemm.cuh: wgmma
+// m64n32k16; K5's v1 and v4 A phases tc_gemm.cuh's m16n8k16)
 // on the activations rounded as the TPU kernel's astype(wdt) rounds them:
 // the states (the bfloat16 outputs of the step before, or h0) and the mixed
 // messages, which M writes in bfloat16. M's scores, softmax and mixing take
@@ -114,10 +116,12 @@
 // widens the bfloat16 weights computed outside.
 
 #include "tc_gemm.cuh"
+#include "wg_gemm.cuh"
 
 namespace {
 
 using namespace tggcn::tc;
+namespace wg = tggcn::wg;
 
 constexpr int kMaxEntities = 16;
 constexpr int kMixColumns = 128;   // mix columns (of 2h) per mix block
@@ -235,6 +239,7 @@ proj_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
             float* __restrict__ m_h, float* __restrict__ m_o,
             const T* __restrict__ w_att, float* __restrict__ proj, int keep, int T_, int B,
             int NH, int NO, int H, int row_tiles, int step) {
+  if (kSplitEmpty) return;
   const Step s = step_of(step, T_);
   int bx = blockIdx.x, by = blockIdx.y;
   if constexpr (Mode == kV1) {
@@ -267,6 +272,7 @@ proj_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
   const Tiles tiles = {{col0, col0 + kMTile, 0},
                        {max(0, min(kMTile, H - col0)), max(0, min(kMTile, H - col0 - kMTile)), 0}};
   accumulate<false, 2, 2, 1, TileSlots>(op, op, op, tiles, rows, smem, acc);
+  if (!kSplitEpilogue) return;
   store_partials<2>(smem, acc);
   __syncthreads();
   for (int p = threadIdx.x; p < 2 * kMTile * kMaxRows; p += kThreads) {
@@ -276,6 +282,80 @@ proj_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
     const float v = reduce<2>(smem, t, c, r);
     (e < 2 ? m_h : m_o)[msg_at(s, T_, keep, all_rows, row, e, H) + col] =
         fmaxf(v + to_f32(b_from[(size_t)e * H + col]), 0.f);
+  }
+}
+
+// A in bfloat16 (modes dot and ext) on wgmma fed by TMA (wg_gemm.cuh):
+// the same blocks as proj_kernel (32 columns of one (direction, edge), up
+// to 32 rows), the block's two 16-column pieces of w_from[e] read MN-major
+// as stored. Maps: w_from (4 planes of h x h), and per source group (0
+// humans, 1 objects) the outputs (2T planes of rows x h) and h0 (2 planes).
+struct ProjMaps {
+  CUtensorMap w;
+  CUtensorMap out[2], h0[2];
+};
+
+struct ProjPlan {
+  const CUtensorMap *w, *x;
+  wg::Rows rows;
+  int e, col0, plane, H;
+  __device__ int chunks() const { return (H + wg::kDepth - 1) / wg::kDepth; }
+  __device__ int acc(int) const { return 0; }
+  __device__ int a_bytes() const { return 2 * wg::kPieceBytes; }
+  __device__ int b_bytes() const { return rows.bytes(); }
+  __device__ void prefetch() const {
+    wg::tma_prefetch(w);
+    wg::tma_prefetch(x);
+  }
+  __device__ void issue(int i, uint32_t a, uint32_t b, uint32_t bar) const {
+    const int k0 = i * wg::kDepth;
+    wg::bar_expect(bar, a_bytes() + b_bytes());
+    for (int p = 0; p < 2; ++p)
+      wg::tma_load(a + p * wg::kPieceBytes, w, bar, col0 + p * wg::kPiece, k0, e);
+    rows.load(b, x, bar, k0, plane);
+  }
+};
+
+// The plane of the state maps (ProjMaps, CellMaps) this step reads: h0's
+// plane d at the first step, else the output plane of the step before.
+__device__ __forceinline__ int prev_plane(Step s, int step, int T_) {
+  return step == 0 ? s.d : s.d * T_ + (s.d == 0 ? s.t - 1 : s.t + 1);
+}
+
+__global__ void __launch_bounds__(wg::kThreads)
+proj_wg(const __grid_constant__ ProjMaps maps, const bf16* __restrict__ b_from,
+        float* __restrict__ m_h, float* __restrict__ m_o, int keep, int T_, int B, int NH,
+        int NO, int H, int row_tiles, int step) {
+  if (kSplitEmpty) return;
+  const Step s = step_of(step, T_);
+  const int e = blockIdx.y / row_tiles;
+  const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int col0 = blockIdx.x * 2 * kMTile;
+  const int group = e < 2 ? 0 : 1;          // the source: humans, objects
+  const int all_rows = B * (group == 0 ? NH : NO);
+  if (row0 >= all_rows) return;
+  const int rows = min(kMaxRows, all_rows - row0);
+  const ProjPlan plan{&maps.w, step == 0 ? &maps.h0[group] : &maps.out[group],
+                      {row0, rows, wg::row_box(all_rows)}, e, col0, prev_plane(s, step, T_), H};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = wg::align1024(smem_raw);
+  const wg::Ring ring = wg::begin(smem);
+  // Each consumer thread's column (the same in its kPer outputs), and its
+  // bias, loaded before the product.
+  constexpr int kPer = 2 * kMTile * kMaxRows / wg::kConsumerThreads;
+  const int m = threadIdx.x % (2 * kMTile), col = col0 + m;
+  const uint16_t bias = kSplitEpilogue && threadIdx.x < wg::kConsumerThreads && col < H
+                            ? wg::load_now(b_from + (size_t)e * H + col)
+                            : 0;
+  float acc[1][16];
+  if (!wg::product<1>(plan, ring, acc) || !kSplitEpilogue) return;
+  wg::store_partials<1>(smem, acc);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int r = (threadIdx.x + j * wg::kConsumerThreads) / (2 * kMTile), row = row0 + r;
+    if (r >= rows || col >= H) continue;
+    (e < 2 ? m_h : m_o)[msg_at(s, T_, keep, all_rows, row, e, H) + col] =
+        fmaxf(wg::reduce<1>(smem, 0, m, r) + wg::widen(bias), 0.f);
   }
 }
 
@@ -542,22 +622,19 @@ struct CellSlots {
   __host__ __device__ static constexpr int slot(int p, int t) { return p == 1 && t == 2 ? 3 : t; }
 };
 
-// With bfloat16 IO, h_prev for the product is the bfloat16 state (the
-// output of the step before, or h0), and for the update the float32 state
-// in `state`, which the block then overwrites with the new state.
-template <class T>
+// B in float32 (bfloat16 IO runs cell_wg).
 __global__ void __launch_bounds__(kThreads)
-cell_kernel(const T* __restrict__ gi_h, const T* __restrict__ gi_o,
-            const T* __restrict__ u_h, const T* __restrict__ u_o,
-            const T* __restrict__ mix_h, const T* __restrict__ mix_o,
-            const T* __restrict__ w_msg_h, const T* __restrict__ w_msg_o,
-            const T* __restrict__ w_hh_h, const T* __restrict__ w_hh_o,
-            const T* __restrict__ b_hh_h, const T* __restrict__ b_hh_o,
-            const T* __restrict__ h0_h, const T* __restrict__ h0_o,
-            T* __restrict__ out_h, T* __restrict__ out_o, float* __restrict__ state_h,
-            float* __restrict__ state_o, float* __restrict__ gates_h,
+cell_kernel(const float* __restrict__ gi_h, const float* __restrict__ gi_o,
+            const float* __restrict__ u_h, const float* __restrict__ u_o,
+            const float* __restrict__ mix_h, const float* __restrict__ mix_o,
+            const float* __restrict__ w_msg_h, const float* __restrict__ w_msg_o,
+            const float* __restrict__ w_hh_h, const float* __restrict__ w_hh_o,
+            const float* __restrict__ b_hh_h, const float* __restrict__ b_hh_o,
+            const float* __restrict__ h0_h, const float* __restrict__ h0_o,
+            float* __restrict__ out_h, float* __restrict__ out_o, float* __restrict__ gates_h,
             float* __restrict__ gates_o, int keep, int T_, int B, int NH, int NO, int H,
             int row_tiles, int step) {
+  if (kSplitEmpty) return;
   const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;             // 0 humans, 1 objects
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
@@ -566,23 +643,21 @@ cell_kernel(const T* __restrict__ gi_h, const T* __restrict__ gi_o,
   if (row0 >= all_rows) return;
   const int rows = min(kMaxRows, all_rows - row0);
   const size_t slot = slot_of(s, T_, keep);
-  const T* mix = (cell == 0 ? mix_h : mix_o) + (slot * all_rows + row0) * 2 * H;
-  const T* w_msg = (cell == 0 ? w_msg_h : w_msg_o) + (size_t)s.d * 2 * H * 3 * H;
-  const T* w_hh = (cell == 0 ? w_hh_h : w_hh_o) + (size_t)s.d * H * 3 * H;
-  const T* b_hh = (cell == 0 ? b_hh_h : b_hh_o) + (size_t)s.d * 3 * H;
-  const T* h_prev = cell == 0 ? prev_state(h0_h, out_h, s, step, T_, all_rows, H)
-                              : prev_state(h0_o, out_o, s, step, T_, all_rows, H);
-  float* state = nullptr;
-  if constexpr (IsBf16<T>::value)
-    state = (cell == 0 ? state_h : state_o) + (size_t)s.d * all_rows * H;
+  const float* mix = (cell == 0 ? mix_h : mix_o) + (slot * all_rows + row0) * 2 * H;
+  const float* w_msg = (cell == 0 ? w_msg_h : w_msg_o) + (size_t)s.d * 2 * H * 3 * H;
+  const float* w_hh = (cell == 0 ? w_hh_h : w_hh_o) + (size_t)s.d * H * 3 * H;
+  const float* b_hh = (cell == 0 ? b_hh_h : b_hh_o) + (size_t)s.d * 3 * H;
+  const float* h_prev = cell == 0 ? prev_state(h0_h, out_h, s, step, T_, all_rows, H)
+                                  : prev_state(h0_o, out_o, s, step, T_, all_rows, H);
 
   extern __shared__ __align__(16) unsigned char smem[];
   float acc[4][kNTiles][4] = {};
-  const OperandT<T, T> in = {mix, 2 * H, w_msg, 3 * H, 2 * H};
-  const OperandT<T, T> rec = {h_prev + (size_t)row0 * H, H, w_hh, 3 * H, H};
+  const Operand in = {mix, 2 * H, w_msg, 3 * H, 2 * H};
+  const Operand rec = {h_prev + (size_t)row0 * H, H, w_hh, 3 * H, H};
   const int valid = min(kMTile, H - unit0);
   const Tiles tiles = {{unit0, H + unit0, 2 * H + unit0}, {valid, valid, valid}};
   accumulate<false, 3, 4, 2, CellSlots>(in, rec, rec, tiles, rows, smem, acc);
+  if (!kSplitEpilogue) return;
   store_partials<4>(smem, acc);
   __syncthreads();
   float* gates = cell == 0 ? gates_h : gates_o;
@@ -590,23 +665,143 @@ cell_kernel(const T* __restrict__ gi_h, const T* __restrict__ gi_o,
     const int c = p % kMTile, r = p / kMTile;
     const int row = row0 + r, unit = unit0 + c;
     if (r >= rows || unit >= H) continue;
-    const T* g = (cell == 0 ? gi_h : gi_o) + (((size_t)s.d * T_ + s.t) * all_rows + row) * 3 * H;
-    const float rg = sigmoid_f(to_f32(g[unit]) + reduce<4>(smem, 0, c, r) + to_f32(b_hh[unit]));
-    const float zg =
-        sigmoid_f(to_f32(g[H + unit]) + reduce<4>(smem, 1, c, r) + to_f32(b_hh[H + unit]));
-    const float hn = reduce<4>(smem, 3, c, r) + to_f32(b_hh[2 * H + unit]);
-    const float ng = tanhf(to_f32(g[2 * H + unit]) + reduce<4>(smem, 2, c, r) + rg * hn);
-    float hp;
-    if constexpr (IsBf16<T>::value)
-      hp = state[(size_t)row * H + unit];
-    else
-      hp = h_prev[(size_t)row * H + unit];
+    const float* g =
+        (cell == 0 ? gi_h : gi_o) + (((size_t)s.d * T_ + s.t) * all_rows + row) * 3 * H;
+    const float rg = sigmoid_f(g[unit] + reduce<4>(smem, 0, c, r) + b_hh[unit]);
+    const float zg = sigmoid_f(g[H + unit] + reduce<4>(smem, 1, c, r) + b_hh[H + unit]);
+    const float hn = reduce<4>(smem, 3, c, r) + b_hh[2 * H + unit];
+    const float ng = tanhf(g[2 * H + unit] + reduce<4>(smem, 2, c, r) + rg * hn);
+    const float hp = h_prev[(size_t)row * H + unit];
     const float h_new = (1.f - zg) * ng + zg * hp;
-    const float u = to_f32((cell == 0 ? u_h : u_o)[(size_t)s.t * all_rows + row]);
+    const float u = (cell == 0 ? u_h : u_o)[(size_t)s.t * all_rows + row];
     const float h = u * h_new + (1.f - u) * hp;
-    T* out = cell == 0 ? out_h : out_o;
-    out[(((size_t)s.d * T_ + s.t) * all_rows + row) * H + unit] = from_f32<T>(h);
-    if constexpr (IsBf16<T>::value) state[(size_t)row * H + unit] = h;
+    (cell == 0 ? out_h : out_o)[(((size_t)s.d * T_ + s.t) * all_rows + row) * H + unit] = h;
+    if (keep) {
+      float* gr = gates + (slot * all_rows + row) * 4 * H + unit;
+      gr[0] = rg;
+      gr[H] = zg;
+      gr[2 * H] = ng;
+      gr[3 * H] = hn;
+    }
+  }
+}
+
+// B in bfloat16 on wgmma fed by TMA (wg_gemm.cuh): the same blocks as
+// cell_kernel (16 units of one (direction, cell), up to 32 rows). The
+// block's M tile takes the r, z and n columns of its units as three
+// 16-column pieces of the weights, read MN-major as stored (rows 0-15, 16-31
+// and 32-47 of the tile); the input operand (mix @ w_msg) sums into one
+// accumulator, the recurrent one (h_prev @ w_hh) into another, so the n
+// gate keeps its two sides apart and the epilogue adds the r and z sums.
+// Maps per cell: w_msg (2 planes of 2h x 3h), w_hh (2 planes of h x 3h),
+// mix (2T planes with keep, else 2), the outputs and h0 as rows.
+struct CellMaps {
+  CUtensorMap w_msg[2], w_hh[2];
+  CUtensorMap mix[2], out[2], h0[2];
+};
+
+struct CellPlan {
+  const CUtensorMap *w_msg, *w_hh, *mix, *prev;
+  wg::Rows rows;
+  int d, unit0, mix_plane, prev_plane, H;
+  __device__ int chunks_in() const { return (2 * H + wg::kDepth - 1) / wg::kDepth; }
+  __device__ int chunks() const { return chunks_in() + (H + wg::kDepth - 1) / wg::kDepth; }
+  __device__ int acc(int i) const { return i < chunks_in() ? 0 : 1; }
+  __device__ int a_bytes() const { return 3 * wg::kPieceBytes; }
+  __device__ int b_bytes() const { return rows.bytes(); }
+  __device__ void prefetch() const {
+    wg::tma_prefetch(w_msg);
+    wg::tma_prefetch(w_hh);
+    wg::tma_prefetch(mix);
+    wg::tma_prefetch(prev);
+  }
+  __device__ void issue(int i, uint32_t a, uint32_t b, uint32_t bar) const {
+    const int nin = chunks_in();
+    const bool in = i < nin;
+    const int k0 = (in ? i : i - nin) * wg::kDepth;
+    wg::bar_expect(bar, a_bytes() + b_bytes());
+    for (int g = 0; g < 3; ++g)
+      wg::tma_load(a + g * wg::kPieceBytes, in ? w_msg : w_hh, bar, unit0 + g * H, k0, d);
+    rows.load(b, in ? mix : prev, bar, k0, in ? mix_plane : prev_plane);
+  }
+};
+
+// h_prev for the update is the float32 state in `state`, which the block
+// then overwrites with the new state (the bfloat16 outputs would round the
+// carried state at every step).
+__global__ void __launch_bounds__(wg::kThreads)
+cell_wg(const __grid_constant__ CellMaps maps, const bf16* __restrict__ gi_h,
+        const bf16* __restrict__ gi_o, const bf16* __restrict__ u_h,
+        const bf16* __restrict__ u_o, const bf16* __restrict__ b_hh_h,
+        const bf16* __restrict__ b_hh_o, bf16* __restrict__ out_h, bf16* __restrict__ out_o,
+        float* __restrict__ state_h, float* __restrict__ state_o, float* __restrict__ gates_h,
+        float* __restrict__ gates_o, int keep, int T_, int B, int NH, int NO, int H,
+        int row_tiles, int step) {
+  if (kSplitEmpty) return;
+  const Step s = step_of(step, T_);
+  const int cell = blockIdx.y / row_tiles;             // 0 humans, 1 objects
+  const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int unit0 = blockIdx.x * kMTile;
+  const int all_rows = B * (cell == 0 ? NH : NO);
+  if (row0 >= all_rows) return;
+  const int rows = min(kMaxRows, all_rows - row0);
+  const size_t slot = slot_of(s, T_, keep);
+  const CellPlan plan{&maps.w_msg[cell], &maps.w_hh[cell], &maps.mix[cell],
+                      step == 0 ? &maps.h0[cell] : &maps.out[cell],
+                      {row0, rows, wg::row_box(all_rows)}, s.d, unit0, (int)slot,
+                      prev_plane(s, step, T_), H};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = wg::align1024(smem_raw);
+  const bf16* b_hh = (cell == 0 ? b_hh_h : b_hh_o) + (size_t)s.d * 3 * H;
+  float* state = (cell == 0 ? state_h : state_o) + (size_t)s.d * all_rows * H;
+  float* gates = cell == 0 ? gates_h : gates_o;
+  const wg::Ring ring = wg::begin(smem);
+  // The epilogue's inputs (gi, b_hh, the float32 state, u), loaded before
+  // the product (after begin's barrier, which would wait for them) so that
+  // their latency hides behind the copies: each consumer thread takes kPer
+  // of the block's (row, unit) outputs, p = thread + j * kConsumerThreads.
+  constexpr int kPer = kMTile * kMaxRows / wg::kConsumerThreads;
+  uint16_t in[kPer][7] = {};                 // gi r, z, n; b_hh r, z, n; u (raw bits)
+  float hp[kPer] = {};
+  if (kSplitEpilogue && threadIdx.x < wg::kConsumerThreads) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int p = threadIdx.x + j * wg::kConsumerThreads, r = p / kMTile;
+      const int row = row0 + r, unit = unit0 + p % kMTile;
+      if (r < rows && unit < H) {
+        const bf16* g =
+            (cell == 0 ? gi_h : gi_o) + (((size_t)s.d * T_ + s.t) * all_rows + row) * 3 * H;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          in[j][q] = wg::load_now(g + q * H + unit);
+          in[j][3 + q] = wg::load_now(b_hh + q * H + unit);
+        }
+        in[j][6] = wg::load_now((cell == 0 ? u_h : u_o) + (size_t)s.t * all_rows + row);
+        hp[j] = wg::load_now(state + (size_t)row * H + unit);
+      }
+    }
+  }
+  float acc[2][16];
+  if (!wg::product<2>(plan, ring, acc) || !kSplitEpilogue) return;
+  wg::store_partials<2>(smem, acc);
+  const auto sum = [&](int a, int m, int r) { return wg::reduce<2>(smem, a, m, r); };
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int p = threadIdx.x + j * wg::kConsumerThreads;
+    const int c = p % kMTile, r = p / kMTile;
+    const int row = row0 + r, unit = unit0 + c;
+    if (r >= rows || unit >= H) continue;
+    const auto x = [&](int q) { return wg::widen(in[j][q]); };
+    const float rg = sigmoid_f(x(0) + (sum(0, c, r) + sum(1, c, r)) + x(3));
+    const float zg = sigmoid_f(x(1) + (sum(0, kMTile + c, r) + sum(1, kMTile + c, r)) + x(4));
+    const float hn = sum(1, 2 * kMTile + c, r) + x(5);
+    const float ng = tanhf(x(2) + sum(0, 2 * kMTile + c, r) + rg * hn);
+    const float h_new = (1.f - zg) * ng + zg * hp[j];
+    const float u = x(6);
+    const float h = u * h_new + (1.f - u) * hp[j];
+    (cell == 0 ? out_h : out_o)[(((size_t)s.d * T_ + s.t) * all_rows + row) * H + unit] =
+        from_f32<bf16>(h);
+    state[(size_t)row * H + unit] = h;
     if (keep) {
       float* gr = gates + (slot * all_rows + row) * 4 * H + unit;
       gr[0] = rg;
@@ -621,16 +816,33 @@ cell_kernel(const T* __restrict__ gi_h, const T* __restrict__ gi_o,
 struct Launch {
   dim3 grid_a, grid_m, grid_b;
   size_t smem_a, smem_m, smem_b;
+  int threads_a, threads_b;
   int row_tiles;
 };
 
-// The A kernel of a mode: proj_v4_kernel in v4, else proj_kernel.
+// In bfloat16, A runs proj_wg in the modes whose A is the message
+// projections alone (dot, ext; v1 adds its projection blocks and v4 has
+// proj_v4_kernel, both on tc_gemm.cuh), and B runs cell_wg in every mode.
+template <int Mode, class T>
+constexpr bool kWgProj = IsBf16<T>::value && (Mode == kDot || Mode == kExt);
+
+// The A kernel of a mode and the B kernel of an IO type.
 template <int Mode, class T>
 const void* proj_of() {
-  if constexpr (Mode == kV4)
+  if constexpr (kWgProj<Mode, T>)
+    return reinterpret_cast<const void*>(proj_wg);
+  else if constexpr (Mode == kV4)
     return reinterpret_cast<const void*>(proj_v4_kernel<T>);
   else
     return reinterpret_cast<const void*>(proj_kernel<Mode, T>);
+}
+
+template <class T>
+const void* cell_of() {
+  if constexpr (IsBf16<T>::value)
+    return reinterpret_cast<const void*>(cell_wg);
+  else
+    return reinterpret_cast<const void*>(cell_kernel);
 }
 
 template <int Mode, class T>
@@ -640,12 +852,16 @@ cudaError_t configure(int B, int NH, int NO, int H, Launch& L) {
   constexpr size_t v4_smem = smem_bytes<false, 4, 4, kStages, T, T>() > v4_epilogue
                                  ? smem_bytes<false, 4, 4, kStages, T, T>()
                                  : v4_epilogue;
-  L.smem_a = Mode == kV4 ? v4_smem : smem_bytes<false, 2, 2, kStages, T, T>();
+  L.smem_a = kWgProj<Mode, T> ? wg::smem_bytes()
+             : Mode == kV4    ? v4_smem
+                              : smem_bytes<false, 2, 2, kStages, T, T>();
+  L.threads_a = kWgProj<Mode, T> ? wg::kThreads : kThreads;
   const int E = NH + NO, col_pairs = (H + 2 * kMTile - 1) / (2 * kMTile);
   L.smem_m = Mode == kDot ? states_bytes
              : Mode == kV1 ? (size_t)E * 4 * sizeof(float)
              : Mode == kV4 ? (size_t)E * E * col_pairs * sizeof(float) : 0;
-  L.smem_b = smem_bytes<false, 3, 4, kStages, T, T>();
+  L.smem_b = IsBf16<T>::value ? wg::smem_bytes() : smem_bytes<false, 3, 4, kStages, T, T>();
+  L.threads_b = IsBf16<T>::value ? wg::kThreads : kThreads;
   const int max_rows = B * (NH > NO ? NH : NO);
   L.row_tiles = (max_rows + kMaxRows - 1) / kMaxRows;
   const int col_tiles = (H + kMTile - 1) / kMTile;
@@ -658,8 +874,35 @@ cudaError_t configure(int B, int NH, int NO, int H, Launch& L) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.smem_a);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cell_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(cell_of<T>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)L.smem_b);
+  return err;
+}
+
+// The tensor maps of proj_wg and cell_wg for one call (the pointers are the
+// call's; a CUDA graph that captures the launches keeps them by value).
+cudaError_t scan_maps(const bf16* w_from, const bf16* w_msg_h, const bf16* w_msg_o,
+                      const bf16* w_hh_h, const bf16* w_hh_o, const bf16* h0_h,
+                      const bf16* h0_o, const bf16* out_h, const bf16* out_o, const bf16* mix_h,
+                      const bf16* mix_o, int keep, int T_, int B, int NH, int NO, int H,
+                      ProjMaps& pm, CellMaps& cm) {
+  const int rows[2] = {B * NH, B * NO};
+  const bf16* h0[2] = {h0_h, h0_o};
+  const bf16* out[2] = {out_h, out_o};
+  const bf16* mix[2] = {mix_h, mix_o};
+  const bf16* w_msg[2] = {w_msg_h, w_msg_o};
+  const bf16* w_hh[2] = {w_hh_h, w_hh_o};
+  cudaError_t err = wg::mn_major_map(&pm.w, w_from, 4, H, H);
+  for (int g = 0; g < 2 && err == cudaSuccess; ++g) {
+    err = wg::rows_map(&pm.out[g], out[g], 2 * T_, rows[g], H, H);
+    if (err == cudaSuccess) err = wg::rows_map(&pm.h0[g], h0[g], 2, rows[g], H, H);
+    if (err == cudaSuccess) err = wg::mn_major_map(&cm.w_msg[g], w_msg[g], 2, 2 * H, 3 * H);
+    if (err == cudaSuccess) err = wg::mn_major_map(&cm.w_hh[g], w_hh[g], 2, H, 3 * H);
+    if (err == cudaSuccess)
+      err = wg::rows_map(&cm.mix[g], mix[g], keep ? 2 * T_ : 2, rows[g], 2 * H, 2 * H);
+    cm.out[g] = pm.out[g];
+    cm.h0[g] = pm.h0[g];
+  }
   return err;
 }
 
@@ -684,22 +927,37 @@ int run_scan(const T* gi_h, const T* gi_o, const T* u_h, const T* u_o, const T* 
   Launch L;
   cudaError_t err = configure<Mode, T>(B, NH, NO, H, L);
   if (err != cudaSuccess) return static_cast<int>(err);
+  ProjMaps pmaps;
+  CellMaps cmaps;
+  if constexpr (IsBf16<T>::value) {
+    err = scan_maps(w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, h0_h, h0_o, out_h, out_o, mix_h,
+                    mix_o, keep, T_, B, NH, NO, H, pmaps, cmaps);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   for (int step = 0; step < T_; ++step) {
-    if constexpr (Mode == kV4)
-      proj_v4_kernel<T><<<L.grid_a, kThreads, L.smem_a, stream>>>(
+    if constexpr (kWgProj<Mode, T>)
+      proj_wg<<<L.grid_a, L.threads_a, L.smem_a, stream>>>(pmaps, b_from, m_h, m_o, keep, T_,
+                                                           B, NH, NO, H, L.row_tiles, step);
+    else if constexpr (Mode == kV4)
+      proj_v4_kernel<T><<<L.grid_a, L.threads_a, L.smem_a, stream>>>(
           h0_h, h0_o, out_h, out_o, state_h, state_o, w_from, b_from, m_h, m_o, w_att, scores,
           T_, B, NH, NO, H, L.row_tiles, step);
     else
-      proj_kernel<Mode, T><<<L.grid_a, kThreads, L.smem_a, stream>>>(
+      proj_kernel<Mode, T><<<L.grid_a, L.threads_a, L.smem_a, stream>>>(
           h0_h, h0_o, out_h, out_o, w_from, b_from, m_h, m_o, w_att, scores, keep, T_, B, NH,
           NO, H, L.row_tiles, step);
     mix_kernel<Mode, T><<<L.grid_m, kThreads, L.smem_m, stream>>>(
         h0_h, h0_o, out_h, out_o, state_h, state_o, obj_mask, m_h, m_o, b_att, scores, att_ext,
         mix_h, mix_o, att, atts, keep, T_, B, NH, NO, H, scale, step);
-    cell_kernel<T><<<L.grid_b, kThreads, L.smem_b, stream>>>(
-        gi_h, gi_o, u_h, u_o, mix_h, mix_o, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o,
-        h0_h, h0_o, out_h, out_o, state_h, state_o, gates_h, gates_o, keep, T_, B, NH, NO, H,
-        L.row_tiles, step);
+    if constexpr (IsBf16<T>::value)
+      cell_wg<<<L.grid_b, L.threads_b, L.smem_b, stream>>>(
+          cmaps, gi_h, gi_o, u_h, u_o, b_hh_h, b_hh_o, out_h, out_o, state_h, state_o, gates_h,
+          gates_o, keep, T_, B, NH, NO, H, L.row_tiles, step);
+    else
+      cell_kernel<<<L.grid_b, L.threads_b, L.smem_b, stream>>>(
+          gi_h, gi_o, u_h, u_o, mix_h, mix_o, w_msg_h, w_msg_o, w_hh_h, w_hh_o, b_hh_h, b_hh_o,
+          h0_h, h0_o, out_h, out_o, gates_h, gates_o, keep, T_, B, NH, NO, H, L.row_tiles,
+          step);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -716,11 +974,12 @@ int occupancy(int B, int NH, int NO, int H, int* out) {
   cudaError_t err = configure<Mode, T>(B, NH, NO, H, L);
   const dim3 grids[3] = {L.grid_a, L.grid_m, L.grid_b};
   const size_t smem[3] = {L.smem_a, L.smem_m, L.smem_b};
+  const int threads[3] = {L.threads_a, kThreads, L.threads_b};
   const void* kernels[3] = {proj_of<Mode, T>(), reinterpret_cast<const void*>(mix_kernel<Mode, T>),
-                            reinterpret_cast<const void*>(cell_kernel<T>)};
+                            cell_of<T>()};
   for (int i = 0; i < 3 && err == cudaSuccess; ++i) {
     out[i] = (int)(grids[i].x * grids[i].y * grids[i].z);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3 + i], kernels[i], kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3 + i], kernels[i], threads[i],
                                                         smem[i]);
     out[6 + i] = (int)smem[i];
   }

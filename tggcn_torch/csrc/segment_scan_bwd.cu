@@ -52,13 +52,15 @@
 // every output in bfloat16; K3's kept m, gates and attention float32), as
 // the TPU kernel runs it (segment_scan_pallas.py:324-527): D's and R's
 // products are bfloat16 x bfloat16 with float32 sums (tc_gemm.cuh,
-// m16n8k16) on the bfloat16 outputs dgi, dgh and dpre, which is what the
-// TPU kernel multiplies; the carry dL/dh, dhz, du's partials and attc stay
-// float32. Where the TPU kernel computes in bfloat16 the values are rounded
-// (round_to): the gates, attention and messages it would recompute, each
-// step of C's elementwise backward, dmsgs and the score gradient ds. The
-// weights are half the bytes; bound: the products at the dense bfloat16
-// rate (989 TFLOP/s), the attention backward on the FMA units.
+// m16n8k16; D and R on wgmma fed by TMA, as K3's in wg_gemm.cuh, were
+// tried on the H100 and not kept: PERF.md) on the bfloat16 outputs dgi,
+// dgh and dpre, which is what the TPU kernel multiplies; the carry dL/dh,
+// dhz, du's partials and attc stay float32. Where the TPU kernel computes
+// in bfloat16 the values are rounded (round_to): the gates, attention and
+// messages it would recompute, each step of C's elementwise backward,
+// dmsgs and the score gradient ds. The weights are half the bytes; bound:
+// the products at the dense bfloat16 rate (989 TFLOP/s), the attention
+// backward on the FMA units.
 
 #include "tc_gemm.cuh"
 
@@ -198,6 +200,7 @@ segb_dmsgs(const T* __restrict__ dgi_h, const T* __restrict__ dgi_o,
            const T* __restrict__ w_msg_h, const T* __restrict__ w_msg_o,
            float* __restrict__ dmsgs_h, float* __restrict__ dmsgs_o, int T_, int B, int NH,
            int NO, int H, int row_tiles, int step) {
+  if (kSplitEmpty) return;
   const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
@@ -216,6 +219,7 @@ segb_dmsgs(const T* __restrict__ dgi_h, const T* __restrict__ dgi_o,
                        {max(0, min(kMTile, 2 * H - col0)),
                         max(0, min(kMTile, 2 * H - col0 - kMTile)), 0}};
   accumulate<true, 2, 2, 1, TileSlots>(op, op, op, tiles, rows, smem, acc);
+  if (!kSplitEpilogue) return;
   store_partials<2>(smem, acc);
   __syncthreads();
   for (int p = threadIdx.x; p < 2 * kMTile * kMaxRows; p += kThreads) {
@@ -346,6 +350,7 @@ template <class T>
 __global__ void __launch_bounds__(kThreads)
 segb_carry(CarryArgs<T> hum, CarryArgs<T> obj, CellArgs<T> cell_h, CellArgs<T> cell_o, int T_,
            int B, int NH, int NO, int H, int row_tiles, int step) {
+  if (kSplitEmpty) return;
   const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
@@ -366,6 +371,7 @@ segb_carry(CarryArgs<T> hum, CarryArgs<T> obj, CellArgs<T> cell_h, CellArgs<T> c
   const OperandT<T, T> snd1 = {dpre + H, 2 * H, c.w_from + (size_t)H * H, H, H};
   const Tiles tiles = {{unit0, 0, 0}, {min(kMTile, H - unit0), 0, 0}};
   accumulate<true, 1, 1, 3, OneSlot>(rec, snd0, snd1, tiles, rows, smem, acc);
+  if (!kSplitEpilogue) return;
   store_partials<1>(smem, acc);
   __syncthreads();
   const bool last = step + 1 == T_;

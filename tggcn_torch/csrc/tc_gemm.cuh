@@ -11,9 +11,11 @@
 //                  TF32, so W is not split: two TF32 products, lo_x W +
 //                  hi_x W, keep float32 accuracy, and W sits in shared
 //                  memory as bfloat16 (half its bytes).
-//   bf16, bf16     mma.sync m16n8k16 in bfloat16 (K3 and K4 in bfloat16:
-//                  bfloat16 x bfloat16 with float32 sums, as the TPU
-//                  kernels' preferred_element_type=float32 products).
+//   bf16, bf16     mma.sync m16n8k16 in bfloat16 (K4 and K5's v1 and v4
+//                  projection phases in bfloat16: bfloat16 x bfloat16 with
+//                  float32 sums, as the TPU kernels'
+//                  preferred_element_type=float32 products). K3's bfloat16
+//                  products run on wgmma fed by TMA (wg_gemm.cuh).
 //
 // Numbers. Each float32 operand x is split into a TF32 high part hi (x
 // with the low 13 bits of its mantissa cleared) and the remainder lo = x -
@@ -67,10 +69,9 @@
 // (Stage) make every fragment load conflict-free and keep each row 16-byte
 // aligned for cp.async; a bfloat16 fragment of k16 takes two neighbouring
 // values of k as one 32-bit load, or, for a weight stored [k][col], two
-// 16-bit loads packed. (wgmma, at twice mma.sync's rate,
-// takes TF32 only K-major from shared memory, in a swizzled layout given by
-// matrix descriptors, so K3's weights would need a transposed copy; it is
-// the next step for these products.)
+// 16-bit loads packed. (wgmma takes TF32 only K-major from shared memory,
+// so K3's float32 weights would need a transposed copy; its 16-bit operands
+// may be MN-major, which wg_gemm.cuh uses for K3's bfloat16 weights.)
 //
 // Operands. Up to three operands (x_p, w_p) add into one set of
 // accumulators; Map::slot(p, t) names the accumulator slot of operand p's
@@ -86,6 +87,19 @@ namespace tggcn {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+
+// The launch split of the segment scan's product phases
+// (tggcn_torch/profile_split.py builds the sources with -DTGGCN_SPLIT=n):
+// 1 an empty launch (the same grid and shared memory), 2 the copies alone,
+// 3 the products alone, 4 the epilogue alone (its loads included), 5 the
+// copies and products without the epilogue; 0, the default, all of it.
+#ifndef TGGCN_SPLIT
+#define TGGCN_SPLIT 0
+#endif
+constexpr bool kSplitEmpty = TGGCN_SPLIT == 1;
+constexpr bool kSplitCopies = TGGCN_SPLIT == 0 || TGGCN_SPLIT == 2 || TGGCN_SPLIT == 5;
+constexpr bool kSplitProducts = TGGCN_SPLIT == 0 || TGGCN_SPLIT == 3 || TGGCN_SPLIT == 5;
+constexpr bool kSplitEpilogue = TGGCN_SPLIT == 0 || TGGCN_SPLIT == 4;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -418,7 +432,7 @@ __device__ __forceinline__ void accumulate(const OperandT<TW, TX>& a, const Oper
   const int nc = NP > 2 ? (c.K + kChunk - 1) / kChunk : 0;
   const int total = na + nb + nc;
   auto prefetch = [&](int i) {
-    if (i < total) {
+    if (kSplitCopies && i < total) {
       if (i < na)
         load_chunk(buf[i % NS], a, tiles, rows, i * kChunk);
       else if (i < na + nb)
@@ -434,6 +448,8 @@ __device__ __forceinline__ void accumulate(const OperandT<TW, TX>& a, const Oper
     __syncthreads();                    // chunk i is in; chunk i - 1's buffer is free
     prefetch(i + NS - 1);
     const St& st = buf[i % NS];
+    if (!kSplitProducts)
+      continue;
     if (i < na)
       multiply_chunk<kColRows, MT, S, 0, Map, MG, Round>(st, ntiles, acc);
     else if (NP > 1 && i < na + nb)

@@ -32,7 +32,8 @@ from tggcn_torch.models.registry import select_model
 
 REQUESTS = 3
 GROUPS = {"gru_step_kernel": "K1 gru_sequence", "proj_kernel": "K3 segment_scan_dot",
-          "mix_kernel": "K3 segment_scan_dot", "cell_kernel": "K3 segment_scan_dot",
+          "proj_wg": "K3 segment_scan_dot", "mix_kernel": "K3 segment_scan_dot",
+          "cell_kernel": "K3 segment_scan_dot", "cell_wg": "K3 segment_scan_dot",
           "geo_gcn": "K6 geo_gcn_fused"}
 
 
