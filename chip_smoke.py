@@ -880,6 +880,31 @@ def print_split(name, split):
         f"{k} {v['ms']:.3f} ({v['launches']:g} launches)" for k, v in split.items()), flush=True)
 
 
+# K3's bfloat16 product kernels on wgmma fed by TMA (csrc/wg_gemm.cuh).
+WG_KERNELS = ("proj_wg", "cell_wg")
+
+
+def k3_l2_bytes(b, nh, no, h):
+    """The bytes K3's bfloat16 product phases (wg_gemm.cuh) copy from L2 a
+    step, as TMA boxes: a proj_wg block (32 of h columns of one (edge,
+    direction), up to 32 rows of the edge's sender) copies two 16-column
+    weight pieces and its rows, h deep; a cell_wg block (16 units of a
+    (cell, direction), up to 32 rows) three pieces and its rows, 3h deep;
+    all bfloat16, 64 deep a stage. A row box is 16 rows, or 32 where the
+    group has more than 16 rows."""
+    out = dict(proj_wg=0, cell_wg=0)
+    stages = dict(proj_wg=-(-h // 64), cell_wg=-(-2 * h // 64) + -(-h // 64))
+    for kernel, pieces, width, groups in (("proj_wg", 2, 32, (nh, nh, no, no)),
+                                          ("cell_wg", 3, 16, (nh, no))):
+        for rows in (b * g for g in groups):
+            box = 32 if rows > 16 else 16
+            for row0 in range(0, rows, 32):
+                boxes = -(-min(32, rows - row0) // box)
+                stage = (pieces * 16 + boxes * box) * 64 * 2
+                out[kernel] += 2 * -(-h // width) * stages[kernel] * stage
+    return out
+
+
 def k4_l2_bytes(b, nh, no, h):
     """The bytes K4's bfloat16 product phases (tc_gemm.cuh) copy from L2 a
     step: a dmsgs block (32 of 2h columns, up to 32 rows of a (cell,
@@ -898,14 +923,10 @@ def k4_l2_bytes(b, nh, no, h):
 
 def print_l2_rates(name, split, shape):
     """Beside the bfloat16 product phases' device ms: the bytes each phase
-    copies from L2 a step, computed from the shapes (K3's wgmma phases from
-    ops/segment_scan.py::wg_plan, K4's from k4_l2_bytes), and the rate it
-    reached."""
-    from tggcn_torch.ops.segment_scan import wg_plan
-
+    copies from L2 a step, computed from the shapes (k3_l2_bytes,
+    k4_l2_bytes), and the rate it reached."""
     t, b, nh, no, h = shape
-    l2 = {k: v["l2_bytes"] for k, v in wg_plan(b, nh, no, h).items()}
-    l2.update(k4_l2_bytes(b, nh, no, h))
+    l2 = {**k3_l2_bytes(b, nh, no, h), **k4_l2_bytes(b, nh, no, h)}
     rows = [f"{k} {l2[k] / 1e6:.3f} MB a step, "
             f"{l2[k] * v['launches'] / (v['ms'] * 1e-3) / 1e12:.3f} TB/s"
             for k, v in split.items() if k in l2 and v["ms"] > 0]
@@ -965,8 +986,6 @@ def run_k3(torch, dev, shape, dtype=None):
         print_l2_rates("k3_bf16", split, shape)
         occ = scan_ops.scan_occupancy("dot", dtype, b, nh, no, h)
         print(f"k3_bf16 blocks, blocks an SM, dynamic smem: {json.dumps(occ)}", flush=True)
-        if occ["proj"][2] != scan_ops.WG_SMEM_BYTES or occ["cell"][2] != scan_ops.WG_SMEM_BYTES:
-            raise AssertionError(f"WG_SMEM_BYTES {scan_ops.WG_SMEM_BYTES} is not the kernels'")
     return dict(name="segment_scan_dot_bf16" if bf16 else "segment_scan_dot", route="cuda",
                 source="tggcn_torch/csrc/segment_scan.cu",
                 replaces="tggcn/ops/segment_scan_pallas.py:268", max_abs_err=err, ms=ms,
@@ -3082,17 +3101,22 @@ def main(argv=None):
         seconds = _build.build()
         print(f"build seconds {json.dumps({k: round(v, 3) for k, v in seconds.items()})}",
               flush=True)
-        from tggcn_torch.ops.segment_scan import WG_PHASES, WG_SMEM_BYTES
+        from tggcn_torch.ops.segment_scan import scan_occupancy
 
         wg = {}
         for name in _build.SOURCES:
             log = _build.library_path(name).with_suffix(".log")
             if log.exists():
                 print(log.read_text().strip(), flush=True)
-                wg.update(ptxas_report(log.read_text(), WG_PHASES))
+                wg.update(ptxas_report(log.read_text(), WG_KERNELS))
+        occ = scan_occupancy("dot", torch.bfloat16, stage1.SHAPE["b"], stage1.SHAPE["humans"],
+                             stage1.SHAPE["objects"], stage1.MODEL_KWARGS["hidden_size"])
+        for kernel, phase_ in zip(WG_KERNELS, ("proj", "cell")):
+            wg.setdefault(kernel, {})["dynamic_smem"] = occ[phase_][2]
         print(f"build wgmma kernels (registers, static smem and spills from -Xptxas -v; "
-              f"dynamic smem {WG_SMEM_BYTES} bytes each): {json.dumps(wg)}", flush=True)
-        if sorted(wg) != sorted(WG_PHASES):
+              f"dynamic smem at the MPHOI shape from the occupancy query): {json.dumps(wg)}",
+              flush=True)
+        if any("registers" not in v for v in wg.values()):
             raise AssertionError(f"the build log lacks a wgmma kernel: {sorted(wg)}")
     shape, hidden = stage1.SHAPE, stage1.MODEL_KWARGS["hidden_size"]
     gru_shape = (shape["t"], 6, shape["b"] * shape["objects"], hidden)

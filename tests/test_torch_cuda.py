@@ -597,6 +597,36 @@ def test_segment_scan_bwd_kernel_bf16(cuda, nh, no, h, b):
         _close_share(got[name], want[name], name, 1e-2)
 
 
+# (B, humans, objects, h) of every call the bfloat16 scan meets: MPHOI's
+# train step, a data-parallel half, streamed windows of 1, 2 and 4 clips,
+# entry_mphoi's predict batch, and the card cases above.
+LAUNCH_SHAPES_BF16 = {"mphoi": (8, 2, 4, 512), "dp_half": (4, 2, 4, 512),
+                      "stream_b1": (1, 2, 4, 512), "stream_b2": (2, 2, 4, 512),
+                      "predict_b128": (128, 2, 4, 512), "card_2_4_8": (5, 2, 4, 8),
+                      "card_1_3_24": (5, 1, 3, 24), "card_3_5_40": (5, 3, 5, 40),
+                      "card_b1": (1, 2, 4, 40)}
+
+
+@pytest.mark.parametrize("shape", list(LAUNCH_SHAPES_BF16))
+def test_segment_scan_bf16_launch_shapes(cuda, shape):
+    """K3's bfloat16 product phases (proj_wg and cell_wg, wgmma fed by TMA)
+    launch the float32 phases' grids, within a block's 227 KB of shared
+    memory and at least one block an SM, as the library's occupancy query
+    reports them; their rings of at most 8 stages fit two blocks an SM at
+    h = 512."""
+    from tggcn_torch.ops.segment_scan import scan_occupancy
+
+    b, nh, no, h = LAUNCH_SHAPES_BF16[shape]
+    got = scan_occupancy("dot", BF16, b, nh, no, h)
+    want = scan_occupancy("dot", torch.float32, b, nh, no, h)
+    for phase in ("proj", "cell"):
+        blocks, per_sm, smem = got[phase]
+        assert blocks == want[phase][0], phase
+        assert per_sm >= 1 and smem <= 227 * 1024, (phase, per_sm, smem)
+        if h == 512:
+            assert per_sm >= 2, (phase, per_sm, smem)
+
+
 def _bf16_train_steps(cuda, use_kernels_list, seed):
     from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
     from tggcn_torch.models import stage1

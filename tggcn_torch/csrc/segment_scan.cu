@@ -239,7 +239,6 @@ proj_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
             float* __restrict__ m_h, float* __restrict__ m_o,
             const T* __restrict__ w_att, float* __restrict__ proj, int keep, int T_, int B,
             int NH, int NO, int H, int row_tiles, int step) {
-  if (kSplitEmpty) return;
   const Step s = step_of(step, T_);
   int bx = blockIdx.x, by = blockIdx.y;
   if constexpr (Mode == kV1) {
@@ -272,7 +271,6 @@ proj_kernel(const T* __restrict__ h0_h, const T* __restrict__ h0_o,
   const Tiles tiles = {{col0, col0 + kMTile, 0},
                        {max(0, min(kMTile, H - col0)), max(0, min(kMTile, H - col0 - kMTile)), 0}};
   accumulate<false, 2, 2, 1, TileSlots>(op, op, op, tiles, rows, smem, acc);
-  if (!kSplitEpilogue) return;
   store_partials<2>(smem, acc);
   __syncthreads();
   for (int p = threadIdx.x; p < 2 * kMTile * kMaxRows; p += kThreads) {
@@ -295,11 +293,19 @@ struct ProjMaps {
   CUtensorMap out[2], h0[2];
 };
 
+// The stages of 64 of proj_wg's and cell_wg's products at width H (the
+// depth of each operand in turn), which also size their rings.
+__host__ __device__ constexpr int proj_chunks(int H) { return (H + wg::kDepth - 1) / wg::kDepth; }
+__host__ __device__ constexpr int cell_in_chunks(int H) {
+  return (2 * H + wg::kDepth - 1) / wg::kDepth;
+}
+__host__ __device__ constexpr int cell_chunks(int H) { return cell_in_chunks(H) + proj_chunks(H); }
+
 struct ProjPlan {
   const CUtensorMap *w, *x;
   wg::Rows rows;
   int e, col0, plane, H;
-  __device__ int chunks() const { return (H + wg::kDepth - 1) / wg::kDepth; }
+  __device__ int chunks() const { return proj_chunks(H); }
   __device__ int acc(int) const { return 0; }
   __device__ int a_bytes() const { return 2 * wg::kPieceBytes; }
   __device__ int b_bytes() const { return rows.bytes(); }
@@ -326,7 +332,6 @@ __global__ void __launch_bounds__(wg::kThreads)
 proj_wg(const __grid_constant__ ProjMaps maps, const bf16* __restrict__ b_from,
         float* __restrict__ m_h, float* __restrict__ m_o, int keep, int T_, int B, int NH,
         int NO, int H, int row_tiles, int step) {
-  if (kSplitEmpty) return;
   const Step s = step_of(step, T_);
   const int e = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
@@ -339,16 +344,16 @@ proj_wg(const __grid_constant__ ProjMaps maps, const bf16* __restrict__ b_from,
                       {row0, rows, wg::row_box(all_rows)}, e, col0, prev_plane(s, step, T_), H};
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = wg::align1024(smem_raw);
-  const wg::Ring ring = wg::begin(smem);
+  const wg::Ring ring = wg::begin(smem, plan.chunks());
   // Each consumer thread's column (the same in its kPer outputs), and its
   // bias, loaded before the product.
   constexpr int kPer = 2 * kMTile * kMaxRows / wg::kConsumerThreads;
   const int m = threadIdx.x % (2 * kMTile), col = col0 + m;
-  const uint16_t bias = kSplitEpilogue && threadIdx.x < wg::kConsumerThreads && col < H
+  const uint16_t bias = threadIdx.x < wg::kConsumerThreads && col < H
                             ? wg::load_now(b_from + (size_t)e * H + col)
                             : 0;
   float acc[1][16];
-  if (!wg::product<1>(plan, ring, acc) || !kSplitEpilogue) return;
+  if (!wg::product<1>(plan, ring, acc)) return;
   wg::store_partials<1>(smem, acc);
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
@@ -634,7 +639,6 @@ cell_kernel(const float* __restrict__ gi_h, const float* __restrict__ gi_o,
             float* __restrict__ out_h, float* __restrict__ out_o, float* __restrict__ gates_h,
             float* __restrict__ gates_o, int keep, int T_, int B, int NH, int NO, int H,
             int row_tiles, int step) {
-  if (kSplitEmpty) return;
   const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;             // 0 humans, 1 objects
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
@@ -657,7 +661,6 @@ cell_kernel(const float* __restrict__ gi_h, const float* __restrict__ gi_o,
   const int valid = min(kMTile, H - unit0);
   const Tiles tiles = {{unit0, H + unit0, 2 * H + unit0}, {valid, valid, valid}};
   accumulate<false, 3, 4, 2, CellSlots>(in, rec, rec, tiles, rows, smem, acc);
-  if (!kSplitEpilogue) return;
   store_partials<4>(smem, acc);
   __syncthreads();
   float* gates = cell == 0 ? gates_h : gates_o;
@@ -704,8 +707,8 @@ struct CellPlan {
   const CUtensorMap *w_msg, *w_hh, *mix, *prev;
   wg::Rows rows;
   int d, unit0, mix_plane, prev_plane, H;
-  __device__ int chunks_in() const { return (2 * H + wg::kDepth - 1) / wg::kDepth; }
-  __device__ int chunks() const { return chunks_in() + (H + wg::kDepth - 1) / wg::kDepth; }
+  __device__ int chunks_in() const { return cell_in_chunks(H); }
+  __device__ int chunks() const { return cell_chunks(H); }
   __device__ int acc(int i) const { return i < chunks_in() ? 0 : 1; }
   __device__ int a_bytes() const { return 3 * wg::kPieceBytes; }
   __device__ int b_bytes() const { return rows.bytes(); }
@@ -737,7 +740,6 @@ cell_wg(const __grid_constant__ CellMaps maps, const bf16* __restrict__ gi_h,
         float* __restrict__ state_h, float* __restrict__ state_o, float* __restrict__ gates_h,
         float* __restrict__ gates_o, int keep, int T_, int B, int NH, int NO, int H,
         int row_tiles, int step) {
-  if (kSplitEmpty) return;
   const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;             // 0 humans, 1 objects
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
@@ -755,7 +757,7 @@ cell_wg(const __grid_constant__ CellMaps maps, const bf16* __restrict__ gi_h,
   const bf16* b_hh = (cell == 0 ? b_hh_h : b_hh_o) + (size_t)s.d * 3 * H;
   float* state = (cell == 0 ? state_h : state_o) + (size_t)s.d * all_rows * H;
   float* gates = cell == 0 ? gates_h : gates_o;
-  const wg::Ring ring = wg::begin(smem);
+  const wg::Ring ring = wg::begin(smem, plan.chunks());
   // The epilogue's inputs (gi, b_hh, the float32 state, u), loaded before
   // the product (after begin's barrier, which would wait for them) so that
   // their latency hides behind the copies: each consumer thread takes kPer
@@ -763,7 +765,7 @@ cell_wg(const __grid_constant__ CellMaps maps, const bf16* __restrict__ gi_h,
   constexpr int kPer = kMTile * kMaxRows / wg::kConsumerThreads;
   uint16_t in[kPer][7] = {};                 // gi r, z, n; b_hh r, z, n; u (raw bits)
   float hp[kPer] = {};
-  if (kSplitEpilogue && threadIdx.x < wg::kConsumerThreads) {
+  if (threadIdx.x < wg::kConsumerThreads) {
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const int p = threadIdx.x + j * wg::kConsumerThreads, r = p / kMTile;
@@ -782,7 +784,7 @@ cell_wg(const __grid_constant__ CellMaps maps, const bf16* __restrict__ gi_h,
     }
   }
   float acc[2][16];
-  if (!wg::product<2>(plan, ring, acc) || !kSplitEpilogue) return;
+  if (!wg::product<2>(plan, ring, acc)) return;
   wg::store_partials<2>(smem, acc);
   const auto sum = [&](int a, int m, int r) { return wg::reduce<2>(smem, a, m, r); };
 #pragma unroll
@@ -852,7 +854,7 @@ cudaError_t configure(int B, int NH, int NO, int H, Launch& L) {
   constexpr size_t v4_smem = smem_bytes<false, 4, 4, kStages, T, T>() > v4_epilogue
                                  ? smem_bytes<false, 4, 4, kStages, T, T>()
                                  : v4_epilogue;
-  L.smem_a = kWgProj<Mode, T> ? wg::smem_bytes()
+  L.smem_a = kWgProj<Mode, T> ? wg::smem_bytes(wg::ring_stages(proj_chunks(H)))
              : Mode == kV4    ? v4_smem
                               : smem_bytes<false, 2, 2, kStages, T, T>();
   L.threads_a = kWgProj<Mode, T> ? wg::kThreads : kThreads;
@@ -860,7 +862,8 @@ cudaError_t configure(int B, int NH, int NO, int H, Launch& L) {
   L.smem_m = Mode == kDot ? states_bytes
              : Mode == kV1 ? (size_t)E * 4 * sizeof(float)
              : Mode == kV4 ? (size_t)E * E * col_pairs * sizeof(float) : 0;
-  L.smem_b = IsBf16<T>::value ? wg::smem_bytes() : smem_bytes<false, 3, 4, kStages, T, T>();
+  L.smem_b = IsBf16<T>::value ? wg::smem_bytes(wg::ring_stages(cell_chunks(H)))
+                              : smem_bytes<false, 3, 4, kStages, T, T>();
   L.threads_b = IsBf16<T>::value ? wg::kThreads : kThreads;
   const int max_rows = B * (NH > NO ? NH : NO);
   L.row_tiles = (max_rows + kMaxRows - 1) / kMaxRows;

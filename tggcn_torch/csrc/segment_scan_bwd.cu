@@ -200,7 +200,6 @@ segb_dmsgs(const T* __restrict__ dgi_h, const T* __restrict__ dgi_o,
            const T* __restrict__ w_msg_h, const T* __restrict__ w_msg_o,
            float* __restrict__ dmsgs_h, float* __restrict__ dmsgs_o, int T_, int B, int NH,
            int NO, int H, int row_tiles, int step) {
-  if (kSplitEmpty) return;
   const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
@@ -219,7 +218,6 @@ segb_dmsgs(const T* __restrict__ dgi_h, const T* __restrict__ dgi_o,
                        {max(0, min(kMTile, 2 * H - col0)),
                         max(0, min(kMTile, 2 * H - col0 - kMTile)), 0}};
   accumulate<true, 2, 2, 1, TileSlots>(op, op, op, tiles, rows, smem, acc);
-  if (!kSplitEpilogue) return;
   store_partials<2>(smem, acc);
   __syncthreads();
   for (int p = threadIdx.x; p < 2 * kMTile * kMaxRows; p += kThreads) {
@@ -350,7 +348,6 @@ template <class T>
 __global__ void __launch_bounds__(kThreads)
 segb_carry(CarryArgs<T> hum, CarryArgs<T> obj, CellArgs<T> cell_h, CellArgs<T> cell_o, int T_,
            int B, int NH, int NO, int H, int row_tiles, int step) {
-  if (kSplitEmpty) return;
   const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
@@ -371,7 +368,6 @@ segb_carry(CarryArgs<T> hum, CarryArgs<T> obj, CellArgs<T> cell_h, CellArgs<T> c
   const OperandT<T, T> snd1 = {dpre + H, 2 * H, c.w_from + (size_t)H * H, H, H};
   const Tiles tiles = {{unit0, 0, 0}, {min(kMTile, H - unit0), 0, 0}};
   accumulate<true, 1, 1, 3, OneSlot>(rec, snd0, snd1, tiles, rows, smem, acc);
-  if (!kSplitEpilogue) return;
   store_partials<1>(smem, acc);
   __syncthreads();
   const bool last = step + 1 == T_;

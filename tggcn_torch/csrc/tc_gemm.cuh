@@ -88,19 +88,6 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-// The launch split of the segment scan's product phases
-// (tggcn_torch/profile_split.py builds the sources with -DTGGCN_SPLIT=n):
-// 1 an empty launch (the same grid and shared memory), 2 the copies alone,
-// 3 the products alone, 4 the epilogue alone (its loads included), 5 the
-// copies and products without the epilogue; 0, the default, all of it.
-#ifndef TGGCN_SPLIT
-#define TGGCN_SPLIT 0
-#endif
-constexpr bool kSplitEmpty = TGGCN_SPLIT == 1;
-constexpr bool kSplitCopies = TGGCN_SPLIT == 0 || TGGCN_SPLIT == 2 || TGGCN_SPLIT == 5;
-constexpr bool kSplitProducts = TGGCN_SPLIT == 0 || TGGCN_SPLIT == 3 || TGGCN_SPLIT == 5;
-constexpr bool kSplitEpilogue = TGGCN_SPLIT == 0 || TGGCN_SPLIT == 4;
-
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 4;
@@ -432,7 +419,7 @@ __device__ __forceinline__ void accumulate(const OperandT<TW, TX>& a, const Oper
   const int nc = NP > 2 ? (c.K + kChunk - 1) / kChunk : 0;
   const int total = na + nb + nc;
   auto prefetch = [&](int i) {
-    if (kSplitCopies && i < total) {
+    if (i < total) {
       if (i < na)
         load_chunk(buf[i % NS], a, tiles, rows, i * kChunk);
       else if (i < na + nb)
@@ -448,8 +435,6 @@ __device__ __forceinline__ void accumulate(const OperandT<TW, TX>& a, const Oper
     __syncthreads();                    // chunk i is in; chunk i - 1's buffer is free
     prefetch(i + NS - 1);
     const St& st = buf[i % NS];
-    if (!kSplitProducts)
-      continue;
     if (i < na)
       multiply_chunk<kColRows, MT, S, 0, Map, MG, Round>(st, ntiles, acc);
     else if (NP > 1 && i < na + nb)

@@ -7,9 +7,9 @@
 // bfloat16 ones (on wgmma K4's carry was slower and its dmsgs moved a
 // checked output past its limit on the H100, PERF.md).
 //
-// What bounds them. Each of those phases is one wave of 128 blocks a step,
-// each block streaming its weight columns and the step's rows from L2 over
-// a depth of h to 3h. Split on the H100 (PERF.md, profile_split.py), a
+// What bounds them. At MPHOI's batch of 8 each of those phases is one
+// wave of 128 blocks a step (2048 at a predict batch of 128), each block streaming its weight columns and the step's rows from L2 over
+// a depth of h to 3h. Split on the H100 (PERF.md), a
 // launch of tc_gemm.cuh's design spent its time in its copies (cp.async,
 // 16 bytes a thread, each with its own address arithmetic) and then in
 // its epilogue, whose loads from device memory waited until the product was
@@ -21,7 +21,10 @@
 // barrier and run wgmma straight from shared memory (no fragment loads),
 // then hand the stage back on its second barrier; the kernels issue their
 // epilogue's loads before the product (load_now), so that those land while
-// the copies run. Nothing waits on another block.
+// the copies run. Nothing waits on another block. The ring has a stage for
+// each stage of the product, up to kStages = 8 (ring_stages): 99 KB, so
+// two blocks share an SM. On the H100 (PERF.md) a ring of 16 (197 KB, one
+// block an SM) was no faster in one wave and a third slower in many.
 //
 // Shape ("swap AB", as tc_gemm.cuh). The weight columns are wgmma's M side,
 // 64 a tile (a block uses 32 or 48 of them; the others read whatever
@@ -72,12 +75,30 @@ constexpr int kRowBytes = kDepth * 2;                  // a row (or column) of a
 constexpr int kABytes = kM * kRowBytes;                // 8 KB
 constexpr int kBBytes = kN * kRowBytes;                // 4 KB
 constexpr int kStageBytes = kABytes + kBBytes;
-constexpr int kStages = 16;
+constexpr int kStages = 8;                             // the most stages a ring has
 constexpr int kPartStride = kN + 1;
+// The consumers' sums (store_partials), written over the ring once the
+// product is done: up to two accumulators each.
+constexpr int kPartBytes = kConsumers * 2 * kM * kPartStride * 4;
 
-// Dynamic shared memory of a block: the ring, its 2 kStages barriers, and
-// room to align the ring to 1024 bytes (the 128-byte swizzle's period).
-constexpr size_t smem_bytes() { return (size_t)kStages * kStageBytes + 16 * kStages + 1024; }
+// The stages of the ring of a product of `chunks` stages of 64: one for
+// each, up to kStages (then the producer waits for a stage to be read).
+__host__ __device__ constexpr int ring_stages(int chunks) {
+  return chunks < kStages ? chunks : kStages;
+}
+
+// The bytes of a ring of `stages` stages: at least the consumers' sums.
+__host__ __device__ constexpr int ring_bytes(int stages) {
+  return stages * kStageBytes > kPartBytes ? stages * kStageBytes : kPartBytes;
+}
+
+// Dynamic shared memory of a block whose ring has `stages` stages: the
+// ring, its 2 stages barriers (past the ring, so that the sums never
+// overwrite them), and room to align the ring to 1024 bytes (the 128-byte
+// swizzle's period).
+__host__ __device__ constexpr size_t smem_bytes(int stages) {
+  return (size_t)ring_bytes(stages) + 16 * stages + 1024;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -200,25 +221,28 @@ __device__ __forceinline__ void multiply_stage(float (&d)[16], uint32_t a, uint3
 
 // ---- the block's product --------------------------------------------------------
 
-// Stage s of the ring: its weights (A) and rows (B), and its two barriers,
-// full (the stage's bytes have landed) and empty (its consumer has read it).
+// Stage s of a ring of `stages`: its weights (A) and rows (B), and its two
+// barriers, full (the stage's bytes have landed) and empty (its consumer
+// has read it); shared-memory addresses.
 struct Ring {
-  unsigned char* base;                                  // 1024-aligned
-  __device__ uint32_t a(int s) const { return smem_u32(base + (size_t)s * kStageBytes); }
+  uint32_t base;                                        // stage 0, 1024-aligned
+  uint32_t bars;                                        // stage 0's full barrier
+  int stages;
+  __device__ uint32_t a(int s) const { return base + s * kStageBytes; }
   __device__ uint32_t b(int s) const { return a(s) + kABytes; }
-  __device__ uint32_t full(int s) const {
-    return smem_u32(base + (size_t)kStages * kStageBytes + 8 * s);
-  }
-  __device__ uint32_t empty(int s) const { return full(s) + 8 * kStages; }
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (stages + s); }
 };
 
-// Sets up the ring of a block's product (its barriers), then
+// Sets up the ring of a block's product of `chunks` stages (its
+// ring_stages(chunks) stages' barriers, in smem_bytes of that), then
 // __syncthreads. Call it before any early loads of an epilogue (load_now):
 // a barrier waits for the thread's loads in flight.
-__device__ __forceinline__ Ring begin(unsigned char* smem) {
-  const Ring ring{smem};
+__device__ __forceinline__ Ring begin(unsigned char* smem, int chunks) {
+  const int stages = ring_stages(chunks);
+  const Ring ring{smem_u32(smem), smem_u32(smem) + ring_bytes(stages), stages};
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < ring.stages; ++s) {
       bar_init(ring.full(s), 1);
       bar_init(ring.empty(s), 1);
     }
@@ -236,19 +260,22 @@ __device__ __forceinline__ Ring begin(unsigned char* smem) {
 // acc[plan.acc(i)] (NACC accumulators of 64 x 32). Returns true in the
 // consumer threads, their sums in acc, and false in the producer warp,
 // which then has nothing left to do (it must not wait on the block: use
-// consumers_sync). The kSplit* switches of tc_gemm.cuh cut the copies or
-// the products out for the launch split.
+// consumers_sync). Both sides step through the ring's slots and rounds
+// without a division (the ring's size is known only at run time).
 template <int NACC, class Plan>
 __device__ __forceinline__ bool product(const Plan& plan, const Ring& ring,
                                         float (&acc)[NACC][16]) {
-  const int tid = threadIdx.x, total = plan.chunks();
+  const int tid = threadIdx.x, total = plan.chunks(), stages = ring.stages;
   if (tid >= kConsumerThreads) {
-    if (tid == kConsumerThreads && tc::kSplitCopies) {
+    if (tid == kConsumerThreads) {
       plan.prefetch();
-      for (int i = 0; i < total; ++i) {
-        const int s = i % kStages, round = i / kStages;
+      for (int i = 0, s = 0, round = 0; i < total; ++i) {
         if (round > 0) bar_wait(ring.empty(s), (round - 1) & 1);
         plan.issue(i, ring.a(s), ring.b(s), ring.full(s));
+        if (++s == stages) {
+          s = 0;
+          ++round;
+        }
       }
     }
     return false;
@@ -257,22 +284,21 @@ __device__ __forceinline__ bool product(const Plan& plan, const Ring& ring,
   for (int a = 0; a < NACC; ++a)
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[a][i] = 0.f;
-  for (int i = tid / 128; i < total; i += kConsumers) {
-    const int s = i % kStages;
-    if (tc::kSplitCopies) bar_wait(ring.full(s), (i / kStages) & 1);
-    if (tc::kSplitProducts) {
-      if (NACC == 1 || plan.acc(i) == 0)
-        multiply_stage(acc[0], ring.a(s), ring.b(s));
-      else
-        multiply_stage(acc[NACC - 1], ring.a(s), ring.b(s));
-    }
-    if (tc::kSplitCopies && tid % 128 == 0) bar_arrive(ring.empty(s));
+  const int g = tid / 128;
+  for (int i = g, s = g % stages, round = g / stages; i < total; i += kConsumers) {
+    bar_wait(ring.full(s), round & 1);
+    if (NACC == 1 || plan.acc(i) == 0)
+      multiply_stage(acc[0], ring.a(s), ring.b(s));
+    else
+      multiply_stage(acc[NACC - 1], ring.a(s), ring.b(s));
+    if (tid % 128 == 0) bar_arrive(ring.empty(s));
+    for (s += kConsumers; s >= stages; s -= stages) ++round;
   }
   return true;
 }
 
 // The consumers' sums into shared memory (over the ring, which product()
-// has finished with once every consumer is past it).
+// has finished with once every consumer is past it; kPartBytes).
 template <int NACC>
 __device__ __forceinline__ void store_partials(unsigned char* smem, const float (&acc)[NACC][16]) {
   consumers_sync();

@@ -7,7 +7,7 @@ The CUDA kernel is ``csrc/segment_scan.cu``: per time step three launches
 (message projections, attention and mixing, GRU cells), both directions in
 each, and no block waits for another; the products run on the tensor cores
 in the 3xTF32 split (``csrc/tc_gemm.cuh``), at float32 accuracy, or in
-bfloat16 on wgmma fed by TMA (``csrc/wg_gemm.cuh``, ``wg_plan``). With keep
+bfloat16 on wgmma fed by TMA (``csrc/wg_gemm.cuh``). With keep
 (the training forward) it keeps what the backward reads (KEPT); without
 (serving), nothing per step. See the source for the bound and the design.
 
@@ -73,7 +73,7 @@ outputs; its projection and cell products take bfloat16 activations
 (the states and mixed messages rounded, as ``astype(wdt)`` rounds them)
 against bfloat16 weights with float32 sums; scores, softmax and mixing
 take the float32 states and messages (K3's bfloat16 products, and K5's
-cells and its 'ext' projections, on wgmma: ``wg_plan``; K4's products
+cells and its 'ext' projections, on wgmma; K4's products
 and K5's 'v1' and 'v4' projections on ``tc_gemm.cuh``). K4's
 products are bfloat16 x bfloat16 with float32 sums on its bfloat16
 outputs dgi, dgh and dpre, its dL/dh carry is float32, and the
@@ -423,65 +423,6 @@ def scan_occupancy(mode, dtype, b, nh, no, h):
     _build.check_launch(fn(code.index(mode), int(dtype == torch.bfloat16), b, nh, no, h, out),
                         "segment_scan occupancy")
     return {p: (out[i], out[3 + i], out[6 + i]) for i, p in enumerate(PHASES)}
-
-
-# The bfloat16 product phases on wgmma fed by TMA (csrc/wg_gemm.cuh): a
-# block's tile is 64 weight columns by WG_ROWS rows (the step's rows, in
-# TMA boxes of WG_ROW_BOX rows, or of WG_ROWS where the block's group has
-# more than WG_ROW_BOX), WG_DEPTH deep a stage; the weights (K3's, stored
-# w[k][col]) are read MN-major, in pieces of WG_PIECE columns.
-WG_ROWS, WG_ROW_BOX, WG_DEPTH, WG_PIECE = 32, 16, 64, 16
-WG_PHASES = ("proj_wg", "cell_wg")
-# Their dynamic shared memory (wg::smem_bytes()): a ring of 16 stages, each
-# room for 64 weight columns and 32 rows 64 deep, two 8-byte barriers a
-# stage, and 1 KB to align the ring.
-WG_STAGES = 16
-WG_SMEM_BYTES = WG_STAGES * (64 + WG_ROWS) * WG_DEPTH * 2 + 16 * WG_STAGES + 1024
-
-
-def wg_plan(b, nh, no, h):
-    """The launch plan of the bfloat16 wgmma phases at (B, H, O, h), as
-    csrc/segment_scan.cu launches them: {kernel:
-    dict(grid, weight_box (columns, depth) of one TMA copy, weight_copies a
-    stage, depth (of each operand, in order), blocks: [dict(group (the edge
-    of proj_wg, else the cell), row0, rows, row_box (rows a box), row_boxes,
-    stages, stage_bytes (what a stage copies), columns (the first weight
-    column or unit and how many are real)), ...], l2_bytes:
-    what the blocks copy from L2 a step)}. Blocks whose rows start past their
-    group's end launch and return at once (no copies)."""
-    rows_of = (b * nh, b * no)
-    row_tiles = -(-max(rows_of) // WG_ROWS)
-    pairs, units = -(-h // (2 * 16)), -(-h // 16)
-    specs = {
-        # kernel: (grid x, groups, group of each y, depths, weight box, copies a stage)
-        "proj_wg": (pairs, 4, lambda e: 0 if e < 2 else 1, (h,), (WG_PIECE, WG_DEPTH), 2),
-        "cell_wg": (units, 2, lambda c: c, (2 * h, h), (WG_PIECE, WG_DEPTH), 3),
-    }
-    plan = {}
-    for kernel, (gx, groups, group_of, depths, wbox, copies) in specs.items():
-        stages = sum(-(-k // WG_DEPTH) for k in depths)
-        weight_bytes = copies * wbox[0] * wbox[1] * 2
-        width = 16 if kernel == "cell_wg" else 32
-        blocks, l2 = [], 0
-        for z in range(2):
-            for y in range(groups * row_tiles):
-                all_rows = rows_of[group_of(y // row_tiles)]
-                row0 = (y % row_tiles) * WG_ROWS
-                for x in range(gx):
-                    if row0 >= all_rows:
-                        continue
-                    rows = min(WG_ROWS, all_rows - row0)
-                    box = WG_ROWS if all_rows > WG_ROW_BOX else WG_ROW_BOX
-                    boxes = -(-rows // box)
-                    col0 = x * width
-                    stage_bytes = weight_bytes + boxes * box * WG_DEPTH * 2
-                    blocks.append(dict(group=y // row_tiles, row0=row0, rows=rows, row_box=box,
-                                       row_boxes=boxes, stages=stages, stage_bytes=stage_bytes,
-                                       columns=(col0, max(0, min(width, h - col0)))))
-                    l2 += stages * stage_bytes
-        plan[kernel] = dict(grid=(gx, groups * row_tiles, 2), weight_box=wbox,
-                            weight_copies=copies, depth=depths, blocks=blocks, l2_bytes=l2)
-    return plan
 
 
 def _segment_scan_att(wrapper, mode, args, extra):

@@ -2,14 +2,15 @@
 
     python -m tggcn_torch.profile_forward [--seed N] [--out PATH]
                                           [--stage {1,cad120}] [--dtype D]
-                                          [--variant dist]
+                                          [--variant dist] [--batch B]
 
 Runs the stage-1 MPHOI forward (``tggcn_torch.models.stage1``), or with
 ``--stage cad120`` the CAD-120 one (``tggcn_torch.models.cad120``: its
 segment scan the general one; ``--variant dist`` gives it its two distance
 tensors and the GeoGCN kernel), at the full width on one CUDA card in the
 compute dtype ``--dtype`` under ``torch.profiler``: 3 seeded requests after
-one warm-up request. Prints one JSON object: the card (name and power limit
+one warm-up request, each of the stage's batch, or of ``--batch`` clips
+(128: the predict batch of chip_smoke.py's entry_mphoi phase). Prints one JSON object: the card (name and power limit
 from nvidia-smi), the wall milliseconds per request (host clock, ended by a
 synchronize), the device-busy milliseconds (union of kernel intervals) and
 idle share, and device time per kernel name, largest first, grouped as K1
@@ -62,6 +63,7 @@ def main(argv=None):
     parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     parser.add_argument("--variant", choices=("dist",), default=None,
                         help="distance-based attention with the GeoGCN kernel")
+    parser.add_argument("--batch", type=int, default=None, help="clips a request")
     args = parser.parse_args(argv)
 
     module = stage1
@@ -72,10 +74,11 @@ def main(argv=None):
     model = select_model("2G-GCN", **kwargs)                  # CUDA, or raise
     params = model.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(args.seed)
-    batches = [module.make_request(rng, **module.SHAPE) for _ in range(REQUESTS)]
+    shape = dict(module.SHAPE, **({"b": args.batch} if args.batch else {}))
+    batches = [module.make_request(rng, **shape) for _ in range(REQUESTS)]
     if args.variant:
         for batch in batches:
-            batch.update(module.make_distances(rng, **module.SHAPE))
+            batch.update(module.make_distances(rng, **shape))
     model.apply(params, **batches[0])
     torch.cuda.synchronize()
 
@@ -104,6 +107,7 @@ def main(argv=None):
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
         "card": smi, "stage": args.stage, "dtype": args.dtype, "variant": args.variant,
+        "shape": shape,
         "requests": REQUESTS, "wall_ms_per_request": wall_ms,
         "device_busy_ms_per_request": busy_ms,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
