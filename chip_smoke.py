@@ -14,7 +14,8 @@ exit and the phase's name if the phase hangs:
   device   the card's name and power limit (nvidia-smi)
   build    the CUDA kernels from tggcn_torch/csrc, with nvcc; the wgmma
            kernels' registers, static shared memory and spills (-Xptxas
-           -v) and their dynamic shared memory
+           -v) and their dynamic shared memory, and the same report of
+           K1's and K2's bfloat16 cluster kernels
   k1       the frame-BiGRU kernel (gru_sequence) against its plain PyTorch
            version at the MPHOI shape T=167, S=6, R=32, h=512: the states
            and the gates it keeps for the backward, and the states of the
@@ -55,7 +56,13 @@ exit and the phase's name if the phase hangs:
            inputs) against their plain bfloat16 versions at the same
            shapes, as k1-k4, with the controls of each check (see
            Tolerances); k1_bf16 and k2_bf16 time cuDNN's GRU in bfloat16
-           beside them; k3_bf16 and k4_bf16 print beside each product
+           beside them and print their cluster route: the plan (blocks a
+           cluster, units a block, rows a cluster, dynamic shared memory,
+           clusters the card holds at once; for K1 also an 8 x 64-unit
+           plan's occupancy), the launches of a call (one), a call
+           repeated bit for bit, and the calls at the predict batch of 128
+           clips and a streamed window's single clip against their plain
+           versions, timed; k3_bf16 and k4_bf16 print beside each product
            phase's device ms the bytes it copies from L2 a step (from the
            shapes) and the rate it reached, and k3_bf16 its phases' blocks,
            blocks an SM and dynamic shared memory
@@ -773,16 +780,100 @@ def run_k1(torch, dev, shape, dtype=None):
     served_ms = cuda_ms(torch, lambda: gru_sequence(*args, nr), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: gru_sequence_plain(*args, nr, keep=True), 3)
     library_ms = cuda_ms(torch, lambda: cudnn_sequence(grus, xs, h0s), 5, spin=True)
-    print_split(tag, device_ms_by_kernel(lambda: gru_sequence(*args, nr, keep=True), 1))
+    split = device_ms_by_kernel(lambda: gru_sequence(*args, nr, keep=True), 1)
+    print_split(tag, split)
     print(f"{tag} ms {ms:.3f} keeping the gates (a train step's call), {served_ms:.3f} keeping "
           f"none (a request's); library: the cuDNN GRU in {s} calls {library_ms:.3f} ms, max "
           f"abs err vs plain {lib_err:.3e}", flush=True)
+    cluster = {}
+    if bf16:
+        again = gru_sequence(*args, nr, keep=True)
+        cluster = gru_cluster_report(torch, dev, "fwd", tag, shape, split,
+                                     torch.equal(again[0], got) and torch.equal(again[1], gates))
     return dict(name="gru_sequence_bf16" if bf16 else "gru_sequence", route="cuda",
                 source="tggcn_torch/csrc/gru_sequence.cu",
                 replaces="tggcn/ops/gru_pallas.py:147", max_abs_err=err, ms=ms,
                 served_ms=served_ms, plain_ms=plain_ms, library_ms=library_ms, **controls,
+                **cluster,
                 **bounds(nbytes(*args, got, gates), 2.0 * t * s * r * h * 3 * h,
                          product_rate=F32_BF16_FLOP_PER_S if bf16 else PRODUCT_FLOP_PER_S))
+
+
+# The rows of K1's and K2's bfloat16 calls beside the train step's (B = 8):
+# entry_mphoi's predict batch of 128 clips and a streamed window's single
+# clip, each with the stage-1 objects as rows.
+GRU_BATCHES = (128, 1)
+# A plan the source does not take, whose occupancy k1_bf16 prints beside
+# the taken one's: 8 blocks of 64 units, 192 KB of weights in shared memory
+# and 32 KB for the state's slices and a chunk of the state read from peers.
+GRU_ALT_PLAN = dict(cluster=8, units=64, smem=(192 + 32) * 1024)
+
+
+def chunked_gaps(got, want, chunk=16):
+    """[(max abs error, largest |want|)] of each output pair, in float32 over
+    chunks of the leading (time) axis: the predict batch's outputs are
+    gigabytes, too many for float64 copies."""
+    gaps = []
+    for g, w in zip(got, want):
+        err = top = 0.0
+        for i in range(0, g.shape[0], chunk):
+            gc, wc = g[i:i + chunk].float(), w[i:i + chunk].float()
+            if not bool(gc.isfinite().all()):
+                raise AssertionError("a kernel output is not finite")
+            err = max(err, float((gc - wc).abs().max()))
+            top = max(top, float(wc.abs().max()))
+        gaps.append((err, top))
+    return gaps
+
+
+def gru_cluster_report(torch, dev, kind, tag, shape, split, repeated):
+    """The bfloat16 route of K1 (kind 'fwd') or K2 ('bwd'): the plan at the
+    MPHOI shape, the launches of a call (split: device_ms_by_kernel of one
+    call there), whether a repeated call gave the same bits, and each
+    GRU_BATCHES call against its plain version (K1 within one bfloat16 ulp
+    of each output's largest value, K2 within GRU_GRAD_RTOL_BF16 of it, as
+    at the MPHOI shape), timed. Raises if a check fails, a call launched
+    more than one kernel of the GRU or differed on a repeat."""
+    from tggcn_torch.ops.gru_sequence import (gru_clusters, gru_plan, gru_sequence,
+                                              gru_sequence_bwd, gru_sequence_bwd_plain,
+                                              gru_sequence_plain)
+    from tggcn_torch.profile_gru import gru_bwd_inputs, gru_inputs
+
+    t, s, r, h = shape
+    nr = s // 2
+    plan = gru_plan(kind, s, r, h)
+    launches = sum(v["launches"] for k, v in split.items() if k.startswith("gru_"))
+    out = dict(plan=plan, launches_a_call=launches, repeat_bitwise=repeated)
+    if kind == "fwd":
+        out["alt_plan"] = dict(GRU_ALT_PLAN, co_resident=gru_clusters(GRU_ALT_PLAN["cluster"],
+                                                                      GRU_ALT_PLAN["smem"]))
+    rows_per_clip = r // stage_module("stage1").SHAPE["b"]
+    for b in GRU_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(b)
+        fwd = tuple(x.to(torch.bfloat16) for x in gru_inputs(dev, gen, t, s, b * rows_per_clip, h))
+        if kind == "fwd":
+            gaps = chunked_gaps(gru_sequence(*fwd, nr, keep=True),
+                                gru_sequence_plain(*fwd, nr, keep=True))
+            bad = [(e, top) for e, top in gaps if not e <= bf16_ulp(top)]
+            ms = cuda_ms(torch, lambda: gru_sequence(*fwd, nr, keep=True), 3, spin=True)
+        else:
+            args = gru_bwd_inputs(*fwd, nr, gen)
+            gaps = chunked_gaps(gru_sequence_bwd(*args, nr), gru_sequence_bwd_plain(*args, nr))
+            bad = [(e, top) for e, top in gaps if not e <= GRU_GRAD_RTOL_BF16 * (top or 1.0)]
+            ms = cuda_ms(torch, lambda: gru_sequence_bwd(*args, nr), 3, spin=True)
+        print(f"{tag} B={b}: kernel vs plain (max abs err, largest value) of each output "
+              f"{[(f'{e:.3e}', f'{top:.3e}') for e, top in gaps]}", flush=True)
+        if bad:
+            raise AssertionError(f"{tag} B={b}: kernel and plain version differ beyond the "
+                                 f"limit: {bad}")
+        out[f"max_abs_err_b{b}"] = max(e for e, _ in gaps)
+        out[f"ms_b{b}"] = ms
+        out[f"plan_b{b}"] = gru_plan(kind, s, b * rows_per_clip, h)
+    print(f"{tag} cluster route: {json.dumps(out)}", flush=True)
+    if launches != 1 or not repeated:
+        raise AssertionError(f"{tag}: {launches} GRU launches a call (want 1), repeat bitwise "
+                             f"{repeated}")
+    return out
 
 
 def check_grads(name, got, want, limit=KERNEL_GRAD_RTOL):
@@ -828,7 +919,13 @@ def run_k2(torch, dev, shape, dtype=None):
                                   LIMITS_BF16["k2"])
     ms = cuda_ms(torch, lambda: gru_sequence_bwd(*args, nr), 5, spin=True)
     plain_ms = cuda_ms(torch, lambda: gru_sequence_bwd_plain(*args, nr), 3)
-    print_split(tag, device_ms_by_kernel(lambda: gru_sequence_bwd(*args, nr), 1))
+    split = device_ms_by_kernel(lambda: gru_sequence_bwd(*args, nr), 1)
+    print_split(tag, split)
+    cluster = {}
+    if bf16:
+        again = gru_sequence_bwd(*args, nr)
+        cluster = gru_cluster_report(torch, dev, "bwd", tag, shape, split,
+                                     all(torch.equal(a, b) for a, b in zip(again, got)))
 
     # The library's forward and backward: the cuDNN GRUs' gradients with
     # respect to their inputs (gi, through identity input weights) and
@@ -863,7 +960,7 @@ def run_k2(torch, dev, shape, dtype=None):
     return dict(name="gru_sequence_bwd_bf16" if bf16 else "gru_sequence_bwd", route="cuda",
                 source="tggcn_torch/csrc/gru_sequence_bwd.cu",
                 replaces="tggcn/ops/gru_pallas.py:167", max_abs_err=err, max_rel_err=rel, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, **controls, **new)
+                plain_ms=plain_ms, library_ms=library_ms, **controls, **cluster, **new)
 
 
 def k3_flops(t, b, nh, no, h):
@@ -882,6 +979,7 @@ def print_split(name, split):
 
 # K3's bfloat16 product kernels on wgmma fed by TMA (csrc/wg_gemm.cuh).
 WG_KERNELS = ("proj_wg", "cell_wg")
+GRU_CLUSTER_KERNELS = ("gru_cluster_kernel", "gru_bwd_cluster")
 
 
 def k3_l2_bytes(b, nh, no, h):
@@ -3109,6 +3207,14 @@ def main(argv=None):
             if log.exists():
                 print(log.read_text().strip(), flush=True)
                 wg.update(ptxas_report(log.read_text(), WG_KERNELS))
+        gru = {}
+        for name in ("gru_sequence", "gru_sequence_bwd"):
+            gru.update(ptxas_report(_build.library_path(name).with_suffix(".log").read_text(),
+                                    GRU_CLUSTER_KERNELS))
+        print(f"build GRU cluster kernels (registers, static smem and spills from -Xptxas -v): "
+              f"{json.dumps(gru)}", flush=True)
+        if sorted(gru) != sorted(GRU_CLUSTER_KERNELS):
+            raise AssertionError(f"the build log lacks a GRU cluster kernel: {sorted(gru)}")
         occ = scan_occupancy("dot", torch.bfloat16, stage1.SHAPE["b"], stage1.SHAPE["humans"],
                              stage1.SHAPE["objects"], stage1.MODEL_KWARGS["hidden_size"])
         for kernel, phase_ in zip(WG_KERNELS, ("proj", "cell")):

@@ -505,43 +505,128 @@ def _close_share(got, want, what, share):
     assert err <= share * scale, f"{what}: {err:.3e} against a largest value of {scale:.3e}"
 
 
-@pytest.mark.parametrize("h", [8, 24, 136])
-def test_gru_sequence_kernel_bf16(cuda, h):
-    """K1 in bfloat16, serving and training, against its plain version."""
-    rng = np.random.default_rng(h + 50)
-    t, s, r = 9, 4, 20
-    args = [torch.tensor(a, dtype=BF16, device=cuda) for a in (
+# The bfloat16 K1/K2 plan's edges: h from one block (8, 24) to a cluster of
+# 2, 5 (a ragged last block) and 16 blocks, R from one row to more than one
+# 32-row tile, with and without reversed streams.
+GRU_BF16_H = [8, 24, 64, 136, 512]
+GRU_BF16_R = [1, 20, 33]
+
+
+def _gru_args_bf16(cuda, seed, t, s, r, h):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(a, dtype=BF16, device=cuda) for a in (
         rng.normal(size=(t, s, r, 3 * h)), rng.uniform(-0.3, 0.3, size=(s, h, 3 * h)),
         rng.uniform(-0.3, 0.3, size=(s, 3 * h)), rng.normal(size=(s, r, h)))]
+
+
+@pytest.mark.parametrize("nr", [0, 2])
+@pytest.mark.parametrize("r", GRU_BF16_R)
+@pytest.mark.parametrize("h", GRU_BF16_H)
+def test_gru_sequence_kernel_bf16(cuda, h, r, nr):
+    """K1 in bfloat16, serving and training, against its plain version, with
+    a nonzero h0 through the state slot; a call repeated bit for bit; one
+    launch counted a call."""
+    t, s = 9, 4
+    args = _gru_args_bf16(cuda, h + 50 + r + nr, t, s, r, h)
     before = gru_sequence.launches, gru_sequence.launches_bf16
-    got = gru_sequence(*args, num_reverse=2)
-    got_kept, gates = gru_sequence(*args, num_reverse=2, keep=True)
+    got = gru_sequence(*args, num_reverse=nr)
+    got_kept, gates = gru_sequence(*args, num_reverse=nr, keep=True)
     assert (gru_sequence.launches, gru_sequence.launches_bf16) == (before[0], before[1] + 2)
-    want, want_gates = gru_sequence_plain(*args, num_reverse=2, keep=True)
+    again, gates_again = gru_sequence(*args, num_reverse=nr, keep=True)
+    assert torch.equal(again, got_kept) and torch.equal(gates_again, gates)
+    want, want_gates = gru_sequence_plain(*args, num_reverse=nr, keep=True)
     assert got.dtype == BF16 and gates.dtype == torch.float32
     _within_one_ulp(got, want, "states")
     _within_one_ulp(got_kept, want, "states (keep)")
     _within_one_ulp(gates, want_gates, "gates")
 
 
-@pytest.mark.parametrize("h", [8, 24, 136])
-def test_gru_sequence_bwd_kernel_bf16(cuda, h):
-    """K2 in bfloat16 from the gates the plain forward kept."""
-    rng = np.random.default_rng(h + 51)
-    t, s, r = 9, 4, 20
-    gi, w_hh, b_hh, h0, g = [torch.tensor(a, dtype=BF16, device=cuda) for a in (
-        rng.normal(size=(t, s, r, 3 * h)), rng.uniform(-0.3, 0.3, size=(s, h, 3 * h)),
-        rng.uniform(-0.3, 0.3, size=(s, 3 * h)), rng.normal(size=(s, r, h)),
-        rng.normal(size=(t, s, r, h)))]
-    out, gates = gru_sequence_plain(gi, w_hh, b_hh, h0, 2, keep=True)
-    hprev = previous_states(out, h0, 2)
+@pytest.mark.parametrize("nr", [0, 2])
+@pytest.mark.parametrize("r", GRU_BF16_R)
+@pytest.mark.parametrize("h", GRU_BF16_H)
+def test_gru_sequence_bwd_kernel_bf16(cuda, h, r, nr):
+    """K2 in bfloat16 from the gates the plain forward kept, from a nonzero
+    h0; a call repeated bit for bit; one launch counted a call."""
+    t, s = 9, 4
+    gi, w_hh, b_hh, h0 = _gru_args_bf16(cuda, h + 51 + r + nr, t, s, r, h)
+    g = torch.tensor(np.random.default_rng(h + r).normal(size=(t, s, r, h)), dtype=BF16,
+                     device=cuda)
+    out, gates = gru_sequence_plain(gi, w_hh, b_hh, h0, nr, keep=True)
+    hprev = previous_states(out, h0, nr)
     before = gru_sequence_bwd.launches_bf16
-    got = gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse=2)
+    got = gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse=nr)
     assert gru_sequence_bwd.launches_bf16 == before + 1
-    want = gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse=2)
+    again = gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse=nr)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    want = gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse=nr)
     for name, g_, w_ in zip(("dgi", "dgh", "dh0"), got, want):
         assert g_.dtype == BF16 and torch.isfinite(g_).all(), name
         _close_share(g_, w_, name, 1e-2)
+
+
+def _gru_kernel_launches(fn):
+    """{kernel name: launches} of one call of fn on the card (profiler)."""
+    from tggcn_torch.profile_scan import device_ms_by_kernel
+
+    return {k: v["launches"] for k, v in device_ms_by_kernel(fn, 1).items()}
+
+
+@pytest.mark.parametrize("h,cluster", [(512, 16), (136, 5), (520, 0)])
+def test_gru_bf16_route_by_shape(cuda, h, cluster):
+    """The bfloat16 route is chosen from the shape: at h <= 512 one cluster
+    launch a call for K1 and for K2 (gru_plan's cluster of ceil(h / 32)
+    blocks, which the card holds at once); at h = 520 the per-step kernels,
+    T launches for K1 and T + 1 for K2, within the same tolerances."""
+    from tggcn_torch.ops.gru_sequence import gru_plan
+
+    t, s, r, nr = 7, 2, 20, 1
+    gi, w_hh, b_hh, h0 = _gru_args_bf16(cuda, h, t, s, r, h)
+    for kind in ("fwd", "bwd"):
+        plan = gru_plan(kind, s, r, h)
+        assert plan["cluster"] == cluster and plan["units"] == 32 and plan["rows"] == 20
+        if cluster:
+            assert plan["co_resident"] >= 1 and plan["smem"] <= 227 * 1024
+    fwd = _gru_kernel_launches(lambda: gru_sequence(gi, w_hh, b_hh, h0, nr, keep=True))
+    out, gates = gru_sequence_plain(gi, w_hh, b_hh, h0, nr, keep=True)
+    g = torch.ones_like(out)
+    bwd = _gru_kernel_launches(
+        lambda: gru_sequence_bwd(gi, previous_states(out, h0, nr), g, gates, w_hh, nr))
+    if cluster:
+        assert fwd.get("gru_cluster_kernel") == 1 and bwd.get("gru_bwd_cluster") == 1, (fwd, bwd)
+    else:
+        assert fwd.get("gru_step_kernel") == t and "gru_cluster_kernel" not in fwd, fwd
+        assert bwd.get("gru_bwd_carry") == t and bwd.get("gru_bwd_first") == 1, bwd
+    got, got_gates = gru_sequence(gi, w_hh, b_hh, h0, nr, keep=True)
+    _within_one_ulp(got, out, "states")
+    _within_one_ulp(got_gates, gates, "gates")
+
+
+def test_gru_bf16_kernels_capture_in_a_graph(cuda):
+    """K1 and K2 in bfloat16 (the cluster route) captured in a CUDA graph and
+    replayed give the bits of the eager calls."""
+    t, s, r, h, nr = 9, 4, 20, 64, 2
+    gi, w_hh, b_hh, h0 = _gru_args_bf16(cuda, 7, t, s, r, h)
+    g = torch.tensor(np.random.default_rng(8).normal(size=(t, s, r, h)), dtype=BF16,
+                     device=cuda)
+
+    def both():
+        out, gates = gru_sequence(gi, w_hh, b_hh, h0, nr, keep=True)
+        return (out, gates) + gru_sequence_bwd(gi, previous_states(out, h0, nr), g, gates,
+                                               w_hh, nr)
+
+    eager = both()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "gates", "dgi", "dgh", "dh0"), captured, eager):
+        assert torch.equal(a, b), name
 
 
 def _segment_args_bf16(cuda, nh, no, h, b=5):

@@ -16,9 +16,10 @@
 * The general segment scan makes no host read and takes no
   data-dependent branch in its loop: no .item(), .tolist(), .cpu(),
   .numpy(), tensor made from host data or Python condition on a tensor.
-* No kernel source waits for another block (no cooperative launch, grid
-  sync, programmatic dependent launch or cluster barrier) or adds with
-  atomics.
+* No kernel source waits for a block outside its own cluster (no
+  cooperative launch, grid sync or programmatic dependent launch), waits at
+  a cluster barrier unless it launches its kernels with an explicit cluster
+  dimension, or adds with atomics.
 * chip_smoke.py fails, printing no result, without a CUDA device.
 """
 
@@ -152,28 +153,46 @@ def test_library_path_follows_sources():
         assert (_build.CSRC_DIR / f"{name}.cu").exists()
 
 
-INTER_BLOCK_WAITS = ("cudaLaunchCooperativeKernel", "cudaLaunchAttributeCooperative",
-                     "this_grid", "griddepcontrol", "cudaGridDependencySynchronize",
-                     "barrier.cluster", "cluster.sync(", "this_cluster", "cluster_sync(",
-                     "__cluster_dims__", "cudaLaunchAttributeClusterDimension")
+# Waits on blocks of the whole grid: forbidden in every source. A block may
+# wait only for the blocks of its own cluster, which the card schedules
+# together or not at all: a cluster wait may appear only in a source that
+# launches with an explicit cluster dimension (CLUSTER_LAUNCHES).
+GRID_WAITS = ("cudaLaunchCooperativeKernel", "cudaLaunchAttributeCooperative", "this_grid",
+              "griddepcontrol", "cudaGridDependencySynchronize")
+CLUSTER_WAITS = ("barrier.cluster", "cluster.sync(", "this_cluster", "cluster_sync(")
+CLUSTER_LAUNCHES = ("__cluster_dims__", "cudaLaunchAttributeClusterDimension")
 # PTX's atomic and reduction instructions, as whole words (not the tail of
 # "shared.global" in a copy's state spaces).
 PTX_ATOMICS = re.compile(r"\b(atom|red)\.")
 
 
+def source_faults(text):
+    """What the rule for kernel sources finds in a source's text: grid-wide
+    waits, cluster waits without a cluster launch, atomics."""
+    faults = [f"waits on the grid ({word})" for word in GRID_WAITS if word in text]
+    if not any(word in text for word in CLUSTER_LAUNCHES):
+        faults += [f"waits at a cluster barrier ({word}) with no cluster launch"
+                   for word in CLUSTER_WAITS if word in text]
+    if "atomic" in text.replace("no atomics", ""):
+        faults.append("uses an atomic")
+    found = PTX_ATOMICS.search(text)
+    if found:
+        faults.append(f"uses the PTX atomic {found.group(0)}")
+    return faults
+
+
 @pytest.mark.parametrize("path", sorted(p.name for p in _build.CSRC_DIR.iterdir()
                                         if p.suffix in (".cu", ".cuh")))
 def test_kernels_wait_on_no_other_block(path):
-    """No kernel source waits for another block (no cooperative launch, grid
-    sync, programmatic dependent launch or cluster barrier: phase order comes
-    from stream order), and no source adds with atomics, so two identical
+    """No kernel source waits for a block outside its own cluster (no
+    cooperative launch, grid sync or programmatic dependent launch: phase
+    order comes from stream order), waits at a cluster barrier without
+    launching its kernels with an explicit cluster dimension, or adds with
+    atomics. A barrier orders and cannot change a bit, and a cluster's
+    blocks are scheduled together or not at all, so it cannot wait forever;
+    atomics sum in an order that changes from run to run. So two identical
     train steps give the same gradient bits."""
-    text = (_build.CSRC_DIR / path).read_text()
-    for word in INTER_BLOCK_WAITS:
-        assert word not in text, f"{path} uses {word}"
-    assert "atomic" not in text.replace("no atomics", ""), f"{path} uses an atomic"
-    found = PTX_ATOMICS.search(text)
-    assert found is None, f"{path} uses the PTX atomic {found and found.group(0)}"
+    assert source_faults((_build.CSRC_DIR / path).read_text()) == [], path
 
 
 @pytest.mark.parametrize("line", ["atom.global.add.f32 %0, [%1], %2;",
@@ -183,11 +202,32 @@ def test_kernels_wait_on_no_other_block(path):
                                   "cute::cluster_sync();", "__cluster_dims__(2, 1, 1)"])
 def test_source_checks_catch_atomics_and_cluster_waits(line):
     """The checks above see each form an atomic or a cluster wait takes in a
-    source, and pass a TMA copy's state spaces."""
-    caught = (any(word in line for word in INTER_BLOCK_WAITS) or "atomic" in line
-              or PTX_ATOMICS.search(line) is not None)
+    source, and the form a cluster launch takes, and pass a TMA copy's state
+    spaces."""
+    caught = (any(word in line for word in GRID_WAITS + CLUSTER_WAITS + CLUSTER_LAUNCHES)
+              or "atomic" in line or PTX_ATOMICS.search(line) is not None)
     assert caught, line
     assert PTX_ATOMICS.search("cp.async.cg.shared.global [%0], [%1], 16;") is None
+
+
+CLUSTER_LAUNCH = "attr.id = cudaLaunchAttributeClusterDimension;\n"
+
+
+@pytest.mark.parametrize("text,faults", [
+    ("asm volatile(\"barrier.cluster.wait.acquire.aligned;\");\n", 1),
+    ("cg::this_cluster().sync();\n", 1),
+    (CLUSTER_LAUNCH + "asm volatile(\"barrier.cluster.arrive.release.aligned;\");\n", 0),
+    ("__global__ void __cluster_dims__(2, 1, 1) k() { cute::cluster_sync(); }\n", 0),
+    (CLUSTER_LAUNCH + "cg::this_grid().sync();\n", 1),
+    (CLUSTER_LAUNCH + "asm volatile(\"griddepcontrol.wait;\");\n", 1),
+    (CLUSTER_LAUNCH + "atomicAdd(p, 1.f);\n", 1),
+], ids=["cluster-barrier-alone", "cg-cluster-sync-alone", "cluster-barrier-with-launch",
+        "cluster-dims-with-sync", "grid-sync-with-cluster-launch",
+        "dependent-launch-with-cluster-launch", "atomic-with-cluster-launch"])
+def test_cluster_waits_need_a_cluster_launch(text, faults):
+    """A cluster barrier passes only beside an explicit cluster launch; a
+    grid-wide wait or an atomic fails beside one as well."""
+    assert len(source_faults(text)) == faults, source_faults(text)
 
 
 def _tiny_batch(humans=2, objects=2):
@@ -550,3 +590,18 @@ def test_plain_train_step_launches_nothing(monkeypatch):
     assert torch.isfinite(losses).all()
     monkeypatch.undo()
     assert [getattr(mod, name).launches for mod, name in KERNEL_WRAPPERS] == counts
+
+
+@pytest.mark.parametrize("variant", ["full", "round1", "round4", "round32", "no_product",
+                                     "no_exchange", "no_gate", "no_barrier"])
+def test_gru_split_variants_edit_the_sources(variant, tmp_path):
+    """Each launch-split variant of profile_gru_split finds the text it edits
+    in the current sources (it raises on a stale edit), and edits only its
+    scratch copy."""
+    from tggcn_torch import profile_gru_split
+
+    before = {p.name: p.read_text() for p in _build.CSRC_DIR.iterdir()}
+    copy = profile_gru_split.edited_copy(profile_gru_split.VARIANTS[variant], tmp_path)
+    changed = {p.name for p in copy.iterdir() if p.read_text() != before[p.name]}
+    assert bool(changed) == (variant != "full"), changed
+    assert {p.name: p.read_text() for p in _build.CSRC_DIR.iterdir()} == before

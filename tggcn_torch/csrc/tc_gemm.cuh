@@ -5,7 +5,8 @@
 //   float, float   mma.sync m16n8k8 in TF32 with the 3xTF32 split (float32
 //                  accuracy); the float32 kernels.
 //   bf16, float    a float32 activation against a weight that holds
-//                  bfloat16 values (K1 and K2 in bfloat16: the float32
+//                  bfloat16 values (K1 and K2 in bfloat16 at h > 512,
+//                  their per-step route: the float32
 //                  state or dgh against W_hh, as the TPU kernels take
 //                  h(f32) @ W.astype(f32)). A bfloat16 value is exact in
 //                  TF32, so W is not split: two TF32 products, lo_x W +

@@ -3,8 +3,8 @@
 // sums) on operands that the tensor memory accelerator (TMA) copies into
 // shared memory. It runs the bfloat16 product phases of K3 (segment_scan.cu:
 // the message projections A and the cells B); tc_gemm.cuh keeps the
-// float32 products, K1's and K2's bfloat16 x float32 ones and K4's
-// bfloat16 ones (on wgmma K4's carry was slower and its dmsgs moved a
+// float32 products, the per-step K1's and K2's bfloat16 x float32 ones
+// (h > 512; gru_cluster.cuh takes them below) and K4's bfloat16 ones (on wgmma K4's carry was slower and its dmsgs moved a
 // checked output past its limit on the H100, PERF.md).
 //
 // What bounds them. At MPHOI's batch of 8 each of those phases is one

@@ -2,14 +2,24 @@
 and its backward sweep.
 
 Replaces the TPU kernel ``tggcn/ops/gru_pallas.py::_fwd_kernel`` (launched
-at ``gru_pallas.py:147``). The CUDA kernel is ``csrc/gru_sequence.cu``: one
-launch per time step whose blocks each own a tile of rows and hidden units
-of one stream (their r, z and n gate columns), so no block waits for
-another; the launches' order on the stream carries the state. Its product
-runs on the tensor cores in the 3xTF32 split (``csrc/tc_gemm.cuh``), at
-float32 accuracy. With ``keep`` (a gradient will be taken) it also writes
-every step's gates (``KEPT``) for the backward; see the source for the
-bound and the design.
+at ``gru_pallas.py:147``). The CUDA kernel is ``csrc/gru_sequence.cu``, with
+two routes chosen from the dtype and h before any launch (``gru_plan`` gives
+the plan the source makes):
+
+* bfloat16 at h <= 512: one launch a call. The blocks of one (stream, row
+  tile) form a thread-block cluster (``csrc/gru_cluster.cuh``) that holds
+  the stream's W_hh in registers for the whole sequence, exchanges the
+  state through distributed shared memory and waits at one cluster barrier
+  a step; its product runs on wgmma, three bfloat16 parts of the float32
+  state against the bfloat16 weights, at float32 accuracy.
+* float32, and bfloat16 at h > 512: one launch per time step whose blocks
+  each own a tile of rows and hidden units of one stream (their r, z and n
+  gate columns), so no block waits for another; the launches' order on the
+  stream carries the state. Its product runs on the tensor cores in the
+  3xTF32 split (``csrc/tc_gemm.cuh``), at float32 accuracy.
+
+With ``keep`` (a gradient will be taken) K1 also writes every step's gates
+(``KEPT``) for the backward; see the sources for the bounds and the designs.
 
 Layout (as the JAX kernel's):
   gi    (T, S, R, 3h)  input-side gate pre-activations, x @ w_ih + b_ih
@@ -23,12 +33,15 @@ BiGRU's two directions run in one call without flipping any tensor.
 
 K2 replaces ``gru_pallas.py::_bwd_kernel`` (launched at ``gru_pallas.py:167``):
 ``csrc/gru_sequence_bwd.cu``. Where the TPU kernel recomputes the gates
-from h_prev, K2 reads the ones K1 kept: one launch per step takes the
-carry product dgh @ W_hh^T (W_hh read as stored) and, in its epilogue, the
-next step's gate backward; one elementwise launch starts the sweep (T + 1
-launches). It emits dgi, dgh and dh0; dW_hh and db_hh are reduced outside
-as one product over h_prev x dgh, as the JAX custom VJP does
-(``gru_pallas.py:214-217``).
+from h_prev, K2 reads the ones K1 kept. Its routes are K1's: in bfloat16 at
+h <= 512 one cluster launch a call, whose blocks each take the carry
+product dgh @ W_hh^T over their own gate columns and add the cluster's
+partials for their units in a fixed order; otherwise one launch per step
+takes the carry product (W_hh read as stored) and, in its epilogue, the
+next step's gate backward, after one elementwise launch that starts the
+sweep (T + 1 launches). It emits dgi, dgh and dh0; dW_hh and db_hh are
+reduced outside as one product over h_prev x dgh, as the JAX custom VJP
+does (``gru_pallas.py:214-217``).
 
 ``gru_sequence_autograd`` is the differentiable entry point: a
 ``torch.autograd.Function`` that runs K1 forward, keeping the gates, and
@@ -42,11 +55,12 @@ hprev, g, dgi, dgh, dh0), all of one dtype, and pick their variant by it;
 each wrapper counts the launches of its float32 kernel in ``launches`` and
 of its bfloat16 kernel in ``launches_bf16``. In bfloat16, as the TPU
 kernels run it (``gru_pallas.py:61-77``, ``:97-126``), the state and the
-carried dL/dh stay float32: K1 carries its state in a float32 buffer of its
-own, not through its bfloat16 output, and its product h @ W_hh takes the
-float32 state against W_hh's bfloat16 values at float32 accuracy; K2's
-carry product takes the float32 dgh. The kept gates are float32 in both.
-Only the tensors the JAX kernels write in their IO dtype are rounded to it.
+carried dL/dh stay float32: K1 carries its state in float32 (a buffer of
+its own, whose slot 1 brings h0 in), not through its bfloat16 output, and
+its product h @ W_hh takes the float32 state against W_hh's bfloat16
+values at float32 accuracy; K2's carry product takes the float32 dgh. The
+kept gates are float32 in both. Only the tensors the JAX kernels write in
+their IO dtype are rounded to it.
 """
 
 import ctypes
@@ -133,6 +147,39 @@ def _check(what, device, tensors, h, num_reverse, float32=()):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+PLAN_KEYS = ("cluster", "units", "rows", "smem", "clusters", "co_resident")
+
+
+def gru_plan(kind, s, r, h):
+    """The launch plan of K1's (kind 'fwd') or K2's ('bwd') bfloat16 kernel
+    at S streams, R rows and h units, as its .cu source makes it: {cluster:
+    blocks a cluster (0: the per-step route, h > 512), units: hidden units a
+    block, rows: rows a cluster, smem: dynamic shared memory bytes a block,
+    clusters: clusters a call, co_resident: on the cluster route the most
+    clusters the current CUDA device holds at once
+    (cudaOccupancyMaxActiveClusters), else -1}. Builds the library if
+    needed."""
+    lib = _build.load_library("gru_sequence" if kind == "fwd" else "gru_sequence_bwd")
+    fn = lib.tggcn_gru_sequence_plan if kind == "fwd" else lib.tggcn_gru_sequence_bwd_plan
+    fn.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    _build.check_launch(fn(s, r, h, out), f"gru_sequence {kind} plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def gru_clusters(blocks, smem):
+    """The most clusters of `blocks` blocks of K1's cluster kernel, each with
+    smem bytes of dynamic shared memory, that the current CUDA device holds
+    at once: the occupancy of plans the source does not take."""
+    fn = _build.load_library("gru_sequence").tggcn_gru_sequence_clusters
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    out = ctypes.c_int()
+    _build.check_launch(fn(blocks, smem, ctypes.byref(out)), "gru_sequence clusters")
+    return out.value
 
 
 def gru_sequence(gi, w_hh, b_hh, h0, num_reverse: int = 0, keep: bool = False):
@@ -249,8 +296,9 @@ def gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse: int = 0):
     if io == torch.float32:
         fn = lib.tggcn_gru_sequence_bwd_f32
     else:
-        # The float32 dgh of the carry product, two slots by step parity
-        # (a launch reads its step's and writes the next step's).
+        # The per-step route's float32 dgh of the carry product, two slots
+        # by step parity (a launch reads its step's and writes the next
+        # step's); the cluster route keeps dgh and dhz on chip.
         fn = lib.tggcn_gru_sequence_bwd_bf16
         dgh32 = torch.empty((2, s, r, 3 * h), device=gi.device)
         ptrs.append(dgh32.data_ptr())

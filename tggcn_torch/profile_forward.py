@@ -14,7 +14,7 @@ one warm-up request, each of the stage's batch, or of ``--batch`` clips
 from nvidia-smi), the wall milliseconds per request (host clock, ended by a
 synchronize), the device-busy milliseconds (union of kernel intervals) and
 idle share, and device time per kernel name, largest first, grouped as K1
-(``gru_step_kernel``), K3 (``proj_kernel``, ``mix_kernel``,
+(``gru_step_kernel``, ``gru_cluster_kernel``), K3 (``proj_kernel``, ``mix_kernel``,
 ``cell_kernel``), K6 (``geo_gcn``) and the rest. ``--out`` also writes the
 Chrome trace. Needs a CUDA device.
 """
@@ -32,7 +32,8 @@ from tggcn_torch.models import stage1
 from tggcn_torch.models.registry import select_model
 
 REQUESTS = 3
-GROUPS = {"gru_step_kernel": "K1 gru_sequence", "proj_kernel": "K3 segment_scan_dot",
+GROUPS = {"gru_step_kernel": "K1 gru_sequence", "gru_cluster_kernel": "K1 gru_sequence",
+          "proj_kernel": "K3 segment_scan_dot",
           "proj_wg": "K3 segment_scan_dot", "mix_kernel": "K3 segment_scan_dot",
           "cell_kernel": "K3 segment_scan_dot", "cell_wg": "K3 segment_scan_dot",
           "geo_gcn": "K6 geo_gcn_fused"}

@@ -3,15 +3,21 @@ goes on the card, by kernel name; the seeded inputs that chip_smoke.py's
 k1 and k2 phases also use; and cuDNN's GRU set up to compute the same
 recurrence, the library yardstick of those phases.
 
-    python -m tggcn_torch.profile_gru [--reps N]
+    python -m tggcn_torch.profile_gru [--reps N] [--dtype D] [--batch B]
 
 Builds the kernels, then runs K1 (``gru_sequence``, keeping the gates as a
 train step does) and K2 (``gru_sequence_bwd``) at the MPHOI shape (T=167,
-S=6 streams, the last 3 reversed, R=32 rows, h=512), one warm-up call
-each, then ``--reps`` calls of each under ``torch.profiler``. Prints one
-JSON object: the card (name and power limit from nvidia-smi) and, per
-kernel, the device milliseconds per call by kernel name and the launches
-per call. Needs a CUDA device.
+S=6 streams, the last 3 reversed, R = B x 4 rows, B=8 unless --batch,
+h=512) in the IO dtype D (float32 unless --dtype), one warm-up call each,
+then ``--reps`` calls of each under ``torch.profiler``. Prints one JSON
+object: the card (name and power limit from nvidia-smi) and, per kernel,
+the device milliseconds per call by kernel name and the launches per
+call, and each kernel's card ms by CUDA events (the median of --reps calls
+after a warm-up, the host's queueing hidden behind a wait on the card; K1
+also keeping no gates, as a request's call).
+Run as a file from another checkout's root (``PYTHONPATH=. python <this
+tree>/tggcn_torch/profile_gru.py``) it times that checkout's kernels, for
+turns with a parent. Needs a CUDA device.
 """
 
 import argparse
@@ -93,24 +99,49 @@ def cudnn_states(ys, num_reverse):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=3)
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    parser.add_argument("--batch", type=int, default=stage1.SHAPE["b"],
+                        help="clips; the rows are the clips' objects")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_gru: no CUDA device")
     _build.build(("gru_sequence", "gru_sequence_bwd"))
     dev = torch.device("cuda", 0)
     t, h = stage1.SHAPE["t"], stage1.MODEL_KWARGS["hidden_size"]
-    r = stage1.SHAPE["b"] * max(stage1.SHAPE["humans"], stage1.SHAPE["objects"])
+    r = args.batch * max(stage1.SHAPE["humans"], stage1.SHAPE["objects"])
     nr = STREAMS // 2
     gen = torch.Generator(device=dev).manual_seed(1)
-    fwd = gru_inputs(dev, gen, t, STREAMS, r, h)
+    fwd = tuple(x.to(getattr(torch, args.dtype)) for x in gru_inputs(dev, gen, t, STREAMS, r, h))
     bwd = gru_bwd_inputs(*fwd, nr, gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=30).stdout.strip()
+    k1 = lambda: ops.gru_sequence(*fwd, nr, keep=True)  # noqa: E731
+    k1_serve = lambda: ops.gru_sequence(*fwd, nr)  # noqa: E731
+    k2 = lambda: ops.gru_sequence_bwd(*bwd, nr)  # noqa: E731
     print(json.dumps({
-        "card": smi, "reps": args.reps, "shape": dict(t=t, s=STREAMS, r=r, h=h),
-        "k1": device_ms_by_kernel(lambda: ops.gru_sequence(*fwd, nr, keep=True), args.reps),
-        "k2": device_ms_by_kernel(lambda: ops.gru_sequence_bwd(*bwd, nr), args.reps)}))
+        "card": smi, "reps": args.reps, "dtype": args.dtype,
+        "shape": dict(t=t, s=STREAMS, r=r, h=h),
+        "k1": device_ms_by_kernel(k1, args.reps), "k2": device_ms_by_kernel(k2, args.reps),
+        "k1_ms": event_ms(k1, args.reps), "k1_serve_ms": event_ms(k1_serve, args.reps),
+        "k2_ms": event_ms(k2, args.reps)}))
+
+
+def event_ms(fn, reps, spin_cycles=20_000_000):
+    """The median card ms of fn() by CUDA events over reps calls after a
+    warm-up, each queued while the card waits spin_cycles clock cycles (so
+    that the events time the card's work, not the host's queueing)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
 
 
 if __name__ == "__main__":

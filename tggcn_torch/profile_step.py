@@ -78,8 +78,8 @@ ENGINE_RANGE = "autograd::engine::evaluate_function"
 FUSED_WINDOWS = 5
 # Kernel-name fragments of the train step's kernels (both designs' names),
 # then cuBLAS's products and the optimizer's multi-tensor kernels.
-GROUPS = {"gru_step_kernel": "K1", "gru_bwd": "K2", "proj_kernel": "K3", "proj_wg": "K3",
-          "mix_kernel": "K3", "cell_kernel": "K3", "cell_wg": "K3", "segb_": "K4", "du_sum": "K4",
+GROUPS = {"gru_step_kernel": "K1", "gru_cluster_kernel": "K1", "gru_bwd": "K2",
+          "proj_kernel": "K3", "proj_wg": "K3", "mix_kernel": "K3", "cell_kernel": "K3", "cell_wg": "K3", "segb_": "K4", "du_sum": "K4",
           "geo_gcn": "K6", "gemm": "cuBLAS", "nvjet": "cuBLAS", "xmma": "cuBLAS",
           "multi_tensor_apply": "Adam"}
 
