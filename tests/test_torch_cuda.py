@@ -657,29 +657,129 @@ def test_segment_scan_kernel_bf16(cuda, nh, no, h, b):
         _within_one_ulp(g, w_, f"{name} (serving)")
 
 
-@pytest.mark.parametrize("nh,no,h,b", SCAN_SHAPES_BF16)
-def test_segment_scan_bwd_kernel_bf16(cuda, nh, no, h, b):
-    """K4 in bfloat16 from what the plain forward kept."""
+# K4's bfloat16 shapes: the scan's, MPHOI's full width at a data-parallel
+# process's batch of 4 and a streamed window's 1, a batch of 9 whose
+# object rows need two batch tiles of a DA cluster (8 clips of 4 objects
+# in 32 rows), h = 136 (a ragged last 32-column block and 16-unit tile),
+# and h = 520, past the cluster route (the per-step kernels).
+BWD_SHAPES_BF16 = SCAN_SHAPES_BF16 + [
+    pytest.param(2, 4, 512, 4, id="2-4-512-b4"), pytest.param(2, 4, 512, 1, id="2-4-512-b1"),
+    pytest.param(2, 4, 40, 9, id="2-4-40-b9"), pytest.param(1, 3, 136, 3, id="1-3-136-b3"),
+    pytest.param(2, 4, 520, 2, id="2-4-520-b2")]
+
+
+def _bwd_args_bf16(cuda, nh, no, h, b):
+    """K4's bfloat16 inputs from what the plain forward kept."""
     args = _segment_args_bf16(cuda, nh, no, h, b)
     rng = np.random.default_rng(nh + h + 52)
-    t, b = args["gi_h"].shape[1:3]
+    t = args["gi_h"].shape[1]
     out_h, out_o, _, *kept = segment_scan_dot_plain(**args, scale=1 / math.sqrt(h))
     kept = dict(zip(KEPT, kept))
     up = [torch.tensor(rng.normal(size=shape), dtype=BF16, device=cuda)
           for shape in ((2, t, b, nh, h), (2, t, b, no, h), (2, t, b, nh, no))]
     bwd_args = {k: args[k] for k in ("u_h", "u_o", "w_from", "w_msg_h", "w_msg_o", "w_hh_h",
                                      "w_hh_o")}
-    streamed = dict(hprev_h=seg_previous(out_h, args["h0_h"]),
-                    hprev_o=seg_previous(out_o, args["h0_o"]),
-                    **{k: kept[k] for k in ("m_h", "m_o", "gates_h", "gates_o", "atts")},
-                    g_h=up[0], g_o=up[1], g_att=up[2])
+    return dict(hprev_h=seg_previous(out_h, args["h0_h"]),
+                hprev_o=seg_previous(out_o, args["h0_o"]),
+                **{k: kept[k] for k in ("m_h", "m_o", "gates_h", "gates_o", "atts")},
+                g_h=up[0], g_o=up[1], g_att=up[2], **bwd_args)
+
+
+@pytest.mark.parametrize("nh,no,h,b", BWD_SHAPES_BF16)
+def test_segment_scan_bwd_kernel_bf16(cuda, nh, no, h, b):
+    """K4 in bfloat16 from what the plain forward kept, against its plain
+    version; on the cluster route (h <= 512) also bit for bit the per-step
+    route's outputs, and the same bits on a repeat."""
+    args = _bwd_args_bf16(cuda, nh, no, h, b)
+    scale = 1 / math.sqrt(h)
     before = segment_scan_dot_bwd.launches_bf16
-    got = segment_scan_dot_bwd(**bwd_args, **streamed, scale=1 / math.sqrt(h))
+    got = segment_scan_dot_bwd(**args, scale=scale)
     assert segment_scan_dot_bwd.launches_bf16 == before + 1
-    want = segment_scan_dot_bwd_plain(**bwd_args, **streamed, scale=1 / math.sqrt(h))
+    want = segment_scan_dot_bwd_plain(**args, scale=scale)
     for name in BWD_OUTPUTS:
         assert got[name].dtype == BF16 and torch.isfinite(got[name]).all(), name
         _close_share(got[name], want[name], name, 1e-2)
+    again = segment_scan_dot_bwd(**args, scale=scale)
+    steps = segment_scan_dot_bwd(**args, scale=scale, route="steps")
+    for name in BWD_OUTPUTS:
+        assert torch.equal(again[name], got[name]), f"{name}: a repeat differs"
+        assert torch.equal(steps[name], got[name]), f"{name}: the routes differ"
+
+
+def _bwd_kernel_launches(args, h, route=None):
+    from tggcn_torch.profile_scan import device_ms_by_kernel
+
+    fn = lambda: segment_scan_dot_bwd(**args, scale=1 / math.sqrt(h), route=route)
+    return {k: v["launches"] for k, v in device_ms_by_kernel(fn, 1).items()}
+
+
+@pytest.mark.parametrize("nh,no,h,b,cluster", [(2, 4, 512, 8, True), (2, 4, 40, 9, True),
+                                               (1, 3, 136, 3, True), (2, 4, 520, 2, False)])
+def test_segment_scan_bwd_bf16_route_by_shape(cuda, nh, no, h, b, cluster):
+    """K4's bfloat16 route follows the shape (bwd_plan): at h <= 512 two
+    cluster launches a step, DA (segb_dmsgs_att, clusters of ceil(h / 32)
+    blocks) and R (segb_carry_cluster), and no segb_att, 2T + 2 launches a
+    call, the clusters the card holds at once at least one; at h = 520 the
+    per-step kernels, 3T + 2. The float32 kernel takes the per-step route at
+    every shape."""
+    from tggcn_torch.ops.segment_scan import bwd_plan
+
+    args = _bwd_args_bf16(cuda, nh, no, h, b)
+    t = args["hprev_h"].shape[1]
+    plan = bwd_plan(b, nh, no, h)
+    assert plan["route"] == int(cluster), plan
+    got = _bwd_kernel_launches(args, h)
+    if cluster:
+        assert plan["da_blocks"] == -(-h // 32) and plan["batch_tile"] == 32 // max(nh, no)
+        assert plan["da_co_resident"] >= 1 and plan["r_co_resident"] >= 1, plan
+        assert max(plan["da_smem"], plan["r_smem"]) <= 227 * 1024, plan
+        want = {"segb_cell": 1, "segb_dmsgs_att": t, "segb_carry_cluster": t, "du_sum": 1}
+    else:
+        want = {"segb_cell": 1, "segb_dmsgs": t, "segb_att": t, "segb_carry": t, "du_sum": 1}
+    assert {k: v for k, v in got.items() if k.startswith(("segb_", "du_sum"))} == want, got
+    assert sum(want.values()) == (2 if cluster else 3) * t + 2
+    steps = _bwd_kernel_launches(args, h, route="steps")
+    assert steps.get("segb_att") == t and "segb_carry_cluster" not in steps, steps
+    f32 = {k: v.float() if v.dtype == BF16 else v for k, v in args.items()}
+    plain = _bwd_kernel_launches(f32, h)
+    assert plain.get("segb_att") == t and "segb_dmsgs_att" not in plain, plain
+
+
+def test_segment_scan_bwd_float32_route_unchanged(cuda):
+    """Float32 K4 keeps the per-step kernels at the MPHOI width: route
+    'steps' is its only route (the same bits), 'cluster' raises, and it
+    holds the plain version at the float32 limit."""
+    args = {k: v.float() if v.dtype == BF16 else v
+            for k, v in _bwd_args_bf16(cuda, 2, 4, 512, 2).items()}
+    scale = 1 / math.sqrt(512)
+    got = segment_scan_dot_bwd(**args, scale=scale)
+    steps = segment_scan_dot_bwd(**args, scale=scale, route="steps")
+    want = segment_scan_dot_bwd_plain(**args, scale=scale)
+    for name in BWD_OUTPUTS:
+        assert got[name].dtype == torch.float32 and torch.equal(steps[name], got[name]), name
+        _close_rel(got[name], want[name], name)
+    with pytest.raises(ValueError, match="bfloat16"):
+        segment_scan_dot_bwd(**args, scale=scale, route="cluster")
+
+
+def test_segment_scan_bwd_bf16_captures_in_a_graph(cuda):
+    """K4's bfloat16 cluster route captured in a CUDA graph (its tensor maps
+    passed by value) and replayed gives the bits of the eager call."""
+    args = _bwd_args_bf16(cuda, 2, 4, 64, 3)
+    scale = 1 / math.sqrt(64)
+    eager = segment_scan_dot_bwd(**args, scale=scale)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        segment_scan_dot_bwd(**args, scale=scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = segment_scan_dot_bwd(**args, scale=scale)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name in BWD_OUTPUTS:
+        assert torch.equal(captured[name], eager[name]), name
 
 
 # (B, humans, objects, h) of every call the bfloat16 scan meets: MPHOI's

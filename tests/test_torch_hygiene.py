@@ -595,13 +595,26 @@ def test_plain_train_step_launches_nothing(monkeypatch):
 @pytest.mark.parametrize("variant", ["full", "round1", "round4", "round32", "no_product",
                                      "no_exchange", "no_gate", "no_barrier"])
 def test_gru_split_variants_edit_the_sources(variant, tmp_path):
-    """Each launch-split variant of profile_gru_split finds the text it edits
+    """Each GRU launch-split variant of profile_split finds the text it edits
     in the current sources (it raises on a stale edit), and edits only its
     scratch copy."""
-    from tggcn_torch import profile_gru_split
+    _check_split_variant("gru", variant, tmp_path)
+
+
+def _check_split_variant(kernel, variant, tmp_path):
+    from tggcn_torch import profile_split
 
     before = {p.name: p.read_text() for p in _build.CSRC_DIR.iterdir()}
-    copy = profile_gru_split.edited_copy(profile_gru_split.VARIANTS[variant], tmp_path)
+    copy = profile_split.edited_copy(profile_split.VARIANTS[kernel][variant], tmp_path)
     changed = {p.name for p in copy.iterdir() if p.read_text() != before[p.name]}
     assert bool(changed) == (variant != "full"), changed
     assert {p.name: p.read_text() for p in _build.CSRC_DIR.iterdir()} == before
+
+
+@pytest.mark.parametrize("variant", ["full", "no_product", "no_rows", "no_weights", "no_copies",
+                                     "no_multicast", "no_exchange", "no_da_tail", "no_r_tail",
+                                     "r_late_loads"])
+def test_k4_split_variants_edit_the_sources(variant, tmp_path):
+    """Each K4 launch-split variant of profile_split finds the text it edits
+    in the current sources, and edits only its scratch copy."""
+    _check_split_variant("k4", variant, tmp_path)

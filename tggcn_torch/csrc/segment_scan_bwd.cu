@@ -62,6 +62,7 @@
 // the products at the dense bfloat16 rate (989 TFLOP/s), the attention
 // backward on the FMA units.
 
+#include "gru_cluster.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -107,21 +108,35 @@ struct CellArgs {
   float *du_part, *dhz;
 };
 
-// Phase C at (s, row, unit) from the carry dL/dh: writes dgi, dgh, dhz and
-// returns this unit's share of du. With bfloat16 IO each step is rounded
-// as the TPU kernel's bfloat16 arithmetic rounds it (q: the identity in
-// float32).
+// What phase C at (s, row, unit) reads besides the carry: the kept gates
+// r, z, n and hn, h_prev, the upstream g and the decision u.
+struct CellIn {
+  float r, z, n, hn, hprev, g, u;
+};
+
+template <class T>
+__device__ __forceinline__ CellIn cell_load(const CellArgs<T>& c, Step s, int T_, int rows,
+                                            int row, int unit, int H) {
+  const float* gr = c.gates + at(s, T_, rows, row, 4 * H);
+  const size_t hi = at(s, T_, rows, row, H) + unit;
+  return {gr[unit], gr[H + unit], gr[2 * H + unit], gr[3 * H + unit], to_f32(c.hprev[hi]),
+          to_f32(c.g[hi]), to_f32(c.u[(size_t)s.t * rows + row])};
+}
+
+// Phase C at (s, row, unit) from the carry dL/dh and its inputs: writes
+// dgi, dgh, dhz and returns this unit's share of du. With bfloat16 IO each
+// step is rounded as the TPU kernel's bfloat16 arithmetic rounds it (q:
+// the identity in float32).
 template <class T>
 __device__ __forceinline__ float cell_bwd(const CellArgs<T>& c, Step s, int T_, int rows,
-                                          int row, int unit, int H, float carry) {
+                                          int row, int unit, int H, float carry,
+                                          const CellIn& in) {
   const auto q = [](float x) { return round_to<T>(x); };
-  const float* gr = c.gates + at(s, T_, rows, row, 4 * H);
-  const float rg = q(gr[unit]), zg = q(gr[H + unit]), ng = q(gr[2 * H + unit]);
-  const float hn = q(gr[3 * H + unit]);
-  const size_t hi = at(s, T_, rows, row, H) + unit;
-  const float hpv = to_f32(c.hprev[hi]);
-  const float dH = carry + to_f32(c.g[hi]);
-  const float u = to_f32(c.u[(size_t)s.t * rows + row]);
+  const float rg = q(in.r), zg = q(in.z), ng = q(in.n);
+  const float hn = q(in.hn);
+  const float hpv = in.hprev;
+  const float dH = carry + in.g;
+  const float u = in.u;
   const float omz = q(1.f - zg);
   const float h_new = q(omz * ng) + zg * hpv;
   const float dh_new = q(dH * u);
@@ -139,18 +154,26 @@ __device__ __forceinline__ float cell_bwd(const CellArgs<T>& c, Step s, int T_, 
   return dH * (h_new - hpv);
 }
 
+template <class T>
+__device__ __forceinline__ float cell_bwd(const CellArgs<T>& c, Step s, int T_, int rows,
+                                          int row, int unit, int H, float carry) {
+  return cell_bwd(c, s, T_, rows, row, unit, H, carry, cell_load(c, s, T_, rows, row, unit, H));
+}
+
 // du_s holds each (row, unit) share of the block's 32 x 16 tile: one
-// partial per row and block, added over the 16 units in order.
+// partial per row and block, added over the 16 units in order, into part
+// `part` of the row's `parts`.
 template <class T>
 __device__ __forceinline__ void store_du(const CellArgs<T>& c, Step s, int T_, int rows,
                                          int row0, int nrows,
-                                         const float (&du_s)[kMaxRows][kMTile + 1]) {
+                                         const float (&du_s)[kMaxRows][kMTile + 1], int parts,
+                                         int part) {
   __syncthreads();
   const int r = threadIdx.x;
   if (r < nrows) {
     float v = 0.f;
     for (int k = 0; k < kMTile; ++k) v += du_s[r][k];
-    c.du_part[at(s, T_, rows, row0 + r, gridDim.x) + blockIdx.x] = v;
+    c.du_part[at(s, T_, rows, row0 + r, parts) + part] = v;
   }
 }
 
@@ -175,7 +198,7 @@ segb_cell(CellArgs<T> hum, CellArgs<T> obj, int T_, int B, int NH, int NO, int H
     du_s[r][cc] = r < nrows && unit < H ? cell_bwd(c, s, T_, all_rows, row0 + r, unit, H, 0.f)
                                         : 0.f;
   }
-  store_du(c, s, T_, all_rows, row0, nrows, du_s);
+  store_du(c, s, T_, all_rows, row0, nrows, du_s, gridDim.x, blockIdx.x);
 }
 
 // du[i] = the sum, in block order, of the `parts` partials of row i.
@@ -386,7 +409,550 @@ segb_carry(CarryArgs<T> hum, CarryArgs<T> obj, CellArgs<T> cell_h, CellArgs<T> c
     }
     du_s[r][cc] = du;
   }
-  if (!last) store_du(cb, next, T_, all_rows, row0, rows, du_s);
+  if (!last) store_du(cb, next, T_, all_rows, row0, rows, du_s, gridDim.x, blockIdx.x);
+}
+
+// ---- bfloat16 at h <= 512: two cluster launches a step -----------------------
+//
+// See the note at the top. Both kernels are bfloat16 only. A stage of a
+// block's product is 256 deep (a k16 step for each of the 16 warps, as
+// tc_gemm.cuh's bfloat16 stage): its weights are the block's own, copied
+// with cp.async into tc_gemm.cuh's layout; its rows are the cluster's,
+// copied once for the whole cluster by TMA boxes multicast to every block
+// (each block issues a share of the boxes), 64 deep in the 128-byte swizzle.
+// The products and their sums are tc_gemm.cuh's, bit for bit.
+
+namespace cl = tggcn::gru;
+namespace wg = tggcn::wg;
+
+constexpr int kRing = 4;                                // stages of a cluster kernel's ring
+constexpr int kChunk16 = 16 * kWarps;                   // depth of a stage (256)
+constexpr int kWStride16 = kChunk16 + 8;                // a weight row of a stage, as tc_gemm's
+constexpr int kBoxDepth = 64;                           // a box of rows: one 128-byte row deep
+constexpr int kSubs = kChunk16 / kBoxDepth;             // boxes deep a stage
+constexpr int kSubBytes = kMaxRows * 128;               // a stage's rows at one box depth
+constexpr int kXSlotBytes = kSubs * kSubBytes;          // a stage of rows: 16 KB
+constexpr int kMaxClusterBlocks = 16;
+constexpr int kDmStride = 2 * kMTile;                   // a row of a DA block's dmsgs tile
+
+template <int MT>
+__host__ __device__ constexpr size_t w_stage_bytes() {
+  return (size_t)MT * kMTile * kWStride16 * sizeof(bf16);
+}
+
+// Shared memory of a cluster kernel whose blocks own MT weight tiles, from
+// the 1024-aligned base: the row stages, the weight stages (the partial
+// sums go over both once the product is done), then, in DA, the human
+// product's partial sums (then the gathered dmsgs rows) and the dmsgs tile
+// the cluster reads; then the ring's barriers.
+template <int MT>
+__host__ __device__ constexpr size_t ring_end() {
+  return (size_t)kRing * kXSlotBytes + kRing * w_stage_bytes<MT>();
+}
+constexpr size_t kDAPart = ring_end<2>();
+constexpr size_t kDADm = kDAPart + sizeof(Partials<2>);
+constexpr size_t kDABars = kDADm + (size_t)2 * kMaxRows * kDmStride * sizeof(float);
+constexpr size_t kDASmem = kDABars + 16 * kRing + 1024;
+constexpr size_t kRBars = ring_end<1>();
+constexpr size_t kRSmem = kRBars + 16 * kRing + 1024;
+static_assert(sizeof(Partials<2>) <= ring_end<2>() && sizeof(Partials<1>) <= ring_end<1>(),
+              "the partial sums go over the ring");
+
+// The ring of a cluster kernel and its barriers, by stage: full (the
+// stage's rows have landed in this block; one arrival, this block's
+// expected bytes) and empty (every block of the cluster has read the stage:
+// C arrivals).
+struct ClusterRing {
+  unsigned char* base;
+  size_t w_bytes;
+  uint32_t bars;
+  int C, rank;
+  __device__ unsigned char* x(int s) const { return base + (size_t)s * kXSlotBytes; }
+  __device__ unsigned char* w(int s) const {
+    return base + (size_t)kRing * kXSlotBytes + (size_t)s * w_bytes;
+  }
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (kRing + s); }
+};
+
+// A stage's rows: depth k0 .. k0 + 255 of plane `plane` of map, rows row0 ..
+// row0 + rows - 1 (rows <= 32) in boxes of `box` rows.
+struct RowStage {
+  const CUtensorMap* map;
+  int k0, row0, rows, plane, box;
+};
+
+// The weight stage of depth k0: MT tiles of w, which the product reads
+// along its rows (w[col][k], row stride ldw, depth K), as tc_gemm.cuh's
+// load_chunk copies them.
+template <int MT>
+__device__ __forceinline__ void load_weights(unsigned char* stage, const bf16* w, int ldw, int K,
+                                             const Tiles& tiles, int k0) {
+  bf16(*st)[kWStride16] = reinterpret_cast<bf16(*)[kWStride16]>(stage);
+  constexpr int kCopies = MT * kMTile * kChunk16 / 8 / kThreads;
+  static_assert(kCopies * kThreads == MT * kMTile * kChunk16 / 8, "weight copies");
+#pragma unroll
+  for (int j = 0; j < kCopies; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int m = i / (kChunk16 / 8), kk = (i % (kChunk16 / 8)) * 8;
+    const int t = m / kMTile, mm = m % kMTile;
+    const bool valid = mm < pick<MT>(tiles.valid, t) && k0 + kk < K;
+    cp_async16(&st[m][kk], valid ? w + (size_t)(pick<MT>(tiles.col, t) + mm) * ldw + k0 + kk : w,
+               valid);
+  }
+}
+
+// Stage c's rows, by thread 0 of each block: posts the stage's bytes on
+// this block's full barrier and issues this block's share of the boxes to
+// the whole cluster, once every block has read the stage's previous rows.
+__device__ __forceinline__ void issue_rows(const ClusterRing& ring, int c, const RowStage& x) {
+  const int s = c % kRing, nbox = (x.rows + x.box - 1) / x.box, nq = kSubs * nbox;
+  wg::bar_expect(ring.full(s), (uint32_t)(nq * x.box * 128));
+  bool free = c < kRing;
+  for (int j = 0; j < nq; ++j) {
+    if ((c * nq + j) % ring.C != ring.rank) continue;
+    if (!free) {
+      wg::bar_wait_cluster(ring.empty(s), (c / kRing - 1) & 1);
+      free = true;
+    }
+    const int sub = j / nbox, rb = j % nbox;
+    wg::tma_load_multicast(wg::smem_u32(ring.x(s)) + sub * kSubBytes + rb * x.box * 128, x.map,
+                           ring.full(s), x.k0 + sub * kBoxDepth, x.row0 + rb * x.box, x.plane,
+                           (uint16_t)((1u << ring.C) - 1));
+  }
+}
+
+// This warp's k16 step of one stage, as tc_gemm.cuh's multiply_chunk takes
+// it (bfloat16, weights along their rows, one warp group), with the rows
+// read from the swizzled boxes (conflict-free: row 8 n + g of a box holds
+// its 16-byte piece j at j ^ g).
+template <int MT, int S, class Map>
+__device__ __forceinline__ void multiply_stage(const unsigned char* wstage,
+                                               const unsigned char* xs, int ntiles,
+                                               float (&acc)[S][kNTiles][4]) {
+  const bf16(*w)[kWStride16] = reinterpret_cast<const bf16(*)[kWStride16]>(wstage);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int kk = 16 * warp, c0 = (kk % kBoxDepth) / 8;
+  const unsigned char* sub = xs + (kk / kBoxDepth) * kSubBytes + 4 * q;
+  uint32_t b[kNTiles][2];
+#pragma unroll
+  for (int n = 0; n < kNTiles; ++n) {
+    if (n < ntiles) {
+      const unsigned char* row = sub + (8 * n + g) * 128;
+      b[n][0] = *reinterpret_cast<const uint32_t*>(row + (c0 ^ g) * 16);
+      b[n][1] = *reinterpret_cast<const uint32_t*>(row + ((c0 + 1) ^ g) * 16);
+    }
+  }
+#pragma unroll
+  for (int lt = 0; lt < MT; ++lt) {
+    const int s = Map::slot(0, lt);
+    const int m = lt * kMTile + g, k = kk + 2 * q;
+    uint32_t a[4];
+    a[0] = pair(w[m][k]);
+    a[1] = pair(w[m + 8][k]);
+    a[2] = pair(w[m][k + 8]);
+    a[3] = pair(w[m + 8][k + 8]);
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+      if (n < ntiles) mma_bf16(acc[s][n], a, b[n]);
+  }
+}
+
+// Sets up the ring (its barriers, then a cluster barrier so that no block's
+// rows land before its barriers exist) and issues the first kRing - 1
+// stages: load(c, stage) copies stage c's weights, rows(c) names its rows.
+template <class Load, class Rows>
+__device__ __forceinline__ void begin_ring(const ClusterRing& ring, int total, Load load,
+                                           Rows rows) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      wg::bar_init(ring.full(s), 1);
+      wg::bar_init(ring.empty(s), ring.C);
+    }
+    wg::bar_init_fence();
+  }
+  cl::cluster_arrive();
+  for (int c = 0; c < kRing - 1; ++c) {
+    if (c < total) load(c, ring.w(c));
+    cp_async_commit();
+  }
+  cl::cluster_wait();
+  if (threadIdx.x == 0)
+    for (int c = 0; c < kRing - 1 && c < total; ++c) issue_rows(ring, c, rows(c));
+}
+
+// The block's product over `total` stages after begin_ring: each stage's
+// weights and rows in, the previous stage handed back to the cluster (each
+// block arrives on every block's empty barrier), the stage kRing - 1 ahead
+// issued, then multiply(c, weights, rows). Ends with the block synchronized
+// and its ring free.
+template <class Load, class Rows, class Multiply>
+__device__ __forceinline__ void cluster_product(const ClusterRing& ring, int total, Load load,
+                                                Rows rows, Multiply multiply) {
+  const int tid = threadIdx.x;
+  for (int c = 0; c < total; ++c) {
+    const int s = c % kRing;
+    cp_async_wait<kRing - 2>();
+    wg::bar_wait(ring.full(s), (c / kRing) & 1);
+    __syncthreads();                    // stage c is in; stage c - 1 is read here
+    if (c >= 1 && c - 1 + kRing < total && tid < ring.C)
+      cl::arrive_remote(ring.empty((c - 1) % kRing), tid);
+    const int next = c + kRing - 1;
+    if (next < total) load(next, ring.w(next % kRing));
+    cp_async_commit();
+    if (tid == 0 && next < total) issue_rows(ring, next, rows(next));
+    multiply(c, ring.w(s), ring.x(s));
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+struct DAMaps {
+  CUtensorMap dgi[2];                   // the human and object cells' dgi (2T, rows, 3h)
+};
+
+struct DAArgs {
+  const bf16 *w_msg_h, *w_msg_o, *g_att;
+  const float *m_h, *m_o, *atts;
+  bf16 *dpre_h, *dpre_o;
+  float* ds;                            // (2, B, E, E): the score gradients
+};
+
+// DA of one step. A cluster is one (direction, sender group, batch tile):
+// block `rank` takes dmsgs columns grp * h + 32 rank .. + 31 of every row
+// of both cells in the tile (two products, 3h deep, against each cell's
+// w_msg), then from its columns dpre of the group's senders for both
+// receiver cells; then each block gathers the full group half of its
+// share of the receivers' dmsgs rows from the cluster and takes da over
+// it, in segb_att's order, and the softmax backward of the group, into ds.
+__global__ void __launch_bounds__(kThreads, 1)
+segb_dmsgs_att(const __grid_constant__ DAMaps maps, DAArgs x, int T_, int B, int NH, int NO,
+               int H, int nb, int step) {
+  const auto q = [](float v) { return round_to<bf16>(v); };
+  const Step s = step_of(step, T_);
+  const int C = gridDim.x, rank = blockIdx.x, tid = threadIdx.x;
+  const int grp = blockIdx.y % 2, b0 = blockIdx.y / 2 * nb, nbt = min(nb, B - b0);
+  const int E = NH + NO, Ng = grp == 0 ? NH : NO, col0 = 2 * kMTile * rank;
+  const int rows_h = nbt * NH, rows_o = nbt * NO;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = wg::align1024(smem_raw);
+  const ClusterRing ring{base, w_stage_bytes<2>(), wg::smem_u32(base + kDABars), C, rank};
+
+  const int na = (3 * H + kChunk16 - 1) / kChunk16, total = 2 * na;
+  const size_t wd = (size_t)s.d * 2 * H * 3 * H;
+  const bf16 *w_h = x.w_msg_h + wd, *w_o = x.w_msg_o + wd;
+  const Tiles tiles = {{grp * H + col0, grp * H + col0 + kMTile, 0},
+                       {max(0, min(kMTile, H - col0)), max(0, min(kMTile, H - col0 - kMTile)), 0}};
+  const int plane = s.d * T_ + s.t, box_h = wg::row_box(B * NH), box_o = wg::row_box(B * NO);
+  auto load = [&](int c, unsigned char* st) {
+    load_weights<2>(st, c < na ? w_h : w_o, 3 * H, 3 * H, tiles, c % na * kChunk16);
+  };
+  auto rows = [&](int c) {
+    return c < na ? RowStage{&maps.dgi[0], c * kChunk16, b0 * NH, rows_h, plane, box_h}
+                  : RowStage{&maps.dgi[1], (c - na) * kChunk16, b0 * NO, rows_o, plane, box_o};
+  };
+  begin_ring(ring, total, load, rows);
+  float acc[2][kNTiles][4] = {};
+  unsigned char* part_h = base + kDAPart;
+  cluster_product(ring, total, load, rows,
+                  [&](int c, const unsigned char* ws, const unsigned char* xs) {
+                    multiply_stage<2, 2, TileSlots>(ws, xs, ((c < na ? rows_h : rows_o) + 7) / 8,
+                                                    acc);
+                    if (c == na - 1) {          // the human rows' sums, then the object rows'
+                      store_partials<2>(part_h, acc);
+#pragma unroll
+                      for (int i = 0; i < 2; ++i)
+#pragma unroll
+                        for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+                          for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+                    }
+                  });
+  store_partials<2>(base, acc);
+  __syncthreads();
+
+  // The block's dmsgs tile: rows 0..31 the human rows, 32..63 the object
+  // rows, 32 columns; rounded to bfloat16 as segb_dmsgs rounds it.
+  float* dm = reinterpret_cast<float*>(base + kDADm);
+  for (int p = tid; p < 2 * 2 * kMTile * kMaxRows; p += kThreads) {
+    const int cell = p / (2 * kMTile * kMaxRows), i = p % (2 * kMTile * kMaxRows);
+    const int t = i / (kMTile * kMaxRows), cc = i % kMTile, r = (i / kMTile) % kMaxRows;
+    const int col = col0 + t * kMTile + cc;
+    float v = 0.f;
+    if (r < (cell == 0 ? rows_h : rows_o) && col < H)
+      v = q(reduce<2>(cell == 0 ? part_h : base, t, cc, r));
+    dm[(cell * kMaxRows + r) * kDmStride + t * kMTile + cc] = v;
+  }
+  __syncthreads();
+  cl::cluster_arrive();                 // the tile is ready for the cluster
+
+  // dpre of the group's senders at this block's columns, as segb_att takes
+  // it: dm of the edges to the humans and to the objects, masked by the
+  // ReLU of the messages K3 kept.
+  const float* msg = grp == 0 ? x.m_h : x.m_o;
+  bf16* dpre = grp == 0 ? x.dpre_h : x.dpre_o;
+  for (int p = tid; p < nbt * Ng * 2 * kMTile; p += kThreads) {
+    const int kk = p % (2 * kMTile), j = p / (2 * kMTile) % Ng, bl = p / (2 * kMTile * Ng);
+    const int k = col0 + kk, b = b0 + bl, je = grp == 0 ? j : NH + j;
+    if (k >= H) continue;
+    const float* a = x.atts + at(s, T_, B, b, E * E) + je;
+    float dm_h = 0.f, dm_o = 0.f;
+    for (int n = 0; n < NH; ++n)
+      dm_h = fmaf(q(a[n * E]), dm[(bl * NH + n) * kDmStride + kk], dm_h);
+    for (int n = 0; n < NO; ++n)
+      dm_o = fmaf(q(a[(NH + n) * E]), dm[(kMaxRows + bl * NO + n) * kDmStride + kk], dm_o);
+    const size_t o = at(s, T_, B * Ng, b * Ng + j, 2 * H);
+    dm_h = msg[o + k] > 0.f ? dm_h : 0.f;
+    dm_o = msg[o + H + k] > 0.f ? dm_o : 0.f;
+    dpre[o + k] = from_f32<bf16>(dm_h);         // edge hh or oh
+    dpre[o + H + k] = from_f32<bf16>(dm_o);     // edge ho or oo
+  }
+  cl::cluster_wait();
+
+  // This block's receivers (rank, rank + C, ... of the tile's human rows,
+  // then its object rows): their dmsgs rows' group half, gathered from the
+  // cluster's tiles over the human partial sums, which are read.
+  const int nrecv = rows_h + rows_o;
+  const int mine = rank < nrecv ? (nrecv - rank + C - 1) / C : 0;
+  float* rowbuf = reinterpret_cast<float*>(part_h);
+  float* da = rowbuf + (size_t)mine * H;          // (mine, kMaxEntities)
+  const uint32_t dm_addr = wg::smem_u32(dm);
+  constexpr int kVec = kDmStride / 4;             // 16-byte loads a tile row
+  for (int p = tid; p < mine * C * kVec; p += kThreads) {
+    const int li = p / (C * kVec), peer = p / kVec % C, v = p % kVec;
+    const int ri = rank + C * li;
+    const int r = ri < rows_h ? ri : kMaxRows + ri - rows_h;
+    const int col = 2 * kMTile * peer + 4 * v;
+    if (col < H)
+      *reinterpret_cast<float4*>(rowbuf + (size_t)li * H + col) = cl::ld_cluster4(
+          cl::map_rank(dm_addr + (uint32_t)((r * kDmStride + 4 * v) * sizeof(float)), peer));
+  }
+  __syncthreads();
+  cl::cluster_arrive();                 // this block has read the cluster's tiles
+  const int warp = tid / 32, lane = tid % 32;
+  for (int p = warp; p < mine * Ng; p += kWarps) {
+    const int li = p / Ng, m = p % Ng, ri = rank + C * li;
+    const int cell = ri < rows_h ? 0 : 1, r = cell == 0 ? ri : ri - rows_h;
+    const int Nc = cell == 0 ? NH : NO, b = b0 + r / Nc, n = r % Nc;
+    const float* dr = rowbuf + (size_t)li * H;
+    const float* mr = msg + at(s, T_, B * Ng, b * Ng + m, 2 * H) + cell * H;
+    float dot = 0.f;
+    for (int k = lane; k < H; k += 32) dot = fmaf(dr[k], q(mr[k]), dot);
+    for (int off = 16; off > 0; off /= 2) dot += __shfl_down_sync(0xffffffffu, dot, off);
+    if (lane == 0) {
+      if (cell == 0 && grp == 1) dot += to_f32(x.g_att[(at(s, T_, B, b, NH) + n) * NO + m]);
+      da[li * kMaxEntities + m] = dot;
+    }
+  }
+  __syncthreads();
+  if (tid < mine) {                     // the softmax backward of the group
+    const int ri = rank + C * tid;
+    const int cell = ri < rows_h ? 0 : 1, r = cell == 0 ? ri : ri - rows_h;
+    const int Nc = cell == 0 ? NH : NO, b = b0 + r / Nc, ne = (cell == 0 ? 0 : NH) + r % Nc;
+    const int m0 = grp == 0 ? 0 : NH;
+    const float* a = x.atts + at(s, T_, B, b, E * E) + ne * E + m0;
+    float* ds = x.ds + (((size_t)s.d * B + b) * E + ne) * E + m0;
+    const float* d = da + tid * kMaxEntities;
+    float dot = 0.f;
+    for (int m = 0; m < Ng; ++m) dot += d[m] * q(a[m]);
+    for (int m = 0; m < Ng; ++m) ds[m] = q(q(a[m]) * (d[m] - dot));
+  }
+  cl::cluster_wait();                   // no block reads this block's tile any more
+}
+
+struct RMaps {
+  CUtensorMap dgh[2];                   // (2T, rows, 3h) of each cell
+  CUtensorMap dpre[2][2];               // each cell's dpre, per sent edge (2T, rows, h)
+};
+
+struct RArgs {
+  const bf16 *w_hh_h, *w_hh_o, *w_from, *hprev_h, *hprev_o;
+  const float* ds;
+  bf16 *dh0_h, *dh0_o;
+};
+
+// Phase C's inputs issued before the product (wg::load_now), the bfloat16
+// ones as raw bits.
+struct CellRaw {
+  float r, z, n, hn;
+  uint16_t hprev, g, u;
+};
+
+__device__ __forceinline__ CellRaw cell_load_now(const CellArgs<bf16>& c, Step s, int T_,
+                                                 int rows, int row, int unit, int H) {
+  const float* gr = c.gates + at(s, T_, rows, row, 4 * H);
+  const size_t hi = at(s, T_, rows, row, H) + unit;
+  return {wg::load_now(gr + unit), wg::load_now(gr + H + unit), wg::load_now(gr + 2 * H + unit),
+          wg::load_now(gr + 3 * H + unit), wg::load_now(c.hprev + hi), wg::load_now(c.g + hi),
+          wg::load_now(c.u + (size_t)s.t * rows + row)};
+}
+
+// R of one step. A cluster is up to 16 blocks of 16 units of one (cell,
+// direction, 32-row tile): the rows of dgh and dpre copied once for it.
+// Before the product each thread (one row and unit) takes attc from ds and
+// the step's states, in segb_att's order, adds dhz, and issues its loads of
+// the next step's phase C; after it, carry and phase C, as segb_carry.
+__global__ void __launch_bounds__(kThreads, 2)
+segb_carry_cluster(const __grid_constant__ RMaps maps, RArgs x, CellArgs<bf16> cell_h,
+                   CellArgs<bf16> cell_o, int T_, int B, int NH, int NO, int H, int row_tiles,
+                   int units, int Cr, float scale, int step) {
+  const Step s = step_of(step, T_);
+  const int tid = threadIdx.x, u = blockIdx.x, rank = u % Cr;
+  const int cell = blockIdx.y / row_tiles, row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int all_rows = B * (cell == 0 ? NH : NO);
+  if (row0 >= all_rows) return;         // every block of this cluster
+  const int rows = min(kMaxRows, all_rows - row0), unit0 = u * kMTile;
+  const CellArgs<bf16>& cb = cell == 0 ? cell_h : cell_o;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = wg::align1024(smem_raw);
+  const ClusterRing ring{base, w_stage_bytes<1>(), wg::smem_u32(base + kRBars), Cr, rank};
+
+  const int na = (3 * H + kChunk16 - 1) / kChunk16, nk = (H + kChunk16 - 1) / kChunk16;
+  const int total = na + 2 * nk;
+  const bf16* w_hh = (cell == 0 ? x.w_hh_h : x.w_hh_o) + (size_t)s.d * H * 3 * H;
+  const bf16* w_from = x.w_from + (size_t)2 * cell * H * H;
+  const Tiles tiles = {{unit0, 0, 0}, {max(0, min(kMTile, H - unit0)), 0, 0}};
+  const int plane = s.d * T_ + s.t, box = wg::row_box(all_rows);
+  auto load = [&](int c, unsigned char* st) {
+    if (c < na)
+      load_weights<1>(st, w_hh, 3 * H, 3 * H, tiles, c * kChunk16);
+    else
+      load_weights<1>(st, w_from + (c < na + nk ? 0 : (size_t)H * H), H, H, tiles,
+                      (c - na) % nk * kChunk16);
+  };
+  auto rows_of = [&](int c) {
+    const int e = c < na + nk ? 0 : 1;
+    return c < na ? RowStage{&maps.dgh[cell], c * kChunk16, row0, rows, plane, box}
+                  : RowStage{&maps.dpre[cell][e], (c - na) % nk * kChunk16, row0, rows, plane,
+                             box};
+  };
+  begin_ring(ring, total, load, rows_of);
+
+  const int cc = tid % kMTile, r = tid / kMTile;
+  const int row = row0 + r, unit = unit0 + cc;
+  const bool live = r < rows && unit < H, last = step + 1 == T_;
+  const Step next = step_of(step + 1, T_);
+  const size_t hs = ((size_t)s.d * all_rows + row) * H + unit;
+  float pre = 0.f;
+  CellRaw in = {};
+  if (live) {
+    const int Nc = cell == 0 ? NH : NO, E = NH + NO;
+    const int b = row / Nc, je = (cell == 0 ? 0 : NH) + row % Nc;
+    const float* ds = x.ds + ((size_t)s.d * B + b) * E * E;
+    float g = 0.f;
+    for (int m = 0; m < E; ++m) {
+      const bf16 hp = m < NH ? x.hprev_h[at(s, T_, B * NH, b * NH + m, H) + unit]
+                             : x.hprev_o[at(s, T_, B * NO, b * NO + m - NH, H) + unit];
+      g = fmaf(ds[je * E + m] + ds[m * E + je], to_f32(hp), g);
+    }
+    // dhz + attc, attc = scale g rounded on its own, as segb_att stores it.
+    pre = __fadd_rn(cb.dhz[hs], __fmul_rn(scale, g));
+    if (!last) in = cell_load_now(cb, next, T_, all_rows, row, unit, H);
+  }
+
+  float acc[1][kNTiles][4] = {};
+  const int ntiles = (rows + 7) / 8;
+  cluster_product(ring, total, load, rows_of,
+                  [&](int, const unsigned char* ws, const unsigned char* xs) {
+                    multiply_stage<1, 1, OneSlot>(ws, xs, ntiles, acc);
+                  });
+  cl::cluster_arrive();                 // this block is done with the cluster's rows
+  store_partials<1>(base, acc);
+  __syncthreads();
+  __shared__ float du_s[kMaxRows][kMTile + 1];
+  float du = 0.f;
+  if (live) {
+    const float carry = pre + reduce<1>(base, 0, cc, r);
+    if (last)
+      (cell == 0 ? x.dh0_h : x.dh0_o)[hs] = from_f32<bf16>(carry);
+    else
+      du = cell_bwd(cb, next, T_, all_rows, row, unit, H, carry,
+                    CellIn{in.r, in.z, in.n, in.hn, wg::widen(in.hprev), wg::widen(in.g),
+                           wg::widen(in.u)});
+  }
+  du_s[r][cc] = du;
+  if (!last && u < units) store_du(cb, next, T_, all_rows, row0, rows, du_s, units, u);
+  cl::cluster_wait();                   // no block still arrives on this block's barriers
+}
+
+// The cluster route's plan at (B, NH, NO, H), into out[kPlanInts]: 1 if
+// the shape takes it (else 0: the per-step route), DA's blocks a cluster
+// and clusters a step, its dynamic shared memory, R's blocks a cluster and
+// clusters a step, its dynamic shared memory, the batch tile of a DA
+// cluster; the two co-residency slots are the caller's.
+constexpr int kPlanInts = 10;
+
+void cluster_plan(int B, int NH, int NO, int H, int* out) {
+  const int most = NH > NO ? NH : NO;
+  const int nb = most > 0 ? kMaxRows / most : 0;
+  const bool ok = NH >= 1 && NO >= 1 && NH + NO <= kMaxEntities && H % 8 == 0 && H > 0 &&
+                  H <= kMaxClusterBlocks * 2 * kMTile && B >= 1;
+  const int units = (H + kMTile - 1) / kMTile;
+  const int per = (units + kMaxClusterBlocks - 1) / kMaxClusterBlocks;
+  const int row_tiles_h = (B * NH + kMaxRows - 1) / kMaxRows;
+  const int row_tiles_o = (B * NO + kMaxRows - 1) / kMaxRows;
+  out[0] = ok;
+  out[1] = ok ? (H + 2 * kMTile - 1) / (2 * kMTile) : 0;
+  out[2] = ok ? 2 * 2 * ((B + nb - 1) / nb) : 0;
+  out[3] = ok ? (int)kDASmem : 0;
+  out[4] = ok ? (units + per - 1) / per : 0;
+  out[5] = ok ? per * (row_tiles_h + row_tiles_o) * 2 : 0;
+  out[6] = ok ? (int)kRSmem : 0;
+  out[7] = ok ? nb : 0;
+  out[8] = out[9] = -1;
+}
+
+int run_cluster(const bf16* u_h, const bf16* u_o, const bf16* hprev_h, const bf16* hprev_o,
+                const float* m_h, const float* m_o, const float* gates_h, const float* gates_o,
+                const float* atts, const bf16* g_h, const bf16* g_o, const bf16* g_att,
+                const bf16* w_from, const bf16* w_msg_h, const bf16* w_msg_o, const bf16* w_hh_h,
+                const bf16* w_hh_o, bf16* dgi_h, bf16* dgi_o, bf16* dgh_h, bf16* dgh_o,
+                bf16* dpre_h, bf16* dpre_o, bf16* du_h, bf16* du_o, bf16* dh0_h, bf16* dh0_o,
+                float* du_part_h, float* du_part_o, float* dhz_h, float* dhz_o, float* ds,
+                int T_, int B, int NH, int NO, int H, float scale, cudaStream_t stream) {
+  int plan[kPlanInts];
+  cluster_plan(B, NH, NO, H, plan);
+  if (!plan[0] || T_ < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int C = plan[1], Cr = plan[4], nb = plan[7];
+  const int units = (H + kMTile - 1) / kMTile, per = (units + Cr - 1) / Cr;
+  const int row_tiles = (B * (NH > NO ? NH : NO) + kMaxRows - 1) / kMaxRows;
+  DAMaps dm;
+  RMaps rm;
+  const int rows[2] = {B * NH, B * NO};
+  const bf16* dgi[2] = {dgi_h, dgi_o};
+  const bf16* dgh[2] = {dgh_h, dgh_o};
+  const bf16* dpre[2] = {dpre_h, dpre_o};
+  cudaError_t err = cudaSuccess;
+  for (int c = 0; c < 2 && err == cudaSuccess; ++c) {
+    err = wg::rows_map(&dm.dgi[c], dgi[c], 2 * T_, rows[c], 3 * H, 3 * H);
+    if (err == cudaSuccess) err = wg::rows_map(&rm.dgh[c], dgh[c], 2 * T_, rows[c], 3 * H, 3 * H);
+    for (int e = 0; e < 2 && err == cudaSuccess; ++e)
+      err = wg::rows_map(&rm.dpre[c][e], dpre[c], 2 * T_, rows[c], 2 * H, H, e * H);
+  }
+  if (err == cudaSuccess) err = cl::prepare_cluster(segb_dmsgs_att, kDASmem);
+  if (err == cudaSuccess) err = cl::prepare_cluster(segb_carry_cluster, kRSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const CellArgs<bf16> cell_h = {u_h, hprev_h, g_h, gates_h, dgi_h, dgh_h, du_part_h, dhz_h};
+  const CellArgs<bf16> cell_o = {u_o, hprev_o, g_o, gates_o, dgi_o, dgh_o, du_part_o, dhz_o};
+  const DAArgs da = {w_msg_h, w_msg_o, g_att, m_h, m_o, atts, dpre_h, dpre_o, ds};
+  const RArgs ra = {w_hh_h, w_hh_o, w_from, hprev_h, hprev_o, ds, dh0_h, dh0_o};
+  const dim3 grid_c(units, 2 * row_tiles, 2);
+  const dim3 grid_da(C, plan[2] / 2, 2), grid_r(per * Cr, 2 * row_tiles, 2);
+  segb_cell<bf16><<<grid_c, kThreads, 0, stream>>>(cell_h, cell_o, T_, B, NH, NO, H, row_tiles);
+  for (int step = 0; step < T_; ++step) {
+    err = cl::launch_cluster_grid(segb_dmsgs_att, kThreads, grid_da, C, kDASmem, stream, dm, da,
+                                  T_, B, NH, NO, H, nb, step);
+    if (err == cudaSuccess)
+      err = cl::launch_cluster_grid(segb_carry_cluster, kThreads, grid_r, Cr, kRSmem, stream, rm,
+                                    ra, cell_h, cell_o, T_, B, NH, NO, H, row_tiles, units, Cr,
+                                    scale, step);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int n_h = 2 * T_ * B * NH, n_o = 2 * T_ * B * NO;
+  du_sum<bf16><<<(n_h + n_o + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      du_part_h, du_part_o, du_h, du_o, n_h, n_o, units);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
@@ -468,7 +1034,11 @@ extern "C" int tggcn_segment_scan_dot_bwd_f32(
 }
 
 // The same in bfloat16 IO: m_h, m_o, gates and atts (K3's kept) and the
-// scratch float32, every other tensor bfloat16. H % 8 == 0.
+// scratch float32, every other tensor bfloat16. H % 8 == 0. With cluster
+// = 1 the cluster route (two cluster launches a step; the shape must take
+// it: tggcn_segment_scan_dot_bwd_plan), which reads ds (2, B, E, E) and
+// neither dmsgs nor attc; with cluster = 0 the per-step route, which reads
+// dmsgs and attc and not ds.
 extern "C" int tggcn_segment_scan_dot_bwd_bf16(
     const bf16* u_h, const bf16* u_o, const bf16* hprev_h, const bf16* hprev_o,
     const float* m_h, const float* m_o, const float* gates_h, const float* gates_o,
@@ -477,11 +1047,32 @@ extern "C" int tggcn_segment_scan_dot_bwd_bf16(
     const bf16* w_hh_o, bf16* dgi_h, bf16* dgi_o, bf16* dgh_h, bf16* dgh_o, bf16* dpre_h,
     bf16* dpre_o, bf16* du_h, bf16* du_o, bf16* dh0_h, bf16* dh0_o, float* du_part_h,
     float* du_part_o, float* dhz_h, float* dhz_o, float* dmsgs_h, float* dmsgs_o,
-    float* attc_h, float* attc_o, int T, int B, int NH, int NO, int H, float scale,
-    void* stream_ptr) {
+    float* attc_h, float* attc_o, float* ds, int cluster, int T, int B, int NH, int NO, int H,
+    float scale, void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (cluster)
+    return run_cluster(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o, atts, g_h, g_o,
+                       g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, dgi_h, dgi_o, dgh_h,
+                       dgh_o, dpre_h, dpre_o, du_h, du_o, dh0_h, dh0_o, du_part_h, du_part_o,
+                       dhz_h, dhz_o, ds, T, B, NH, NO, H, scale, stream);
   return run_bwd<bf16>(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o, atts, g_h, g_o,
                        g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o, dgi_h, dgi_o, dgh_h,
                        dgh_o, dpre_h, dpre_o, du_h, du_o, dh0_h, dh0_o, du_part_h, du_part_o,
                        dhz_h, dhz_o, dmsgs_h, dmsgs_o, attc_h, attc_o, T, B, NH, NO, H, scale,
-                       static_cast<cudaStream_t>(stream_ptr));
+                       stream);
+}
+
+// The bfloat16 cluster route's plan at (B, NH, NO, H) into out[10] (see
+// cluster_plan), with, if occupancy and on the cluster route, the most
+// clusters of DA and of R the card holds at once
+// (cudaOccupancyMaxActiveClusters; else -1).
+// Returns a CUDA error code (0 on success).
+extern "C" int tggcn_segment_scan_dot_bwd_plan(int B, int NH, int NO, int H, int occupancy,
+                                               int* out) {
+  cluster_plan(B, NH, NO, H, out);
+  if (!out[0] || !occupancy) return 0;
+  cudaError_t err = cl::max_active_clusters(segb_dmsgs_att, kThreads, out[1], kDASmem, &out[8]);
+  if (err == cudaSuccess)
+    err = cl::max_active_clusters(segb_carry_cluster, kThreads, out[4], kRSmem, &out[9]);
+  return static_cast<int>(err);
 }

@@ -398,18 +398,25 @@ __device__ __forceinline__ void multiply_chunk(const Stage<kColRows, MT, TW, TX>
   }
 }
 
+// Nothing to do once a ring's first copies are issued (accumulate's early).
+struct NoEarly {
+  __device__ void operator()() const {}
+};
+
 // Accumulates the products of operands 0 .. NP-1 over their whole depths:
 // acc[slot][n][i] holds tile column g or g + 8 and row 8 n + 2 q (+1) in
 // the mma's C layout; store_partials and reduce read it back. NS is the
 // depth of the ring, MG the number of warp groups, Round the rounding of
 // each k8 step's sum (multiply_chunk). rows <= kMaxRows. The element
-// types TW, TX are the operands'.
+// types TW, TX are the operands'. early() runs once the first NS - 1
+// chunks' copies are issued: work of the caller's (an epilogue's loads)
+// whose latency the copies then hide.
 template <bool kColRows, int MT, int S, int NP, class Map, int NS = kStages, int MG = 1,
-          bool Round = false, class TW, class TX>
+          bool Round = false, class TW, class TX, class Early = NoEarly>
 __device__ __forceinline__ void accumulate(const OperandT<TW, TX>& a, const OperandT<TW, TX>& b,
                                            const OperandT<TW, TX>& c, const Tiles& tiles,
                                            int rows, unsigned char* smem,
-                                           float (&acc)[S][kNTiles][4]) {
+                                           float (&acc)[S][kNTiles][4], Early early = Early()) {
   static_assert(NS >= 2, "ring");
   using St = Stage<kColRows, MT, TW, TX>;
   constexpr int kChunk = St::kChunk;
@@ -431,6 +438,7 @@ __device__ __forceinline__ void accumulate(const OperandT<TW, TX>& a, const Oper
     cp_async_commit();
   };
   for (int i = 0; i < NS - 1; ++i) prefetch(i);
+  early();
   for (int i = 0; i < total; ++i) {
     cp_async_wait<NS - 2>();
     __syncthreads();                    // chunk i is in; chunk i - 1's buffer is free

@@ -678,16 +678,45 @@ def segment_scan_dot_weight_grads(hprev_h, hprev_o, mix_h, mix_o, grads):
             grads["dgh_h"].sum(dim=(1, 2, 3)), grads["dgh_o"].sum(dim=(1, 2, 3)))
 
 
+# The bfloat16 backward's plan (csrc/segment_scan_bwd.cu, cluster_plan):
+# route 1 for the cluster route (else 0, the per-step route); DA's blocks
+# a cluster, clusters a step and dynamic shared memory; R's the same; the
+# batch tile of a DA cluster; and the most clusters of DA and of R the
+# card holds at once (-1 unless asked for and on the cluster route).
+BWD_PLAN_KEYS = ("route", "da_blocks", "da_clusters", "da_smem", "r_blocks", "r_clusters",
+                 "r_smem", "batch_tile", "da_co_resident", "r_co_resident")
+BWD_ROUTES = ("cluster", "steps")
+
+
+def bwd_plan(b, nh, no, h, occupancy: bool = True):
+    """The plan of K4's bfloat16 kernel at (B, H, O, h), as its source makes
+    it (BWD_PLAN_KEYS); with occupancy, the clusters the current CUDA device
+    holds at once. Builds the library if needed."""
+    fn = _build.load_library("segment_scan_bwd").tggcn_segment_scan_dot_bwd_plan
+    fn.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    out = (ctypes.c_int * len(BWD_PLAN_KEYS))()
+    _build.check_launch(fn(b, nh, no, h, int(occupancy), out), "segment_scan_dot_bwd plan")
+    return dict(zip(BWD_PLAN_KEYS, out))
+
+
 def segment_scan_dot_bwd(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o, atts,
                          g_h, g_o, g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
-                         scale: float):
+                         scale: float, route=None):
     """The dict of BWD_OUTPUTS (see segment_scan_dot_bwd_plain) for the
     upstream gradients g_h (2, T, B, H, h), g_o and g_att (2, T, B, H, O);
-    CPU tensors take the plain version, CUDA tensors the kernel."""
+    CPU tensors take the plain version, CUDA tensors the kernel. In
+    bfloat16 the kernel's route follows the shape (bwd_plan: two cluster
+    launches a step at h <= 512, else three launches a step); route
+    'steps' takes the per-step route at any shape, 'cluster' raises where
+    the shape does not take it (the card tests hold the two routes to the
+    same bits). Float32 takes the per-step route."""
     args = dict(u_h=u_h, u_o=u_o, hprev_h=hprev_h, hprev_o=hprev_o, m_h=m_h, m_o=m_o,
                 gates_h=gates_h, gates_o=gates_o, atts=atts, g_h=g_h, g_o=g_o, g_att=g_att,
                 w_from=w_from, w_msg_h=w_msg_h, w_msg_o=w_msg_o, w_hh_h=w_hh_h, w_hh_o=w_hh_o)
     _build.refuse_autograd("segment_scan_dot_bwd", *args.values())
+    if route not in (None,) + BWD_ROUTES:
+        raise ValueError(f"segment_scan_dot_bwd: route {route!r} is not one of {BWD_ROUTES}")
     if hprev_h.device.type == "cpu":
         return segment_scan_dot_bwd_plain(**args, scale=scale)
     if hprev_h.device.type != "cuda":
@@ -708,20 +737,39 @@ def segment_scan_dot_bwd(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o,
         out["dh0_h"].zero_()
         out["dh0_o"].zero_()
         return out
+    cluster = False
+    if io == torch.bfloat16:
+        takes = bool(bwd_plan(b, nh, no, h, occupancy=False)["route"])
+        if route == "cluster" and not takes:
+            raise ValueError(f"segment_scan_dot_bwd: the shape (B={b}, H={nh}, O={no}, h={h}) "
+                             "does not take the cluster route")
+        cluster = takes and route != "steps"
+    elif route == "cluster":
+        raise ValueError("segment_scan_dot_bwd: the cluster route is bfloat16's")
     col_tiles = -(-h // 16)                 # the carry phase's blocks per row
     scratch = [empty(2, t, b * nh, col_tiles), empty(2, t, b * no, col_tiles),   # du partials
-               empty(2, b * nh, h), empty(2, b * no, h),                         # dhz
-               empty(2, b * nh, 2 * h), empty(2, b * no, 2 * h),                 # dmsgs
-               empty(2, b * nh, h), empty(2, b * no, h)]                         # attc
-    ptrs = [x.data_ptr() for x in (*args.values(), *(out[k] for k in BWD_OUTPUTS), *scratch)]
+               empty(2, b * nh, h), empty(2, b * no, h)]                         # dhz
+    if cluster:
+        scratch += [None] * 4 + [empty(2, b, nh + no, nh + no)]                  # ds
+    else:
+        scratch += [empty(2, b * nh, 2 * h), empty(2, b * no, 2 * h),           # dmsgs
+                    empty(2, b * nh, h), empty(2, b * no, h)]                    # attc
+        scratch += [None] if io == torch.bfloat16 else []                       # no ds
+    ptrs = [x.data_ptr() if x is not None else None
+            for x in (*args.values(), *(out[k] for k in BWD_OUTPUTS), *scratch)]
     lib = _build.load_library("segment_scan_bwd")
-    fn = (lib.tggcn_segment_scan_dot_bwd_f32 if io == torch.float32
-          else lib.tggcn_segment_scan_dot_bwd_bf16)
-    fn.argtypes = [_P] * len(ptrs) + [_I] * 5 + [ctypes.c_float, _P]
+    if io == torch.float32:
+        fn = lib.tggcn_segment_scan_dot_bwd_f32
+        fn.argtypes = [_P] * len(ptrs) + [_I] * 5 + [ctypes.c_float, _P]
+        extra = ()
+    else:
+        fn = lib.tggcn_segment_scan_dot_bwd_bf16
+        fn.argtypes = [_P] * len(ptrs) + [_I] * 6 + [ctypes.c_float, _P]
+        extra = (int(cluster),)
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*ptrs, t, b, nh, no, h, float(scale), stream)
+        err = fn(*ptrs, *extra, t, b, nh, no, h, float(scale), stream)
     _build.check_launch(err, "segment_scan_dot_bwd")
     _build.count_launch(segment_scan_dot_bwd, io)
     return out
