@@ -15,7 +15,8 @@ exit and the phase's name if the phase hangs:
   build    the CUDA kernels from tggcn_torch/csrc, with nvcc; the wgmma
            kernels' registers, static shared memory and spills (-Xptxas
            -v) and their dynamic shared memory, and the same report of
-           K1's and K2's bfloat16 cluster kernels
+           K1's and K2's bfloat16 cluster kernels and of K4's bfloat16
+           kernels at h <= 512 (DA segb_dmsgs_att, R segb_carry_ds)
   k1       the frame-BiGRU kernel (gru_sequence) against its plain PyTorch
            version at the MPHOI shape T=167, S=6, R=32, h=512: the states
            and the gates it keeps for the backward, and the states of the
@@ -65,7 +66,14 @@ exit and the phase's name if the phase hangs:
            versions, timed; k3_bf16 and k4_bf16 print beside each product
            phase's device ms the bytes it copies from L2 a step (from the
            shapes) and the rate it reached, and k3_bf16 its phases' blocks,
-           blocks an SM and dynamic shared memory
+           blocks an SM and dynamic shared memory; k4_bf16 prints its
+           two-launch route: the plan (DA's blocks a cluster, clusters a
+           step, dynamic shared memory and clusters the card holds at
+           once, R's blocks and shared memory, the batch tile), the
+           launches of a call (2T + 2, no segb_att), a call repeated bit for
+           bit, the per-step route's outputs bit for bit, and the calls at
+           a data-parallel process's 4 clips and a streamed window's 1
+           against their plain versions at the MPHOI limits, timed
   k5_v1_bf16, k5_v4_bf16, k5_ext_bf16
            K5's bfloat16 variant in each mode against its plain bfloat16
            version on the k5 phases' inputs in bfloat16, with the controls
@@ -980,6 +988,12 @@ def print_split(name, split):
 # K3's bfloat16 product kernels on wgmma fed by TMA (csrc/wg_gemm.cuh).
 WG_KERNELS = ("proj_wg", "cell_wg")
 GRU_CLUSTER_KERNELS = ("gru_cluster_kernel", "gru_bwd_cluster")
+# K4's bfloat16 kernels at h <= 512: DA (a cluster launch a step) and R.
+K4_BF16_KERNELS = ("segb_dmsgs_att", "segb_carry_ds")
+# The batches of K4's bfloat16 calls beside the train step's (B = 8): a
+# data-parallel process's 4 clips and a streamed window's single clip, each
+# against its plain version at LIMITS_BF16["k4"] and SCAN_GRAD_RTOL_BF16.
+K4_BATCHES = (4, 1)
 
 
 def k3_l2_bytes(b, nh, no, h):
@@ -1005,18 +1019,30 @@ def k3_l2_bytes(b, nh, no, h):
 
 def k4_l2_bytes(b, nh, no, h):
     """The bytes K4's bfloat16 product phases (tc_gemm.cuh) copy from L2 a
-    step: a dmsgs block (32 of 2h columns, up to 32 rows of a (cell,
-    direction)) copies its columns of w_msg and its rows of dgi, 3h deep; a
-    carry block (16 units, up to 32 rows) its units' rows of w_hh and of the
-    two w_from edges its cell sends, and its rows of dgh and dpre, 5h deep;
-    all bfloat16 (cp.async reads nothing for the rows a block lacks)."""
-    out = dict(segb_dmsgs=0, segb_carry=0)
+    step, on the route of the shape (bwd_plan's rule: h <= 512 the
+    two-launch route). A DA block (32 of a sender group's h columns of both
+    cells, the rows of a batch tile of 32 // max(H, O) clips) copies, for
+    each cell, its columns of w_msg and the tile's rows of dgi, 3h deep; a
+    per-step dmsgs block (32 of 2h columns, up to 32 rows of a cell) its
+    columns and rows, 3h deep; a carry block (16 units, up to 32 rows) its
+    units' rows of w_hh and of the two w_from edges its cell sends, and its
+    rows of dgh and dpre, 5h deep; all bfloat16 (cp.async reads nothing
+    for the rows a block lacks)."""
+    carry = 0
     for rows in (b * nh, b * no):
         for row0 in range(0, rows, 32):
-            n = min(32, rows - row0)
-            out["segb_dmsgs"] += 2 * -(-2 * h // 32) * (32 + n) * 3 * h * 2
-            out["segb_carry"] += 2 * -(-h // 16) * (16 + n) * 5 * h * 2
-    return out
+            carry += 2 * -(-h // 16) * (16 + min(32, rows - row0)) * 5 * h * 2
+    if h <= 512 and h % 8 == 0 and nh + no <= 16:
+        nb, da = 32 // max(nh, no), 0
+        for b0 in range(0, b, nb):
+            tile = min(nb, b - b0)
+            da += 2 * 2 * -(-h // 32) * (64 + tile * (nh + no)) * 3 * h * 2
+        return dict(segb_dmsgs_att=da, segb_carry_ds=carry)
+    dmsgs = 0
+    for rows in (b * nh, b * no):
+        for row0 in range(0, rows, 32):
+            dmsgs += 2 * -(-2 * h // 32) * (32 + min(32, rows - row0)) * 3 * h * 2
+    return dict(segb_dmsgs=dmsgs, segb_carry=carry)
 
 
 def print_l2_rates(name, split, shape):
@@ -1142,8 +1168,10 @@ def run_k4(torch, dev, shape, dtype=None):
     plain_ms = cuda_ms(torch, lambda: segment_scan_dot_bwd_plain(**args, scale=scale), 2)
     split = device_ms_by_kernel(lambda: segment_scan_dot_bwd(**args, scale=scale), 1)
     print_split(tag, split)
+    route = {}
     if bf16:
         print_l2_rates(tag, split, shape)
+        route = k4_route_report(torch, dev, tag, shape, split, args, got)
     byte_count = nbytes(*args.values(), *got.values())
     rate = BF16_FLOP_PER_S if bf16 else PRODUCT_FLOP_PER_S
     new = bounds(byte_count, *k4_flops(t, b, nh, no, h), product_rate=rate)
@@ -1156,7 +1184,59 @@ def run_k4(torch, dev, shape, dtype=None):
     return dict(name="segment_scan_dot_bwd_bf16" if bf16 else "segment_scan_dot_bwd",
                 route="cuda", source="tggcn_torch/csrc/segment_scan_bwd.cu",
                 replaces="tggcn/ops/segment_scan_pallas.py:546", max_abs_err=err,
-                max_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=None, **controls, **new)
+                max_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=None, **controls, **route,
+                **new)
+
+
+def k4_route_report(torch, dev, tag, shape, split, args, got):
+    """K4's bfloat16 route at the MPHOI shape: the plan (bwd_plan), the
+    launches of a call (split: device_ms_by_kernel of one call), whether a
+    repeated call and the per-step route (route='steps') gave the same bits
+    as got, and each K4_BATCHES call against its plain version, at the
+    limits of the MPHOI check (max_share SCAN_GRAD_RTOL_BF16, rel_l2
+    LIMITS_BF16['k4']), timed. Raises if a check fails, or if the call made
+    other than 2T + 2 launches with no segb_att."""
+    from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, bwd_plan, segment_scan_dot_bwd,
+                                              segment_scan_dot_bwd_plain)
+    from tggcn_torch.profile_scan import bwd_inputs, scan_inputs
+
+    t, b, nh, no, h = shape
+    scale = 1.0 / math.sqrt(h)
+    launches = {k: v["launches"] for k, v in split.items()
+                if k.startswith("segb_") or k == "du_sum"}
+    again = segment_scan_dot_bwd(**args, scale=scale)
+    steps = segment_scan_dot_bwd(**args, scale=scale, route="steps")
+    out = dict(plan=bwd_plan(b, nh, no, h), launches_a_call=sum(launches.values()),
+               launches_by_kernel=launches,
+               repeat_bitwise=all(torch.equal(again[k], got[k]) for k in BWD_OUTPUTS),
+               steps_route_bitwise=all(torch.equal(steps[k], got[k]) for k in BWD_OUTPUTS))
+    del again, steps
+    for nb in K4_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(50 + nb)
+        fwd = {k: v.to(torch.bfloat16)
+               for k, v in scan_inputs(dev, gen, t, nb, nh, no, h).items()}
+        small = bwd_inputs(fwd, gen, scale)
+        mine = segment_scan_dot_bwd(**small, scale=scale)
+        want = segment_scan_dot_bwd_plain(**small, scale=scale)
+        gaps = tensor_gaps([mine[k] for k in BWD_OUTPUTS], [want[k] for k in BWD_OUTPUTS])
+        print(f"{tag} B={nb}: kernel vs plain " + ", ".join(f"{k} {v:.4g}"
+                                                         for k, v in gaps.items()), flush=True)
+        if not (gaps["max_share"] <= SCAN_GRAD_RTOL_BF16
+                and gaps["rel_l2"] <= LIMITS_BF16["k4"]["rel_l2"]):
+            raise AssertionError(f"{tag} B={nb}: kernel and plain version differ beyond the "
+                                 f"limits: {gaps}")
+        out[f"max_share_b{nb}"], out[f"rel_l2_b{nb}"] = gaps["max_share"], gaps["rel_l2"]
+        out[f"ms_b{nb}"] = cuda_ms(torch, lambda: segment_scan_dot_bwd(**small, scale=scale), 3,
+                                   spin=True)
+        out[f"plan_b{nb}"] = bwd_plan(nb, nh, no, h)
+    print(f"{tag} route: {json.dumps(out)}", flush=True)
+    want_launches = {"segb_cell": 1, "segb_dmsgs_att": t, "segb_carry_ds": t, "du_sum": 1}
+    if (launches != want_launches or not out["repeat_bitwise"]
+            or not out["steps_route_bitwise"]):
+        raise AssertionError(f"{tag}: launches {launches} (want {want_launches}), repeat "
+                             f"bitwise {out['repeat_bitwise']}, the per-step route's bits "
+                             f"{out['steps_route_bitwise']}")
+    return out
 
 
 def k5_flops(mode, t, b, nh, no, h):
@@ -3215,6 +3295,12 @@ def main(argv=None):
               f"{json.dumps(gru)}", flush=True)
         if sorted(gru) != sorted(GRU_CLUSTER_KERNELS):
             raise AssertionError(f"the build log lacks a GRU cluster kernel: {sorted(gru)}")
+        k4 = ptxas_report(_build.library_path("segment_scan_bwd").with_suffix(".log").read_text(),
+                          K4_BF16_KERNELS)
+        print(f"build K4 bfloat16 kernels (registers, static smem and spills from -Xptxas -v): "
+              f"{json.dumps(k4)}", flush=True)
+        if sorted(k4) != sorted(K4_BF16_KERNELS):
+            raise AssertionError(f"the build log lacks a K4 bfloat16 kernel: {sorted(k4)}")
         occ = scan_occupancy("dot", torch.bfloat16, stage1.SHAPE["b"], stage1.SHAPE["humans"],
                              stage1.SHAPE["objects"], stage1.MODEL_KWARGS["hidden_size"])
         for kernel, phase_ in zip(WG_KERNELS, ("proj", "cell")):

@@ -717,11 +717,11 @@ def _bwd_kernel_launches(args, h, route=None):
                                                (1, 3, 136, 3, True), (2, 4, 520, 2, False)])
 def test_segment_scan_bwd_bf16_route_by_shape(cuda, nh, no, h, b, cluster):
     """K4's bfloat16 route follows the shape (bwd_plan): at h <= 512 two
-    cluster launches a step, DA (segb_dmsgs_att, clusters of ceil(h / 32)
-    blocks) and R (segb_carry_cluster), and no segb_att, 2T + 2 launches a
-    call, the clusters the card holds at once at least one; at h = 520 the
-    per-step kernels, 3T + 2. The float32 kernel takes the per-step route at
-    every shape."""
+    launches a step, DA (segb_dmsgs_att, clusters of ceil(h / 32) blocks,
+    at least one of which the card holds at once) and R (segb_carry_ds),
+    and no segb_att, 2T + 2 launches a call; at h = 520 the per-step
+    kernels, 3T + 2. The float32 kernel takes the per-step route at every
+    shape."""
     from tggcn_torch.ops.segment_scan import bwd_plan
 
     args = _bwd_args_bf16(cuda, nh, no, h, b)
@@ -731,15 +731,14 @@ def test_segment_scan_bwd_bf16_route_by_shape(cuda, nh, no, h, b, cluster):
     got = _bwd_kernel_launches(args, h)
     if cluster:
         assert plan["da_blocks"] == -(-h // 32) and plan["batch_tile"] == 32 // max(nh, no)
-        assert plan["da_co_resident"] >= 1 and plan["r_co_resident"] >= 1, plan
-        assert max(plan["da_smem"], plan["r_smem"]) <= 227 * 1024, plan
-        want = {"segb_cell": 1, "segb_dmsgs_att": t, "segb_carry_cluster": t, "du_sum": 1}
+        assert plan["da_co_resident"] >= 1 and plan["da_smem"] <= 227 * 1024, plan
+        want = {"segb_cell": 1, "segb_dmsgs_att": t, "segb_carry_ds": t, "du_sum": 1}
     else:
         want = {"segb_cell": 1, "segb_dmsgs": t, "segb_att": t, "segb_carry": t, "du_sum": 1}
     assert {k: v for k, v in got.items() if k.startswith(("segb_", "du_sum"))} == want, got
     assert sum(want.values()) == (2 if cluster else 3) * t + 2
     steps = _bwd_kernel_launches(args, h, route="steps")
-    assert steps.get("segb_att") == t and "segb_carry_cluster" not in steps, steps
+    assert steps.get("segb_att") == t and "segb_carry_ds" not in steps, steps
     f32 = {k: v.float() if v.dtype == BF16 else v for k, v in args.items()}
     plain = _bwd_kernel_launches(f32, h)
     assert plain.get("segb_att") == t and "segb_dmsgs_att" not in plain, plain
@@ -763,8 +762,8 @@ def test_segment_scan_bwd_float32_route_unchanged(cuda):
 
 
 def test_segment_scan_bwd_bf16_captures_in_a_graph(cuda):
-    """K4's bfloat16 cluster route captured in a CUDA graph (its tensor maps
-    passed by value) and replayed gives the bits of the eager call."""
+    """K4's bfloat16 two-launch route (a cluster launch a step) captured in a
+    CUDA graph and replayed gives the bits of the eager call."""
     args = _bwd_args_bf16(cuda, 2, 4, 64, 3)
     scale = 1 / math.sqrt(64)
     eager = segment_scan_dot_bwd(**args, scale=scale)

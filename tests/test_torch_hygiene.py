@@ -612,9 +612,35 @@ def _check_split_variant(kernel, variant, tmp_path):
 
 
 @pytest.mark.parametrize("variant", ["full", "no_product", "no_rows", "no_weights", "no_copies",
-                                     "no_multicast", "no_exchange", "no_da_tail", "no_r_tail",
-                                     "r_late_loads"])
+                                     "no_exchange", "no_da_tail", "no_r_tail", "r_late_loads"])
 def test_k4_split_variants_edit_the_sources(variant, tmp_path):
     """Each K4 launch-split variant of profile_split finds the text it edits
     in the current sources, and edits only its scratch copy."""
     _check_split_variant("k4", variant, tmp_path)
+
+
+def test_segment_scan_bwd_route_is_checked():
+    """segment_scan_dot_bwd takes route None, 'cluster' or 'steps' and
+    raises on any other, on the CPU as on the card."""
+    with pytest.raises(ValueError, match="route"):
+        scan_ops.segment_scan_dot_bwd(*([None] * 17), scale=1.0, route="both")
+
+
+@pytest.mark.parametrize("h,kernels", [(512, ("segb_dmsgs_att", "segb_carry_ds")),
+                                       (520, ("segb_dmsgs", "segb_carry"))])
+def test_chip_smoke_k4_bytes_follow_the_route(h, kernels):
+    """chip_smoke's L2 byte count of K4's bfloat16 products names the
+    kernels of the shape's route; at MPHOI's batch of 8 the two-launch
+    route copies what the per-step kernels D and R copy (each DA block
+    copies its columns and the tile's rows of both cells)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_bytes", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    got = smoke.k4_l2_bytes(8, 2, 4, h)
+    assert tuple(got) == kernels
+    if h == 512:
+        per_block = (32 + 16) * 3 * h * 2 + (32 + 32) * 3 * h * 2
+        assert got["segb_dmsgs_att"] == 2 * 2 * 16 * per_block == 22020096
+        assert got["segb_carry_ds"] == 26214400

@@ -467,8 +467,9 @@ def test_scan_buffers_hold_steps_only_when_kept(keep):
 def test_profile_inputs_drive_the_scan_and_its_backward():
     """tggcn_torch.profile_scan's seeded inputs, which the card's profiler
     and chip_smoke.py's scan phases use: K3's carry a fully masked object
-    row, and K4's are exactly segment_scan_dot_bwd's arguments, built from
-    what the forward keeps, at the forward's shapes."""
+    row, and K4's are exactly segment_scan_dot_bwd's tensor arguments (all
+    but scale and the route option), built from what the forward keeps, at
+    the forward's shapes."""
     import inspect
 
     from tggcn_torch.ops.segment_scan import segment_scan_dot_bwd
@@ -480,7 +481,7 @@ def test_profile_inputs_drive_the_scan_and_its_backward():
     assert not fwd["obj_mask"][0].any() and fwd["obj_mask"][1].all()
     bwd = bwd_inputs(fwd, gen, 1.0 / math.sqrt(h))
     assert list(bwd) == [k for k in inspect.signature(segment_scan_dot_bwd).parameters
-                         if k != "scale"]
+                         if k not in ("scale", "route")]
     out_h, out_o, att, *kept = segment_scan_dot(**fwd, scale=1.0 / math.sqrt(h))
     for name, x in zip(KEPT, kept):
         if name in bwd:

@@ -84,17 +84,6 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Arrives on the mbarrier at shared-memory offset `bar` of the block of
-// cluster rank `rank` (its own included), releasing this thread's earlier
-// accesses to the cluster.
-__device__ __forceinline__ void arrive_remote(uint32_t bar, int rank) {
-  asm volatile(
-      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
-      "r"(rank)
-      : "memory");
-}
-
 // Launches kernel on `grid` of `threads`-thread blocks whose clusters are
 // C consecutive blocks along x (grid.x a multiple of C).
 template <class Kernel, class... Args>

@@ -4,10 +4,11 @@
 // (launched by _seg_dir_bwd_pallas, segment_scan_pallas.py:546). The TPU
 // kernel walks time in reverse as its grid with every weight and the carry
 // dL/dh resident in VMEM, and recomputes the step from the streamed h_prev.
-// Here no block may wait for another, so each step is three launches whose
-// order on the stream orders the phases; both directions (d = 0 forward,
-// d = 1 backward in time) share each launch. The step visits time opposite
-// to the forward: t = T-1 .. 0 for d = 0, 0 .. T-1 for d = 1.
+// Here no block may wait for a block outside its own cluster, so each step
+// is three launches (bfloat16 at h <= 512: two, below) whose order on the
+// stream orders the phases; both directions (d = 0 forward, d = 1 backward
+// in time) share each launch. The step visits time opposite to the
+// forward: t = T-1 .. 0 for d = 0, 0 .. T-1 for d = 1.
 //
 // K3, run with keep, kept what the forward computed: the edge messages m
 // (so the ReLU's derivative is taken where the forward was), the softmaxed
@@ -52,15 +53,43 @@
 // every output in bfloat16; K3's kept m, gates and attention float32), as
 // the TPU kernel runs it (segment_scan_pallas.py:324-527): D's and R's
 // products are bfloat16 x bfloat16 with float32 sums (tc_gemm.cuh,
-// m16n8k16; D and R on wgmma fed by TMA, as K3's in wg_gemm.cuh, were
-// tried on the H100 and not kept: PERF.md) on the bfloat16 outputs dgi,
-// dgh and dpre, which is what the TPU kernel multiplies; the carry dL/dh,
-// dhz, du's partials and attc stay float32. Where the TPU kernel computes
-// in bfloat16 the values are rounded (round_to): the gates, attention and
-// messages it would recompute, each step of C's elementwise backward,
-// dmsgs and the score gradient ds. The weights are half the bytes; bound:
-// the products at the dense bfloat16 rate (989 TFLOP/s), the attention
-// backward on the FMA units.
+// m16n8k16) on the bfloat16 outputs dgi, dgh and dpre, which is what the
+// TPU kernel multiplies; the carry dL/dh, dhz, du's partials and attc stay
+// float32. Where the TPU kernel computes in bfloat16 the values are
+// rounded (round_to): the gates, attention and messages it would
+// recompute, each step of C's elementwise backward, dmsgs and the score
+// gradient ds. The weights are half the bytes; bound: the products at the
+// dense bfloat16 rate (989 TFLOP/s), the attention backward on the FMA
+// units.
+//
+// bfloat16 at h <= 512 takes two launches a step (run_cluster), chosen from
+// the shape before any launch (cluster_plan; larger h, and float32, keep
+// the three above):
+//   DA  a cluster launch: a cluster of ceil(h / 32) blocks is one
+//       (direction, sender group, batch tile of 32 / max(H, O) clips). The
+//       softmax groups follow the sender type, and each reads only its half
+//       of a receiver's dmsgs row and the dpre of its own senders, so block
+//       `rank` takes 32 of the group's h dmsgs columns for both cells' rows
+//       of the tile (D's two products, through one ring), then from its
+//       columns the group senders' dpre towards both receiver cells (A's
+//       column work); then each block gathers the full group half of a
+//       share of the tile's receivers' dmsgs rows from the cluster's tiles
+//       (distributed shared memory) and takes da and the softmax backward
+//       of the group in segb_att's order, writing ds (2, B, E, E).
+//   R   segb_carry's product and epilogue, which take attc from ds and the
+//       states themselves (segb_att's order) and copy those inputs, dhz
+//       and the next step's C inputs while the product's copies run.
+// So segb_att's launch, its eightfold staging and its repeated da go, and
+// a call makes 2T + 2 launches (3T + 2 before). Every product, sum and
+// rounding is the per-step route's, so every output has its bits (the
+// card tests hold them equal). What bounds the route on the H100 (PERF.md):
+// DA's two products a block on 64 SMs (a cluster of 16 blocks spans 16
+// SMs, and the card holds only 7 such clusters at once, so 128 blocks of
+// one product each would take two waves). Copying the rows once a cluster
+// by TMA multicast was tried and was slower (PERF.md): each stage's ring
+// slot must be freed by every block of the
+// cluster before it is refilled, and that coupling, the cluster barriers
+// and the rows' TMA boxes cost more than the L2 bytes they saved.
 
 #include "gru_cluster.cuh"
 #include "tc_gemm.cuh"
@@ -412,207 +441,37 @@ segb_carry(CarryArgs<T> hum, CarryArgs<T> obj, CellArgs<T> cell_h, CellArgs<T> c
   if (!last) store_du(cb, next, T_, all_rows, row0, rows, du_s, gridDim.x, blockIdx.x);
 }
 
-// ---- bfloat16 at h <= 512: two cluster launches a step -----------------------
+// ---- bfloat16 at h <= 512: two launches a step ----------------------------------
 //
-// See the note at the top. Both kernels are bfloat16 only. A stage of a
-// block's product is 256 deep (a k16 step for each of the 16 warps, as
-// tc_gemm.cuh's bfloat16 stage): its weights are the block's own, copied
-// with cp.async into tc_gemm.cuh's layout; its rows are the cluster's,
-// copied once for the whole cluster by TMA boxes multicast to every block
-// (each block issues a share of the boxes), 64 deep in the 128-byte swizzle.
-// The products and their sums are tc_gemm.cuh's, bit for bit.
+// See the note at the top. Both kernels are bfloat16 only; their products
+// are segb_dmsgs's and segb_carry's (tc_gemm.cuh, the same tiles, depth
+// order and sums), so every output has the per-step route's bits.
 
 namespace cl = tggcn::gru;
 namespace wg = tggcn::wg;
 
-constexpr int kRing = 4;                                // stages of a cluster kernel's ring
-constexpr int kChunk16 = 16 * kWarps;                   // depth of a stage (256)
-constexpr int kWStride16 = kChunk16 + 8;                // a weight row of a stage, as tc_gemm's
-constexpr int kBoxDepth = 64;                           // a box of rows: one 128-byte row deep
-constexpr int kSubs = kChunk16 / kBoxDepth;             // boxes deep a stage
-constexpr int kSubBytes = kMaxRows * 128;               // a stage's rows at one box depth
-constexpr int kXSlotBytes = kSubs * kSubBytes;          // a stage of rows: 16 KB
 constexpr int kMaxClusterBlocks = 16;
 constexpr int kDmStride = 2 * kMTile;                   // a row of a DA block's dmsgs tile
 
-template <int MT>
-__host__ __device__ constexpr size_t w_stage_bytes() {
-  return (size_t)MT * kMTile * kWStride16 * sizeof(bf16);
-}
-
-// Shared memory of a cluster kernel whose blocks own MT weight tiles, from
-// the 1024-aligned base: the row stages, the weight stages (the partial
-// sums go over both once the product is done), then, in DA, the human
-// product's partial sums (then the gathered dmsgs rows) and the dmsgs tile
-// the cluster reads; then the ring's barriers.
-template <int MT>
-__host__ __device__ constexpr size_t ring_end() {
-  return (size_t)kRing * kXSlotBytes + kRing * w_stage_bytes<MT>();
-}
-constexpr size_t kDAPart = ring_end<2>();
+// DA's dynamic shared memory: the ring of its products (then the object
+// rows' partial sums), the human rows' partial sums (then the gathered
+// dmsgs rows and their da), and the dmsgs tile the cluster reads.
+constexpr size_t kDAPart = smem_bytes<true, 2, 2, kStages, bf16, bf16>();
 constexpr size_t kDADm = kDAPart + sizeof(Partials<2>);
-constexpr size_t kDABars = kDADm + (size_t)2 * kMaxRows * kDmStride * sizeof(float);
-constexpr size_t kDASmem = kDABars + 16 * kRing + 1024;
-constexpr size_t kRBars = ring_end<1>();
-constexpr size_t kRSmem = kRBars + 16 * kRing + 1024;
-static_assert(sizeof(Partials<2>) <= ring_end<2>() && sizeof(Partials<1>) <= ring_end<1>(),
-              "the partial sums go over the ring");
-
-// The ring of a cluster kernel and its barriers, by stage: full (the
-// stage's rows have landed in this block; one arrival, this block's
-// expected bytes) and empty (every block of the cluster has read the stage:
-// C arrivals).
-struct ClusterRing {
-  unsigned char* base;
-  size_t w_bytes;
-  uint32_t bars;
-  int C, rank;
-  __device__ unsigned char* x(int s) const { return base + (size_t)s * kXSlotBytes; }
-  __device__ unsigned char* w(int s) const {
-    return base + (size_t)kRing * kXSlotBytes + (size_t)s * w_bytes;
-  }
-  __device__ uint32_t full(int s) const { return bars + 8 * s; }
-  __device__ uint32_t empty(int s) const { return bars + 8 * (kRing + s); }
-};
-
-// A stage's rows: depth k0 .. k0 + 255 of plane `plane` of map, rows row0 ..
-// row0 + rows - 1 (rows <= 32) in boxes of `box` rows.
-struct RowStage {
-  const CUtensorMap* map;
-  int k0, row0, rows, plane, box;
-};
-
-// The weight stage of depth k0: MT tiles of w, which the product reads
-// along its rows (w[col][k], row stride ldw, depth K), as tc_gemm.cuh's
-// load_chunk copies them.
-template <int MT>
-__device__ __forceinline__ void load_weights(unsigned char* stage, const bf16* w, int ldw, int K,
-                                             const Tiles& tiles, int k0) {
-  bf16(*st)[kWStride16] = reinterpret_cast<bf16(*)[kWStride16]>(stage);
-  constexpr int kCopies = MT * kMTile * kChunk16 / 8 / kThreads;
-  static_assert(kCopies * kThreads == MT * kMTile * kChunk16 / 8, "weight copies");
-#pragma unroll
-  for (int j = 0; j < kCopies; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int m = i / (kChunk16 / 8), kk = (i % (kChunk16 / 8)) * 8;
-    const int t = m / kMTile, mm = m % kMTile;
-    const bool valid = mm < pick<MT>(tiles.valid, t) && k0 + kk < K;
-    cp_async16(&st[m][kk], valid ? w + (size_t)(pick<MT>(tiles.col, t) + mm) * ldw + k0 + kk : w,
-               valid);
-  }
-}
-
-// Stage c's rows, by thread 0 of each block: posts the stage's bytes on
-// this block's full barrier and issues this block's share of the boxes to
-// the whole cluster, once every block has read the stage's previous rows.
-__device__ __forceinline__ void issue_rows(const ClusterRing& ring, int c, const RowStage& x) {
-  const int s = c % kRing, nbox = (x.rows + x.box - 1) / x.box, nq = kSubs * nbox;
-  wg::bar_expect(ring.full(s), (uint32_t)(nq * x.box * 128));
-  bool free = c < kRing;
-  for (int j = 0; j < nq; ++j) {
-    if ((c * nq + j) % ring.C != ring.rank) continue;
-    if (!free) {
-      wg::bar_wait_cluster(ring.empty(s), (c / kRing - 1) & 1);
-      free = true;
-    }
-    const int sub = j / nbox, rb = j % nbox;
-    wg::tma_load_multicast(wg::smem_u32(ring.x(s)) + sub * kSubBytes + rb * x.box * 128, x.map,
-                           ring.full(s), x.k0 + sub * kBoxDepth, x.row0 + rb * x.box, x.plane,
-                           (uint16_t)((1u << ring.C) - 1));
-  }
-}
-
-// This warp's k16 step of one stage, as tc_gemm.cuh's multiply_chunk takes
-// it (bfloat16, weights along their rows, one warp group), with the rows
-// read from the swizzled boxes (conflict-free: row 8 n + g of a box holds
-// its 16-byte piece j at j ^ g).
-template <int MT, int S, class Map>
-__device__ __forceinline__ void multiply_stage(const unsigned char* wstage,
-                                               const unsigned char* xs, int ntiles,
-                                               float (&acc)[S][kNTiles][4]) {
-  const bf16(*w)[kWStride16] = reinterpret_cast<const bf16(*)[kWStride16]>(wstage);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
-  const int kk = 16 * warp, c0 = (kk % kBoxDepth) / 8;
-  const unsigned char* sub = xs + (kk / kBoxDepth) * kSubBytes + 4 * q;
-  uint32_t b[kNTiles][2];
-#pragma unroll
-  for (int n = 0; n < kNTiles; ++n) {
-    if (n < ntiles) {
-      const unsigned char* row = sub + (8 * n + g) * 128;
-      b[n][0] = *reinterpret_cast<const uint32_t*>(row + (c0 ^ g) * 16);
-      b[n][1] = *reinterpret_cast<const uint32_t*>(row + ((c0 + 1) ^ g) * 16);
-    }
-  }
-#pragma unroll
-  for (int lt = 0; lt < MT; ++lt) {
-    const int s = Map::slot(0, lt);
-    const int m = lt * kMTile + g, k = kk + 2 * q;
-    uint32_t a[4];
-    a[0] = pair(w[m][k]);
-    a[1] = pair(w[m + 8][k]);
-    a[2] = pair(w[m][k + 8]);
-    a[3] = pair(w[m + 8][k + 8]);
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-      if (n < ntiles) mma_bf16(acc[s][n], a, b[n]);
-  }
-}
-
-// Sets up the ring (its barriers, then a cluster barrier so that no block's
-// rows land before its barriers exist) and issues the first kRing - 1
-// stages: load(c, stage) copies stage c's weights, rows(c) names its rows.
-template <class Load, class Rows>
-__device__ __forceinline__ void begin_ring(const ClusterRing& ring, int total, Load load,
-                                           Rows rows) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kRing; ++s) {
-      wg::bar_init(ring.full(s), 1);
-      wg::bar_init(ring.empty(s), ring.C);
-    }
-    wg::bar_init_fence();
-  }
-  cl::cluster_arrive();
-  for (int c = 0; c < kRing - 1; ++c) {
-    if (c < total) load(c, ring.w(c));
-    cp_async_commit();
-  }
-  cl::cluster_wait();
-  if (threadIdx.x == 0)
-    for (int c = 0; c < kRing - 1 && c < total; ++c) issue_rows(ring, c, rows(c));
-}
-
-// The block's product over `total` stages after begin_ring: each stage's
-// weights and rows in, the previous stage handed back to the cluster (each
-// block arrives on every block's empty barrier), the stage kRing - 1 ahead
-// issued, then multiply(c, weights, rows). Ends with the block synchronized
-// and its ring free.
-template <class Load, class Rows, class Multiply>
-__device__ __forceinline__ void cluster_product(const ClusterRing& ring, int total, Load load,
-                                                Rows rows, Multiply multiply) {
-  const int tid = threadIdx.x;
-  for (int c = 0; c < total; ++c) {
-    const int s = c % kRing;
-    cp_async_wait<kRing - 2>();
-    wg::bar_wait(ring.full(s), (c / kRing) & 1);
-    __syncthreads();                    // stage c is in; stage c - 1 is read here
-    if (c >= 1 && c - 1 + kRing < total && tid < ring.C)
-      cl::arrive_remote(ring.empty((c - 1) % kRing), tid);
-    const int next = c + kRing - 1;
-    if (next < total) load(next, ring.w(next % kRing));
-    cp_async_commit();
-    if (tid == 0 && next < total) issue_rows(ring, next, rows(next));
-    multiply(c, ring.w(s), ring.x(s));
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-struct DAMaps {
-  CUtensorMap dgi[2];                   // the human and object cells' dgi (2T, rows, 3h)
-};
+constexpr size_t kDAAtt = kDADm + (size_t)2 * kMaxRows * kDmStride * sizeof(float);
+// dpre's inputs, copied while the products run: the tile's attention (at
+// most 64 / E clips of E x E) and its senders' messages at the block's
+// columns (at most 32 senders, both halves).
+constexpr size_t kDAMask = kDAAtt + (size_t)4 * kMaxRows * kMaxEntities * sizeof(float);
+constexpr size_t kDASmem = kDAMask + (size_t)kMaxRows * 2 * kDmStride * sizeof(float);
+// R's: the ring of its product (then its partial sums), then attc's inputs
+// for the clips of its rows (ds_s, hp_s).
+constexpr size_t kRDs = smem_bytes<true, 1, 1, kStages, bf16, bf16>();
+constexpr size_t kRHp = kRDs + (size_t)kMaxRows * kMaxEntities * kMaxEntities * sizeof(float);
+constexpr size_t kRSmem = kRHp + (size_t)kMaxRows * kMaxEntities * kMTile * sizeof(bf16);
 
 struct DAArgs {
-  const bf16 *w_msg_h, *w_msg_o, *g_att;
+  const bf16 *dgi_h, *dgi_o, *w_msg_h, *w_msg_o, *g_att;
   const float *m_h, *m_o, *atts;
   bf16 *dpre_h, *dpre_o;
   float* ds;                            // (2, B, E, E): the score gradients
@@ -621,102 +480,121 @@ struct DAArgs {
 // DA of one step. A cluster is one (direction, sender group, batch tile):
 // block `rank` takes dmsgs columns grp * h + 32 rank .. + 31 of every row
 // of both cells in the tile (two products, 3h deep, against each cell's
-// w_msg), then from its columns dpre of the group's senders for both
-// receiver cells; then each block gathers the full group half of its
-// share of the receivers' dmsgs rows from the cluster and takes da over
-// it, in segb_att's order, and the softmax backward of the group, into ds.
+// w_msg, as segb_dmsgs takes them), then from its columns dpre of the
+// group's senders for both receiver cells; then each block gathers the
+// full group half of its share of the receivers' dmsgs rows from the
+// cluster's tiles (distributed shared memory) and takes da over it, in
+// segb_att's order, and the softmax backward of the group, into ds.
 __global__ void __launch_bounds__(kThreads, 1)
-segb_dmsgs_att(const __grid_constant__ DAMaps maps, DAArgs x, int T_, int B, int NH, int NO,
-               int H, int nb, int step) {
+segb_dmsgs_att(DAArgs x, int T_, int B, int NH, int NO, int H, int nb, int step) {
   const auto q = [](float v) { return round_to<bf16>(v); };
   const Step s = step_of(step, T_);
   const int C = gridDim.x, rank = blockIdx.x, tid = threadIdx.x;
   const int grp = blockIdx.y % 2, b0 = blockIdx.y / 2 * nb, nbt = min(nb, B - b0);
   const int E = NH + NO, Ng = grp == 0 ? NH : NO, col0 = 2 * kMTile * rank;
   const int rows_h = nbt * NH, rows_o = nbt * NO;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = wg::align1024(smem_raw);
-  const ClusterRing ring{base, w_stage_bytes<2>(), wg::smem_u32(base + kDABars), C, rank};
-
-  const int na = (3 * H + kChunk16 - 1) / kChunk16, total = 2 * na;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* part_h = smem + kDAPart;
   const size_t wd = (size_t)s.d * 2 * H * 3 * H;
-  const bf16 *w_h = x.w_msg_h + wd, *w_o = x.w_msg_o + wd;
   const Tiles tiles = {{grp * H + col0, grp * H + col0 + kMTile, 0},
                        {max(0, min(kMTile, H - col0)), max(0, min(kMTile, H - col0 - kMTile)), 0}};
-  const int plane = s.d * T_ + s.t, box_h = wg::row_box(B * NH), box_o = wg::row_box(B * NO);
-  auto load = [&](int c, unsigned char* st) {
-    load_weights<2>(st, c < na ? w_h : w_o, 3 * H, 3 * H, tiles, c % na * kChunk16);
-  };
-  auto rows = [&](int c) {
-    return c < na ? RowStage{&maps.dgi[0], c * kChunk16, b0 * NH, rows_h, plane, box_h}
-                  : RowStage{&maps.dgi[1], (c - na) * kChunk16, b0 * NO, rows_o, plane, box_o};
-  };
-  begin_ring(ring, total, load, rows);
+  float* att_s = reinterpret_cast<float*>(smem + kDAAtt);     // (nbt, E, E)
+  float* mask_s = reinterpret_cast<float*>(smem + kDAMask);   // (nbt * Ng, 2, 32)
+  const float* msg = grp == 0 ? x.m_h : x.m_o;
+  // The human rows' product, then the object rows', through one ring: the
+  // human sums go to part_h once their last stage is multiplied.
   float acc[2][kNTiles][4] = {};
-  unsigned char* part_h = base + kDAPart;
-  cluster_product(ring, total, load, rows,
-                  [&](int c, const unsigned char* ws, const unsigned char* xs) {
-                    multiply_stage<2, 2, TileSlots>(ws, xs, ((c < na ? rows_h : rows_o) + 7) / 8,
-                                                    acc);
-                    if (c == na - 1) {          // the human rows' sums, then the object rows'
-                      store_partials<2>(part_h, acc);
+  OperandT<bf16, bf16> hum = {x.dgi_h + at(s, T_, B * NH, b0 * NH, 3 * H), 3 * H,
+                              x.w_msg_h + wd, 3 * H, 3 * H};
+  OperandT<bf16, bf16> obj = {x.dgi_o + at(s, T_, B * NO, b0 * NO, 3 * H), 3 * H,
+                              x.w_msg_o + wd, 3 * H, 3 * H};
+  hum.rows = rows_h;
+  obj.rows = rows_o;
+  accumulate<true, 2, 2, 2, TileSlots>(
+      hum, obj, obj, tiles, rows_o, smem, acc,
+      [&] {
+        // Copied with the product's next stage (the copies join its group).
+        for (int p = tid; p < nbt * E * E; p += kThreads)
+          cp_async4(att_s + p, x.atts + at(s, T_, B, b0, E * E) + p);
+        for (int p = tid; p < nbt * Ng * 2 * (kDmStride / 4); p += kThreads) {
+          const int sr = p / (2 * (kDmStride / 4)), half = p / (kDmStride / 4) % 2;
+          const int k = col0 + p % (kDmStride / 4) * 4;
+          const bool valid = k < H;
+          const float* src = msg + at(s, T_, B * Ng, b0 * Ng + sr, 2 * H) + half * H + k;
+          cp_async16(mask_s + (sr * 2 + half) * kDmStride + k - col0, valid ? src : msg, valid);
+        }
+      },
+      [&] {
+        store_partials<2>(part_h, acc);
 #pragma unroll
-                      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-                        for (int n = 0; n < kNTiles; ++n)
+          for (int n = 0; n < kNTiles; ++n)
 #pragma unroll
-                          for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-                    }
-                  });
-  store_partials<2>(base, acc);
+            for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+      });
+  store_partials<2>(smem, acc);
   __syncthreads();
 
   // The block's dmsgs tile: rows 0..31 the human rows, 32..63 the object
   // rows, 32 columns; rounded to bfloat16 as segb_dmsgs rounds it.
-  float* dm = reinterpret_cast<float*>(base + kDADm);
+  float* dm = reinterpret_cast<float*>(smem + kDADm);
   for (int p = tid; p < 2 * 2 * kMTile * kMaxRows; p += kThreads) {
     const int cell = p / (2 * kMTile * kMaxRows), i = p % (2 * kMTile * kMaxRows);
     const int t = i / (kMTile * kMaxRows), cc = i % kMTile, r = (i / kMTile) % kMaxRows;
     const int col = col0 + t * kMTile + cc;
     float v = 0.f;
     if (r < (cell == 0 ? rows_h : rows_o) && col < H)
-      v = q(reduce<2>(cell == 0 ? part_h : base, t, cc, r));
+      v = q(reduce<2>(cell == 0 ? part_h : smem, t, cc, r));
     dm[(cell * kMaxRows + r) * kDmStride + t * kMTile + cc] = v;
   }
   __syncthreads();
   cl::cluster_arrive();                 // the tile is ready for the cluster
 
+  // This block's receivers (rank, rank + C, ... of the tile's human rows,
+  // then its object rows) and, copied now into the free ring for their da,
+  // the messages of the group's senders to them.
+  const int nrecv = rows_h + rows_o;
+  const int mine = rank < nrecv ? (nrecv - rank + C - 1) / C : 0;
+  float* msg_s = reinterpret_cast<float*>(smem);  // (mine, Ng, H)
+  for (int p = tid; p < mine * Ng * (H / 4); p += kThreads) {
+    const int li = p / (Ng * (H / 4)), m = p / (H / 4) % Ng, k = p % (H / 4) * 4;
+    const int ri = rank + C * li;
+    const int cell = ri < rows_h ? 0 : 1, r = cell == 0 ? ri : ri - rows_h;
+    const int b = b0 + r / (cell == 0 ? NH : NO);
+    cp_async16(msg_s + ((size_t)li * Ng + m) * H + k,
+               msg + at(s, T_, B * Ng, b * Ng + m, 2 * H) + cell * H + k, true);
+  }
+  cp_async_commit();
+
   // dpre of the group's senders at this block's columns, as segb_att takes
   // it: dm of the edges to the humans and to the objects, masked by the
   // ReLU of the messages K3 kept.
-  const float* msg = grp == 0 ? x.m_h : x.m_o;
   bf16* dpre = grp == 0 ? x.dpre_h : x.dpre_o;
   for (int p = tid; p < nbt * Ng * 2 * kMTile; p += kThreads) {
     const int kk = p % (2 * kMTile), j = p / (2 * kMTile) % Ng, bl = p / (2 * kMTile * Ng);
     const int k = col0 + kk, b = b0 + bl, je = grp == 0 ? j : NH + j;
     if (k >= H) continue;
-    const float* a = x.atts + at(s, T_, B, b, E * E) + je;
+    const float* a = att_s + bl * E * E + je;
     float dm_h = 0.f, dm_o = 0.f;
     for (int n = 0; n < NH; ++n)
       dm_h = fmaf(q(a[n * E]), dm[(bl * NH + n) * kDmStride + kk], dm_h);
     for (int n = 0; n < NO; ++n)
       dm_o = fmaf(q(a[(NH + n) * E]), dm[(kMaxRows + bl * NO + n) * kDmStride + kk], dm_o);
     const size_t o = at(s, T_, B * Ng, b * Ng + j, 2 * H);
-    dm_h = msg[o + k] > 0.f ? dm_h : 0.f;
-    dm_o = msg[o + H + k] > 0.f ? dm_o : 0.f;
+    const float* mask = mask_s + (bl * Ng + j) * 2 * kDmStride + kk;
+    dm_h = mask[0] > 0.f ? dm_h : 0.f;
+    dm_o = mask[kDmStride] > 0.f ? dm_o : 0.f;
     dpre[o + k] = from_f32<bf16>(dm_h);         // edge hh or oh
     dpre[o + H + k] = from_f32<bf16>(dm_o);     // edge ho or oo
   }
   cl::cluster_wait();
 
-  // This block's receivers (rank, rank + C, ... of the tile's human rows,
-  // then its object rows): their dmsgs rows' group half, gathered from the
-  // cluster's tiles over the human partial sums, which are read.
-  const int nrecv = rows_h + rows_o;
-  const int mine = rank < nrecv ? (nrecv - rank + C - 1) / C : 0;
+  // The receivers' dmsgs rows' group half, gathered from the cluster's
+  // tiles over the human partial sums, which are read.
   float* rowbuf = reinterpret_cast<float*>(part_h);
   float* da = rowbuf + (size_t)mine * H;          // (mine, kMaxEntities)
-  const uint32_t dm_addr = wg::smem_u32(dm);
+  const uint32_t dm_addr = cl::smem_u32(dm);
   constexpr int kVec = kDmStride / 4;             // 16-byte loads a tile row
   for (int p = tid; p < mine * C * kVec; p += kThreads) {
     const int li = p / (C * kVec), peer = p / kVec % C, v = p % kVec;
@@ -727,6 +605,7 @@ segb_dmsgs_att(const __grid_constant__ DAMaps maps, DAArgs x, int T_, int B, int
       *reinterpret_cast<float4*>(rowbuf + (size_t)li * H + col) = cl::ld_cluster4(
           cl::map_rank(dm_addr + (uint32_t)((r * kDmStride + 4 * v) * sizeof(float)), peer));
   }
+  cp_async_wait<0>();
   __syncthreads();
   cl::cluster_arrive();                 // this block has read the cluster's tiles
   const int warp = tid / 32, lane = tid % 32;
@@ -735,7 +614,7 @@ segb_dmsgs_att(const __grid_constant__ DAMaps maps, DAArgs x, int T_, int B, int
     const int cell = ri < rows_h ? 0 : 1, r = cell == 0 ? ri : ri - rows_h;
     const int Nc = cell == 0 ? NH : NO, b = b0 + r / Nc, n = r % Nc;
     const float* dr = rowbuf + (size_t)li * H;
-    const float* mr = msg + at(s, T_, B * Ng, b * Ng + m, 2 * H) + cell * H;
+    const float* mr = msg_s + ((size_t)li * Ng + m) * H;
     float dot = 0.f;
     for (int k = lane; k < H; k += 32) dot = fmaf(dr[k], q(mr[k]), dot);
     for (int off = 16; off > 0; off /= 2) dot += __shfl_down_sync(0xffffffffu, dot, off);
@@ -760,18 +639,13 @@ segb_dmsgs_att(const __grid_constant__ DAMaps maps, DAArgs x, int T_, int B, int
   cl::cluster_wait();                   // no block reads this block's tile any more
 }
 
-struct RMaps {
-  CUtensorMap dgh[2];                   // (2T, rows, 3h) of each cell
-  CUtensorMap dpre[2][2];               // each cell's dpre, per sent edge (2T, rows, h)
-};
-
 struct RArgs {
-  const bf16 *w_hh_h, *w_hh_o, *w_from, *hprev_h, *hprev_o;
+  const bf16 *dgh_h, *dgh_o, *dpre_h, *dpre_o, *w_hh_h, *w_hh_o, *w_from, *hprev_h, *hprev_o;
   const float* ds;
   bf16 *dh0_h, *dh0_o;
 };
 
-// Phase C's inputs issued before the product (wg::load_now), the bfloat16
+// Phase C's inputs issued where they stand (wg::load_now), the bfloat16
 // ones as raw bits.
 struct CellRaw {
   float r, z, n, hn;
@@ -787,82 +661,78 @@ __device__ __forceinline__ CellRaw cell_load_now(const CellArgs<bf16>& c, Step s
           wg::load_now(c.u + (size_t)s.t * rows + row)};
 }
 
-// R of one step. A cluster is up to 16 blocks of 16 units of one (cell,
-// direction, 32-row tile): the rows of dgh and dpre copied once for it.
-// Before the product each thread (one row and unit) takes attc from ds and
-// the step's states, in segb_att's order, adds dhz, and issues its loads of
-// the next step's phase C; after it, carry and phase C, as segb_carry.
-__global__ void __launch_bounds__(kThreads, 2)
-segb_carry_cluster(const __grid_constant__ RMaps maps, RArgs x, CellArgs<bf16> cell_h,
-                   CellArgs<bf16> cell_o, int T_, int B, int NH, int NO, int H, int row_tiles,
-                   int units, int Cr, float scale, int step) {
+// R of one step: segb_carry's product and epilogue, with attc taken here
+// from ds and the step's states in segb_att's order. As soon as the
+// product's first copies are issued, the block copies attc's inputs into
+// shared memory and each thread (one row and unit) issues its loads of
+// dhz and of the next step's phase C, so that they land while the copies
+// run.
+__global__ void __launch_bounds__(kThreads)
+segb_carry_ds(RArgs x, CellArgs<bf16> cell_h, CellArgs<bf16> cell_o, int T_, int B, int NH,
+              int NO, int H, int row_tiles, float scale, int step) {
   const Step s = step_of(step, T_);
-  const int tid = threadIdx.x, u = blockIdx.x, rank = u % Cr;
-  const int cell = blockIdx.y / row_tiles, row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int cell = blockIdx.y / row_tiles;
+  const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
+  const int unit0 = blockIdx.x * kMTile;
   const int all_rows = B * (cell == 0 ? NH : NO);
-  if (row0 >= all_rows) return;         // every block of this cluster
-  const int rows = min(kMaxRows, all_rows - row0), unit0 = u * kMTile;
+  if (row0 >= all_rows) return;
+  const int rows = min(kMaxRows, all_rows - row0);
   const CellArgs<bf16>& cb = cell == 0 ? cell_h : cell_o;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = wg::align1024(smem_raw);
-  const ClusterRing ring{base, w_stage_bytes<1>(), wg::smem_u32(base + kRBars), Cr, rank};
-
-  const int na = (3 * H + kChunk16 - 1) / kChunk16, nk = (H + kChunk16 - 1) / kChunk16;
-  const int total = na + 2 * nk;
-  const bf16* w_hh = (cell == 0 ? x.w_hh_h : x.w_hh_o) + (size_t)s.d * H * 3 * H;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float du_s[kMaxRows][kMTile + 1];
+  // attc's inputs for the tile's clips: their ds (E x E each) and their
+  // entities' states at the block's units.
+  float(*ds_s)[kMaxEntities * kMaxEntities] =
+      reinterpret_cast<float(*)[kMaxEntities * kMaxEntities]>(smem + kRDs);
+  bf16(*hp_s)[kMaxEntities][kMTile] = reinterpret_cast<bf16(*)[kMaxEntities][kMTile]>(smem + kRHp);
+  const bf16* dpre = (cell == 0 ? x.dpre_h : x.dpre_o) + at(s, T_, all_rows, row0, 2 * H);
   const bf16* w_from = x.w_from + (size_t)2 * cell * H * H;
-  const Tiles tiles = {{unit0, 0, 0}, {max(0, min(kMTile, H - unit0)), 0, 0}};
-  const int plane = s.d * T_ + s.t, box = wg::row_box(all_rows);
-  auto load = [&](int c, unsigned char* st) {
-    if (c < na)
-      load_weights<1>(st, w_hh, 3 * H, 3 * H, tiles, c * kChunk16);
-    else
-      load_weights<1>(st, w_from + (c < na + nk ? 0 : (size_t)H * H), H, H, tiles,
-                      (c - na) % nk * kChunk16);
-  };
-  auto rows_of = [&](int c) {
-    const int e = c < na + nk ? 0 : 1;
-    return c < na ? RowStage{&maps.dgh[cell], c * kChunk16, row0, rows, plane, box}
-                  : RowStage{&maps.dpre[cell][e], (c - na) % nk * kChunk16, row0, rows, plane,
-                             box};
-  };
-  begin_ring(ring, total, load, rows_of);
-
-  const int cc = tid % kMTile, r = tid / kMTile;
+  const OperandT<bf16, bf16> rec = {
+      (cell == 0 ? x.dgh_h : x.dgh_o) + at(s, T_, all_rows, row0, 3 * H), 3 * H,
+      (cell == 0 ? x.w_hh_h : x.w_hh_o) + (size_t)s.d * H * 3 * H, 3 * H, 3 * H};
+  const OperandT<bf16, bf16> snd0 = {dpre, 2 * H, w_from, H, H};
+  const OperandT<bf16, bf16> snd1 = {dpre + H, 2 * H, w_from + (size_t)H * H, H, H};
+  const Tiles tiles = {{unit0, 0, 0}, {min(kMTile, H - unit0), 0, 0}};
+  const int cc = threadIdx.x % kMTile, r = threadIdx.x / kMTile;
   const int row = row0 + r, unit = unit0 + cc;
   const bool live = r < rows && unit < H, last = step + 1 == T_;
   const Step next = step_of(step + 1, T_);
   const size_t hs = ((size_t)s.d * all_rows + row) * H + unit;
   float pre = 0.f;
   CellRaw in = {};
-  if (live) {
-    const int Nc = cell == 0 ? NH : NO, E = NH + NO;
-    const int b = row / Nc, je = (cell == 0 ? 0 : NH) + row % Nc;
-    const float* ds = x.ds + ((size_t)s.d * B + b) * E * E;
-    float g = 0.f;
-    for (int m = 0; m < E; ++m) {
-      const bf16 hp = m < NH ? x.hprev_h[at(s, T_, B * NH, b * NH + m, H) + unit]
-                             : x.hprev_o[at(s, T_, B * NO, b * NO + m - NH, H) + unit];
-      g = fmaf(ds[je * E + m] + ds[m * E + je], to_f32(hp), g);
-    }
-    // dhz + attc, attc = scale g rounded on its own, as segb_att stores it.
-    pre = __fadd_rn(cb.dhz[hs], __fmul_rn(scale, g));
-    if (!last) in = cell_load_now(cb, next, T_, all_rows, row, unit, H);
-  }
-
   float acc[1][kNTiles][4] = {};
-  const int ntiles = (rows + 7) / 8;
-  cluster_product(ring, total, load, rows_of,
-                  [&](int, const unsigned char* ws, const unsigned char* xs) {
-                    multiply_stage<1, 1, OneSlot>(ws, xs, ntiles, acc);
-                  });
-  cl::cluster_arrive();                 // this block is done with the cluster's rows
-  store_partials<1>(base, acc);
+  const int Nc = cell == 0 ? NH : NO, E = NH + NO, b0 = row0 / Nc;
+  const int nbat = (row0 + rows - 1) / Nc - b0 + 1;
+  accumulate<true, 1, 1, 3, OneSlot>(rec, snd0, snd1, tiles, rows, smem, acc, [&] {
+    // Copied with the product's next stage (the copies join its group).
+    for (int p = threadIdx.x; p < nbat * E * E; p += kThreads)
+      cp_async4(&ds_s[p / (E * E)][p % (E * E)],
+                x.ds + ((size_t)s.d * B + b0 + p / (E * E)) * E * E + p % (E * E));
+    for (int p = threadIdx.x; p < nbat * E * 2; p += kThreads) {
+      const int bl = p / (2 * E), m = p / 2 % E, half = p % 2;
+      const int b = b0 + bl;
+      const bf16* hp = m < NH ? x.hprev_h + at(s, T_, B * NH, b * NH + m, H)
+                              : x.hprev_o + at(s, T_, B * NO, b * NO + m - NH, H);
+      const bool valid = unit0 + 8 * half < H;
+      cp_async16(&hp_s[bl][m][8 * half], valid ? hp + unit0 + 8 * half : hp, valid);
+    }
+    if (!live) return;
+    pre = wg::load_now(cb.dhz + hs);
+    if (!last) in = cell_load_now(cb, next, T_, all_rows, row, unit, H);
+  });
+  store_partials<1>(smem, acc);
   __syncthreads();
-  __shared__ float du_s[kMaxRows][kMTile + 1];
   float du = 0.f;
   if (live) {
-    const float carry = pre + reduce<1>(base, 0, cc, r);
+    // attc = scale g, rounded on its own as segb_att stores it, in
+    // segb_att's order; then dhz + attc.
+    const int bl = row / Nc - b0, je = (cell == 0 ? 0 : NH) + row % Nc;
+    const float* ds = ds_s[bl];
+    float g = 0.f;
+    for (int m = 0; m < E; ++m)
+      g = fmaf(ds[je * E + m] + ds[m * E + je], to_f32(hp_s[bl][m][cc]), g);
+    pre = __fadd_rn(pre, __fmul_rn(scale, g));
+    const float carry = pre + reduce<1>(smem, 0, cc, r);
     if (last)
       (cell == 0 ? x.dh0_h : x.dh0_o)[hs] = from_f32<bf16>(carry);
     else
@@ -871,35 +741,31 @@ segb_carry_cluster(const __grid_constant__ RMaps maps, RArgs x, CellArgs<bf16> c
                            wg::widen(in.u)});
   }
   du_s[r][cc] = du;
-  if (!last && u < units) store_du(cb, next, T_, all_rows, row0, rows, du_s, units, u);
-  cl::cluster_wait();                   // no block still arrives on this block's barriers
+  if (!last) store_du(cb, next, T_, all_rows, row0, rows, du_s, gridDim.x, blockIdx.x);
 }
 
-// The cluster route's plan at (B, NH, NO, H), into out[kPlanInts]: 1 if
-// the shape takes it (else 0: the per-step route), DA's blocks a cluster
-// and clusters a step, its dynamic shared memory, R's blocks a cluster and
-// clusters a step, its dynamic shared memory, the batch tile of a DA
-// cluster; the two co-residency slots are the caller's.
-constexpr int kPlanInts = 10;
+// The bfloat16 two-launch route's plan at (B, NH, NO, H), into
+// out[kPlanInts]: 1 if the shape takes it (else 0: the per-step route),
+// DA's blocks a cluster, clusters a step and dynamic shared memory, R's
+// blocks a step and dynamic shared memory, the batch tile of a DA cluster,
+// and a slot for the most DA clusters the card holds at once.
+constexpr int kPlanInts = 8;
 
 void cluster_plan(int B, int NH, int NO, int H, int* out) {
   const int most = NH > NO ? NH : NO;
-  const int nb = most > 0 ? kMaxRows / most : 0;
   const bool ok = NH >= 1 && NO >= 1 && NH + NO <= kMaxEntities && H % 8 == 0 && H > 0 &&
                   H <= kMaxClusterBlocks * 2 * kMTile && B >= 1;
-  const int units = (H + kMTile - 1) / kMTile;
-  const int per = (units + kMaxClusterBlocks - 1) / kMaxClusterBlocks;
-  const int row_tiles_h = (B * NH + kMaxRows - 1) / kMaxRows;
-  const int row_tiles_o = (B * NO + kMaxRows - 1) / kMaxRows;
+  const int nb = ok ? kMaxRows / most : 0;
   out[0] = ok;
   out[1] = ok ? (H + 2 * kMTile - 1) / (2 * kMTile) : 0;
   out[2] = ok ? 2 * 2 * ((B + nb - 1) / nb) : 0;
   out[3] = ok ? (int)kDASmem : 0;
-  out[4] = ok ? (units + per - 1) / per : 0;
-  out[5] = ok ? per * (row_tiles_h + row_tiles_o) * 2 : 0;
-  out[6] = ok ? (int)kRSmem : 0;
-  out[7] = ok ? nb : 0;
-  out[8] = out[9] = -1;
+  out[4] = ok ? 2 * ((H + kMTile - 1) / kMTile) *
+                    ((B * NH + kMaxRows - 1) / kMaxRows + (B * NO + kMaxRows - 1) / kMaxRows)
+              : 0;
+  out[5] = ok ? (int)kRSmem : 0;
+  out[6] = nb;
+  out[7] = -1;
 }
 
 int run_cluster(const bf16* u_h, const bf16* u_o, const bf16* hprev_h, const bf16* hprev_o,
@@ -913,39 +779,28 @@ int run_cluster(const bf16* u_h, const bf16* u_o, const bf16* hprev_h, const bf1
   int plan[kPlanInts];
   cluster_plan(B, NH, NO, H, plan);
   if (!plan[0] || T_ < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int C = plan[1], Cr = plan[4], nb = plan[7];
-  const int units = (H + kMTile - 1) / kMTile, per = (units + Cr - 1) / Cr;
+  const int C = plan[1], nb = plan[6];
+  const int units = (H + kMTile - 1) / kMTile;
   const int row_tiles = (B * (NH > NO ? NH : NO) + kMaxRows - 1) / kMaxRows;
-  DAMaps dm;
-  RMaps rm;
-  const int rows[2] = {B * NH, B * NO};
-  const bf16* dgi[2] = {dgi_h, dgi_o};
-  const bf16* dgh[2] = {dgh_h, dgh_o};
-  const bf16* dpre[2] = {dpre_h, dpre_o};
-  cudaError_t err = cudaSuccess;
-  for (int c = 0; c < 2 && err == cudaSuccess; ++c) {
-    err = wg::rows_map(&dm.dgi[c], dgi[c], 2 * T_, rows[c], 3 * H, 3 * H);
-    if (err == cudaSuccess) err = wg::rows_map(&rm.dgh[c], dgh[c], 2 * T_, rows[c], 3 * H, 3 * H);
-    for (int e = 0; e < 2 && err == cudaSuccess; ++e)
-      err = wg::rows_map(&rm.dpre[c][e], dpre[c], 2 * T_, rows[c], 2 * H, H, e * H);
-  }
-  if (err == cudaSuccess) err = cl::prepare_cluster(segb_dmsgs_att, kDASmem);
-  if (err == cudaSuccess) err = cl::prepare_cluster(segb_carry_cluster, kRSmem);
+  cudaError_t err = cl::prepare_cluster(segb_dmsgs_att, kDASmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(segb_carry_ds, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kRSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const CellArgs<bf16> cell_h = {u_h, hprev_h, g_h, gates_h, dgi_h, dgh_h, du_part_h, dhz_h};
   const CellArgs<bf16> cell_o = {u_o, hprev_o, g_o, gates_o, dgi_o, dgh_o, du_part_o, dhz_o};
-  const DAArgs da = {w_msg_h, w_msg_o, g_att, m_h, m_o, atts, dpre_h, dpre_o, ds};
-  const RArgs ra = {w_hh_h, w_hh_o, w_from, hprev_h, hprev_o, ds, dh0_h, dh0_o};
+  const DAArgs da = {dgi_h, dgi_o, w_msg_h, w_msg_o, g_att, m_h, m_o, atts, dpre_h, dpre_o, ds};
+  const RArgs ra = {dgh_h, dgh_o, dpre_h, dpre_o, w_hh_h, w_hh_o, w_from, hprev_h, hprev_o, ds,
+                    dh0_h, dh0_o};
   const dim3 grid_c(units, 2 * row_tiles, 2);
-  const dim3 grid_da(C, plan[2] / 2, 2), grid_r(per * Cr, 2 * row_tiles, 2);
+  const dim3 grid_da(C, plan[2] / 2, 2);
   segb_cell<bf16><<<grid_c, kThreads, 0, stream>>>(cell_h, cell_o, T_, B, NH, NO, H, row_tiles);
   for (int step = 0; step < T_; ++step) {
-    err = cl::launch_cluster_grid(segb_dmsgs_att, kThreads, grid_da, C, kDASmem, stream, dm, da,
-                                  T_, B, NH, NO, H, nb, step);
+    err = cl::launch_cluster_grid(segb_dmsgs_att, kThreads, grid_da, C, kDASmem, stream, da, T_,
+                                  B, NH, NO, H, nb, step);
     if (err == cudaSuccess)
-      err = cl::launch_cluster_grid(segb_carry_cluster, kThreads, grid_r, Cr, kRSmem, stream, rm,
-                                    ra, cell_h, cell_o, T_, B, NH, NO, H, row_tiles, units, Cr,
-                                    scale, step);
+      segb_carry_ds<<<grid_c, kThreads, kRSmem, stream>>>(ra, cell_h, cell_o, T_, B, NH, NO, H,
+                                                          row_tiles, scale, step);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -1062,17 +917,15 @@ extern "C" int tggcn_segment_scan_dot_bwd_bf16(
                        stream);
 }
 
-// The bfloat16 cluster route's plan at (B, NH, NO, H) into out[10] (see
-// cluster_plan), with, if occupancy and on the cluster route, the most
-// clusters of DA and of R the card holds at once
-// (cudaOccupancyMaxActiveClusters; else -1).
+// The bfloat16 two-launch route's plan at (B, NH, NO, H) into out[8] (see
+// cluster_plan), with, if occupancy and on that route, the most DA
+// clusters the card holds at once (cudaOccupancyMaxActiveClusters; else
+// -1).
 // Returns a CUDA error code (0 on success).
 extern "C" int tggcn_segment_scan_dot_bwd_plan(int B, int NH, int NO, int H, int occupancy,
                                                int* out) {
   cluster_plan(B, NH, NO, H, out);
   if (!out[0] || !occupancy) return 0;
-  cudaError_t err = cl::max_active_clusters(segb_dmsgs_att, kThreads, out[1], kDASmem, &out[8]);
-  if (err == cudaSuccess)
-    err = cl::max_active_clusters(segb_carry_cluster, kThreads, out[4], kRSmem, &out[9]);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      cl::max_active_clusters(segb_dmsgs_att, kThreads, out[1], kDASmem, &out[7]));
 }

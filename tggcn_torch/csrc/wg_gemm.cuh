@@ -4,8 +4,10 @@
 // shared memory. It runs the bfloat16 product phases of K3 (segment_scan.cu:
 // the message projections A and the cells B); tc_gemm.cuh keeps the
 // float32 products, the per-step K1's and K2's bfloat16 x float32 ones
-// (h > 512; gru_cluster.cuh takes them below) and K4's bfloat16 ones (on wgmma K4's carry was slower and its dmsgs moved a
-// checked output past its limit on the H100, PERF.md).
+// (h > 512; gru_cluster.cuh takes them below) and K4's bfloat16 ones, whose
+// bits its two-launch route keeps (segment_scan_bwd.cu; on wgmma K4's carry
+// was slower and its dmsgs moved a checked output past its limit on the
+// H100, PERF.md).
 //
 // What bounds them. At MPHOI's batch of 8 each of those phases is one
 // wave of 128 blocks a step (2048 at a predict batch of 128), each block streaming its weight columns and the step's rows from L2 over
@@ -142,21 +144,6 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// bar_wait for a barrier whose arrivals come from the blocks of the
-// cluster (arrive_remote in gru_cluster.cuh): acquires at cluster scope.
-__device__ __forceinline__ void bar_wait_cluster(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
 // The consumer warpgroups alone (the producer warp has left).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
@@ -174,19 +161,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// tma_load into the same shared-memory offset of every block of the
-// cluster whose rank is set in `mask`, each completing on its own barrier
-// at offset `bar`: one read of L2 for all of them.
-__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
-                                                   uint32_t bar, int c0, int c1, int c2,
-                                                   uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "h"(mask)
       : "memory");
 }
 

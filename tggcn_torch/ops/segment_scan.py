@@ -13,7 +13,10 @@ bfloat16 on wgmma fed by TMA (``csrc/wg_gemm.cuh``). With keep
 
 K4 replaces ``segment_scan_pallas.py::_make_bwd_kernel`` (launched by
 ``_seg_dir_bwd_pallas`` at ``segment_scan_pallas.py:546``):
-``csrc/segment_scan_bwd.cu``, three launches per step. Where the TPU kernel
+``csrc/segment_scan_bwd.cu``, three launches per step, or, in bfloat16 at
+h <= 512 (``bwd_plan``), two: a cluster launch that takes the message
+gradients, dpre and the attention backward of one sender group, and the
+carry with the next step's cell backward. Where the TPU kernel
 recomputes the step from h_prev, K4 reads what K3 kept: the edge messages
 (so the ReLU's derivative is the forward's), the gates and the attention;
 it recomputes no gate product, score or softmax. The weight gradients are
@@ -679,12 +682,13 @@ def segment_scan_dot_weight_grads(hprev_h, hprev_o, mix_h, mix_o, grads):
 
 
 # The bfloat16 backward's plan (csrc/segment_scan_bwd.cu, cluster_plan):
-# route 1 for the cluster route (else 0, the per-step route); DA's blocks
-# a cluster, clusters a step and dynamic shared memory; R's the same; the
-# batch tile of a DA cluster; and the most clusters of DA and of R the
-# card holds at once (-1 unless asked for and on the cluster route).
-BWD_PLAN_KEYS = ("route", "da_blocks", "da_clusters", "da_smem", "r_blocks", "r_clusters",
-                 "r_smem", "batch_tile", "da_co_resident", "r_co_resident")
+# route 1 for the two-launch route (else 0, the per-step route); DA's
+# blocks a cluster, clusters a step and dynamic shared memory; R's blocks a
+# step and dynamic shared memory; the batch tile of a DA cluster; and the
+# most DA clusters the card holds at once (-1 unless asked for and on the
+# two-launch route).
+BWD_PLAN_KEYS = ("route", "da_blocks", "da_clusters", "da_smem", "r_blocks", "r_smem",
+                 "batch_tile", "da_co_resident")
 BWD_ROUTES = ("cluster", "steps")
 
 
@@ -706,8 +710,8 @@ def segment_scan_dot_bwd(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o,
     """The dict of BWD_OUTPUTS (see segment_scan_dot_bwd_plain) for the
     upstream gradients g_h (2, T, B, H, h), g_o and g_att (2, T, B, H, O);
     CPU tensors take the plain version, CUDA tensors the kernel. In
-    bfloat16 the kernel's route follows the shape (bwd_plan: two cluster
-    launches a step at h <= 512, else three launches a step); route
+    bfloat16 the kernel's route follows the shape (bwd_plan: two launches a
+    step, the first a cluster launch, at h <= 512, else three); route
     'steps' takes the per-step route at any shape, 'cluster' raises where
     the shape does not take it (the card tests hold the two routes to the
     same bits). Float32 takes the per-step route."""

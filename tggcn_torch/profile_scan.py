@@ -36,13 +36,15 @@ from tggcn_torch.ops import segment_scan as ops
 def scan_inputs(dev, gen, t, b, nh, no, h):
     """K3's inputs at (T, B, humans, objects, h), uniform from gen: states
     and gate inputs in (-1, 1), weights within h^-1/2, random commit
-    decisions, and an object mask with one batch row fully masked."""
+    decisions, and a random object mask, with (B > 1) one batch row fully
+    masked and one not masked at all."""
     def u(*shape, bound):
         return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound).contiguous()
     s = h ** -0.5
     obj_mask = (torch.rand((b, no), generator=gen, device=dev) > 0.3).float()
-    obj_mask[0] = 0.0                  # a batch row with every object masked
-    obj_mask[1] = 1.0
+    if b > 1:
+        obj_mask[0] = 0.0              # a batch row with every object masked
+        obj_mask[1] = 1.0
     commits = lambda e: (torch.rand((t, b, e), generator=gen, device=dev) > 0.5).float()
     return dict(
         gi_h=u(2, t, b, nh, 3 * h, bound=1.0), gi_o=u(2, t, b, no, 3 * h, bound=1.0),

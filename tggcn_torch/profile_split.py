@@ -12,7 +12,7 @@ in bfloat16, the median of ``--reps`` calls by CUDA events: K1
 MPHOI shape (T=167, S=6, h=512, R = B x 4 rows), or K4
 (``segment_scan_dot_bwd``, T=167, 2 humans, 4 objects, h=512, B clips,
 profile_scan's seeded inputs) with each of its two kernels' µs a
-launch by the profiler (DA ``segb_dmsgs_att``, R ``segb_carry_cluster``),
+launch by the profiler (DA ``segb_dmsgs_att``, R ``segb_carry_ds``),
 for each ``--batch``. A variant's kernels compute wrong values: only its
 time means anything.
 
@@ -28,21 +28,19 @@ GRU variants (``--kernels gru``):
   no_gate       K1's gate math and K2's gate backward (C) skipped
   no_barrier    K1's per-step cluster barrier kept only after the last step
 
-K4 variants (``--kernels k4``):
+K4 variants (``--kernels k4``; the products of tc_gemm.cuh, which K4's
+kernels share, are edited in the copy):
 
   full          the sources as they are
   no_product    every bfloat16 mma.sync a PTX comment (operands live)
-  no_rows       no rows copied: each stage's barrier expects no bytes
-  no_weights    no weights copied (cp.async skipped)
-  no_copies     neither: the ring runs empty
-  no_multicast  each block copies every box of rows into its own ring
-                alone, from L2 (the rows copied once a block, as before
-                the redesign, in the same layout)
+  no_rows       no rows copied into the products' rings (cp.async skipped)
+  no_weights    no weights copied
+  no_copies     neither: the rings run empty
   no_exchange   DA's gather of the cluster's dmsgs tiles reads zeros
   no_da_tail    DA's dpre, da and softmax backward skipped
   no_r_tail     R's attc and phase C skipped (before and after the product)
   r_late_loads  R's phase-C loads issued after the product, where they are
-                used, not before it
+                used, not while its copies run
 
 Prints one JSON line a variant: its ms by kernel and batch, and the spill
 lines of its build log. Needs a CUDA device and nvcc.
@@ -89,21 +87,15 @@ def _round(n):
 
 
 MMA = "__device__ __forceinline__ void mma_bf16("
-ISSUE = "void issue_rows("
-LOAD_W = "void load_weights("
-DA = "segb_dmsgs_att(const __grid_constant__"
-R = "segb_carry_cluster(const __grid_constant__"
+LOAD = "__device__ __forceinline__ void load_chunk("
+DA = "segb_dmsgs_att(DAArgs x"
+R = "segb_carry_ds(RArgs x"
 K4_NO_PRODUCT = [("tc_gemm.cuh", MMA, '"mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 ',
                   '"// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 ')]
-K4_NO_ROWS = [("segment_scan_bwd.cu", ISSUE,
-               "  wg::bar_expect(ring.full(s), (uint32_t)(nq * x.box * 128));\n",
-               "  wg::bar_expect(ring.full(s), 0u);\n  if (nq > 0) return;\n")]
-K4_NO_WEIGHTS = [("segment_scan_bwd.cu", LOAD_W, "  for (int j = 0; j < kCopies; ++j) {",
-                  "  for (int j = 0; j < kCopies && K < 0; ++j) {")]
-K4_NO_MULTICAST = [("segment_scan_bwd.cu", ISSUE,
-                    "    if ((c * nq + j) % ring.C != ring.rank) continue;\n", ""),
-                   ("segment_scan_bwd.cu", ISSUE, "(uint16_t)((1u << ring.C) - 1)",
-                    "(uint16_t)(1u << ring.rank)")]
+K4_NO_ROWS = [("tc_gemm.cuh", LOAD, "  for (int j = 0; j < kXCopies; ++j) {",
+               "  for (int j = 0; j < kXCopies && rows < 0; ++j) {")]
+K4_NO_WEIGHTS = [("tc_gemm.cuh", LOAD, "  for (int j = 0; j < kWCopies; ++j) {",
+                  "  for (int j = 0; j < kWCopies && rows < 0; ++j) {")]
 K4_NO_EXCHANGE = [("segment_scan_bwd.cu", DA,
                    "*reinterpret_cast<float4*>(rowbuf + (size_t)li * H + col) = cl::ld_cluster4(",
                    "*reinterpret_cast<float4*>(rowbuf + (size_t)li * H + col) = "
@@ -112,10 +104,10 @@ K4_NO_DA_TAIL = [("segment_scan_bwd.cu", DA, "p < nbt * Ng * 2 * kMTile;",
                   "p < nbt * Ng * 2 * kMTile && T_ < 0;"),
                  ("segment_scan_bwd.cu", DA, "p < mine * Ng;", "p < mine * Ng && T_ < 0;"),
                  ("segment_scan_bwd.cu", DA, "  if (tid < mine) {", "  if (tid < mine && T_ < 0) {")]
-K4_NO_R_TAIL = [("segment_scan_bwd.cu", R, "  if (live) {\n    const int Nc",
-                 "  if (live && T_ < 0) {\n    const int Nc"),
-                ("segment_scan_bwd.cu", R, "  if (live) {\n    const float carry",
-                 "  if (live && T_ < 0) {\n    const float carry")]
+K4_NO_R_TAIL = [("segment_scan_bwd.cu", R, "    if (!live) return;\n",
+                 "    if (!live || T_ > 0) return;\n"),
+                ("segment_scan_bwd.cu", R, "  if (live) {\n    // attc",
+                 "  if (live && T_ < 0) {\n    // attc")]
 K4_LATE_LOADS = [("segment_scan_bwd.cu", R,
                   "    if (!last) in = cell_load_now(cb, next, T_, all_rows, row, unit, H);\n", ""),
                  ("segment_scan_bwd.cu", R,
@@ -129,11 +121,10 @@ VARIANTS = {
             "no_barrier": NO_BARRIER},
     "k4": {"full": [], "no_product": K4_NO_PRODUCT, "no_rows": K4_NO_ROWS,
            "no_weights": K4_NO_WEIGHTS, "no_copies": K4_NO_ROWS + K4_NO_WEIGHTS,
-           "no_multicast": K4_NO_MULTICAST, "no_exchange": K4_NO_EXCHANGE,
-           "no_da_tail": K4_NO_DA_TAIL, "no_r_tail": K4_NO_R_TAIL,
-           "r_late_loads": K4_LATE_LOADS}}
+           "no_exchange": K4_NO_EXCHANGE, "no_da_tail": K4_NO_DA_TAIL,
+           "no_r_tail": K4_NO_R_TAIL, "r_late_loads": K4_LATE_LOADS}}
 SOURCES = {"gru": ("gru_sequence", "gru_sequence_bwd"), "k4": ("segment_scan_bwd",)}
-K4_KERNELS = ("segb_dmsgs_att", "segb_carry_cluster")
+K4_KERNELS = ("segb_dmsgs_att", "segb_carry_ds")
 
 
 def edited_copy(edits, root, source=_build.CSRC_DIR):
