@@ -1020,9 +1020,9 @@ def k3_l2_bytes(b, nh, no, h):
 def k4_l2_bytes(b, nh, no, h):
     """The bytes K4's bfloat16 product phases (tc_gemm.cuh) copy from L2 a
     step, on the route of the shape (bwd_plan's rule: h <= 512 the
-    two-launch route). A DA block (32 of a sender group's h columns of both
-    cells, the rows of a batch tile of 32 // max(H, O) clips) copies, for
-    each cell, its columns of w_msg and the tile's rows of dgi, 3h deep; a
+    two-launch route). A DA block (32 of a sender group's h columns of one
+    cell, the cell's rows of a batch tile of 32 // max(H, O) clips) copies
+    its columns of the cell's w_msg and the tile's rows of dgi, 3h deep; a
     per-step dmsgs block (32 of 2h columns, up to 32 rows of a cell) its
     columns and rows, 3h deep; a carry block (16 units, up to 32 rows) its
     units' rows of w_hh and of the two w_from edges its cell sends, and its
@@ -1035,8 +1035,8 @@ def k4_l2_bytes(b, nh, no, h):
     if h <= 512 and h % 8 == 0 and nh + no <= 16:
         nb, da = 32 // max(nh, no), 0
         for b0 in range(0, b, nb):
-            tile = min(nb, b - b0)
-            da += 2 * 2 * -(-h // 32) * (64 + tile * (nh + no)) * 3 * h * 2
+            for n in (nh, no):
+                da += 2 * 2 * -(-h // 32) * (32 + min(nb, b - b0) * n) * 3 * h * 2
         return dict(segb_dmsgs_att=da, segb_carry_ds=carry)
     dmsgs = 0
     for rows in (b * nh, b * no):
