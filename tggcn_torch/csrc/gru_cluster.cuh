@@ -84,13 +84,13 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Launches kernel on `grid` of `threads`-thread blocks whose clusters are
-// C consecutive blocks along x (grid.x a multiple of C).
+// Launches kernel on a grid (C, row tiles, S) of `threads`-thread blocks
+// whose clusters are the C blocks of one (row tile, stream).
 template <class Kernel, class... Args>
-cudaError_t launch_cluster_grid(Kernel kernel, int threads, dim3 grid, int C, size_t smem,
-                                cudaStream_t stream, Args... args) {
+cudaError_t launch_cluster(Kernel kernel, int threads, int C, int tiles, int S, size_t smem,
+                           cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
+  cfg.gridDim = dim3(C, tiles, S);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -102,14 +102,6 @@ cudaError_t launch_cluster_grid(Kernel kernel, int threads, dim3 grid, int C, si
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
-// Launches kernel on a grid (C, row tiles, S) of `threads`-thread blocks
-// whose clusters are the C blocks of one (row tile, stream).
-template <class Kernel, class... Args>
-cudaError_t launch_cluster(Kernel kernel, int threads, int C, int tiles, int S, size_t smem,
-                           cudaStream_t stream, Args... args) {
-  return launch_cluster_grid(kernel, threads, dim3(C, tiles, S), C, smem, stream, args...);
 }
 
 // Sets the kernel's shared-memory and cluster-size attributes.

@@ -194,19 +194,17 @@ __device__ __forceinline__ float cell_bwd(const CellArgs<T>& c, Step s, int T_, 
 }
 
 // du_s holds each (row, unit) share of the block's 32 x 16 tile: one
-// partial per row and block, added over the 16 units in order, into part
-// `part` of the row's `parts`.
+// partial per row and block, added over the 16 units in order.
 template <class T>
 __device__ __forceinline__ void store_du(const CellArgs<T>& c, Step s, int T_, int rows,
                                          int row0, int nrows,
-                                         const float (&du_s)[kMaxRows][kMTile + 1], int parts,
-                                         int part) {
+                                         const float (&du_s)[kMaxRows][kMTile + 1]) {
   __syncthreads();
   const int r = threadIdx.x;
   if (r < nrows) {
     float v = 0.f;
     for (int k = 0; k < kMTile; ++k) v += du_s[r][k];
-    c.du_part[at(s, T_, rows, row0 + r, parts) + part] = v;
+    c.du_part[at(s, T_, rows, row0 + r, gridDim.x) + blockIdx.x] = v;
   }
 }
 
@@ -231,7 +229,7 @@ segb_cell(CellArgs<T> hum, CellArgs<T> obj, int T_, int B, int NH, int NO, int H
     du_s[r][cc] = r < nrows && unit < H ? cell_bwd(c, s, T_, all_rows, row0 + r, unit, H, 0.f)
                                         : 0.f;
   }
-  store_du(c, s, T_, all_rows, row0, nrows, du_s, gridDim.x, blockIdx.x);
+  store_du(c, s, T_, all_rows, row0, nrows, du_s);
 }
 
 // du[i] = the sum, in block order, of the `parts` partials of row i.
@@ -442,7 +440,7 @@ segb_carry(CarryArgs<T> hum, CarryArgs<T> obj, CellArgs<T> cell_h, CellArgs<T> c
     }
     du_s[r][cc] = du;
   }
-  if (!last) store_du(cb, next, T_, all_rows, row0, rows, du_s, gridDim.x, blockIdx.x);
+  if (!last) store_du(cb, next, T_, all_rows, row0, rows, du_s);
 }
 
 // ---- bfloat16 at h <= 512: two launches a step ----------------------------------
@@ -709,7 +707,7 @@ segb_carry_ds(RArgs x, CellArgs<bf16> cell_h, CellArgs<bf16> cell_o, int T_, int
                            wg::widen(in.u)});
   }
   du_s[r][cc] = du;
-  if (!last) store_du(cb, next, T_, all_rows, row0, rows, du_s, gridDim.x, blockIdx.x);
+  if (!last) store_du(cb, next, T_, all_rows, row0, rows, du_s);
 }
 
 // The bfloat16 two-launch route's plan at (B, NH, NO, H), into
@@ -761,11 +759,11 @@ int run_cluster(const bf16* u_h, const bf16* u_o, const bf16* hprev_h, const bf1
   const RArgs ra = {dgh_h, dgh_o, dpre_h, dpre_o, w_hh_h, w_hh_o, w_from, hprev_h, hprev_o, ds,
                     dh0_h, dh0_o};
   const dim3 grid_c(units, 2 * row_tiles, 2);
-  const dim3 grid_da(C, plan[2] / 2, 2);  // (rank, (tile, cell, group), direction)
   segb_cell<bf16><<<grid_c, kThreads, 0, stream>>>(cell_h, cell_o, T_, B, NH, NO, H, row_tiles);
   for (int step = 0; step < T_; ++step) {
-    err = cl::launch_cluster_grid(segb_dmsgs_att, kThreads, grid_da, C, kDASmem, stream, da, T_,
-                                  B, NH, NO, H, nb, step);
+    // DA's grid: (rank, (tile, cell, group), direction), a cluster along x.
+    err = cl::launch_cluster(segb_dmsgs_att, kThreads, C, plan[2] / 2, 2, kDASmem, stream, da,
+                             T_, B, NH, NO, H, nb, step);
     if (err == cudaSuccess)
       segb_carry_ds<<<grid_c, kThreads, kRSmem, stream>>>(ra, cell_h, cell_o, T_, B, NH, NO, H,
                                                           row_tiles, scale, step);
