@@ -1020,9 +1020,9 @@ def k3_l2_bytes(b, nh, no, h):
 def k4_l2_bytes(b, nh, no, h):
     """The bytes K4's bfloat16 product phases (tc_gemm.cuh) copy from L2 a
     step, on the route of the shape (bwd_plan's rule: h <= 512 the
-    two-launch route). A DA block (32 of a sender group's h columns of one
-    cell, the cell's rows of a batch tile of 32 // max(H, O) clips) copies
-    its columns of the cell's w_msg and the tile's rows of dgi, 3h deep; a
+    two-launch route). A DA block (32 of a sender group's h columns of both
+    cells, the rows of a batch tile of 32 // max(H, O) clips) copies, for
+    each cell, its columns of w_msg and the tile's rows of dgi, 3h deep; a
     per-step dmsgs block (32 of 2h columns, up to 32 rows of a cell) its
     columns and rows, 3h deep; a carry block (16 units, up to 32 rows) its
     units' rows of w_hh and of the two w_from edges its cell sends, and its
@@ -1035,8 +1035,8 @@ def k4_l2_bytes(b, nh, no, h):
     if h <= 512 and h % 8 == 0 and nh + no <= 16:
         nb, da = 32 // max(nh, no), 0
         for b0 in range(0, b, nb):
-            for n in (nh, no):
-                da += 2 * 2 * -(-h // 32) * (32 + min(nb, b - b0) * n) * 3 * h * 2
+            tile = min(nb, b - b0)
+            da += 2 * 2 * -(-h // 32) * (64 + tile * (nh + no)) * 3 * h * 2
         return dict(segb_dmsgs_att=da, segb_carry_ds=carry)
     dmsgs = 0
     for rows in (b * nh, b * no):
@@ -1171,7 +1171,7 @@ def run_k4(torch, dev, shape, dtype=None):
     route = {}
     if bf16:
         print_l2_rates(tag, split, shape)
-        route = k4_route_report(torch, dev, tag, shape, split, args, got)
+        route = k4_route_report(torch, dev, tag, shape, args, got)
     byte_count = nbytes(*args.values(), *got.values())
     rate = BF16_FLOP_PER_S if bf16 else PRODUCT_FLOP_PER_S
     new = bounds(byte_count, *k4_flops(t, b, nh, no, h), product_rate=rate)
@@ -1188,9 +1188,10 @@ def run_k4(torch, dev, shape, dtype=None):
                 **new)
 
 
-def k4_route_report(torch, dev, tag, shape, split, args, got):
+def k4_route_report(torch, dev, tag, shape, args, got):
     """K4's bfloat16 route at the MPHOI shape: the plan (bwd_plan), the
-    launches of a call (split: device_ms_by_kernel of one call), whether a
+    launches of a call (by kernel name over 3 calls: a profiler window
+    misses the first kernels of its first call), whether a
     repeated call and the per-step route (route='steps') gave the same bits
     as got, and each K4_BATCHES call against its plain version, at the
     limits of the MPHOI check (max_share SCAN_GRAD_RTOL_BF16, rel_l2
@@ -1198,11 +1199,12 @@ def k4_route_report(torch, dev, tag, shape, split, args, got):
     other than 2T + 2 launches with no segb_att."""
     from tggcn_torch.ops.segment_scan import (BWD_OUTPUTS, bwd_plan, segment_scan_dot_bwd,
                                               segment_scan_dot_bwd_plain)
-    from tggcn_torch.profile_scan import bwd_inputs, scan_inputs
+    from tggcn_torch.profile_scan import bwd_inputs, device_ms_by_kernel, scan_inputs
 
     t, b, nh, no, h = shape
     scale = 1.0 / math.sqrt(h)
-    launches = {k: v["launches"] for k, v in split.items()
+    calls = device_ms_by_kernel(lambda: segment_scan_dot_bwd(**args, scale=scale), 3)
+    launches = {k: v["launches"] for k, v in calls.items()
                 if k.startswith("segb_") or k == "du_sum"}
     again = segment_scan_dot_bwd(**args, scale=scale)
     steps = segment_scan_dot_bwd(**args, scale=scale, route="steps")

@@ -632,7 +632,7 @@ def test_chip_smoke_k4_bytes_follow_the_route(h, kernels):
     """chip_smoke's L2 byte count of K4's bfloat16 products names the
     kernels of the shape's route; at MPHOI's batch of 8 the two-launch
     route copies what the per-step kernels D and R copy (each DA block
-    copies its columns and the tile's rows of one cell)."""
+    copies its columns and the tile's rows of both cells)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke_bytes", ROOT / "chip_smoke.py")

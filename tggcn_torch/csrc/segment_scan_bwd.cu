@@ -66,19 +66,18 @@
 // the shape before any launch (cluster_plan; larger h, and float32, keep
 // the three above):
 //   DA  a cluster launch: a cluster of ceil(h / 32) blocks is one
-//       (direction, sender group, receiver cell, batch tile of
-//       32 / max(H, O) clips). The softmax groups follow the sender type,
-//       and each reads only its half of a receiver's dmsgs row; the dpre
-//       of a sender towards one cell sums over that cell's receivers. So
-//       block `rank` takes segb_dmsgs's product for 32 of the group's h
-//       dmsgs columns of the cell's rows in the tile, then from its
-//       columns the group senders' dpre towards the cell (A's column work);
-//       then each block gathers the full group half of a share of the
-//       cell's receivers' dmsgs rows from the cluster's tiles (distributed
-//       shared memory) and takes da and the softmax backward of the group
-//       in segb_att's order, writing ds (2, B, E, E). Two blocks an SM
-//       (three ring stages, 64 registers), so that the card holds the
-//       eight clusters of 16 at once (it holds seven of one block an SM).
+//       (direction, sender group, batch tile of 32 / max(H, O) clips). The
+//       softmax groups follow the sender type, and each reads only its half
+//       of a receiver's dmsgs row and the dpre of its own senders, so block
+//       `rank` takes 32 of the group's h dmsgs columns for both cells' rows
+//       of the tile (segb_dmsgs's two products, through one ring), then
+//       from its columns the group senders' dpre towards both receiver
+//       cells (A's column work); then each block gathers the full group
+//       half of a share of the tile's receivers' dmsgs rows from the
+//       cluster's tiles (distributed shared memory) and takes da and the
+//       softmax backward of the group in segb_att's order, writing ds
+//       (2, B, E, E). One block an SM: at MPHOI's shape four clusters of
+//       16, which the card holds at once (it holds seven).
 //   R   segb_carry's product and epilogue, which take attc from ds and the
 //       states themselves (segb_att's order) and copy those inputs, dhz
 //       and the next step's C inputs while the product's copies run.
@@ -87,13 +86,13 @@
 // rounding is the per-step route's, so every output has its bits (the
 // card tests hold them equal). On the H100 (PERF.md) the route is about 6%
 // faster than the per-step one: a DA launch with no copies still takes
-// 14 us (cluster barriers, the tile's reduction, the gather), and these
-// 128 blocks of one product each were no faster than 64 blocks of two
-// (both cells' rows) in clusters of one block an SM. Copying the rows once
-// a cluster by TMA multicast was tried and was slower: each stage's ring
-// slot must be freed by every block of the cluster before it is refilled,
-// and that coupling, the cluster barriers and the rows' TMA boxes cost
-// more than the L2 bytes they saved.
+// 14 us (its two products on one SM, the cluster barriers, the tile's
+// reduction, the gather); 128 blocks of one product each (two blocks an
+// SM, so that the card holds eight clusters of 16) were no faster. Copying
+// the rows once a cluster by TMA multicast was tried and was slower: each
+// stage's ring slot must be freed by every block of the cluster before it
+// is refilled, and that coupling, the cluster barriers and the rows' TMA
+// boxes cost more than the L2 bytes they saved.
 
 #include "gru_cluster.cuh"
 #include "tc_gemm.cuh"
@@ -455,17 +454,17 @@ namespace wg = tggcn::wg;
 constexpr int kMaxClusterBlocks = 16;
 constexpr int kDmStride = 2 * kMTile;                   // a row of a DA block's dmsgs tile
 
-// DA's dynamic shared memory (two blocks an SM): the ring of its product
-// (kDAStages stages; then its partial sums, then the gathered messages
-// and dmsgs rows and their da), the dmsgs tile the cluster reads, and
-// dpre's inputs, copied while the product runs: the tile's attention (at
-// most 64 / E clips of E x E) and its senders' messages towards the
-// block's cell at the block's columns (at most 32 senders).
-constexpr int kDAStages = 3;
-constexpr size_t kDADm = smem_bytes<true, 2, 2, kDAStages, bf16, bf16>();
-constexpr size_t kDAAtt = kDADm + (size_t)kMaxRows * kDmStride * sizeof(float);
-constexpr size_t kDAMask = kDAAtt + (size_t)4 * kMaxRows * kMaxEntities * sizeof(float) / 2;
-constexpr size_t kDASmem = kDAMask + (size_t)kMaxRows * kDmStride * sizeof(float);
+// DA's dynamic shared memory: the ring of its products (then the object
+// rows' partial sums), the human rows' partial sums (then the gathered
+// dmsgs rows and their da), and the dmsgs tile the cluster reads.
+constexpr size_t kDAPart = smem_bytes<true, 2, 2, kStages, bf16, bf16>();
+constexpr size_t kDADm = kDAPart + sizeof(Partials<2>);
+constexpr size_t kDAAtt = kDADm + (size_t)2 * kMaxRows * kDmStride * sizeof(float);
+// dpre's inputs, copied while the products run: the tile's attention (at
+// most 64 / E clips of E x E) and its senders' messages at the block's
+// columns (at most 32 senders, both halves).
+constexpr size_t kDAMask = kDAAtt + (size_t)4 * kMaxRows * kMaxEntities * sizeof(float);
+constexpr size_t kDASmem = kDAMask + (size_t)kMaxRows * 2 * kDmStride * sizeof(float);
 // R's: the ring of its product (then its partial sums), then attc's inputs
 // for the clips of its rows (ds_s, hp_s).
 constexpr size_t kRDs = smem_bytes<true, 1, 1, kStages, bf16, bf16>();
@@ -479,97 +478,130 @@ struct DAArgs {
   float* ds;                            // (2, B, E, E): the score gradients
 };
 
-// DA of one step. A cluster is one (direction, sender group, receiver
-// cell, batch tile): block `rank` takes dmsgs columns grp * h + 32 rank ..
-// + 31 of the cell's rows in the tile (segb_dmsgs's product, 3h deep),
-// then from its columns the group senders' dpre towards that cell (the
-// half of dpre the cell's receivers give, as segb_att takes it); then each
-// block gathers the full group half of a share of the cell's receivers'
-// dmsgs rows from the cluster's tiles (distributed shared memory) and
-// takes da over it, in segb_att's order, and the softmax backward of the
-// group, into ds.
-__global__ void __launch_bounds__(kThreads, 2)
+// DA of one step. A cluster is one (direction, sender group, batch tile):
+// block `rank` takes dmsgs columns grp * h + 32 rank .. + 31 of every row
+// of both cells in the tile (two products, 3h deep, against each cell's
+// w_msg, as segb_dmsgs takes them), then from its columns dpre of the
+// group's senders for both receiver cells; then each block gathers the
+// full group half of its share of the receivers' dmsgs rows from the
+// cluster's tiles (distributed shared memory) and takes da over it, in
+// segb_att's order, and the softmax backward of the group, into ds.
+__global__ void __launch_bounds__(kThreads, 1)
 segb_dmsgs_att(DAArgs x, int T_, int B, int NH, int NO, int H, int nb, int step) {
   const auto q = [](float v) { return round_to<bf16>(v); };
   const Step s = step_of(step, T_);
   const int C = gridDim.x, rank = blockIdx.x, tid = threadIdx.x;
-  const int grp = blockIdx.y % 2, cell = blockIdx.y / 2 % 2, b0 = blockIdx.y / 4 * nb;
-  const int nbt = min(nb, B - b0), E = NH + NO, Ng = grp == 0 ? NH : NO;
-  const int Nc = cell == 0 ? NH : NO, rows = nbt * Nc, col0 = 2 * kMTile * rank;
+  const int grp = blockIdx.y % 2, b0 = blockIdx.y / 2 * nb, nbt = min(nb, B - b0);
+  const int E = NH + NO, Ng = grp == 0 ? NH : NO, col0 = 2 * kMTile * rank;
+  const int rows_h = nbt * NH, rows_o = nbt * NO;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* dm = reinterpret_cast<float*>(smem + kDADm);        // (32, 32) this cell's rows
-  float* att_s = reinterpret_cast<float*>(smem + kDAAtt);    // (nbt, E, E)
-  float* mask_s = reinterpret_cast<float*>(smem + kDAMask);  // (nbt * Ng, 32)
-  const float* msg = grp == 0 ? x.m_h : x.m_o;
+  unsigned char* part_h = smem + kDAPart;
+  const size_t wd = (size_t)s.d * 2 * H * 3 * H;
   const Tiles tiles = {{grp * H + col0, grp * H + col0 + kMTile, 0},
                        {max(0, min(kMTile, H - col0)), max(0, min(kMTile, H - col0 - kMTile)), 0}};
+  float* att_s = reinterpret_cast<float*>(smem + kDAAtt);     // (nbt, E, E)
+  float* mask_s = reinterpret_cast<float*>(smem + kDAMask);   // (nbt * Ng, 2, 32)
+  const float* msg = grp == 0 ? x.m_h : x.m_o;
+  // The human rows' product, then the object rows', through one ring: the
+  // human sums go to part_h once their last stage is multiplied.
   float acc[2][kNTiles][4] = {};
-  const OperandT<bf16, bf16> op = {
-      (cell == 0 ? x.dgi_h : x.dgi_o) + at(s, T_, B * Nc, b0 * Nc, 3 * H), 3 * H,
-      (cell == 0 ? x.w_msg_h : x.w_msg_o) + (size_t)s.d * 2 * H * 3 * H, 3 * H, 3 * H};
-  accumulate<true, 2, 2, 1, TileSlots, kDAStages>(op, op, op, tiles, rows, smem, acc, [&] {
-    // Copied with the product's next stage (the copies join its group).
-    for (int p = tid; p < nbt * E * E; p += kThreads)
-      cp_async4(att_s + p, x.atts + at(s, T_, B, b0, E * E) + p);
-    for (int p = tid; p < nbt * Ng * (kDmStride / 4); p += kThreads) {
-      const int sr = p / (kDmStride / 4), k = col0 + p % (kDmStride / 4) * 4;
-      const bool valid = k < H;
-      const float* src = msg + at(s, T_, B * Ng, b0 * Ng + sr, 2 * H) + cell * H + k;
-      cp_async16(mask_s + sr * kDmStride + k - col0, valid ? src : msg, valid);
-    }
-  });
+  OperandT<bf16, bf16> hum = {x.dgi_h + at(s, T_, B * NH, b0 * NH, 3 * H), 3 * H,
+                              x.w_msg_h + wd, 3 * H, 3 * H};
+  OperandT<bf16, bf16> obj = {x.dgi_o + at(s, T_, B * NO, b0 * NO, 3 * H), 3 * H,
+                              x.w_msg_o + wd, 3 * H, 3 * H};
+  hum.rows = rows_h;
+  obj.rows = rows_o;
+  accumulate<true, 2, 2, 2, TileSlots>(
+      hum, obj, obj, tiles, rows_o, smem, acc,
+      [&] {
+        // Copied with the product's next stage (the copies join its group).
+        for (int p = tid; p < nbt * E * E; p += kThreads)
+          cp_async4(att_s + p, x.atts + at(s, T_, B, b0, E * E) + p);
+        for (int p = tid; p < nbt * Ng * 2 * (kDmStride / 4); p += kThreads) {
+          const int sr = p / (2 * (kDmStride / 4)), half = p / (kDmStride / 4) % 2;
+          const int k = col0 + p % (kDmStride / 4) * 4;
+          const bool valid = k < H;
+          const float* src = msg + at(s, T_, B * Ng, b0 * Ng + sr, 2 * H) + half * H + k;
+          cp_async16(mask_s + (sr * 2 + half) * kDmStride + k - col0, valid ? src : msg, valid);
+        }
+      },
+      [&] {
+        store_partials<2>(part_h, acc);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+      });
   store_partials<2>(smem, acc);
   __syncthreads();
 
-  // The block's dmsgs tile (the cell's rows, 32 columns), rounded to
-  // bfloat16 as segb_dmsgs rounds it.
-  for (int p = tid; p < 2 * kMTile * kMaxRows; p += kThreads) {
-    const int t = p / (kMTile * kMaxRows), cc = p % kMTile, r = (p / kMTile) % kMaxRows;
+  // The block's dmsgs tile: rows 0..31 the human rows, 32..63 the object
+  // rows, 32 columns; rounded to bfloat16 as segb_dmsgs rounds it.
+  float* dm = reinterpret_cast<float*>(smem + kDADm);
+  for (int p = tid; p < 2 * 2 * kMTile * kMaxRows; p += kThreads) {
+    const int cell = p / (2 * kMTile * kMaxRows), i = p % (2 * kMTile * kMaxRows);
+    const int t = i / (kMTile * kMaxRows), cc = i % kMTile, r = (i / kMTile) % kMaxRows;
     const int col = col0 + t * kMTile + cc;
-    dm[r * kDmStride + t * kMTile + cc] =
-        r < rows && col < H ? q(reduce<2>(smem, t, cc, r)) : 0.f;
+    float v = 0.f;
+    if (r < (cell == 0 ? rows_h : rows_o) && col < H)
+      v = q(reduce<2>(cell == 0 ? part_h : smem, t, cc, r));
+    dm[(cell * kMaxRows + r) * kDmStride + t * kMTile + cc] = v;
   }
   __syncthreads();
   cl::cluster_arrive();                 // the tile is ready for the cluster
 
-  // This block's receivers (rank, rank + C, ... of the cell's rows in the
-  // tile) and, copied now over the ring for their da, the messages of the
-  // group's senders to them.
-  const int mine = rank < rows ? (rows - rank + C - 1) / C : 0;
+  // This block's receivers (rank, rank + C, ... of the tile's human rows,
+  // then its object rows) and, copied now into the free ring for their da,
+  // the messages of the group's senders to them.
+  const int nrecv = rows_h + rows_o;
+  const int mine = rank < nrecv ? (nrecv - rank + C - 1) / C : 0;
   float* msg_s = reinterpret_cast<float*>(smem);  // (mine, Ng, H)
-  float* rowbuf = msg_s + (size_t)mine * Ng * H;  // (mine, H)
-  float* da = rowbuf + (size_t)mine * H;          // (mine, kMaxEntities)
   for (int p = tid; p < mine * Ng * (H / 4); p += kThreads) {
     const int li = p / (Ng * (H / 4)), m = p / (H / 4) % Ng, k = p % (H / 4) * 4;
-    const int b = b0 + (rank + C * li) / Nc;
+    const int ri = rank + C * li;
+    const int cell = ri < rows_h ? 0 : 1, r = cell == 0 ? ri : ri - rows_h;
+    const int b = b0 + r / (cell == 0 ? NH : NO);
     cp_async16(msg_s + ((size_t)li * Ng + m) * H + k,
                msg + at(s, T_, B * Ng, b * Ng + m, 2 * H) + cell * H + k, true);
   }
   cp_async_commit();
 
-  // dpre of the group's senders at this block's columns towards this cell
-  // (edge hh or oh for the humans, ho or oo for the objects), as segb_att
-  // takes it: dm over the cell's receivers, masked by the ReLU of the
-  // messages K3 kept.
+  // dpre of the group's senders at this block's columns, as segb_att takes
+  // it: dm of the edges to the humans and to the objects, masked by the
+  // ReLU of the messages K3 kept.
   bf16* dpre = grp == 0 ? x.dpre_h : x.dpre_o;
-  for (int p = tid; p < nbt * Ng * kDmStride; p += kThreads) {
-    const int kk = p % kDmStride, j = p / kDmStride % Ng, bl = p / (kDmStride * Ng);
-    const int k = col0 + kk, je = grp == 0 ? j : NH + j;
+  for (int p = tid; p < nbt * Ng * 2 * kMTile; p += kThreads) {
+    const int kk = p % (2 * kMTile), j = p / (2 * kMTile) % Ng, bl = p / (2 * kMTile * Ng);
+    const int k = col0 + kk, b = b0 + bl, je = grp == 0 ? j : NH + j;
     if (k >= H) continue;
-    const float* a = att_s + bl * E * E + (cell == 0 ? 0 : NH) * E + je;
-    float v = 0.f;
-    for (int n = 0; n < Nc; ++n) v = fmaf(q(a[n * E]), dm[(bl * Nc + n) * kDmStride + kk], v);
-    v = mask_s[(bl * Ng + j) * kDmStride + kk] > 0.f ? v : 0.f;
-    dpre[at(s, T_, B * Ng, (b0 + bl) * Ng + j, 2 * H) + cell * H + k] = from_f32<bf16>(v);
+    const float* a = att_s + bl * E * E + je;
+    float dm_h = 0.f, dm_o = 0.f;
+    for (int n = 0; n < NH; ++n)
+      dm_h = fmaf(q(a[n * E]), dm[(bl * NH + n) * kDmStride + kk], dm_h);
+    for (int n = 0; n < NO; ++n)
+      dm_o = fmaf(q(a[(NH + n) * E]), dm[(kMaxRows + bl * NO + n) * kDmStride + kk], dm_o);
+    const size_t o = at(s, T_, B * Ng, b * Ng + j, 2 * H);
+    const float* mask = mask_s + (bl * Ng + j) * 2 * kDmStride + kk;
+    dm_h = mask[0] > 0.f ? dm_h : 0.f;
+    dm_o = mask[kDmStride] > 0.f ? dm_o : 0.f;
+    dpre[o + k] = from_f32<bf16>(dm_h);         // edge hh or oh
+    dpre[o + H + k] = from_f32<bf16>(dm_o);     // edge ho or oo
   }
   cl::cluster_wait();
 
-  // The receivers' dmsgs rows' group half, gathered from the cluster's tiles.
+  // The receivers' dmsgs rows' group half, gathered from the cluster's
+  // tiles over the human partial sums, which are read.
+  float* rowbuf = reinterpret_cast<float*>(part_h);
+  float* da = rowbuf + (size_t)mine * H;          // (mine, kMaxEntities)
   const uint32_t dm_addr = cl::smem_u32(dm);
   constexpr int kVec = kDmStride / 4;             // 16-byte loads a tile row
   for (int p = tid; p < mine * C * kVec; p += kThreads) {
     const int li = p / (C * kVec), peer = p / kVec % C, v = p % kVec;
-    const int r = rank + C * li, col = 2 * kMTile * peer + 4 * v;
+    const int ri = rank + C * li;
+    const int r = ri < rows_h ? ri : kMaxRows + ri - rows_h;
+    const int col = 2 * kMTile * peer + 4 * v;
     if (col < H)
       *reinterpret_cast<float4*>(rowbuf + (size_t)li * H + col) = cl::ld_cluster4(
           cl::map_rank(dm_addr + (uint32_t)((r * kDmStride + 4 * v) * sizeof(float)), peer));
@@ -579,8 +611,9 @@ segb_dmsgs_att(DAArgs x, int T_, int B, int NH, int NO, int H, int nb, int step)
   cl::cluster_arrive();                 // this block has read the cluster's tiles
   const int warp = tid / 32, lane = tid % 32;
   for (int p = warp; p < mine * Ng; p += kWarps) {
-    const int li = p / Ng, m = p % Ng, r = rank + C * li;
-    const int b = b0 + r / Nc, n = r % Nc;
+    const int li = p / Ng, m = p % Ng, ri = rank + C * li;
+    const int cell = ri < rows_h ? 0 : 1, r = cell == 0 ? ri : ri - rows_h;
+    const int Nc = cell == 0 ? NH : NO, b = b0 + r / Nc, n = r % Nc;
     const float* dr = rowbuf + (size_t)li * H;
     const float* mr = msg_s + ((size_t)li * Ng + m) * H;
     float dot = 0.f;
@@ -593,9 +626,11 @@ segb_dmsgs_att(DAArgs x, int T_, int B, int NH, int NO, int H, int nb, int step)
   }
   __syncthreads();
   if (tid < mine) {                     // the softmax backward of the group
-    const int r = rank + C * tid, b = b0 + r / Nc, ne = (cell == 0 ? 0 : NH) + r % Nc;
+    const int ri = rank + C * tid;
+    const int cell = ri < rows_h ? 0 : 1, r = cell == 0 ? ri : ri - rows_h;
+    const int Nc = cell == 0 ? NH : NO, b = b0 + r / Nc, ne = (cell == 0 ? 0 : NH) + r % Nc;
     const int m0 = grp == 0 ? 0 : NH;
-    const float* a = att_s + (r / Nc) * E * E + ne * E + m0;
+    const float* a = x.atts + at(s, T_, B, b, E * E) + ne * E + m0;
     float* ds = x.ds + (((size_t)s.d * B + b) * E + ne) * E + m0;
     const float* d = da + tid * kMaxEntities;
     float dot = 0.f;
@@ -724,7 +759,7 @@ void cluster_plan(int B, int NH, int NO, int H, int* out) {
   const int nb = ok ? kMaxRows / most : 0;
   out[0] = ok;
   out[1] = ok ? (H + 2 * kMTile - 1) / (2 * kMTile) : 0;
-  out[2] = ok ? 2 * 2 * 2 * ((B + nb - 1) / nb) : 0;
+  out[2] = ok ? 2 * 2 * ((B + nb - 1) / nb) : 0;
   out[3] = ok ? (int)kDASmem : 0;
   out[4] = ok ? 2 * ((H + kMTile - 1) / kMTile) *
                     ((B * NH + kMaxRows - 1) / kMaxRows + (B * NO + kMaxRows - 1) / kMaxRows)
@@ -761,7 +796,7 @@ int run_cluster(const bf16* u_h, const bf16* u_o, const bf16* hprev_h, const bf1
   const dim3 grid_c(units, 2 * row_tiles, 2);
   segb_cell<bf16><<<grid_c, kThreads, 0, stream>>>(cell_h, cell_o, T_, B, NH, NO, H, row_tiles);
   for (int step = 0; step < T_; ++step) {
-    // DA's grid: (rank, (tile, cell, group), direction), a cluster along x.
+    // DA's grid: (rank, (tile, group), direction), a cluster along x.
     err = cl::launch_cluster(segb_dmsgs_att, kThreads, C, plan[2] / 2, 2, kDASmem, stream, da,
                              T_, B, NH, NO, H, nb, step);
     if (err == cudaSuccess)

@@ -175,6 +175,7 @@ struct OperandT {
   const TW* w;
   int ldw;
   int K;
+  int rows = -1;                        // its own rows, or -1: accumulate's
 };
 using Operand = OperandT<>;
 
@@ -415,30 +416,35 @@ struct NoEarly {
 // each k8 step's sum (multiply_chunk). rows <= kMaxRows. The element
 // types TW, TX are the operands'. early() runs once the first NS - 1
 // chunks' copies are issued: work of the caller's (an epilogue's loads)
-// whose latency the copies then hide.
+// whose latency the copies then hide. after_a() runs once operand a's
+// last chunk is multiplied (the caller may take a's sums out of acc and
+// clear it, so that b's sums start from zero while the ring runs on).
 template <bool kColRows, int MT, int S, int NP, class Map, int NS = kStages, int MG = 1,
-          bool Round = false, class TW, class TX, class Early = NoEarly>
+          bool Round = false, class TW, class TX, class Early = NoEarly,
+          class AfterA = NoEarly>
 __device__ __forceinline__ void accumulate(const OperandT<TW, TX>& a, const OperandT<TW, TX>& b,
                                            const OperandT<TW, TX>& c, const Tiles& tiles,
                                            int rows, unsigned char* smem,
-                                           float (&acc)[S][kNTiles][4], Early early = Early()) {
+                                           float (&acc)[S][kNTiles][4], Early early = Early(),
+                                           AfterA after_a = AfterA()) {
   static_assert(NS >= 2, "ring");
   using St = Stage<kColRows, MT, TW, TX>;
   constexpr int kChunk = St::kChunk;
   St* buf = reinterpret_cast<St*>(smem);
-  const int ntiles = (rows + 7) / 8;
   const int na = (a.K + kChunk - 1) / kChunk;
   const int nb = NP > 1 ? (b.K + kChunk - 1) / kChunk : 0;
   const int nc = NP > 2 ? (c.K + kChunk - 1) / kChunk : 0;
   const int total = na + nb + nc;
+  const int rows_a = a.rows >= 0 ? a.rows : rows, rows_b = b.rows >= 0 ? b.rows : rows;
+  const int rows_c = c.rows >= 0 ? c.rows : rows;
   auto prefetch = [&](int i) {
     if (i < total) {
       if (i < na)
-        load_chunk(buf[i % NS], a, tiles, rows, i * kChunk);
+        load_chunk(buf[i % NS], a, tiles, rows_a, i * kChunk);
       else if (i < na + nb)
-        load_chunk(buf[i % NS], b, tiles, rows, (i - na) * kChunk);
+        load_chunk(buf[i % NS], b, tiles, rows_b, (i - na) * kChunk);
       else
-        load_chunk(buf[i % NS], c, tiles, rows, (i - na - nb) * kChunk);
+        load_chunk(buf[i % NS], c, tiles, rows_c, (i - na - nb) * kChunk);
     }
     cp_async_commit();
   };
@@ -449,12 +455,14 @@ __device__ __forceinline__ void accumulate(const OperandT<TW, TX>& a, const Oper
     __syncthreads();                    // chunk i is in; chunk i - 1's buffer is free
     prefetch(i + NS - 1);
     const St& st = buf[i % NS];
-    if (i < na)
-      multiply_chunk<kColRows, MT, S, 0, Map, MG, Round>(st, ntiles, acc);
-    else if (NP > 1 && i < na + nb)
-      multiply_chunk<kColRows, MT, S, 1, Map, MG, Round>(st, ntiles, acc);
-    else if (NP > 2)
-      multiply_chunk<kColRows, MT, S, 2, Map, MG, Round>(st, ntiles, acc);
+    if (i < na) {
+      multiply_chunk<kColRows, MT, S, 0, Map, MG, Round>(st, (rows_a + 7) / 8, acc);
+      if (i == na - 1) after_a();
+    } else if (NP > 1 && i < na + nb) {
+      multiply_chunk<kColRows, MT, S, 1, Map, MG, Round>(st, (rows_b + 7) / 8, acc);
+    } else if (NP > 2) {
+      multiply_chunk<kColRows, MT, S, 2, Map, MG, Round>(st, (rows_c + 7) / 8, acc);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();                      // the ring is free for the partial sums

@@ -100,8 +100,8 @@ K4_NO_EXCHANGE = [("segment_scan_bwd.cu", DA,
                    "*reinterpret_cast<float4*>(rowbuf + (size_t)li * H + col) = cl::ld_cluster4(",
                    "*reinterpret_cast<float4*>(rowbuf + (size_t)li * H + col) = "
                    "make_float4(0.f, 0.f, 0.f, 0.f); if (0) cl::ld_cluster4(")]
-K4_NO_DA_TAIL = [("segment_scan_bwd.cu", DA, "p < nbt * Ng * kDmStride;",
-                  "p < nbt * Ng * kDmStride && T_ < 0;"),
+K4_NO_DA_TAIL = [("segment_scan_bwd.cu", DA, "p < nbt * Ng * 2 * kMTile;",
+                  "p < nbt * Ng * 2 * kMTile && T_ < 0;"),
                  ("segment_scan_bwd.cu", DA, "p < mine * Ng;", "p < mine * Ng && T_ < 0;"),
                  ("segment_scan_bwd.cu", DA, "  if (tid < mine) {", "  if (tid < mine && T_ < 0) {")]
 K4_NO_R_TAIL = [("segment_scan_bwd.cu", R, "    if (!live) return;\n",
