@@ -1190,8 +1190,7 @@ def run_k4(torch, dev, shape, dtype=None):
 
 def k4_route_report(torch, dev, tag, shape, args, got):
     """K4's bfloat16 route at the MPHOI shape: the plan (bwd_plan), the
-    launches of a call (by kernel name over 3 calls: a profiler window
-    misses the first kernels of its first call), whether a
+    launches of a call (by kernel name over 3 calls), whether a
     repeated call and the per-step route (route='steps') gave the same bits
     as got, and each K4_BATCHES call against its plain version, at the
     limits of the MPHOI check (max_share SCAN_GRAD_RTOL_BF16, rel_l2

@@ -98,14 +98,24 @@ def kernel_name(name):
     return found.group(1) if found else name[:60]
 
 
+# The card waits this many clock cycles (about 10 ms) at the start of a
+# profiler window: the profiler can miss the kernels that run in the first
+# stretch of its window (on the H100, the first three of a K4 call, or
+# every kernel of a short one).
+WINDOW_SPIN_CYCLES = 20_000_000
+SPIN_KERNEL = "spin_kernel"             # torch.cuda._sleep's
+
+
 def device_ms_by_kernel(fn, reps):
     """{kernel name: {"ms": device ms per call, "launches": per call}} of
-    reps calls of fn under torch.profiler, after one warm-up call; largest
-    first."""
+    reps calls of fn under torch.profiler, after one warm-up call and, in
+    the window, a wait on the card (WINDOW_SPIN_CYCLES, not counted);
+    largest first."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
+        torch.cuda._sleep(WINDOW_SPIN_CYCLES)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -113,6 +123,8 @@ def device_ms_by_kernel(fn, reps):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = kernel_name(e.name)
+            if name == SPIN_KERNEL:
+                continue
             ms[name] += (e.time_range.end - e.time_range.start) / 1e3 / reps
             launches[name] += 1
     return {k: {"ms": ms[k], "launches": launches[k] / reps}
