@@ -471,10 +471,11 @@ constexpr size_t kRDs = smem_bytes<true, 1, 1, kStages, bf16, bf16>();
 constexpr size_t kRHp = kRDs + (size_t)kMaxRows * kMaxEntities * kMaxEntities * sizeof(float);
 constexpr size_t kRSmem = kRHp + (size_t)kMaxRows * kMaxEntities * kMTile * sizeof(bf16);
 
+template <class T>                      // bf16 (the element type names the kernels' variant)
 struct DAArgs {
-  const bf16 *dgi_h, *dgi_o, *w_msg_h, *w_msg_o, *g_att;
+  const T *dgi_h, *dgi_o, *w_msg_h, *w_msg_o, *g_att;
   const float *m_h, *m_o, *atts;
-  bf16 *dpre_h, *dpre_o;
+  T *dpre_h, *dpre_o;
   float* ds;                            // (2, B, E, E): the score gradients
 };
 
@@ -487,7 +488,7 @@ struct DAArgs {
 // cluster's tiles (distributed shared memory) and takes da over it, in
 // segb_att's order, and the softmax backward of the group, into ds.
 __global__ void __launch_bounds__(kThreads, 1)
-segb_dmsgs_att(DAArgs x, int T_, int B, int NH, int NO, int H, int nb, int step) {
+segb_dmsgs_att(DAArgs<bf16> x, int T_, int B, int NH, int NO, int H, int nb, int step) {
   const auto q = [](float v) { return round_to<bf16>(v); };
   const Step s = step_of(step, T_);
   const int C = gridDim.x, rank = blockIdx.x, tid = threadIdx.x;
@@ -640,10 +641,11 @@ segb_dmsgs_att(DAArgs x, int T_, int B, int NH, int NO, int H, int nb, int step)
   cl::cluster_wait();                   // no block reads this block's tile any more
 }
 
+template <class T>                      // bf16, as DAArgs
 struct RArgs {
-  const bf16 *dgh_h, *dgh_o, *dpre_h, *dpre_o, *w_hh_h, *w_hh_o, *w_from, *hprev_h, *hprev_o;
+  const T *dgh_h, *dgh_o, *dpre_h, *dpre_o, *w_hh_h, *w_hh_o, *w_from, *hprev_h, *hprev_o;
   const float* ds;
-  bf16 *dh0_h, *dh0_o;
+  T *dh0_h, *dh0_o;
 };
 
 // Phase C's inputs issued where they stand (wg::load_now), the bfloat16
@@ -669,8 +671,8 @@ __device__ __forceinline__ CellRaw cell_load_now(const CellArgs<bf16>& c, Step s
 // dhz and of the next step's phase C, so that they land while the copies
 // run.
 __global__ void __launch_bounds__(kThreads)
-segb_carry_ds(RArgs x, CellArgs<bf16> cell_h, CellArgs<bf16> cell_o, int T_, int B, int NH,
-              int NO, int H, int row_tiles, float scale, int step) {
+segb_carry_ds(RArgs<bf16> x, CellArgs<bf16> cell_h, CellArgs<bf16> cell_o, int T_, int B,
+              int NH, int NO, int H, int row_tiles, float scale, int step) {
   const Step s = step_of(step, T_);
   const int cell = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kMaxRows;
@@ -790,9 +792,10 @@ int run_cluster(const bf16* u_h, const bf16* u_o, const bf16* hprev_h, const bf1
   if (err != cudaSuccess) return static_cast<int>(err);
   const CellArgs<bf16> cell_h = {u_h, hprev_h, g_h, gates_h, dgi_h, dgh_h, du_part_h, dhz_h};
   const CellArgs<bf16> cell_o = {u_o, hprev_o, g_o, gates_o, dgi_o, dgh_o, du_part_o, dhz_o};
-  const DAArgs da = {dgi_h, dgi_o, w_msg_h, w_msg_o, g_att, m_h, m_o, atts, dpre_h, dpre_o, ds};
-  const RArgs ra = {dgh_h, dgh_o, dpre_h, dpre_o, w_hh_h, w_hh_o, w_from, hprev_h, hprev_o, ds,
-                    dh0_h, dh0_o};
+  const DAArgs<bf16> da = {dgi_h, dgi_o, w_msg_h, w_msg_o, g_att, m_h, m_o, atts,
+                           dpre_h, dpre_o, ds};
+  const RArgs<bf16> ra = {dgh_h, dgh_o, dpre_h, dpre_o, w_hh_h, w_hh_o, w_from, hprev_h, hprev_o,
+                          ds, dh0_h, dh0_o};
   const dim3 grid_c(units, 2 * row_tiles, 2);
   segb_cell<bf16><<<grid_c, kThreads, 0, stream>>>(cell_h, cell_o, T_, B, NH, NO, H, row_tiles);
   for (int step = 0; step < T_; ++step) {

@@ -88,8 +88,8 @@ def _round(n):
 
 MMA = "__device__ __forceinline__ void mma_bf16("
 LOAD = "__device__ __forceinline__ void load_chunk("
-DA = "segb_dmsgs_att(DAArgs x"
-R = "segb_carry_ds(RArgs x"
+DA = "segb_dmsgs_att(DAArgs<bf16> x"
+R = "segb_carry_ds(RArgs<bf16> x"
 K4_NO_PRODUCT = [("tc_gemm.cuh", MMA, '"mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 ',
                   '"// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 ')]
 K4_NO_ROWS = [("tc_gemm.cuh", LOAD, "  for (int j = 0; j < kXCopies; ++j) {",
