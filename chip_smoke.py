@@ -3,8 +3,8 @@
 bfloat16 (the dtype bench.py trains in), its stage-2 training and serving
 paths, its serving modes, CAD-120's stage 1 and the general segment scan's
 configurations, the entry points on MPHOI, CAD-120 and Bimanual, the
-baselines, sliding-window streaming and data-parallel training on one CUDA
-card.
+baselines, sliding-window streaming, data-parallel training, the kernels
+at unaligned hidden widths and the train CLI's switches on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -289,6 +289,31 @@ exit and the phase's name if the phase hangs:
            error, a positive value and a cross-check within 5%
   small    the same model at hidden 24 on the card against the plain path
            on the CPU
+  widths   K1-K5 in float32 and bfloat16, forward and backward, at hidden
+           widths their 16-byte copies do not all take, h = 6, 100 and 510,
+           on the k phases' inputs at the MPHOI shape (B=8, T=167, 2 humans,
+           4 objects; K1 and K2 S=6, R=32): the wrappers run each at the
+           next width it takes (tggcn_torch/ops/widths.py), each call
+           launches its kernel once (the wrapper's counter: no width reaches
+           a plain version), held against its plain version at its k
+           phase's limits (bfloat16 with its controls; where a control
+           cannot fail at a width, WIDTH_LIMITS_BF16 holds it there); its ms
+           beside the aligned h = 512 call's, and the padding's copy kernels
+           a call (each widen's copy and zeroing an axis, each narrow's
+           copy) with their ms (CUDA events around each). Then the
+           bfloat16 stage-1 train step at hidden 510, held as train_bf16 but
+           over the whole model (WIDTH_STEP_LIMITS says why), and one
+           cad120_baseline epoch through the train CLI at hidden 126, held
+           as entry_baselines (without the reference fixtures)
+  entry_switches
+           the train CLI's two switches in entry_mphoi's manner (its
+           synthetic MPHOI dataset, the stage-1 yaml's full width, bfloat16,
+           2 epochs): with resources.jax_profiler_dir the run leaves one
+           Chrome trace, trace.rank0.json, naming kernels of K1-K4; with
+           resources.debug_nans the run's losses equal the traced run's bit
+           for bit; on a copy of the dataset whose one training clip has
+           +inf features (the loader makes a NaN feature 0) debug_nans
+           raises FloatingPointError
 
 The model, requests and batches are tggcn_torch.models.stage1's: the
 stage-1 configuration with the human segmentation imposed (as the stage-1
@@ -544,7 +569,8 @@ PHASE_LIMIT_S = {"device": 60, "build": 360, "k1": 180, "k2": 180, "k3": 240, "k
                  "train_cad120": 420, "train_cad120_bf16": 420, "train_fused_cad120_bf16": 420,
                  "forward_general_variants": 300, "entry_mphoi": 420, "entry_baselines": 300,
                  "stream_mphoi": 420, "train_cad120_dist": 420, "entry_cad120": 300,
-                 "entry_bimanual": 300, "train_dp": 300}
+                 "entry_bimanual": 300, "train_dp": 300, "widths": 600,
+                 "entry_switches": 300}
 # The kernels of the train step, and of each serving mode's segment scan.
 TRAIN_KERNELS = ("gru_sequence", "gru_sequence_bwd", "segment_scan_dot", "segment_scan_dot_bwd")
 K5_KERNELS = ("segment_scan_v1", "segment_scan_v4", "segment_scan_ext")
@@ -1754,14 +1780,15 @@ def recompute_timer(torch):
         times.extend(start.elapsed_time(end) for start, end in events)
 
 
-def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=None):
+def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=None,
+              hidden=None):
     """One train step of the stage-1, stage-2 or CAD-120 model (or of one of
-    its SERVE_VARIANTS) in the compute dtype on each route from the same
-    weights, compared; then TRAIN_STEPS (MODE_TRAIN_STEPS for a variant)
-    timed steps on the kernel route, each launching the route's kernels
-    (route_kernels) once. Stage 2 starts from stage-1 weights merged into
-    its own init (merge_params, as train.py warm-starts it) and draws
-    Gumbel noise for humans and objects."""
+    its SERVE_VARIANTS; at another hidden width where given) in the compute
+    dtype on each route from the same weights, compared; then TRAIN_STEPS
+    (MODE_TRAIN_STEPS for a variant) timed steps on the kernel route, each
+    launching the route's kernels (route_kernels) once. Stage 2 starts from
+    stage-1 weights merged into its own init (merge_params, as train.py
+    warm-starts it) and draws Gumbel noise for humans and objects."""
     from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data_fetcher
     from tggcn_torch.models import stage1
     from tggcn_torch.models.registry import select_model
@@ -1775,11 +1802,12 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     bf16 = dtype == "bfloat16"
     steps = MODE_TRAIN_STEPS if variant else TRAIN_STEPS
     what = (f"train{'_' + stage if stage != 'stage1' else ''}{'_bf16' if bf16 else ''}"
-            f"{' ' + variant if variant else ''} step")
+            f"{' ' + variant if variant else ''}{f' hidden {hidden}' if hidden else ''} step")
     marginal = MARGINAL_BF16 if bf16 else MARGINAL
     loss_rtol, leaf_rtol = (LOSS_RTOL_BF16, LEAF_GRAD_RTOL_BF16) if bf16 else (LOSS_RTOL,
                                                                               LEAF_GRAD_RTOL)
-    change = module.SERVE_VARIANTS[variant] if variant else {}
+    change = dict(module.SERVE_VARIANTS[variant] if variant else {},
+                  **({"hidden_size": hidden} if hidden else {}))
     model = select_model("2G-GCN", device=dev, **dict(module.model_kwargs(dtype), **change))
     rule = decision_rule(model.config)
     criterion, _ = select_loss("2G-GCN", "multiple", module.DATASET, module.TRAIN["misc"])
@@ -1796,15 +1824,18 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     recompute = mode in K5_MODES
     # A variant's step (a K5 mode's recompute; CAD-120's 'dist', whose K6
     # moves every ReLU input downstream of the geometry by its rounding) is
-    # held over the whole model: see MODE_TRAIN_LIMITS.
-    whole_model = variant is not None
+    # held over the whole model: see MODE_TRAIN_LIMITS; so is a step at
+    # another width: see WIDTH_STEP_LIMITS.
+    whole_model = variant is not None or hidden is not None
+    whole_limits = (MODE_TRAIN_LIMITS if variant else WIDTH_STEP_LIMITS).get(dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     noise = {"object": gumbel_noise((b, t, no, 2), gen)}
     if stage == "stage2":
         noise["human"] = gumbel_noise((b, t, nh, 2), gen)
     warm = None
     if stage == "stage2":
-        warm = select_model("2G-GCN", device=dev, **stage1.model_kwargs(dtype))
+        warm = select_model("2G-GCN", device=dev, **dict(
+            stage1.model_kwargs(dtype), **({"hidden_size": hidden} if hidden else {})))
 
     def init():
         """The weights of a first step: stage 1's init, or stage 2's init
@@ -1905,10 +1936,9 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
     print(f"{what}: over the whole model: largest difference {whole['model_share']:.3e} of the "
           f"model's largest gradient, rel. norm {whole['model_rel_l2']:.3e}", flush=True)
     if whole_model:
-        over = {k: whole[k] for k, limit in MODE_TRAIN_LIMITS[dtype].items()
-                if not whole[k] <= limit}
+        over = {k: whole[k] for k, limit in whole_limits.items() if not whole[k] <= limit}
         if over:
-            raise AssertionError(f"gradients differ beyond {MODE_TRAIN_LIMITS[dtype]}: {over}")
+            raise AssertionError(f"gradients differ beyond {whole_limits}: {over}")
         grad_rel = whole["model_share"]
     else:
         # CAD-120 bfloat16 keeps this per-leaf limit besides the whole
@@ -1929,7 +1959,7 @@ def run_train(torch, dev, size, seed, dtype="float32", stage="stage1", variant=N
                              f"(limit one learning rate, {module.TRAIN['lr']})")
     controls = {}
     if bf16:
-        limits = (MODE_TRAIN_LIMITS[dtype] if whole_model else
+        limits = (whole_limits if whole_model else
                   (LIMITS_CAD120_BF16 if stage == "cad120" else LIMITS_BF16)["train"])
         controls = check_controls(what, measure, lambda: first_step(False, rows), kern, plain,
                                   limits)
@@ -2396,11 +2426,13 @@ BASELINE_DATASETS = {
 BASELINE_GOLDEN_RTOL, BASELINE_GOLDEN_ATOL = 2e-4, 2e-5   # tests/test_golden_baselines.py
 
 
-def run_entry_baselines(torch, dev, seed):
-    """The entry_baselines phase (see the module's docstring): each
-    baseline through the train and predict CLIs at its yaml's width, held
-    against the plain route, and the reference's baseline fixtures on the
-    kernel route. Returns the numbers it measured."""
+def run_entry_baselines(torch, dev, seed, models=tuple(BASELINE_DATASETS), hidden=None,
+                        epochs=2, golden=True):
+    """The entry_baselines phase (see the module's docstring): each of the
+    baselines `models` through the train and predict CLIs for `epochs` at
+    its yaml's width (or `hidden`), held against the plain route, and with
+    golden the reference's baseline fixtures on the kernel route. Returns
+    the numbers it measured."""
     import shutil
     import tempfile
 
@@ -2419,15 +2451,17 @@ def run_entry_baselines(torch, dev, seed):
     work = Path(tempfile.mkdtemp(prefix="entry_baselines_", dir=outputs))
     out = {}
     try:
-        for model_name, (dataset, sizes, subject, keys) in BASELINE_DATASETS.items():
+        for model_name in models:
+            dataset, sizes, subject, keys = BASELINE_DATASETS[model_name]
             start = time.perf_counter()
             generate = getattr(synthetic, f"generate_{dataset}_dataset")
             paths = generate(str(work / dataset), seed=seed, **sizes)
             dataset_s = time.perf_counter() - start
             args = [f"models={model_name}", f"data={dataset}",
                     *(f"data.{k}={paths[k]}" for k in keys),
-                    f"data.cross_validation_test_subject={subject}", "optimization.epochs=2",
-                    f"logging.root_log_dir={work / model_name}"]
+                    f"data.cross_validation_test_subject={subject}",
+                    f"optimization.epochs={epochs}", f"logging.root_log_dir={work / model_name}",
+                    *([f"parameters.hidden_size={hidden}"] if hidden else [])]
             cfg = compose(cli.CONF_DIR, overrides=args)
             epochs, batch_size = cfg.optimization.epochs, cfg.optimization.batch_size
             train_loader, val_loader, _, _ = load_training_data(
@@ -2488,7 +2522,8 @@ def run_entry_baselines(torch, dev, seed):
                      **hold_baseline_routes(torch, dev, loaded, model_name),
                      step=hold_baseline_step(torch, dev, cfg, loaded, first, model_name))
             out[model_name] = r
-        out["golden"] = hold_baseline_fixtures(torch, dev)
+        if golden:
+            out["golden"] = hold_baseline_fixtures(torch, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
@@ -3260,6 +3295,300 @@ def run_small(torch, dev, seed):
     return compare_forward(torch, got, want, "hidden-24 card vs CPU")
 
 
+# The widths phase: the hidden widths the kernels do not all take (6 in
+# both dtypes, 100 in bfloat16, 510 in both), run at the next width they
+# take (tggcn_torch/ops/widths.py), each beside the aligned MPHOI width;
+# the whole model's bfloat16 step at WIDTH_STEP_HIDDEN and a baseline epoch
+# at WIDTH_BASELINE_HIDDEN.
+WIDTHS = (6, 100, 510)
+WIDTH_KERNELS = ("k1", "k2", "k3", "k4", "k5_v1", "k5_v4", "k5_ext")
+WIDTH_STEP_HIDDEN, WIDTH_BASELINE_HIDDEN = 510, 126
+# The bfloat16 step at WIDTH_STEP_HIDDEN is held over the whole model, as a
+# K5 mode's (MODE_TRAIN_LIMITS) and with the CAD-120 bfloat16 step's limit
+# (LIMITS_CAD120_BF16). A leaf's largest difference holds no correct route
+# here: one small leaf (update_object_segment_mlp's bias, 8.5e-4 of the
+# model's largest gradient) lies 4.76e-2 of itself from the plain route and
+# 4.27e-2 from the plain route with float64 sums, and at h = 512, on the
+# unpadded route, the kernel route lies 4.72e-2 from the float64 sums route
+# on a leaf (LIMITS_BF16's 3.9e-2 was set from one reading at 512). Readings
+# (H100 80GB HBM3, 700 W, seed 0), model_rel_l2: kernel vs plain 5.27e-3,
+# kernel vs float64 sums 5.35e-3, plain vs float64 sums 5.30e-3; a rounded
+# carry 1.55e-2 (seed 1) and 1.58e-2 (h = 512).
+WIDTH_STEP_LIMITS = {"bfloat16": LIMITS_CAD120_BF16["train"]}
+WIDTH_TIMING_REPS = 3
+# The bfloat16 checks whose MPHOI limit (LIMITS_BF16, set at h = 512) a
+# rounded carry stays under at a narrower width, each with a limit of its
+# width between that width's readings: {(kind, h): limits}. Readings (H100
+# 80GB HBM3, 700 W), kernel / float64 sums / rounded carry, rel_l2:
+#   K3 h=6 5.56e-5 / 5.56e-5 / 2.21e-3 (against LIMITS_BF16's 2.25e-3)
+#   K5 v4 h=6 6.9e-10 / 5.85e-5 / 2.17e-3, h=100 9.94e-4 / 1.34e-3 / 2.14e-3
+#      (against 2.4e-3)
+# Narrow products sum few terms, so a correct version lies closer to the
+# plain one, while a carry rounded every step lies as far as at h = 512.
+WIDTH_LIMITS_BF16 = {("k3", 6): {"rel_l2": 5e-4}, ("k5_v4", 6): {"rel_l2": 5e-4},
+                     ("k5_v4", 100): {"rel_l2": 1.7e-3}}
+
+
+def width_case(torch, dev, kind, h, dtype):
+    """One of K1-K5 (kind, as WIDTH_KERNELS) at width h in dtype on the
+    inputs of its k phase at the MPHOI shape: (its wrapper, the kernel's
+    call, the plain version's call, the serving call and its plain
+    counterpart or None). Each call returns a list of tensors; the plain
+    versions are reached through their modules, where control patches
+    them."""
+    import tggcn_torch.ops.gru_sequence as gru_ops
+    import tggcn_torch.ops.segment_scan as scan_ops
+    from tggcn_torch.profile_gru import gru_bwd_inputs, gru_inputs
+    from tggcn_torch.profile_scan import bwd_inputs, mode_inputs, scan_inputs
+
+    shape = stage_module("stage1").SHAPE
+    t, b, nh, no = (shape[k] for k in ("t", "b", "humans", "objects"))
+    seed = {"k1": 1, "k2": 4, "k3": 2, "k4": 5}.get(kind, 6)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind in ("k1", "k2"):
+        s, nr = 6, 3
+        fwd = tuple(x.to(dtype) for x in gru_inputs(dev, gen, t, s, b * no, h))
+        if kind == "k1":
+            return (gru_ops.gru_sequence,
+                    lambda: list(gru_ops.gru_sequence(*fwd, nr, keep=True)),
+                    lambda: list(gru_ops.gru_sequence_plain(*fwd, nr, keep=True)),
+                    lambda: [gru_ops.gru_sequence(*fwd, nr)],
+                    lambda: [gru_ops.gru_sequence_plain(*fwd, nr)])
+        args = gru_bwd_inputs(*fwd, nr, gen)
+        return (gru_ops.gru_sequence_bwd, lambda: list(gru_ops.gru_sequence_bwd(*args, nr)),
+                lambda: list(gru_ops.gru_sequence_bwd_plain(*args, nr)), None, None)
+    scale = 1.0 / math.sqrt(h)
+    fwd = scan_inputs(dev, gen, t, b, nh, no, h)
+    if kind.startswith("k5"):
+        mode = kind[3:]
+        extra = {k: v.to(dtype) for k, v in mode_inputs(mode, fwd, gen).items()}
+        fwd = {k: v.to(dtype) for k, v in fwd.items()}
+        wrapper = getattr(scan_ops, f"segment_scan_{mode}")
+        return (wrapper, lambda: list(wrapper(**fwd, **extra)),
+                lambda: list(scan_ops.segment_scan_att_plain(mode, **fwd, **extra)), None, None)
+    fwd = {k: v.to(dtype) for k, v in fwd.items()}
+    if kind == "k3":
+        return (scan_ops.segment_scan_dot,
+                lambda: list(scan_ops.segment_scan_dot(**fwd, scale=scale)),
+                lambda: list(scan_ops.segment_scan_dot_plain(**fwd, scale=scale)),
+                lambda: list(scan_ops.segment_scan_dot(**fwd, scale=scale, keep=False)),
+                lambda: list(scan_ops.segment_scan_dot_plain(**fwd, scale=scale)[:3]))
+    args = bwd_inputs(fwd, gen, scale)
+    outputs = lambda grads: [grads[k] for k in scan_ops.BWD_OUTPUTS]
+    return (scan_ops.segment_scan_dot_bwd,
+            lambda: outputs(scan_ops.segment_scan_dot_bwd(**args, scale=scale)),
+            lambda: outputs(scan_ops.segment_scan_dot_bwd_plain(**args, scale=scale)), None, None)
+
+
+def hold_width(torch, kind, h, name, bf16, got, want, plain):
+    """got against want at the limits of kind's k phase: float32 forward
+    KERNEL_ATOL, backward KERNEL_GRAD_RTOL of each output's largest;
+    bfloat16 forward one ulp of each output's largest, K2 GRU_GRAD_RTOL_BF16
+    and K4 SCAN_GRAD_RTOL_BF16 of it, each with its controls (LIMITS_BF16,
+    or at a width where they cannot fail WIDTH_LIMITS_BF16). Returns the
+    measures."""
+    backward = kind in ("k2", "k4")
+    if not bf16:
+        if backward:
+            err, rel = check_grads(name, got, want)
+            return dict(max_abs_err=err, max_rel_err=rel)
+        return dict(max_abs_err=check_kernel(name, got, want))
+    if backward:
+        err, rel = check_grads(name, got, want,
+                               GRU_GRAD_RTOL_BF16 if kind == "k2" else SCAN_GRAD_RTOL_BF16)
+        out = dict(max_abs_err=err, max_rel_err=rel)
+    else:
+        err, ulps = check_kernel_bf16(torch, name, got, want)
+        out = dict(max_abs_err=err, ulps=ulps)
+    limits = WIDTH_LIMITS_BF16.get((kind, h), LIMITS_BF16[kind])
+    return dict(out, **check_controls(name, tensor_gaps, plain, got, want, limits))
+
+
+@contextlib.contextmanager
+def padding_copies(torch):
+    """The padding's copies in the K1-K5 wrappers while the block runs:
+    {kernels: each widen's copy and zeroing an axis and each narrow's copy
+    (ops/widths.py), pairs: the CUDA events recorded around each}. The
+    profiler's kernel events are not used: a window late in this run can
+    miss many of them (the splits of its widths phase lost a tenth of the
+    step kernels, and every kernel of some calls)."""
+    import tggcn_torch.ops.gru_sequence as gru_ops
+    import tggcn_torch.ops.segment_scan as scan_ops
+    from tggcn_torch.ops import widths
+
+    seen = dict(kernels=0, pairs=[])
+
+    def timed(fn, kernels):
+        def run(x, h, hp, axes=widths.LAST):
+            if hp == h:
+                return fn(x, h, hp, axes)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(x, h, hp, axes)
+            end.record()
+            seen["kernels"] += kernels(axes)
+            seen["pairs"].append((start, end))
+            return out
+        return run
+
+    saved = [(m, name, getattr(m, name)) for m in (gru_ops, scan_ops) for name in ("widen",
+                                                                                 "narrow")]
+    for m, name, fn in saved:
+        setattr(m, name, timed(fn, (lambda axes: 1 + len(axes)) if name == "widen"
+                               else (lambda axes: 1)))
+    try:
+        yield seen
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def run_widths(torch, dev, seed):
+    """The widths phase (see the module's docstring). Returns its numbers."""
+    from tggcn_torch.ops.widths import aligned
+
+    aligned_h = stage_module("stage1").MODEL_KWARGS["hidden_size"]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        counter = "launches_bf16" if bf16 else "launches"
+        for kind in WIDTH_KERNELS:
+            tag = kind + ("_bf16" if bf16 else "")
+            wrapper, call, _, _, _ = width_case(torch, dev, kind, aligned_h, dtype)
+            base_ms = cuda_ms(torch, call, WIDTH_TIMING_REPS, spin=True)
+            del call
+            rows = {}
+            for h in WIDTHS:
+                wrapper, call, plain, serve, serve_plain = width_case(torch, dev, kind, h, dtype)
+                name = f"widths {tag} h={h}"
+                before = getattr(wrapper, counter)
+                with padding_copies(torch) as copies:
+                    # Behind a wait on the card, so that the copies' events
+                    # time the card's work, not the host's launches.
+                    torch.cuda._sleep(SPIN_CYCLES)
+                    got = call()
+                torch.cuda.synchronize(dev)
+                launches = getattr(wrapper, counter) - before
+                if launches != 1:
+                    raise AssertionError(f"{name}: the wrapper launched its kernel {launches} "
+                                         "times, not once")
+                want = plain()
+                row = hold_width(torch, kind, h, name, bf16, got, want, plain)
+                if serve is not None:
+                    served = serve()
+                    row["served_max_abs_err"] = (
+                        check_kernel_bf16(torch, f"{name} serving", served, serve_plain())[0]
+                        if bf16 else check_kernel(f"{name} serving", served, serve_plain()))
+                del got, want
+                row.update(runs_at=aligned(h, dtype),
+                           ms=cuda_ms(torch, call, WIDTH_TIMING_REPS, spin=True),
+                           kernel_launches_a_call=launches, copy_kernels=copies["kernels"],
+                           copy_ms=sum(a.elapsed_time(b) for a, b in copies["pairs"]))
+                print(f"{name} (runs at {row['runs_at']}): ms {row['ms']:.3f} (aligned "
+                      f"h={aligned_h}: {base_ms:.3f}); a call launches the kernel once, as at "
+                      f"h={aligned_h}, and {row['copy_kernels']} padding copy kernels, "
+                      f"{row['copy_ms']:.3f} ms (CUDA events around each widen and narrow, "
+                      f"behind a wait on the card)", flush=True)
+                rows[h] = row
+                del call, plain, serve, serve_plain
+            out[tag] = dict(aligned=dict(h=aligned_h, ms=base_ms), widths=rows)
+    step = run_train(torch, dev, stage_module("stage1").SHAPE, seed, dtype="bfloat16",
+                     hidden=WIDTH_STEP_HIDDEN)
+    print_train(f"widths train_bf16 hidden {WIDTH_STEP_HIDDEN}", step)
+    out["train_bf16"] = {k: step[k] for k in ("ms", "losses", "grad_rel", "launches",
+                                              "equal_leaves", "peak_gib")}
+    baseline = run_entry_baselines(torch, dev, seed, models=("cad120_baseline",),
+                                   hidden=WIDTH_BASELINE_HIDDEN, epochs=1, golden=False)
+    out["entry_baseline"] = baseline["cad120_baseline"]
+    return out
+
+
+def run_entry_switches(torch, dev, seed):
+    """The entry_switches phase (see the module's docstring). Returns its
+    numbers."""
+    import shutil
+    import tempfile
+
+    from tggcn_torch.data.synthetic import generate_mphoi_dataset
+    from tggcn_torch.profile_step import group_of
+    from tggcn_torch.train import cli
+
+    outputs = Path(__file__).resolve().parent / "outputs"
+    outputs.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="entry_switches_", dir=outputs))
+    out = {}
+    try:
+        paths = generate_mphoi_dataset(str(work / "data"), seed=seed, **ENTRY_DATASET)
+
+        def overrides(root, *extra, data=paths):
+            return ["models=2G-GCN_stage1", "data=mphoi",
+                    *(f"data.{k}={data[k]}" for k in ("path", "path_zarr", "path_obb_zarr",
+                                                        "path_hbb_zarr", "path_hps_zarr")),
+                    "data.cross_validation_test_subject=Subject45",
+                    "parameters.compute_dtype=bfloat16", "optimization.epochs=2",
+                    f"logging.root_log_dir={work / root}", *extra]
+
+        def run(name, args):
+            torch.cuda.synchronize(dev)
+            start = time.perf_counter()
+            checkpoint = cli.main(args)
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - start
+            print(f"entry_switches {name}: {seconds:.3f} s, train losses "
+                  f"{[total for total, _ in checkpoint['train_losses']]}", flush=True)
+            return checkpoint, seconds
+
+        # The trace: one Chrome trace of the two epochs, K1-K4 among its kernels.
+        trace_dir = work / "trace" / "new"
+        traced, out["traced_s"] = run("jax_profiler_dir", overrides(
+            "traced", f"resources.jax_profiler_dir={trace_dir}"))
+        files = sorted(p.name for p in trace_dir.iterdir())
+        if files != [cli.TRACE_FILE.format(rank=0)]:
+            raise AssertionError(f"the trace dir holds {files}")
+        trace_file = trace_dir / files[0]
+        events = json.loads(trace_file.read_text())["traceEvents"]
+        groups = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                group = group_of(e.get("name", ""))
+                groups[group] = groups.get(group, 0) + 1
+        out["trace"] = dict(mib=trace_file.stat().st_size / 2 ** 20, events=len(events),
+                            kernels_by_group=groups)
+        print(f"entry_switches trace: {json.dumps(out['trace'])}", flush=True)
+        missing = [g for g in FUSED_GROUPS if not groups.get(g)]
+        if missing:
+            raise AssertionError(f"the trace names no kernel of {missing}")
+
+        # debug_nans on the clean dataset: the same losses, bit for bit.
+        checked, out["debug_nans_s"] = run("debug_nans", overrides(
+            "checked", "resources.debug_nans=true"))
+        for key in ("train_losses", "val_losses"):
+            if checked[key] != traced[key]:
+                raise AssertionError(f"debug_nans changed the {key}: {checked[key]} against "
+                                     f"{traced[key]}")
+        out["losses"] = traced["train_losses"]
+
+        # A clip whose features are +inf (the loader turns a NaN feature into
+        # 0, and +inf into the largest float32, whose products overflow): the
+        # first step that meets it raises.
+        poisoned = generate_mphoi_dataset(str(work / "poisoned"), seed=seed, **ENTRY_DATASET)
+        with np.load(poisoned["path_zarr"]) as f:
+            stores = dict(f)
+        stores["Subject12-task-take1/Human1"][:] = np.inf
+        np.savez(poisoned["path_zarr"], **stores)
+        try:
+            run("debug_nans poisoned", overrides("poisoned_run", "resources.debug_nans=true",
+                                                 data=poisoned))
+        except FloatingPointError as e:
+            out["raised"] = str(e)
+        else:
+            raise AssertionError("debug_nans did not raise on a clip that makes NaN losses")
+        print(f"entry_switches debug_nans raised: {out['raised']}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3468,6 +3797,11 @@ def main(argv=None):
         err, flips, dropped = run_small(torch, dev, args.seed)
         print(f"hidden-24 card vs CPU: max abs err {err:.3e}, marginal flips {flips} "
               f"(batch rows left out {dropped})", flush=True)
+    with phase("widths"):
+        print(f"widths {json.dumps(run_widths(torch, dev, args.seed))}", flush=True)
+    with phase("entry_switches"):
+        print(f"entry_switches {json.dumps(run_entry_switches(torch, dev, args.seed))}",
+              flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

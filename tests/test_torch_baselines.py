@@ -13,9 +13,10 @@ and without JAX.
   synthetic datasets, ``--device cpu``.
 * A reference ``.tar`` run dir of a baseline loads through
   ``baseline_params_from_torch_state_dict`` and reproduces the fixture.
-* The refusals that remain: a width K1 cannot take on the card, a
-  2G-GCN-only registry call, the multi-task loss learner, an unknown model
-  (registry, fetcher and feeder).
+* The refusals that remain: a 2G-GCN-only registry call, the multi-task
+  loss learner, an unknown model (registry, fetcher and feeder). No width
+  is refused on the card: K1 and K2 run any width at the next one they
+  take (``ops/widths.py``).
 * On the card (``cuda`` marker): the kernel route (K1 forward, K2
   backward) against the plain route, forward and gradients.
 """
@@ -33,9 +34,10 @@ from tggcn_torch.data.feeders import (num_inputs, select_model_data_feeder,
                                      select_model_data_fetcher)
 from tggcn_torch.data.loading import ArrayDataLoader
 from tggcn_torch.data.synthetic import generate_bimanual_dataset, generate_cad120_dataset
-from tggcn_torch.models.baselines import (BaselineConfig, apply_baseline, check_width,
-                                          init_baseline)
+from tggcn_torch.models import baselines
+from tggcn_torch.models.baselines import BaselineConfig, apply_baseline, init_baseline
 from tggcn_torch.models.registry import select_model, with_config_changes
+from tggcn_torch.ops.widths import aligned
 from tggcn_torch.train import cli as train_cli
 from tggcn_torch.train.checkpoint import load_model_weights
 from tggcn_torch.train.loop import device_batches, make_eval_step, train
@@ -177,9 +179,10 @@ def test_reference_tar_of_a_baseline_loads(path, tmp_path):
 
 def test_what_the_baselines_refuse():
     cfg = BaselineConfig(input_size=(8, 8), num_classes=(3, None), hidden_size=6)
-    check_width(cfg, "cpu")                       # the plain version takes any width
-    with pytest.raises(NotImplementedError, match="divisible by 4"):
-        check_width(cfg, "cuda")
+    # The card no longer refuses a width: K1 and K2 run width 6 at 8, the
+    # padded units zero (ops/widths.py; the card's cases in test_torch_cuda.py).
+    assert not hasattr(baselines, "check_width")
+    assert aligned(cfg.hidden_size, torch.float32) == 8
     model = select_model("bimanual_baseline", device="cpu", input_size=(8, 8),
                          num_classes=(3, None), hidden_size=6, compute_dtype="bfloat16")
     assert model.config == cfg                    # compute_dtype is dropped, as in JAX

@@ -1253,3 +1253,61 @@ def test_general_variants_kernel_route(cuda, name):
     assert launched == [1] + [0] * 7
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [6, 100])
+def test_kernels_at_unaligned_widths(cuda, h, dtype):
+    """K1-K5 at a width their 16-byte copies do not take (6 in both dtypes,
+    100 in bfloat16; 100 is float32's own): the wrappers run the kernel at
+    the next width it takes (ops/widths.py), one launch a call as at an
+    aligned width, against the plain version at the true width, at this
+    file's limits (float32: 1e-5 absolute forward, 1e-5 of each output's
+    largest backward; bfloat16: one ulp of each output's largest forward,
+    1e-2 of it backward)."""
+    from tggcn_torch.profile_gru import gru_bwd_inputs, gru_inputs
+    from tggcn_torch.profile_scan import bwd_inputs, mode_inputs, scan_inputs
+
+    io = getattr(torch, dtype)
+    fwd_check = _within_one_ulp if io == BF16 else (
+        lambda g, w, what: torch.testing.assert_close(g, w, rtol=0, atol=ATOL, msg=what))
+    bwd_check = ((lambda g, w, what: _close_share(g, w, what, 1e-2)) if io == BF16
+                 else _close_rel)
+
+    def launched(wrapper, fn):
+        key = "launches_bf16" if io == BF16 else "launches"
+        before = getattr(wrapper, key)
+        out = fn()
+        assert getattr(wrapper, key) == before + 1, wrapper.__name__
+        return out
+
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    gru = tuple(x.to(io) for x in gru_inputs(cuda, gen, 9, 4, 20, h))
+    got = launched(gru_sequence, lambda: gru_sequence(*gru, 2, keep=True))
+    for name, g, w in zip(("h", "gates"), got, gru_sequence_plain(*gru, 2, keep=True)):
+        fwd_check(g, w, f"K1 {name}")
+    fwd_check(launched(gru_sequence, lambda: gru_sequence(*gru, 2)),
+              gru_sequence_plain(*gru, 2), "K1 serving")
+    args = gru_bwd_inputs(*gru, 2, gen)
+    got = launched(gru_sequence_bwd, lambda: gru_sequence_bwd(*args, 2))
+    for name, g, w in zip(("dgi", "dgh", "dh0"), got, gru_sequence_bwd_plain(*args, 2)):
+        bwd_check(g, w, f"K2 {name}")
+
+    scan = {k: v.to(io) for k, v in scan_inputs(cuda, gen, 9, 3, 2, 3, h).items()}
+    scale = h ** -0.5
+    got = launched(segment_scan_dot, lambda: segment_scan_dot(**scan, scale=scale))
+    for name, g, w in zip(("h_h", "h_o", "att_oh") + KEPT, got,
+                          segment_scan_dot_plain(**scan, scale=scale)):
+        fwd_check(g, w, f"K3 {name}")
+    bwd = bwd_inputs(scan, gen, scale)
+    got = launched(segment_scan_dot_bwd, lambda: segment_scan_dot_bwd(**bwd, scale=scale))
+    want = segment_scan_dot_bwd_plain(**bwd, scale=scale)
+    for name in BWD_OUTPUTS:
+        bwd_check(got[name], want[name], f"K4 {name}")
+    for mode, wrapper in MODE_WRAPPERS.items():
+        extra = {k: v.to(io) for k, v in
+                 mode_inputs(mode, {k: v.float() for k, v in scan.items()}, gen).items()}
+        got = launched(wrapper, lambda: wrapper(**scan, **extra))
+        for name, g, w in zip(("h_h", "h_o", "att_oh"), got,
+                              segment_scan_att_plain(mode, **scan, **extra)):
+            fwd_check(g, w, f"K5 {mode} {name}")

@@ -367,7 +367,9 @@ def test_geo_gcn_accepts_its_limits():
 
 @pytest.mark.parametrize("mode", ["v1", "v4"])
 def test_k5_refuses_shapes(mode):
-    """More than 16 entities, or an h the 16-byte copies cannot take."""
+    """More than 16 entities, or more (H + O) h' than 12288 at the width h'
+    the kernel runs (h rounded up to a multiple of 4, of 8 in bfloat16); an
+    h the 16-byte copies cannot take is padded, no longer refused."""
     def args(nh, no, h, dtype=torch.float32):
         t, b = 2, 2
         a = {k: torch.zeros(v.shape, dtype=dtype)
@@ -384,5 +386,7 @@ def test_k5_refuses_shapes(mode):
     check(2, 4, 8)
     with pytest.raises(ValueError, match="H \\+ O <= 16"):
         check(8, 9, 8)
-    with pytest.raises(ValueError, match="h % 8 == 0"):
-        check(2, 4, 12, torch.bfloat16)
+    check(2, 4, 12, torch.bfloat16)                   # run at h' = 16
+    check(7, 8, 816, torch.bfloat16)                  # 15 x 816 = 12240
+    with pytest.raises(ValueError, match="12288"):
+        check(7, 8, 819)                              # 15 x 819 = 12285, but h' = 820

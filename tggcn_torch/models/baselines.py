@@ -64,14 +64,6 @@ def init_baseline(generator: torch.Generator, cfg: BaselineConfig) -> dict:
     return params
 
 
-def check_width(cfg: BaselineConfig, device: torch.device) -> None:
-    """K1 needs h % 4 == 0 (``ops/gru_sequence.py`` ``_check``): on the card
-    any other width is refused, never routed around."""
-    if torch.device(device).type == "cuda" and cfg.hidden_size % 4:
-        raise NotImplementedError(
-            f"hidden_size={cfg.hidden_size}: the K1 kernel needs a width divisible by 4")
-
-
 def _head(params, x):
     """Log-softmax head, transposed to (B, C, T, E)."""
     return apply_mlp(params, x, activations=LOG_SOFTMAX).permute(0, 3, 1, 2)
@@ -84,8 +76,6 @@ def apply_baseline(params: dict, cfg: BaselineConfig, x_human: torch.Tensor,
     y_object], each (B, C, T, E) log-probabilities. A human receives the
     mean of the real objects' states (their count clipped at 1); an object
     receives the sum of the humans' states."""
-    if use_kernels:
-        check_width(cfg, x_human.device)
     x_h = apply_mlp(params["human_embedding_mlp"], x_human, activations=["relu"])
     x_o = apply_mlp(params["object_embedding_mlp"], x_objects, activations=["relu"])
     hx_hfr, hx_ofr = run_multi_bigru([params["human_bd_rnn"], params["object_bd_rnn"]],

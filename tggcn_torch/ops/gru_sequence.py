@@ -20,6 +20,11 @@ the plan the source makes):
 
 With ``keep`` (a gradient will be taken) K1 also writes every step's gates
 (``KEPT``) for the backward; see the sources for the bounds and the designs.
+The kernels take h % 4 == 0 in float32 and h % 8 == 0 in bfloat16; at any
+other h >= 1 the wrappers run them at the next such width, the padded units
+zero in every operand, and slice the outputs back (``gru_sequence_padded``,
+``gru_sequence_bwd_padded``; ``ops/widths.py`` shows why the padded units
+stay zero). At an aligned width nothing is copied.
 
 Layout (as the JAX kernel's):
   gi    (T, S, R, 3h)  input-side gate pre-activations, x @ w_ih + b_ih
@@ -68,6 +73,7 @@ import ctypes
 import torch
 
 from tggcn_torch.ops import _build
+from tggcn_torch.ops.widths import aligned, narrow, widen
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,6 +83,9 @@ _I = ctypes.c_int
 # the recurrent n pre-activation h_prev @ w_hh_n + b_hh_n. n itself is not
 # kept: K2 recomputes tanh(gi_n + r * hn) elementwise.
 KEPT = ("r", "z", "hn")
+# The gate axis of gi, w_hh, b_hh, the kept gates, dgi and dgh: three
+# h-wide blocks (ops/widths.py).
+GATES = ((-1, 3),)
 
 
 def _step(gi, h, w_hh, b_hh):
@@ -126,7 +135,8 @@ IO_DTYPES = (torch.float32, torch.bfloat16)
 def _check(what, device, tensors, h, num_reverse, float32=()):
     """tensors: {name: (tensor, shape)}, contiguous, on device; the names in
     float32 are float32, the others all of one IO dtype (IO_DTYPES), which
-    is returned. bfloat16 needs h % 8 == 0 (16-byte copies of 8 values)."""
+    is returned. Any width h >= 1: the launch runs at aligned(h) (see
+    gru_sequence_padded)."""
     io = tensors["gi"][0].dtype
     if io not in IO_DTYPES:
         raise ValueError(f"{what}: gi must be float32 or bfloat16, not {io}")
@@ -139,9 +149,8 @@ def _check(what, device, tensors, h, num_reverse, float32=()):
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     s = tensors["gi"][0].shape[1]
-    if h % (8 if io == torch.bfloat16 else 4) or not 0 <= num_reverse <= s:
-        raise ValueError(f"{what}: needs a gate width 3h with h % 4 == 0 (h % 8 == 0 in "
-                         "bfloat16) and 0 <= num_reverse <= S")
+    if h < 1 or not 0 <= num_reverse <= s:
+        raise ValueError(f"{what}: needs a gate width 3h with h >= 1 and 0 <= num_reverse <= S")
     return io
 
 
@@ -182,10 +191,27 @@ def gru_clusters(blocks, smem):
     return out.value
 
 
+def gru_sequence_padded(run, gi, w_hh, b_hh, h0, num_reverse: int = 0, keep: bool = False,
+                        width=None):
+    """run (K1's launch or its plain version) at the width h' (default
+    aligned(h) in gi's dtype), its outputs narrowed back to h: every operand
+    widened with zero units, which stay zero (``ops/widths.py``). At h' == h
+    it is run itself, on the caller's tensors."""
+    h = h0.shape[-1]
+    hp = width or aligned(h, gi.dtype)
+    if hp == h:
+        return run(gi, w_hh, b_hh, h0, num_reverse, keep=keep)
+    out = run(widen(gi, h, hp, GATES), widen(w_hh, h, hp, ((-2, 1),) + GATES),
+              widen(b_hh, h, hp, GATES), widen(h0, h, hp), num_reverse, keep=keep)
+    if keep:
+        return narrow(out[0], h, hp), narrow(out[1], h, hp, GATES)
+    return narrow(out, h, hp)
+
+
 def gru_sequence(gi, w_hh, b_hh, h0, num_reverse: int = 0, keep: bool = False):
     """The state sequence (T, S, R, h), and with keep the gates (T, S, R,
     3h) of KEPT; CPU tensors take the plain version, CUDA tensors the
-    kernel."""
+    kernel, at any h (gru_sequence_padded)."""
     _build.refuse_autograd("gru_sequence", gi, w_hh, b_hh, h0)
     if gi.device.type == "cpu":
         return gru_sequence_plain(gi, w_hh, b_hh, h0, num_reverse, keep=keep)
@@ -193,9 +219,17 @@ def gru_sequence(gi, w_hh, b_hh, h0, num_reverse: int = 0, keep: bool = False):
         raise ValueError(f"gru_sequence runs on CUDA or the CPU, not {gi.device}")
     t, s, r, g3 = gi.shape
     h = g3 // 3
-    io = _check("gru_sequence", gi.device,
-                {"gi": (gi, (t, s, r, 3 * h)), "w_hh": (w_hh, (s, h, 3 * h)),
-                 "b_hh": (b_hh, (s, 3 * h)), "h0": (h0, (s, r, h))}, h, num_reverse)
+    _check("gru_sequence", gi.device,
+           {"gi": (gi, (t, s, r, 3 * h)), "w_hh": (w_hh, (s, h, 3 * h)),
+            "b_hh": (b_hh, (s, 3 * h)), "h0": (h0, (s, r, h))}, h, num_reverse)
+    return gru_sequence_padded(_launch_gru_sequence, gi, w_hh, b_hh, h0, num_reverse, keep)
+
+
+def _launch_gru_sequence(gi, w_hh, b_hh, h0, num_reverse, keep):
+    """K1 on checked tensors at an aligned width."""
+    t, s, r, g3 = gi.shape
+    h = g3 // 3
+    io = gi.dtype
     out = torch.empty((t, s, r, h), device=gi.device, dtype=io)
     gates = torch.empty(gi.shape, device=gi.device) if keep else None
     if t == 0:
@@ -269,11 +303,26 @@ def gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse: int = 0,
     return dgi.to(io), dgh.to(io), dh.to(io)
 
 
+def gru_sequence_bwd_padded(run, gi, hprev, g, gates, w_hh, num_reverse: int = 0, width=None):
+    """run (K2's launch or its plain version) at the width h' (default
+    aligned(h) in gi's dtype), as gru_sequence_padded: the cotangent's
+    padded units are zero, so is their carry, and their dgi, dgh and dh0
+    are sliced away."""
+    h = hprev.shape[-1]
+    hp = width or aligned(h, gi.dtype)
+    if hp == h:
+        return run(gi, hprev, g, gates, w_hh, num_reverse)
+    dgi, dgh, dh0 = run(widen(gi, h, hp, GATES), widen(hprev, h, hp), widen(g, h, hp),
+                        widen(gates, h, hp, GATES), widen(w_hh, h, hp, ((-2, 1),) + GATES),
+                        num_reverse)
+    return narrow(dgi, h, hp, GATES), narrow(dgh, h, hp, GATES), narrow(dh0, h, hp)
+
+
 def gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse: int = 0):
     """(dgi (T, S, R, 3h), dgh (T, S, R, 3h), dh0 (S, R, h)) for the upstream
     gradient g (T, S, R, h), from the states each step read (hprev) and the
     gates K1 kept; CPU tensors take the plain version, CUDA tensors the
-    kernel."""
+    kernel, at any h (gru_sequence_bwd_padded)."""
     _build.refuse_autograd("gru_sequence_bwd", gi, hprev, g, gates, w_hh)
     if gi.device.type == "cpu":
         return gru_sequence_bwd_plain(gi, hprev, g, gates, w_hh, num_reverse)
@@ -281,10 +330,19 @@ def gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse: int = 0):
         raise ValueError(f"gru_sequence_bwd runs on CUDA or the CPU, not {gi.device}")
     t, s, r, g3 = gi.shape
     h = g3 // 3
-    io = _check("gru_sequence_bwd", gi.device,
-                {"gi": (gi, (t, s, r, 3 * h)), "hprev": (hprev, (t, s, r, h)),
-                 "g": (g, (t, s, r, h)), "gates": (gates, (t, s, r, 3 * h)),
-                 "w_hh": (w_hh, (s, h, 3 * h))}, h, num_reverse, float32=("gates",))
+    _check("gru_sequence_bwd", gi.device,
+           {"gi": (gi, (t, s, r, 3 * h)), "hprev": (hprev, (t, s, r, h)),
+            "g": (g, (t, s, r, h)), "gates": (gates, (t, s, r, 3 * h)),
+            "w_hh": (w_hh, (s, h, 3 * h))}, h, num_reverse, float32=("gates",))
+    return gru_sequence_bwd_padded(_launch_gru_sequence_bwd, gi, hprev, g, gates, w_hh,
+                                   num_reverse)
+
+
+def _launch_gru_sequence_bwd(gi, hprev, g, gates, w_hh, num_reverse):
+    """K2 on checked tensors at an aligned width."""
+    t, s, r, g3 = gi.shape
+    h = g3 // 3
+    io = gi.dtype
     dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
     dh0 = torch.zeros((s, r, h), device=gi.device, dtype=io)
     if t == 0:

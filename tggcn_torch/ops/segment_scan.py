@@ -66,6 +66,15 @@ both read and written in natural time order):
   -> h_h (2, T, B, H, h), h_o (2, T, B, O, h), att_oh (2, T, B, H, O), and
      with keep the KEPT tensors
 
+The kernels take h % 4 == 0 in float32 and h % 8 == 0 in bfloat16; at any
+other h >= 1 the wrappers run them at the next such width, the padded units
+zero in every operand (v1's w_att in each half, v4's on both axes), and
+slice the outputs back (``segment_scan_dot_padded``,
+``segment_scan_dot_bwd_padded``, ``segment_scan_att_padded``;
+``ops/widths.py`` shows why the padded units stay zero and why the real
+ones see exact zeros from them). The attention's scale stays the real h's.
+At an aligned width nothing is copied.
+
 K3, K4 and K5 take float32 or bfloat16 IO, all of one dtype, and pick their
 variant by it; each wrapper counts the launches of its
 float32 kernel in ``launches`` and of its bfloat16 kernel in
@@ -89,11 +98,13 @@ the TPU kernel rounds them (see ``segment_scan_att_plain``).
 """
 
 import ctypes
+from functools import partial
 
 import torch
 
 from tggcn_torch.nn.messages import masked_softmax
 from tggcn_torch.ops import _build
+from tggcn_torch.ops.widths import aligned, narrow, widen
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -281,7 +292,9 @@ def _check(what, args, dims, w_att_shape=None, io_dtypes=(torch.float32,)):
     """Device, dtype, shape and contiguity of every tensor in args, and the
     kernels' limits; dims = (T, B, H, O, h). The tensors of FLOAT32 are
     float32, the others all of one IO dtype of io_dtypes, which is
-    returned; bfloat16 needs h % 8 == 0 (16-byte copies of 8 values)."""
+    returned. Any h >= 1: the launch runs at h' = aligned(h), whose
+    (H + O) * h' must stay within 12288 (the float32 states of a batch
+    row's entities in 48 KB of shared memory)."""
     t, b, nh, no, h = dims
     e = nh + no
     shapes = {
@@ -312,10 +325,10 @@ def _check(what, args, dims, w_att_shape=None, io_dtypes=(torch.float32,)):
             raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, want {shapes[name]}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if (h % (8 if io == torch.bfloat16 else 4) or nh < 1 or no < 1 or e > MAX_ENTITIES
-            or e * h * 4 > 48 * 1024):
-        raise ValueError(f"{what}: needs h % 4 == 0 (h % 8 == 0 in bfloat16), 1 <= H, O, "
-                         f"H + O <= {MAX_ENTITIES} and (H + O) * h <= 12288")
+    if h < 1 or nh < 1 or no < 1 or e > MAX_ENTITIES or e * aligned(h, io) * 4 > 48 * 1024:
+        raise ValueError(f"{what}: needs h >= 1, 1 <= H, O, H + O <= {MAX_ENTITIES} and "
+                         "(H + O) * h' <= 12288, h' being h rounded up to a multiple of 4 "
+                         "(of 8 in bfloat16)")
     return io
 
 
@@ -347,12 +360,62 @@ def scan_buffers(t, b, nh, no, h, keep, device, io=torch.float32):
     return out, kept
 
 
+# The scan's inputs in the order of its wrappers' and plain versions'
+# arguments, the names of its outputs, and of K4's inputs.
+SCAN_INPUTS = ("gi_h", "gi_o", "u_h", "u_o", "w_from", "b_from", "w_msg_h", "w_msg_o",
+               "w_hh_h", "w_hh_o", "b_hh_h", "b_hh_o", "obj_mask", "h0_h", "h0_o")
+SCAN_OUTPUTS = ("h_h", "h_o", "att_oh")
+BWD_INPUTS = ("u_h", "u_o", "hprev_h", "hprev_o", "m_h", "m_o", "gates_h", "gates_o", "atts",
+              "g_h", "g_o", "g_att", "w_from", "w_msg_h", "w_msg_o", "w_hh_h", "w_hh_o")
+# The h-wide axes of each tensor of K3-K5 that has any, as (axis, blocks):
+# the gates [r | z | n] (3), [r | z | n | hn] (4), the message halves (2).
+# The others (decisions, masks, attention, du) have none.
+_H_AXES = {
+    "gi_h": ((-1, 3),), "gi_o": ((-1, 3),), "w_from": ((-1, 1), (-2, 1)), "b_from": ((-1, 1),),
+    "w_msg_h": ((-1, 3), (-2, 2)), "w_msg_o": ((-1, 3), (-2, 2)),
+    "w_hh_h": ((-1, 3), (-2, 1)), "w_hh_o": ((-1, 3), (-2, 1)),
+    "b_hh_h": ((-1, 3),), "b_hh_o": ((-1, 3),), "h0_h": ((-1, 1),), "h0_o": ((-1, 1),),
+    "h_h": ((-1, 1),), "h_o": ((-1, 1),), "hprev_h": ((-1, 1),), "hprev_o": ((-1, 1),),
+    "g_h": ((-1, 1),), "g_o": ((-1, 1),), "m_h": ((-1, 2),), "m_o": ((-1, 2),),
+    "gates_h": ((-1, 4),), "gates_o": ((-1, 4),), "mix_h": ((-1, 2),), "mix_o": ((-1, 2),),
+    "dgi_h": ((-1, 3),), "dgi_o": ((-1, 3),), "dgh_h": ((-1, 3),), "dgh_o": ((-1, 3),),
+    "dpre_h": ((-1, 2),), "dpre_o": ((-1, 2),), "dh0_h": ((-1, 1),), "dh0_o": ((-1, 1),),
+    "w_att_v1": ((-1, 2),), "w_att_v4": ((-1, 1), (-2, 1)),
+}
+
+
+def _resize(named, h, hp, fn, rename=None):
+    """{name: fn(tensor) along each of the name's h axes} (fn widen or
+    narrow); rename maps a name to the one _H_AXES knows it by."""
+    out = {}
+    for k, x in named.items():
+        axes = _H_AXES.get((rename or {}).get(k, k))
+        out[k] = fn(x, h, hp, axes) if axes and x is not None else x
+    return out
+
+
+def segment_scan_dot_padded(run, *args, scale: float, keep: bool = True, width=None):
+    """run (K3's launch or its plain version) on args (SCAN_INPUTS) at the
+    width h' (default aligned(h) in the IO dtype), its outputs (and with
+    keep the KEPT tensors) narrowed back to h: every operand widened with
+    zero units, which stay zero (``ops/widths.py``); scale stays the
+    caller's. At h' == h it is run itself, on the caller's tensors."""
+    named = dict(zip(SCAN_INPUTS, args))
+    h = named["h0_h"].shape[-1]
+    hp = width or aligned(h, named["gi_h"].dtype)
+    if hp == h:
+        return run(*args, scale=scale, keep=keep)
+    out = run(*_resize(named, h, hp, widen).values(), scale=scale, keep=keep)
+    names = SCAN_OUTPUTS + (KEPT if keep else ())
+    return tuple(_resize(dict(zip(names, out)), h, hp, narrow).values())
+
+
 def segment_scan_dot(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
                      w_hh_h, w_hh_o, b_hh_h, b_hh_o, obj_mask, h0_h, h0_o,
                      scale: float, keep: bool = True):
     """(h_h, h_o, att_oh) of both directions, followed with keep by the
     KEPT tensors; CPU tensors take the plain version, CUDA tensors the
-    kernel."""
+    kernel, at any h (segment_scan_dot_padded)."""
     args = dict(gi_h=gi_h, gi_o=gi_o, u_h=u_h, u_o=u_o, w_from=w_from,
                 b_from=b_from, w_msg_h=w_msg_h, w_msg_o=w_msg_o, w_hh_h=w_hh_h,
                 w_hh_o=w_hh_o, b_hh_h=b_hh_h, b_hh_o=b_hh_o, obj_mask=obj_mask,
@@ -362,13 +425,22 @@ def segment_scan_dot(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
         return segment_scan_dot_plain(**args, scale=scale, keep=keep)
     if gi_h.device.type != "cuda":
         raise ValueError(f"segment_scan_dot runs on CUDA or the CPU, not {gi_h.device}")
-    dims = _dims(gi_h, gi_o)
-    io = _check("segment_scan_dot", args, dims, io_dtypes=(torch.float32, torch.bfloat16))
-    t, b, nh, no, h = dims
+    _check("segment_scan_dot", args, _dims(gi_h, gi_o),
+           io_dtypes=(torch.float32, torch.bfloat16))
+    return segment_scan_dot_padded(_launch_segment_scan_dot, *args.values(), scale=scale,
+                                   keep=keep)
+
+
+def _launch_segment_scan_dot(*args, scale, keep):
+    """K3 on checked tensors (SCAN_INPUTS) at an aligned width."""
+    gi_h, h0_h, h0_o = args[0], args[-2], args[-1]
+    dims = _dims(gi_h, args[1])
+    io = gi_h.dtype
+    t = dims[0]
     out, kept = scan_buffers(*dims, keep, gi_h.device, io)
     if t > 0:
         lib = _build.load_library("segment_scan")
-        ptrs = [x.data_ptr() for x in (*args.values(), *out)]
+        ptrs = [x.data_ptr() for x in (*args, *out)]
         ptrs += [kept[k].data_ptr() if k in kept else None
                  for k in ("m_h", "m_o", "mix_h", "mix_o", "gates_h", "gates_o", "atts")]
         if io == torch.float32:
@@ -382,7 +454,7 @@ def segment_scan_dot(gi_h, gi_o, u_h, u_o, w_from, b_from, w_msg_h, w_msg_o,
         fn.restype = _I
         with torch.cuda.device(gi_h.device):
             stream = torch.cuda.current_stream(gi_h.device).cuda_stream
-            err = fn(*ptrs, int(keep), t, b, nh, no, h, float(scale), stream)
+            err = fn(*ptrs, int(keep), *dims, float(scale), stream)
         _build.check_launch(err, "segment_scan_dot")
         _build.count_launch(segment_scan_dot, io)
     return tuple(out) + (tuple(kept[k] for k in KEPT) if keep else ())
@@ -428,10 +500,25 @@ def scan_occupancy(mode, dtype, b, nh, no, h):
     return {p: (out[i], out[3 + i], out[6 + i]) for i, p in enumerate(PHASES)}
 
 
+def segment_scan_att_padded(run, mode, *args, width=None, **extra):
+    """run (K5's launch or its plain version, run(mode, *args, **extra)) on
+    args (SCAN_INPUTS) at the width h', as segment_scan_dot_padded; v1's
+    w_att is widened in each of its halves, v4's on both axes; att_ext has
+    no h axis."""
+    named = dict(zip(SCAN_INPUTS, args))
+    h = named["h0_h"].shape[-1]
+    hp = width or aligned(h, named["gi_h"].dtype)
+    if hp == h:
+        return run(mode, *args, **extra)
+    extra = _resize(extra, h, hp, widen, rename={"w_att": f"w_att_{mode}"})
+    out = run(mode, *_resize(named, h, hp, widen).values(), **extra)
+    return tuple(_resize(dict(zip(SCAN_OUTPUTS, out)), h, hp, narrow).values())
+
+
 def _segment_scan_att(wrapper, mode, args, extra):
     """K5 in `mode` for the tensors of args (K3's inputs) and extra (the
-    mode's); CPU tensors take the plain version. Counts its launch on
-    `wrapper`."""
+    mode's); CPU tensors take the plain version, CUDA tensors the kernel at
+    any h (segment_scan_att_padded). Counts its launch on `wrapper`."""
     _build.refuse_autograd(f"segment_scan_{mode}", *args.values(), *extra.values())
     gi_h = args["gi_h"]
     if gi_h.device.type == "cpu":
@@ -439,16 +526,26 @@ def _segment_scan_att(wrapper, mode, args, extra):
     if gi_h.device.type != "cuda":
         raise ValueError(f"segment_scan_{mode} runs on CUDA or the CPU, not {gi_h.device}")
     dims = _dims(gi_h, args["gi_o"])
+    h = dims[-1]
+    _check(f"segment_scan_{mode}", {**args, **extra}, dims,
+           w_att_shape=(4, 2 * h) if mode == "v1" else (4, h, h),
+           io_dtypes=(torch.float32, torch.bfloat16))
+    return segment_scan_att_padded(partial(_launch_segment_scan_att, wrapper), mode,
+                                   *args.values(), **extra)
+
+
+def _launch_segment_scan_att(wrapper, mode, *args, **extra):
+    """K5 in `mode` on checked tensors (args in SCAN_INPUTS' order) at an
+    aligned width."""
+    gi_h, h0_h, h0_o = args[0], args[-2], args[-1]
+    dims = _dims(gi_h, args[1])
     t, b, nh, no, h = dims
-    io = _check(f"segment_scan_{mode}", {**args, **extra}, dims,
-                w_att_shape=(4, 2 * h) if mode == "v1" else (4, h, h),
-                io_dtypes=(torch.float32, torch.bfloat16))
-    dev = gi_h.device
+    io, dev = gi_h.dtype, gi_h.device
     out, scratch = scan_buffers(*dims, False, dev, io)
     if t > 0:
         shape = score_scratch_shape(mode, b, nh, no, h)
         scores = torch.empty(shape, device=dev) if shape else None
-        ptrs = [x.data_ptr() for x in args.values()]
+        ptrs = [x.data_ptr() for x in args]
         ptrs += [extra[k].data_ptr() if k in extra else None
                  for k in ("w_att", "b_att", "att_ext")]
         ptrs += [x.data_ptr() if x is not None else None
@@ -460,7 +557,7 @@ def _segment_scan_att(wrapper, mode, args, extra):
         else:
             # The float32 states (2, B * E, h), updated in place each step.
             fn = lib.tggcn_segment_scan_att_bf16
-            states = [args["h0_h"].float().contiguous(), args["h0_o"].float().contiguous()]
+            states = [h0_h.float().contiguous(), h0_o.float().contiguous()]
             ptrs += [x.data_ptr() for x in states]
         fn.argtypes = [_I] + [_P] * len(ptrs) + [_I] * 5 + [_P]
         fn.restype = _I
@@ -704,17 +801,32 @@ def bwd_plan(b, nh, no, h, occupancy: bool = True):
     return dict(zip(BWD_PLAN_KEYS, out))
 
 
+def segment_scan_dot_bwd_padded(run, *args, scale: float, width=None, **kw):
+    """run (K4's launch or its plain version) on args (BWD_INPUTS) at the
+    width h', as segment_scan_dot_padded: the cotangents' padded units are
+    zero, so is their carry, and their dgi, dgh, dpre and dh0 are sliced
+    away (du has no h axis). kw goes to run (the launch's route)."""
+    named = dict(zip(BWD_INPUTS, args))
+    h = named["hprev_h"].shape[-1]
+    hp = width or aligned(h, named["hprev_h"].dtype)
+    if hp == h:
+        return run(*args, scale=scale, **kw)
+    out = run(*_resize(named, h, hp, widen).values(), scale=scale, **kw)
+    return _resize(out, h, hp, narrow)
+
+
 def segment_scan_dot_bwd(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o, atts,
                          g_h, g_o, g_att, w_from, w_msg_h, w_msg_o, w_hh_h, w_hh_o,
                          scale: float, route=None):
     """The dict of BWD_OUTPUTS (see segment_scan_dot_bwd_plain) for the
     upstream gradients g_h (2, T, B, H, h), g_o and g_att (2, T, B, H, O);
-    CPU tensors take the plain version, CUDA tensors the kernel. In
-    bfloat16 the kernel's route follows the shape (bwd_plan: two launches a
-    step, the first a cluster launch, at h <= 512, else three); route
-    'steps' takes the per-step route at any shape, 'cluster' raises where
-    the shape does not take it (the card tests hold the two routes to the
-    same bits). Float32 takes the per-step route."""
+    CPU tensors take the plain version, CUDA tensors the kernel, at any h
+    (segment_scan_dot_bwd_padded). In bfloat16 the kernel's route follows
+    the shape at the launched width (bwd_plan: two launches a step, the
+    first a cluster launch, at h <= 512, else three); route 'steps' takes
+    the per-step route at any shape, 'cluster' raises where the shape does
+    not take it (the card tests hold the two routes to the same bits).
+    Float32 takes the per-step route."""
     args = dict(u_h=u_h, u_o=u_o, hprev_h=hprev_h, hprev_o=hprev_o, m_h=m_h, m_o=m_o,
                 gates_h=gates_h, gates_o=gates_o, atts=atts, g_h=g_h, g_o=g_o, g_att=g_att,
                 w_from=w_from, w_msg_h=w_msg_h, w_msg_o=w_msg_o, w_hh_h=w_hh_h, w_hh_o=w_hh_o)
@@ -726,9 +838,19 @@ def segment_scan_dot_bwd(u_h, u_o, hprev_h, hprev_o, m_h, m_o, gates_h, gates_o,
     if hprev_h.device.type != "cuda":
         raise ValueError(f"segment_scan_dot_bwd runs on CUDA or the CPU, not {hprev_h.device}")
     _, t, b, nh, h = hprev_h.shape
+    _check("segment_scan_dot_bwd", args, (t, b, nh, hprev_o.shape[3], h),
+           io_dtypes=(torch.float32, torch.bfloat16))
+    return segment_scan_dot_bwd_padded(_launch_segment_scan_dot_bwd, *args.values(),
+                                       scale=scale, route=route)
+
+
+def _launch_segment_scan_dot_bwd(*args, scale, route):
+    """K4 on checked tensors (BWD_INPUTS) at an aligned width."""
+    args = dict(zip(BWD_INPUTS, args))
+    hprev_h, hprev_o = args["hprev_h"], args["hprev_o"]
+    _, t, b, nh, h = hprev_h.shape
     no = hprev_o.shape[3]
-    io = _check("segment_scan_dot_bwd", args, (t, b, nh, no, h),
-                io_dtypes=(torch.float32, torch.bfloat16))
+    io = hprev_h.dtype
     dev = hprev_h.device
     empty = lambda *shape, dtype=torch.float32: torch.empty(shape, device=dev, dtype=dtype)
     out = dict(dgi_h=empty(2, t, b, nh, 3 * h, dtype=io), dgi_o=empty(2, t, b, no, 3 * h, dtype=io),

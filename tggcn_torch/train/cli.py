@@ -11,10 +11,25 @@ contract: the frozen config under ``.hydra/config.yaml`` and
 ``<checkpoint_name>.ckpt`` in ``logging.log_dir``.
 
 The run takes the CUDA card unless ``--device cpu`` is given; without a
-card it raises. The orbax checkpoint backend and the JAX package's own
-switches raise NotImplementedError. ``resources.parity_mode`` is accepted:
-the port has one numerics mode (float32 matmuls with TF32 off,
-``runtime.py``).
+card it raises. The orbax checkpoint backend raises NotImplementedError.
+``resources.parity_mode`` is accepted: the port has one numerics mode
+(float32 matmuls with TF32 off, ``runtime.py``).
+
+The two observability switches keep the JAX package's keys, since both
+packages read the same ``conf/`` and run dirs:
+
+* ``resources.jax_profiler_dir=DIR`` traces the span JAX traces, the whole
+  fit loop (``train.py:179-195``), with ``torch.profiler``: host activity,
+  and the card's where the run has one; at its end each process writes a
+  Chrome trace, ``DIR/trace.rank<r>.json`` (``TRACE_FILE``), which
+  chrome://tracing or Perfetto opens offline. DIR is made if missing.
+* ``resources.debug_nans=true`` raises FloatingPointError at the first
+  train or eval step whose losses, gradients or updated parameters hold a
+  NaN, naming the epoch, the step and the first tensor at fault
+  (``train/loop.py`` ``train``); JAX's ``jax_debug_nans`` raises at the
+  first NaN of any jitted computation of the run.
+
+Without them the fit loop reads nothing more and runs no profiler.
 
 Data parallelism (``tggcn_torch/parallel``), as the root ``train.py``:
 ``resources.num_devices=N`` (N > 1) spawns N processes on this host, one a
@@ -27,6 +42,7 @@ processes do not divide, raise ValueError. The launching call returns
 process 0's checkpoint dict.
 """
 
+import contextlib
 import os
 import pickle
 import socket
@@ -41,7 +57,8 @@ from tggcn_torch.data.feeders import select_model_data_feeder, select_model_data
 from tggcn_torch.data.loading import determine_num_classes, load_training_data
 from tggcn_torch.models.registry import select_model, to_device
 from tggcn_torch.parallel.distributed import (assert_same_across_processes, is_main_process,
-                                              local_device, maybe_initialize, process_count)
+                                              local_device, maybe_initialize, process_count,
+                                              process_index)
 from tggcn_torch.parallel.mesh import make_mesh
 from tggcn_torch.runtime import check_parity_mode, resolve_device
 from tggcn_torch.train.checkpoint import (ORBAX, count_merged, load_last, load_model_weights,
@@ -54,6 +71,7 @@ from tggcn_torch.train.multi_task import init_mtll
 CONF_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "conf")
 SEED = 42
+TRACE_FILE = "trace.rank{rank}.json"
 
 
 def split_device(argv):
@@ -77,10 +95,23 @@ def check_supported(cfg) -> None:
     resources = cfg.get("resources", default_value={})
     if cfg.logging.get("checkpoint_backend", "pickle") == "orbax":
         raise NotImplementedError(ORBAX)
-    for key in ("jax_profiler_dir", "debug_nans"):
-        if resources.get(key):
-            raise NotImplementedError(f"resources.{key} is a switch of the JAX package only")
     check_parity_mode(resources.get("parity_mode", "fast"))
+
+
+@contextlib.contextmanager
+def traced(directory, device):
+    """torch.profiler over the block, written at its end as this process's
+    Chrome trace in directory (TRACE_FILE); nothing without a directory."""
+    if not directory:
+        yield
+        return
+    os.makedirs(directory, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as profile:
+        yield
+    profile.export_chrome_trace(os.path.join(directory, TRACE_FILE.format(rank=process_index())))
 
 
 def _free_port() -> int:
@@ -207,14 +238,16 @@ def main(argv=None):
     if num_epochs == 0:
         log(f"Run already completed ({cfg.optimization.epochs} epochs); nothing to do.")
         return {}
-    checkpoint = train(model, train_loader, cfg.optimization.learning_rate, criterion,
-                       num_epochs, loss_names,
-                       clip_gradient_at=cfg.optimization.clip_gradient_at,
-                       fetch_model_data=fetch, feed_model_data=feed, val_loader=val_loader,
-                       mtll=mtll, num_main_losses=num_main_losses, seed=SEED,
-                       checkpoint_name=checkpoint_name,
-                       tensorboard_log_dir=cfg.logging.get("root_log_dir"), log_dir=log_dir,
-                       init_params=params, mesh=mesh, **resume)
+    with traced(resources.get("jax_profiler_dir"), device):
+        checkpoint = train(model, train_loader, cfg.optimization.learning_rate, criterion,
+                           num_epochs, loss_names,
+                           clip_gradient_at=cfg.optimization.clip_gradient_at,
+                           fetch_model_data=fetch, feed_model_data=feed, val_loader=val_loader,
+                           mtll=mtll, num_main_losses=num_main_losses, seed=SEED,
+                           checkpoint_name=checkpoint_name,
+                           tensorboard_log_dir=cfg.logging.get("root_log_dir"),
+                           log_dir=log_dir, init_params=params, mesh=mesh,
+                           debug_nans=bool(resources.get("debug_nans", False)), **resume)
     if log_dir is not None and main_process:
         checkpoint["scalers"] = scalers
         save_checkpoint(log_dir, checkpoint, checkpoint_name)

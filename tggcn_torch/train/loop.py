@@ -35,6 +35,7 @@ that step's batch and noise into the graph's input buffers, one graph
 launch and the copy of its losses out, and never waits for the card.
 """
 
+import itertools
 import time
 from typing import Callable, Optional
 
@@ -401,6 +402,36 @@ def evaluate(eval_step, trainable, loader, fetcher, key: tuple, batch_size: int,
     return (total / num_batches).cpu().numpy(), (total_raw / num_batches).cpu().numpy()
 
 
+def first_nan(named) -> Optional[str]:
+    """The name of the first of named's (name, tensor) pairs whose tensor
+    holds a NaN, or None; one host sync for all of them."""
+    named = [(k, x) for k, x in named if x is not None]
+    if not named:
+        return None
+    hits = torch.stack([torch.isnan(x.detach()).any() for _, x in named]).nonzero()
+    return named[int(hits[0, 0])][0] if len(hits) else None
+
+
+def raise_on_nan(named, where: str) -> None:
+    """FloatingPointError naming where and the first of named's tensors
+    that holds a NaN (first_nan); infinities pass, as under JAX's
+    jax_debug_nans."""
+    found = first_nan(named)
+    if found is not None:
+        raise FloatingPointError(f"debug_nans: a NaN in {found} at {where}")
+
+
+def step_tensors(trainable: dict, losses, raw_losses, loss_names) -> list:
+    """(name, tensor) of what a train step made, in the order it made them:
+    each loss and raw loss, each parameter's gradient, each updated leaf of
+    trainable (the BatchNorm state too), named by its path in the tree."""
+    names = {id(x): "/".join(map(str, path)) for path, x in _leaves(trainable)}
+    out = [(f"loss {n}", x) for n, x in zip(loss_names, losses)]
+    out += [(f"raw loss {n}", x) for n, x in zip(loss_names, raw_losses)]
+    out += [(f"the gradient of {names[id(p)]}", p.grad) for p in trainable_parameters(trainable)]
+    return out + [(f"the updated {names[id(x)]}", x) for _, x in _leaves(trainable)]
+
+
 def _print_eval(name, total, loss_names, losses, printer=print):
     tag = f"({name})"
     printer(f"{tag:>12} Loss: {total: 7.4f}", end="")
@@ -421,7 +452,7 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
           log_dir: Optional[str] = None, init_params=None, init_optimizer_state=None,
           initial_global_step: int = 0,
           initial_best_val_loss: float = float("inf"),
-          initial_checkpoint: Optional[dict] = None, mesh=None):
+          initial_checkpoint: Optional[dict] = None, mesh=None, debug_nans: bool = False):
     """The fit loop (reference train(), train_utils.py:12-165): per epoch the
     train steps (Adam at learning_rate over ``trainable_parameters``), the
     mean losses over the whole train set and then the val set, the best
@@ -441,6 +472,13 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
     batches (make_train_step's data parallelism), from process 0's
     weights and optimizer state; process 0 alone prints and writes the
     scalars and ``last.ckpt``.
+
+    With ``debug_nans`` (the CLI's ``resources.debug_nans``, JAX's
+    ``jax_debug_nans``) each train step's losses, gradients and updated
+    leaves, and each eval step's losses, are read for a NaN after the
+    step (one host sync a step), and the first raises FloatingPointError
+    naming the epoch, the step and the first tensor at fault. Without it
+    the loop reads nothing more than it did.
     """
     device = model.device
     num_inputs = model_inputs(model.name)
@@ -459,6 +497,20 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
     train_step = make_train_step(model, feed_model_data, criterion, optimizer,
                                  clip_gradient_at=clip_gradient_at, mtll=mtll, mesh=mesh)
     eval_step = make_eval_step(model, feed_model_data, criterion, mtll=mtll, mesh=mesh)
+
+    def eval_step_of(split, epoch):
+        """The eval step of one evaluation, under debug_nans checked."""
+        if not debug_nans:
+            return eval_step
+        count = itertools.count()
+
+        def checked(trainable, data, targets, generator=None):
+            losses, raw = eval_step(trainable, data, targets, generator=generator)
+            where = f"epoch {epoch}, {split} eval step {next(count)}"
+            raise_on_nan([(f"loss {n}", x) for n, x in zip(loss_names, losses)]
+                         + [(f"raw loss {n}", x) for n, x in zip(loss_names, raw)], where)
+            return losses, raw
+        return checked
 
     batch_size = train_loader.batch_size
     checkpoint = dict(initial_checkpoint) if initial_checkpoint else {}
@@ -505,8 +557,11 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
         batches = device_batches(train_loader, batch_size, num_inputs, device)
         for batch_idx, batch in enumerate(batches):
             data, targets = fetch_model_data(batch)
-            losses, _, _ = train_step(trainable, data, targets,
-                                      generator=keyed_generator(device, seed, global_step))
+            losses, raw, _ = train_step(trainable, data, targets,
+                                        generator=keyed_generator(device, seed, global_step))
+            if debug_nans:
+                raise_on_nan(step_tensors(trainable, losses, raw, loss_names),
+                             f"epoch {epoch}, train step {batch_idx} (global step {global_step})")
             global_step += 1
             if batch_idx % LOG_INTERVAL == 0 or batch_idx == num_batches - 1:
                 losses = losses.cpu().numpy()
@@ -522,12 +577,13 @@ def train(model, train_loader, learning_rate: float, criterion, epochs: int, los
 
         eval_start = time.time()
         key = (seed, EVAL_STREAM + epoch)
-        losses, raw = evaluate(eval_step, trainable, train_loader, fetch_model_data, key,
-                               batch_size, num_inputs, device)
+        losses, raw = evaluate(eval_step_of("train", epoch), trainable, train_loader,
+                               fetch_model_data, key, batch_size, num_inputs, device)
         record("train", losses, raw, epoch)
         if val_loader is not None and val_loader.num_examples > 0:
-            losses, raw = evaluate(eval_step, trainable, val_loader, fetch_model_data, key,
-                                   val_loader.batch_size, num_inputs, device)
+            losses, raw = evaluate(eval_step_of("val", epoch), trainable, val_loader,
+                                   fetch_model_data, key, val_loader.batch_size, num_inputs,
+                                   device)
             total_val = record("val", losses, raw, epoch)
             if total_val < best_val_loss:
                 best_val_loss = total_val
